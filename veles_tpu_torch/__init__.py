@@ -1,0 +1,43 @@
+"""veles_tpu_torch — the PyTorch/CUDA port of ``veles_tpu`` for NVIDIA
+Hopper (H100).
+
+This slice serves the LM chain ``Embedding → TransformerBlock×N →
+TokenProjection`` through a paged KV cache (fp32 or int8 pools), with
+two kernels written by hand for ``sm_90a`` under ``csrc/``:
+
+- ``ops/paged_attend.py`` — block-table paged attention with the
+  int8 dequant fused (replaces ``veles_tpu/ops/pallas_paged.py``);
+- ``ops/gemm.py::int8_matmul`` — the weight-only int8 GEMM with the
+  per-column scale fused into the store (replaces the ``col_scale``
+  epilogue of ``veles_tpu/ops/gemm.py::pallas_matmul``).
+
+The package imports ``torch`` and numpy only: never ``jax``, and
+nothing of ``veles_tpu``.  Entry points take ``device=`` and default
+to ``"cuda"``; without a card they raise unless the caller asks for
+``device="cpu"``, where every kernel wrapper runs its plain PyTorch
+version (it does so only for tensors that lie on the CPU).
+"""
+
+from veles_tpu_torch import dtypes  # noqa: F401 (sets the TF32 policy)
+from veles_tpu_torch.backends import resolve_device  # noqa: F401
+
+SUBMODULES = (
+    "veles_tpu_torch.backends",
+    "veles_tpu_torch.dtypes",
+    "veles_tpu_torch._build",
+    "veles_tpu_torch.convert",
+    "veles_tpu_torch.ops",
+    "veles_tpu_torch.ops.paged_attention",
+    "veles_tpu_torch.ops.paged_attend",
+    "veles_tpu_torch.ops.gemm",
+    "veles_tpu_torch.models",
+    "veles_tpu_torch.models.nn_units",
+    "veles_tpu_torch.models.embedding",
+    "veles_tpu_torch.models.transformer",
+    "veles_tpu_torch.models.standard",
+    "veles_tpu_torch.serving",
+    "veles_tpu_torch.serving.kv_slots",
+    "veles_tpu_torch.serving.prefill",
+    "veles_tpu_torch.serving.engine",
+    "veles_tpu_torch.serving.scheduler",
+)

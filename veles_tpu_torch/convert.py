@@ -1,0 +1,39 @@
+"""Weights into the port's chain: from the JAX package's numpy
+parameters, or fresh from a seed.
+
+``params_from_numpy(spec, params)`` takes ``{chain index: {name: numpy
+array}}`` — exactly ``{i: {n: a.mem for n, a in
+u.param_arrays().items()}}`` of a JAX ``make_forwards`` chain — and
+returns the port's chain holding the same weights.  The layouts are the
+JAX package's (``[d_in, d_out]`` matrices), so nothing is transposed.
+"""
+
+import numpy
+
+from veles_tpu_torch.models.standard import make_forwards
+
+
+def params_from_numpy(spec, params, device=None, dtype=None):
+    """The port's chain for layer spec ``spec`` with ``params``
+    (chain index → name → array) on ``device`` (default ``cuda``) in
+    compute dtype ``dtype`` (default bfloat16)."""
+    chain = make_forwards(spec, device=device, dtype=dtype)
+    if len(params) != len(chain):
+        raise ValueError("params hold %d units, the spec %d"
+                         % (len(params), len(chain)))
+    for i, unit in enumerate(chain):
+        unit.load_params(params[i])
+    return chain
+
+
+def init_params(spec, seed, window, device=None, dtype=None):
+    """The port's chain for ``spec`` with fresh weights drawn from
+    ``numpy.random.default_rng(seed)`` (the JAX package's default
+    filling), its positional table ``window`` rows long."""
+    rng = numpy.random.default_rng(seed)
+    chain = make_forwards(spec, device=device, dtype=dtype)
+    d = None
+    for unit in chain:
+        unit.load_params(unit.fill_arrays(rng, d, window))
+        d = unit.out_dim(d)
+    return chain

@@ -1,0 +1,73 @@
+"""Token embedding with learned positions — the port of
+``veles_tpu/models/embedding.py::Embedding`` for serving."""
+
+import numpy
+import torch
+
+from veles_tpu_torch.models.nn_units import ForwardBase
+
+
+class Embedding(ForwardBase):
+    """[batch, seq] int tokens → [batch, seq, dim] in the compute
+    dtype, plus a learned positional row per position."""
+
+    def __init__(self, vocab=None, dim=None, learned_positions=True,
+                 device=None, dtype=None):
+        super().__init__(device=device, dtype=dtype)
+        if not vocab or not dim:
+            raise ValueError("vocab and dim are required")
+        self.vocab = int(vocab)
+        self.dim = int(dim)
+        self.learned_positions = bool(learned_positions)
+        self.PARAMS = ("weights", "positions") if self.learned_positions \
+            else ("weights",)
+
+    def param_shapes(self, d_in, window):
+        shapes = {"weights": (self.vocab, self.dim)}
+        if self.learned_positions:
+            shapes["positions"] = (int(window), self.dim)
+        return shapes
+
+    def out_dim(self, d_in):
+        return self.dim
+
+    def fill_arrays(self, rng, d_in, window):
+        # the JAX unit fills both tables uniform in +-0.02
+        return {n: rng.uniform(-0.02, 0.02, s).astype(numpy.float32)
+                for n, s in self.param_shapes(d_in, window).items()}
+
+    @property
+    def window(self):
+        """Rows of the positional table (the serving length bound)."""
+        pos = self.params.get("positions")
+        return int(pos.shape[0]) if pos is not None else None
+
+    def _lookup(self, x):
+        return self.cast("weights")[x.long()]
+
+    def apply(self, x):
+        y = self._lookup(x)
+        if self.learned_positions:
+            y = y + self.cast("positions")[None, :y.shape[1], :]
+        return y
+
+    def apply_chunk(self, x, offset):
+        """Chunked-prefill lookup: x [batch, C] at positions
+        [offset, offset+C); rows past the positional table read the
+        (masked-off) last row."""
+        y = self._lookup(x)
+        if self.learned_positions:
+            pos = self.cast("positions")
+            idx = torch.clamp(
+                torch.arange(x.shape[1], device=x.device) + int(offset),
+                max=pos.shape[0] - 1)
+            y = y + pos[idx][None]
+        return y
+
+    def apply_step_slots(self, x, pos):
+        """Per-slot decode step: x [batch, 1] with row n at sequence
+        index ``pos[n]``."""
+        y = self._lookup(x)
+        if self.learned_positions:
+            y = y + self.cast("positions")[pos.long()][:, None, :]
+        return y

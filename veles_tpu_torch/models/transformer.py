@@ -1,0 +1,240 @@
+"""Pre-LN causal transformer block and the per-token logits head — the
+port of ``veles_tpu/models/transformer.py`` for serving (dense FFN).
+
+Every method keeps the JAX unit's dtype conventions so the two agree
+in float32 to rounding: projections take compute-dtype operands and
+sum in f32 (:meth:`ForwardBase.linear`), q/k/v and attention run in
+the compute dtype, layer norm and the logits run in f32.  Caches and
+pools are updated in place (the JAX methods return new arrays; these
+return the same dicts they were given, written).
+
+``int8_decode`` routes the decode step's output projection and both
+FFN matmuls through the weight-only int8 GEMM
+(``ops/gemm.int8_matmul``, the hand-written kernel on the card) — three
+launches per layer per step; prefill keeps the policy matmul.
+"""
+
+import torch
+
+from veles_tpu_torch.models.nn_units import ForwardBase
+from veles_tpu_torch.ops import softmax
+from veles_tpu_torch.ops.gemm import int8_matmul, int8_weight_quantize
+from veles_tpu_torch.ops.paged_attend import attend_scale
+from veles_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_decode_attention_q8)
+
+
+def _layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+class TransformerBlock(ForwardBase):
+    """x → x + MHA(LN(x)) → + FFN(LN(.)), x: [batch, seq, d]."""
+
+    PARAMS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
+              "ln2_scale", "ln2_bias", "ffn_w1", "ffn_b1", "ffn_w2",
+              "ffn_b2")
+
+    def __init__(self, heads=4, hidden=None, causal=True,
+                 int8_decode=False, device=None, dtype=None):
+        super().__init__(device=device, dtype=dtype)
+        if not causal:
+            raise ValueError("serving needs causal blocks")
+        self.heads = int(heads)
+        self.hidden = hidden     # None → 4·d
+        self.causal = True
+        #: weight-only int8 matmuls for the decode step's output
+        #: projection and FFN (the weights quantize once, at first use)
+        self.int8_decode = bool(int8_decode)
+
+    def param_shapes(self, d, window):
+        if d % self.heads:
+            raise ValueError("model dim %d not divisible by %d heads"
+                             % (d, self.heads))
+        h = int(self.hidden or 4 * d)
+        shapes = {n: (d,) for n in ("ln1_scale", "ln1_bias", "ln2_scale",
+                                    "ln2_bias", "ffn_b2")}
+        shapes.update({n: (d, d) for n in ("wq", "wk", "wv", "wo")})
+        shapes.update({"ffn_w1": (d, h), "ffn_b1": (h,),
+                       "ffn_w2": (h, d)})
+        return shapes
+
+    def load_params(self, arrays):
+        super().load_params(arrays)
+        self.hidden = int(self.params["ffn_w1"].shape[1])
+
+    @property
+    def d_model(self):
+        return int(self.params["wq"].shape[0])
+
+    # -- shared pieces ---------------------------------------------------------
+
+    def _qkv(self, x):
+        """LN1 + q/k/v projections, each [b, s, d] in the compute
+        dtype (shared by prefill, chunked prefill and decode so all
+        write identical K/V rows)."""
+        ln = _layer_norm(x, self.params["ln1_scale"],
+                         self.params["ln1_bias"])
+        return tuple(self.linear(ln, n).to(self.dtype)
+                     for n in ("wq", "wk", "wv"))
+
+    def _attend(self, q, k, v, keep):
+        """Masked softmax attention in the compute dtype: q [b, s, d],
+        k/v [b, L, d], ``keep`` [s, L] or [b, 1, s, L] → [b, s, d]."""
+        b, s, d = q.shape
+        hd = d // self.heads
+        qh = q.reshape(b, s, self.heads, hd)
+        kh = k.to(self.dtype).reshape(b, -1, self.heads, hd)
+        vh = v.to(self.dtype).reshape(b, -1, self.heads, hd)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * attend_scale(hd)
+        logits = logits.masked_fill(~keep, float("-inf"))
+        probs = softmax(logits)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(b, s, d)
+
+    def _w8_matmul(self, x, name):
+        """Weight-only int8 matmul of ``x`` [b, s, d1] by parameter
+        ``name`` [d1, d2] (per-column quantization cached): [b, s, d2]
+        f32."""
+        b, s, d1 = x.shape
+        wq, scale = self.derived(
+            ("w8", name), lambda: int8_weight_quantize(self.params[name]))
+        out = int8_matmul(x.reshape(b * s, d1).to(self.dtype).contiguous(),
+                          wq, scale)
+        return out.reshape(b, s, -1)
+
+    def _ffn(self, x, w8=False):
+        mm = self._w8_matmul if w8 else self.linear
+        h1 = mm(x, "ffn_w1")
+        h1 = torch.relu(h1 + self.params["ffn_b1"]).to(self.dtype)
+        y = mm(h1, "ffn_w2")
+        return (y + self.params["ffn_b2"]).to(x.dtype)
+
+    def _attn_tail(self, x, o, w8=False):
+        """Output projection + residual + FFN half over an attention
+        context ``o`` [b, s, d]; ``w8`` takes the int8 weight-only
+        path (decode steps with ``int8_decode``)."""
+        attn = (self._w8_matmul(o, "wo") if w8
+                else self.linear(o, "wo")).to(x.dtype)
+        y = x + attn
+        return y + self._ffn(_layer_norm(y, self.params["ln2_scale"],
+                                         self.params["ln2_bias"]), w8=w8)
+
+    # -- full sequence -------------------------------------------------------
+
+    def apply(self, x):
+        s = x.shape[1]
+        q, k, v = self._qkv(x)
+        ar = torch.arange(s, device=x.device)
+        return self._attn_tail(x, self._attend(q, k, v,
+                                               ar[None, :] <= ar[:, None]))
+
+    # -- serving ---------------------------------------------------------------
+
+    def init_cache(self, batch, max_len, dtype):
+        """Zeroed K/V buffers, [batch, max_len, d] each."""
+        d = self.d_model
+        return {n: torch.zeros((batch, max_len, d), dtype=dtype,
+                               device=self.device) for n in ("k", "v")}
+
+    def _write_rows(self, cache, k_new, v_new, start, lens):
+        if lens is not None:
+            keep = (torch.arange(k_new.shape[1], device=k_new.device)[None, :]
+                    < lens.long()[:, None])[..., None]
+            k_new = torch.where(keep, k_new, torch.zeros_like(k_new))
+            v_new = torch.where(keep, v_new, torch.zeros_like(v_new))
+        end = start + k_new.shape[1]
+        cache["k"][:, start:end] = k_new.to(cache["k"].dtype)
+        cache["v"][:, start:end] = v_new.to(cache["v"].dtype)
+        return k_new, v_new
+
+    def apply_prefill(self, x, cache, lens=None):
+        """Consume all of x [batch, P, d] in one pass, writing every
+        position's K/V into cache rows [0, P).  ``lens`` [batch]: rows
+        at or past each length are zeroed; output rows past it are
+        garbage the caller must not read."""
+        p = x.shape[1]
+        q, k, v = self._qkv(x)
+        k, v = self._write_rows(cache, k, v, 0, lens)
+        ar = torch.arange(p, device=x.device)
+        o = self._attend(q, k, v, ar[None, :] <= ar[:, None])
+        return self._attn_tail(x, o), cache
+
+    def apply_prefill_chunk(self, x, cache, offset, chunk_lens=None,
+                            key_width=None):
+        """Chunked prefill: x [b, C, d] at positions [offset,
+        offset+C), written into cache rows [offset, offset+C); queries
+        attend over cached keys [0, key_width) with ``key ≤ offset +
+        q``.  Chained chunks reproduce :meth:`apply_prefill`."""
+        c = x.shape[1]
+        offset = int(offset)
+        q, k, v = self._qkv(x)
+        self._write_rows(cache, k, v, offset, chunk_lens)
+        kw = int(key_width or cache["k"].shape[1])
+        keep = (torch.arange(kw, device=x.device)[None, :]
+                <= (offset + torch.arange(c, device=x.device))[:, None])
+        o = self._attend(q, cache["k"][:, :kw], cache["v"][:, :kw], keep)
+        return self._attn_tail(x, o), cache
+
+    def init_block_pool(self, num_blocks, block_size, dtype,
+                        kv_dtype="fp32"):
+        """Zeroed paged K/V pools [num_blocks, block_size, d];
+        ``kv_dtype="int8"`` stores them int8 with per-row f32 scales
+        ``k_scale``/``v_scale`` [num_blocks, block_size] beside them
+        (zero scales make the trash block dequantize to exact 0)."""
+        if kv_dtype == "fp32":
+            return self.init_cache(num_blocks, block_size, dtype)
+        if kv_dtype != "int8":
+            raise ValueError("kv_dtype must be 'fp32' or 'int8'")
+        shape = (num_blocks, block_size, self.d_model)
+        pool = {n: torch.zeros(shape, dtype=torch.int8, device=self.device)
+                for n in ("k", "v")}
+        for n in ("k_scale", "v_scale"):
+            pool[n] = torch.zeros((num_blocks, block_size),
+                                  dtype=torch.float32, device=self.device)
+        return pool
+
+    def apply_step_paged(self, x, pos, tables, pool):
+        """Decode ONE position per row against a paged pool: x
+        [batch, 1, d] with row n at ``pos[n]``, through ``tables``
+        [batch, T].  An int8 pool (``k_scale`` beside the buffers)
+        quantizes the new row on the scatter and attends through the
+        paged-attention kernel."""
+        q, k_new, v_new = self._qkv(x)
+        if "k_scale" in pool:
+            _, _, _, _, o = paged_decode_attention_q8(
+                q, k_new, v_new, pool["k"], pool["v"], pool["k_scale"],
+                pool["v_scale"], tables, pos, self.heads)
+        else:
+            _, _, o = paged_decode_attention(
+                q, k_new, v_new, pool["k"], pool["v"], tables, pos,
+                self.heads, self.dtype)
+        return self._attn_tail(x, o, w8=self.int8_decode), pool
+
+
+class TokenProjection(ForwardBase):
+    """Per-token logits head: [batch, seq, d] → [batch, seq, vocab],
+    f32 logits."""
+
+    PARAMS = ("weights", "bias")
+    #: position-wise: a decode step applies it unchanged
+    DECODE_POINTWISE = True
+
+    def __init__(self, vocab=None, device=None, dtype=None):
+        super().__init__(device=device, dtype=dtype)
+        if vocab is None:
+            raise ValueError("vocab is required")
+        self.vocab = int(vocab)
+
+    def param_shapes(self, d, window):
+        return {"weights": (d, self.vocab), "bias": (self.vocab,)}
+
+    def out_dim(self, d_in):
+        return self.vocab
+
+    def apply(self, x):
+        return self.linear(x, "weights") + self.params["bias"]
