@@ -9,19 +9,41 @@ result line):
 
 1. build — every kernel under ``veles_tpu_torch/csrc/`` with ``nvcc``
    (one compiler per source, all started together);
-2. kernels — each kernel wrapper on the card at the shapes of the
-   serving path, held against its plain PyTorch version on the same
-   inputs, then timed beside the plain version and one library call;
+2. kernels — each kernel wrapper on the card at the shapes of its path,
+   held against its plain PyTorch version on the same inputs, then
+   timed beside the plain version and one library call: the serving
+   kernels at the serving shapes; the three FlashAttention kernels
+   (forward, dq, dk/dv) at the training shapes (b 4, s 2048, 16 heads
+   of 128, bf16, causal) and at small odd ones (f32, sq != sk,
+   non-causal, lengths off the tile), element by element; at the
+   training shapes three planted faults must fail the same check;
 3. reference — a small float32 chain served through the kernels on the
    card, its prefill and decode logits held against the same chain on
    the CPU (plain versions);
-4. serve — the LM chain at the serving model's width (d=1024, 8 heads,
+4. train reference — a small float32 chain (d 256, 2 heads of 128, 2
+   layers) takes 3 SGD-momentum steps from the same weights and
+   minibatches on the card through the attention kernels, on the card
+   through the dense core, and on the CPU through the plain versions:
+   the kernel run must match the dense card run closely (losses, and
+   each parameter relative to its update) and the CPU run loosely;
+5. learns — ``samples/lm.train_lm`` on the Markov corpus (d 256, 2
+   heads of 128, 2 blocks, seq 128, vocab 64, Adam + cosine, bf16):
+   the validation cross-entropy must fall below the corpus' unigram
+   entropy;
+6. serve — the LM chain at the serving model's width (d=1024, 8 heads,
    vocab 32768, window 1024, depth cut to 8 layers, random weights
    from seed 0, bfloat16) through ``InferenceScheduler`` with int8 KV
    pools and ``int8_decode``: one warm-up request, then 8 concurrent
    128-token prompts x 32 greedy steps.  The kernels' launch counts
    are zeroed just before and read just after: ``paged_attend`` must
-   launch once per layer per decode step, ``int8_gemm`` three times.
+   launch once per layer per decode step, ``int8_gemm`` three times;
+7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
+   (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
+   bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
+   random tokens): 2 warm-up steps, then 5 timed steps with the
+   attention kernels' counts zeroed just before and read just after —
+   each must launch once per layer per step — then one step under
+   ``torch.profiler``.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -41,6 +63,30 @@ VOCAB, DIM, LAYERS, HEADS, WINDOW, BLOCK, SLOTS = 32768, 1024, 8, 8, 1024, 16, 8
 PROMPT, STEPS, CHUNK = 128, 32, 64
 #: kernel-vs-plain tolerances: both sides sum in f32, in another order
 TOL = {"bfloat16": 2e-3, "float32": 1e-5}
+
+#: the training model of the smoke (``bench.py``'s ``bench_lm``)
+T_VOCAB, T_DIM, T_LAYERS, T_HEADS, T_SEQ, T_BATCH = 32768, 2048, 8, 16, 2048, 4
+T_WARM, T_STEPS = 2, 5
+#: FlashAttention kernel-vs-plain tolerance (tol, floor) by the
+#: compared tensor's type, held element by element: |got - want| <=
+#: tol * (|want| + rms(want)) + floor.  bf16 2e-2 is five half-steps of
+#: bf16 (both sides round their f32 result once; the kernel rounds P
+#: and ds at each tile's running max, the plain version once per row);
+#: f32 (the LSE always) 1e-4 (sums in another order).  The floor covers
+#: gradients that are rounding noise of both sides (a row of one key
+#: has ds = P·(dP - delta) = 0 but for the order of dP's and delta's
+#: sums)
+FLASH_TOL = {"bfloat16": (2e-2, 1e-4), "float32": (1e-4, 1e-5)}
+#: the kernel-path training run against the dense-core one on the card:
+#: losses (relative) and each parameter's distance (relative to its
+#: update over the run)
+TRAIN_REF_LOSS, TRAIN_REF_STEP = 1e-6, 1e-4
+#: (b, sq, sk, h, d, dtype, causal): the training shapes, then small odd
+FLASH_CASES = [(T_BATCH, T_SEQ, T_SEQ, T_HEADS, T_DIM // T_HEADS,
+                "bfloat16", True),
+               (2, 100, 77, 3, 128, "float32", False),
+               (1, 130, 200, 2, 128, "float32", True),
+               (1, 77, 50, 2, 128, "float32", True)]
 
 #: device-memory rate (bytes/s) by card name (NVIDIA data sheets)
 HBM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -285,6 +331,154 @@ def time_gemm(torch, dev, rng, rate, err):
     return fields
 
 
+# -- phase 2: FlashAttention kernels ------------------------------------------
+
+def _flash_inputs(torch, dev, case, seed):
+    b, sq, sk, h, d, dt, _ = case
+    gen = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
+               for s in (sq, sk, sk))
+    return q, k, v, torch.randn((b, sq, h, d), generator=gen).to(dev, dtype)
+
+
+def flash_excess(got, want):
+    """The largest ratio, over the elements, of ``|got - want|`` to its
+    limit ``tol * (|want| + rms(want)) + floor`` (FLASH_TOL by
+    ``want``'s type): at most 1 passes."""
+    tol, floor = FLASH_TOL[str(want.dtype).rsplit(".", 1)[-1]]
+    got, want = got.float(), want.float()
+    lim = tol * (want.abs() + want.square().mean().sqrt()) + floor
+    return float(((got - want).abs() / lim).max())
+
+
+def planted_faults(fa, q, k, v, do, o, lse, causal):
+    """What the plain versions give for three kernel faults, to show
+    that the check of FLASH_TOL rejects them at the training shapes:
+    the forward and dq without their last key tile (the rows of the
+    last query tile lose 64 of their ~2000 keys), the forward with the
+    scale 10% off, and dk/dv without their last query tile."""
+    t = 64
+    scale = fa.default_scale(q.shape[-1])
+    o_short, lse_short = fa.flash_fwd_plain(q, k[:, :-t], v[:, :-t], causal)
+    o_scaled, lse_scaled = fa.flash_fwd_plain(q, k, v, causal, 1.1 * scale)
+    dk_short, dv_short = fa.flash_bwd_dkv_plain(
+        q[:, :-t], k, v, do[:, :-t], o[:, :-t], lse[..., :-t], causal)
+    return {
+        "flash_attn_fwd": {"last key tile dropped": (o_short, lse_short),
+                           "scale x1.1": (o_scaled, lse_scaled)},
+        "flash_attn_dq": {"last key tile dropped": (fa.flash_bwd_dq_plain(
+            q, k[:, :-t], v[:, :-t], do, o, lse, causal),)},
+        "flash_attn_dkv": {"last query tile dropped": (dk_short, dv_short)}}
+
+
+def check_flash(torch, dev, rate):
+    """The forward, dq and dk/dv kernels against their plain versions
+    on every case of FLASH_CASES (the backward ones from the kernel's
+    O and LSE), element by element (:func:`flash_excess`); at the
+    training shapes, planted faults must fail the same check.  Then
+    timed at the training shapes."""
+    from veles_tpu_torch.ops import flash_attention as fa
+    errs = dict.fromkeys(fa.launches, 0.0)
+    for n, case in enumerate(FLASH_CASES):
+        causal = case[-1]
+        q, k, v, do = _flash_inputs(torch, dev, case, n)
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, o, lse, causal)
+        got = {"flash_attn_fwd": (o, lse), "flash_attn_dq": (dq,),
+               "flash_attn_dkv": (dk, dv)}
+        want = {"flash_attn_fwd": fa.flash_fwd_plain(q, k, v, causal),
+                "flash_attn_dq": (fa.flash_bwd_dq_plain(
+                    q, k, v, do, o, lse, causal),),
+                "flash_attn_dkv": fa.flash_bwd_dkv_plain(
+                    q, k, v, do, o, lse, causal)}
+        faults = planted_faults(fa, q, k, v, do, o, lse, causal) \
+            if n == 0 else {}
+        torch.cuda.synchronize()
+        for name in got:
+            for g, w in zip(got[name], want[name]):
+                err = float((g.float() - w.float()).abs().max())
+                excess = flash_excess(g, w)
+                log("%s %s max_abs_err=%.3g, %.3g of the limit"
+                    % (name, case, err, excess))
+                if not excess <= 1.0:
+                    raise SystemExit("%s disagrees with its plain version "
+                                     "at %s: %.3g of the limit"
+                                     % (name, case, excess))
+                errs[name] = max(errs[name], err)
+            for fault, bad in faults.get(name, {}).items():
+                excess = max(flash_excess(b, w)
+                             for b, w in zip(bad, want[name]))
+                err = max(float((b.float() - w.float()).abs().max())
+                          for b, w in zip(bad, want[name]))
+                log("%s %s planted fault (%s): max_abs_err=%.3g, %.3g of "
+                    "the limit" % (name, case, fault, err, excess))
+                if not excess > 1.0:
+                    raise SystemExit("%s: the check passes a planted fault "
+                                     "(%s)" % (name, fault))
+    return time_flash(torch, dev, rate, errs)
+
+
+def time_flash(torch, dev, rate, errs):
+    """Each kernel at the training shapes beside its plain version and
+    the library's ``scaled_dot_product_attention`` (forward; its
+    backward through autograd computes dq, dk and dv together and is
+    the yardstick of both backward kernels).  Bounds count the kept
+    (row, col) pairs of the causal mask: 4, 6 and 8 flops per pair and
+    head dim for the forward, dq and dk/dv (two, three and four
+    products), and each input read once, each output written once."""
+    from veles_tpu_torch.ops import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    case = FLASH_CASES[0]
+    b, sq, sk, h, d, dt, causal = case
+    q, k, v, do = _flash_inputs(torch, dev, case, 100)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    ldo = do.transpose(1, 2).contiguous()
+    lo = sdpa(lq, lk, lv, is_causal=causal)
+
+    def lib_fwd():
+        with torch.no_grad():
+            sdpa(lq, lk, lv, is_causal=causal)
+
+    def lib_bwd():
+        torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+
+    pairs = b * h * sum(min(r + 1, sk) if causal else sk for r in range(sq))
+    row = b * h * d * q.element_size()           # one sequence position
+    lse_bytes = b * h * sq * 4
+    bwd_in = (3 * sq + 2 * sk) * row + lse_bytes   # q, do, o, k, v, lse
+    work = {
+        "flash_attn_fwd": (
+            (2 * sq + 2 * sk) * row + lse_bytes, 4 * d * pairs,
+            lambda: fa.flash_fwd(q, k, v, causal),
+            lambda: fa.flash_fwd_plain(q, k, v, causal), lib_fwd),
+        "flash_attn_dq": (
+            bwd_in + sq * row, 6 * d * pairs,
+            lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, causal),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, o, lse, causal),
+            lib_bwd),
+        "flash_attn_dkv": (
+            bwd_in + 2 * sk * row, 8 * d * pairs,
+            lambda: fa.flash_bwd_dkv(q, k, v, do, o, lse, causal),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, o, lse, causal),
+            lib_bwd)}
+    before = dict(fa.launches)
+    out = {}
+    for name, (nbytes, ops, kernel, plain, library) in work.items():
+        b_ms, b_by = bound(nbytes, ops, dt, rate)
+        out[name] = {"ms": time_ms(torch, kernel, reps=10),
+                     "plain_ms": time_ms(torch, plain, reps=5),
+                     "library_ms": time_ms(torch, library, reps=10),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": errs[name], "bytes": nbytes,
+                     "flops": ops}
+    fa.launches.update(before)        # timing launches are not the path's
+    return out
+
+
 # -- phase 3: small reference -------------------------------------------------
 
 def reference_check(torch, dev):
@@ -336,7 +530,119 @@ def reference_check(torch, dev):
                          % err)
 
 
-# -- phase 4: serve -----------------------------------------------------------
+# -- phase 4: train reference -------------------------------------------------
+
+def _span_steps(torch, gd, loader, rows):
+    """Train minibatches ``rows`` of the loader's current span one at a
+    time (``GradientDescent.run_minibatch``); returns their losses."""
+    from veles_tpu_torch.loader import TRAIN
+    idx = torch.as_tensor(loader.span_indices_).long().to(gd.device)
+    losses = []
+    for k in rows:
+        x = loader.dataset_dev[idx[k]]
+        loss, _, _ = gd.run_minibatch(x, x, int(loader.span_sizes_[k]),
+                                      TRAIN)
+        losses.append(loss)
+    return losses
+
+
+def train_reference(torch, dev):
+    """A small float32 LM chain (d 256, 2 heads of 128, 2 layers, vocab
+    256, seq 64, minibatch 4) takes 3 SGD-momentum steps from the same
+    weights and minibatches three times: on the card through the
+    FlashAttention kernels, on the card through the dense core
+    (``attn_impl="dense"``), and on the CPU through the kernels' plain
+    versions.  The kernel run is held to the dense card run: losses to
+    TRAIN_REF_LOSS relative, and each parameter's distance from the
+    dense run's to TRAIN_REF_STEP of the dense run's own update (the
+    other matmuls are the card's same calls on the same inputs, so only
+    the attention core differs).  The CPU run is a loose second
+    witness: losses to 1e-4 relative, weights to 5e-4 (f32 sums in
+    another order; a ReLU input that rounds to the other side of 0
+    moves its whole gradient)."""
+    from veles_tpu_torch.convert import init_params, params_to_numpy
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.models.evaluator import EvaluatorNextToken
+    from veles_tpu_torch.models.gd import GradientDescent
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.samples.lm import lm_spec
+    toks = numpy.random.default_rng(4).integers(0, 256, (12, 64)).astype(
+        numpy.int32)
+    runs, launched = {}, {}
+    for name, d, impl in (("kernels", dev, None), ("dense", dev, "dense"),
+                          ("cpu", "cpu", "pallas")):
+        chain = init_params(lm_spec(256, 256, 2, 2, attn_impl=impl), 5, 64,
+                            device=d, dtype="float32")
+        start = params_to_numpy(chain)
+        loader = FullBatchLoader(toks, None, [0, 0, 12], minibatch_size=4,
+                                 seed=6, device=d)
+        gd = GradientDescent(chain, EvaluatorNextToken(), solver="sgd",
+                             learning_rate=0.01, gradient_moment=0.9)
+        loader.serve_span()
+        before = dict(fa.launches)
+        losses = torch.stack(_span_steps(torch, gd, loader, range(3)))
+        launched[name] = {n: fa.launches[n] - before[n] for n in before}
+        runs[name] = (losses.cpu().double(), params_to_numpy(chain))
+    if launched["kernels"] != dict.fromkeys(fa.launches, 6) or any(
+            launched["dense"].values()):
+        raise SystemExit("train reference: launched %s (want 6 of each in "
+                         "the kernel run: 2 layers x 3 steps, none in the "
+                         "dense run)" % launched)
+    (k_loss, k_p), (d_loss, d_p), (c_loss, c_p) = (
+        runs[n] for n in ("kernels", "dense", "cpu"))
+    step = {}
+    for i in d_p:
+        for n in d_p[i]:
+            moved = numpy.linalg.norm((d_p[i][n] - start[i][n]).ravel())
+            step["%d.%s" % (i, n)] = float(numpy.linalg.norm(
+                (k_p[i][n] - d_p[i][n]).ravel()) / max(moved, 1e-30))
+    worst = max(step, key=step.get)
+    loss_err = float(((k_loss - d_loss).abs() / d_loss.abs()).max())
+    cpu_err = max(float(numpy.abs(k_p[i][n] - c_p[i][n]).max())
+                  for i in c_p for n in c_p[i])
+    log("train reference: losses %s (kernels) vs %s (dense, card) vs %s "
+        "(CPU); kernels vs dense: losses %.3g relative, parameters <= %.3g "
+        "of their update (%s); kernels vs CPU weights max_abs_err=%.3g"
+        % (k_loss.tolist(), d_loss.tolist(), c_loss.tolist(), loss_err,
+           step[worst], worst, cpu_err))
+    if not loss_err <= TRAIN_REF_LOSS or not step[worst] <= TRAIN_REF_STEP:
+        raise SystemExit("train reference: the kernel run and the dense "
+                         "run disagree")
+    if not torch.allclose(k_loss, c_loss, rtol=1e-4, atol=0) \
+            or cpu_err > 5e-4:
+        raise SystemExit("train reference: card and CPU training disagree")
+
+
+# -- phase 5: learns ----------------------------------------------------------
+
+def learns(torch, dev):
+    """``train_lm`` on the Markov corpus through the kernels: 9 epochs of
+    32 Adam steps (cosine over 256 steps, 20 warm-up steps); the
+    validation span that opens the ninth epoch (after 256 steps) must
+    score a per-token cross-entropy below the corpus' unigram entropy
+    (``tests/test_lm.py``'s check of the JAX sample)."""
+    from veles_tpu_torch.samples.lm import build_lm, train_lm
+    t0 = time.perf_counter()
+    lm = build_lm(vocab=64, dim=256, blocks=2, heads=2, seq=128,
+                  n_train=4096, n_valid=512, minibatch_size=128,
+                  learning_rate=2e-3,
+                  lr_schedule_params={"total_steps": 256, "floor": 0.1,
+                                      "warmup": 20},
+                  device=dev, dtype="bfloat16")
+    history = train_lm(lm, 9)
+    torch.cuda.synchronize()
+    curve = [round(r["validation_loss"], 4) for r in history]
+    h_uni = lm.loader.h_unigram_
+    log(json.dumps({"learns": {
+        "validation_loss_by_epoch": curve, "h_unigram": h_uni,
+        "h_bigram": lm.loader.h_bigram_, "steps": lm.trainer.global_step,
+        "seconds": time.perf_counter() - t0}}))
+    if not 0.0 < curve[-1] < h_uni:
+        raise SystemExit("learns: validation CE %.4f is not below the "
+                         "unigram entropy %.4f" % (curve[-1], h_uni))
+
+
+# -- phase 6: serve -----------------------------------------------------------
 
 def serve_check(torch, dev):
     """The main path at the serving width; returns the launch counts
@@ -435,6 +741,79 @@ def profile_window(torch, sch, prompts, steps=8):
                             for e in top]}
 
 
+# -- phase 7: train -----------------------------------------------------------
+
+def train_check(torch, dev):
+    """The trainer's main path at ``bench_lm``'s configuration; returns
+    the attention kernels' launch counts of the timed steps and prints
+    the training numbers."""
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.samples.lm import build_lm
+    t0 = time.perf_counter()
+    n_train = T_BATCH * 8
+    toks = numpy.random.default_rng(0).integers(
+        0, T_VOCAB, (n_train, T_SEQ)).astype(numpy.int32)
+    loader = FullBatchLoader(toks, None, [0, 0, n_train],
+                             minibatch_size=T_BATCH, seed=0, device=dev)
+    lm = build_lm(vocab=T_VOCAB, dim=T_DIM, blocks=T_LAYERS, heads=T_HEADS,
+                  seq=T_SEQ, loader=loader, solver="sgd", learning_rate=0.01,
+                  gradient_moment=0.9, lr_schedule="constant", device=dev,
+                  dtype="bfloat16")
+    gd = lm.trainer
+    n_params = sum(t.numel() for u in lm.chain for t in u.params.values())
+    log("train: %d parameters, chain and trainer up in %.1f s"
+        % (n_params, time.perf_counter() - t0))
+    loader.serve_span()
+    torch.cuda.reset_peak_memory_stats()
+    warm = _span_steps(torch, gd, loader, range(T_WARM))
+    torch.cuda.synchronize()
+    for name in fa.launches:
+        fa.launches[name] = 0
+    t0 = time.perf_counter()
+    losses = _span_steps(torch, gd, loader, range(T_WARM, T_WARM + T_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in warm + losses]
+    if not all(numpy.isfinite(losses)):
+        raise SystemExit("train: non-finite losses %s" % losses)
+    if launches != dict.fromkeys(launches, T_LAYERS * T_STEPS):
+        raise SystemExit("train: %d steps launched %s (want %d of each)"
+                         % (T_STEPS, launches, T_LAYERS * T_STEPS))
+    prof = profile_train(torch, gd, loader)
+    log(json.dumps({"train": {
+        "steps": T_STEPS, "step_ms": 1e3 * wall / T_STEPS,
+        "tokens_per_s": T_STEPS * T_BATCH * T_SEQ / wall,
+        "max_memory_allocated_gb": peak / 1e9, "losses": losses,
+        "launches": launches, "parameters": n_params}}))
+    log(json.dumps({"train_profile": prof}))
+    return {"launches": launches}
+
+
+def profile_train(torch, gd, loader):
+    """One more step under ``torch.profiler``: wall time, device busy
+    time (kernels' self time summed), idle share, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    k = T_WARM + T_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _span_steps(torch, gd, loader, range(k, k + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "top_kernels": [[e.key[:60], e.count,
+                             e.self_device_time_total / 1e3]
+                            for e in top]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -457,21 +836,25 @@ def main():
             % (name, len(regs), max(regs, default=0), spills))
 
     measured = check_kernels(torch, dev, rate)
+    measured.update(check_flash(torch, dev, rate))
     reference_check(torch, dev)
-    serve = serve_check(torch, dev)
+    train_reference(torch, dev)
+    learns(torch, dev)
+    launches = serve_check(torch, dev)["launches"]
+    launches.update(train_check(torch, dev)["launches"])
 
-    kernels = [
-        dict(name="paged_attend", route="cuda",
-             source="veles_tpu_torch/csrc/paged_attend.cu",
-             replaces="veles_tpu/ops/pallas_paged.py:112",
-             launches=serve["launches"]["paged_attend"],
-             **measured["paged_attend"]),
-        dict(name="int8_gemm", route="cuda",
-             source="veles_tpu_torch/csrc/int8_gemm.cu",
-             replaces="veles_tpu/ops/gemm.py:131",
-             launches=serve["launches"]["int8_gemm"],
-             **measured["int8_gemm"]),
-    ]
+    replaces = {
+        "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
+        "int8_gemm": ("int8_gemm.cu", "gemm.py:131"),
+        "flash_attn_fwd": ("flash_attention.cu", "pallas_attention.py:179"),
+        "flash_attn_dq": ("flash_attention.cu", "pallas_attention.py:330"),
+        "flash_attn_dkv": ("flash_attention.cu", "pallas_attention.py:352"),
+    }
+    kernels = [dict(name=name, route="cuda",
+                    source="veles_tpu_torch/csrc/" + src,
+                    replaces="veles_tpu/ops/" + tpu,
+                    launches=launches[name], **measured[name])
+               for name, (src, tpu) in replaces.items()]
     for k in kernels:
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels}))

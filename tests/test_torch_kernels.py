@@ -99,3 +99,75 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     tables = torch.zeros((1, 1), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="scale"):
         paged_attend(q, pool, pool, tables, tables, HEADS)
+
+
+#: (b, sq, sk, h, d, dtype, causal): the training shape (b 4, s 2048,
+#: 16 heads of 128, bf16, causal), then small odd ones — f32, sq != sk,
+#: lengths off the 64-row tile, non-causal, the 256-wide variant, and
+#: one-row queries or keys
+FLASH_CASES = [(4, 2048, 2048, 16, 128, torch.bfloat16, True),
+               (2, 100, 77, 3, 128, torch.float32, False),
+               (1, 130, 200, 2, 128, torch.float32, True),
+               (1, 77, 50, 2, 128, torch.float32, True),
+               (2, 65, 65, 1, 256, torch.bfloat16, True),
+               (1, 33, 90, 2, 256, torch.float32, False),
+               (1, 70, 40, 2, 256, torch.float32, True),
+               (3, 1, 1, 2, 128, torch.float32, True),
+               (1, 1, 129, 2, 128, torch.bfloat16, False),
+               (1, 129, 1, 2, 128, torch.bfloat16, True)]
+
+
+def _flash_excess(got, want):
+    """The largest ratio, over the elements, of ``|got - want|`` to
+    ``tol * (|want| + rms(want)) + floor``, by ``want``'s type: bf16
+    2e-2 and 1e-4 (five half-steps of bf16: P and ds round to bf16 at
+    each tile's running max in the kernel, once over the row in the
+    plain version), f32 1e-4 and 1e-5 (sums in another order).  The
+    floor covers gradients that are rounding noise of both sides (a
+    row of one key has ds = 0 but for the order of its sums).  At most
+    1 passes."""
+    tol, floor = (2e-2, 1e-4) if want.dtype == torch.bfloat16 \
+        else (1e-4, 1e-5)
+    got, want = got.float(), want.float()
+    lim = tol * (want.abs() + want.square().mean().sqrt()) + floor
+    return float(((got - want).abs() / lim).max())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernels_match_plain(card, case):
+    from veles_tpu_torch.ops import flash_attention as fa
+    b, sq, sk, h, d, dtype, causal = case
+    gen = torch.Generator(device="cpu").manual_seed(sq * sk + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).to(card, dtype)
+               for s in (sq, sk, sk))
+    do = torch.randn((b, sq, h, d), generator=gen).to(card, dtype)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    dq = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, o, lse, causal)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        n: 1 for n in before}
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, causal)
+    want = fa.flash_bwd_plain(q, k, v, do, o, lse, causal)
+    for name, got, ref in (("o", o, want_o), ("lse", lse, want_lse),
+                           ("dq", dq, want[0]), ("dk", dk, want[1]),
+                           ("dv", dv, want[2])):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert _flash_excess(got, ref) <= 1.0, name
+
+
+def test_flash_attention_function_on_the_card(card):
+    """The autograd Function runs the three kernels, once each."""
+    from veles_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = (torch.randn((2, 96, 2, 128), generator=gen).to(card)
+               .requires_grad_(True) for _ in range(3))
+    before = dict(fa.launches)
+    fa.flash_attention(q, k, v, causal=True).square().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        n: 1 for n in before}
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head_dim 64 is not built"):
+        fa.flash_fwd(*(torch.zeros((1, 4, 1, 64), device=card),) * 3)

@@ -1,15 +1,21 @@
 """veles_tpu_torch — the PyTorch/CUDA port of ``veles_tpu`` for NVIDIA
 Hopper (H100).
 
-This slice serves the LM chain ``Embedding → TransformerBlock×N →
-TokenProjection`` through a paged KV cache (fp32 or int8 pools), with
-two kernels written by hand for ``sm_90a`` under ``csrc/``:
+It serves the LM chain ``Embedding → TransformerBlock×N →
+TokenProjection`` through a paged KV cache (fp32 or int8 pools) and
+trains it (``samples/lm.py``: ``GradientDescent`` with the next-token
+loss over a device-resident ``FullBatchLoader``), with kernels written
+by hand for ``sm_90a`` under ``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
   int8 dequant fused (replaces ``veles_tpu/ops/pallas_paged.py``);
 - ``ops/gemm.py::int8_matmul`` — the weight-only int8 GEMM with the
   per-column scale fused into the store (replaces the ``col_scale``
-  epilogue of ``veles_tpu/ops/gemm.py::pallas_matmul``).
+  epilogue of ``veles_tpu/ops/gemm.py::pallas_matmul``);
+- ``ops/flash_attention.py`` — FlashAttention-2 forward, dq and dk/dv
+  kernels behind an autograd Function (replaces
+  ``veles_tpu/ops/pallas_attention.py``, and serves
+  ``attn_impl="flash"`` too).
 
 The package imports ``torch`` and numpy only: never ``jax``, and
 nothing of ``veles_tpu``.  Entry points take ``device=`` and default
@@ -30,11 +36,27 @@ SUBMODULES = (
     "veles_tpu_torch.ops.paged_attention",
     "veles_tpu_torch.ops.paged_attend",
     "veles_tpu_torch.ops.gemm",
+    "veles_tpu_torch.ops.attention",
+    "veles_tpu_torch.ops.flash_attention",
+    "veles_tpu_torch.ops.flash",
+    "veles_tpu_torch.prng",
+    "veles_tpu_torch.prng.threefry",
+    "veles_tpu_torch.prng.random_generator",
     "veles_tpu_torch.models",
     "veles_tpu_torch.models.nn_units",
+    "veles_tpu_torch.models.attention",
     "veles_tpu_torch.models.embedding",
     "veles_tpu_torch.models.transformer",
     "veles_tpu_torch.models.standard",
+    "veles_tpu_torch.models.evaluator",
+    "veles_tpu_torch.models.solvers",
+    "veles_tpu_torch.models.lr_adjust",
+    "veles_tpu_torch.models.gd",
+    "veles_tpu_torch.loader",
+    "veles_tpu_torch.loader.base",
+    "veles_tpu_torch.loader.fullbatch",
+    "veles_tpu_torch.samples",
+    "veles_tpu_torch.samples.lm",
     "veles_tpu_torch.serving",
     "veles_tpu_torch.serving.kv_slots",
     "veles_tpu_torch.serving.prefill",

@@ -6,9 +6,13 @@ array}}`` — exactly ``{i: {n: a.mem for n, a in
 u.param_arrays().items()}}`` of a JAX ``make_forwards`` chain — and
 returns the port's chain holding the same weights.  The layouts are the
 JAX package's (``[d_in, d_out]`` matrices), so nothing is transposed.
+:func:`params_to_numpy` reads a chain back in the same form, and
+:func:`set_trainer_state` gives the port's ``GradientDescent`` the
+solver slots and step count of a JAX trainer.
 """
 
 import numpy
+import torch
 
 from veles_tpu_torch.models.standard import make_forwards
 
@@ -37,3 +41,23 @@ def init_params(spec, seed, window, device=None, dtype=None):
         unit.load_params(unit.fill_arrays(rng, d, window))
         d = unit.out_dim(d)
     return chain
+
+
+def params_to_numpy(chain):
+    """``{chain index: {name: float32 numpy array}}`` of the port's
+    chain (the form :func:`params_from_numpy` takes)."""
+    return {i: {n: t.detach().cpu().numpy().copy()
+                for n, t in unit.params.items()}
+            for i, unit in enumerate(chain)}
+
+
+def set_trainer_state(trainer, opt_state, global_step):
+    """Set ``trainer``'s solver slots from ``opt_state`` — ``{chain
+    index: {name: {slot: numpy array}}}``, the JAX trainer's
+    ``opt_state`` read to numpy — and its ``global_step``."""
+    with torch.no_grad():
+        for (i, name), slots in trainer.opt_state.items():
+            for slot, t in slots.items():
+                t.copy_(torch.as_tensor(numpy.array(
+                    opt_state[i][name][slot], numpy.float32)))
+    trainer.global_step = int(global_step)

@@ -1,2 +1,4 @@
-"""Forward units of the LM chain: Embedding → TransformerBlock×N →
-TokenProjection (the port of ``veles_tpu/models`` for serving)."""
+"""Units and training of the LM chain: Embedding → TransformerBlock×N
+→ TokenProjection, multi-head attention, the evaluators, solvers,
+schedules and the ``GradientDescent`` trainer (the port of
+``veles_tpu/models``)."""

@@ -1,0 +1,71 @@
+"""Multi-head attention — the port of ``veles_tpu/models/attention.py``
+(single device: no ``sp`` ring).
+
+:func:`attention_core` selects the core with the JAX package's rule
+(``mha_apply``): an explicit ``attn_impl`` wins; by default a CUDA
+device with ``head_dim % 128 == 0`` takes the FlashAttention kernels
+(``ops/flash_attention.py``), anything else the blockwise core when
+``block_size`` is set, else the dense one.  ``"pallas"`` and
+``"flash"`` both name the kernels: the port has one for both.
+"""
+
+from veles_tpu_torch.models.nn_units import ForwardBase
+from veles_tpu_torch.ops.attention import attention, blockwise_attention
+from veles_tpu_torch.ops.flash import flash_attention
+
+
+def attention_core(q, k, v, causal, block_size=None, attn_impl=None):
+    """The attention core over q/k/v [b, s, h, hd] (compute dtype) →
+    [b, s, h, hd]."""
+    impl = attn_impl or "auto"
+    if impl == "auto":
+        if q.device.type == "cuda" and q.shape[-1] % 128 == 0:
+            impl = "pallas"
+        else:
+            impl = "blockwise" if block_size else "dense"
+    if impl in ("pallas", "flash"):
+        return flash_attention(q, k, v, causal=causal)
+    if impl == "dense":
+        return attention(q, k, v, causal=causal)
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, block_size or 512,
+                                   causal=causal)
+    raise ValueError("unknown attn_impl %r" % (attn_impl,))
+
+
+def mha_apply(unit, x, heads, causal, block_size=None, attn_impl=None):
+    """Multi-head attention over x [b, s, d] with the ``wq``/``wk``/
+    ``wv``/``wo`` parameters of ``unit`` (projections through
+    :meth:`ForwardBase.linear`: compute-dtype operands, f32 sums);
+    returns [b, s, d] in x's dtype."""
+    b, s, d = x.shape
+    hd = d // heads
+    q, k, v = (unit.linear(x, n).to(unit.dtype).reshape(b, s, heads, hd)
+               for n in ("wq", "wk", "wv"))
+    o = attention_core(q, k, v, causal, block_size, attn_impl)
+    return unit.linear(o.reshape(b, s, d), "wo").to(x.dtype)
+
+
+class MultiHeadAttention(ForwardBase):
+    """y = (softmax(QKᵀ/sqrt(hd)) V) Wo with Q/K/V = x·Wq/Wk/Wv, x
+    [batch, seq, model_dim]."""
+
+    PARAMS = ("wq", "wk", "wv", "wo")
+
+    def __init__(self, heads=4, causal=False, block_size=None,
+                 attn_impl=None, device=None, dtype=None, **hyper):
+        super().__init__(device=device, dtype=dtype, **hyper)
+        self.heads = int(heads)
+        self.causal = bool(causal)
+        self.block_size = block_size
+        self.attn_impl = attn_impl
+
+    def param_shapes(self, d, window):
+        if d % self.heads:
+            raise ValueError("model dim %d not divisible by %d heads"
+                             % (d, self.heads))
+        return {n: (d, d) for n in self.PARAMS}
+
+    def apply(self, x):
+        return mha_apply(self, x, self.heads, self.causal, self.block_size,
+                         self.attn_impl)

@@ -1,5 +1,6 @@
 """Token embedding with learned positions — the port of
-``veles_tpu/models/embedding.py::Embedding`` for serving."""
+``veles_tpu/models/embedding.py::Embedding``.  In training, gradients
+flow through the gather into ``weights`` and ``positions``."""
 
 import numpy
 import torch
@@ -12,8 +13,8 @@ class Embedding(ForwardBase):
     dtype, plus a learned positional row per position."""
 
     def __init__(self, vocab=None, dim=None, learned_positions=True,
-                 device=None, dtype=None):
-        super().__init__(device=device, dtype=dtype)
+                 device=None, dtype=None, **hyper):
+        super().__init__(device=device, dtype=dtype, **hyper)
         if not vocab or not dim:
             raise ValueError("vocab and dim are required")
         self.vocab = int(vocab)

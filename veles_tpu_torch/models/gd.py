@@ -1,0 +1,283 @@
+"""GradientDescent — the trainer (the port of ``veles_tpu/models/gd.py``
+on one device).
+
+One minibatch step (:meth:`GradientDescent.run_minibatch`) is the JAX
+package's fused step written eagerly:
+
+    loss = evaluator.loss(chain(x), target)     # autograd records
+    grads = d loss / d params                   # the chain's backward
+    params, slots = solver.update(...)          # written in place
+
+with the learning rate ``lr × schedule(step)`` per
+parameter (per-layer overrides from ``unit.hyperparams()``), the
+5-entry health vector ``[grad_norm, weight_norm, update_ratio,
+nonfinite, loss]``, the ``skip_step`` policy (a non-finite step keeps
+the parameters and slots it had) and the per-class ``[3, 3]`` epoch
+accumulator ``[n_err / units, loss · size, size]``, all on the device.
+Validation and test minibatches compute the loss and metrics without
+the update.  :meth:`GradientDescent.run_span` consumes a loader's class
+span: a host loop over its index schedule, gathering each minibatch
+from the device-resident dataset.
+
+Health is configured by constructor arguments (the JAX package reads
+``root.common.health``): ``health`` on or off, ``health_policy`` one of
+"warn", "skip_step", "halt".  Not ported: meshes (dp/tp/pp/sp), the
+DCN master/worker exchange, augmentation and dropout.
+"""
+
+import logging
+
+import torch
+
+from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.models.lr_adjust import get_schedule
+from veles_tpu_torch.models.solvers import get_solver
+
+POLICIES = ("warn", "skip_step", "halt")
+
+log = logging.getLogger("veles_tpu_torch.gd")
+
+
+def _sq_norm(tensors):
+    total = None
+    for t in tensors:
+        s = torch.sum(torch.square(t.to(torch.float32)))
+        total = s if total is None else total + s
+    return total
+
+
+class GradientDescent:
+    """The trainer of a forward chain ``forwards`` under ``evaluator``."""
+
+    def __init__(self, forwards, evaluator, solver="sgd", learning_rate=0.01,
+                 learning_rate_bias=None, weights_decay=0.0,
+                 weights_decay_bias=None, l1_vs_l2=0.0, gradient_moment=0.0,
+                 gradient_moment_bias=None, lr_schedule="constant",
+                 lr_schedule_params=None, health=True, health_policy="warn"):
+        if health_policy not in POLICIES:
+            raise ValueError("health_policy must be one of %s" % (POLICIES,))
+        self.forwards = list(forwards)
+        self.evaluator = evaluator
+        self.device = self.forwards[0].device
+        self.solver = get_solver(solver)
+        self.learning_rate = learning_rate
+        self.learning_rate_bias = learning_rate \
+            if learning_rate_bias is None else learning_rate_bias
+        self.weights_decay = weights_decay
+        self.weights_decay_bias = weights_decay \
+            if weights_decay_bias is None else weights_decay_bias
+        self.l1_vs_l2 = l1_vs_l2
+        self.gradient_moment = gradient_moment
+        self.gradient_moment_bias = gradient_moment \
+            if gradient_moment_bias is None else gradient_moment_bias
+        self.schedule = get_schedule(lr_schedule,
+                                     **(lr_schedule_params or {}))
+        self.health = bool(health)
+        self.health_policy = health_policy
+        self.global_step = 0
+        #: (chain index, name) of every parameter, in the order the JAX
+        #: package's pytrees flatten them (sorted keys)
+        self._names = [(i, n) for i in range(len(self.forwards))
+                       for n in sorted(self.forwards[i].params)]
+        self._hps = {(i, n): self._layer_hp(self.forwards[i], n)
+                     for i, n in self._names}
+        for i, n in self._names:
+            self.forwards[i].params[n].requires_grad_(True)
+        with torch.no_grad():
+            self.opt_state = {(i, n): self.solver.init(self._param(i, n))
+                              for i, n in self._names}
+        self.epoch_acc = torch.zeros((3, 3), dtype=torch.float32,
+                                     device=self.device)
+        self.loss = self.n_err = None
+        #: non-finite train steps seen, and how many were skipped
+        self.nonfinite_steps = 0
+        self.skipped_steps = 0
+        #: set by the "halt" policy at the first non-finite step
+        self.halted = False
+
+    def _param(self, i, name):
+        return self.forwards[i].params[name]
+
+    def _layer_hp(self, unit, param_name):
+        hp = unit.hyperparams()
+
+        def pick(specific, generic, default):
+            v = hp.get(specific)
+            if v is None:
+                v = hp.get(generic)
+            return default if v is None else v
+
+        if param_name == "bias":
+            return {
+                "lr": pick("learning_rate_bias", "learning_rate",
+                           self.learning_rate_bias),
+                "decay": pick("weights_decay_bias", "weights_decay",
+                              self.weights_decay_bias),
+                "moment": pick("gradient_moment_bias", "gradient_moment",
+                               self.gradient_moment_bias),
+                "l1_vs_l2": self.l1_vs_l2,
+            }
+        return {
+            "lr": pick("learning_rate", None, self.learning_rate),
+            "decay": pick("weights_decay", None, self.weights_decay),
+            "moment": pick("gradient_moment", None, self.gradient_moment),
+            "l1_vs_l2": self.l1_vs_l2,
+        }
+
+    # -- one minibatch ---------------------------------------------------------
+
+    def forward(self, x):
+        """The chain's output (logits for a softmax head)."""
+        h = x
+        for u in self.forwards:
+            h = u.apply(h)
+        return h
+
+    def _loss_and_metrics(self, x, target, size):
+        if getattr(self.evaluator, "TARGET_IS_INPUT", False):
+            target = x
+        y = self.forward(x)
+        loss = self.evaluator.loss(y, target, size)
+        if hasattr(self.evaluator, "train_metrics"):
+            n_err = self.evaluator.train_metrics(y, target, size)
+        else:
+            pred = torch.argmax(y, dim=-1)
+            mask = torch.arange(y.shape[0], device=y.device) < size
+            n_err = ((pred != target.long()) & mask).sum().to(torch.int32)
+        return loss, n_err
+
+    def _train(self, x, target, size, step):
+        params = [self._param(i, n) for i, n in self._names]
+        loss, n_err = self._loss_and_metrics(x, target, size)
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        # the float32 multiplier the JAX package traces
+        scale = torch.as_tensor(self.schedule(
+            torch.tensor(float(step), dtype=torch.float32)),
+            dtype=torch.float32)
+        skip = self.health and self.health_policy == "skip_step"
+        with torch.no_grad():
+            if self.health:
+                grad_sq = _sq_norm(grads)
+                bad = torch.where(
+                    torch.isfinite(loss) & torch.isfinite(grad_sq),
+                    0.0, 1.0).to(torch.float32)
+                keep_old = bad > 0
+                weight_sq = update_sq = None
+            for key, p, g in zip(self._names, params, grads):
+                hp = dict(self._hps[key])
+                hp["lr"] = float(torch.tensor(hp["lr"], dtype=torch.float32)
+                                 * scale)
+                state = self.opt_state[key]
+                new_p, new_s = self.solver.update(p, g, state, hp)
+                if skip:
+                    new_p = torch.where(keep_old, p, new_p)
+                    new_s = {s: torch.where(keep_old, state[s], v)
+                             for s, v in new_s.items()}
+                if self.health:
+                    w = _sq_norm([new_p])
+                    u = _sq_norm([new_p - p])
+                    weight_sq = w if weight_sq is None else weight_sq + w
+                    update_sq = u if update_sq is None else update_sq + u
+                p.copy_(new_p)
+                for s, v in new_s.items():
+                    state[s].copy_(v)
+            if not self.health:
+                return loss, n_err, torch.zeros(5, device=self.device)
+            w_norm = torch.sqrt(weight_sq)
+            health = torch.stack([
+                torch.sqrt(grad_sq), w_norm,
+                torch.sqrt(update_sq) / (w_norm + 1e-12), bad,
+                loss.to(torch.float32)])
+        return loss, n_err, health
+
+    def _eval(self, x, target, size):
+        with torch.no_grad():
+            loss, n_err = self._loss_and_metrics(x, target, size)
+            zero = torch.zeros((), device=self.device)
+            bad = (~torch.isfinite(loss)).to(torch.float32) \
+                if self.health else zero
+            health = torch.stack([zero, zero, zero, bad,
+                                  loss.to(torch.float32)])
+        return loss, n_err, health
+
+    def _step(self, x, target, size, class_id, step):
+        """One minibatch of class ``class_id`` at schedule step ``step``:
+        update (train only) and epoch accounting; returns (loss, n_err,
+        health) on the device."""
+        if class_id == TRAIN:
+            loss, n_err, health = self._train(x, target, size, step)
+        else:
+            loss, n_err, health = self._eval(x, target, size)
+        with torch.no_grad():
+            per_sample = self.evaluator.metric_units(x) \
+                if hasattr(self.evaluator, "metric_units") else 1
+            fsize = torch.tensor(float(size), device=self.device)
+            row = torch.stack([n_err.to(torch.float32) / per_sample,
+                               loss * size, fsize])
+            if self.health and self.health_policy == "skip_step" \
+                    and class_id == TRAIN:
+                zero = torch.zeros((), device=self.device)
+                row = torch.where(health[3] > 0,
+                                  torch.stack([zero, zero, fsize]), row)
+            onehot = (torch.arange(3, device=self.device)
+                      == class_id).to(torch.float32)
+            self.epoch_acc = self.epoch_acc + onehot[:, None] * row[None, :]
+        return loss, n_err, health
+
+    def run_minibatch(self, x, target, size, class_id):
+        """One minibatch ``x`` (targets ``target``, ``size`` valid rows)
+        of class ``class_id``; a train step advances ``global_step``."""
+        self.loss, self.n_err, health = self._step(
+            x, target, int(size), class_id, self.global_step)
+        if class_id == TRAIN:
+            self.global_step += 1
+            self._observe_health(health)
+        return self.loss, self.n_err, health
+
+    def run_span(self, loader):
+        """Consume the class span ``loader.serve_span()`` published: one
+        minibatch per row of its index schedule, each gathered from
+        ``loader.dataset_dev`` (indices past the span clamp to row 0,
+        as the JAX package's gather clips, and are masked by size)."""
+        ds, labels = loader.dataset_dev, loader.labels_dev
+        idx = torch.as_tensor(loader.span_indices_, device=ds.device).long()
+        idx = idx.clamp(0, ds.shape[0] - 1)
+        sizes = [int(n) for n in loader.span_sizes_]
+        cls = loader.span_class_
+        healths = []
+        for k, size in enumerate(sizes):
+            self.loss, self.n_err, health = self._step(
+                ds[idx[k]], labels[idx[k]], size, cls, self.global_step + k)
+            healths.append(health)
+        health = torch.cat([healths[-1][:3],
+                            torch.stack([h[3] for h in healths]).sum()[None],
+                            healths[-1][4:]])
+        if cls == TRAIN:
+            self.global_step += len(sizes)
+            self._observe_health(health)
+        return self.loss, self.n_err, health
+
+    def _observe_health(self, health):
+        """One small device→host read per train dispatch: count
+        non-finite steps and act on the policy."""
+        if not self.health:
+            return
+        bad = float(health[3])
+        if bad <= 0:
+            return
+        self.nonfinite_steps += int(bad)
+        if self.health_policy == "skip_step":
+            self.skipped_steps += int(bad)
+        log.warning("non-finite training step (policy %s): loss %s",
+                    self.health_policy, float(health[4]))
+        if self.health_policy == "halt":
+            self.halted = True
+
+    def read_epoch_acc(self, reset_classes=()):
+        """{class: (n_err, loss_sum, samples)}; resets the requested
+        class rows."""
+        acc = self.epoch_acc.cpu().numpy().copy()
+        if len(reset_classes):
+            self.epoch_acc[list(reset_classes)] = 0
+        return {c: tuple(float(x) for x in acc[c]) for c in range(3)}

@@ -4,10 +4,15 @@ The JAX package's units keep their parameters in ``Array``s and hand
 them to a pure ``apply(params, x)``.  Here a unit is an ``nn.Module``
 that owns its parameters as a plain name → tensor dict (float32
 masters on the unit's device, ``[d_in, d_out]`` layouts as in the JAX
-package) and whose methods take activations only.  Serving freezes the
-weights, so tensors derived from them (compute-dtype copies, int8
-quantizations) are computed once and cached until the next
-:meth:`load_params`.
+package) and whose methods take activations only.
+
+Tensors derived from the parameters (compute-dtype copies, int8
+quantizations) are cached while the weights stay as they are, which is
+how serving uses them.  Training changes that in two ways, and
+:meth:`ForwardBase.derived` handles both: a derived tensor built while
+autograd records (it holds a graph back to a trainable parameter) is
+never cached, and a cached one is dropped once any parameter has been
+written in place (the solver's update), so no stale copy is served.
 """
 
 import numpy
@@ -17,6 +22,12 @@ from torch import nn
 from veles_tpu_torch import dtypes
 from veles_tpu_torch.backends import resolve_device
 
+#: per-layer hyper-parameters a trainer consults; None = inherit the
+#: trainer's global value (the JAX package's names)
+HYPERPARAMS = ("learning_rate", "learning_rate_bias", "weights_decay",
+               "weights_decay_bias", "l1_vs_l2", "gradient_moment",
+               "gradient_moment_bias")
+
 
 class ForwardBase(nn.Module):
     """A unit with parameters ``PARAMS`` (subclasses name them and say
@@ -24,13 +35,23 @@ class ForwardBase(nn.Module):
 
     PARAMS = ()
 
-    def __init__(self, device=None, dtype=None):
+    def __init__(self, device=None, dtype=None, **hyper):
         super().__init__()
+        unknown = set(hyper) - set(HYPERPARAMS)
+        if unknown:
+            raise TypeError("%s: unknown arguments %s"
+                            % (type(self).__name__, sorted(unknown)))
         self.device = resolve_device(device)
         #: compute dtype of matmul operands and activations
         self.dtype = dtypes.resolve(dtype)
         self.params = {}
         self._derived = {}
+        for h in HYPERPARAMS:
+            setattr(self, h, hyper.get(h))
+
+    def hyperparams(self):
+        """Per-layer overrides, None meaning 'inherit'."""
+        return {h: getattr(self, h) for h in HYPERPARAMS}
 
     # -- parameters ----------------------------------------------------------
 
@@ -59,23 +80,30 @@ class ForwardBase(nn.Module):
         return out
 
     def load_params(self, arrays):
-        """Take parameters (name → numpy array or tensor) onto the
-        unit's device as float32 masters; drops derived caches."""
+        """Take parameters (name → numpy array) onto the unit's device
+        as float32 masters (copies: training updates them in place);
+        drops derived caches."""
         missing = [n for n in self.PARAMS if n not in arrays]
         if missing:
             raise ValueError("%s: missing parameters %s"
                              % (type(self).__name__, missing))
         self.params = {
-            n: torch.as_tensor(numpy.asarray(arrays[n], numpy.float32))
+            n: torch.as_tensor(numpy.array(arrays[n], numpy.float32))
             .to(self.device) for n in self.PARAMS}
         self._derived = {}
 
     def derived(self, key, make):
-        """``make()`` once per parameter load (frozen serving weights)."""
+        """``make()``, cached while no parameter changes.  While autograd
+        records through trainable parameters the result is built anew
+        and never cached: it holds this step's graph."""
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in self.params.values()):
+            return make()
+        version = tuple(t._version for t in self.params.values())
         got = self._derived.get(key)
-        if got is None:
-            got = self._derived[key] = make()
-        return got
+        if got is None or got[0] != version:
+            got = self._derived[key] = (version, make())
+        return got[1]
 
     def cast(self, name):
         """Parameter ``name`` in the compute dtype."""

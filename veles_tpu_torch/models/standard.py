@@ -1,11 +1,13 @@
 """Chain builder — the port of ``veles_tpu/models/standard.make_forwards``
-for the LM chain's layer types."""
+for the LM chain's layer types and multi-head attention."""
 
+from veles_tpu_torch.models.attention import MultiHeadAttention
 from veles_tpu_torch.models.embedding import Embedding
 from veles_tpu_torch.models.transformer import TokenProjection, TransformerBlock
 
 #: layer-type names (the JAX package's spec keys) → unit classes
 LAYER_TYPES = {
+    "attention": MultiHeadAttention,
     "embedding": Embedding,
     "transformer_block": TransformerBlock,
     "token_logits": TokenProjection,

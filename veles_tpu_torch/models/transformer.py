@@ -1,5 +1,11 @@
-"""Pre-LN causal transformer block and the per-token logits head — the
-port of ``veles_tpu/models/transformer.py`` for serving (dense FFN).
+"""Pre-LN transformer block and the per-token logits head — the port
+of ``veles_tpu/models/transformer.py`` (dense FFN).
+
+:meth:`TransformerBlock.apply` is the training forward: its attention
+core is ``models/attention.attention_core`` with the JAX package's
+selection rule (the FlashAttention kernels on the card at head_dim %
+128 == 0).  Serving prefill keeps the plain masked softmax
+(:meth:`TransformerBlock._attend`), as the JAX prefill does.
 
 Every method keeps the JAX unit's dtype conventions so the two agree
 in float32 to rounding: projections take compute-dtype operands and
@@ -16,6 +22,7 @@ launches per layer per step; prefill keeps the policy matmul.
 
 import torch
 
+from veles_tpu_torch.models.attention import attention_core
 from veles_tpu_torch.models.nn_units import ForwardBase
 from veles_tpu_torch.ops import softmax
 from veles_tpu_torch.ops.gemm import int8_matmul, int8_weight_quantize
@@ -41,13 +48,15 @@ class TransformerBlock(ForwardBase):
               "ffn_b2")
 
     def __init__(self, heads=4, hidden=None, causal=True,
-                 int8_decode=False, device=None, dtype=None):
-        super().__init__(device=device, dtype=dtype)
-        if not causal:
-            raise ValueError("serving needs causal blocks")
+                 attn_block_size=None, attn_impl=None, int8_decode=False,
+                 device=None, dtype=None, **hyper):
+        super().__init__(device=device, dtype=dtype, **hyper)
         self.heads = int(heads)
         self.hidden = hidden     # None → 4·d
-        self.causal = True
+        self.causal = bool(causal)
+        #: attention core of :meth:`apply` (models/attention.py)
+        self.attn_block_size = attn_block_size
+        self.attn_impl = attn_impl
         #: weight-only int8 matmuls for the decode step's output
         #: projection and FFN (the weights quantize once, at first use)
         self.int8_decode = bool(int8_decode)
@@ -127,16 +136,23 @@ class TransformerBlock(ForwardBase):
     # -- full sequence -------------------------------------------------------
 
     def apply(self, x):
-        s = x.shape[1]
-        q, k, v = self._qkv(x)
-        ar = torch.arange(s, device=x.device)
-        return self._attn_tail(x, self._attend(q, k, v,
-                                               ar[None, :] <= ar[:, None]))
+        b, s, d = x.shape
+        q, k, v = (t.reshape(b, s, self.heads, d // self.heads)
+                   for t in self._qkv(x))
+        o = attention_core(q, k, v, self.causal, self.attn_block_size,
+                           self.attn_impl)
+        return self._attn_tail(x, o.reshape(b, s, d))
 
     # -- serving ---------------------------------------------------------------
 
+    def _require_causal(self):
+        if not self.causal:
+            raise ValueError("serving needs causal blocks (a KV cache "
+                             "holds only the past)")
+
     def init_cache(self, batch, max_len, dtype):
         """Zeroed K/V buffers, [batch, max_len, d] each."""
+        self._require_causal()
         d = self.d_model
         return {n: torch.zeros((batch, max_len, d), dtype=dtype,
                                device=self.device) for n in ("k", "v")}
@@ -186,6 +202,7 @@ class TransformerBlock(ForwardBase):
         ``kv_dtype="int8"`` stores them int8 with per-row f32 scales
         ``k_scale``/``v_scale`` [num_blocks, block_size] beside them
         (zero scales make the trash block dequantize to exact 0)."""
+        self._require_causal()
         if kv_dtype == "fp32":
             return self.init_cache(num_blocks, block_size, dtype)
         if kv_dtype != "int8":
@@ -224,8 +241,8 @@ class TokenProjection(ForwardBase):
     #: position-wise: a decode step applies it unchanged
     DECODE_POINTWISE = True
 
-    def __init__(self, vocab=None, device=None, dtype=None):
-        super().__init__(device=device, dtype=dtype)
+    def __init__(self, vocab=None, device=None, dtype=None, **hyper):
+        super().__init__(device=device, dtype=dtype, **hyper)
         if vocab is None:
             raise ValueError("vocab is required")
         self.vocab = int(vocab)

@@ -1,0 +1,50 @@
+"""RandomGenerator — one seed, two deterministic streams (the port of
+``veles_tpu/prng/random_generator.py``).
+
+- The host stream is ``numpy.random.Generator(PCG64(seed))``, as in
+  the JAX package, so a loader's shuffle order is the reference's for
+  the same seed.
+- The device stream is Threefry keys (:mod:`.threefry`):
+  :meth:`key` folds a monotone counter into ``key(seed)``, exactly the
+  keys ``jax.random.fold_in(jax.random.key(seed), counter)`` gives.
+"""
+
+import numpy
+
+from veles_tpu_torch.prng import threefry
+
+
+class RandomGenerator:
+    """Named reproducible RNG (default seed 42, as in the JAX
+    package)."""
+
+    def __init__(self, name="default", seed=None):
+        self.name = name
+        self.seed(42 if seed is None else seed)
+
+    def seed(self, seed):
+        """(Re)seed both streams."""
+        self._seed = int(seed)
+        self._counter = 0
+        self.np = numpy.random.Generator(numpy.random.PCG64(self._seed))
+        return self
+
+    # -- host stream ---------------------------------------------------------
+
+    def shuffle(self, arr):
+        """Permute a numpy array in place."""
+        self.np.shuffle(arr)
+
+    # -- device stream -------------------------------------------------------
+
+    def key(self, device=None):
+        """A fresh key ([2] int64 words); advances the counter."""
+        self._counter += 1
+        return threefry.fold_in(threefry.key(self._seed, device),
+                                self._counter)
+
+    def peek_key(self, offset=0, device=None):
+        """The key the (offset+1)-th future :meth:`key` call would
+        return, without advancing."""
+        return threefry.fold_in(threefry.key(self._seed, device),
+                                self._counter + 1 + offset)

@@ -1,0 +1,142 @@
+"""Language-model training — the port of ``veles_tpu/samples/lm.py``
+and of the chain ``bench.py``'s ``bench_lm`` trains:
+
+    Embedding → TransformerBlock × N → TokenProjection →
+    EvaluatorNextToken → GradientDescent
+
+over a :class:`MarkovLoader` (the procedural order-2 Markov corpus with
+its analytic unigram/bigram cross-entropy anchors) or any
+``FullBatchLoader`` of token sequences.  :func:`build_lm` wires the
+chain, evaluator, trainer and loader (``device=`` defaults to the
+card); :func:`train_lm` runs epochs of class spans and returns the
+per-epoch validation and train metrics.
+
+    from veles_tpu_torch.samples.lm import build_lm, train_lm
+    lm = build_lm(dim=256, heads=2, blocks=2, device="cpu")
+    history = train_lm(lm, epochs=4)
+"""
+
+import collections
+
+import numpy
+
+from veles_tpu_torch.convert import init_params
+from veles_tpu_torch.loader import TRAIN, VALID, FullBatchLoader
+from veles_tpu_torch.models.evaluator import EvaluatorNextToken
+from veles_tpu_torch.models.gd import GradientDescent
+
+
+def markov_corpus(n_seq, seq, vocab, seed=0, temp=1.5):
+    """Order-2 Markov token stream: logits[a, b, :] from a planted
+    low-rank tensor → transition matrix; returns tokens [n_seq, seq]
+    plus the analytic unigram/bigram cross-entropy anchors (nats).
+    The JAX package's generator, array for array."""
+    rng = numpy.random.default_rng(seed)
+    r = 8
+    u = rng.standard_normal((vocab, r))
+    v = rng.standard_normal((vocab, r))
+    w = rng.standard_normal((r, vocab))
+    logits = numpy.einsum("ar,br,rc->abc", u, v, w) / numpy.sqrt(r)
+    logits *= temp / logits.std()
+    p = numpy.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)                    # [V, V, V]
+    toks = numpy.empty((n_seq, seq), numpy.int32)
+    toks[:, 0] = rng.integers(0, vocab, n_seq)
+    toks[:, 1] = rng.integers(0, vocab, n_seq)
+    for t in range(2, seq):
+        rows = p[toks[:, t - 2], toks[:, t - 1]]     # [n_seq, V]
+        cdf = rows.cumsum(axis=1)
+        draws = rng.random((n_seq, 1))
+        toks[:, t] = (draws > cdf[:, :-1]).sum(axis=1)
+    flat = toks.reshape(-1)
+    uni = numpy.bincount(flat, minlength=vocab).astype(numpy.float64)
+    uni /= uni.sum()
+    h_uni = -(uni * numpy.log(numpy.clip(uni, 1e-12, None))).sum()
+    h_cond = -(p * numpy.log(numpy.clip(p, 1e-12, None))).sum(-1)
+    pairs = toks[:, :-1] * vocab + toks[:, 1:]
+    big = numpy.bincount(pairs.reshape(-1),
+                         minlength=vocab * vocab).astype(numpy.float64)
+    big /= big.sum()
+    h_big = (big.reshape(vocab, vocab) * h_cond).sum()
+    return toks, float(h_uni), float(h_big)
+
+
+class MarkovLoader(FullBatchLoader):
+    """Token sequences with planted Markov structure: ``n_valid``
+    validation then ``n_train`` train sequences (labels unused — the
+    next-token evaluator scores against the input)."""
+
+    def __init__(self, seq=128, vocab=64, n_train=8192, n_valid=512,
+                 minibatch_size=128, device=None):
+        toks, h_uni, h_big = markov_corpus(n_train + n_valid, seq, vocab)
+        super().__init__(toks, None, [0, n_valid, n_train],
+                         minibatch_size=minibatch_size, device=device)
+        #: a trained model's per-token CE should land between these
+        self.h_unigram_ = h_uni
+        self.h_bigram_ = h_big
+
+
+def lm_spec(vocab, dim, blocks, heads, **block):
+    """The layer spec of the LM chain (``samples/lm.py``, ``bench_lm``)."""
+    spec = [{"type": "embedding", "vocab": vocab, "dim": dim}]
+    spec += [dict({"type": "transformer_block", "heads": heads,
+                   "causal": True}, **block) for _ in range(blocks)]
+    return spec + [{"type": "token_logits", "vocab": vocab}]
+
+
+LM = collections.namedtuple("LM", "chain evaluator trainer loader")
+
+
+def build_lm(vocab=64, dim=128, blocks=2, heads=4, seq=128, loader=None,
+             n_train=8192, n_valid=512, minibatch_size=128, solver="adam",
+             learning_rate=1e-3, lr_schedule="cosine", lr_schedule_params=None,
+             device=None, dtype=None, **trainer_kwargs):
+    """The LM workflow's pieces: a chain with fresh weights from seed 0
+    (positional table ``seq`` rows), the next-token
+    evaluator, the trainer (the sample's defaults: Adam, lr 1e-3,
+    cosine over 3800 steps to 0.05 after 150 warm-up steps) and
+    ``loader`` (default: a :class:`MarkovLoader` of ``n_train`` +
+    ``n_valid`` sequences)."""
+    if loader is None:
+        loader = MarkovLoader(seq, vocab, n_train, n_valid,
+                              minibatch_size=minibatch_size, device=device)
+    chain = init_params(lm_spec(vocab, dim, blocks, heads), 0, seq,
+                        device=device, dtype=dtype)
+    if lr_schedule_params is None and lr_schedule == "cosine":
+        lr_schedule_params = {"total_steps": 3800, "floor": 0.05,
+                              "warmup": 150}
+    evaluator = EvaluatorNextToken()
+    trainer = GradientDescent(chain, evaluator, solver=solver,
+                              learning_rate=learning_rate,
+                              lr_schedule=lr_schedule,
+                              lr_schedule_params=lr_schedule_params,
+                              **trainer_kwargs)
+    return LM(chain, evaluator, trainer, loader)
+
+
+def train_lm(lm, epochs):
+    """Run ``epochs`` epochs (every class span of the loader once, in
+    the order test, validation, train); returns one dict per epoch
+    with the per-token ``validation_loss`` / ``train_loss`` (nats) and
+    error percentages where the epoch had such samples.  Stops early
+    when the trainer's health policy halts."""
+    loader, trainer = lm.loader, lm.trainer
+    history = []
+    for _ in range(epochs):
+        while True:
+            loader.serve_span()
+            trainer.run_span(loader)
+            if loader.train_ended or trainer.halted:
+                break
+        acc = trainer.read_epoch_acc(reset_classes=(0, 1, 2))
+        row = {"epoch": int(loader.epoch_number),
+               "step": trainer.global_step}
+        for cls, name in ((VALID, "validation"), (TRAIN, "train")):
+            n_err, loss_sum, samples = acc[cls]
+            if samples:
+                row[name + "_loss"] = loss_sum / samples
+                row[name + "_error_pct"] = 100.0 * n_err / samples
+        history.append(row)
+        if trainer.halted:
+            break
+    return history

@@ -9,47 +9,56 @@ an all-zero table) write into and read from the trash block.
 
 Sampling is row-wise.  Greedy rows (temperature 0) take the argmax —
 the same token the JAX package picks from the same logits.  Sampling
-rows draw from a per-request ``torch.Generator`` seeded from
-``(seed, count)``, so a request's stream is reproducible per seed
-whatever slot or batch it rides — but it is NOT the JAX package's
-threefry stream (``fold_in(key(seed), count)``); seeded streams of the
-two packages differ.
+rows draw token ``t`` of a request with seed ``s`` from the Threefry
+key ``fold_in(key(s), t)`` by the Gumbel-argmax draw
+(``prng/threefry.py``): the JAX package's stream, whatever slot or
+batch the request rides.
 """
 
 import numpy
 import torch
 
+from veles_tpu_torch.prng import threefry
 
-def _generator(device, seed, count):
-    g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
-                  | (int(count) & 0xFFFFFFFF))
-    return g
+
+def _fold_keys(seeds, counts, device):
+    """Per-request stream keys [B, 2]: each request's draw counter
+    folded into its seed's key."""
+    return threefry.fold_in(
+        threefry.key(torch.as_tensor(numpy.asarray(seeds, numpy.int64),
+                                     device=device)),
+        torch.as_tensor(numpy.asarray(counts, numpy.int64), device=device))
 
 
 def sample_slots(logits, temps, topks, seeds, counts):
     """Per-row next-token sampler over ``logits`` [B, vocab] f32:
     rows with ``temps[n] == 0`` take the greedy argmax; sampling rows
     draw categorical(logits / temp) restricted to the row's top-k
-    (0 = full vocab; ties with the k-th value stay in), from the
-    generator of ``(seeds[n], counts[n])``.  ``temps``/``topks``/
-    ``seeds``/``counts`` are host sequences.  Returns [B] int64 on
-    the logits' device."""
-    out = torch.argmax(logits, dim=-1)
-    v = logits.shape[-1]
-    for n, temp in enumerate(temps):
-        if temp <= 0:
-            continue
-        z = logits[n].to(torch.float32) / max(float(temp), 1e-6)
-        k = int(topks[n])
-        if k > 0:
-            kth = torch.sort(z).values[max(v - k, 0)]
-            z = z.masked_fill(z < kth, float("-inf"))
-        probs = torch.softmax(z, dim=-1)
-        out[n] = torch.multinomial(
-            probs, 1, generator=_generator(z.device, seeds[n],
-                                           counts[n]))[0]
-    return out
+    (0 = full vocab; ties with the k-th value stay in) with the key of
+    ``(seeds[n], counts[n])``.  ``temps``/``topks``/``seeds``/
+    ``counts`` are host sequences.  Returns [B] int64 on the logits'
+    device.  Only the sampling rows are drawn, and the top-k sort runs
+    only when one of them sets a k."""
+    dev = logits.device
+    logits = logits.to(torch.float32)
+    tokens = torch.argmax(logits, dim=-1)
+    temps = numpy.asarray(temps, numpy.float32)
+    rows = numpy.flatnonzero(temps > 0)
+    if not rows.size:
+        return tokens
+    topks = numpy.asarray(topks, numpy.int64)[rows]
+    idx = torch.as_tensor(rows, device=dev)
+    z = logits[idx] / torch.as_tensor(numpy.maximum(temps[rows], 1e-6),
+                                      device=dev)[:, None]
+    if (topks > 0).any():
+        v = z.shape[-1]
+        kth = torch.sort(z, dim=-1).values.gather(-1, torch.as_tensor(
+            numpy.clip(v - topks, 0, v - 1), device=dev)[:, None])
+        keep_all = torch.as_tensor(topks <= 0, device=dev)[:, None]
+        z = z.masked_fill(~keep_all & (z < kth), float("-inf"))
+    keys = _fold_keys(numpy.asarray(seeds)[rows],
+                      numpy.asarray(counts)[rows], dev)
+    return tokens.index_copy(0, idx, threefry.categorical(keys, z))
 
 
 def sample_first(logits, temps, topks, seeds, counts):
