@@ -43,7 +43,30 @@ result line):
    random tokens): 2 warm-up steps, then 5 timed steps with the
    attention kernels' counts zeroed just before and read just after —
    each must launch once per layer per step — then one step under
-   ``torch.profiler``.
+   ``torch.profiler``;
+8. LRN and uniform kernels — ``lrn_fwd``/``lrn_bwd`` against their
+   plain versions element by element (LRN_TOL) in bf16 at AlexNet's two
+   LRN shapes at batch 1024 and in f32 at odd ones (7, 96 and 256
+   channels, n 3/4/5, beta 0.5/0.75), with two planted faults (the
+   forward's window shifted by one channel, the backward's transposed
+   window not mirrored for an even n) failing the same rule;
+   ``uniform_fill`` bit-equal to its plain version over 4,000,003
+   floats, once at index 0 and once across 2**32 (the count's high
+   word); each timed beside its plain version and a library call;
+9. AlexNet witness — a narrow AlexNet-shaped chain (side 67, widths
+   8/16/24/24/16, FC 32, 10 classes, dropout 0.5, f32) trains one span
+   of 3 SGD steps on the card through the kernels and on the CPU
+   through the plain versions from the same weights: the synthetic
+   datasets and all six dropout masks bit-equal, the losses and weights
+   within WITNESS_LOSS / WITNESS_W;
+10. AlexNet — ``samples/alexnet.py`` at ``bench_alexnet``'s
+   configuration (batch 1024, 227², 1000 classes, 4096 synthetic
+   samples drawn on the card by ``uniform_fill``, bf16, SGD lr 0.01
+   momentum 0.9 weights decay 0.0005, dropout 0.5; random weights from
+   seed 0): 2 warm-up steps, then 5 timed steps with the counts zeroed
+   just before and read just after — ``lrn_fwd``, ``lrn_bwd`` and
+   ``uniform_fill`` must each launch twice per step — then one step
+   under ``torch.profiler``.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -88,12 +111,42 @@ FLASH_CASES = [(T_BATCH, T_SEQ, T_SEQ, T_HEADS, T_DIM // T_HEADS,
                (1, 130, 200, 2, 128, "float32", True),
                (1, 77, 50, 2, 128, "float32", True)]
 
+#: AlexNet at ``bench.py``'s ``bench_alexnet`` configuration
+A_BATCH, A_SIDE, A_CLASSES, A_TRAIN, A_FC = 1024, 227, 1000, 4096, 4096
+#: AlexNet's two LRN layers at batch 1024 (NHWC)
+LRN_SHAPES = ((A_BATCH, 55, 55, 96), (A_BATCH, 27, 27, 256))
+#: LRN kernel-vs-plain limits (tol, floor), held element by element as
+#: FLASH_TOL is: bf16 one step (both sides round their f32 result once;
+#: a value within rounding of a step boundary may land one step apart),
+#: f32 1e-5 (the card's rsqrt and pow against the plain version's, a few
+#: ulps)
+LRN_TOL = {"bfloat16": (2.0 ** -7, 1e-7), "float32": (1e-5, 1e-7)}
+#: LRN check inputs: scale 50 with alpha 1e-4 makes the window sum as
+#: large as k, so a kernel that sums the wrong window fails the check
+#: (at unit scale k dominates and a window fault moves y by ~1e-5)
+LRN_SCALE = 50.0
+#: 32-bit integer operations per uniform element: the index split (2),
+#: the initial key add (2), 20 rounds of add, rotate and xor (60), 5 key
+#: injections (10), the final xor, shift, or and float subtract (4)
+THREEFRY_OPS = 78
+#: the narrow AlexNet-shaped witness chain (card against CPU)
+W_SIDE, W_WIDTHS, W_CLASSES, W_TRAIN, W_BATCH = 67, (8, 16, 24, 24, 16,
+                                                     32), 10, 12, 4
+#: card-vs-CPU limits of the witness after its 3 steps: loss sum
+#: (relative) and weights (absolute).  Measured on an H100: 8.2e-8 and
+#: 3.0e-8 (f32 sums in another order; softplus has no kink to flip)
+WITNESS_LOSS, WITNESS_W = 1e-6, 1e-6
+
 #: device-memory rate (bytes/s) by card name (NVIDIA data sheets)
 HBM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
             ("H100", 3.35e12))
 #: dense peak (operations/s) of the inputs' type (NVIDIA's H100 SXM
-#: data sheet): bf16 tensor cores, f32 outside them
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+#: data sheet): bf16 tensor cores, f32 outside them; int32 from the same
+#: f32 figure (67e12 = 128 lanes x 2 flops of a fused multiply-add per
+#: SM and clock) as the issue limit: an SM issues at most 4 warp
+#: instructions (128 lanes) per clock, whichever pipe runs them, so
+#: 32-bit integer operations cannot exceed half the f32 flop rate
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int32": 67e12 / 2}
 
 
 def log(*args):
@@ -534,14 +587,15 @@ def reference_check(torch, dev):
 
 def _span_steps(torch, gd, loader, rows):
     """Train minibatches ``rows`` of the loader's current span one at a
-    time (``GradientDescent.run_minibatch``); returns their losses."""
+    time (``GradientDescent.run_minibatch``, the samples' labels as the
+    targets); returns their losses."""
     from veles_tpu_torch.loader import TRAIN
     idx = torch.as_tensor(loader.span_indices_).long().to(gd.device)
     losses = []
     for k in rows:
-        x = loader.dataset_dev[idx[k]]
-        loss, _, _ = gd.run_minibatch(x, x, int(loader.span_sizes_[k]),
-                                      TRAIN)
+        loss, _, _ = gd.run_minibatch(
+            loader.dataset_dev[idx[k]], loader.labels_dev[idx[k]],
+            int(loader.span_sizes_[k]), TRAIN)
         losses.append(loss)
     return losses
 
@@ -782,7 +836,9 @@ def train_check(torch, dev):
     if launches != dict.fromkeys(launches, T_LAYERS * T_STEPS):
         raise SystemExit("train: %d steps launched %s (want %d of each)"
                          % (T_STEPS, launches, T_LAYERS * T_STEPS))
-    prof = profile_train(torch, gd, loader)
+    k = T_WARM + T_STEPS
+    prof = profile_step(torch, lambda: _span_steps(torch, gd, loader,
+                                                   range(k, k + 1)))
     log(json.dumps({"train": {
         "steps": T_STEPS, "step_ms": 1e3 * wall / T_STEPS,
         "tokens_per_s": T_STEPS * T_BATCH * T_SEQ / wall,
@@ -792,15 +848,15 @@ def train_check(torch, dev):
     return {"launches": launches}
 
 
-def profile_train(torch, gd, loader):
-    """One more step under ``torch.profiler``: wall time, device busy
-    time (kernels' self time summed), idle share, top kernels."""
+def profile_step(torch, step):
+    """One more training step (``step()``) under ``torch.profiler``:
+    wall time, device busy time (kernels' self time summed), idle
+    share, top kernels."""
     from torch.profiler import ProfilerActivity, profile
-    k = T_WARM + T_STEPS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _span_steps(torch, gd, loader, range(k, k + 1))
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -812,6 +868,373 @@ def profile_train(torch, gd, loader):
             "top_kernels": [[e.key[:60], e.count,
                              e.self_device_time_total / 1e3]
                             for e in top]}
+
+
+# -- phase 8: LRN and uniform kernels -----------------------------------------
+
+def lrn_excess(got, want):
+    """:func:`flash_excess` with LRN_TOL's limits."""
+    tol, floor = LRN_TOL[str(want.dtype).rsplit(".", 1)[-1]]
+    got, want = got.float(), want.float()
+    lim = tol * (want.abs() + want.square().mean().sqrt()) + floor
+    return float(((got - want).abs() / lim).max())
+
+
+def lrn_faults(mod, x, dy, kw):
+    """What the plain versions give for two kernel faults: the forward
+    with its window shifted one channel up, and the backward summing
+    ``t`` over the forward window instead of its mirror image (the same
+    for odd n, another window for even n)."""
+    alpha, beta, n, k = kw["alpha"], kw["beta"], kw["n"], kw["k"]
+    half = n // 2
+    s = k + alpha * mod._window_sum((x * x).float(), half - 1, n - half)
+    shifted = (x.float() * mod._power(s, beta)).to(x.dtype)
+    s = mod._denominator(x, alpha, n, k)
+    p = mod._power(s, beta)
+    xf, dyf = x.float(), dy.float()
+    t = (dyf * xf * (p / s)).to(x.dtype).float()
+    u = mod._window_sum(t, half, n - 1 - half)
+    unmirrored = (dyf * p - (2.0 * alpha * beta) * xf * u).to(x.dtype)
+    return {"lrn_fwd": ("window shifted by one", shifted),
+            "lrn_bwd": ("transposed window not mirrored", unmirrored)}
+
+
+def check_lrn(torch, dev, rate):
+    """Both LRN kernels against their plain versions: bf16 at AlexNet's
+    two shapes, f32 at 18 odd ones; the planted faults of
+    :func:`lrn_faults` must fail the rule where they change the result
+    (the shifted window at the bf16 shapes, the unmirrored window at the
+    even-n f32 shapes).  Then timed at AlexNet's shapes."""
+    from veles_tpu_torch.ops import lrn as mod
+    gen = torch.Generator(device=dev).manual_seed(8)
+    errs = {"lrn_fwd": 0.0, "lrn_bwd": 0.0}
+    cases = [(shape, "bfloat16", 5, 0.75) for shape in LRN_SHAPES]
+    cases += [((3, 13, 11, c), "float32", n, beta) for c in (7, 96, 256)
+              for n in (3, 4, 5) for beta in (0.5, 0.75)]
+    for shape, dt, n, beta in cases:
+        dtype = getattr(torch, dt)
+        x = (torch.randn(shape, device=dev, generator=gen)
+             * LRN_SCALE).to(dtype)
+        dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        kw = dict(alpha=1e-4, beta=beta, n=n, k=2.0)
+        got = {"lrn_fwd": mod.lrn_fwd(x, **kw),
+               "lrn_bwd": mod.lrn_bwd(x, dy, **kw)}
+        want = {"lrn_fwd": mod.lrn_plain(x, **kw),
+                "lrn_bwd": mod.lrn_bwd_plain(x, dy, **kw)}
+        faults = lrn_faults(mod, x, dy, kw)
+        if dt == "float32":
+            faults.pop("lrn_fwd")
+            if n % 2:
+                faults.pop("lrn_bwd")
+        else:
+            faults.pop("lrn_bwd")
+        torch.cuda.synchronize()
+        for name in got:
+            err = float((got[name].float() - want[name].float()).abs().max())
+            excess = lrn_excess(got[name], want[name])
+            if dt == "bfloat16" or excess > 0.5:
+                log("%s %s %s n=%d beta=%g max_abs_err=%.3g, %.3g of the "
+                    "limit" % (name, shape, dt, n, beta, err, excess))
+            if not excess <= 1.0:
+                raise SystemExit("%s disagrees with its plain version at "
+                                 "%s %s n=%d beta=%g: %.3g of the limit"
+                                 % (name, shape, dt, n, beta, excess))
+            errs[name] = max(errs[name], err)
+            if name in faults:
+                fault, bad = faults[name]
+                excess = lrn_excess(bad, want[name])
+                if dt == "bfloat16" or n == 4:
+                    log("%s %s %s n=%d planted fault (%s): %.3g of the "
+                        "limit" % (name, shape, dt, n, fault, excess))
+                if not excess > 1.0:
+                    raise SystemExit("%s: the check passes a planted fault "
+                                     "(%s) at %s" % (name, fault, shape))
+        del x, dy, got, want, faults
+    log("lrn: %d cases within LRN_TOL" % len(cases))
+    return time_lrn(torch, dev, rate, errs)
+
+
+def time_lrn(torch, dev, rate, errs):
+    """Each LRN kernel at AlexNet's two shapes (bf16, batch 1024) beside
+    its plain version and ``F.local_response_norm`` on the channels-last
+    view (alpha scaled by n: torch divides the window sum by its size;
+    its backward through autograd).  Times and bounds are per training
+    step: both layers' launches summed.  Bounds: each input read once,
+    each output written once; a few f32 operations per element."""
+    from veles_tpu_torch.ops import lrn as mod
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kw = dict(alpha=1e-4, beta=0.75, n=5, k=2.0)
+    out = {"lrn_fwd": dict.fromkeys(("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bytes"), 0.0),
+           "lrn_bwd": dict.fromkeys(("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bytes"), 0.0)}
+    before = dict(mod.launches)
+    for shape in LRN_SHAPES:
+        x = (torch.randn(shape, device=dev, generator=gen)
+             * LRN_SCALE).to(torch.bfloat16)
+        dy = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        lx = x.permute(0, 3, 1, 2).requires_grad_(True)
+        ly = F.local_response_norm(lx, kw["n"], kw["alpha"] * kw["n"],
+                                   kw["beta"], kw["k"])
+        ldy = dy.permute(0, 3, 1, 2)
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.local_response_norm(lx, kw["n"], kw["alpha"] * kw["n"],
+                                      kw["beta"], kw["k"])
+
+        def lib_bwd():
+            torch.autograd.grad(ly, lx, ldy, retain_graph=True)
+
+        numel, es = x.numel(), x.element_size()
+        work = {"lrn_fwd": (2 * numel * es, (kw["n"] + 7) * numel,
+                            lambda: mod.lrn_fwd(x, **kw),
+                            lambda: mod.lrn_plain(x, **kw), lib_fwd),
+                "lrn_bwd": (3 * numel * es, (2 * kw["n"] + 15) * numel,
+                            lambda: mod.lrn_bwd(x, dy, **kw),
+                            lambda: mod.lrn_bwd_plain(x, dy, **kw), lib_bwd)}
+        for name, (nbytes, ops, kernel, plain, library) in work.items():
+            b_ms, b_by = bound(nbytes, ops, "float32", rate)
+            got = {"ms": time_ms(torch, kernel, reps=10),
+                   "plain_ms": time_ms(torch, plain, reps=3),
+                   "library_ms": time_ms(torch, library, reps=5),
+                   "bound_ms": b_ms, "bytes": nbytes}
+            log("%s %s bf16: %.4f ms (bound %.4f ms by %s, plain %.3f ms, "
+                "library %.3f ms)" % (name, shape, got["ms"], b_ms, b_by,
+                                      got["plain_ms"], got["library_ms"]))
+            for key, v in got.items():
+                out[name][key] += v
+            out[name]["bound_by"] = b_by
+        del x, dy, lx, ly, ldy
+    mod.launches.update(before)        # timing launches are not the path's
+    for name in out:
+        out[name]["max_abs_err"] = errs[name]
+    return out
+
+
+def check_uniform(torch, dev, rate):
+    """``uniform_fill`` bit-equal to its plain version over 4,000,003
+    floats from index 0 and from 2**32 - 10**6 (the count's high word
+    turns 1 inside the draw); then timed at a dropout mask's shape
+    [1024, 4096] (the fields of the kernels line: the shape the training
+    step launches it at) beside the plain version and ``torch.rand``,
+    and at the synthetic dataset's shape [4096, 227, 227, 3] beside
+    ``torch.rand``.  Bound: THREEFRY_OPS int32 operations per element
+    against the float written."""
+    from veles_tpu_torch.ops import random as mod
+    from veles_tpu_torch.prng import threefry
+    k = threefry.fold_in(threefry.key(42), 3)
+    n = 4_000_003
+    for offset in (0, 2 ** 32 - 10 ** 6):
+        got = mod.uniform_fill(k, (n,), dev, offset=offset)
+        want = mod.uniform_plain(k.to(dev), (n,), offset=offset)
+        torch.cuda.synchronize()
+        same = int((got.view(torch.int32) == want.view(torch.int32)).sum())
+        log("uniform_fill n=%d offset=%d: %d of %d floats bit-equal"
+            % (n, offset, same, n))
+        if same != n:
+            raise SystemExit("uniform_fill disagrees with its plain version "
+                             "(offset %d)" % offset)
+    del got, want
+    before = mod.launches
+    mask = (A_BATCH, A_FC)
+    data = (A_TRAIN, A_SIDE, A_SIDE, 3)
+
+    def fields(shape, plain):
+        numel = 1
+        for d in shape:
+            numel *= d
+        b_ms, b_by = bound(4 * numel, THREEFRY_OPS * numel, "int32", rate)
+        out = {"ms": time_ms(torch, lambda: mod.uniform_fill(k, shape, dev),
+                             reps=5),
+               "library_ms": time_ms(torch, lambda: torch.rand(
+                   shape, device=dev), reps=5),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": 4 * numel,
+               "ops": THREEFRY_OPS * numel}
+        if plain:
+            kd = k.to(dev)
+            out["plain_ms"] = time_ms(
+                torch, lambda: mod.uniform_plain(kd, shape), reps=3)
+        return out
+
+    out = fields(mask, True)
+    ds = fields(data, False)
+    mod.launches = before
+    out.update(max_abs_err=0.0, dataset_ms=ds["ms"],
+               dataset_library_ms=ds["library_ms"],
+               dataset_bound_ms=ds["bound_ms"])
+    log("uniform_fill %s: %.4f ms (bound %.4f ms by %s, plain %.3f ms, "
+        "torch.rand %.4f ms); %s: %.3f ms (bound %.3f ms by %s, torch.rand "
+        "%.3f ms)" % (mask, out["ms"], out["bound_ms"], out["bound_by"],
+                      out["plain_ms"], out["library_ms"], data, ds["ms"],
+                      ds["bound_ms"], ds["bound_by"], ds["library_ms"]))
+    return {"uniform_fill": out}
+
+
+# -- phase 9: AlexNet witness -------------------------------------------------
+
+def _record_masks(net):
+    """Keep every dropout mask the chain draws (on the host) in a list."""
+    import types
+    from veles_tpu_torch.models.dropout import DropoutForward
+    masks = []
+
+    def mask(self, x, key):
+        m = DropoutForward.mask(self, x, key)
+        masks.append(m.cpu())
+        return m
+
+    for u in net.chain:
+        if isinstance(u, DropoutForward):
+            u.mask = types.MethodType(mask, u)
+    return masks
+
+
+def alexnet_witness(torch, dev):
+    """The narrow AlexNet-shaped chain trains one span of 3 steps on the
+    card (kernels) and on the CPU (plain versions) from the same weights
+    (seed 3) and trainer seed: the datasets (drawn by ``uniform_fill`` on
+    the card) and the six dropout masks must be bit-equal, the loss sum
+    of the span within WITNESS_LOSS relative and the weights within
+    WITNESS_W."""
+    from veles_tpu_torch.convert import params_to_numpy
+    from veles_tpu_torch.ops import lrn as lrn_mod, random as rnd
+    from veles_tpu_torch.samples.alexnet import build_alexnet
+    runs = {}
+    for d in (dev, "cpu"):
+        launched = (dict(lrn_mod.launches), rnd.launches)
+        net = build_alexnet(minibatch_size=W_BATCH, side=W_SIDE,
+                            classes=W_CLASSES, n_train=W_TRAIN, n_valid=0,
+                            widths=W_WIDTHS, seed=3, device=d,
+                            dtype="float32")
+        masks = _record_masks(net)
+        net.loader.serve_span()
+        _, _, health = net.trainer.run_span(net.loader)
+        acc = net.trainer.read_epoch_acc()[2]
+        runs[str(d)] = dict(
+            data=net.loader.dataset_dev.cpu(), masks=masks, acc=acc,
+            health=health.cpu().double(), params=params_to_numpy(net.chain),
+            launches={n: lrn_mod.launches[n] - launched[0][n]
+                      for n in launched[0]})
+        runs[str(d)]["launches"]["uniform_fill"] = rnd.launches - launched[1]
+    card, cpu = runs[str(dev)], runs["cpu"]
+    want = {"lrn_fwd": 6, "lrn_bwd": 6, "uniform_fill": 7}
+    if card["launches"] != want or any(cpu["launches"].values()):
+        raise SystemExit("witness: launched %s on the card, %s on the CPU "
+                         "(want %s and none)" % (card["launches"],
+                                                 cpu["launches"], want))
+    if not torch.equal(card["data"].view(torch.int16),
+                       cpu["data"].view(torch.int16)):
+        raise SystemExit("witness: the card's synthetic dataset differs")
+    if len(card["masks"]) != 6 or not all(
+            torch.equal(a, b) for a, b in zip(card["masks"], cpu["masks"])):
+        raise SystemExit("witness: the dropout masks differ")
+    loss_err = abs(card["acc"][1] - cpu["acc"][1]) / abs(cpu["acc"][1])
+    w_err = max(float(numpy.abs(card["params"][i][n]
+                                - cpu["params"][i][n]).max())
+                for i in cpu["params"] for n in cpu["params"][i])
+    log("witness: datasets and 6 dropout masks bit-equal; span loss sum "
+        "%.9g (card) vs %.9g (CPU), %.3g relative; weights max_abs_err="
+        "%.3g; health %s vs %s" % (card["acc"][1], cpu["acc"][1], loss_err,
+                                    w_err, card["health"].tolist(),
+                                    cpu["health"].tolist()))
+    if not loss_err <= WITNESS_LOSS or not w_err <= WITNESS_W:
+        raise SystemExit("witness: card and CPU training disagree")
+
+
+# -- phase 10: AlexNet --------------------------------------------------------
+
+def _minibatches(torch, loader, device):
+    """(x, labels, size) of the loader's train minibatches, span after
+    span."""
+    while True:
+        loader.serve_span()
+        idx = torch.as_tensor(loader.span_indices_).long().to(device)
+        idx = idx.clamp(0, loader.dataset_dev.shape[0] - 1)
+        for k, size in enumerate(loader.span_sizes_):
+            yield (loader.dataset_dev[idx[k]], loader.labels_dev[idx[k]],
+                   int(size))
+
+
+def alexnet_check(torch, dev):
+    """``bench_alexnet``'s configuration through ``samples/alexnet.py``:
+    the dataset drawn on the card (its first sample held bit-equal to
+    the plain draw), 2 warm-up and 5 timed SGD steps
+    (``run_minibatch``) with the kernels' counts zeroed just before and
+    read just after, then one profiled step.  Returns the counts."""
+    from veles_tpu_torch.loader import TRAIN
+    from veles_tpu_torch.ops import lrn as lrn_mod, random as rnd
+    from veles_tpu_torch.prng import threefry
+    from veles_tpu_torch.samples.alexnet import ImagenetLoader, build_alexnet
+    torch.cuda.synchronize()
+    before = rnd.launches
+    t0 = time.perf_counter()
+    loader = ImagenetLoader(A_SIDE, A_CLASSES, A_TRAIN, 0,
+                            minibatch_size=A_BATCH, device=dev)
+    torch.cuda.synchronize()
+    synth_ms = 1e3 * (time.perf_counter() - t0)
+    ds = loader.dataset_dev
+    label = torch.tensor(float(numpy.random.default_rng(42).integers(
+        0, A_CLASSES)), dtype=torch.float32, device=dev)
+    first = (threefry.uniform(threefry.key(42).to(dev),
+                              (1, A_SIDE, A_SIDE, 3))
+             + label / A_CLASSES).to(torch.bfloat16)
+    if rnd.launches - before != 1 or tuple(ds.shape) != (
+            A_TRAIN, A_SIDE, A_SIDE, 3) or ds.dtype != torch.bfloat16 \
+            or not torch.equal(ds[:1].view(torch.int16),
+                               first.view(torch.int16)):
+        raise SystemExit("alexnet: the synthetic dataset is not the plain "
+                         "draw's (%d launches, %s %s)"
+                         % (rnd.launches - before, tuple(ds.shape), ds.dtype))
+    net = build_alexnet(minibatch_size=A_BATCH, side=A_SIDE,
+                        classes=A_CLASSES, n_train=A_TRAIN, loader=loader,
+                        device=dev, dtype="bfloat16")
+    gd = net.trainer
+    n_params = sum(t.numel() for u in net.chain for t in u.params.values())
+    log("alexnet: %d parameters, dataset %s bf16 drawn in %.1f ms"
+        % (n_params, tuple(ds.shape), synth_ms))
+    batches = _minibatches(torch, loader, dev)
+
+    def steps(n):
+        out = []
+        for _ in range(n):
+            x, labels, size = next(batches)
+            loss, _, health = gd.run_minibatch(x, labels, size, TRAIN)
+            out.append((loss, health))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    warm = steps(T_WARM)
+    torch.cuda.synchronize()
+    for name in lrn_mod.launches:
+        lrn_mod.launches[name] = 0
+    rnd.launches = 0
+    t0 = time.perf_counter()
+    timed = steps(T_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lrn_mod.launches, uniform_fill=rnd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(loss) for loss, _ in warm + timed]
+    health = timed[-1][1].cpu().tolist()
+    if not all(numpy.isfinite(losses)) or not all(numpy.isfinite(health)):
+        raise SystemExit("alexnet: non-finite losses %s or health %s"
+                         % (losses, health))
+    if launches != dict.fromkeys(launches, 2 * T_STEPS):
+        raise SystemExit("alexnet: %d steps launched %s (want %d of each)"
+                         % (T_STEPS, launches, 2 * T_STEPS))
+    prof = profile_step(torch, lambda: steps(1))
+    log(json.dumps({"alexnet": {
+        "steps": T_STEPS, "batch": A_BATCH, "step_ms": 1e3 * wall / T_STEPS,
+        "samples_per_s": T_STEPS * A_BATCH / wall,
+        "max_memory_allocated_gb": peak / 1e9,
+        "dataset_synthesis_ms": synth_ms, "losses": losses,
+        "health": health,
+        "launches_per_step": {n: v / T_STEPS for n, v in launches.items()},
+        "parameters": n_params}}))
+    log(json.dumps({"alexnet_profile": prof}))
+    return {"launches": launches}
 
 
 def main():
@@ -842,6 +1265,10 @@ def main():
     learns(torch, dev)
     launches = serve_check(torch, dev)["launches"]
     launches.update(train_check(torch, dev)["launches"])
+    measured.update(check_lrn(torch, dev, rate))
+    measured.update(check_uniform(torch, dev, rate))
+    alexnet_witness(torch, dev)
+    launches.update(alexnet_check(torch, dev)["launches"])
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -849,6 +1276,9 @@ def main():
         "flash_attn_fwd": ("flash_attention.cu", "pallas_attention.py:179"),
         "flash_attn_dq": ("flash_attention.cu", "pallas_attention.py:330"),
         "flash_attn_dkv": ("flash_attention.cu", "pallas_attention.py:352"),
+        "lrn_fwd": ("lrn.cu", "lrn.py:200"),
+        "lrn_bwd": ("lrn.cu", "lrn.py:217"),
+        "uniform_fill": ("uniform.cu", "random.py:41"),
     }
     kernels = [dict(name=name, route="cuda",
                     source="veles_tpu_torch/csrc/" + src,

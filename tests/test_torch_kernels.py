@@ -1,12 +1,14 @@
 """The port's hand-written CUDA kernels held against their plain
 PyTorch versions ON THE CARD, at the serving model's width (d=1024,
-8 heads, block 16).  The kernels have no CPU mode, so without a CUDA
-device every test here skips.  This file imports no jax (the card's
-machine has none): run it there with
-``python -m pytest tests/test_torch_kernels.py -q``.
+8 heads, block 16), at the training shapes of the attention kernels,
+at AlexNet's LRN shapes and odd ones, and the uniform fill bit for bit.
+The kernels have no CPU mode, so without a CUDA device every test here
+skips.  This file imports no jax (the card's machine has none): run it
+there with ``python -m pytest tests/test_torch_kernels.py -q``.
 
 Tolerances: bf16 queries/activations 2e-3, f32 1e-5 — both sides
-compute in f32, only the order of the sums differs."""
+compute in f32, only the order of the sums differs; the attention and
+LRN kernels element by element (``_flash_excess``, ``_lrn_excess``)."""
 
 import numpy
 import pytest
@@ -171,3 +173,92 @@ def test_flash_attention_function_on_the_card(card):
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
     with pytest.raises(ValueError, match="head_dim 64 is not built"):
         fa.flash_fwd(*(torch.zeros((1, 4, 1, 64), device=card),) * 3)
+
+
+#: (shape, dtype, n, beta): AlexNet's two LRN layers at a batch of 8
+#: (bf16), then odd float32 ones — 7 channels, an even window, rows that
+#: straddle the kernel's 2048-element tiles
+LRN_CASES = [((8, 55, 55, 96), torch.bfloat16, 5, 0.75),
+             ((8, 27, 27, 256), torch.bfloat16, 5, 0.75),
+             ((3, 13, 11, 7), torch.float32, 3, 0.5),
+             ((2, 9, 96), torch.float32, 4, 0.75),
+             ((5, 3, 256), torch.float32, 5, 0.5),
+             ((700, 7), torch.float32, 4, 0.5)]
+#: inputs of scale 50 with alpha 1e-4: the window sum (~1.3) is as large
+#: as k, so a kernel that sums the wrong window fails the check
+LRN_SCALE, LRN_KW = 50.0, dict(alpha=1e-4, k=2.0)
+
+
+def _lrn_excess(got, want):
+    """As :func:`_flash_excess` with LRN's limits: bf16 one step (2**-7)
+    of tol, f32 1e-5, floor 1e-7 (both sides round once; f32 differs by
+    the card's rsqrt/pow against the CPU's)."""
+    tol, floor = (2.0 ** -7, 1e-7) if want.dtype == torch.bfloat16 \
+        else (1e-5, 1e-7)
+    got, want = got.float(), want.float()
+    lim = tol * (want.abs() + want.square().mean().sqrt()) + floor
+    return float(((got - want).abs() / lim).max())
+
+
+@pytest.mark.parametrize("case", LRN_CASES, ids=str)
+def test_lrn_kernels_match_plain(card, case):
+    from veles_tpu_torch.ops import lrn as mod
+    shape, dtype, n, beta = case
+    gen = torch.Generator(device="cpu").manual_seed(len(shape) * 100 + n)
+    x = (torch.randn(shape, generator=gen) * LRN_SCALE).to(card, dtype)
+    dy = torch.randn(shape, generator=gen).to(card, dtype)
+    kw = dict(LRN_KW, beta=beta, n=n)
+    before = dict(mod.launches)
+    y = mod.lrn_fwd(x, **kw)
+    dx = mod.lrn_bwd(x, dy, **kw)
+    torch.cuda.synchronize()
+    assert {k: mod.launches[k] - before[k] for k in before} == {
+        "lrn_fwd": 1, "lrn_bwd": 1}
+    want_y = mod.lrn_plain(x, **kw)
+    want_dx = mod.lrn_bwd_plain(x, dy, **kw)
+    for name, got, ref in (("y", y, want_y), ("dx", dx, want_dx)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert _lrn_excess(got, ref) <= 1.0, name
+    # the window shifted by one channel must fail the same check
+    half = n // 2
+    s = kw["k"] + kw["alpha"] * mod._window_sum(
+        (x * x).float(), half - 1, n - half)
+    bad = (x.float() * mod._power(s, beta)).to(dtype)
+    assert _lrn_excess(bad, want_y) > 1.0
+
+
+def test_lrn_function_and_refusals_on_the_card(card):
+    from veles_tpu_torch.ops import lrn as mod
+    x = torch.randn((2, 5, 5, 96), device=card).requires_grad_(True)
+    before = dict(mod.launches)
+    mod.lrn(x).square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: mod.launches[k] - before[k] for k in before} == {
+        "lrn_fwd": 1, "lrn_bwd": 1}
+    assert torch.isfinite(x.grad).all()
+    with pytest.raises(ValueError, match="window"):
+        mod.lrn_fwd(x.detach(), n=mod.MAX_N + 1)
+    with pytest.raises(ValueError, match="dtype"):
+        mod.lrn_fwd(x.detach().half())
+    with pytest.raises(ValueError):
+        mod.lrn_bwd(x.detach(), torch.zeros((2, 5, 5, 96)))
+
+
+@pytest.mark.parametrize("offset", [0, 2 ** 32 - 1000, 5 * 2 ** 32 + 3])
+def test_uniform_fill_bit_equal(card, offset):
+    """3,000,001 floats (a ragged last group of 4); the two large
+    offsets put the count's high word above 0 inside the draw."""
+    from veles_tpu_torch.ops import random as mod
+    from veles_tpu_torch.prng import threefry
+    k = threefry.fold_in(threefry.key(42), 7)
+    n = 3_000_001
+    before = mod.launches
+    got = mod.uniform_fill(k, (n,), card, offset=offset)
+    want = mod.uniform_plain(k.to(card), (n,), offset=offset)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert 0.0 <= float(got.min()) and float(got.max()) < 1.0
+    if offset == 0:
+        assert torch.equal(mod.uniform(k, (n,), device=card), got)

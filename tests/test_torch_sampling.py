@@ -10,6 +10,14 @@ the JAX package's samplers on the CPU.
 - ``sample_first``/``sample_slots`` with temperatures and top-k, and
   one seeded serving stream of the session's trained tiny chain
   (f32), must give the JAX package's tokens.
+
+The Gumbel references are compiled in the test's own process: the JAX
+package turns on its on-disk compile cache the first time a unit
+initializes in a process (``accelerated_units.
+enable_persistent_compile_cache``), and an earlier test in the same
+worker can leave the cache's thresholds at 0, so ``jit__gumbel``
+executables written by another process would be loaded instead
+(:func:`compiled_here`).
 """
 
 import jax
@@ -26,6 +34,22 @@ from tests.test_torch_transformer import port_chain
 pytestmark = pytest.mark.torch_port
 
 SEEDS = [0, 1, 7, 12345, 2 ** 31 + 5, 2 ** 32 - 1]
+
+
+@pytest.fixture
+def compiled_here():
+    """The persistent compile cache off and the in-memory caches empty
+    for the test, restored afterwards."""
+    from jax.experimental.compilation_cache import compilation_cache
+    prev = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    compilation_cache.reset_cache()
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+        compilation_cache.reset_cache()
 
 
 def _jax_key(seed, count=None):
@@ -87,7 +111,7 @@ def test_bits_and_uniform_bit_equal(seed, shape):
                                      want.view(numpy.int32))
 
 
-def test_categorical_tokens_equal():
+def test_categorical_tokens_equal(compiled_here):
     """12,288 draws (96 keys × 128 rows of logits) and their Gumbel
     noise against ``jax.random``."""
     from veles_tpu_torch.prng import threefry
@@ -115,7 +139,7 @@ def test_categorical_tokens_equal():
 
 
 @pytest.mark.parametrize("first", [True, False], ids=["first", "slots"])
-def test_samplers_equal(first):
+def test_samplers_equal(compiled_here, first):
     from veles_tpu.serving import engine as jeng
     from veles_tpu_torch.serving import engine as peng
     rng = numpy.random.default_rng(5)

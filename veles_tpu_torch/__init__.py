@@ -2,10 +2,12 @@
 Hopper (H100).
 
 It serves the LM chain ``Embedding → TransformerBlock×N →
-TokenProjection`` through a paged KV cache (fp32 or int8 pools) and
-trains it (``samples/lm.py``: ``GradientDescent`` with the next-token
-loss over a device-resident ``FullBatchLoader``), with kernels written
-by hand for ``sm_90a`` under ``csrc/``:
+TokenProjection`` through a paged KV cache (fp32 or int8 pools), trains
+it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
+a device-resident ``FullBatchLoader``) and trains AlexNet
+(``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
+and a softmax head over a synthetic ImageNet drawn on the card), with
+kernels written by hand for ``sm_90a`` under ``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
   int8 dequant fused (replaces ``veles_tpu/ops/pallas_paged.py``);
@@ -15,7 +17,13 @@ by hand for ``sm_90a`` under ``csrc/``:
 - ``ops/flash_attention.py`` — FlashAttention-2 forward, dq and dk/dv
   kernels behind an autograd Function (replaces
   ``veles_tpu/ops/pallas_attention.py``, and serves
-  ``attn_impl="flash"`` too).
+  ``attn_impl="flash"`` too);
+- ``ops/lrn.py`` — cross-channel LRN forward and recompute backward
+  behind an autograd Function (replaces ``veles_tpu/ops/lrn.py::
+  lrn_pallas``);
+- ``ops/random.py`` — the uniform fill, ``jax.random.uniform``'s
+  Threefry stream bit for bit (replaces ``veles_tpu/ops/random.py::
+  pallas_uniform``).
 
 The package imports ``torch`` and numpy only: never ``jax``, and
 nothing of ``veles_tpu``.  Entry points take ``device=`` and default
@@ -39,11 +47,19 @@ SUBMODULES = (
     "veles_tpu_torch.ops.attention",
     "veles_tpu_torch.ops.flash_attention",
     "veles_tpu_torch.ops.flash",
+    "veles_tpu_torch.ops.lrn",
+    "veles_tpu_torch.ops.random",
     "veles_tpu_torch.prng",
     "veles_tpu_torch.prng.threefry",
     "veles_tpu_torch.prng.random_generator",
     "veles_tpu_torch.models",
+    "veles_tpu_torch.models.activations",
     "veles_tpu_torch.models.nn_units",
+    "veles_tpu_torch.models.conv",
+    "veles_tpu_torch.models.pooling",
+    "veles_tpu_torch.models.lrn",
+    "veles_tpu_torch.models.dropout",
+    "veles_tpu_torch.models.all2all",
     "veles_tpu_torch.models.attention",
     "veles_tpu_torch.models.embedding",
     "veles_tpu_torch.models.transformer",
@@ -57,6 +73,7 @@ SUBMODULES = (
     "veles_tpu_torch.loader.fullbatch",
     "veles_tpu_torch.samples",
     "veles_tpu_torch.samples.lm",
+    "veles_tpu_torch.samples.alexnet",
     "veles_tpu_torch.serving",
     "veles_tpu_torch.serving.kv_slots",
     "veles_tpu_torch.serving.prefill",

@@ -31,6 +31,8 @@ SOURCES = {
     "paged_attend": "paged_attend.cu",
     "int8_gemm": "int8_gemm.cu",
     "flash_attention": "flash_attention.cu",
+    "lrn": "lrn.cu",
+    "uniform": "uniform.cu",
 }
 #: headers every source may include (their bytes key the build hash)
 HEADERS = ("common.cuh",)

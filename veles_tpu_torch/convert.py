@@ -5,7 +5,8 @@ parameters, or fresh from a seed.
 array}}`` — exactly ``{i: {n: a.mem for n, a in
 u.param_arrays().items()}}`` of a JAX ``make_forwards`` chain — and
 returns the port's chain holding the same weights.  The layouts are the
-JAX package's (``[d_in, d_out]`` matrices), so nothing is transposed.
+JAX package's (``[d_in, d_out]`` matrices, HWIO convolution kernels),
+so nothing is transposed.
 :func:`params_to_numpy` reads a chain back in the same form, and
 :func:`set_trainer_state` gives the port's ``GradientDescent`` the
 solver slots and step count of a JAX trainer.
@@ -30,16 +31,21 @@ def params_from_numpy(spec, params, device=None, dtype=None):
     return chain
 
 
-def init_params(spec, seed, window, device=None, dtype=None):
+def init_params(spec, seed, window=None, device=None, dtype=None,
+                in_shape=None):
     """The port's chain for ``spec`` with fresh weights drawn from
     ``numpy.random.default_rng(seed)`` (the JAX package's default
-    filling), its positional table ``window`` rows long."""
+    filling), each unit sized from the sample shape its input has when
+    the chain's input has sample shape ``in_shape`` (default: a
+    sequence of ``window`` tokens, whose positional table is ``window``
+    rows long)."""
     rng = numpy.random.default_rng(seed)
-    chain = make_forwards(spec, device=device, dtype=dtype)
-    d = None
+    if in_shape is None:
+        in_shape = (window,)
+    chain = make_forwards(spec, device=device, dtype=dtype,
+                          in_shape=in_shape)
     for unit in chain:
-        unit.load_params(unit.fill_arrays(rng, d, window))
-        d = unit.out_dim(d)
+        unit.load_params(unit.fill_arrays(rng, unit.in_shape, window))
     return chain
 
 

@@ -60,7 +60,8 @@ class MultiHeadAttention(ForwardBase):
         self.block_size = block_size
         self.attn_impl = attn_impl
 
-    def param_shapes(self, d, window):
+    def param_shapes(self, in_shape, window):
+        d = in_shape[-1]
         if d % self.heads:
             raise ValueError("model dim %d not divisible by %d heads"
                              % (d, self.heads))

@@ -23,19 +23,19 @@ class Embedding(ForwardBase):
         self.PARAMS = ("weights", "positions") if self.learned_positions \
             else ("weights",)
 
-    def param_shapes(self, d_in, window):
+    def param_shapes(self, in_shape, window):
         shapes = {"weights": (self.vocab, self.dim)}
         if self.learned_positions:
             shapes["positions"] = (int(window), self.dim)
         return shapes
 
-    def out_dim(self, d_in):
-        return self.dim
+    def out_shape(self, in_shape):
+        return tuple(in_shape) + (self.dim,)
 
-    def fill_arrays(self, rng, d_in, window):
+    def fill_arrays(self, rng, in_shape, window):
         # the JAX unit fills both tables uniform in +-0.02
         return {n: rng.uniform(-0.02, 0.02, s).astype(numpy.float32)
-                for n, s in self.param_shapes(d_in, window).items()}
+                for n, s in self.param_shapes(in_shape, window).items()}
 
     @property
     def window(self):

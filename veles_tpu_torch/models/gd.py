@@ -19,10 +19,18 @@ the update.  :meth:`GradientDescent.run_span` consumes a loader's class
 span: a host loop over its index schedule, gathering each minibatch
 from the device-resident dataset.
 
+Randomness is the JAX trainer's: a ``"trainer"`` generator (seed 42
+unless given) whose ``peek_key(global_step)`` keys a minibatch, folded
+with ``k`` for the k-th step of a span, and split before each dropout
+layer on train steps (``key, sub = split(key)``; ``sub`` draws the
+mask).  Keys stay on the host: the mask kernel takes the key's words as
+launch arguments, so no step waits on a device read.  A final
+``All2AllSoftmax`` gives the trainer its f32 logits.
+
 Health is configured by constructor arguments (the JAX package reads
 ``root.common.health``): ``health`` on or off, ``health_policy`` one of
 "warn", "skip_step", "halt".  Not ported: meshes (dp/tp/pp/sp), the
-DCN master/worker exchange, augmentation and dropout.
+DCN master/worker exchange and augmentation.
 """
 
 import logging
@@ -30,8 +38,11 @@ import logging
 import torch
 
 from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.models.all2all import All2AllSoftmax
+from veles_tpu_torch.models.dropout import DropoutForward
 from veles_tpu_torch.models.lr_adjust import get_schedule
 from veles_tpu_torch.models.solvers import get_solver
+from veles_tpu_torch.prng import RandomGenerator, threefry
 
 POLICIES = ("warn", "skip_step", "halt")
 
@@ -53,7 +64,8 @@ class GradientDescent:
                  learning_rate_bias=None, weights_decay=0.0,
                  weights_decay_bias=None, l1_vs_l2=0.0, gradient_moment=0.0,
                  gradient_moment_bias=None, lr_schedule="constant",
-                 lr_schedule_params=None, health=True, health_policy="warn"):
+                 lr_schedule_params=None, health=True, health_policy="warn",
+                 seed=None):
         if health_policy not in POLICIES:
             raise ValueError("health_policy must be one of %s" % (POLICIES,))
         self.forwards = list(forwards)
@@ -75,6 +87,8 @@ class GradientDescent:
         self.health = bool(health)
         self.health_policy = health_policy
         self.global_step = 0
+        #: the trainer's key stream (the JAX trainer's prng_key="trainer")
+        self.prng = RandomGenerator("trainer", seed)
         #: (chain index, name) of every parameter, in the order the JAX
         #: package's pytrees flatten them (sorted keys)
         self._names = [(i, n) for i in range(len(self.forwards))
@@ -126,17 +140,26 @@ class GradientDescent:
 
     # -- one minibatch ---------------------------------------------------------
 
-    def forward(self, x):
-        """The chain's output (logits for a softmax head)."""
+    def forward(self, x, key=None, train=False):
+        """The chain's output (logits for a softmax head); on a train
+        step each dropout layer draws its mask from a key split off
+        ``key``."""
         h = x
-        for u in self.forwards:
-            h = u.apply(h)
+        last = len(self.forwards) - 1
+        for i, u in enumerate(self.forwards):
+            if isinstance(u, DropoutForward) and train:
+                key, sub = threefry.split(key)
+                h = u.apply_train(h, sub)
+            elif isinstance(u, All2AllSoftmax) and i == last:
+                h = u.logits(h)
+            else:
+                h = u.apply(h)
         return h
 
-    def _loss_and_metrics(self, x, target, size):
+    def _loss_and_metrics(self, x, target, size, key, train):
         if getattr(self.evaluator, "TARGET_IS_INPUT", False):
             target = x
-        y = self.forward(x)
+        y = self.forward(x, key, train)
         loss = self.evaluator.loss(y, target, size)
         if hasattr(self.evaluator, "train_metrics"):
             n_err = self.evaluator.train_metrics(y, target, size)
@@ -146,9 +169,9 @@ class GradientDescent:
             n_err = ((pred != target.long()) & mask).sum().to(torch.int32)
         return loss, n_err
 
-    def _train(self, x, target, size, step):
+    def _train(self, x, target, size, step, key):
         params = [self._param(i, n) for i, n in self._names]
-        loss, n_err = self._loss_and_metrics(x, target, size)
+        loss, n_err = self._loss_and_metrics(x, target, size, key, True)
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         # the float32 multiplier the JAX package traces
@@ -193,7 +216,8 @@ class GradientDescent:
 
     def _eval(self, x, target, size):
         with torch.no_grad():
-            loss, n_err = self._loss_and_metrics(x, target, size)
+            loss, n_err = self._loss_and_metrics(x, target, size, None,
+                                                 False)
             zero = torch.zeros((), device=self.device)
             bad = (~torch.isfinite(loss)).to(torch.float32) \
                 if self.health else zero
@@ -201,12 +225,12 @@ class GradientDescent:
                                   loss.to(torch.float32)])
         return loss, n_err, health
 
-    def _step(self, x, target, size, class_id, step):
-        """One minibatch of class ``class_id`` at schedule step ``step``:
-        update (train only) and epoch accounting; returns (loss, n_err,
-        health) on the device."""
+    def _step(self, x, target, size, class_id, step, key):
+        """One minibatch of class ``class_id`` at schedule step ``step``
+        with dropout key ``key``: update (train only) and epoch
+        accounting; returns (loss, n_err, health) on the device."""
         if class_id == TRAIN:
-            loss, n_err, health = self._train(x, target, size, step)
+            loss, n_err, health = self._train(x, target, size, step, key)
         else:
             loss, n_err, health = self._eval(x, target, size)
         with torch.no_grad():
@@ -229,7 +253,8 @@ class GradientDescent:
         """One minibatch ``x`` (targets ``target``, ``size`` valid rows)
         of class ``class_id``; a train step advances ``global_step``."""
         self.loss, self.n_err, health = self._step(
-            x, target, int(size), class_id, self.global_step)
+            x, target, int(size), class_id, self.global_step,
+            self.prng.peek_key(self.global_step))
         if class_id == TRAIN:
             self.global_step += 1
             self._observe_health(health)
@@ -239,16 +264,19 @@ class GradientDescent:
         """Consume the class span ``loader.serve_span()`` published: one
         minibatch per row of its index schedule, each gathered from
         ``loader.dataset_dev`` (indices past the span clamp to row 0,
-        as the JAX package's gather clips, and are masked by size)."""
+        as the JAX package's gather clips, and are masked by size); the
+        k-th minibatch's key is ``fold_in(peek_key(global_step), k)``."""
         ds, labels = loader.dataset_dev, loader.labels_dev
         idx = torch.as_tensor(loader.span_indices_, device=ds.device).long()
         idx = idx.clamp(0, ds.shape[0] - 1)
         sizes = [int(n) for n in loader.span_sizes_]
         cls = loader.span_class_
+        base_key = self.prng.peek_key(self.global_step)
         healths = []
         for k, size in enumerate(sizes):
             self.loss, self.n_err, health = self._step(
-                ds[idx[k]], labels[idx[k]], size, cls, self.global_step + k)
+                ds[idx[k]], labels[idx[k]], size, cls, self.global_step + k,
+                threefry.fold_in(base_key, k))
             healths.append(health)
         health = torch.cat([healths[-1][:3],
                             torch.stack([h[3] for h in healths]).sum()[None],

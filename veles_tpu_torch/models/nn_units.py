@@ -3,8 +3,11 @@
 The JAX package's units keep their parameters in ``Array``s and hand
 them to a pure ``apply(params, x)``.  Here a unit is an ``nn.Module``
 that owns its parameters as a plain name → tensor dict (float32
-masters on the unit's device, ``[d_in, d_out]`` layouts as in the JAX
-package) and whose methods take activations only.
+masters on the unit's device, the JAX package's layouts: ``[d_in,
+d_out]`` matrices, HWIO convolution kernels) and whose methods take
+activations only.  Units size their parameters from the input's sample
+shape (``param_shapes``, ``out_shape``), as the JAX units size them from
+their input array.
 
 Tensors derived from the parameters (compute-dtype copies, int8
 quantizations) are cached while the weights stay as they are, which is
@@ -55,26 +58,32 @@ class ForwardBase(nn.Module):
 
     # -- parameters ----------------------------------------------------------
 
-    def param_shapes(self, d_in, window):
-        """name → shape of every parameter, given the input width and
-        the serving window."""
-        raise NotImplementedError()
+    def param_shapes(self, in_shape, window):
+        """name → shape of every parameter, given the input sample shape
+        (a tuple without the batch axis) and the serving window."""
+        return {}
 
-    def out_dim(self, d_in):
-        """Width of the unit's output for input width ``d_in``."""
-        return d_in
+    def out_shape(self, in_shape):
+        """The output sample shape for input sample shape ``in_shape``."""
+        return in_shape
 
-    def fill_arrays(self, rng, d_in, window):
-        """Fresh numpy parameters from ``rng``: Glorot-uniform
-        matrices, unit scales and zero biases (the JAX package's
-        default filling)."""
+    def fans(self, shape):
+        """(fan_in, fan_out) of a weight of ``shape`` (``[d_in, d_out]``
+        matrices; units with other layouts say theirs)."""
+        return shape[0], shape[1]
+
+    def fill_arrays(self, rng, in_shape, window):
+        """Fresh numpy parameters from ``rng``: Glorot-uniform weights
+        (the JAX package's ``_fill``: uniform in ±sqrt(6 / (fan_in +
+        fan_out))), unit scales and zero biases."""
         out = {}
-        for name, shape in self.param_shapes(d_in, window).items():
+        for name, shape in self.param_shapes(in_shape, window).items():
             if len(shape) == 1:
                 fill = 1.0 if name.endswith("_scale") else 0.0
                 out[name] = numpy.full(shape, fill, numpy.float32)
             else:
-                lim = numpy.sqrt(6.0 / (shape[0] + shape[1]))
+                fan_in, fan_out = self.fans(shape)
+                lim = numpy.sqrt(6.0 / (fan_in + fan_out))
                 out[name] = rng.uniform(-lim, lim, shape).astype(
                     numpy.float32)
         return out

@@ -61,7 +61,8 @@ class TransformerBlock(ForwardBase):
         #: projection and FFN (the weights quantize once, at first use)
         self.int8_decode = bool(int8_decode)
 
-    def param_shapes(self, d, window):
+    def param_shapes(self, in_shape, window):
+        d = in_shape[-1]
         if d % self.heads:
             raise ValueError("model dim %d not divisible by %d heads"
                              % (d, self.heads))
@@ -247,11 +248,12 @@ class TokenProjection(ForwardBase):
             raise ValueError("vocab is required")
         self.vocab = int(vocab)
 
-    def param_shapes(self, d, window):
-        return {"weights": (d, self.vocab), "bias": (self.vocab,)}
+    def param_shapes(self, in_shape, window):
+        return {"weights": (in_shape[-1], self.vocab),
+                "bias": (self.vocab,)}
 
-    def out_dim(self, d_in):
-        return self.vocab
+    def out_shape(self, in_shape):
+        return tuple(in_shape[:-1]) + (self.vocab,)
 
     def apply(self, x):
         return self.linear(x, "weights") + self.params["bias"]

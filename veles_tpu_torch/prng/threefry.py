@@ -9,10 +9,13 @@ on (the default since jax 0.5):
 - ``key(seed)`` of a 32-bit seed is ``[0, seed]``;
 - ``fold_in(key, data)`` hashes the count pair ``(0, data)`` under
   ``key``: the two output words are the new key;
+- ``split(key, num)`` hashes the counts ``(0, i)``: key ``i`` is the
+  pair of output words (so ``split(k)[i] == fold_in(k, i)``);
 - ``random_bits(key, shape)`` hashes ``(hi, lo)`` of each element's
   row-major index under ``key`` and XORs the two output words;
 - ``uniform`` puts the top 23 bits in a float's mantissa in [1, 2)
-  and subtracts 1;
+  and subtracts 1; ``bernoulli(key, p, shape)`` is
+  ``uniform(key, shape) < float32(p)``;
 - ``categorical`` is the Gumbel-argmax draw, with
   ``-log(-log(uniform(tiny, 1)))``.
 
@@ -67,15 +70,26 @@ def fold_in(k, data):
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(k, shape):
+def split(k, num=2):
+    """``jax.random.split(k, num)``: [..., num, 2] keys; key ``i`` is
+    the hash of the count ``(0, i)``."""
+    i = torch.arange(int(num), dtype=torch.int64, device=k.device)
+    y0, y1 = threefry2x32(k[..., None, 0], k[..., None, 1],
+                          torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(k, shape, offset=0):
     """``jax.random.bits(k, shape)`` (32-bit): [..., *shape] int64
     words for keys ``k`` [..., 2]; element ``i`` (row-major) hashes
-    the count ``(i >> 32, i & MASK)``."""
+    the count ``(j >> 32, j & MASK)`` of its index ``j = offset + i``
+    (``offset`` 0 is JAX's draw; others reach the count's high word
+    without 2**32 elements)."""
     shape = tuple(int(n) for n in shape)
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    idx = torch.arange(n, dtype=torch.int64, device=k.device) + int(offset)
     lead = k.shape[:-1]
     view = lead + (1,) * len(shape)
     k0 = k[..., 0].reshape(view)
@@ -85,9 +99,10 @@ def random_bits(k, shape):
     return y0 ^ y1
 
 
-def uniform(k, shape, minval=0.0, maxval=1.0):
-    """``jax.random.uniform(k, shape, float32, minval, maxval)``."""
-    bits = random_bits(k, shape)
+def uniform(k, shape, minval=0.0, maxval=1.0, offset=0):
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``
+    (``offset`` as in :func:`random_bits`)."""
+    bits = random_bits(k, shape, offset)
     one = (bits >> 9) | 0x3F800000
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
@@ -97,6 +112,11 @@ def uniform(k, shape, minval=0.0, maxval=1.0):
     # the sum taken there and rounded once gives the same float
     fused = (floats.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, fused)
+
+
+def bernoulli(k, p, shape):
+    """``jax.random.bernoulli(k, p, shape)``: ``uniform < float32(p)``."""
+    return uniform(k, shape) < torch.tensor(p, dtype=torch.float32)
 
 
 def gumbel(k, shape):
