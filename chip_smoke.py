@@ -14,9 +14,12 @@ result line):
    timed beside the plain version and one library call: the serving
    kernels at the serving shapes; the three FlashAttention kernels
    (forward, dq, dk/dv) at the training shapes (b 4, s 2048, 16 heads
-   of 128, bf16, causal) and at small odd ones (f32, sq != sk,
-   non-causal, lengths off the tile), element by element; at the
-   training shapes three planted faults must fail the same check;
+   of 128, bf16, causal), at hd 256 full length, and at small odd ones
+   (f32 and bf16, sq != sk, non-causal, lengths one past a tile,
+   one-row queries and keys), element by element; at the training
+   shapes four planted faults must fail the same check by 5x and a
+   second backward must be bit-equal to the first; each kernel timed
+   with its TFLOP/s;
 3. reference — a small float32 chain served through the kernels on the
    card, its prefill and decode logits held against the same chain on
    the CPU (plain versions);
@@ -104,12 +107,28 @@ FLASH_TOL = {"bfloat16": (2e-2, 1e-4), "float32": (1e-4, 1e-5)}
 #: losses (relative) and each parameter's distance (relative to its
 #: update over the run)
 TRAIN_REF_LOSS, TRAIN_REF_STEP = 1e-6, 1e-4
-#: (b, sq, sk, h, d, dtype, causal): the training shapes, then small odd
+#: a planted fault must exceed its limit this many times over
+FLASH_FAULT_MIN = 5.0
+#: (b, sq, sk, h, d, dtype, causal): the training shapes; small odd f32
+#: ones (the SIMT kernels); bf16 off the tensor-core tiles (64-row CTA
+#: tiles, key tiles of 64 at hd 128 and 32/16 at hd 256, dk/dv query
+#: tiles of 32 and 16): sq != sk both ways, non-causal, lengths one past
+#: a tile, one-row queries and keys; hd 256 at full length
 FLASH_CASES = [(T_BATCH, T_SEQ, T_SEQ, T_HEADS, T_DIM // T_HEADS,
                 "bfloat16", True),
                (2, 100, 77, 3, 128, "float32", False),
                (1, 130, 200, 2, 128, "float32", True),
-               (1, 77, 50, 2, 128, "float32", True)]
+               (1, 77, 50, 2, 128, "float32", True),
+               (2, 100, 77, 3, 128, "bfloat16", False),
+               (1, 130, 200, 2, 128, "bfloat16", True),
+               (1, 65, 33, 2, 128, "bfloat16", True),
+               (1, 33, 65, 2, 128, "bfloat16", False),
+               (3, 1, 1, 2, 128, "bfloat16", True),
+               (1, 1, 129, 2, 128, "bfloat16", False),
+               (1, 129, 1, 2, 128, "bfloat16", True),
+               (2, T_SEQ, T_SEQ, 8, 256, "bfloat16", True),
+               (1, 17, 90, 2, 256, "bfloat16", False),
+               (1, 70, 33, 2, 256, "bfloat16", True)]
 
 #: AlexNet at ``bench.py``'s ``bench_alexnet`` configuration
 A_BATCH, A_SIDE, A_CLASSES, A_TRAIN, A_FC = 1024, 227, 1000, 4096, 4096
@@ -405,7 +424,7 @@ def flash_excess(got, want):
     return float(((got - want).abs() / lim).max())
 
 
-def planted_faults(fa, q, k, v, do, o, lse, causal):
+def planted_faults(fa, q, k, v, do, o, lse, delta, causal):
     """What the plain versions give for three kernel faults, to show
     that the check of FLASH_TOL rejects them at the training shapes:
     the forward and dq without their last key tile (the rows of the
@@ -416,38 +435,65 @@ def planted_faults(fa, q, k, v, do, o, lse, causal):
     o_short, lse_short = fa.flash_fwd_plain(q, k[:, :-t], v[:, :-t], causal)
     o_scaled, lse_scaled = fa.flash_fwd_plain(q, k, v, causal, 1.1 * scale)
     dk_short, dv_short = fa.flash_bwd_dkv_plain(
-        q[:, :-t], k, v, do[:, :-t], o[:, :-t], lse[..., :-t], causal)
+        q[:, :-t], k, v, do[:, :-t], lse[..., :-t], delta[..., :-t], causal)
     return {
         "flash_attn_fwd": {"last key tile dropped": (o_short, lse_short),
                            "scale x1.1": (o_scaled, lse_scaled)},
-        "flash_attn_dq": {"last key tile dropped": (fa.flash_bwd_dq_plain(
-            q, k[:, :-t], v[:, :-t], do, o, lse, causal),)},
+        "flash_attn_dq": {"last key tile dropped": fa.flash_bwd_dq_plain(
+            q, k[:, :-t], v[:, :-t], do, o, lse, causal)},
         "flash_attn_dkv": {"last query tile dropped": (dk_short, dv_short)}}
+
+
+def score_ulps(torch, fa, q, k, lse):
+    """(mean, max) over batch and heads of the f32 ulps between row 0's
+    LSE from a causal forward, which is its one kept score times the
+    scale, and the score summed exactly (f64), rounded to f32, scaled."""
+    x = torch.einsum("bhd,bhd->bh", q[:, 0].double(),
+                     k[:, 0].double()).float() * fa.default_scale(q.shape[-1])
+    ulp = torch.finfo(torch.float32).eps * torch.exp2(
+        torch.floor(torch.log2(x.abs())))
+    ulps = (lse[:, :, 0] - x).abs() / ulp
+    return float(ulps.mean()), float(ulps.max())
 
 
 def check_flash(torch, dev, rate):
     """The forward, dq and dk/dv kernels against their plain versions
     on every case of FLASH_CASES (the backward ones from the kernel's
-    O and LSE), element by element (:func:`flash_excess`); at the
-    training shapes, planted faults must fail the same check.  Then
-    timed at the training shapes."""
+    O, LSE and delta), element by element (:func:`flash_excess`); at
+    the training shapes, planted faults must fail the same check by
+    FLASH_FAULT_MIN and a second backward must be bit-equal to the
+    first.  Then timed at the training shapes."""
     from veles_tpu_torch.ops import flash_attention as fa
     errs = dict.fromkeys(fa.launches, 0.0)
     for n, case in enumerate(FLASH_CASES):
         causal = case[-1]
         q, k, v, do = _flash_inputs(torch, dev, case, n)
         o, lse = fa.flash_fwd(q, k, v, causal)
-        dq = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, o, lse, causal)
-        got = {"flash_attn_fwd": (o, lse), "flash_attn_dq": (dq,),
+        dq, delta = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        got = {"flash_attn_fwd": (o, lse), "flash_attn_dq": (dq, delta),
                "flash_attn_dkv": (dk, dv)}
         want = {"flash_attn_fwd": fa.flash_fwd_plain(q, k, v, causal),
-                "flash_attn_dq": (fa.flash_bwd_dq_plain(
-                    q, k, v, do, o, lse, causal),),
+                "flash_attn_dq": fa.flash_bwd_dq_plain(
+                    q, k, v, do, o, lse, causal),
                 "flash_attn_dkv": fa.flash_bwd_dkv_plain(
-                    q, k, v, do, o, lse, causal)}
-        faults = planted_faults(fa, q, k, v, do, o, lse, causal) \
+                    q, k, v, do, lse, delta, causal)}
+        faults = planted_faults(fa, q, k, v, do, o, lse, delta, causal) \
             if n == 0 else {}
+        if n == 0:
+            log("flash_attn_fwd %s: row 0's LSE (its one score, scaled) is "
+                "%.3g f32 ulps from the exact sum's on average, %.3g at "
+                "most" % ((case,) + score_ulps(torch, fa, q, k, lse)))
+            dq2, delta2 = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
+            again = (dq2, delta2,
+                     *fa.flash_bwd_dkv(q, k, v, do, lse, delta2, causal))
+            same = [torch.equal(a, b)
+                    for a, b in zip(again, (dq, delta, dk, dv))]
+            log("flash backward run twice at %s: dq, delta, dk, dv "
+                "bit-equal %s" % (case, same))
+            if not all(same):
+                raise SystemExit("the FlashAttention backward is not "
+                                 "deterministic")
         torch.cuda.synchronize()
         for name in got:
             for g, w in zip(got[name], want[name]):
@@ -467,9 +513,11 @@ def check_flash(torch, dev, rate):
                           for b, w in zip(bad, want[name]))
                 log("%s %s planted fault (%s): max_abs_err=%.3g, %.3g of "
                     "the limit" % (name, case, fault, err, excess))
-                if not excess > 1.0:
-                    raise SystemExit("%s: the check passes a planted fault "
-                                     "(%s)" % (name, fault))
+                if not excess >= FLASH_FAULT_MIN:
+                    raise SystemExit("%s: a planted fault (%s) fails the "
+                                     "check by only %.3g" % (name, fault,
+                                                             excess))
+        del q, k, v, do, o, lse, dq, delta, dk, dv, got, want, faults
     return time_flash(torch, dev, rate, errs)
 
 
@@ -477,16 +525,30 @@ def time_flash(torch, dev, rate, errs):
     """Each kernel at the training shapes beside its plain version and
     the library's ``scaled_dot_product_attention`` (forward; its
     backward through autograd computes dq, dk and dv together and is
-    the yardstick of both backward kernels).  Bounds count the kept
-    (row, col) pairs of the causal mask: 4, 6 and 8 flops per pair and
-    head dim for the forward, dq and dk/dv (two, three and four
-    products), and each input read once, each output written once."""
+    the yardstick of both backward kernels); then the kernels and the
+    library alone at head dim 256 (the full-length hd 256 case).
+    Bounds count the kept (row, col) pairs of the causal mask: 4, 6 and
+    8 flops per pair and head dim for the forward, dq and dk/dv (two,
+    three and four products), and each input read once, each output
+    written once."""
+    out = flash_times(torch, dev, rate, FLASH_CASES[0], plain=True)
+    for name in out:
+        out[name]["max_abs_err"] = errs[name]
+    flash_times(torch, dev, rate, next(c for c in FLASH_CASES
+                                       if c[4] == 256 and c[1] >= 1024))
+    return out
+
+
+def flash_times(torch, dev, rate, case, plain=False):
+    """The fields of :func:`time_flash` for one case (the plain
+    versions' times only if ``plain``), each logged with its achieved
+    TFLOP/s beside the bound's."""
     from veles_tpu_torch.ops import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    case = FLASH_CASES[0]
     b, sq, sk, h, d, dt, causal = case
     q, k, v, do = _flash_inputs(torch, dev, case, 100)
     o, lse = fa.flash_fwd(q, k, v, causal)
+    _, delta = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
     lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     ldo = do.transpose(1, 2).contiguous()
@@ -501,33 +563,42 @@ def time_flash(torch, dev, rate, errs):
 
     pairs = b * h * sum(min(r + 1, sk) if causal else sk for r in range(sq))
     row = b * h * d * q.element_size()           # one sequence position
-    lse_bytes = b * h * sq * 4
-    bwd_in = (3 * sq + 2 * sk) * row + lse_bytes   # q, do, o, k, v, lse
+    stat = b * h * sq * 4                         # the lse or delta
     work = {
-        "flash_attn_fwd": (
-            (2 * sq + 2 * sk) * row + lse_bytes, 4 * d * pairs,
+        "flash_attn_fwd": (                       # q, k, v -> o, lse
+            (2 * sq + 2 * sk) * row + stat, 4 * d * pairs,
             lambda: fa.flash_fwd(q, k, v, causal),
             lambda: fa.flash_fwd_plain(q, k, v, causal), lib_fwd),
-        "flash_attn_dq": (
-            bwd_in + sq * row, 6 * d * pairs,
+        "flash_attn_dq": (                        # q, k, v, do, o, lse
+            (4 * sq + 2 * sk) * row + 2 * stat,   # -> dq, delta
+            6 * d * pairs,
             lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, causal),
             lambda: fa.flash_bwd_dq_plain(q, k, v, do, o, lse, causal),
             lib_bwd),
-        "flash_attn_dkv": (
-            bwd_in + 2 * sk * row, 8 * d * pairs,
-            lambda: fa.flash_bwd_dkv(q, k, v, do, o, lse, causal),
-            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, o, lse, causal),
+        "flash_attn_dkv": (                       # q, k, v, do, lse, delta
+            (2 * sq + 4 * sk) * row + 2 * stat,   # -> dk, dv
+            8 * d * pairs,
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal),
             lib_bwd)}
     before = dict(fa.launches)
     out = {}
-    for name, (nbytes, ops, kernel, plain, library) in work.items():
+    for name, (nbytes, ops, kernel, plain_fn, library) in work.items():
         b_ms, b_by = bound(nbytes, ops, dt, rate)
-        out[name] = {"ms": time_ms(torch, kernel, reps=10),
-                     "plain_ms": time_ms(torch, plain, reps=5),
-                     "library_ms": time_ms(torch, library, reps=10),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "max_abs_err": errs[name], "bytes": nbytes,
-                     "flops": ops}
+        got = {"ms": time_ms(torch, kernel, reps=10),
+               "library_ms": time_ms(torch, library, reps=10),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": ops}
+        if plain:
+            got["plain_ms"] = time_ms(torch, plain_fn, reps=5)
+        got["tflops"] = ops / got["ms"] / 1e9
+        log("%s %s: %.4f ms, %.1f TFLOP/s (bound %.4f ms by %s, %.1f "
+            "TFLOP/s); plain %s; library %.4f ms, %.1f TFLOP/s"
+            % (name, case, got["ms"], got["tflops"], b_ms, b_by,
+               ops / b_ms / 1e9, "%.3f ms" % got["plain_ms"] if plain
+               else "not timed", got["library_ms"],
+               ops / got["library_ms"] / 1e9))
+        out[name] = got
     fa.launches.update(before)        # timing launches are not the path's
     return out
 

@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels held against their plain
 PyTorch versions ON THE CARD, at the serving model's width (d=1024,
-8 heads, block 16), at the training shapes of the attention kernels,
-at AlexNet's LRN shapes and odd ones, and the uniform fill bit for bit.
+8 heads, block 16), at the training shapes of the attention kernels
+and odd ones off their tiles (with the backward bit-equal from run to
+run, and a head dim they are not built for kept off them), at
+AlexNet's LRN shapes and odd ones, and the uniform fill bit for bit.
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -106,7 +108,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 #: (b, sq, sk, h, d, dtype, causal): the training shape (b 4, s 2048,
 #: 16 heads of 128, bf16, causal), then small odd ones — f32, sq != sk,
 #: lengths off the 64-row tile, non-causal, the 256-wide variant, and
-#: one-row queries or keys
+#: one-row queries or keys; then bf16 off the tensor-core tiles (64-row
+#: CTA tiles; key tiles of 64 at hd 128, 32 and 16 at hd 256; dk/dv
+#: query tiles of 32 and 16): sq != sk both ways, lengths one past a
+#: tile, non-causal, one-row queries and keys
 FLASH_CASES = [(4, 2048, 2048, 16, 128, torch.bfloat16, True),
                (2, 100, 77, 3, 128, torch.float32, False),
                (1, 130, 200, 2, 128, torch.float32, True),
@@ -116,7 +121,15 @@ FLASH_CASES = [(4, 2048, 2048, 16, 128, torch.bfloat16, True),
                (1, 70, 40, 2, 256, torch.float32, True),
                (3, 1, 1, 2, 128, torch.float32, True),
                (1, 1, 129, 2, 128, torch.bfloat16, False),
-               (1, 129, 1, 2, 128, torch.bfloat16, True)]
+               (1, 129, 1, 2, 128, torch.bfloat16, True),
+               (2, 100, 77, 3, 128, torch.bfloat16, False),
+               (1, 130, 200, 2, 128, torch.bfloat16, True),
+               (1, 65, 33, 2, 128, torch.bfloat16, True),
+               (1, 33, 65, 2, 128, torch.bfloat16, False),
+               (3, 1, 1, 2, 128, torch.bfloat16, True),
+               (1, 17, 90, 2, 256, torch.bfloat16, False),
+               (1, 70, 33, 2, 256, torch.bfloat16, True),
+               (1, 1, 17, 2, 256, torch.bfloat16, True)]
 
 
 def _flash_excess(got, want):
@@ -145,18 +158,59 @@ def test_flash_attention_kernels_match_plain(card, case):
     do = torch.randn((b, sq, h, d), generator=gen).to(card, dtype)
     before = dict(fa.launches)
     o, lse = fa.flash_fwd(q, k, v, causal)
-    dq = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, o, lse, causal)
+    dq, delta = fa.flash_bwd_dq(q, k, v, do, o, lse, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
     assert {n: fa.launches[n] - before[n] for n in before} == {
         n: 1 for n in before}
     want_o, want_lse = fa.flash_fwd_plain(q, k, v, causal)
-    want = fa.flash_bwd_plain(q, k, v, do, o, lse, causal)
+    want_dq, want_delta = fa.flash_bwd_dq_plain(q, k, v, do, o, lse, causal)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                              causal)
     for name, got, ref in (("o", o, want_o), ("lse", lse, want_lse),
-                           ("dq", dq, want[0]), ("dk", dk, want[1]),
-                           ("dv", dv, want[2])):
+                           ("dq", dq, want_dq), ("delta", delta, want_delta),
+                           ("dk", dk, want_dk), ("dv", dv, want_dv)):
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
         assert _flash_excess(got, ref) <= 1.0, name
+
+
+def test_flash_attention_backward_is_deterministic(card):
+    """No atomics: two backward passes at the training shapes give
+    bit-equal dq, delta, dk and dv."""
+    from veles_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v, do = (torch.randn((4, 2048, 16, 128), generator=gen).to(
+        card, torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True)
+    runs = []
+    for _ in range(2):
+        dq, delta = fa.flash_bwd_dq(q, k, v, do, o, lse, True)
+        runs.append((dq, delta, *fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  True)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_head_dim_off_the_kernels_on_the_card(card):
+    """hd 384 (d 1536, 4 heads), which JAX's rule sends to its kernel
+    on the accelerator: the default core runs (the dense one, no
+    ``block_size``) and matches an explicit dense run; an explicit
+    ``attn_impl="pallas"`` raises."""
+    from veles_tpu_torch.convert import init_params
+    spec = [{"type": "attention", "heads": 4, "causal": True}]
+    (u,) = init_params(spec, 0, device=card, dtype="bfloat16",
+                       in_shape=(24, 1536))
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn((2, 24, 1536), generator=gen).to(card, torch.bfloat16)
+    y = u.apply(x)
+    u.attn_impl = "dense"
+    want = u.apply(x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.equal(y, want)
+    u.attn_impl = "pallas"
+    with pytest.raises(ValueError, match="head_dim 384 is not built"):
+        u.apply(x)
 
 
 def test_flash_attention_function_on_the_card(card):

@@ -1,28 +1,40 @@
 """Multi-head attention — the port of ``veles_tpu/models/attention.py``
 (single device: no ``sp`` ring).
 
-:func:`attention_core` selects the core with the JAX package's rule
-(``mha_apply``): an explicit ``attn_impl`` wins; by default a CUDA
-device with ``head_dim % 128 == 0`` takes the FlashAttention kernels
+:func:`attention_core` selects the core by :func:`select_core`, the
+JAX package's rule (``mha_apply``): an explicit ``attn_impl`` wins; by
+default a CUDA device takes the FlashAttention kernels
 (``ops/flash_attention.py``), anything else the blockwise core when
-``block_size`` is set, else the dense one.  ``"pallas"`` and
-``"flash"`` both name the kernels: the port has one for both.
+``block_size`` is set, else the dense one.  One point differs: the JAX
+rule sends every ``head_dim % 128 == 0`` to its kernel, the port only
+the head dims its kernels are built for (:data:`KERNEL_HEAD_DIMS`).
+``"pallas"`` and ``"flash"`` both name the kernels: the port has one
+for both, and an explicit one raises on the card for a head dim they
+are not built for.
 """
 
 from veles_tpu_torch.models.nn_units import ForwardBase
 from veles_tpu_torch.ops.attention import attention, blockwise_attention
 from veles_tpu_torch.ops.flash import flash_attention
+from veles_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+
+def select_core(device_type, head_dim, block_size=None, attn_impl=None):
+    """The core ``attn_impl`` names — ``"pallas"``, ``"flash"``,
+    ``"blockwise"`` or ``"dense"`` — for q on ``device_type`` with
+    ``head_dim``; ``None``/``"auto"`` picks one."""
+    impl = attn_impl or "auto"
+    if impl != "auto":
+        return impl
+    if device_type == "cuda" and head_dim in KERNEL_HEAD_DIMS:
+        return "pallas"
+    return "blockwise" if block_size else "dense"
 
 
 def attention_core(q, k, v, causal, block_size=None, attn_impl=None):
     """The attention core over q/k/v [b, s, h, hd] (compute dtype) →
     [b, s, h, hd]."""
-    impl = attn_impl or "auto"
-    if impl == "auto":
-        if q.device.type == "cuda" and q.shape[-1] % 128 == 0:
-            impl = "pallas"
-        else:
-            impl = "blockwise" if block_size else "dense"
+    impl = select_core(q.device.type, q.shape[-1], block_size, attn_impl)
     if impl in ("pallas", "flash"):
         return flash_attention(q, k, v, causal=causal)
     if impl == "dense":
