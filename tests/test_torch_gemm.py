@@ -71,6 +71,25 @@ def test_int8_matmul_ragged_matches_jax(m, k, n):
     numpy.testing.assert_allclose(got.numpy(), numpy.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_plain_at_verify_width(dtype):
+    """m = 40, the width of a speculative verify step (B rows x (spec_k
+    + 1) tokens), against the JAX ``int8_matmul`` at a decode shape."""
+    from veles_tpu.ops import gemm as jgemm
+    from veles_tpu_torch.ops import gemm as tgemm
+    rng = numpy.random.default_rng(40)
+    a = rng.standard_normal((40, 256)).astype(numpy.float32)
+    jq, js = jgemm.int8_weight_quantize(jnp.asarray(_weights(rng, 256, 384)))
+    want = jgemm.int8_matmul(jnp.asarray(a).astype(dtype), jq, js)
+    got = tgemm.int8_matmul_plain(
+        torch.as_tensor(a).to(getattr(torch, dtype)),
+        torch.as_tensor(numpy.array(jq)), torch.as_tensor(numpy.array(js)))
+    assert got.dtype == torch.float32 and got.shape == (40, 384)
+    numpy.testing.assert_allclose(got.numpy(), numpy.asarray(want,
+                                                             numpy.float32),
+                                  **TOL)
+
+
 def test_policy_matmul_matches_jax():
     from veles_tpu.ops import gemm as jgemm
     from veles_tpu_torch.ops import gemm as tgemm

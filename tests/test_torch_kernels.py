@@ -69,23 +69,55 @@ def test_paged_attend_kernel_matches_plain(card, pool, k1):
     torch.testing.assert_close(got, want, **_tol(qdt))
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 13])
-@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 4096), (4096, 1024),
-                                 (100, 70)])
-def test_int8_gemm_kernel_matches_plain(card, m, k, n):
+#: (k, n): the serving model's three decode GEMMs (wo, ffn_w1, ffn_w2),
+#: then ragged ones: n off the 64-column tiles and the 8-byte loads
+#: (70, 1001, 6), k off the 16-row steps and the cluster's chunks
+INT8_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024), (100, 70),
+               (1000, 1001), (1000, 6)]
+
+
+def _int8_inputs(card, m, k, n, dtype, seed):
+    """Activations N(0, 1); weights N(0, 0.3) in bf16 and N(0, 0.02) in
+    f32, the serving model's scale: outputs of ~0.6, whose f32 sums
+    taken in another order stay within 1e-5 (at ~10, a 1e-5 limit is a
+    few ulps of a 1000-term sum)."""
     from veles_tpu_torch.ops import gemm
-    rng = numpy.random.default_rng(m + n)
-    a = torch.as_tensor(rng.standard_normal((m, k)),
-                        dtype=torch.bfloat16).to(card)
+    rng = numpy.random.default_rng(seed)
+    a = torch.as_tensor(rng.standard_normal((m, k)), dtype=dtype).to(card)
+    std = 0.3 if dtype == torch.bfloat16 else 0.02
     wq, scale = gemm.int8_weight_quantize(
-        torch.as_tensor(rng.standard_normal((k, n)) * 0.3,
+        torch.as_tensor(rng.standard_normal((k, n)) * std,
                         dtype=torch.float32).to(card))
+    return a, wq, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 13, 40, 136])
+@pytest.mark.parametrize("k,n", INT8_SHAPES)
+def test_int8_gemm_kernel_matches_plain(card, m, k, n, dtype):
+    from veles_tpu_torch.ops import gemm
+    a, wq, scale = _int8_inputs(card, m, k, n, dtype, m + n)
     before = gemm.launches
     got = gemm.int8_matmul(a, wq, scale)
     want = gemm.int8_matmul_plain(a, wq, scale)
     torch.cuda.synchronize()
     assert gemm.launches == before + 1
-    torch.testing.assert_close(got, want, **_tol(torch.bfloat16))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    torch.testing.assert_close(got, want, **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_int8_gemm_is_deterministic(card, dtype):
+    """No atomics: the split-K sums meet in a fixed order, so two runs
+    are bit-equal (ffn_w2's shape: the largest cluster, the most k)."""
+    from veles_tpu_torch.ops import gemm
+    a, wq, scale = _int8_inputs(card, 8, 4096, 1024, dtype, 3)
+    first = gemm.int8_matmul(a, wq, scale)
+    second = gemm.int8_matmul(a, wq, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

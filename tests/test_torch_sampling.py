@@ -198,3 +198,39 @@ def test_seeded_serving_stream_equal(spec_trained_chain):
     finally:
         root.common.precision.compute_dtype = saved
     assert got == want
+
+
+def test_positional_submit_matches_reference(spec_trained_chain):
+    """``submit(prompt, steps, temperature, top_k, seed)`` positionally:
+    the fifth argument is the seed in both packages, so the port's
+    stream equals the reference's and repeats from run to run; the
+    port's constructor takes nothing positional past ``max_queue``."""
+    from veles_tpu.serving import InferenceScheduler as JaxScheduler
+    from veles_tpu_torch.serving import InferenceScheduler
+    fw, pattern = spec_trained_chain
+    prompt = (pattern * 2)[1:7]
+    saved = root.common.precision.get("compute_dtype", "bfloat16")
+    root.common.precision.compute_dtype = "float32"
+    try:
+        sch = JaxScheduler(fw, max_slots=4, window=WINDOW, kv="paged",
+                           block_size=BLOCK, spec=False, prefix_cache=False,
+                           warm_buckets=False).start()
+        try:
+            want = [sch.submit(prompt, 8, 1.0, 0, 7).result(240)
+                    for _ in range(2)]
+        finally:
+            sch.close()
+        chain = port_chain(_spec(fw), fw)
+        sch = InferenceScheduler(chain, 4, WINDOW, 32, block_size=BLOCK,
+                                 device="cpu").start()
+        try:
+            got = [sch.submit(prompt, 8, 1.0, 0, 7).result(240)
+                   for _ in range(2)]
+        finally:
+            sch.close()
+    finally:
+        root.common.precision.compute_dtype = saved
+    assert want[0] == want[1]
+    assert got == want
+    with pytest.raises(TypeError):
+        InferenceScheduler(chain, 4, None, 32, 16)

@@ -68,8 +68,21 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.veles_int8_gemm.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp]
         lib.veles_int8_gemm.restype = ci
+        lib.veles_int8_gemm_plan.argtypes = [ci, ci, ci, ci,
+                                             ctypes.POINTER(ci)]
+        lib.veles_int8_gemm_plan.restype = None
         _argtypes_set = True
     return lib
+
+
+def plan(m, k, n, dtype):
+    """The kernel's launch plan for ``a`` [m, k] of ``dtype`` by ``wq``
+    [k, n]: output columns per CTA, the cluster size along k, the k
+    rows per cluster rank, and the activation rows per CTA.  Needs the
+    built library (the card's machine)."""
+    out = (ctypes.c_int * 4)()
+    _lib().veles_int8_gemm_plan(m, k, n, DTYPE_CODES[dtype], out)
+    return dict(zip(("cols", "cluster", "k_per_rank", "rows"), out))
 
 
 def int8_matmul(a, wq, scale, out_dtype=torch.float32):
@@ -92,7 +105,6 @@ def int8_matmul(a, wq, scale, out_dtype=torch.float32):
     require(wq.dtype == torch.int8, "int8_matmul: weights must be int8")
     require(scale.dtype == torch.float32 and tuple(scale.shape) == (n,),
             "int8_matmul: scale must be f32 [%d]", n)
-    require(wq.data_ptr() % 4 == 0, "int8_matmul: weights misaligned")
     check_cuda_inputs("int8_matmul", a.device, a=a, wq=wq, scale=scale)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m and n:

@@ -114,10 +114,12 @@ class InferenceScheduler(object):
     ``kv_blocks`` / ``kv_dtype`` ("fp32" or "int8") — the paged cache;
     ``prefill_chunk`` — chunk width of chunked prefill (0 = always
     one-shot).  ``device`` must
-    be the chain's device (default ``cuda``)."""
+    be the chain's device (default ``cuda``).  The parameters after
+    ``max_queue`` are keyword-only: the reference's fifth positional
+    parameter is ``queue_timeout``, which the port does not have."""
 
     def __init__(self, forwards, max_slots=4, window=None, max_queue=32,
-                 block_size=16, kv_blocks=None, kv_dtype="fp32",
+                 *, block_size=16, kv_blocks=None, kv_dtype="fp32",
                  prefill_chunk=64, device=None):
         self.device = resolve_device(device)
         if any(u.device != self.device for u in forwards):
@@ -188,8 +190,8 @@ class InferenceScheduler(object):
                                  % (self.error,))
         return self
 
-    def submit(self, prompt, steps, temperature=0.0, top_k=0,
-               stop_token=None, seed=None):
+    def submit(self, prompt, steps, temperature=0.0, top_k=0, seed=None,
+               stop_token=None):
         """Queue one sequence; returns a Future whose result is the
         prompt followed by the generated tokens (ending at the first
         generated stop token, if one fired).  Raises ``ValueError`` on
