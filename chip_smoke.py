@@ -53,10 +53,16 @@ result line):
    ``torch.profiler``;
 8. LRN and uniform kernels — ``lrn_fwd``/``lrn_bwd`` against their
    plain versions element by element (LRN_TOL) in bf16 at AlexNet's two
-   LRN shapes at batch 1024 and in f32 at odd ones (7, 96 and 256
-   channels, n 3/4/5, beta 0.5/0.75), with two planted faults (the
+   LRN shapes at batch 1024, in f32 at odd ones (7, 96 and 256
+   channels, n 3/4/5, beta 0.5/0.75), at the row kernels' edges (C 8,
+   96 and 264 × n 3/4/5/17 in both types, a ragged last warp tile) and
+   at two offset views, each case's ``ops.lrn.plan`` logged and held to
+   the variant that launched (row kernels for aligned C % 8 == 0, tile
+   kernels for C 7 and the views), with two planted faults (the
    forward's window shifted by one channel, the backward's transposed
-   window not mirrored for an even n) failing the same rule;
+   window not mirrored for an even n) failing the same rule and the
+   backward bit-equal across two runs; the ptxas report of each LRN
+   kernel;
    ``uniform_fill`` bit-equal to its plain version over 4,000,003
    floats, once at index 0 and once across 2**32 (the count's high
    word); each timed beside its plain version and a library call;
@@ -72,8 +78,8 @@ result line):
    momentum 0.9 weights decay 0.0005, dropout 0.5; random weights from
    seed 0): 2 warm-up steps, then 5 timed steps with the counts zeroed
    just before and read just after — ``lrn_fwd``, ``lrn_bwd`` and
-   ``uniform_fill`` must each launch twice per step — then one step
-   under ``torch.profiler``.
+   ``uniform_fill`` must each launch twice per step, the LRN kernels as
+   their row variants — then one step under ``torch.profiler``.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -157,6 +163,10 @@ LRN_TOL = {"bfloat16": (2.0 ** -7, 1e-7), "float32": (1e-5, 1e-7)}
 #: large as k, so a kernel that sums the wrong window fails the check
 #: (at unit scale k dominates and a window fault moves y by ~1e-5)
 LRN_SCALE = 50.0
+#: channel counts at the row kernels' edges: one 8-channel chunk per row,
+#: AlexNet's first layer, and 33 chunks per row (a row longer than a
+#: warp's 32)
+LRN_EDGE_C = (8, 96, 264)
 #: 32-bit integer operations per uniform element: the index split (2),
 #: the initial key add (2), 20 rounds of add, rotate and xor (60), 5 key
 #: injections (10), the final xor, shift, or and float subtract (4)
@@ -1073,42 +1083,98 @@ def lrn_faults(mod, x, dy, kw):
             "lrn_bwd": ("transposed window not mirrored", unmirrored)}
 
 
+def lrn_cases():
+    """(shape, dtype, n, beta, faults, offset view) of :func:`check_lrn`:
+    bf16 at AlexNet's two shapes; f32 at 18 odd ones; the row kernels'
+    edges (C 8, 96 and 264 × n 3, 4, 5 and 17 in both types, 429 rows:
+    a ragged last warp tile); two offset views for the tile kernels."""
+    cases = [(shape, "bfloat16", 5, 0.75, True, False)
+             for shape in LRN_SHAPES]
+    cases += [((3, 13, 11, c), "float32", n, beta, True, False)
+              for c in (7, 96, 256) for n in (3, 4, 5) for beta in (0.5, 0.75)]
+    cases += [((3, 13, 11, c), dt, n, 0.75 if n % 2 else 0.5, False, False)
+              for dt in ("bfloat16", "float32") for c in LRN_EDGE_C
+              for n in (3, 4, 5, 17)]
+    cases += [((3, 13, 11, 96), dt, 5, 0.75, False, True)
+              for dt in ("bfloat16", "float32")]
+    return cases
+
+
+def lrn_ptxas(report):
+    """(kernel, registers, static shared memory, spill stores) of each
+    kernel in ``lrn.cu``'s ``-Xptxas -v`` report; the kernel as
+    ``lrn_fwd_rows<bf16, R=2>`` from its mangled name."""
+    out = []
+    for entry in report.split("Compiling entry function '")[1:]:
+        mangled = entry.split("'", 1)[0]
+        name = re.search(r"lrn_(?:fwd|bwd)_(?:rows|kernel)", mangled)
+        reach = re.search(r"Li(\d+)E", mangled)
+        label = "%s<%s%s>" % (name.group(0) if name else mangled,
+                              "bf16" if "bfloat16" in mangled else "f32",
+                              ", R=" + reach.group(1) if reach else "")
+        regs = re.search(r"Used (\d+) registers", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        out.append((label, int(regs.group(1)) if regs else -1,
+                    int(smem.group(1)) if smem else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
 def check_lrn(torch, dev, rate):
-    """Both LRN kernels against their plain versions: bf16 at AlexNet's
-    two shapes, f32 at 18 odd ones; the planted faults of
+    """Both LRN kernels against their plain versions at :func:`lrn_cases`,
+    each case's ``plan`` logged and held to the variant that launched
+    (f32 at 7 channels and the offset views: the tile kernels; every
+    aligned C % 8 == 0 case: the row kernels); the planted faults of
     :func:`lrn_faults` must fail the rule where they change the result
     (the shifted window at the bf16 shapes, the unmirrored window at the
-    even-n f32 shapes).  Then timed at AlexNet's shapes."""
+    even-n f32 shapes); the backward run twice at AlexNet's first shape
+    must be bit-equal.  Then timed at AlexNet's shapes."""
     from veles_tpu_torch.ops import lrn as mod
     gen = torch.Generator(device=dev).manual_seed(8)
     errs = {"lrn_fwd": 0.0, "lrn_bwd": 0.0}
-    cases = [(shape, "bfloat16", 5, 0.75) for shape in LRN_SHAPES]
-    cases += [((3, 13, 11, c), "float32", n, beta) for c in (7, 96, 256)
-              for n in (3, 4, 5) for beta in (0.5, 0.75)]
-    for shape, dt, n, beta in cases:
+    cases = lrn_cases()
+    for shape, dt, n, beta, planted, view in cases:
         dtype = getattr(torch, dt)
-        x = (torch.randn(shape, device=dev, generator=gen)
-             * LRN_SCALE).to(dtype)
+        numel = int(numpy.prod(shape))
+        if view:        # flat[1:] of a buffer: contiguous, 2 or 4 bytes off
+            x = (torch.randn(numel + 1, device=dev, generator=gen)
+                 * LRN_SCALE).to(dtype)[1:].view(shape)
+        else:
+            x = (torch.randn(shape, device=dev, generator=gen)
+                 * LRN_SCALE).to(dtype)
         dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
         kw = dict(alpha=1e-4, beta=beta, n=n, k=2.0)
+        plan = mod.plan(shape, n, dtype, mod.alignment(x, dy))
+        want_kernel = ("tile" if view or shape[-1] % 8 else "rows")
+        before = {k: dict(v) for k, v in mod.variant_launches.items()}
         got = {"lrn_fwd": mod.lrn_fwd(x, **kw),
                "lrn_bwd": mod.lrn_bwd(x, dy, **kw)}
+        ran = {k: [v for v in mod.variant_launches[k]
+                   if mod.variant_launches[k][v] != before[k][v]]
+               for k in before}
+        if plan["kernel"] != want_kernel or ran != {
+                "lrn_fwd": [want_kernel], "lrn_bwd": [want_kernel]}:
+            raise SystemExit("lrn: %s %s n=%d%s planned %s and ran %s "
+                             "(want %s)" % (shape, dt, n,
+                                            " (offset view)" if view else "",
+                                            plan, ran, want_kernel))
         want = {"lrn_fwd": mod.lrn_plain(x, **kw),
                 "lrn_bwd": mod.lrn_bwd_plain(x, dy, **kw)}
-        faults = lrn_faults(mod, x, dy, kw)
+        faults = lrn_faults(mod, x, dy, kw) if planted else {}
         if dt == "float32":
-            faults.pop("lrn_fwd")
+            faults.pop("lrn_fwd", None)
             if n % 2:
-                faults.pop("lrn_bwd")
+                faults.pop("lrn_bwd", None)
         else:
-            faults.pop("lrn_bwd")
+            faults.pop("lrn_bwd", None)
         torch.cuda.synchronize()
+        line = []
         for name in got:
             err = float((got[name].float() - want[name].float()).abs().max())
             excess = lrn_excess(got[name], want[name])
-            if dt == "bfloat16" or excess > 0.5:
-                log("%s %s %s n=%d beta=%g max_abs_err=%.3g, %.3g of the "
-                    "limit" % (name, shape, dt, n, beta, err, excess))
+            line.append("%s max_abs_err=%.3g (%.3g of the limit)"
+                        % (name, err, excess))
             if not excess <= 1.0:
                 raise SystemExit("%s disagrees with its plain version at "
                                  "%s %s n=%d beta=%g: %.3g of the limit"
@@ -1117,14 +1183,25 @@ def check_lrn(torch, dev, rate):
             if name in faults:
                 fault, bad = faults[name]
                 excess = lrn_excess(bad, want[name])
-                if dt == "bfloat16" or n == 4:
-                    log("%s %s %s n=%d planted fault (%s): %.3g of the "
-                        "limit" % (name, shape, dt, n, fault, excess))
+                line.append("planted fault (%s) %.3g of the limit"
+                            % (fault, excess))
                 if not excess > 1.0:
                     raise SystemExit("%s: the check passes a planted fault "
                                      "(%s) at %s" % (name, fault, shape))
+        log("lrn %s %s n=%d beta=%g%s: plan %s; %s"
+            % (shape, dt, n, beta, " offset view" if view else "", plan,
+               "; ".join(line)))
         del x, dy, got, want, faults
-    log("lrn: %d cases within LRN_TOL" % len(cases))
+    x = (torch.randn(LRN_SHAPES[0], device=dev, generator=gen)
+         * LRN_SCALE).to(torch.bfloat16)
+    dy = torch.randn(LRN_SHAPES[0], device=dev, generator=gen).to(
+        torch.bfloat16)
+    kw = dict(alpha=1e-4, beta=0.75, n=5, k=2.0)
+    if not torch.equal(mod.lrn_bwd(x, dy, **kw), mod.lrn_bwd(x, dy, **kw)):
+        raise SystemExit("lrn_bwd: two runs at %s differ" % (LRN_SHAPES[0],))
+    del x, dy
+    log("lrn: %d cases within LRN_TOL; lrn_bwd bit-equal across two runs"
+        % len(cases))
     return time_lrn(torch, dev, rate, errs)
 
 
@@ -1144,6 +1221,7 @@ def time_lrn(torch, dev, rate, errs):
            "lrn_bwd": dict.fromkeys(("ms", "plain_ms", "library_ms",
                                      "bound_ms", "bytes"), 0.0)}
     before = dict(mod.launches)
+    before_variant = {k: dict(v) for k, v in mod.variant_launches.items()}
     for shape in LRN_SHAPES:
         x = (torch.randn(shape, device=dev, generator=gen)
              * LRN_SCALE).to(torch.bfloat16)
@@ -1182,6 +1260,7 @@ def time_lrn(torch, dev, rate, errs):
             out[name]["bound_by"] = b_by
         del x, dy, lx, ly, ldy
     mod.launches.update(before)        # timing launches are not the path's
+    mod.variant_launches.update(before_variant)
     for name in out:
         out[name]["max_abs_err"] = errs[name]
     return out
@@ -1383,12 +1462,14 @@ def alexnet_check(torch, dev):
     torch.cuda.synchronize()
     for name in lrn_mod.launches:
         lrn_mod.launches[name] = 0
+        lrn_mod.variant_launches[name] = {"rows": 0, "tile": 0}
     rnd.launches = 0
     t0 = time.perf_counter()
     timed = steps(T_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(lrn_mod.launches, uniform_fill=rnd.launches)
+    variants = {n: dict(v) for n, v in lrn_mod.variant_launches.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(loss) for loss, _ in warm + timed]
     health = timed[-1][1].cpu().tolist()
@@ -1398,6 +1479,9 @@ def alexnet_check(torch, dev):
     if launches != dict.fromkeys(launches, 2 * T_STEPS):
         raise SystemExit("alexnet: %d steps launched %s (want %d of each)"
                          % (T_STEPS, launches, 2 * T_STEPS))
+    if any(v != {"rows": 2 * T_STEPS, "tile": 0} for v in variants.values()):
+        raise SystemExit("alexnet: the LRN launches by variant were %s "
+                         "(want the row kernels only)" % variants)
     prof = profile_step(torch, lambda: steps(1))
     log(json.dumps({"alexnet": {
         "steps": T_STEPS, "batch": A_BATCH, "step_ms": 1e3 * wall / T_STEPS,
@@ -1406,6 +1490,7 @@ def alexnet_check(torch, dev):
         "dataset_synthesis_ms": synth_ms, "losses": losses,
         "health": health,
         "launches_per_step": {n: v / T_STEPS for n, v in launches.items()},
+        "lrn_launches_by_variant": variants,
         "parameters": n_params}}))
     log(json.dumps({"alexnet_profile": prof}))
     return {"launches": launches}
@@ -1431,6 +1516,9 @@ def main():
                      re.findall(r"(\d+) bytes spill stores", report))
         log("ptxas %s: %d kernels, <= %d registers, %d bytes spilled"
             % (name, len(regs), max(regs, default=0), spills))
+    for entry in lrn_ptxas(_build.ptxas_reports.get("lrn", "")):
+        log("ptxas lrn %s: %d registers, %d bytes smem, %d bytes spilled"
+            % entry)
 
     measured = check_kernels(torch, dev, rate)
     measured.update(check_flash(torch, dev, rate))

@@ -3,7 +3,9 @@ PyTorch versions ON THE CARD, at the serving model's width (d=1024,
 8 heads, block 16), at the training shapes of the attention kernels
 and odd ones off their tiles (with the backward bit-equal from run to
 run, and a head dim they are not built for kept off them), at
-AlexNet's LRN shapes and odd ones, and the uniform fill bit for bit.
+AlexNet's LRN shapes and odd ones (each on the variant ``ops.lrn.plan``
+names, the backward bit-equal across two runs, an offset view on the
+tile kernels), and the uniform fill bit for bit.
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -263,13 +265,21 @@ def test_flash_attention_function_on_the_card(card):
 
 #: (shape, dtype, n, beta): AlexNet's two LRN layers at a batch of 8
 #: (bf16), then odd float32 ones — 7 channels, an even window, rows that
-#: straddle the kernel's 2048-element tiles
+#: straddle the tile kernel's 2048-element tiles; then the row kernels'
+#: edges in both types — one chunk per row (C 8), 33 chunks per row
+#: (C 264), an even window, the widest window (17: two halo lanes in the
+#: backward), row counts that leave a ragged last warp tile
 LRN_CASES = [((8, 55, 55, 96), torch.bfloat16, 5, 0.75),
              ((8, 27, 27, 256), torch.bfloat16, 5, 0.75),
              ((3, 13, 11, 7), torch.float32, 3, 0.5),
              ((2, 9, 96), torch.float32, 4, 0.75),
              ((5, 3, 256), torch.float32, 5, 0.5),
-             ((700, 7), torch.float32, 4, 0.5)]
+             ((700, 7), torch.float32, 4, 0.5),
+             ((5, 7, 8), torch.bfloat16, 4, 0.5),
+             ((3, 11, 264), torch.bfloat16, 17, 0.75),
+             ((37, 8), torch.float32, 4, 0.75),
+             ((7, 13, 264), torch.float32, 17, 0.5),
+             ((2, 3, 264), torch.float32, 10, 0.75)]
 #: inputs of scale 50 with alpha 1e-4: the window sum (~1.3) is as large
 #: as k, so a kernel that sums the wrong window fails the check
 LRN_SCALE, LRN_KW = 50.0, dict(alpha=1e-4, k=2.0)
@@ -295,11 +305,15 @@ def test_lrn_kernels_match_plain(card, case):
     dy = torch.randn(shape, generator=gen).to(card, dtype)
     kw = dict(LRN_KW, beta=beta, n=n)
     before = dict(mod.launches)
+    kernel = mod.plan(shape, n, dtype, 16)["kernel"]
+    before_variant = {k: mod.variant_launches[k][kernel] for k in before}
     y = mod.lrn_fwd(x, **kw)
     dx = mod.lrn_bwd(x, dy, **kw)
     torch.cuda.synchronize()
     assert {k: mod.launches[k] - before[k] for k in before} == {
         "lrn_fwd": 1, "lrn_bwd": 1}
+    assert {k: mod.variant_launches[k][kernel] - before_variant[k]
+            for k in before} == {"lrn_fwd": 1, "lrn_bwd": 1}
     want_y = mod.lrn_plain(x, **kw)
     want_dx = mod.lrn_bwd_plain(x, dy, **kw)
     for name, got, ref in (("y", y, want_y), ("dx", dx, want_dx)):
@@ -311,6 +325,43 @@ def test_lrn_kernels_match_plain(card, case):
         (x * x).float(), half - 1, n - half)
     bad = (x.float() * mod._power(s, beta)).to(dtype)
     assert _lrn_excess(bad, want_y) > 1.0
+
+
+def test_lrn_backward_bit_equal_twice(card):
+    """The row kernels' backward has one writer per element and fixed
+    sums: two runs give the same bits."""
+    from veles_tpu_torch.ops import lrn as mod
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    x = (torch.randn((4, 27, 27, 256), generator=gen) * LRN_SCALE).to(
+        card, torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen).to(card, torch.bfloat16)
+    first = mod.lrn_bwd(x, dy, **LRN_KW)
+    second = mod.lrn_bwd(x, dy, **LRN_KW)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lrn_misaligned_view_takes_the_tile_kernel(card, dtype):
+    """``flat[1:]`` of a buffer is contiguous but off the 16-byte
+    alignment the row kernels need: the tile kernels take it, and it
+    still matches its plain version."""
+    from veles_tpu_torch.ops import lrn as mod
+    rows, c = 300, 96
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    buf = (torch.randn(rows * c + 1, generator=gen) * LRN_SCALE).to(
+        card, dtype)
+    x = buf[1:].view(rows, c)
+    dy = torch.randn((rows, c), generator=gen).to(card, dtype)
+    assert mod.plan(x.shape, 5, dtype, mod.alignment(x))["kernel"] == "tile"
+    before = {k: dict(v) for k, v in mod.variant_launches.items()}
+    y = mod.lrn_fwd(x, **LRN_KW)
+    dx = mod.lrn_bwd(x, dy, **LRN_KW)
+    torch.cuda.synchronize()
+    assert {k: mod.variant_launches[k]["tile"] - before[k]["tile"]
+            for k in before} == {"lrn_fwd": 1, "lrn_bwd": 1}
+    assert _lrn_excess(y, mod.lrn_plain(x, **LRN_KW)) <= 1.0
+    assert _lrn_excess(dx, mod.lrn_bwd_plain(x, dy, **LRN_KW)) <= 1.0
 
 
 def test_lrn_function_and_refusals_on_the_card(card):

@@ -14,6 +14,10 @@ CPU, on the same numpy-seeded inputs.
   TPU) at AlexNet's parameters and at the strong ones.
 - One bfloat16 case: both sides round at the same points, so they agree
   to one bf16 step.
+- ``ops.lrn.plan``, the card kernels' dispatch, from shapes and
+  alignments alone: the row kernels for AlexNet's shapes and C 8 and
+  264, the tile kernels for C 7, a window past ``ROWS_MAX_N`` and a
+  pointer off 16 bytes (an offset view of a buffer).
 """
 
 import jax
@@ -107,3 +111,38 @@ def test_bfloat16_within_one_step():
         want = numpy.asarray(want.astype(jnp.float32))
         assert (numpy.abs(got - want)
                 <= 2.0 ** -7 * numpy.abs(want) + 1e-30).all()
+
+
+#: (shape, n, dtype, pointer alignment, kernel): AlexNet's two LRN
+#: layers and the row kernels' edges take the row kernels; 7 channels, a
+#: window past ROWS_MAX_N and a pointer off 16 bytes take the tile ones
+PLAN_CASES = [((1024, 55, 55, 96), 5, torch.bfloat16, 256, "rows"),
+              ((1024, 27, 27, 256), 5, torch.bfloat16, 256, "rows"),
+              ((4, 8), 4, torch.float32, 16, "rows"),
+              ((3, 11, 264), 17, torch.bfloat16, 16, "rows"),
+              ((700, 7), 4, torch.float32, 256, "tile"),
+              ((8, 96), 18, torch.bfloat16, 256, "tile"),
+              ((8, 96), 5, torch.bfloat16, 2, "tile"),
+              ((8, 96), 5, torch.float32, 8, "tile")]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=str)
+def test_plan_picks_the_kernel(case):
+    from veles_tpu_torch.ops.lrn import plan
+    shape, n, dtype, align, kernel = case
+    got = plan(shape, n, dtype, align)
+    assert got["kernel"] == kernel, got
+    if kernel == "rows":
+        assert got["loads_per_chunk"] == dtype.itemsize // 2
+
+
+def test_alignment_of_an_offset_view():
+    """``flat[1:]`` of a bf16 buffer lies 2 bytes past an aligned
+    address: contiguous, but the row kernels cannot take it."""
+    from veles_tpu_torch.ops.lrn import alignment, plan
+    buf = torch.zeros(8 * 96 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(8, 96)
+    assert x.is_contiguous() and alignment(buf) >= 16
+    assert alignment(x) == 2
+    assert plan(x.shape, 5, x.dtype, alignment(x))["kernel"] == "tile"
+    assert plan(x.shape, 5, x.dtype, alignment(buf))["kernel"] == "rows"

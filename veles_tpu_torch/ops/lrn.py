@@ -9,6 +9,10 @@ to the channels.
 - :func:`lrn_fwd` / :func:`lrn_bwd` are the kernel wrappers
   (``csrc/lrn.cu``) for CUDA tensors, their plain versions
   :func:`lrn_plain` / :func:`lrn_bwd_plain` for CPU tensors.
+  ``lrn.cu`` has two variants of each kernel: the row kernels (16-byte
+  chunks of 8 channels, neighbours by warp shuffles) and the tile
+  kernels (any shape); :func:`plan` picks one from the shape, the
+  window and the pointers' alignment alone.
 - :func:`lrn` is the autograd Function the ``norm`` unit calls: its
   forward saves only ``x`` and its backward recomputes the denominator
   (the TPU kernel's custom VJP).
@@ -31,11 +35,18 @@ from veles_tpu_torch import _build
 from veles_tpu_torch.ops import (
     DTYPE_CODES, check_cuda_inputs, ptr, require, stream_ptr)
 
-#: kernel launches so far, by kernel (the wrappers add one per launch)
+#: kernel launches so far, by kernel (the wrappers add one per launch,
+#: of either variant)
 launches = {"lrn_fwd": 0, "lrn_bwd": 0}
+#: the same launches by variant (:func:`plan`'s ``kernel``)
+variant_launches = {name: {"rows": 0, "tile": 0} for name in launches}
 
-#: the kernels stage the window's halo in shared memory
+#: the tile kernels stage the window's halo in shared memory
 MAX_N = 64
+#: the row kernels reach one 8-channel chunk to either side (half <= 8)
+ROWS_MAX_N = 17
+#: the row kernels load and store 16 bytes at a time
+ROWS_ALIGN = 16
 
 _argtypes_set = False
 
@@ -88,6 +99,37 @@ def lrn_bwd_plain(x, dy, alpha=1e-4, beta=0.75, n=5, k=2.0):
     return (dyf * p - (2.0 * alpha * beta) * xf * u).to(x.dtype)
 
 
+def plan(shape, n, dtype, ptr_alignment):
+    """Which kernel of ``csrc/lrn.cu`` takes LRN over the last axis of
+    ``shape`` with window ``n`` when every pointer (x, dy and the
+    output) is a multiple of ``ptr_alignment`` bytes: ``{"kernel":
+    "rows" | "tile", "why": ...}``, and for the row kernels the 16-byte
+    loads per chunk of 8 channels of each tensor.  Decided from these
+    arguments alone, never from a failed launch."""
+    c = shape[-1]
+    if c % 8:
+        return {"kernel": "tile", "why": "C %% 8 = %d" % (c % 8)}
+    if n > ROWS_MAX_N:
+        return {"kernel": "tile", "why": "n %d > %d" % (n, ROWS_MAX_N)}
+    if ptr_alignment % ROWS_ALIGN:
+        return {"kernel": "tile",
+                "why": "pointers aligned to %d bytes" % ptr_alignment}
+    return {"kernel": "rows", "why": "C %% 8 = 0, n <= %d, aligned"
+            % ROWS_MAX_N,
+            "loads_per_chunk": 8 * dtype.itemsize // ROWS_ALIGN}
+
+
+def alignment(*tensors):
+    """The largest power of two (up to 256) dividing every tensor's
+    address."""
+    align = 256
+    for t in tensors:
+        addr = t.data_ptr()
+        while addr % align:
+            align //= 2
+    return align
+
+
 def _lib():
     global _argtypes_set
     lib = _build.library("lrn")
@@ -95,10 +137,10 @@ def _lib():
         vp, ci, cf, cl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_int64)
         lib.veles_lrn_fwd.argtypes = [vp, vp, ci, cl, ci, ci, cf, cf, cf,
-                                      ci, vp]
+                                      ci, ci, vp]
         lib.veles_lrn_fwd.restype = ci
         lib.veles_lrn_bwd.argtypes = [vp, vp, vp, ci, cl, ci, ci, cf, cf,
-                                      cf, cf, ci, vp]
+                                      cf, cf, ci, ci, vp]
         lib.veles_lrn_bwd.restype = ci
         _argtypes_set = True
     return lib
@@ -119,21 +161,29 @@ def _check(what, x, n, **tensors):
     check_cuda_inputs(what, x.device, x=x, **tensors)
 
 
+def _count(name, kernel):
+    launches[name] += 1
+    variant_launches[name][kernel] += 1
+
+
 def lrn_fwd(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
     """LRN forward (signature of :func:`lrn_plain`): the plain version
-    for CPU tensors, ``csrc/lrn.cu`` for CUDA tensors (any channel
-    count; raises on what the kernel does not take)."""
+    for CPU tensors, ``csrc/lrn.cu`` for CUDA tensors (the variant
+    :func:`plan` picks; any channel count; raises on what no variant
+    takes)."""
     if x.device.type == "cpu":
         return lrn_plain(x, alpha, beta, n, k)
     _check("lrn_fwd", x, n)
     y = torch.empty_like(x)
     if x.numel():
         c = x.shape[-1]
+        kernel = plan(x.shape, n, x.dtype, alignment(x, y))["kernel"]
         rc = _lib().veles_lrn_fwd(
             ptr(x), ptr(y), DTYPE_CODES[x.dtype], x.numel() // c, c, n,
-            alpha, beta, k, int(beta == 0.75), stream_ptr(x.device))
+            alpha, beta, k, int(beta == 0.75), int(kernel == "rows"),
+            stream_ptr(x.device))
         _build.check(rc, "lrn_fwd launch")
-        launches["lrn_fwd"] += 1
+        _count("lrn_fwd", kernel)
     return y
 
 
@@ -147,12 +197,13 @@ def lrn_bwd(x, dy, alpha=1e-4, beta=0.75, n=5, k=2.0):
     dx = torch.empty_like(x)
     if x.numel():
         c = x.shape[-1]
+        kernel = plan(x.shape, n, x.dtype, alignment(x, dy, dx))["kernel"]
         rc = _lib().veles_lrn_bwd(
             ptr(x), ptr(dy), ptr(dx), DTYPE_CODES[x.dtype], x.numel() // c,
             c, n, alpha, beta, k, 2.0 * alpha * beta, int(beta == 0.75),
-            stream_ptr(x.device))
+            int(kernel == "rows"), stream_ptr(x.device))
         _build.check(rc, "lrn_bwd launch")
-        launches["lrn_bwd"] += 1
+        _count("lrn_bwd", kernel)
     return dx
 
 
