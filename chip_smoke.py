@@ -11,11 +11,21 @@ result line):
    (one compiler per source, all started together);
 2. kernels — each kernel wrapper on the card at the shapes of its path,
    held against its plain PyTorch version on the same inputs, then
-   timed beside the plain version and one library call: the serving
-   kernels at the serving shapes (the int8 GEMM also at 13 and 136
-   rows, at ragged shapes and in f32, run twice bit-equal, a planted
-   lost split failing its check by 5x, and timed as replays of a CUDA
-   graph of one decode step's 24 launches as well as by an eager
+   timed beside the plain version and one library call: paged
+   attention at the serving shapes and at the split kernel's edges
+   (ATTEND_EDGES: live blocks 1, one per rank, fewer than the ranks, a
+   table not a multiple of the cluster, T 64; K1 1/5/16; f32, bf16 and
+   int8 pools; head dims 64/128/256; the padding row; rows whose
+   queries all lie before their table) and at the column kernel's
+   cases (ATTEND_COLUMN: head rows off the 16-byte chunks, pools passed
+   as offset views), each case on the kernel
+   ``ops.paged_attend.plan`` names and run twice bit-equal, a planted
+   lost rank failing its check by 5x, and timed at T 16 and T 64 as
+   replays of a CUDA graph of one decode step's 8 launches as well as
+   by an eager loop; the int8 GEMM at the serving shapes (also at 13
+   and 136 rows, at ragged shapes and in f32, run twice bit-equal, a
+   planted lost split failing its check by 5x, and timed as replays of
+   a CUDA graph of one decode step's 24 launches as well as by an eager
    loop); the three FlashAttention kernels
    (forward, dq, dk/dv) at the training shapes (b 4, s 2048, 16 heads
    of 128, bf16, causal), at hd 256 full length, and at small odd ones
@@ -43,7 +53,8 @@ result line):
    pools and ``int8_decode``: one warm-up request, then 8 concurrent
    128-token prompts x 32 greedy steps.  The kernels' launch counts
    are zeroed just before and read just after: ``paged_attend`` must
-   launch once per layer per decode step, ``int8_gemm`` three times;
+   launch once per layer per decode step, all on its split kernel,
+   ``int8_gemm`` three times;
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
    bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
@@ -83,7 +94,13 @@ result line):
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
-``{"ok": true, "device": {...}}`` line.
+``{"ok": true, "device": {...}}`` line.  In the kernels line, the two
+serving kernels' (``paged_attend``, ``int8_gemm``) ``ms`` and
+``library_ms`` are device times of CUDA-graph replays of a decode
+step's launches (their launches are shorter than the host's dispatch of
+one), with the host-paced eager loops under ``eager_ms`` and
+``library_eager_ms``; every other kernel's ``ms`` and ``library_ms``,
+and every ``plain_ms``, are eager loops timed by CUDA events.
 """
 
 import json
@@ -236,24 +253,37 @@ def bound(nbytes, ops, dtype, rate):
 
 # -- phase 2: kernels ---------------------------------------------------------
 
-def _attend_inputs(torch, rng, dev, b, t, k1, pool, nb, lo, hi):
-    """Pools of ``nb`` blocks, a [b, t] table whose last row is
+def _offset_view(torch, x, offset):
+    """``x`` copied into a view ``offset`` elements into a flat buffer:
+    contiguous, off the 16-byte boundary a fresh tensor starts on."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _attend_inputs(torch, rng, dev, b, t, k1, pool, nb, lo, hi, heads=HEADS,
+                   first=None, d=DIM, offset=0):
+    """Pools of ``nb`` blocks of width ``d`` (views ``offset`` elements
+    into a buffer when it is given), a [b, t] table whose last row is
     occupancy padding (all trash block 0, position 0) and whose other
-    rows, at positions drawn from [lo, hi], own distinct blocks up to
-    their position, trash past it."""
+    rows, at first positions drawn from [lo, hi] (or given as ``first``,
+    the padding row's last), own distinct blocks up to their deepest
+    query (every block of the table for a row before it, at negative
+    positions), trash past it."""
     from veles_tpu_torch.ops.paged_attention import quantize_kv_rows
     qdt = torch.float32 if pool == "float32" else torch.bfloat16
-    q = torch.as_tensor(rng.standard_normal((b, k1, DIM)),
+    q = torch.as_tensor(rng.standard_normal((b, k1, d)),
                         dtype=torch.float32).to(dev, qdt)
     tables = numpy.zeros((b, t), numpy.int32)
     qpos = numpy.zeros((b, k1), numpy.int32)
     free = list(rng.permutation(numpy.arange(1, nb)))
     for r in range(b - 1 if b > 1 else b):
-        p = int(rng.integers(lo, hi + 1))
-        live = (p + k1 - 1) // BLOCK + 1
+        p = int(rng.integers(lo, hi + 1)) if first is None else first[r]
+        live = t if p < 0 else (p + k1 - 1) // BLOCK + 1
         tables[r, :live] = [free.pop() for _ in range(live)]
         qpos[r] = p + numpy.arange(k1)
-    kv = [torch.as_tensor(rng.standard_normal((nb, BLOCK, DIM)),
+    kv = [torch.as_tensor(rng.standard_normal((nb, BLOCK, d)),
                           dtype=torch.float32).to(dev) for _ in range(2)]
     extra = {}
     if pool == "int8":
@@ -262,8 +292,10 @@ def _attend_inputs(torch, rng, dev, b, t, k1, pool, nb, lo, hi):
         extra = dict(scale_k=sk, scale_v=sv)
     else:
         kv = [x.to(getattr(torch, pool)) for x in kv]
+    if offset:
+        kv = [_offset_view(torch, x, offset) for x in kv]
     args = (q, kv[0], kv[1], torch.as_tensor(tables).to(dev),
-            torch.as_tensor(qpos).to(dev), HEADS)
+            torch.as_tensor(qpos).to(dev), heads)
     return args, extra
 
 
@@ -281,36 +313,182 @@ def _attend_bytes_ops(args, extra):
     return nbytes, ops
 
 
+def attend_excess(got, want):
+    """The largest ratio, over the elements, of ``|got - want|`` to
+    ``TOL * (1 + |want|)`` (``torch.allclose``'s rule at rtol = atol =
+    TOL of the queries' type, here the bf16 one): at most 1 passes."""
+    return float(((got - want).abs() / (TOL["bfloat16"]
+                                        * (1.0 + want.abs()))).max())
+
+
+def lost_rank_qpos(torch, pa, args):
+    """Positions that make the plain version compute what a split kernel
+    whose merge left out each row's last busy rank would give: that
+    rank's keys (rows ``lo`` on) dropped, i.e. every query clipped to
+    ``lo - 1`` (rows whose keys all sit in one rank keep theirs)."""
+    q, pk, _, tables, qpos, heads = args
+    b, k1, d = q.shape
+    nt = tables.shape[1]
+    cluster = pa.plan(b, k1, d, heads, BLOCK, nt, pk.dtype)["cluster"]
+    out = qpos.clone()
+    for r, row in enumerate(qpos.cpu().tolist()):
+        live = min(nt, max(row) // BLOCK + 1)
+        share = -(-live // cluster)
+        lo = (-(-live // share) - 1) * share * BLOCK
+        if min(row) >= 0 and lo > 0:
+            out[r] = torch.clamp(qpos[r], max=lo - 1)
+    return out
+
+
+#: (case, pool, K1, heads, T, first positions of the rows, padding row
+#: last) at the split kernel's edges: one live block; exactly one block
+#: per rank (T 8, cluster 8); fewer live blocks than ranks; T 13, not a
+#: multiple of the cluster (the last busy rank's share short, one rank
+#: empty); T 64 full (the serving window); K1 5 and 16; f32 and bf16
+#: pools; head dims 64 and 256; a row whose queries all lie before its
+#: table (every key masked: the mean of all T x bs V rows)
+ATTEND_EDGES = (("live 1", "int8", 1, 8, 16, [3, 15, 0]),
+                ("one block per rank", "int8", 1, 8, 8, [127, 113, 0]),
+                ("fewer than the ranks", "int8", 1, 8, 16, [40, 70, 0]),
+                ("T 13", "int8", 1, 8, 13, [207, 150, 0]),
+                ("T 64 full", "int8", 1, 8, 64, [1023, 960, 0]),
+                ("K1 5", "int8", 5, 8, 16, [200, 33, 0]),
+                ("K1 16", "int8", 16, 8, 16, [240, 7, 0]),
+                ("f32 K1 5", "float32", 5, 8, 13, [190, 60, 0]),
+                ("f32 K1 16", "float32", 16, 8, 16, [230, 3, 0]),
+                ("bf16", "bfloat16", 1, 8, 16, [250, 100, 0]),
+                ("hd 64", "int8", 1, 16, 16, [255, 17, 0]),
+                ("hd 256 f32", "float32", 1, 4, 16, [130, 31, 0]),
+                ("hd 256 K1 16", "bfloat16", 16, 4, 13, [180, 9, 0]),
+                ("all-negative row", "int8", 1, 8, 3, [-7, 20, 0]),
+                ("all-negative rows K1 3", "int8", 3, 8, 5, [-9, -3, 0]))
+#: (case, pool, K1, d, heads, T, first positions, pool offset in
+#: elements) that ``plan`` sends to the column kernel: head rows off the
+#: 16-byte chunks (d 1000 over 8 heads: 125 int8, 250 bf16 or 500 f32
+#: bytes), and pools passed as views off the 16-byte boundary; each with
+#: a row whose queries lie before its table (all, or in the last case
+#: the first of three: positions -1, 0, 1)
+ATTEND_COLUMN = (
+    ("hd 125 K1 1", "int8", 1, 1000, 8, 16, [200, -3, 0], 0),
+    ("hd 125 K1 2", "int8", 2, 1000, 8, 13, [97, 15, -9, 0], 0),
+    ("hd 125 f32 K1 5", "float32", 5, 1000, 8, 16, [150, -6, 0], 0),
+    ("hd 125 bf16 K1 16", "bfloat16", 16, 1000, 8, 8, [90, -20, 0], 0),
+    ("offset view", "int8", 1, DIM, HEADS, 16, [140, -5, 0], 1),
+    ("offset view bf16 K1 3", "bfloat16", 3, DIM, HEADS, 16,
+     [130, 20, -1, 0], 1))
+#: how far a planted lost rank must fail the check
+ATTEND_FAULT_MIN = 5.0
+
+
+def paged_ptxas(report):
+    """(kernel, registers, static shared memory, spill stores) of each
+    kernel in ``paged_attend.cu``'s ``-Xptxas -v`` report, the kernel
+    as ``paged_split_kernel<int8, KMAX 1>`` from its mangled name."""
+    out = []
+    # (a substitution, S<n>_, repeats a type named before it: bf16 here)
+    types = {"a": "int8", "f": "f32", "13__nv_bfloat16": "bf16"}
+    for entry in report.split("Compiling entry function '")[1:]:
+        mangled = entry.split("'", 1)[0]
+        name = re.search(r"paged_(?:split|column)_kernel", mangled)
+        args = re.search(r"kernelI((?:13__nv_bfloat16|S\d*_|a|f)+)Lb",
+                         mangled)
+        kmax = re.search(r"Li(\d+)E", mangled)
+        label = "%s<%s, KMAX %s>" % (
+            name.group(0) if name else mangled,
+            ", ".join(types.get(t, "bf16") for t in re.findall(
+                r"13__nv_bfloat16|S\d*_|a|f", args.group(1))) if args else "?",
+            kmax.group(1) if kmax else "?")
+        regs = re.search(r"Used (\d+) registers", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        out.append((label, int(regs.group(1)) if regs else -1,
+                    int(smem.group(1)) if smem else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
+def check_attend(torch, dev, nb):
+    """``paged_attend`` against its plain version at the serving shapes
+    (int8, B 1 and 8, T 4 and 64; f32 K1 1 and 5; bf16), at
+    ATTEND_EDGES (split kernel) and at ATTEND_COLUMN (column kernel), by
+    ``torch.allclose``'s rule at TOL, each case on the kernel ``plan``
+    names (logged), which must be the kernel its table holds, and run
+    twice bit-equal; at the serving depths a planted lost rank
+    (:func:`lost_rank_qpos`) must fail the check by ATTEND_FAULT_MIN.
+    Returns the largest error."""
+    from veles_tpu_torch.ops import paged_attend as pa
+    rng = numpy.random.default_rng(1)
+    cases = [("serving", "int8", 1, DIM, HEADS, t, b, None, 0, "split")
+             for b in (1, 8) for t in (4, 16, 64)]
+    cases += [("serving", "float32", 1, DIM, HEADS, 16, 8, None, 0, "split"),
+              ("serving", "float32", 5, DIM, HEADS, 16, 8, None, 0, "split"),
+              ("serving", "bfloat16", 1, DIM, HEADS, 16, 8, None, 0,
+               "split")]
+    cases += [(name, pool, k1, DIM, heads, t, len(first), first, 0, "split")
+              for name, pool, k1, heads, t, first in ATTEND_EDGES]
+    cases += [(name, pool, k1, d, heads, t, len(first), first, offset,
+               "column")
+              for name, pool, k1, d, heads, t, first, offset in ATTEND_COLUMN]
+    worst = 0.0
+    for name, pool, k1, d, heads, t, b, first, offset, kernel in cases:
+        args, extra = _attend_inputs(torch, rng, dev, b, t, k1, pool, nb,
+                                     0, t * BLOCK - k1, heads, first, d,
+                                     offset)
+        how = pa.plan(b, k1, d, heads, BLOCK, t, args[1].dtype,
+                      args[1].data_ptr() % 16 == 0
+                      and args[2].data_ptr() % 16 == 0)
+        if how["kernel"] != kernel:
+            raise SystemExit("paged_attend %s: plan names %s, the case "
+                             "holds the %s kernel" % (name, how, kernel))
+        before = dict(pa.variant_launches)
+        got = pa.paged_attend(*args, **extra)
+        again = pa.paged_attend(*args, **extra)
+        want = pa.paged_attend_plain(*args, **extra)
+        torch.cuda.synchronize()
+        ran = {k: pa.variant_launches[k] - before[k] for k in before}
+        err = float((got - want).abs().max())
+        same = torch.equal(got, again)
+        tol = TOL["float32" if pool == "float32" else "bfloat16"]
+        line = ("paged_attend %s: pool=%s%s B=%d T=%d K1=%d hd=%d plan %s, "
+                "max_abs_err=%.3g, run twice bit-equal %s"
+                % (name, pool, " (offset %d)" % offset if offset else "", b,
+                   t, k1, d // heads, how, err, same))
+        if name == "serving" and b == 8 and pool == "int8" and t > 4:
+            bad = pa.paged_attend_plain(*args[:4],
+                                        lost_rank_qpos(torch, pa, args),
+                                        heads, **extra)
+            fault = attend_excess(bad, want)
+            line += ("; planted fault (each row's last busy rank left out "
+                     "of the merge) at %.3g of the limit" % fault)
+            if not fault >= ATTEND_FAULT_MIN:
+                raise SystemExit(line + ": the check would not see it")
+        log(line)
+        if ran != {k: 2 * (k == how["kernel"]) for k in ran}:
+            raise SystemExit("paged_attend ran %s, its plan says %s"
+                             % (ran, how["kernel"]))
+        if not same:
+            raise SystemExit("paged_attend is not deterministic (%s)" % name)
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise SystemExit("paged_attend disagrees with its plain "
+                             "version (%s): %g" % (name, err))
+        worst = max(worst, err)
+    log("paged_attend: %d cases within TOL" % len(cases))
+    return worst
+
+
 def check_kernels(torch, dev, rate):
     """Every kernel against its plain version at the serving shapes,
     then timed.  Returns the measured fields of each kernel."""
-    from veles_tpu_torch.ops import paged_attend as pa
-    rng = numpy.random.default_rng(1)
+    from veles_tpu_torch import _build
     nb = SLOTS * (WINDOW // BLOCK) + 1      # the smoke's pool: 512 + trash
-    errs = {"paged_attend": 0.0, "int8_gemm": 0.0}
-    cases = [("int8", b, t, 1) for b in (1, 8) for t in (4, 64)]
-    cases += [("float32", 8, 16, 1), ("float32", 8, 16, 5),
-              ("bfloat16", 8, 16, 1)]
-    for pool, b, t, k1 in cases:
-        args, extra = _attend_inputs(torch, rng, dev, b, t, k1, pool, nb,
-                                     0, t * BLOCK - k1)
-        got = pa.paged_attend(*args, **extra)
-        want = pa.paged_attend_plain(*args, **extra)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = TOL["float32" if pool == "float32" else "bfloat16"]
-        log("paged_attend pool=%s B=%d T=%d K1=%d max_abs_err=%.3g"
-            % (pool, b, t, k1, err))
-        if not torch.allclose(got, want, rtol=tol, atol=tol):
-            raise SystemExit("paged_attend disagrees with its plain "
-                             "version (pool=%s B=%d T=%d K1=%d): %g"
-                             % (pool, b, t, k1, err))
-        errs["paged_attend"] = max(errs["paged_attend"], err)
-    errs["int8_gemm"] = check_gemm(torch, dev, rng)
-    return {"paged_attend": time_attend(torch, dev, rng, nb, rate,
-                                        errs["paged_attend"]),
-            "int8_gemm": time_gemm(torch, dev, rng, rate,
-                                   errs["int8_gemm"])}
+    for entry in paged_ptxas(_build.ptxas_reports.get("paged_attend", "")):
+        log("ptxas paged_attend %s: %d registers, %d bytes smem, %d bytes "
+            "spilled" % entry)
+    err = check_attend(torch, dev, nb)
+    rng = numpy.random.default_rng(1)
+    gemm_err = check_gemm(torch, dev, rng)
+    return {"paged_attend": time_attend(torch, dev, rng, nb, rate, err),
+            "int8_gemm": time_gemm(torch, dev, rng, rate, gemm_err)}
 
 
 def _gemm_inputs(torch, dev, rng, m, k, n, dtype):
@@ -418,54 +596,76 @@ def graph_ms(torch, fn, reps=50):
 def time_attend(torch, dev, rng, nb, rate, err):
     """One decode step's attention: 8 layers' int8 pools (so the pools,
     134 MB together, do not sit in the 50 MB L2 as one layer's would),
-    B=8 rows (7 requests and one padding row) at positions 128..159,
-    the smoke's decode range (T=16, its block bucket), one query each.
-    Times are per launch."""
+    B=8 rows (7 requests and one padding row), one query each, at two
+    depths: positions 128..159, the smoke's decode range (T=16, its
+    block bucket), and 960..1023, the serving window's end (T=64).  A
+    launch (a few us) is shorter than the host's dispatch of one through
+    the wrapper, so the device time comes from a CUDA graph of the 8
+    launches (``ms``, by ``graph_ms``), and the library yardstick's the
+    same way (``library_ms``); the eager loops (host-paced) stay beside
+    them as ``eager_ms`` and ``library_eager_ms``.  Times are per
+    launch; the returned fields are the T=16 ones, with the T=64 ones
+    under ``deep``."""
     from veles_tpu_torch.ops import paged_attend as pa
-    layers = [_attend_inputs(torch, rng, dev, 8, 16, 1, "int8", nb,
-                             PROMPT, PROMPT + STEPS - 1)
-              for _ in range(LAYERS)]
-    # every layer gets the same table and positions, as in a real step
-    for args, _ in layers[1:]:
-        args[3].copy_(layers[0][0][3])
-        args[4].copy_(layers[0][0][4])
+    depths = {}
+    for t, lo, hi in ((16, PROMPT, PROMPT + STEPS - 1),
+                      (WINDOW // BLOCK, WINDOW - 64, WINDOW - 1)):
+        layers = [_attend_inputs(torch, rng, dev, 8, t, 1, "int8", nb, lo,
+                                 hi) for _ in range(LAYERS)]
+        # every layer gets the same table and positions, as in a real step
+        for args, _ in layers[1:]:
+            args[3].copy_(layers[0][0][3])
+            args[4].copy_(layers[0][0][4])
 
-    def kernel():
-        for args, extra in layers:
-            pa.paged_attend(*args, **extra)
+        def kernel():
+            for args, extra in layers:
+                pa.paged_attend(*args, **extra)
 
-    def plain():
-        for args, extra in layers:
-            pa.paged_attend_plain(*args, **extra)
+        def plain():
+            for args, extra in layers:
+                pa.paged_attend_plain(*args, **extra)
 
-    def library():
-        # gather + dequantize the table's blocks, then one
-        # scaled_dot_product_attention call with the causal mask
-        for (q, pk, pv, tables, qpos, heads), ex in layers:
-            b, k1, d = q.shape
-            idx = tables.long()
-            hd = d // heads
-            length = idx.shape[1] * BLOCK
-            k = (pk[idx].to(q.dtype) * ex["scale_k"][idx][..., None]
-                 .to(q.dtype)).reshape(b, length, heads, hd).transpose(1, 2)
-            v = (pv[idx].to(q.dtype) * ex["scale_v"][idx][..., None]
-                 .to(q.dtype)).reshape(b, length, heads, hd).transpose(1, 2)
-            keep = (torch.arange(length, device=q.device)[None, None, :]
-                    <= qpos.long()[:, :, None])[:, None]
-            torch.nn.functional.scaled_dot_product_attention(
-                q.reshape(b, k1, heads, hd).transpose(1, 2), k, v,
-                attn_mask=keep).float()
+        def library():
+            # gather + dequantize the table's blocks, then one
+            # scaled_dot_product_attention call with the causal mask
+            for (q, pk, pv, tables, qpos, heads), ex in layers:
+                b, k1, d = q.shape
+                idx = tables.long()
+                hd = d // heads
+                length = idx.shape[1] * BLOCK
+                k = (pk[idx].to(q.dtype) * ex["scale_k"][idx][..., None]
+                     .to(q.dtype)).reshape(b, length, heads, hd).transpose(
+                         1, 2)
+                v = (pv[idx].to(q.dtype) * ex["scale_v"][idx][..., None]
+                     .to(q.dtype)).reshape(b, length, heads, hd).transpose(
+                         1, 2)
+                keep = (torch.arange(length, device=q.device)[None, None, :]
+                        <= qpos.long()[:, :, None])[:, None]
+                torch.nn.functional.scaled_dot_product_attention(
+                    q.reshape(b, k1, heads, hd).transpose(1, 2), k, v,
+                    attn_mask=keep).float()
 
-    nbytes, ops = _attend_bytes_ops(*layers[0])
-    b_ms, b_by = bound(nbytes, ops, "bfloat16", rate)
-    before = pa.launches
-    fields = {"ms": time_ms(torch, kernel) / LAYERS,
-              "plain_ms": time_ms(torch, plain) / LAYERS,
-              "library_ms": time_ms(torch, library) / LAYERS,
-              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-              "bytes": nbytes}
-    pa.launches = before              # timing launches are not the path's
-    return fields
+        nbytes, ops = _attend_bytes_ops(*layers[0])
+        b_ms, b_by = bound(nbytes, ops, "bfloat16", rate)
+        before = pa.launches, dict(pa.variant_launches)
+        f = {"ms": graph_ms(torch, kernel) / LAYERS,
+             "eager_ms": time_ms(torch, kernel) / LAYERS,
+             "plain_ms": time_ms(torch, plain) / LAYERS,
+             "library_ms": graph_ms(torch, library) / LAYERS,
+             "library_eager_ms": time_ms(torch, library) / LAYERS,
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+             "plan": pa.plan(8, 1, DIM, HEADS, BLOCK, t, torch.int8)}
+        pa.launches = before[0]       # timing launches are not the path's
+        pa.variant_launches.update(before[1])
+        log("paged_attend per launch at T=%d (positions %d..%d, plan %s): "
+            "graph-replayed %.4f ms (%.1f %% of the %.5f ms bound by %s), "
+            "library graph-replayed %.4f ms; host-paced eager loop: kernel "
+            "%.4f ms, library %.4f ms; plain %.4f ms"
+            % (t, lo, hi, f["plan"], f["ms"], 100 * b_ms / f["ms"], b_ms,
+               b_by, f["library_ms"], f["eager_ms"], f["library_eager_ms"],
+               f["plain_ms"]))
+        depths[t] = f
+    return dict(depths[16], max_abs_err=err, deep=depths[WINDOW // BLOCK])
 
 
 def time_gemm(torch, dev, rng, rate, err):
@@ -474,9 +674,10 @@ def time_gemm(torch, dev, rng, rate, err):
     the L2 holds).  Times are per layer (three launches).  The kernel's
     launches (~3 us each) are shorter than the host's dispatch of one
     through the wrapper, so its device time is taken from a CUDA graph
-    of the 24 launches (``graph_ms``), and the library yardstick's the
-    same way; the loop of eager calls (``ms``, host-paced) stays
-    beside them."""
+    of the 24 launches (``ms``, by ``graph_ms``), and the library
+    yardstick's the same way (``library_ms``); the loops of eager calls
+    (host-paced) stay beside them as ``eager_ms`` and
+    ``library_eager_ms``."""
     from veles_tpu_torch.ops import gemm
     m = SLOTS
     work = [_gemm_inputs(torch, dev, rng, m, k, n, torch.bfloat16)
@@ -498,21 +699,20 @@ def time_gemm(torch, dev, rng, rate, err):
     ops = sum(2 * m * k * n for k, n in GEMM_SHAPES)
     b_ms, b_by = bound(nbytes, ops, "bfloat16", rate)
     before = gemm.launches
-    fields = {"ms": time_ms(torch, kernel) / LAYERS,
-              "graph_ms": graph_ms(torch, kernel) / LAYERS,
+    fields = {"ms": graph_ms(torch, kernel) / LAYERS,
+              "eager_ms": time_ms(torch, kernel) / LAYERS,
               "plain_ms": time_ms(torch, plain) / LAYERS,
-              "library_ms": time_ms(torch, library) / LAYERS,
-              "library_graph_ms": graph_ms(torch, library) / LAYERS,
+              "library_ms": graph_ms(torch, library) / LAYERS,
+              "library_eager_ms": time_ms(torch, library) / LAYERS,
               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
               "bytes": nbytes}
     gemm.launches = before
     log("int8_gemm per layer (3 launches, m=%d): graph-replayed %.4f ms "
         "(%.1f %% of the %.5f ms bound by %s), library graph-replayed "
         "%.4f ms; host-paced eager loop: kernel %.4f ms, library %.4f ms; "
-        "plain %.4f ms" % (m, fields["graph_ms"],
-                           100 * b_ms / fields["graph_ms"], b_ms, b_by,
-                           fields["library_graph_ms"], fields["ms"],
-                           fields["library_ms"], fields["plain_ms"]))
+        "plain %.4f ms" % (m, fields["ms"], 100 * b_ms / fields["ms"], b_ms,
+                           b_by, fields["library_ms"], fields["eager_ms"],
+                           fields["library_eager_ms"], fields["plain_ms"]))
     return fields
 
 
@@ -910,6 +1110,7 @@ def serve_check(torch, dev):
         secs0, done0 = sch.decode_seconds, len(sch.completed)
         torch.cuda.synchronize()
         pa.launches = 0
+        pa.variant_launches.update(split=0, column=0)
         gemm.launches = 0
         t0 = time.perf_counter()
         futs = [sch.submit(p, STEPS) for p in prompts]
@@ -918,6 +1119,7 @@ def serve_check(torch, dev):
         wall = time.perf_counter() - t0
         launches = {"paged_attend": pa.launches,
                     "int8_gemm": gemm.launches}
+        variants = dict(pa.variant_launches)
         steps = sch.decode_steps - steps0
         dtoks = sch.decode_tokens - toks0
         dsecs = sch.decode_seconds - secs0
@@ -935,14 +1137,17 @@ def serve_check(torch, dev):
                 or not all(0 <= t < VOCAB for t in out[PROMPT:]):
             raise SystemExit("serve: a result is malformed")
     if steps < 1 or launches["paged_attend"] != LAYERS * steps \
-            or launches["int8_gemm"] != 3 * LAYERS * steps:
-        raise SystemExit("serve: %d decode steps but launches %s (want "
-                         "%d and %d per step)" % (steps, launches, LAYERS,
-                                                  3 * LAYERS))
+            or launches["int8_gemm"] != 3 * LAYERS * steps \
+            or variants["split"] != launches["paged_attend"]:
+        raise SystemExit("serve: %d decode steps but launches %s, "
+                         "paged_attend by kernel %s (want %d and %d per "
+                         "step, all paged_attend on the split kernel)"
+                         % (steps, launches, variants, LAYERS, 3 * LAYERS))
     ttft = sorted(t for t, _ in times)
     log(json.dumps({"serve": {
         "requests": len(outs), "prompt": PROMPT, "steps": STEPS,
         "decode_steps": steps, "launches": launches,
+        "paged_attend_launches_by_kernel": variants,
         "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft),
         "ttft_ms_max": 1e3 * ttft[-1],
         "decode_tokens_per_s": dtoks / dsecs,
@@ -958,7 +1163,8 @@ def profile_window(torch, sch, prompts, steps=8):
     tokens under ``torch.profiler`` (after the measured run, so its
     cost stays out of the serving numbers).  Returns the window's wall
     time, the device's busy time (kernels' self time summed) and idle
-    share, and the kernels with the most device time."""
+    share, the kernels with the most device time, and the port's two
+    serving kernels' launches and device ms by kernel."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -972,11 +1178,20 @@ def profile_window(torch, sch, prompts, steps=8):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    port = {}
+    for e in events:
+        name = re.search(r"paged_(?:split|column)_kernel|int8_gemm_kernel",
+                         e.key)
+        if name:
+            n, ms = port.get(name.group(0), (0, 0.0))
+            port[name.group(0)] = (n + e.count,
+                                   ms + e.self_device_time_total / 1e3)
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall,
             "top_kernels": [[e.key[:60], e.count,
                              e.self_device_time_total / 1e3]
-                            for e in top]}
+                            for e in top],
+            "port_kernels": port}
 
 
 # -- phase 7: train -----------------------------------------------------------

@@ -1,7 +1,10 @@
 """The port's hand-written CUDA kernels held against their plain
 PyTorch versions ON THE CARD, at the serving model's width (d=1024,
-8 heads, block 16), at the training shapes of the attention kernels
-and odd ones off their tiles (with the backward bit-equal from run to
+8 heads, block 16; paged attention also at its split kernel's edges,
+bit-equal twice, rows whose queries all lie before their table, the
+column kernel for a head row off 16 bytes, and the C entry refusing a
+split launch it cannot take), at the training shapes of the attention
+kernels and odd ones off their tiles (with the backward bit-equal from run to
 run, and a head dim they are not built for kept off them), at
 AlexNet's LRN shapes and odd ones (each on the variant ``ops.lrn.plan``
 names, the backward bit-equal across two runs, an offset view on the
@@ -69,6 +72,179 @@ def test_paged_attend_kernel_matches_plain(card, pool, k1):
     assert mod.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, k1, D)
     torch.testing.assert_close(got, want, **_tol(qdt))
+
+
+def _paged_inputs(card, pool, k1, hd, nt, first, seed, nb=None):
+    """q [B, k1, D] at positions ``first[r] + i`` (a negative first
+    position puts every query of the row before the table; 0 is a
+    padding row on the trash block); each row owns distinct blocks up to
+    its deepest query (all ``nt`` for a negative row), trash past it."""
+    from veles_tpu_torch.ops.paged_attention import quantize_kv_rows
+    rng = numpy.random.default_rng(seed)
+    b = len(first)
+    nb = nb or b * nt + 1
+    qdt = torch.float32 if pool == "float32" else torch.bfloat16
+    q = torch.as_tensor(rng.standard_normal((b, k1, D)), dtype=qdt).to(card)
+    tables = numpy.zeros((b, nt), numpy.int32)
+    qpos = numpy.zeros((b, k1), numpy.int32)
+    free = list(rng.permutation(numpy.arange(1, nb)))
+    for r, p in enumerate(first):
+        qpos[r] = p + numpy.arange(k1)
+        if p == 0 and r == b - 1:
+            qpos[r] = 0                  # the padding row
+            continue
+        live = nt if p < 0 else (p + k1 - 1) // BS + 1
+        tables[r, :live] = [free.pop() for _ in range(live)]
+    kv = [torch.as_tensor(rng.standard_normal((nb, BS, D)),
+                          dtype=torch.float32) for _ in range(2)]
+    scales = {}
+    if pool == "int8":
+        (kq, ks), (vq, vs) = (quantize_kv_rows(x) for x in kv)
+        kv = [kq, vq]
+        scales = dict(scale_k=ks.to(card), scale_v=vs.to(card))
+    else:
+        kv = [x.to(getattr(torch, pool)) for x in kv]
+    args = (q, kv[0].to(card), kv[1].to(card),
+            torch.as_tensor(tables).to(card), torch.as_tensor(qpos).to(card),
+            D // hd)
+    return args, scales
+
+
+#: (case, pool, k1, hd, nt, first positions of the rows) at the split
+#: kernel's edges, each row set ending in a padding row: one live block;
+#: exactly one block per rank (nt 8, cluster 8); fewer live blocks than
+#: ranks; nt 13, not a multiple of the cluster (the last rank's share
+#: short, one rank empty); T 64 full (the serving window); then K1 5 and
+#: 16, f32 and bf16 pools, head dims 64 and 256
+PAGED_EDGES = [("live 1", "int8", 1, 128, 16, [3, 15, 0]),
+               ("one block per rank", "int8", 1, 128, 8, [127, 113, 0]),
+               ("fewer than the ranks", "int8", 1, 128, 16, [40, 70, 0]),
+               ("nt 13", "int8", 1, 128, 13, [207, 150, 0]),
+               ("T 64 full", "int8", 1, 128, 64, [1023, 960, 0]),
+               ("K1 5", "int8", 5, 128, 16, [200, 33, 0]),
+               ("K1 16", "int8", 16, 128, 16, [240, 7, 0]),
+               ("f32 K1 5", "float32", 5, 128, 13, [190, 60, 0]),
+               ("bf16", "bfloat16", 1, 128, 16, [250, 100, 0]),
+               ("hd 64", "int8", 1, 64, 16, [255, 17, 0]),
+               ("hd 256 f32", "float32", 1, 256, 16, [130, 31, 0]),
+               ("hd 256 K1 16", "bfloat16", 16, 256, 13, [180, 0, 0])]
+
+
+@pytest.mark.parametrize("case", PAGED_EDGES, ids=lambda c: c[0])
+def test_paged_attend_split_edges(card, case):
+    """Each edge case on the kernel :func:`plan` names (the split kernel
+    for all of these), against the plain version, bit-equal twice."""
+    from veles_tpu_torch.ops import paged_attend as mod
+    _, pool, k1, hd, nt, first = case
+    args, scales = _paged_inputs(card, pool, k1, hd, nt, first, nt + k1)
+    how = mod.plan(len(first), k1, D, D // hd, BS, nt, args[1].dtype)
+    assert how["kernel"] == "split"
+    before = dict(mod.variant_launches)
+    got = mod.paged_attend(*args, **scales)
+    again = mod.paged_attend(*args, **scales)
+    want = mod.paged_attend_plain(*args, **scales)
+    torch.cuda.synchronize()
+    assert mod.variant_launches["split"] == before["split"] + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **_tol(args[0].dtype))
+
+
+@pytest.mark.parametrize("k1", [1, 3])
+def test_paged_attend_all_negative_row(card, k1):
+    """A row whose queries all lie before the table masks every key: its
+    context is the mean of all T*bs V rows (3 distinct blocks), as in the
+    plain version and the TPU kernel, not of its first block's."""
+    from veles_tpu_torch.ops import paged_attend as mod
+    args, scales = _paged_inputs(card, "int8", k1, 128, 3, [-5 - k1, 20, 0],
+                                 7)
+    got = mod.paged_attend(*args, **scales)
+    want = mod.paged_attend_plain(*args, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **_tol(args[0].dtype))
+
+
+def test_paged_attend_column_kernel_on_the_card(card):
+    """A head row off the 16-byte chunks (hd 125, int8) takes the column
+    kernel, all-negative row included."""
+    from veles_tpu_torch.ops import paged_attend as mod
+    from veles_tpu_torch.ops.paged_attention import quantize_kv_rows
+    rng = numpy.random.default_rng(5)
+    d, heads, b, nt, nb = 1000, 8, 3, 4, 16
+    q = torch.as_tensor(rng.standard_normal((b, 2, d)),
+                        dtype=torch.bfloat16).to(card)
+    (kq, ks), (vq, vs) = (quantize_kv_rows(torch.as_tensor(
+        rng.standard_normal((nb, BS, d)), dtype=torch.float32).to(card))
+        for _ in range(2))
+    tables = torch.as_tensor([[1, 2, 3, 4], [5, 6, 0, 0], [7, 8, 9, 10]],
+                             dtype=torch.int32).to(card)
+    qpos = torch.as_tensor([[60, 61], [17, 18], [-3, -2]],
+                           dtype=torch.int32).to(card)
+    assert mod.plan(b, 2, d, heads, BS, nt, torch.int8)["kernel"] == "column"
+    before = mod.variant_launches["column"]
+    got = mod.paged_attend(q, kq, vq, tables, qpos, heads, scale_k=ks,
+                           scale_v=vs)
+    want = mod.paged_attend_plain(q, kq, vq, tables, qpos, heads,
+                                  scale_k=ks, scale_v=vs)
+    torch.cuda.synchronize()
+    assert mod.variant_launches["column"] == before + 1
+    torch.testing.assert_close(got, want, **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("pool", ["int8", "bfloat16"])
+def test_paged_attend_offset_view_takes_the_column_kernel(card, pool):
+    """Pools passed as views one element off the 16-byte boundary take
+    the column kernel, a row part before its table (positions -1, 0, 1)
+    and an all-negative row included, bit-equal twice."""
+    from veles_tpu_torch.ops import paged_attend as mod
+    args, scales = _paged_inputs(card, pool, 3, 128, 16, [130, -1, -9, 0],
+                                 11)
+    views = []
+    for pool_t in args[1:3]:
+        flat = torch.empty(pool_t.numel() + 1, dtype=pool_t.dtype,
+                           device=card)
+        views.append(flat[1:].view(pool_t.shape))
+        views[-1].copy_(pool_t)
+    args = (args[0], *views, *args[3:])
+    assert mod.plan(4, 3, D, HEADS, BS, 16, views[0].dtype,
+                    False)["kernel"] == "column"
+    before = mod.variant_launches["column"]
+    got = mod.paged_attend(*args, **scales)
+    again = mod.paged_attend(*args, **scales)
+    want = mod.paged_attend_plain(*args, **scales)
+    torch.cuda.synchronize()
+    assert mod.variant_launches["column"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **_tol(args[0].dtype))
+
+
+def test_paged_attend_split_entry_refuses(card):
+    """The C entry refuses (-2) a split launch it cannot take — a head
+    row off the 16-byte chunks, a misaligned pool, a cluster past 8 —
+    and never switches to the column kernel itself."""
+    from veles_tpu_torch.ops import DTYPE_CODES, ptr, stream_ptr
+    from veles_tpu_torch.ops import paged_attend as mod
+    q = torch.zeros((1, 1, D), device=card)
+    pool = torch.zeros((3, BS, D + 16), dtype=torch.int8, device=card)
+    scale = torch.ones((3, BS), device=card)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device=card)
+    qpos = torch.zeros((1, 1), dtype=torch.int32, device=card)
+    out = torch.empty((1, 1, D), device=card)
+    lib = mod._lib()
+
+    def launch(pk, d, heads, cluster):
+        return lib.veles_paged_attend(
+            ptr(q), DTYPE_CODES[torch.float32], ptr(pk), ptr(pk),
+            DTYPE_CODES[torch.int8], ptr(scale), ptr(scale), ptr(tables),
+            ptr(qpos), ptr(out), 1, 1, d, heads, BS, 2, 1.0, 1, cluster,
+            16, stream_ptr(card))
+
+    before = dict(mod.variant_launches)
+    assert launch(pool, D, HEADS, 2) == 0
+    assert launch(pool, 1000, 8, 2) == -2           # hd 125
+    assert launch(pool.view(-1)[1:], D, HEADS, 2) == -2   # misaligned
+    assert launch(pool, D, HEADS, 9) == -2
+    torch.cuda.synchronize()
+    assert mod.variant_launches == before           # the C entry's own
 
 
 #: (k, n): the serving model's three decode GEMMs (wo, ffn_w1, ffn_w2),

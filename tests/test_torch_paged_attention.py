@@ -88,6 +88,34 @@ def test_paged_attend_plain_matches_pallas(quant, k1):
                                      got.numpy())
 
 
+@pytest.mark.parametrize("k1", [1, 3])
+def test_paged_attend_plain_all_negative_row(k1):
+    """A row whose queries all lie before its table masks every key
+    (score -1e30), so its context is the mean of all T*bs V rows: the
+    JAX kernel walks every block of the table.  Over T = 3 distinct
+    blocks that is not the first block's mean (which a walk stopped at
+    the first block would give)."""
+    from veles_tpu.ops.pallas_paged import pallas_paged_attend
+    from veles_tpu_torch.ops.paged_attend import paged_attend_plain
+    rng = numpy.random.default_rng(30 + k1)
+    pools = _pools(rng, False)
+    q = rng.standard_normal((2, k1, D)).astype(numpy.float32)
+    tables = numpy.asarray([[3, 5, 8], [7, 0, 0]], numpy.int32)
+    qpos = numpy.asarray([numpy.arange(k1) - 9, numpy.arange(k1) + 9],
+                         numpy.int32)
+    want = numpy.asarray(pallas_paged_attend(
+        jnp.asarray(q), jnp.asarray(pools["k"]), jnp.asarray(pools["v"]),
+        jnp.asarray(tables), jnp.asarray(qpos), HEADS, interpret=True))
+    got = paged_attend_plain(_t(q), _t(pools["k"]), _t(pools["v"]),
+                             _t(tables), _t(qpos), HEADS).numpy()
+    numpy.testing.assert_allclose(got, want, **TOL)
+    every = pools["v"][tables[0]].reshape(3 * BS, D).mean(axis=0)
+    first = pools["v"][tables[0, 0]].mean(axis=0)
+    numpy.testing.assert_allclose(got[0], numpy.broadcast_to(every, (k1, D)),
+                                  **TOL)
+    assert numpy.abs(got[0] - first).max() > 0.1
+
+
 def test_quantize_kv_rows_bit_equal():
     from veles_tpu.ops import paged_attention as jpa
     from veles_tpu_torch.ops import paged_attention as tpa

@@ -10,7 +10,8 @@ and a softmax head over a synthetic ImageNet drawn on the card), with
 kernels written by hand for ``sm_90a`` under ``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
-  int8 dequant fused (replaces ``veles_tpu/ops/pallas_paged.py``);
+  int8 dequant fused, a row's blocks split over a thread-block cluster
+  (replaces ``veles_tpu/ops/pallas_paged.py``);
 - ``ops/gemm.py::int8_matmul`` — the weight-only int8 GEMM with the
   per-column scale fused into the store (replaces the ``col_scale``
   epilogue of ``veles_tpu/ops/gemm.py::pallas_matmul``);

@@ -80,6 +80,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using veles::widen4;
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxCluster = 8;      // the portable cluster size
@@ -93,16 +95,6 @@ template <typename AT> struct Tile;
 template <> struct Tile<__nv_bfloat16> { static constexpr int kRows = 8; };
 template <> struct Tile<float> { static constexpr int kRows = 4; };
 
-// 4 int8 in a word -> their exact values in f32, without I2F: the byte
-// biased by 128 becomes the low mantissa byte of 2^23 (0x4B0000uu =
-// 2^23 + u), and one subtraction of 2^23 + 128 leaves u - 128 = x
-__device__ __forceinline__ void widen4(uint32_t w, float (&f)[4]) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i))
-        - 8388736.0f;
-}
 
 // two integral f32 values (exact in bf16) -> a bf16 pair, lo in the low
 // half: the high halves of their bit patterns

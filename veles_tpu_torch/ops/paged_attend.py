@@ -7,9 +7,16 @@ PyTorch (gather the table's blocks, dequantize, masked softmax), which
 the wrapper runs for CPU tensors and the tests hold against the JAX
 kernel.  The caller scatters the run's new K/V into the pool first;
 both read the post-scatter pool.
+
+``paged_attend.cu`` has two kernels: the split kernel (a row's blocks
+split over a thread-block cluster, the partial softmaxes merged through
+distributed shared memory) for head rows of a multiple of 16 bytes on
+16-byte-aligned pools, and the column kernel (one CTA per row and head)
+for the rest; :func:`plan` picks one from the shape alone.
 """
 
 import ctypes
+import functools
 
 import numpy
 import torch
@@ -22,12 +29,24 @@ from veles_tpu_torch.ops import (
 NEG_INF = -1e30
 #: queries per row the kernel takes (decode K1 = 1, verify K1 = k + 1)
 MAX_K1 = 16
-#: shared memory a CTA may take without an opt-in attribute
+#: shared memory a column CTA may take (it sets no opt-in attribute)
 _SMEM_LIMIT = 48 * 1024
+#: shared memory a split CTA may opt into (the kernel sets it once)
+SPLIT_SMEM_LIMIT = 232448
+#: ranks of a split cluster at most (the portable cluster size)
+MAX_CLUSTER = 8
+#: bytes of K and V rows a split CTA stages at a time
+TILE_BYTES = 32 * 1024
+#: SMs of an H100: a split launch aims at 4 CTAs per SM
+SMS = 132
 
 #: kernel launches so far (a plain count: the wrapper adds one per
-#: launch and nothing else touches it but a caller resetting it)
+#: launch, of either kernel, and nothing else touches it but a caller
+#: resetting it)
 launches = 0
+#: the same launches by kernel (:func:`plan`'s ``kernel``)
+variant_launches = {"split": 0, "column": 0}
+_VARIANT_CODES = {"column": 0, "split": 1}
 
 _argtypes_set = False
 
@@ -65,6 +84,55 @@ def paged_attend_plain(q, pool_k, pool_v, tables, qpos, heads,
     return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, k1, d)
 
 
+def split_smem(k1, hd, elem, tile, nt, quant):
+    """Shared-memory bytes of a split CTA (``split_smem`` in
+    ``paged_attend.cu``): running max, sum, alpha and positions, the
+    merge weights and the ranks' pushed max and sum, of up to 16
+    queries (1 when K1 = 1); the table row; the K and V tiles; their
+    scales and the tile's scores (padded to 4 rows); the queries, the
+    row subsets' contexts and the ranks' pushed outputs in f32."""
+    kmax = 1 if k1 == 1 else 16
+    tile4 = (tile + 3) // 4 * 4
+    nt4 = (nt + 3) // 4 * 4
+    threads = 128 if hd // 4 <= 128 else 256
+    subsets = threads // (hd // 4)
+    return ((4 + 3 * MAX_CLUSTER) * kmax * 4 + 4 * nt4
+            + 2 * tile * hd * elem + (8 * tile4 if quant else 0)
+            + 4 * k1 * tile4 + 4 * k1 * hd + 4 * subsets * k1 * hd
+            + 4 * (k1 * hd + MAX_CLUSTER))
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b, k1, d, heads, bs, nt, pool_dtype, aligned=True):
+    """Which kernel of ``csrc/paged_attend.cu`` takes ``q`` [b, k1, d]
+    over ``heads`` heads and pools of ``pool_dtype`` blocks of ``bs``
+    rows through a [b, nt] table, when both pools start on a 16-byte
+    boundary (``aligned``): ``{"kernel": "split" | "column", "why":
+    ...}``, and for the split kernel its cluster (ranks per row and
+    head: 4 CTAs per SM over the b x heads pairs, at most 8 and at most
+    ``nt``), the key rows it stages per tile and its shared memory.
+    Decided from these arguments alone, never from the positions or
+    the table (which stay on the card) or from a failed launch."""
+    hd = d // heads
+    elem = pool_dtype.itemsize
+    if hd * elem % 16:
+        return {"kernel": "column",
+                "why": "head row of %d bytes, not a multiple of 16"
+                % (hd * elem)}
+    if not aligned:
+        return {"kernel": "column", "why": "pools not 16-byte aligned"}
+    cluster = max(1, min(MAX_CLUSTER, nt, -(-4 * SMS // max(1, b * heads))))
+    rank_rows = -(-nt // cluster) * bs
+    tile = max(1, min(rank_rows, TILE_BYTES // (2 * hd * elem)))
+    smem = split_smem(k1, hd, elem, tile, nt, elem == 1)
+    if smem > SPLIT_SMEM_LIMIT:
+        return {"kernel": "column",
+                "why": "split CTA would take %d bytes of shared memory"
+                % smem}
+    return {"kernel": "split", "why": "head row of %d bytes, aligned"
+            % (hd * elem), "cluster": cluster, "tile": tile, "smem": smem}
+
+
 def _lib():
     global _argtypes_set
     lib = _build.library("paged_attend")
@@ -72,7 +140,7 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.veles_paged_attend.argtypes = [
             vp, ci, vp, vp, ci, vp, vp, vp, vp, vp,
-            ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+            ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp]
         lib.veles_paged_attend.restype = ci
         _argtypes_set = True
     return lib
@@ -120,14 +188,19 @@ def paged_attend(q, pool_k, pool_v, tables, qpos, heads, scale_k=None,
                 and tuple(scale_v.shape) == (nb, bs)
                 and scale_v.dtype == torch.float32,
                 "paged_attend: scales must be f32 [%d, %d]", nb, bs)
-    threads = (d // heads + 31) // 32 * 32
-    smem = ((threads // 32 + 1) * k1 * bs + k1) * 4
-    require(smem <= _SMEM_LIMIT,
-            "paged_attend: %d bytes of shared memory (K1=%d, bs=%d)",
-            smem, k1, bs)
+    require(b <= 65535 and heads <= 65535,
+            "paged_attend: %d rows x %d heads", b, heads)
     check_cuda_inputs("paged_attend", q.device, q=q, pool_k=pool_k,
                       pool_v=pool_v, scale_k=scale_k, scale_v=scale_v,
                       tables=tables, qpos=qpos)
+    how = plan(b, k1, d, heads, bs, nt, pool_k.dtype,
+               pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0)
+    if how["kernel"] == "column":
+        threads = (d // heads + 31) // 32 * 32
+        smem = ((threads // 32 + 1) * k1 * bs + k1) * 4
+        require(smem <= _SMEM_LIMIT,
+                "paged_attend: %d bytes of shared memory (K1=%d, bs=%d)",
+                smem, k1, bs)
     out = torch.empty((b, k1, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
@@ -135,7 +208,9 @@ def paged_attend(q, pool_k, pool_v, tables, qpos, heads, scale_k=None,
         ptr(q), DTYPE_CODES[q.dtype], ptr(pool_k), ptr(pool_v),
         DTYPE_CODES[pool_k.dtype], ptr(scale_k), ptr(scale_v), ptr(tables),
         ptr(qpos), ptr(out), b, k1, d, heads, bs, nt,
-        attend_scale(d // heads), stream_ptr(q.device))
+        attend_scale(d // heads), _VARIANT_CODES[how["kernel"]],
+        how.get("cluster", 0), how.get("tile", 0), stream_ptr(q.device))
     _build.check(rc, "paged_attend launch")
     launches += 1
+    variant_launches[how["kernel"]] += 1
     return out
