@@ -14,7 +14,7 @@ result line):
    timed beside the plain version and one library call: paged
    attention at the serving shapes and at the split kernel's edges
    (ATTEND_EDGES: live blocks 1, one per rank, fewer than the ranks, a
-   table not a multiple of the cluster, T 64; K1 1/5/16; f32, bf16 and
+   table not a multiple of the cluster, T 64; K1 1/5/9/16; f32, bf16 and
    int8 pools; head dims 64/128/256; the padding row; rows whose
    queries all lie before their table) and at the column kernel's
    cases (ATTEND_COLUMN: head rows off the 16-byte chunks, pools passed
@@ -22,11 +22,12 @@ result line):
    ``ops.paged_attend.plan`` names and run twice bit-equal, a planted
    lost rank failing its check by 5x, and timed at T 16 and T 64 as
    replays of a CUDA graph of one decode step's 8 launches as well as
-   by an eager loop; the int8 GEMM at the serving shapes (also at 13
-   and 136 rows, at ragged shapes and in f32, run twice bit-equal, a
-   planted lost split failing its check by 5x, and timed as replays of
-   a CUDA graph of one decode step's 24 launches as well as by an eager
-   loop); the three FlashAttention kernels
+   by an eager loop, and of one verify pass's at K1 5 and 9; the int8
+   GEMM at the serving shapes (also at 13 and 136 rows, at ragged
+   shapes and in f32, run twice bit-equal, a planted lost split failing
+   its check by 5x, and timed as replays of a CUDA graph of one decode
+   step's 24 launches as well as by an eager loop, and of one verify
+   pass's at m 40 and 72); the three FlashAttention kernels
    (forward, dq, dk/dv) at the training shapes (b 4, s 2048, 16 heads
    of 128, bf16, causal), at hd 256 full length, and at small odd ones
    (f32 and bf16, sq != sk, non-causal, lengths one past a tile,
@@ -35,8 +36,9 @@ result line):
    second backward must be bit-equal to the first; each kernel timed
    with its TFLOP/s;
 3. reference — a small float32 chain served through the kernels on the
-   card, its prefill and decode logits held against the same chain on
-   the CPU (plain versions);
+   card, its prefill, decode and verify (K1 5) logits held against the
+   same chain on the CPU (plain versions), and its verify logits
+   against sequential decode steps on the card;
 4. train reference — a small float32 chain (d 256, 2 heads of 128, 2
    layers) takes 3 SGD-momentum steps from the same weights and
    minibatches on the card through the attention kernels, on the card
@@ -51,10 +53,20 @@ result line):
    vocab 32768, window 1024, depth cut to 8 layers, random weights
    from seed 0, bfloat16) through ``InferenceScheduler`` with int8 KV
    pools and ``int8_decode``: one warm-up request, then 8 concurrent
-   128-token prompts x 32 greedy steps.  The kernels' launch counts
-   are zeroed just before and read just after: ``paged_attend`` must
-   launch once per layer per decode step, all on its split kernel,
-   ``int8_gemm`` three times;
+   128-token prompts x 32 greedy steps, speculative decoding off (so
+   its numbers compare with the earlier runs').  The kernels' launch
+   counts are zeroed just before and read just after: ``paged_attend``
+   must launch once per layer per decode step, all on its split
+   kernel, ``int8_gemm`` three times;
+6b. spec — ``bench.py``'s ``bench_spec`` on the card: the serving model
+   at 8 layers trained 60 SGD steps (batch 16, bf16) to continue a
+   12-token pattern, then served with int8 KV and ``int8_decode``,
+   spec_k 8, a 64-token repetitive prompt and 512 greedy steps, at 1
+   and 4 slots with speculative decoding off and on (one warm-up and
+   one measured run each): every model pass (decode or verify) must
+   launch ``paged_attend`` once per layer, all split, and ``int8_gemm``
+   three times; the spec-on arms must verify and accept drafts; their
+   streams must equal the spec-off arms' token for token;
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
    bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
@@ -76,7 +88,8 @@ result line):
    kernel;
    ``uniform_fill`` bit-equal to its plain version over 4,000,003
    floats, once at index 0 and once across 2**32 (the count's high
-   word); each timed beside its plain version and a library call;
+   word); each timed beside its plain version and a library call (the
+   fill as CUDA-graph replays and eager loops);
 9. AlexNet witness — a narrow AlexNet-shaped chain (side 67, widths
    8/16/24/24/16, FC 32, 10 classes, dropout 0.5, f32) trains one span
    of 3 SGD steps on the card through the kernels and on the CPU
@@ -99,8 +112,11 @@ serving kernels' (``paged_attend``, ``int8_gemm``) ``ms`` and
 ``library_ms`` are device times of CUDA-graph replays of a decode
 step's launches (their launches are shorter than the host's dispatch of
 one), with the host-paced eager loops under ``eager_ms`` and
-``library_eager_ms``; every other kernel's ``ms`` and ``library_ms``,
-and every ``plain_ms``, are eager loops timed by CUDA events.
+``library_eager_ms``, the verify widths' graph times under ``verify``
+and the spec phase's launches under ``spec_launches``;
+``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too;
+every other kernel's ``ms`` and ``library_ms``, and every ``plain_ms``,
+are eager loops timed by CUDA events.
 """
 
 import json
@@ -125,6 +141,21 @@ GEMM_SHAPES = ((DIM, DIM), (DIM, 4 * DIM), (4 * DIM, DIM))
 GEMM_RAGGED = ((100, 70), (100, 1001), (1000, 70), (1000, 1001))
 GEMM_ROWS = (1, 2, 4, 8, 13, 136)
 GEMM_FAULT_MIN = 5.0
+
+#: the spec phase (``bench.py``'s ``bench_spec`` on a chip: the serving
+#: model above at full depth, trained to continue the 12-token pattern
+#: ``arange(12) * 17 % vocab``): training steps at batch SPEC_BATCH over
+#: 8 minibatches of window-long sequences, then SPEC_STEPS greedy tokens
+#: per request after a SPEC_PROMPT-token prompt, drafts of up to SPEC_K,
+#: at 1 and 4 slots
+SPEC_TRAIN, SPEC_BATCH, SPEC_STEPS, SPEC_K, SPEC_PROMPT = 60, 16, 512, 8, 64
+#: the spec phase's trainer: ``bench_spec``'s SGD with momentum 0.9, but
+#: at lr 0.001, not 0.05 — at this width 0.05 diverges within 8 steps in
+#: the port's trainer (as the JAX trainer does on the same data at d 64
+#: and batch 4), and 0.005 still does
+SPEC_TRAINER = {"solver": "sgd", "learning_rate": 0.001,
+                "gradient_moment": 0.9}
+SPEC_SLOTS = (1, 4)
 
 #: the training model of the smoke (``bench.py``'s ``bench_lm``)
 T_VOCAB, T_DIM, T_LAYERS, T_HEADS, T_SEQ, T_BATCH = 32768, 2048, 8, 16, 2048, 4
@@ -344,7 +375,8 @@ def lost_rank_qpos(torch, pa, args):
 #: last) at the split kernel's edges: one live block; exactly one block
 #: per rank (T 8, cluster 8); fewer live blocks than ranks; T 13, not a
 #: multiple of the cluster (the last busy rank's share short, one rank
-#: empty); T 64 full (the serving window); K1 5 and 16; f32 and bf16
+#: empty); T 64 full (the serving window); K1 5, 9 (a verify pass at
+#: spec_k 8, at the window's end) and 16; f32 and bf16
 #: pools; head dims 64 and 256; a row whose queries all lie before its
 #: table (every key masked: the mean of all T x bs V rows)
 ATTEND_EDGES = (("live 1", "int8", 1, 8, 16, [3, 15, 0]),
@@ -353,6 +385,7 @@ ATTEND_EDGES = (("live 1", "int8", 1, 8, 16, [3, 15, 0]),
                 ("T 13", "int8", 1, 8, 13, [207, 150, 0]),
                 ("T 64 full", "int8", 1, 8, 64, [1023, 960, 0]),
                 ("K1 5", "int8", 5, 8, 16, [200, 33, 0]),
+                ("K1 9 T 64", "int8", 9, 8, 64, [1015, 500, 0]),
                 ("K1 16", "int8", 16, 8, 16, [240, 7, 0]),
                 ("f32 K1 5", "float32", 5, 8, 13, [190, 60, 0]),
                 ("f32 K1 16", "float32", 16, 8, 16, [230, 3, 0]),
@@ -593,93 +626,111 @@ def graph_ms(torch, fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def time_attend(torch, dev, rng, nb, rate, err):
-    """One decode step's attention: 8 layers' int8 pools (so the pools,
-    134 MB together, do not sit in the 50 MB L2 as one layer's would),
-    B=8 rows (7 requests and one padding row), one query each, at two
-    depths: positions 128..159, the smoke's decode range (T=16, its
-    block bucket), and 960..1023, the serving window's end (T=64).  A
-    launch (a few us) is shorter than the host's dispatch of one through
-    the wrapper, so the device time comes from a CUDA graph of the 8
-    launches (``ms``, by ``graph_ms``), and the library yardstick's the
-    same way (``library_ms``); the eager loops (host-paced) stay beside
-    them as ``eager_ms`` and ``library_eager_ms``.  Times are per
-    launch; the returned fields are the T=16 ones, with the T=64 ones
-    under ``deep``."""
+def _time_attend_at(torch, dev, rng, nb, rate, t, lo, hi, k1, eager):
+    """One model pass's attention at a block bucket ``t``: 8 layers'
+    int8 pools (134 MB together, so they do not sit in the 50 MB L2 as
+    one layer's would), B=8 rows (7 requests, first positions drawn
+    from [lo, hi], and one padding row), ``k1`` queries each; every
+    layer gets the same table and positions, as in a real pass.  Per
+    launch: the kernel's and the library yardstick's device times as
+    replays of a CUDA graph of the 8 launches (``ms``, ``library_ms``),
+    the bound for these inputs and, with ``eager``, the host-paced
+    eager loops and the plain version."""
     from veles_tpu_torch.ops import paged_attend as pa
-    depths = {}
-    for t, lo, hi in ((16, PROMPT, PROMPT + STEPS - 1),
-                      (WINDOW // BLOCK, WINDOW - 64, WINDOW - 1)):
-        layers = [_attend_inputs(torch, rng, dev, 8, t, 1, "int8", nb, lo,
-                                 hi) for _ in range(LAYERS)]
-        # every layer gets the same table and positions, as in a real step
-        for args, _ in layers[1:]:
-            args[3].copy_(layers[0][0][3])
-            args[4].copy_(layers[0][0][4])
+    layers = [_attend_inputs(torch, rng, dev, 8, t, k1, "int8", nb, lo, hi)
+              for _ in range(LAYERS)]
+    for args, _ in layers[1:]:
+        args[3].copy_(layers[0][0][3])
+        args[4].copy_(layers[0][0][4])
 
-        def kernel():
-            for args, extra in layers:
-                pa.paged_attend(*args, **extra)
+    def kernel():
+        for args, extra in layers:
+            pa.paged_attend(*args, **extra)
 
-        def plain():
-            for args, extra in layers:
-                pa.paged_attend_plain(*args, **extra)
+    def plain():
+        for args, extra in layers:
+            pa.paged_attend_plain(*args, **extra)
 
-        def library():
-            # gather + dequantize the table's blocks, then one
-            # scaled_dot_product_attention call with the causal mask
-            for (q, pk, pv, tables, qpos, heads), ex in layers:
-                b, k1, d = q.shape
-                idx = tables.long()
-                hd = d // heads
-                length = idx.shape[1] * BLOCK
-                k = (pk[idx].to(q.dtype) * ex["scale_k"][idx][..., None]
-                     .to(q.dtype)).reshape(b, length, heads, hd).transpose(
-                         1, 2)
-                v = (pv[idx].to(q.dtype) * ex["scale_v"][idx][..., None]
-                     .to(q.dtype)).reshape(b, length, heads, hd).transpose(
-                         1, 2)
-                keep = (torch.arange(length, device=q.device)[None, None, :]
-                        <= qpos.long()[:, :, None])[:, None]
-                torch.nn.functional.scaled_dot_product_attention(
-                    q.reshape(b, k1, heads, hd).transpose(1, 2), k, v,
-                    attn_mask=keep).float()
+    def library():
+        # gather + dequantize the table's blocks, then one
+        # scaled_dot_product_attention call with the causal mask
+        for (q, pk, pv, tables, qpos, heads), ex in layers:
+            b, k1, d = q.shape
+            idx = tables.long()
+            hd = d // heads
+            length = idx.shape[1] * BLOCK
+            k = (pk[idx].to(q.dtype) * ex["scale_k"][idx][..., None]
+                 .to(q.dtype)).reshape(b, length, heads, hd).transpose(1, 2)
+            v = (pv[idx].to(q.dtype) * ex["scale_v"][idx][..., None]
+                 .to(q.dtype)).reshape(b, length, heads, hd).transpose(1, 2)
+            keep = (torch.arange(length, device=q.device)[None, None, :]
+                    <= qpos.long()[:, :, None])[:, None]
+            torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(b, k1, heads, hd).transpose(1, 2), k, v,
+                attn_mask=keep).float()
 
-        nbytes, ops = _attend_bytes_ops(*layers[0])
-        b_ms, b_by = bound(nbytes, ops, "bfloat16", rate)
-        before = pa.launches, dict(pa.variant_launches)
-        f = {"ms": graph_ms(torch, kernel) / LAYERS,
-             "eager_ms": time_ms(torch, kernel) / LAYERS,
-             "plain_ms": time_ms(torch, plain) / LAYERS,
-             "library_ms": graph_ms(torch, library) / LAYERS,
-             "library_eager_ms": time_ms(torch, library) / LAYERS,
-             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-             "plan": pa.plan(8, 1, DIM, HEADS, BLOCK, t, torch.int8)}
-        pa.launches = before[0]       # timing launches are not the path's
-        pa.variant_launches.update(before[1])
-        log("paged_attend per launch at T=%d (positions %d..%d, plan %s): "
-            "graph-replayed %.4f ms (%.1f %% of the %.5f ms bound by %s), "
-            "library graph-replayed %.4f ms; host-paced eager loop: kernel "
-            "%.4f ms, library %.4f ms; plain %.4f ms"
-            % (t, lo, hi, f["plan"], f["ms"], 100 * b_ms / f["ms"], b_ms,
-               b_by, f["library_ms"], f["eager_ms"], f["library_eager_ms"],
-               f["plain_ms"]))
-        depths[t] = f
-    return dict(depths[16], max_abs_err=err, deep=depths[WINDOW // BLOCK])
+    nbytes, ops = _attend_bytes_ops(*layers[0])
+    b_ms, b_by = bound(nbytes, ops, "bfloat16", rate)
+    before = pa.launches, dict(pa.variant_launches)
+    f = {"ms": graph_ms(torch, kernel) / LAYERS,
+         "library_ms": graph_ms(torch, library) / LAYERS,
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+         "plan": pa.plan(8, k1, DIM, HEADS, BLOCK, t, torch.int8)}
+    if eager:
+        f.update(eager_ms=time_ms(torch, kernel) / LAYERS,
+                 plain_ms=time_ms(torch, plain) / LAYERS,
+                 library_eager_ms=time_ms(torch, library) / LAYERS)
+    pa.launches = before[0]           # timing launches are not the path's
+    pa.variant_launches.update(before[1])
+    line = ("paged_attend per launch at T=%d, K1=%d (first positions %d..%d, "
+            "plan %s): graph-replayed %.4f ms (%.1f %% of the %.5f ms bound "
+            "by %s), library graph-replayed %.4f ms"
+            % (t, k1, lo, hi, f["plan"], f["ms"], 100 * b_ms / f["ms"], b_ms,
+               b_by, f["library_ms"]))
+    if eager:
+        line += ("; host-paced eager loop: kernel %.4f ms, library %.4f ms; "
+                 "plain %.4f ms" % (f["eager_ms"], f["library_eager_ms"],
+                                    f["plain_ms"]))
+    log(line)
+    return f
 
 
-def time_gemm(torch, dev, rng, rate, err):
-    """One decode step's int8 GEMMs per layer (wo, ffn_w1, ffn_w2 at
-    m=8), over 8 layers' distinct weights (72 MB of int8, more than
-    the L2 holds).  Times are per layer (three launches).  The kernel's
-    launches (~3 us each) are shorter than the host's dispatch of one
-    through the wrapper, so its device time is taken from a CUDA graph
-    of the 24 launches (``ms``, by ``graph_ms``), and the library
-    yardstick's the same way (``library_ms``); the loops of eager calls
-    (host-paced) stay beside them as ``eager_ms`` and
-    ``library_eager_ms``."""
+def time_attend(torch, dev, rng, nb, rate, err):
+    """One decode step's attention (K1 = 1) at two depths: positions
+    128..159, the smoke's decode range (T=16, its block bucket), and
+    960..1023, the serving window's end (T=64); then one verify pass's
+    (K1 = 5 and 9: spec_k 4, the scheduler's default, and 8, the spec
+    phase's) at both buckets.  A launch (a few us) is shorter than the
+    host's dispatch of one through the wrapper, so every ``ms`` and
+    ``library_ms`` comes from CUDA-graph replays (:func:`_time_attend_at`);
+    the decode ones keep the eager loops beside them as ``eager_ms`` and
+    ``library_eager_ms``.  Times are per launch; the returned fields are
+    the decode step's at T=16, with T=64 under ``deep`` and the verify
+    passes under ``verify``."""
+    deep = WINDOW // BLOCK
+    spans = {16: (PROMPT, PROMPT + STEPS - 1), deep: (WINDOW - 64, WINDOW - 1)}
+    depths = {t: _time_attend_at(torch, dev, rng, nb, rate, t, lo, hi, 1,
+                                 True)
+              for t, (lo, hi) in spans.items()}
+    verify = {}
+    for k1 in (5, 9):
+        for t, (lo, hi) in spans.items():
+            verify["K1 %d T %d" % (k1, t)] = _time_attend_at(
+                torch, dev, rng, nb, rate, t, lo, min(hi, t * BLOCK - k1),
+                k1, False)
+    return dict(depths[16], max_abs_err=err, deep=depths[deep],
+                verify=verify)
+
+
+def _time_gemm_at(torch, dev, rng, rate, m, eager):
+    """One model pass's int8 GEMMs per layer (wo, ffn_w1, ffn_w2 at ``m``
+    rows), over 8 layers' distinct weights (72 MB of int8, more than
+    the L2 holds).  Times are per layer (three launches): the kernel's
+    and the library yardstick's device times as replays of a CUDA graph
+    of the 24 launches (``ms``, ``library_ms``; a launch of ~3 us is
+    shorter than the host's dispatch of one), the bound and, with
+    ``eager``, the host-paced eager loops and the plain version."""
     from veles_tpu_torch.ops import gemm
-    m = SLOTS
     work = [_gemm_inputs(torch, dev, rng, m, k, n, torch.bfloat16)
             for _ in range(LAYERS) for k, n in GEMM_SHAPES]
 
@@ -699,20 +750,34 @@ def time_gemm(torch, dev, rng, rate, err):
     ops = sum(2 * m * k * n for k, n in GEMM_SHAPES)
     b_ms, b_by = bound(nbytes, ops, "bfloat16", rate)
     before = gemm.launches
-    fields = {"ms": graph_ms(torch, kernel) / LAYERS,
-              "eager_ms": time_ms(torch, kernel) / LAYERS,
-              "plain_ms": time_ms(torch, plain) / LAYERS,
-              "library_ms": graph_ms(torch, library) / LAYERS,
-              "library_eager_ms": time_ms(torch, library) / LAYERS,
-              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-              "bytes": nbytes}
+    f = {"ms": graph_ms(torch, kernel) / LAYERS,
+         "library_ms": graph_ms(torch, library) / LAYERS,
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    if eager:
+        f.update(eager_ms=time_ms(torch, kernel) / LAYERS,
+                 plain_ms=time_ms(torch, plain) / LAYERS,
+                 library_eager_ms=time_ms(torch, library) / LAYERS)
     gemm.launches = before
-    log("int8_gemm per layer (3 launches, m=%d): graph-replayed %.4f ms "
-        "(%.1f %% of the %.5f ms bound by %s), library graph-replayed "
-        "%.4f ms; host-paced eager loop: kernel %.4f ms, library %.4f ms; "
-        "plain %.4f ms" % (m, fields["ms"], 100 * b_ms / fields["ms"], b_ms,
-                           b_by, fields["library_ms"], fields["eager_ms"],
-                           fields["library_eager_ms"], fields["plain_ms"]))
+    line = ("int8_gemm per layer (3 launches, m=%d): graph-replayed %.4f ms "
+            "(%.1f %% of the %.5f ms bound by %s), library graph-replayed "
+            "%.4f ms" % (m, f["ms"], 100 * b_ms / f["ms"], b_ms, b_by,
+                         f["library_ms"]))
+    if eager:
+        line += ("; host-paced eager loop: kernel %.4f ms, library %.4f ms; "
+                 "plain %.4f ms" % (f["eager_ms"], f["library_eager_ms"],
+                                    f["plain_ms"]))
+    log(line)
+    return f
+
+
+def time_gemm(torch, dev, rng, rate, err):
+    """One decode step's int8 GEMMs (m = 8, with the eager loops), then
+    one verify pass's at 8 rows of K1 = 5 and 9 (m 40 and 72) under
+    ``verify``, all by :func:`_time_gemm_at`."""
+    fields = _time_gemm_at(torch, dev, rng, rate, SLOTS, True)
+    fields.update(max_abs_err=err, verify={
+        "m %d" % m: _time_gemm_at(torch, dev, rng, rate, m, False)
+        for m in (SLOTS * 5, SLOTS * 9)})
     return fields
 
 
@@ -924,24 +989,35 @@ def reference_check(torch, dev):
     kernels and on the CPU through the plain versions, same weights
     and tokens: prefill logits and 4 decode steps' logits must agree
     to 1e-3 (f32 sums in another order; an int8 K/V or weight value
-    that lands on a rounding edge may quantize one step apart)."""
+    that lands on a rounding edge may quantize one step apart).  Then
+    one verify pass at K1 = 5 over two rows — the decoded row with 5
+    real positions (its pending token and 4 drafts) and a second prompt
+    in the cache's second slot with 3 — whose logits must agree to
+    1e-3 with the CPU's and, on the card, with 5 sequential decode
+    steps on a copy of the cache fed the same tokens."""
+    import copy
     from veles_tpu_torch.convert import init_params
     from veles_tpu_torch.serving import (
-        PagedKVCache, paged_decode_logits, prefill)
+        PagedKVCache, paged_decode_logits, prefill, verify_logits)
     spec = [{"type": "embedding", "vocab": 512, "dim": 256}]
     spec += [{"type": "transformer_block", "heads": 2, "int8_decode": True}
              for _ in range(2)]
     spec += [{"type": "token_logits", "vocab": 512}]
     from veles_tpu_torch.ops import gemm, paged_attend as pa
     prompt = numpy.random.default_rng(2).integers(0, 512, (1, 40))
+    second = numpy.random.default_rng(3).integers(0, 512, (1, 23))
+    drafts = numpy.random.default_rng(5).integers(0, 512, (2, 4))
+    vpos, vlens = numpy.asarray([44, 23]), numpy.asarray([5, 3])
+    valid = [(n, j) for n in range(2) for j in range(vlens[n])]
     # the CPU run picks the greedy tokens; the card is fed the same ones
     toks = []
-    runs = {}
+    vtoks = numpy.zeros((2, 5), numpy.int64)
+    runs, verify = {}, {}
     for d in ("cpu", dev):
         chain = init_params(spec, 3, 128, device=d, dtype="float32")
         cache = PagedKVCache(chain, 2, 128, block_size=BLOCK,
                              kv_dtype="int8")
-        slot = cache.alloc(48)
+        slot = cache.alloc(64)
         caches, last = prefill(chain, prompt, window=48)
         cache.insert(slot, caches, 40)
         tables = cache.table_rows([slot], 4)
@@ -952,10 +1028,26 @@ def reference_check(torch, dev):
                 toks.append(int(logits[-1].argmax()))
             logits.append(paged_decode_logits(chain, cache, [[toks[step]]],
                                               [40 + step], tables))
+        decoded = (pa.launches - launches[0], gemm.launches - launches[1])
         runs[str(d)] = torch.stack([x[0] for x in logits]).cpu()
-    if (pa.launches - launches[0], gemm.launches - launches[1]) != (8, 24):
-        raise SystemExit("reference: the card's decode did not run "
-                         "through the kernels")
+        slot2 = cache.alloc(32)
+        caches, last2 = prefill(chain, second, window=32)
+        cache.insert(slot2, caches, 23)
+        if d == "cpu":
+            vtoks[0] = [int(logits[-1].argmax())] + drafts[0].tolist()
+            vtoks[1, :3] = [int(last2.argmax())] + drafts[1, :2].tolist()
+        vtables = cache.table_rows([slot, slot2], 4)
+        twin = copy.copy(cache)
+        twin.pools = {i: {n: t.clone() for n, t in pool.items()}
+                      for i, pool in cache.pools.items()}
+        launches = (pa.launches, gemm.launches)
+        verify[str(d)] = verify_logits(chain, cache, vtoks, vpos, vlens,
+                                       vtables).cpu()
+        verified = (pa.launches - launches[0], gemm.launches - launches[1])
+    if decoded != (8, 24) or verified != (2, 6):
+        raise SystemExit("reference: the card's decode (%s launches) or "
+                         "verify (%s) did not run through the kernels"
+                         % (decoded, verified))
     err = float((runs["cpu"] - runs[str(dev)]).abs().max())
     scale = float(runs["cpu"].abs().max())
     log("reference: prefill + 4 decode steps, logits max_abs_err=%.3g "
@@ -965,6 +1057,26 @@ def reference_check(torch, dev):
                               runs[str(dev)]).all():
         raise SystemExit("reference: card and CPU logits disagree: %g"
                          % err)
+    # the same run as sequential decode steps on the card's copy
+    steps = torch.zeros_like(verify[str(dev)])
+    for j in range(5):
+        rows = [n for n in range(2) if j < vlens[n]]
+        out = paged_decode_logits(chain, twin, vtoks[rows, j:j + 1],
+                                  vpos[rows] + j, vtables[rows]).cpu()
+        for r, n in enumerate(rows):
+            steps[n, j] = out[r]
+    card, cpu = (torch.stack([verify[k][n, j] for n, j in valid])
+                 for k in (str(dev), "cpu"))
+    seq = torch.stack([steps[n, j] for n, j in valid])
+    errs = (float((card - cpu).abs().max()), float((card - seq).abs().max()))
+    log("reference: verify pass at K1=5 (rows of 5 and 3 real positions), "
+        "logits max_abs_err=%.3g against the CPU, %.3g against 5 "
+        "sequential decode steps on the card" % errs)
+    if not torch.isfinite(card).all() \
+            or not torch.allclose(card, cpu, rtol=1e-3, atol=1e-3) \
+            or not torch.allclose(card, seq, rtol=1e-3, atol=1e-3):
+        raise SystemExit("reference: the card's verify logits disagree: "
+                         "%g (CPU), %g (sequential)" % errs)
 
 
 # -- phase 4: train reference -------------------------------------------------
@@ -1096,7 +1208,8 @@ def serve_check(torch, dev):
     chain = init_params(spec, 0, WINDOW, device=dev, dtype="bfloat16")
     sch = InferenceScheduler(chain, max_slots=SLOTS, window=WINDOW,
                              block_size=BLOCK, kv_dtype="int8",
-                             prefill_chunk=CHUNK, device=dev).start()
+                             prefill_chunk=CHUNK, spec=False,
+                             device=dev).start()
     log("serve: chain and scheduler up in %.1f s"
         % (time.perf_counter() - t0))
     rng = numpy.random.default_rng(0)
@@ -1192,6 +1305,168 @@ def profile_window(torch, sch, prompts, steps=8):
                              e.self_device_time_total / 1e3]
                             for e in top],
             "port_kernels": port}
+
+
+# -- phase 6b: speculative decoding -------------------------------------------
+
+def spec_chain(torch, dev):
+    """``bench_spec``'s chain trained on the card through the port's
+    trainer: bf16, SGD lr 0.05 momentum 0.9, SPEC_TRAIN steps at batch
+    SPEC_BATCH over 8 minibatches of WINDOW-long sequences cut from the
+    tiled pattern at offsets drawn by ``default_rng(0)``.  Returns the
+    chain, the pattern and the losses."""
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.samples.lm import build_lm
+    pattern = (numpy.arange(12) * 17 % VOCAB).tolist()
+    n = SPEC_BATCH * 8
+    tiled = numpy.tile(pattern, WINDOW // len(pattern) + 2)
+    data = numpy.stack([
+        tiled[o:o + WINDOW]
+        for o in numpy.random.default_rng(0).integers(0, len(pattern), n)
+    ]).astype(numpy.int32)
+    loader = FullBatchLoader(data, None, [0, 0, n], minibatch_size=SPEC_BATCH,
+                             seed=0, device=dev)
+    lm = build_lm(vocab=VOCAB, dim=DIM, blocks=LAYERS, heads=HEADS,
+                  seq=WINDOW, loader=loader, lr_schedule="constant",
+                  device=dev, dtype="bfloat16", **SPEC_TRAINER)
+    losses = []
+    while len(losses) < SPEC_TRAIN:
+        loader.serve_span()
+        k = min(len(loader.span_sizes_), SPEC_TRAIN - len(losses))
+        losses += _span_steps(torch, lm.trainer, loader, range(k))
+    torch.cuda.synchronize()
+    return lm.chain, pattern, [float(x) for x in losses]
+
+
+#: the scheduler's counters a spec arm reads before and after its run
+SPEC_COUNTERS = ("decode_steps", "verify_steps", "decode_tokens",
+                 "decode_seconds", "verify_tokens", "spec_drafted_tokens",
+                 "spec_accepted_tokens")
+
+
+def spec_arm(torch, dev, chain, prompt, slots, spec):
+    """One arm: a scheduler over the trained chain (int8 KV pools and
+    ``int8_decode``, block 16, one-shot prefill, spec_k SPEC_K, spec on
+    or off) serves one warm-up request, then ``slots`` concurrent
+    greedy requests of SPEC_STEPS tokens with the kernels' counts
+    zeroed just before and read just after.  Returns the streams and
+    the arm's numbers."""
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.serving import InferenceScheduler
+    sch = InferenceScheduler(chain, max_slots=slots, window=WINDOW,
+                             max_queue=4 * slots, block_size=BLOCK,
+                             kv_dtype="int8", prefill_chunk=0, spec=spec,
+                             spec_k=SPEC_K, device=dev).start()
+    try:
+        sch.submit(prompt, SPEC_STEPS).result(600)
+        base = {n: getattr(sch, n) for n in SPEC_COUNTERS}
+        torch.cuda.synchronize()
+        pa.launches = 0
+        pa.variant_launches.update(split=0, column=0)
+        gemm.launches = 0
+        t0 = time.perf_counter()
+        futs = [sch.submit(prompt, SPEC_STEPS) for _ in range(slots)]
+        outs = [f.result(600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"paged_attend": pa.launches,
+                    "paged_attend_by_kernel": dict(pa.variant_launches),
+                    "int8_gemm": gemm.launches}
+        got = {n: getattr(sch, n) - base[n] for n in SPEC_COUNTERS}
+    finally:
+        sch.close()
+    sch.check_kv()
+    passes = got["decode_steps"] + got["verify_steps"]
+    arm = {"slots": slots, "spec": spec,
+           "decode_tokens_per_s": got["decode_tokens"] / got["decode_seconds"],
+           "tokens_per_s": sum(len(o) - len(prompt) for o in outs) / wall,
+           "decode_steps": got["decode_steps"],
+           "verify_steps": got["verify_steps"],
+           "drafted_tokens": got["spec_drafted_tokens"],
+           "accepted_tokens": got["spec_accepted_tokens"],
+           "accept_rate": (got["spec_accepted_tokens"]
+                           / got["spec_drafted_tokens"]
+                           if got["spec_drafted_tokens"] else None),
+           "tokens_per_verify_step": (got["verify_tokens"]
+                                      / got["verify_steps"]
+                                      if got["verify_steps"] else None),
+           "launches": launches, "wall_s": wall}
+    log(json.dumps({"spec_arm": arm}))
+    for out in outs:
+        if len(out) != len(prompt) + SPEC_STEPS \
+                or out[:len(prompt)] != prompt \
+                or not all(0 <= t < VOCAB for t in out[len(prompt):]):
+            raise SystemExit("spec: a result of the %d-slot arm (spec %s) is "
+                             "malformed" % (slots, spec))
+    if passes < 1 or launches["paged_attend"] != LAYERS * passes \
+            or launches["int8_gemm"] != 3 * LAYERS * passes \
+            or launches["paged_attend_by_kernel"]["split"] \
+            != launches["paged_attend"]:
+        raise SystemExit("spec: %d model passes but launches %s (want %d "
+                         "and %d per pass, all paged_attend on the split "
+                         "kernel)" % (passes, launches, LAYERS, 3 * LAYERS))
+    if spec and not (got["verify_steps"] > 0
+                     and got["spec_accepted_tokens"] > 0):
+        raise SystemExit("spec: the spec-on arm verified %d times and "
+                         "accepted %d drafts" % (got["verify_steps"],
+                                                 got["spec_accepted_tokens"]))
+    return outs, arm
+
+
+def spec_check(torch, dev):
+    """Speculative decoding on the serving path at ``bench_spec``'s
+    configuration: the chain trained on the card (:func:`spec_chain`),
+    then four arms (:func:`spec_arm`): 1 and 4 slots, spec off and on.
+    Each model pass (decode or verify) must launch ``paged_attend`` once
+    per layer, all on its split kernel, and ``int8_gemm`` three times;
+    the spec-off streams must continue the prompt's pattern (the chain
+    learned it); the spec-on arms must verify and accept drafts; and
+    their greedy streams must equal the spec-off arms' token for token.
+    Returns the kernels' launches over the four measured runs."""
+    t0 = time.perf_counter()
+    chain, pattern, losses = spec_chain(torch, dev)
+    train_s = time.perf_counter() - t0
+    if not all(numpy.isfinite(losses)):
+        raise SystemExit("spec: non-finite training losses %s" % losses)
+    for u in chain:
+        if hasattr(u, "int8_decode"):
+            u.int8_decode = True
+    prompt = (pattern * 8)[:SPEC_PROMPT]
+    learned = [pattern[(SPEC_PROMPT + i) % len(pattern)]
+               for i in range(SPEC_STEPS)]
+    arms, total = [], {"paged_attend": 0, "int8_gemm": 0}
+    for slots in SPEC_SLOTS:
+        streams = {}
+        for spec in (False, True):
+            streams[spec], arm = spec_arm(torch, dev, chain, prompt, slots,
+                                          spec)
+            arms.append(arm)
+            for n in total:
+                total[n] += arm["launches"][n]
+        for off in streams[False]:
+            if off[SPEC_PROMPT:] != learned:
+                raise SystemExit(
+                    "spec: the trained chain's greedy stream leaves the "
+                    "pattern at position %d (losses %s)"
+                    % (next(i for i, (a, b) in enumerate(
+                        zip(off[SPEC_PROMPT:], learned)) if a != b),
+                       losses[::10]))
+        for off, on in zip(streams[False], streams[True]):
+            if off != on:
+                at = next(i for i, (a, b) in enumerate(zip(off, on))
+                          if a != b)
+                raise SystemExit(
+                    "spec: at %d slots the spec-on stream differs from the "
+                    "spec-off one first at position %d (%d against %d)"
+                    % (slots, at, on[at], off[at]))
+    log(json.dumps({"spec": {
+        "train_steps": SPEC_TRAIN, "trainer": SPEC_TRAINER,
+        "train_s": train_s,
+        "losses_first_last": [losses[0], losses[-1]],
+        "prompt": SPEC_PROMPT, "steps": SPEC_STEPS, "spec_k": SPEC_K,
+        "streams_identical": True, "arms": arms,
+        "seconds": time.perf_counter() - t0}}))
+    return total
 
 
 # -- phase 7: train -----------------------------------------------------------
@@ -1488,8 +1763,11 @@ def check_uniform(torch, dev, rate):
     [1024, 4096] (the fields of the kernels line: the shape the training
     step launches it at) beside the plain version and ``torch.rand``,
     and at the synthetic dataset's shape [4096, 227, 227, 3] beside
-    ``torch.rand``.  Bound: THREEFRY_OPS int32 operations per element
-    against the float written."""
+    ``torch.rand`` — ``ms`` and ``library_ms`` as CUDA-graph replays,
+    the eager loops as ``eager_ms`` and ``library_eager_ms``.
+    ``torch.rand`` draws Philox, not this function's Threefry stream.
+    Bound: THREEFRY_OPS int32 operations per element against the float
+    written."""
     from veles_tpu_torch.ops import random as mod
     from veles_tpu_torch.prng import threefry
     k = threefry.fold_in(threefry.key(42), 3)
@@ -1514,10 +1792,20 @@ def check_uniform(torch, dev, rate):
         for d in shape:
             numel *= d
         b_ms, b_by = bound(4 * numel, THREEFRY_OPS * numel, "int32", rate)
-        out = {"ms": time_ms(torch, lambda: mod.uniform_fill(k, shape, dev),
-                             reps=5),
-               "library_ms": time_ms(torch, lambda: torch.rand(
-                   shape, device=dev), reps=5),
+
+        def fill():
+            mod.uniform_fill(k, shape, dev)
+
+        def library():
+            torch.rand(shape, device=dev)
+
+        # a launch is ~10 us at the mask's shape, about what the host
+        # takes to dispatch one through the wrapper: the device time
+        # comes from CUDA-graph replays, the eager loops stay beside it
+        out = {"ms": graph_ms(torch, fill, reps=20),
+               "library_ms": graph_ms(torch, library, reps=20),
+               "eager_ms": time_ms(torch, fill, reps=5),
+               "library_eager_ms": time_ms(torch, library, reps=5),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": 4 * numel,
                "ops": THREEFRY_OPS * numel}
         if plain:
@@ -1531,12 +1819,18 @@ def check_uniform(torch, dev, rate):
     mod.launches = before
     out.update(max_abs_err=0.0, dataset_ms=ds["ms"],
                dataset_library_ms=ds["library_ms"],
+               dataset_eager_ms=ds["eager_ms"],
+               dataset_library_eager_ms=ds["library_eager_ms"],
                dataset_bound_ms=ds["bound_ms"])
-    log("uniform_fill %s: %.4f ms (bound %.4f ms by %s, plain %.3f ms, "
-        "torch.rand %.4f ms); %s: %.3f ms (bound %.3f ms by %s, torch.rand "
-        "%.3f ms)" % (mask, out["ms"], out["bound_ms"], out["bound_by"],
-                      out["plain_ms"], out["library_ms"], data, ds["ms"],
-                      ds["bound_ms"], ds["bound_by"], ds["library_ms"]))
+    log("uniform_fill %s: graph-replayed %.4f ms (bound %.4f ms by %s; "
+        "torch.rand, another stream, %.4f ms), eager loop %.4f ms "
+        "(torch.rand %.4f ms), plain %.3f ms; %s: graph-replayed %.3f ms "
+        "(bound %.3f ms by %s, torch.rand %.3f ms), eager loop %.3f ms "
+        "(torch.rand %.3f ms)"
+        % (mask, out["ms"], out["bound_ms"], out["bound_by"],
+           out["library_ms"], out["eager_ms"], out["library_eager_ms"],
+           out["plain_ms"], data, ds["ms"], ds["bound_ms"], ds["bound_by"],
+           ds["library_ms"], ds["eager_ms"], ds["library_eager_ms"]))
     return {"uniform_fill": out}
 
 
@@ -1741,6 +2035,7 @@ def main():
     train_reference(torch, dev)
     learns(torch, dev)
     launches = serve_check(torch, dev)["launches"]
+    spec_launches = spec_check(torch, dev)
     launches.update(train_check(torch, dev)["launches"])
     measured.update(check_lrn(torch, dev, rate))
     measured.update(check_uniform(torch, dev, rate))
@@ -1764,6 +2059,8 @@ def main():
                for name, (src, tpu) in replaces.items()]
     for k in kernels:
         k["kernel_ms"] = k["ms"]
+        if k["name"] in spec_launches:
+            k["spec_launches"] = spec_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ PyTorch versions ON THE CARD, at the serving model's width (d=1024,
 8 heads, block 16; paged attention also at its split kernel's edges,
 bit-equal twice, rows whose queries all lie before their table, the
 column kernel for a head row off 16 bytes, and the C entry refusing a
-split launch it cannot take), at the training shapes of the attention
+split launch it cannot take; a verify pass's logits against the CPU's
+and against sequential decode steps), at the training shapes of the attention
 kernels and odd ones off their tiles (with the backward bit-equal from run to
 run, and a head dim they are not built for kept off them), at
 AlexNet's LRN shapes and odd ones (each on the variant ``ops.lrn.plan``
@@ -114,14 +115,16 @@ def _paged_inputs(card, pool, k1, hd, nt, first, seed, nb=None):
 #: kernel's edges, each row set ending in a padding row: one live block;
 #: exactly one block per rank (nt 8, cluster 8); fewer live blocks than
 #: ranks; nt 13, not a multiple of the cluster (the last rank's share
-#: short, one rank empty); T 64 full (the serving window); then K1 5 and
-#: 16, f32 and bf16 pools, head dims 64 and 256
+#: short, one rank empty); T 64 full (the serving window); then K1 5, 9
+#: (a verify pass at spec_k 8, at the window's end) and 16, f32 and bf16
+#: pools, head dims 64 and 256
 PAGED_EDGES = [("live 1", "int8", 1, 128, 16, [3, 15, 0]),
                ("one block per rank", "int8", 1, 128, 8, [127, 113, 0]),
                ("fewer than the ranks", "int8", 1, 128, 16, [40, 70, 0]),
                ("nt 13", "int8", 1, 128, 13, [207, 150, 0]),
                ("T 64 full", "int8", 1, 128, 64, [1023, 960, 0]),
                ("K1 5", "int8", 5, 128, 16, [200, 33, 0]),
+               ("K1 9 T 64", "int8", 9, 128, 64, [1015, 500, 0]),
                ("K1 16", "int8", 16, 128, 16, [240, 7, 0]),
                ("f32 K1 5", "float32", 5, 128, 13, [190, 60, 0]),
                ("bf16", "bfloat16", 1, 128, 16, [250, 100, 0]),
@@ -147,6 +150,58 @@ def test_paged_attend_split_edges(card, case):
     assert mod.variant_launches["split"] == before["split"] + 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, **_tol(args[0].dtype))
+
+
+@pytest.mark.parametrize("kind", ["int8", "fused"])
+def test_verify_logits_on_the_card(card, kind):
+    """A verify pass at K1 5 over two rows (5 and 3 real positions) of a
+    small f32 chain with ``int8_decode``: the card's logits within 1e-3
+    of the CPU's and of 5 sequential decode steps on the card, through
+    the kernels — int8 pools, or f32 pools with the single-pass verify
+    (the paged-attention kernel over the post-scatter pool)."""
+    import copy
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.serving import (
+        PagedKVCache, paged_decode_logits, prefill, verify_logits)
+    spec = [{"type": "embedding", "vocab": 512, "dim": 256}]
+    spec += [{"type": "transformer_block", "heads": 2, "int8_decode": True}
+             for _ in range(2)]
+    spec += [{"type": "token_logits", "vocab": 512}]
+    rng = numpy.random.default_rng(2)
+    prompts = [rng.integers(0, 512, (1, n)) for n in (40, 23)]
+    toks = rng.integers(0, 512, (2, 5))
+    pos, lens = numpy.asarray([40, 23]), numpy.asarray([5, 3])
+    valid = [(n, j) for n in range(2) for j in range(lens[n])]
+    kv_dtype = "int8" if kind == "int8" else "fp32"
+    got = {}
+    for d in ("cpu", card):
+        chain = init_params(spec, 3, 128, device=d, dtype="float32")
+        cache = PagedKVCache(chain, 2, 128, block_size=BS, kv_dtype=kv_dtype)
+        slots = [cache.alloc(64) for _ in prompts]
+        for slot, p in zip(slots, prompts):
+            cache.insert(slot, prefill(chain, p, window=64)[0], p.shape[1])
+        tables = cache.table_rows(slots, 4)
+        twin = copy.copy(cache)
+        twin.pools = {i: {n: t.clone() for n, t in pool.items()}
+                      for i, pool in cache.pools.items()}
+        before = (pa.launches, gemm.launches)
+        got[str(d)] = verify_logits(chain, cache, toks, pos, lens, tables,
+                                    fused_verify=kind == "fused").cpu()
+        launched = (pa.launches - before[0], gemm.launches - before[1])
+    assert launched == (2, 6)
+    steps = torch.zeros_like(got["cuda"])
+    for j in range(5):
+        rows = [n for n in range(2) if j < lens[n]]
+        out = paged_decode_logits(chain, twin, toks[rows, j:j + 1],
+                                  pos[rows] + j, tables[rows]).cpu()
+        for r, n in enumerate(rows):
+            steps[n, j] = out[r]
+    card_, cpu, seq = (torch.stack([x[n, j] for n, j in valid])
+                       for x in (got["cuda"], got["cpu"], steps))
+    assert torch.isfinite(card_).all()
+    torch.testing.assert_close(card_, cpu, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(card_, seq, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("k1", [1, 3])

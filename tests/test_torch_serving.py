@@ -4,8 +4,11 @@ held against the JAX package's: the session's briefly-trained chain
 argmax keeps greedy decoding away from near-ties) is carried into the
 port, both schedulers serve the same 4 concurrent greedy requests, and
 the token streams must be IDENTICAL — over fp32 and int8 KV pools,
-one-shot and chunked prefill, and with ``int8_decode``.  The port's
-paged cache must be clean after ``close()``."""
+one-shot and chunked prefill, and with ``int8_decode``.  Both sides
+decode with speculative decoding off, so every token after the first
+comes from one decode step (``tests/test_torch_spec.py`` holds the
+spec-on streams).  The port's paged cache must be clean after
+``close()``."""
 
 import pytest
 
@@ -59,7 +62,8 @@ def _serve_port(chain, prompts, kv_dtype, chunk):
     from veles_tpu_torch.serving import InferenceScheduler
     sch = InferenceScheduler(
         chain, max_slots=4, window=WINDOW, block_size=BLOCK,
-        kv_dtype=kv_dtype, prefill_chunk=chunk, device="cpu").start()
+        kv_dtype=kv_dtype, prefill_chunk=chunk, spec=False,
+        device="cpu").start()
     try:
         futs = [sch.submit(p, STEPS, seed=0) for p in prompts]
         out = [f.result(240) for f in futs]

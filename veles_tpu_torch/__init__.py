@@ -2,7 +2,8 @@
 Hopper (H100).
 
 It serves the LM chain ``Embedding → TransformerBlock×N →
-TokenProjection`` through a paged KV cache (fp32 or int8 pools), trains
+TokenProjection`` through a paged KV cache (fp32 or int8 pools), with
+speculative decoding (n-gram drafts scored in one verify pass), trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
 a device-resident ``FullBatchLoader``) and trains AlexNet
 (``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
@@ -80,4 +81,5 @@ SUBMODULES = (
     "veles_tpu_torch.serving.prefill",
     "veles_tpu_torch.serving.engine",
     "veles_tpu_torch.serving.scheduler",
+    "veles_tpu_torch.serving.spec",
 )

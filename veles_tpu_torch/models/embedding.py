@@ -72,3 +72,18 @@ class Embedding(ForwardBase):
         if self.learned_positions:
             y = y + self.cast("positions")[pos.long()][:, None, :]
         return y
+
+    def apply_verify_slots(self, x, pos):
+        """Speculative-verify lookup: x [batch, K1] with row n's position
+        j at sequence index ``pos[n] + j``; positions past the
+        positional table read its (masked-off) last row, as
+        :meth:`apply_chunk` does."""
+        y = self._lookup(x)
+        if self.learned_positions:
+            table = self.cast("positions")
+            idx = torch.clamp(
+                pos.long()[:, None]
+                + torch.arange(x.shape[1], device=x.device)[None, :],
+                0, table.shape[0] - 1)
+            y = y + table[idx]
+        return y

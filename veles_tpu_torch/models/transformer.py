@@ -14,8 +14,8 @@ the compute dtype, layer norm and the logits run in f32.  Caches and
 pools are updated in place (the JAX methods return new arrays; these
 return the same dicts they were given, written).
 
-``int8_decode`` routes the decode step's output projection and both
-FFN matmuls through the weight-only int8 GEMM
+``int8_decode`` routes the decode and verify steps' output projection
+and both FFN matmuls through the weight-only int8 GEMM
 (``ops/gemm.int8_matmul``, the hand-written kernel on the card) — three
 launches per layer per step; prefill keeps the policy matmul.
 """
@@ -28,7 +28,9 @@ from veles_tpu_torch.ops import softmax
 from veles_tpu_torch.ops.gemm import int8_matmul, int8_weight_quantize
 from veles_tpu_torch.ops.paged_attend import attend_scale
 from veles_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_q8)
+    paged_decode_attention, paged_decode_attention_q8,
+    paged_verify_attention, paged_verify_attention_fused,
+    paged_verify_attention_q8)
 
 
 def _layer_norm(x, scale, bias, eps=1e-5):
@@ -231,6 +233,28 @@ class TransformerBlock(ForwardBase):
             _, _, o = paged_decode_attention(
                 q, k_new, v_new, pool["k"], pool["v"], tables, pos,
                 self.heads, self.dtype)
+        return self._attn_tail(x, o, w8=self.int8_decode), pool
+
+    def apply_verify_paged(self, x, pos, lens, tables, pool,
+                           fused_verify=False):
+        """Speculative-decoding verify step: score a width-K1 run per
+        row — x [batch, K1, d], row n's position j at ``pos[n] + j``,
+        ``lens`` [batch] real positions per row (padding scatters into
+        the trash block) — against the paged pool in ONE pass; position
+        for position :meth:`apply_step_paged`.  int8 pools take the q8
+        verify (the paged-attention kernel on the card); fp32 pools the
+        two-pass verify, or the single-pass one with
+        ``fused_verify``."""
+        q, k_new, v_new = self._qkv(x)
+        if "k_scale" in pool:
+            _, _, _, _, o = paged_verify_attention_q8(
+                q, k_new, v_new, pool["k"], pool["v"], pool["k_scale"],
+                pool["v_scale"], tables, pos, lens, self.heads)
+        else:
+            verify = paged_verify_attention_fused if fused_verify \
+                else paged_verify_attention
+            _, _, o = verify(q, k_new, v_new, pool["k"], pool["v"],
+                             tables, pos, lens, self.heads, self.dtype)
         return self._attn_tail(x, o, w8=self.int8_decode), pool
 
 

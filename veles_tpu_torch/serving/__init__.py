@@ -1,9 +1,10 @@
-"""Paged-KV serving of the LM chain: cache, prefill, decode step and
-the continuous-batching scheduler."""
+"""Paged-KV serving of the LM chain: cache, prefill, decode and verify
+steps, the n-gram draft proposer and the continuous-batching
+scheduler."""
 
 from veles_tpu_torch.serving.engine import (  # noqa: F401
     first_tokens, paged_decode_logits, paged_decode_step, sample_first,
-    sample_slots)
+    sample_slots, verify_logits, verify_step_paged, verify_supported)
 from veles_tpu_torch.serving.kv_slots import (  # noqa: F401
     PagedKVCache, paged_supported)
 from veles_tpu_torch.serving.prefill import (  # noqa: F401
@@ -11,3 +12,5 @@ from veles_tpu_torch.serving.prefill import (  # noqa: F401
     serving_window)
 from veles_tpu_torch.serving.scheduler import (  # noqa: F401
     InferenceScheduler, QueueFullError, SchedulerError)
+from veles_tpu_torch.serving.spec import (  # noqa: F401
+    NgramIndex, NgramProposer, accept_drafts)

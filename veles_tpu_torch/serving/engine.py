@@ -1,4 +1,4 @@
-"""The shared decode step over serving slots — the port of
+"""The shared decode and verify steps over serving slots — the port of
 ``veles_tpu/serving/engine.py`` (paged path).
 
 :func:`paged_decode_step` advances a PACKED batch of active slots one
@@ -6,6 +6,8 @@ token: the scheduler pads the active slots to a power-of-two occupancy
 bucket ``B`` and bounds the attended range by a power-of-two block
 bucket ``T`` over the deepest slot.  Padding rows (token 0, position 0,
 an all-zero table) write into and read from the trash block.
+:func:`verify_step_paged` is the speculative-decoding step: each row's
+pending token and its drafts, scored in ONE model pass.
 
 Sampling is row-wise.  Greedy rows (temperature 0) take the argmax —
 the same token the JAX package picks from the same logits.  Sampling
@@ -78,6 +80,10 @@ def first_tokens(last_logits, temps, topks, seeds, counts=None):
                         list(counts)).cpu().numpy()
 
 
+def _ints(a, dtype, device):
+    return torch.as_tensor(numpy.asarray(a, dtype), device=device)
+
+
 def paged_decode_logits(forwards, cache, toks, pos, tables):
     """The chain's forward of ONE decode step over a packed batch
     against ``cache`` (:class:`~veles_tpu_torch.serving.kv_slots.
@@ -86,10 +92,9 @@ def paged_decode_logits(forwards, cache, toks, pos, tables):
     1``) — host arrays.  Returns the [B, vocab] f32 logits on the
     cache's device."""
     device = cache.device
-    h = torch.as_tensor(numpy.asarray(toks, numpy.int64), device=device)
-    pos_t = torch.as_tensor(numpy.asarray(pos, numpy.int64), device=device)
-    tables_t = torch.as_tensor(numpy.asarray(tables, numpy.int32),
-                               device=device)
+    h = _ints(toks, numpy.int64, device)
+    pos_t = _ints(pos, numpy.int64, device)
+    tables_t = _ints(tables, numpy.int32, device)
     for i, u in enumerate(forwards):
         if i in cache.pools:
             h, cache.pools[i] = u.apply_step_paged(h, pos_t, tables_t,
@@ -112,3 +117,70 @@ def paged_decode_step(forwards, cache, toks, pos, tables, temps, topks,
                         list(numpy.asarray(topks)),
                         list(numpy.asarray(seeds)),
                         list(numpy.asarray(counts))).cpu().numpy()
+
+
+def verify_logits(forwards, cache, toks, pos, lens, tables,
+                  fused_verify=False):
+    """The chain's forward of ONE verify pass over a packed batch
+    against ``cache`` (pools updated in place): ``toks`` [B, K1] — row
+    n's pending token then its drafts, padded past ``lens[n]``; ``pos``
+    [B] the pending token's position; ``lens`` [B] real positions per
+    row; ``tables`` [B, T] (T·block_size covers ``max(pos + lens)``) —
+    host arrays.  ``fused_verify`` takes the single-pass verify over
+    fp32 pools.  Returns the [B, K1, vocab] f32 logits on the cache's
+    device."""
+    device = cache.device
+    h = _ints(toks, numpy.int64, device)
+    pos_t = _ints(pos, numpy.int64, device)
+    lens_t = _ints(lens, numpy.int64, device)
+    tables_t = _ints(tables, numpy.int32, device)
+    for i, u in enumerate(forwards):
+        if i in cache.pools:
+            h, cache.pools[i] = u.apply_verify_paged(
+                h, pos_t, lens_t, tables_t, cache.pools[i],
+                fused_verify=fused_verify)
+        elif hasattr(u, "apply_verify_slots"):
+            h = u.apply_verify_slots(h, pos_t)
+        else:
+            h = u.apply(h)
+    return h.to(torch.float32)
+
+
+def verify_step_paged(forwards, cache, toks, pos, lens, tables, temps,
+                      topks, seeds, counts, fused_verify=False):
+    """Run ONE verify pass (:func:`verify_logits`) and sample every
+    position: entry (n, j) is drawn as a sequential decode of row n's
+    context extended by its first j drafts would draw it — greedy rows
+    take the argmax, sampling rows the key ``fold_in(key(seeds[n]),
+    counts[n] + j)``.  ``counts`` [B] is the draw counter of each row's
+    first sampled token.  Returns the [B, K1] tokens as a host numpy
+    array; the caller accepts the matched prefix
+    (:func:`~veles_tpu_torch.serving.spec.accept_drafts`)."""
+    logits = verify_logits(forwards, cache, toks, pos, lens, tables,
+                           fused_verify=fused_verify)
+    b, k1, vocab = logits.shape
+
+    def rows(a):
+        return list(numpy.repeat(numpy.asarray(a), k1))
+
+    draws = (numpy.asarray(counts, numpy.int64)[:, None]
+             + numpy.arange(k1)[None, :]).reshape(-1)
+    nxt = sample_slots(logits.reshape(b * k1, vocab), rows(temps),
+                       rows(topks), rows(seeds), list(draws))
+    return nxt.reshape(b, k1).cpu().numpy()
+
+
+def verify_supported(forwards):
+    """True when every cacheable block speaks the paged verify step and
+    every other sequence-positioned unit can place a width-K1 run (or
+    is position-wise) — the gate speculative decoding checks."""
+    has = False
+    for u in forwards:
+        if hasattr(u, "init_cache"):
+            has = True
+            if not hasattr(u, "apply_verify_paged"):
+                return False
+        elif hasattr(u, "apply_step_slots") \
+                and not hasattr(u, "apply_verify_slots"):
+            return False
+    return has

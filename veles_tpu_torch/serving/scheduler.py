@@ -16,7 +16,15 @@ are served by ONE background loop that owns every tensor:
 3. **step** — the active slots advance one token through
    :func:`~veles_tpu_torch.serving.engine.paged_decode_step`, packed
    into a power-of-two occupancy bucket with a power-of-two block
-   bucket over the deepest request;
+   bucket over the deepest request.  With ``spec`` on (the default, as
+   in the reference) each slot first drafts up to its ``draft_k``
+   tokens by n-gram prompt lookup (:mod:`~veles_tpu_torch.serving.
+   spec`); when any slot drafted, the step is ONE batched verify pass
+   (:func:`~veles_tpu_torch.serving.engine.verify_step_paged`) at the
+   fixed width ``spec_k + 1`` — slots without drafts ride it as
+   width-1 rows — and each slot keeps its longest matched prefix plus
+   the correction token, so one pass emits up to ``spec_k + 1`` tokens
+   and the stream stays the spec-off stream;
 4. **retire** — a request that produced its stop token or its last
    step completes its future with prompt + generated tokens and frees
    its slot and blocks.
@@ -25,10 +33,11 @@ Greedy streams are exact: each request attends only over its own
 blocks and sampling is row-wise, so a stream is independent of its
 slot, the packing order and its co-tenants.
 
-Not ported yet (the JAX scheduler has them): speculative decoding,
-the prefix cache and host tier, disaggregation, priorities, deadlines,
-cancel, preemption, the watchdog, tensor parallelism, the metrics
-registry, embed/score jobs and the dense KV layout.
+Not ported yet (the JAX scheduler has them): the Medusa draft heads
+and the hidden-state lane, the prefix cache and host tier,
+disaggregation, priorities, deadlines, cancel, preemption, the
+watchdog, tensor parallelism, the metrics registry, embed/score jobs
+and the dense KV layout.
 """
 
 import collections
@@ -39,13 +48,18 @@ import threading
 import time
 
 import numpy
+import torch
 
 from veles_tpu_torch.backends import resolve_device
-from veles_tpu_torch.serving.engine import first_tokens, paged_decode_step
+from veles_tpu_torch.ops.paged_attend import MAX_K1
+from veles_tpu_torch.serving.engine import (
+    first_tokens, paged_decode_step, verify_step_paged, verify_supported)
 from veles_tpu_torch.serving.kv_slots import PagedKVCache, paged_supported
 from veles_tpu_torch.serving.prefill import (
     chunked_supported, prefill, prefill_chunk, serving_supported,
     serving_window)
+from veles_tpu_torch.serving.spec import (
+    NgramIndex, NgramProposer, accept_drafts)
 
 log = logging.getLogger(__name__)
 
@@ -75,7 +89,7 @@ class _Request(object):
     __slots__ = ("prompt", "steps", "temperature", "top_k", "stop_token",
                  "seed", "future", "slot", "generated", "t_submit",
                  "t_first", "pf_seq", "pf_caches", "pf_off", "pf_width",
-                 "pf_chunk")
+                 "pf_chunk", "draft_k", "accept_ema", "gram_ix")
 
     def __init__(self, prompt, steps, temperature, top_k, stop_token,
                  seed):
@@ -95,6 +109,12 @@ class _Request(object):
         self.pf_off = 0
         self.pf_width = 0
         self.pf_chunk = 0
+        # speculative drafting: the accept-rate-adaptive draft length
+        # (set at the first draft), the accept-rate EMA by drafter and
+        # the memoized trailing-n-gram index
+        self.draft_k = 0
+        self.accept_ema = {}
+        self.gram_ix = None
 
     def fail(self, error):
         if not self.future.done():
@@ -113,14 +133,24 @@ class InferenceScheduler(object):
     (:class:`QueueFullError` above it); ``block_size`` /
     ``kv_blocks`` / ``kv_dtype`` ("fp32" or "int8") — the paged cache;
     ``prefill_chunk`` — chunk width of chunked prefill (0 = always
-    one-shot).  ``device`` must
-    be the chain's device (default ``cuda``).  The parameters after
-    ``max_queue`` are keyword-only: the reference's fifth positional
-    parameter is ``queue_timeout``, which the port does not have."""
+    one-shot); ``spec`` / ``spec_k`` — speculative decoding with up to
+    ``spec_k`` n-gram drafts per slot and step; ``fused_verify`` —
+    score fp32 pools' verify runs single-pass; ``draft_k_min`` /
+    ``draft_ema`` — the floor of a slot's adaptive draft length and the
+    weight of its accept-rate EMA (the reference's defaults throughout).
+    ``device`` must be the chain's device (default ``cuda``).  The
+    parameters after ``max_queue`` are keyword-only: the reference's
+    fifth positional parameter is ``queue_timeout``, which the port
+    does not have."""
+
+    #: a slot's draft length halves below this accept-rate EMA and
+    #: doubles above ``DRAFT_GROW`` (the reference's thresholds)
+    DRAFT_SHRINK, DRAFT_GROW = 0.5, 0.8
 
     def __init__(self, forwards, max_slots=4, window=None, max_queue=32,
                  *, block_size=16, kv_blocks=None, kv_dtype="fp32",
-                 prefill_chunk=64, device=None):
+                 prefill_chunk=64, spec=True, spec_k=4, fused_verify=False,
+                 draft_k_min=1, draft_ema=0.5, device=None):
         self.device = resolve_device(device)
         if any(u.device != self.device for u in forwards):
             raise ValueError("the chain lies on %s, the scheduler was "
@@ -152,13 +182,41 @@ class InferenceScheduler(object):
             chunk = 0
         #: chunk widths are powers of two
         self.prefill_chunk = _bucket(chunk, 1, 1 << 30) if chunk else 0
-        #: decode steps run so far (one per loop iteration with active
-        #: slots) — what kernel launch counts are read against — and
-        #: the tokens they emitted and the host seconds they took (each
-        #: step ends in the sampled tokens' copy to the host)
+        spec = bool(spec)
+        self.spec_k = int(spec_k)
+        if spec and self.spec_k < 1:
+            raise ValueError("spec_k must be >= 1")
+        if spec and not verify_supported(forwards):
+            log.info("chain cannot run the paged verify step; "
+                     "speculative decoding disabled")
+            spec = False
+        self.fused_verify = bool(fused_verify)
+        if spec and self.device.type == "cuda" \
+                and (kv_dtype == "int8" or self.fused_verify) \
+                and self.spec_k + 1 > MAX_K1:
+            raise ValueError("spec_k + 1 = %d exceeds the %d queries per "
+                             "row of the paged-attention kernel"
+                             % (self.spec_k + 1, MAX_K1))
+        self.spec = spec
+        self._proposer = NgramProposer(k=self.spec_k) if spec else None
+        self.draft_k_min = max(1, min(int(draft_k_min), self.spec_k))
+        self.draft_ema = float(draft_ema)
+        if not 0.0 < self.draft_ema <= 1.0:
+            raise ValueError("draft_ema must be in (0, 1]")
+        #: model passes so far: plain decode steps and verify steps (one
+        #: of them per loop iteration with active slots) — what kernel
+        #: launch counts are read against — and the tokens both kinds
+        #: emitted and the host seconds they took (each ends in the
+        #: sampled tokens' copy to the host)
         self.decode_steps = 0
+        self.verify_steps = 0
         self.decode_tokens = 0
         self.decode_seconds = 0.0
+        #: the tokens the verify steps emitted (part of decode_tokens),
+        #: the drafts proposed, and those the verify passes kept
+        self.verify_tokens = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
         #: (time to first token, request latency) in seconds, one pair
         #: per completed request, from submit
         self.completed = []
@@ -173,6 +231,13 @@ class InferenceScheduler(object):
         self._thread = None
         self._ready = threading.Event()
         self.cache_ = None           # built by the loop thread
+
+    @property
+    def spec_accept_rate(self):
+        """Accepted over drafted tokens, None before the first draft."""
+        if not self.spec_drafted_tokens:
+            return None
+        return self.spec_accepted_tokens / self.spec_drafted_tokens
 
     # -- client side -----------------------------------------------------------
 
@@ -278,7 +343,11 @@ class InferenceScheduler(object):
             raise
         self._ready.set()
         try:
-            self._serve(self.cache_)
+            # serving never differentiates: a chain fresh from training
+            # (parameters that require grad) must not record graphs or
+            # rebuild its cached weight casts every step
+            with torch.no_grad():
+                self._serve(self.cache_)
         except Exception as e:
             # a fault in a step is fatal: the loop stops and every
             # waiting client sees the error
@@ -409,7 +478,13 @@ class InferenceScheduler(object):
     def _step_paged(self, cache, active):
         """Packed step: only the active slots ride the batch, padded to
         a power-of-two occupancy bucket; the attended range is the
-        power-of-two block bucket of the deepest request."""
+        power-of-two block bucket of the deepest request.  With spec on
+        and any slot drafting, the step is a verify pass instead."""
+        if self.spec:
+            drafts = self._draft(active)
+            if drafts:
+                self._step_verify(cache, active, drafts)
+                return
         slots = sorted(active)
         n = len(slots)
         b = _bucket(n, 1, self.max_slots)
@@ -442,6 +517,107 @@ class InferenceScheduler(object):
         for j, slot in enumerate(slots):
             req = active[slot]
             self._emit(req, int(nxt[j]))
+            self._maybe_finish(req, cache)
+
+    def _draft(self, active):
+        """Draft tokens per slot: up to its adaptive ``draft_k``, capped
+        so accepting every draft and the correction token stays inside
+        the request's step budget (so every position written lies in
+        the blocks claimed at admission), by n-gram prompt lookup
+        through the request's index.  Returns {slot: tokens}."""
+        drafts = {}
+        for slot, req in active.items():
+            room = req.steps - len(req.generated) - 1
+            if room < 1:
+                continue
+            if req.draft_k < 1:
+                req.draft_k = self.spec_k  # start optimistic
+            limit = min(req.draft_k, room)
+            if req.gram_ix is None:
+                req.gram_ix = NgramIndex(self._proposer.max_ngram,
+                                         self._proposer.min_ngram)
+            d = self._proposer.propose(
+                list(req.prompt) + list(req.generated), limit,
+                index=req.gram_ix)
+            if d:
+                drafts[slot] = d
+        return drafts
+
+    def _adapt_draft_k(self, req, drafted, accepted):
+        """Blend this verify's accept rate into the slot's EMA (weight
+        ``draft_ema``), then halve its draft length toward
+        ``draft_k_min`` below DRAFT_SHRINK or double it toward
+        ``spec_k`` above DRAFT_GROW; count the drafts."""
+        rate = accepted / drafted
+        prev = req.accept_ema.get("ngram")
+        ema = rate if prev is None \
+            else (1.0 - self.draft_ema) * prev + self.draft_ema * rate
+        req.accept_ema["ngram"] = ema
+        if ema < self.DRAFT_SHRINK:
+            req.draft_k = max(self.draft_k_min, req.draft_k >> 1)
+        elif ema > self.DRAFT_GROW:
+            req.draft_k = min(self.spec_k, req.draft_k << 1)
+        self.spec_drafted_tokens += drafted
+        self.spec_accepted_tokens += accepted
+
+    def _step_verify(self, cache, active, drafts):
+        """Speculative step: every active slot rides ONE verify pass of
+        width ``spec_k + 1`` — its pending token then its drafts
+        (padding past ``lens`` goes to the trash block; a slot without
+        drafts is a width-1 row).  The block bucket covers the deepest
+        request plus ``spec_k``.  Each slot emits its longest matched
+        prefix and the correction sample, stopping early at its stop
+        token or its step budget."""
+        slots = sorted(active)
+        n = len(slots)
+        b = _bucket(n, 1, self.max_slots)
+        k = self.spec_k
+        deepest = max(len(active[s].prompt) + len(active[s].generated)
+                      for s in slots) + k
+        t = _bucket(-(-deepest // cache.block_size), 1,
+                    cache.blocks_per_slot)
+        toks = numpy.zeros((b, k + 1), numpy.int32)
+        pos = numpy.zeros((b,), numpy.int32)
+        lens = numpy.ones((b,), numpy.int32)
+        temps = numpy.zeros((b,), numpy.float32)
+        topks = numpy.zeros((b,), numpy.int32)
+        seeds = numpy.zeros((b,), numpy.uint32)
+        counts = numpy.zeros((b,), numpy.int32)
+        tables = numpy.zeros((b, t), numpy.int32)
+        for j, slot in enumerate(slots):
+            req = active[slot]
+            d = drafts.get(slot, [])
+            toks[j, 0] = req.generated[-1]
+            toks[j, 1:1 + len(d)] = d
+            pos[j] = len(req.prompt) + len(req.generated) - 1
+            lens[j] = 1 + len(d)
+            temps[j] = req.temperature
+            topks[j] = req.top_k
+            seeds[j] = req.seed
+            counts[j] = len(req.generated)
+        tables[:n] = cache.table_rows(slots, t)
+        t0 = time.perf_counter()
+        nxt = verify_step_paged(self.forwards, cache, toks, pos, lens,
+                                tables, temps, topks, seeds, counts,
+                                fused_verify=self.fused_verify)
+        self.decode_seconds += time.perf_counter() - t0
+        self.verify_steps += 1
+        for j, slot in enumerate(slots):
+            req = active[slot]
+            d = drafts.get(slot, [])
+            out = accept_drafts(d, nxt[j, :len(d) + 1])
+            before = len(req.generated)
+            for tok in out:
+                self._emit(req, int(tok))
+                if len(req.generated) >= req.steps \
+                        or (req.stop_token is not None
+                            and int(tok) == req.stop_token):
+                    break
+            emitted = len(req.generated) - before
+            self.decode_tokens += emitted
+            self.verify_tokens += emitted
+            if d:
+                self._adapt_draft_k(req, len(d), len(out) - 1)
             self._maybe_finish(req, cache)
 
     def _maybe_finish(self, req, cache):
