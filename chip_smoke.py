@@ -53,8 +53,9 @@ result line):
    vocab 32768, window 1024, depth cut to 8 layers, random weights
    from seed 0, bfloat16) through ``InferenceScheduler`` with int8 KV
    pools and ``int8_decode``: one warm-up request, then 8 concurrent
-   128-token prompts x 32 greedy steps, speculative decoding off (so
-   its numbers compare with the earlier runs').  The kernels' launch
+   128-token prompts x 32 greedy steps, speculative decoding and the
+   prefix cache off (so its numbers compare with the earlier runs').
+   The kernels' launch
    counts are zeroed just before and read just after: ``paged_attend``
    must launch once per layer per decode step, all on its split
    kernel, ``int8_gemm`` three times;
@@ -66,7 +67,24 @@ result line):
    one measured run each): every model pass (decode or verify) must
    launch ``paged_attend`` once per layer, all split, and ``int8_gemm``
    three times; the spec-on arms must verify and accept drafts; their
-   streams must equal the spec-off arms' token for token;
+   streams must equal the spec-off arms' token for token (the prefix
+   cache off, so every measured request admits cold as before);
+6c. lifecycle — ``bench_spec``'s prefix part (``bench.py:1118``) and
+   the request lifecycle, the prefix cache on: (a) on the serve phase's
+   chain, one cold and 8 warm submits of an 896-token prompt (7/8 of
+   the window, ``prefill_chunk`` 32), one step each — every warm one
+   must hit and prefill one 16-token block — then one cold and one
+   warm admission profiled; (b) the peak of concurrent streams a
+   20-block pool holds on a shared 64-token prompt (16 steps each),
+   cold (prefix cache off, 4 requests) and warm (20 after a seeding
+   one), with the kernels' counts zeroed just before and read after:
+   warm must exceed cold, and each model pass launch ``paged_attend``
+   once per layer, all split, and ``int8_gemm`` three times; (c) on the
+   spec phase's trained chain, a warm resubmit, preempt→resume by a
+   high-class arrival at one slot, cancel and a deadline mid-decode,
+   drain, and the watchdog over an injected 1.5 s hang: each stream
+   must equal its uninterrupted run, each error be its kind, and
+   ``check_kv()`` clean after each;
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
    bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
@@ -113,7 +131,8 @@ serving kernels' (``paged_attend``, ``int8_gemm``) ``ms`` and
 step's launches (their launches are shorter than the host's dispatch of
 one), with the host-paced eager loops under ``eager_ms`` and
 ``library_eager_ms``, the verify widths' graph times under ``verify``
-and the spec phase's launches under ``spec_launches``;
+and the spec and lifecycle phases' launches under ``spec_launches``
+and ``lifecycle_launches``;
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too;
 every other kernel's ``ms`` and ``library_ms``, and every ``plain_ms``,
 are eager loops timed by CUDA events.
@@ -156,6 +175,17 @@ SPEC_TRAIN, SPEC_BATCH, SPEC_STEPS, SPEC_K, SPEC_PROMPT = 60, 16, 512, 8, 64
 SPEC_TRAINER = {"solver": "sgd", "learning_rate": 0.001,
                 "gradient_moment": 0.9}
 SPEC_SLOTS = (1, 4)
+
+#: the lifecycle phase (``bench.py``'s ``bench_spec`` prefix part, :1118):
+#: a prompt of 7/8 of the window, cold then warm, block-wide cold-tail
+#: chunks (``prefill_chunk`` = 2 blocks, as the bench), 4 slots, 8 warm
+#: resubmits; then the streams a pool of 4 cold requests' blocks holds
+#: on a shared 4-block prompt with a block of steps each
+LIFE_PROMPT, LIFE_CHUNK, LIFE_SLOTS, LIFE_WARM = 7 * WINDOW // 8, 2 * BLOCK, 4, 8
+SHARED_PROMPT, SHARED_STEPS = 4 * BLOCK, BLOCK
+SHARED_POOL = 4 * -(-(SHARED_PROMPT + SHARED_STEPS) // BLOCK)
+#: the lifecycle checks' watchdog and the hang it must catch (seconds)
+LIFE_WATCHDOG, LIFE_HANG = 0.5, 1.5
 
 #: the training model of the smoke (``bench.py``'s ``bench_lm``)
 T_VOCAB, T_DIM, T_LAYERS, T_HEADS, T_SEQ, T_BATCH = 32768, 2048, 8, 16, 2048, 4
@@ -1195,8 +1225,10 @@ def learns(torch, dev):
 # -- phase 6: serve -----------------------------------------------------------
 
 def serve_check(torch, dev):
-    """The main path at the serving width; returns the launch counts
-    of the measured run and prints its serving numbers."""
+    """The main path at the serving width, the prefix cache off (the
+    warm-up request repeats ``prompts[0]``, which would admit the
+    measured one warm); returns the launch counts of the measured run
+    and the chain, and prints its serving numbers."""
     from veles_tpu_torch.convert import init_params
     from veles_tpu_torch.ops import gemm, paged_attend as pa
     from veles_tpu_torch.serving import InferenceScheduler
@@ -1209,7 +1241,7 @@ def serve_check(torch, dev):
     sch = InferenceScheduler(chain, max_slots=SLOTS, window=WINDOW,
                              block_size=BLOCK, kv_dtype="int8",
                              prefill_chunk=CHUNK, spec=False,
-                             device=dev).start()
+                             prefix_cache=False, device=dev).start()
     log("serve: chain and scheduler up in %.1f s"
         % (time.perf_counter() - t0))
     rng = numpy.random.default_rng(0)
@@ -1268,13 +1300,13 @@ def serve_check(torch, dev):
         "wall_s": wall,
         "tokens_per_s": len(outs) * STEPS / wall}}))
     log(json.dumps({"profile": prof}))
-    return {"launches": launches}
+    return {"launches": launches, "chain": chain}
 
 
 def profile_window(torch, sch, prompts, steps=8):
-    """Where the serving time goes: the same 8 prompts for ``steps``
-    tokens under ``torch.profiler`` (after the measured run, so its
-    cost stays out of the serving numbers).  Returns the window's wall
+    """Where the serving time goes: ``prompts`` for ``steps`` tokens
+    each under ``torch.profiler`` (after the measured run, so its cost
+    stays out of the serving numbers).  Returns the window's wall
     time, the device's busy time (kernels' self time summed) and idle
     share, the kernels with the most device time, and the port's two
     serving kernels' launches and device ms by kernel."""
@@ -1344,34 +1376,60 @@ SPEC_COUNTERS = ("decode_steps", "verify_steps", "decode_tokens",
                  "spec_accepted_tokens")
 
 
+def zero_serving_counts():
+    """Set the two serving kernels' launch counts to 0."""
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    pa.launches = 0
+    pa.variant_launches.update(split=0, column=0)
+    gemm.launches = 0
+
+
+def read_serving_counts():
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    return {"paged_attend": pa.launches,
+            "paged_attend_by_kernel": dict(pa.variant_launches),
+            "int8_gemm": gemm.launches}
+
+
+def check_pass_launches(what, passes, launches):
+    """Fail unless every model pass (decode or verify) launched
+    ``paged_attend`` once per layer, all on its split kernel, and
+    ``int8_gemm`` three times per layer."""
+    if passes < 1 or launches["paged_attend"] != LAYERS * passes \
+            or launches["int8_gemm"] != 3 * LAYERS * passes \
+            or launches["paged_attend_by_kernel"]["split"] \
+            != launches["paged_attend"]:
+        raise SystemExit("%s: %d model passes but launches %s (want %d "
+                         "and %d per pass, all paged_attend on the split "
+                         "kernel)" % (what, passes, launches, LAYERS,
+                                      3 * LAYERS))
+
+
 def spec_arm(torch, dev, chain, prompt, slots, spec):
     """One arm: a scheduler over the trained chain (int8 KV pools and
     ``int8_decode``, block 16, one-shot prefill, spec_k SPEC_K, spec on
-    or off) serves one warm-up request, then ``slots`` concurrent
-    greedy requests of SPEC_STEPS tokens with the kernels' counts
-    zeroed just before and read just after.  Returns the streams and
-    the arm's numbers."""
-    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    or off, the prefix cache off so the measured requests repeat the
+    warm-up's cold admission) serves one warm-up request, then
+    ``slots`` concurrent greedy requests of SPEC_STEPS tokens with the
+    kernels' counts zeroed just before and read just after.  Returns the
+    streams and the arm's numbers."""
     from veles_tpu_torch.serving import InferenceScheduler
     sch = InferenceScheduler(chain, max_slots=slots, window=WINDOW,
                              max_queue=4 * slots, block_size=BLOCK,
                              kv_dtype="int8", prefill_chunk=0, spec=spec,
-                             spec_k=SPEC_K, device=dev).start()
+                             spec_k=SPEC_K, prefix_cache=False,
+                             device=dev).start()
     try:
         sch.submit(prompt, SPEC_STEPS).result(600)
         base = {n: getattr(sch, n) for n in SPEC_COUNTERS}
         torch.cuda.synchronize()
-        pa.launches = 0
-        pa.variant_launches.update(split=0, column=0)
-        gemm.launches = 0
+        zero_serving_counts()
         t0 = time.perf_counter()
         futs = [sch.submit(prompt, SPEC_STEPS) for _ in range(slots)]
         outs = [f.result(600) for f in futs]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"paged_attend": pa.launches,
-                    "paged_attend_by_kernel": dict(pa.variant_launches),
-                    "int8_gemm": gemm.launches}
+        launches = read_serving_counts()
         got = {n: getattr(sch, n) - base[n] for n in SPEC_COUNTERS}
     finally:
         sch.close()
@@ -1398,13 +1456,7 @@ def spec_arm(torch, dev, chain, prompt, slots, spec):
                 or not all(0 <= t < VOCAB for t in out[len(prompt):]):
             raise SystemExit("spec: a result of the %d-slot arm (spec %s) is "
                              "malformed" % (slots, spec))
-    if passes < 1 or launches["paged_attend"] != LAYERS * passes \
-            or launches["int8_gemm"] != 3 * LAYERS * passes \
-            or launches["paged_attend_by_kernel"]["split"] \
-            != launches["paged_attend"]:
-        raise SystemExit("spec: %d model passes but launches %s (want %d "
-                         "and %d per pass, all paged_attend on the split "
-                         "kernel)" % (passes, launches, LAYERS, 3 * LAYERS))
+    check_pass_launches("spec", passes, launches)
     if spec and not (got["verify_steps"] > 0
                      and got["spec_accepted_tokens"] > 0):
         raise SystemExit("spec: the spec-on arm verified %d times and "
@@ -1422,7 +1474,8 @@ def spec_check(torch, dev):
     the spec-off streams must continue the prompt's pattern (the chain
     learned it); the spec-on arms must verify and accept drafts; and
     their greedy streams must equal the spec-off arms' token for token.
-    Returns the kernels' launches over the four measured runs."""
+    Returns the kernels' launches over the four measured runs, and the
+    trained chain (``int8_decode`` on) and its pattern."""
     t0 = time.perf_counter()
     chain, pattern, losses = spec_chain(torch, dev)
     train_s = time.perf_counter() - t0
@@ -1466,6 +1519,325 @@ def spec_check(torch, dev):
         "prompt": SPEC_PROMPT, "steps": SPEC_STEPS, "spec_k": SPEC_K,
         "streams_identical": True, "arms": arms,
         "seconds": time.perf_counter() - t0}}))
+    return total, chain, pattern
+
+
+# -- phase 6c: the request lifecycle ------------------------------------------
+
+def _passes(sch):
+    return sch.decode_steps + sch.verify_steps
+
+
+def _wait_for(cond, what, limit=120.0):
+    deadline = time.monotonic() + limit
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SystemExit("lifecycle: timed out waiting for " + what)
+        time.sleep(0.002)
+
+
+def _check_kv(sch, what):
+    """The paged cache's invariant sweep with the trie's residents, and
+    every slot free — after each lifecycle event."""
+    try:
+        sch.check_kv()
+    except AssertionError as e:
+        raise SystemExit("lifecycle: %s left the KV pool unclean: %s"
+                         % (what, e))
+    cache = sch.cache_
+    if cache.free_slots != cache.max_slots \
+            or cache.used_blocks != sch.prefix_cache_blocks_resident:
+        raise SystemExit("lifecycle: %s left %d slots and %d blocks held "
+                         "(%d resident)" % (
+                             what, cache.max_slots - cache.free_slots,
+                             cache.used_blocks,
+                             sch.prefix_cache_blocks_resident))
+
+
+def warm_ttft(torch, dev, chain):
+    """Part (a), ``bench.py:1118-1150`` on the card: after two warm-ups
+    on an unrelated prompt (one cold, one warm), one cold submit of a
+    LIFE_PROMPT-token prompt and LIFE_WARM warm resubmits of it, one
+    step each, timed on the host from submit to result, then one cold
+    (a fresh prompt) and one warm admission under the profiler.  Each
+    warm resubmit must hit the prefix cache and prefill only its cold
+    tail (55 of the prompt's 56 full blocks match: one block).  The
+    chain is
+    untrained, so its argmax may sit near a tie that the warm tail's
+    other order of sums (over dequantized int8 rows) tips: whether the
+    warm tokens equal the cold one is printed, not held (part (c) holds
+    stream identity on a trained chain)."""
+    from veles_tpu_torch.serving import InferenceScheduler
+    rng = numpy.random.default_rng(0)
+    long_p, other, fresh = (rng.integers(0, VOCAB, LIFE_PROMPT).tolist()
+                            for _ in range(3))
+    sch = InferenceScheduler(chain, max_slots=LIFE_SLOTS, window=WINDOW,
+                             max_queue=64, block_size=BLOCK,
+                             kv_dtype="int8", prefill_chunk=LIFE_CHUNK,
+                             prefix_cache=True, device=dev).start()
+    try:
+        for _ in range(2):
+            sch.submit(other, 1, seed=0).result(600)
+        hits0, misses0 = sch.prefix_cache_hits, sch.prefix_cache_misses
+        work0 = sch.prefill_chunk_tokens
+        t0 = time.perf_counter()
+        cold_out = sch.submit(long_p, 1, seed=0).result(600)
+        cold = (time.perf_counter() - t0) * 1e3
+        cold_work = sch.prefill_chunk_tokens - work0
+        lat, work, same = [], [], 0
+        for i in range(LIFE_WARM):
+            w0 = sch.prefill_chunk_tokens
+            t0 = time.perf_counter()
+            out = sch.submit(long_p, 1, seed=i).result(600)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            work.append(sch.prefill_chunk_tokens - w0)
+            same += out == cold_out
+            if len(out) != LIFE_PROMPT + 1 or not 0 <= out[-1] < VOCAB:
+                raise SystemExit("lifecycle (a): a warm result is malformed")
+        hits = sch.prefix_cache_hits - hits0
+        misses = sch.prefix_cache_misses - misses0
+        # where each kind of admission spends its time, after the
+        # timed runs: a cold one (a fresh prompt) and a warm one
+        prof = {"cold": profile_window(torch, sch, [fresh], steps=1),
+                "warm": profile_window(torch, sch, [long_p], steps=1)}
+    finally:
+        sch.close()
+    _check_kv(sch, "part (a)")
+    p95 = sorted(lat)[max(0, int(len(lat) * 0.95) - 1)]   # as the bench
+    out = {"prompt": LIFE_PROMPT, "prefill_chunk": LIFE_CHUNK,
+           "cold_ttft_ms": cold, "warm_ttft_ms": lat,
+           "warm_ttft_ms_p95": p95, "warm_over_cold": p95 / cold,
+           "prefix_cache_hits": hits, "prefix_cache_misses": misses,
+           "cold_prefill_chunk_tokens": cold_work,
+           "warm_prefill_chunk_tokens": work,
+           "warm_tokens_equal_cold": same}
+    log(json.dumps({"lifecycle_warm_ttft": out}))
+    log(json.dumps({"lifecycle_ttft_profile": prof}))
+    if hits != LIFE_WARM or misses != 1 or cold_work != LIFE_PROMPT \
+            or any(not 0 < w <= BLOCK for w in work):
+        raise SystemExit("lifecycle (a): %d warm hits and %d misses (want "
+                         "%d and 1), cold prefill %d tokens, warm prefills "
+                         "%s (want <= %d each)" % (hits, misses, LIFE_WARM,
+                                                   cold_work, work, BLOCK))
+    return out
+
+
+def peak_streams(torch, dev, chain, prefix):
+    """Part (b), ``bench.py:1152-1180``: a pool of SHARED_POOL blocks
+    (4 cold requests' budgets) and as many slots; cold, 4 submits with
+    the prefix cache off; warm, the trie seeded by one request, then
+    SHARED_POOL submits.  Every submit is the same SHARED_PROMPT-token
+    prompt for SHARED_STEPS greedy steps; ``active_slots`` is sampled
+    every 5 ms.  The kernels' counts are zeroed just before the
+    measured submits and read after.  Speculative decoding is off: on
+    an untrained chain a degenerate repeating stream would accept
+    drafts and finish before the last warm stream joined."""
+    from veles_tpu_torch.serving import InferenceScheduler
+    shared = numpy.random.default_rng(1).integers(
+        0, VOCAB, SHARED_PROMPT).tolist()
+    sch = InferenceScheduler(chain, max_slots=SHARED_POOL, window=WINDOW,
+                             max_queue=256, block_size=BLOCK,
+                             kv_blocks=SHARED_POOL, kv_dtype="int8",
+                             prefill_chunk=LIFE_CHUNK, spec=False,
+                             shed_block_factor=0, prefix_cache=prefix,
+                             device=dev).start()
+    try:
+        if prefix:
+            sch.submit(shared, SHARED_STEPS, seed=0).result(600)
+        n = SHARED_POOL if prefix else 4
+        passes0 = _passes(sch)
+        torch.cuda.synchronize()
+        zero_serving_counts()
+        futs = [sch.submit(shared, SHARED_STEPS, seed=i) for i in range(n)]
+        peak = 0
+        while not all(f.done() for f in futs):
+            peak = max(peak, sch.active_slots)
+            time.sleep(0.005)
+        outs = [f.result(600) for f in futs]
+        torch.cuda.synchronize()
+        launches = read_serving_counts()
+        passes = _passes(sch) - passes0
+        hits = sch.prefix_cache_hits
+    finally:
+        sch.close()
+    _check_kv(sch, "part (b)")
+    if any(len(o) != SHARED_PROMPT + SHARED_STEPS or o[:SHARED_PROMPT]
+           != shared or not all(0 <= t < VOCAB for t in o) for o in outs):
+        raise SystemExit("lifecycle (b): a result is malformed")
+    check_pass_launches("lifecycle (b)", passes, launches)
+    return {"peak_streams": peak, "requests": n, "passes": passes,
+            "prefix_cache_hits": hits, "launches": launches}
+
+
+def lifecycle_events(torch, dev, chain, pattern):
+    """Part (c), on the spec phase's trained chain (int8 KV,
+    ``int8_decode``, spec_k SPEC_K, the prefix cache on): a warm
+    resubmit, preempt→resume by a higher class at one slot, cancel and
+    deadline mid-decode, drain, and the watchdog over an injected hang.
+    Each stream must equal its uninterrupted run and the pool must be
+    clean after each event.  Returns the counters of each check."""
+    from veles_tpu_torch import faults
+    from veles_tpu_torch.serving import (
+        DeadlineExceededError, DrainingError, InferenceScheduler,
+        RequestCancelledError, SchedulerError)
+
+    def make(slots, **kw):
+        return InferenceScheduler(chain, max_slots=slots, window=WINDOW,
+                                  block_size=BLOCK, kv_dtype="int8",
+                                  prefill_chunk=CHUNK, spec_k=SPEC_K,
+                                  device=dev, **kw).start()
+
+    def counters(sch):
+        return {n: getattr(sch, n) for n in (
+            "prefix_cache_hits", "prefix_cache_misses",
+            "prefix_cache_blocks_resident", "prefill_chunk_tokens",
+            "requests_expired", "requests_cancelled", "requests_rejected",
+            "preempts", "preempt_resumes", "watchdog_trips")}
+
+    prompt = (pattern * 8)[:SPEC_PROMPT]
+    other = (pattern * 8)[5:5 + SPEC_PROMPT]
+    out = {}
+    # warm resubmit: the same greedy stream, one hit
+    sch = make(1)
+    try:
+        cold = sch.submit(prompt, 64).result(600)
+        warm = sch.submit(prompt, 64).result(600)
+        learned = [pattern[(SPEC_PROMPT + i) % len(pattern)]
+                   for i in range(64)]
+        if cold != warm or cold[SPEC_PROMPT:] != learned \
+                or sch.prefix_cache_hits != 1:
+            raise SystemExit("lifecycle (c): the warm resubmit's stream "
+                             "differs or left the pattern (%d hits)"
+                             % sch.prefix_cache_hits)
+        out["warm_resubmit"] = counters(sch)
+    finally:
+        sch.close()
+    _check_kv(sch, "the warm resubmit")
+    # preempt→resume: a high-class arrival at one slot evicts the low
+    sch = make(1, prefix_cache=False)
+    try:
+        alone = sch.submit(other, 384).result(600)
+    finally:
+        sch.close()
+    sch = make(1)
+    try:
+        low = sch.submit(other, 384, priority="low")
+        _wait_for(lambda: _passes(sch) >= 2, "the low request to decode")
+        high = sch.submit(prompt, 64, priority="high")
+        got_high, got_low = high.result(600), low.result(600)
+        if got_low != alone or got_high != cold \
+                or sch.preempts < 1 or sch.preempt_resumes < 1:
+            raise SystemExit("lifecycle (c): preempt→resume: %d preempts, "
+                             "%d resumes, resumed stream equal %s, high "
+                             "stream equal %s" % (
+                                 sch.preempts, sch.preempt_resumes,
+                                 got_low == alone, got_high == cold))
+        out["preempt_resume"] = counters(sch)
+    finally:
+        sch.close()
+    _check_kv(sch, "preempt→resume")
+    # cancel and deadline mid-decode (each step slowed by 10 ms)
+    sch = make(2)
+    try:
+        faults.inject("serving.scheduler.step", "delay", arg=0.01)
+        gone = sch.submit(prompt, 896)
+        late = sch.submit(other, 896, timeout=0.5)
+        _wait_for(lambda: _passes(sch) >= 3, "both requests to decode")
+        sch.cancel(gone)
+        try:
+            gone.result(600)
+            raise SystemExit("lifecycle (c): the cancelled request finished")
+        except RequestCancelledError:
+            pass
+        try:
+            late.result(600)
+            raise SystemExit("lifecycle (c): the late request finished")
+        except DeadlineExceededError as e:
+            if e.tokens_generated < 1:
+                raise SystemExit("lifecycle (c): the deadline expired "
+                                 "before any token")
+            expired_after = e.tokens_generated
+        faults.clear()
+        _wait_for(lambda: sch.in_flight == 0, "the reap")
+        out["cancel_deadline"] = dict(counters(sch),
+                                      tokens_before_expiry=expired_after)
+        _check_kv(sch, "cancel and deadline")
+    finally:
+        faults.clear()
+        sch.close()
+    # drain: the request in flight completes, a new submit is refused
+    sch = make(2)
+    try:
+        fut = sch.submit(prompt, 64)
+        if sch.drain():
+            raise SystemExit("lifecycle (c): drained with work in flight")
+        try:
+            sch.submit(prompt, 8)
+            raise SystemExit("lifecycle (c): a submit passed the drain")
+        except DrainingError:
+            pass
+        if fut.result(600) != cold or not sch.drain(timeout=60):
+            raise SystemExit("lifecycle (c): the drain lost the request "
+                             "in flight")
+        out["drain"] = counters(sch)
+    finally:
+        sch.close()
+    _check_kv(sch, "the drain")
+    # watchdog: a hung step fails the pending clients, the loop recovers
+    sch = make(2, watchdog=LIFE_WATCHDOG)
+    try:
+        sch.submit(other, 8).result(600)
+        faults.load("serving.scheduler.step=hang:%gx1" % LIFE_HANG)
+        futs = [sch.submit(prompt, 64), sch.submit(other, 64)]
+        t0 = time.perf_counter()
+        for f in futs:
+            try:
+                f.result(600)
+                raise SystemExit("lifecycle (c): a request outlived the "
+                                 "hang")
+            except SchedulerError as e:
+                if "stalled" not in str(e):
+                    raise
+        failed_after = time.perf_counter() - t0
+        faults.clear()
+        _wait_for(lambda: sch.in_flight == 0, "the watchdog's zombies")
+        after = sch.submit(prompt, 64).result(600)
+        if failed_after > LIFE_HANG or after != cold \
+                or sch.watchdog_trips != 1:
+            raise SystemExit("lifecycle (c): watchdog: failed after %.2f s "
+                             "(hang %.1f), %d trips, the next stream equal "
+                             "%s" % (failed_after, LIFE_HANG,
+                                     sch.watchdog_trips, after == cold))
+        out["watchdog"] = dict(counters(sch), failed_after_s=failed_after)
+    finally:
+        faults.clear()
+        sch.close()
+    _check_kv(sch, "the watchdog")
+    return out
+
+
+def lifecycle_check(torch, dev, serve_chain, spec_chain_, pattern):
+    """The request lifecycle of the default serving path: parts (a) and
+    (b) on the serve phase's untrained chain, part (c) on the spec
+    phase's trained one.  Returns part (b)'s warm launches."""
+    t0 = time.perf_counter()
+    ttft = warm_ttft(torch, dev, serve_chain)
+    cold = peak_streams(torch, dev, serve_chain, False)
+    warm = peak_streams(torch, dev, serve_chain, True)
+    log(json.dumps({"lifecycle_streams": {
+        "pool_blocks": SHARED_POOL, "prompt": SHARED_PROMPT,
+        "steps": SHARED_STEPS, "cold": cold, "warm": warm}}))
+    if warm["peak_streams"] <= cold["peak_streams"]:
+        raise SystemExit("lifecycle (b): %d warm streams at peak, not more "
+                         "than %d cold" % (warm["peak_streams"],
+                                           cold["peak_streams"]))
+    t1 = time.perf_counter()
+    events = lifecycle_events(torch, dev, spec_chain_, pattern)
+    log(json.dumps({"lifecycle_events": events,
+                    "events_s": time.perf_counter() - t1,
+                    "seconds": time.perf_counter() - t0}))
+    total = {n: cold["launches"][n] + warm["launches"][n]
+             for n in ("paged_attend", "int8_gemm")}
     return total
 
 
@@ -2034,8 +2406,12 @@ def main():
     reference_check(torch, dev)
     train_reference(torch, dev)
     learns(torch, dev)
-    launches = serve_check(torch, dev)["launches"]
-    spec_launches = spec_check(torch, dev)
+    served = serve_check(torch, dev)
+    launches = served["launches"]
+    spec_launches, trained, pattern = spec_check(torch, dev)
+    life_launches = lifecycle_check(torch, dev, served.pop("chain"),
+                                    trained, pattern)
+    del served, trained
     launches.update(train_check(torch, dev)["launches"])
     measured.update(check_lrn(torch, dev, rate))
     measured.update(check_uniform(torch, dev, rate))
@@ -2061,6 +2437,7 @@ def main():
         k["kernel_ms"] = k["ms"]
         if k["name"] in spec_launches:
             k["spec_launches"] = spec_launches[k["name"]]
+            k["lifecycle_launches"] = life_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ PyTorch versions ON THE CARD, at the serving model's width (d=1024,
 bit-equal twice, rows whose queries all lie before their table, the
 column kernel for a head row off 16 bytes, and the C entry refusing a
 split launch it cannot take; a verify pass's logits against the CPU's
-and against sequential decode steps), at the training shapes of the attention
+and against sequential decode steps; tables sharing their leading
+blocks; a warm resubmit through the prefix cache on a chain trained on
+the card), at the training shapes of the attention
 kernels and odd ones off their tiles (with the backward bit-equal from run to
 run, and a head dim they are not built for kept off them), at
 AlexNet's LRN shapes and odd ones (each on the variant ``ops.lrn.plan``
@@ -630,3 +632,88 @@ def test_uniform_fill_bit_equal(card, offset):
     assert 0.0 <= float(got.min()) and float(got.max()) < 1.0
     if offset == 0:
         assert torch.equal(mod.uniform(k, (n,), device=card), got)
+
+
+@pytest.mark.parametrize("pool,k1", [("int8", 1), ("int8", 5),
+                                     ("bfloat16", 1)])
+def test_paged_attend_shared_leading_blocks(card, pool, k1):
+    """A batch whose tables share their leading blocks, as rows
+    admitted warm through the prefix cache do (the same 3 resident
+    blocks head every live row, each row's own blocks after them, a
+    padding row last): the split kernel against the plain version,
+    bit-equal twice, and the shared blocks' bytes unchanged."""
+    from veles_tpu_torch.ops import paged_attend as mod
+    args, scales = _paged_inputs(card, pool, k1, 128, 16,
+                                 [100, 170, 60, 0], 31)
+    q, pk, pv, tables, qpos, heads = args
+    tables = tables.clone()
+    tables[:3, :3] = tables[0, :3]          # the shared prefix
+    args = (q, pk, pv, tables, qpos, heads)
+    shared = tables[0, :3].long()
+    before = (pk[shared].clone(), pv[shared].clone())
+    assert mod.plan(4, k1, D, heads, BS, 16, pk.dtype)["kernel"] == "split"
+    got = mod.paged_attend(*args, **scales)
+    again = mod.paged_attend(*args, **scales)
+    want = mod.paged_attend_plain(*args, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **_tol(q.dtype))
+    assert torch.equal(pk[shared], before[0])
+    assert torch.equal(pv[shared], before[1])
+
+
+def _trained_pattern_chain(card):
+    """A small LM (d 256, 2 heads of 128, 2 layers, vocab 64, window
+    64, f32) trained on the card with Adam to continue a 12-token
+    pattern; returns the chain and the pattern."""
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.samples.lm import build_lm, train_lm
+    pattern = (numpy.arange(12) * 5 % 64).tolist()
+    tiled = numpy.tile(pattern, 64 // 12 + 2)
+    offs = numpy.random.default_rng(0).integers(0, 12, 256)
+    data = numpy.stack([tiled[o:o + 64] for o in offs]).astype(numpy.int32)
+    loader = FullBatchLoader(data, None, [0, 0, 256], minibatch_size=16,
+                             seed=0, device=card)
+    lm = build_lm(vocab=64, dim=256, blocks=2, heads=2, seq=64,
+                  loader=loader, learning_rate=3e-3, lr_schedule="constant",
+                  device=card, dtype="float32")
+    train_lm(lm, 6)
+    return lm.chain, pattern
+
+
+def test_warm_resubmit_on_the_card(card):
+    """The prefix cache on the card: a trained chain with int8 KV pools,
+    ``int8_decode`` and speculative decoding serves a 40-token pattern
+    prompt cold, then warm (2 blocks of 16 shared, an 8-token cold tail
+    chunk-prefilled over their dequantized rows); both streams follow
+    the pattern and equal the prefix-cache-off stream, through kernels 1
+    and 2, and the pool is clean after each close."""
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.serving import InferenceScheduler
+    chain, pattern = _trained_pattern_chain(card)
+    for u in chain:
+        if hasattr(u, "int8_decode"):
+            u.int8_decode = True
+    prompt = (pattern * 4)[:40]
+    learned = [pattern[(40 + i) % 12] for i in range(20)]
+    outs = {}
+    for pfx in (False, True):
+        sch = InferenceScheduler(chain, max_slots=2, window=64,
+                                 block_size=BS, kv_dtype="int8",
+                                 prefill_chunk=32, spec_k=4,
+                                 prefix_cache=pfx, device=card).start()
+        try:
+            before = (pa.launches, gemm.launches)
+            outs[pfx] = [sch.submit(prompt, 20).result(120)
+                         for _ in range(2)]
+            launched = (pa.launches - before[0], gemm.launches - before[1])
+            hits = sch.prefix_cache_hits
+            warm_work = sch.prefill_chunk_tokens
+        finally:
+            sch.close()
+        sch.check_kv()
+        assert launched[0] > 0 and launched[1] == 3 * launched[0]
+    assert outs[False][0][40:] == learned, "the chain did not learn"
+    assert outs[True] == outs[False]
+    assert hits == 1
+    assert warm_work == 40 + 8       # cold: 32 + 8; warm: the 8-token tail

@@ -189,7 +189,7 @@ def test_seeded_serving_stream_equal(spec_trained_chain):
             sch.close()
         sch = InferenceScheduler(port_chain(_spec(fw), fw), max_slots=4,
                                  window=WINDOW, block_size=BLOCK,
-                                 device="cpu").start()
+                                 prefix_cache=False, device="cpu").start()
         try:
             got = [f.result(240) for f in
                    [sch.submit(p, 10, **r) for p, r in zip(prompts, reqs)]]
@@ -222,7 +222,7 @@ def test_positional_submit_matches_reference(spec_trained_chain):
             sch.close()
         chain = port_chain(_spec(fw), fw)
         sch = InferenceScheduler(chain, 4, WINDOW, 32, block_size=BLOCK,
-                                 device="cpu").start()
+                                 prefix_cache=False, device="cpu").start()
         try:
             got = [sch.submit(prompt, 8, 1.0, 0, 7).result(240)
                    for _ in range(2)]

@@ -5,10 +5,11 @@ argmax keeps greedy decoding away from near-ties) is carried into the
 port, both schedulers serve the same 4 concurrent greedy requests, and
 the token streams must be IDENTICAL — over fp32 and int8 KV pools,
 one-shot and chunked prefill, and with ``int8_decode``.  Both sides
-decode with speculative decoding off, so every token after the first
-comes from one decode step (``tests/test_torch_spec.py`` holds the
-spec-on streams).  The port's paged cache must be clean after
-``close()``."""
+decode with speculative decoding and the prefix cache off, so every
+token after the first comes from one decode step
+(``tests/test_torch_spec.py`` holds the spec-on streams,
+``tests/test_torch_prefix.py`` the warm ones).  The port's paged cache
+must be clean after ``close()``."""
 
 import pytest
 
@@ -63,7 +64,7 @@ def _serve_port(chain, prompts, kv_dtype, chunk):
     sch = InferenceScheduler(
         chain, max_slots=4, window=WINDOW, block_size=BLOCK,
         kv_dtype=kv_dtype, prefill_chunk=chunk, spec=False,
-        device="cpu").start()
+        prefix_cache=False, device="cpu").start()
     try:
         futs = [sch.submit(p, STEPS, seed=0) for p in prompts]
         out = [f.result(240) for f in futs]

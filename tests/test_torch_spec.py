@@ -395,7 +395,8 @@ def _serve_port(chain, submits, kv_dtype, chunk, **kw):
     from veles_tpu_torch.serving import InferenceScheduler
     sch = InferenceScheduler(chain, max_slots=4, window=WINDOW,
                              block_size=BLOCK, kv_dtype=kv_dtype,
-                             prefill_chunk=chunk, device="cpu", **kw).start()
+                             prefill_chunk=chunk, prefix_cache=False,
+                             device="cpu", **kw).start()
     try:
         futs = [sch.submit(p, STEPS, **skw) for p, skw in submits]
         outs = [f.result(240) for f in futs]

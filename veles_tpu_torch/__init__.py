@@ -3,7 +3,10 @@ Hopper (H100).
 
 It serves the LM chain ``Embedding → TransformerBlock×N →
 TokenProjection`` through a paged KV cache (fp32 or int8 pools), with
-speculative decoding (n-gram drafts scored in one verify pass), trains
+speculative decoding (n-gram drafts scored in one verify pass), a
+radix prefix cache over the KV blocks and the request lifecycle
+(priorities and shed, deadlines, cancel, preempt→resume, drain, a
+watchdog; ``faults`` injects failures into it), trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
 a device-resident ``FullBatchLoader``) and trains AlexNet
 (``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
@@ -40,6 +43,7 @@ from veles_tpu_torch.backends import resolve_device  # noqa: F401
 SUBMODULES = (
     "veles_tpu_torch.backends",
     "veles_tpu_torch.dtypes",
+    "veles_tpu_torch.faults",
     "veles_tpu_torch._build",
     "veles_tpu_torch.convert",
     "veles_tpu_torch.ops",
@@ -80,6 +84,7 @@ SUBMODULES = (
     "veles_tpu_torch.serving.kv_slots",
     "veles_tpu_torch.serving.prefill",
     "veles_tpu_torch.serving.engine",
+    "veles_tpu_torch.serving.prefix_cache",
     "veles_tpu_torch.serving.scheduler",
     "veles_tpu_torch.serving.spec",
 )

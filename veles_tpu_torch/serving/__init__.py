@@ -1,6 +1,6 @@
 """Paged-KV serving of the LM chain: cache, prefill, decode and verify
-steps, the n-gram draft proposer and the continuous-batching
-scheduler."""
+steps, the n-gram draft proposer, the radix prefix cache and the
+continuous-batching scheduler with its request lifecycle."""
 
 from veles_tpu_torch.serving.engine import (  # noqa: F401
     first_tokens, paged_decode_logits, paged_decode_step, sample_first,
@@ -10,7 +10,11 @@ from veles_tpu_torch.serving.kv_slots import (  # noqa: F401
 from veles_tpu_torch.serving.prefill import (  # noqa: F401
     chunked_supported, prefill, prefill_chunk, serving_supported,
     serving_window)
+from veles_tpu_torch.serving.prefix_cache import (  # noqa: F401
+    MatchHandle, RadixPrefixCache, chunk_digests)
 from veles_tpu_torch.serving.scheduler import (  # noqa: F401
-    InferenceScheduler, QueueFullError, SchedulerError)
+    CLASS_NAMES, PRIORITIES, DeadlineExceededError, DrainingError,
+    InferenceScheduler, QueueFullError, RequestCancelledError,
+    SchedulerError, resolve_priority)
 from veles_tpu_torch.serving.spec import (  # noqa: F401
     NgramIndex, NgramProposer, accept_drafts)

@@ -20,7 +20,8 @@ loop) calls every method.
 import numpy
 import torch
 
-from veles_tpu_torch.ops.paged_attention import quantize_kv_rows
+from veles_tpu_torch.ops.paged_attention import (
+    dequantize_kv, quantize_kv_rows)
 
 
 def paged_supported(forwards):
@@ -69,6 +70,9 @@ class PagedKVCache:
         self.tables = numpy.zeros(
             (self.max_slots, self.blocks_per_slot), numpy.int32)
         self.n_blocks = numpy.zeros((self.max_slots,), numpy.int32)
+        #: leading SHARED blocks per slot (prefix-cache residents the
+        #: slot reads but does not own)
+        self.n_shared = numpy.zeros((self.max_slots,), numpy.int32)
 
     # -- occupancy -------------------------------------------------------------
 
@@ -80,53 +84,96 @@ class PagedKVCache:
     def free_blocks(self):
         return len(self._free_blocks)
 
+    @property
+    def used_blocks(self):
+        return self.capacity_blocks - len(self._free_blocks)
+
     def blocks_needed(self, total_tokens):
         return -(-max(int(total_tokens), 1) // self.block_size)
 
-    def can_admit(self, total_tokens):
-        """A free slot AND blocks for the request's whole budget
-        (prompt + steps, reserved up front so decode never starves)."""
-        return bool(self._free_slots) \
-            and self.blocks_needed(total_tokens) <= len(self._free_blocks)
-
-    def alloc(self, total_tokens):
+    def alloc(self, total_tokens, shared=()):
         """Claim a slot and its full block budget, or None when slots
-        or blocks are exhausted."""
+        or blocks are exhausted.  ``shared`` — block ids of a resident
+        prompt prefix (a prefix-cache hit): they head the table READ
+        ONLY and only ``need - len(shared)`` new blocks are claimed."""
         need = self.blocks_needed(total_tokens)
+        shared = [int(b) for b in shared]
         if need > self.blocks_per_slot:
             raise ValueError(
                 "request of %d tokens needs %d blocks > %d per-slot "
                 "table width" % (total_tokens, need, self.blocks_per_slot))
-        if not self._free_slots or need > len(self._free_blocks):
+        if len(shared) >= need:
+            raise ValueError(
+                "shared prefix of %d blocks must leave at least one "
+                "private block of the %d-block budget"
+                % (len(shared), need))
+        if not self._free_slots \
+                or need - len(shared) > len(self._free_blocks):
             return None
         slot = self._free_slots.pop()
-        ids = [self._free_blocks.pop() for _ in range(need)]
+        ids = shared + [self._free_blocks.pop()
+                        for _ in range(need - len(shared))]
         self.tables[slot, :need] = ids
         self.tables[slot, need:] = 0
         self.n_blocks[slot] = need
+        self.n_shared[slot] = len(shared)
         return slot
 
-    def release(self, slot):
-        """Free a slot and return its blocks to the free list."""
+    def release(self, slot, donate=0):
+        """Free a slot.  The leading shared blocks are handed back
+        (the prefix cache still owns them); the next ``donate`` private
+        blocks pass to the caller (a finished request donating its
+        stream to the cache); the rest return to the free list.
+        Returns ``(shared_ids, donated_ids)``."""
         slot = int(slot)
         if slot in self._free_slots:
             raise ValueError("slot %d double-freed" % slot)
         n = int(self.n_blocks[slot])
-        self._free_blocks.extend(
-            int(b) for b in reversed(self.tables[slot, :n]))
+        ns = int(self.n_shared[slot])
+        donate = int(donate)
+        if donate < 0 or ns + donate > n:
+            raise ValueError(
+                "donate=%d outside slot %d's %d private blocks"
+                % (donate, slot, n - ns))
+        row = [int(b) for b in self.tables[slot, :n]]
+        shared, donated = row[:ns], row[ns:ns + donate]
+        self._free_blocks.extend(reversed(row[ns + donate:]))
         self.tables[slot, :] = 0
         self.n_blocks[slot] = 0
+        self.n_shared[slot] = 0
         self._free_slots.append(slot)
+        return shared, donated
 
-    def check(self):
+    def reclaim(self, ids):
+        """Return blocks whose ownership left the slot machinery
+        (prefix-cache evictions, duplicate donations) to the free
+        list."""
+        for b in ids:
+            b = int(b)
+            if b < 1 or b > self.capacity_blocks:
+                raise ValueError("reclaim of invalid block %d" % b)
+            if b in self._free_blocks:
+                raise ValueError("block %d double-freed" % b)
+            self._free_blocks.append(b)
+
+    def check(self, resident=()):
         """Invariant sweep: every block is exactly one of {trash, free,
-        owned by one slot}, and int8 pools keep their scales."""
+        resident in the prefix cache, owned by one slot}, every slot's
+        shared prefix is in ``resident``, and int8 pools keep their
+        scales."""
+        resident = set(int(b) for b in resident)
         live = []
         for slot in range(self.max_slots):
             if slot not in self._free_slots:
-                live.extend(int(b) for b in
-                            self.tables[slot, :self.n_blocks[slot]])
-        owned = live + [int(b) for b in self._free_blocks]
+                ns = int(self.n_shared[slot])
+                row = [int(b) for b in
+                       self.tables[slot, :self.n_blocks[slot]]]
+                assert set(row[:ns]) <= resident, \
+                    "slot %d shares non-resident blocks %s" \
+                    % (slot, sorted(set(row[:ns]) - resident))
+                live.extend(row[ns:])
+        owned = live + [int(b) for b in self._free_blocks] \
+            + sorted(resident)
         assert 0 not in owned, "trash block leaked into circulation"
         assert len(owned) == len(set(owned)), "block double-owned"
         assert len(owned) == self.capacity_blocks, \
@@ -147,30 +194,64 @@ class PagedKVCache:
         """The packed [len(slots), width] block-table batch."""
         return self.tables[numpy.asarray(slots, numpy.intp), :width]
 
-    def insert(self, slot, row_caches, length):
+    def insert(self, slot, row_caches, length, from_block=0):
         """Block-scatter a prefilled batch-1 staging row (width a
         multiple of block_size, rows ≥ length zeroed) into ``slot``'s
-        table blocks ``[0, ceil(length / block_size))``, quantizing
-        per row for int8 pools."""
+        table blocks ``[from_block, ceil(length / block_size))``,
+        quantizing per row for int8 pools.  ``from_block`` skips a warm
+        shared prefix: those staging rows were gathered from resident
+        blocks (:meth:`load_staging`) that other requests read, and are
+        never written back."""
         need = self.blocks_needed(length)
+        f = int(from_block)
         if need > int(self.n_blocks[slot]):
             raise ValueError(
                 "insert of %d tokens exceeds slot %d's %d-block budget"
                 % (length, slot, int(self.n_blocks[slot])))
-        ids = torch.as_tensor(self.tables[slot, :need].astype(numpy.int64),
+        if f >= need:
+            raise ValueError(
+                "from_block %d leaves nothing of the %d-block insert"
+                % (f, need))
+        ids = torch.as_tensor(self.tables[slot, f:need].astype(numpy.int64),
                               device=self.device)
-        n = need * self.block_size
+        bs = self.block_size
         for i, layer in self.pools.items():
             src = row_caches[i]
-            if src["k"].shape[1] < n:
+            if src["k"].shape[1] < need * bs:
                 raise ValueError("staging width %d < %d blocks x %d"
-                                 % (src["k"].shape[1], need,
-                                    self.block_size))
+                                 % (src["k"].shape[1], need, bs))
             for name in ("k", "v"):
-                rows = src[name][0, :n].reshape(need, self.block_size, -1)
+                rows = src[name][0, f * bs:need * bs].reshape(
+                    need - f, bs, -1)
                 if self.kv_dtype == "int8":
                     q, scale = quantize_kv_rows(rows)
                     layer[name][ids] = q
                     layer[name + "_scale"][ids] = scale
                 else:
                     layer[name][ids] = rows.to(layer[name].dtype)
+
+    def load_staging(self, row_caches, ids):
+        """Copy resident blocks ``ids`` (a matched prompt prefix) into
+        the FRONT of a batch-1 staging row — the warm half of a
+        prefix-cache admission; the cold tail's chunked prefill then
+        attends over these rows.  int8 blocks dequantize against their
+        scales into the staging dtype, so the tail attends over the
+        values later decode steps read.  The rows are copies: the
+        staging row never aliases the pools.  Returns the staging
+        dict."""
+        if not len(ids):
+            return row_caches
+        n = len(ids) * self.block_size
+        ids = torch.as_tensor(numpy.asarray(ids, numpy.int64),
+                              device=self.device)
+        for i, layer in self.pools.items():
+            dst = row_caches[i]
+            for name in ("k", "v"):
+                if self.kv_dtype == "int8":
+                    rows = dequantize_kv(layer[name][ids],
+                                         layer[name + "_scale"][ids],
+                                         dst[name].dtype)
+                else:
+                    rows = layer[name][ids].to(dst[name].dtype)
+                dst[name][0, :n] = rows.reshape(n, -1)
+        return row_caches

@@ -1,18 +1,25 @@
 """Continuous-batching inference scheduler — the port of
-``veles_tpu/serving/scheduler.py::InferenceScheduler`` (its core loop).
+``veles_tpu/serving/scheduler.py::InferenceScheduler``.
 
 Requests queue on :meth:`InferenceScheduler.submit` (any thread) and
 are served by ONE background loop that owns every tensor:
 
-1. **admit** — while a slot and the request's whole block budget
-   (``ceil((prompt + steps) / block_size)`` blocks) are free, the
-   oldest queued request claims them;
-2. **prefill** — prompts up to ``prefill_chunk`` tokens prefill in one
-   pass; longer ones prefill one ``prefill_chunk``-token chunk per loop
-   iteration, interleaved with the decode step, so a long prompt
-   stalls in-flight streams by one chunk per iteration.  The staging
-   row is then inserted into the paged cache and the first token is
-   sampled (the TTFT edge);
+1. **admit** — the class-ordered queue's head (highest priority first,
+   FIFO within a class) claims a slot and its block budget
+   (``ceil((prompt + steps) / block_size)`` blocks).  With the radix
+   prefix cache (``prefix_cache``, on by default as in the reference;
+   :mod:`~veles_tpu_torch.serving.prefix_cache`) admission first
+   matches the longest resident prefix of the prompt: the matched
+   blocks head the slot's table read-only, only the cold blocks are
+   claimed, and refcount-0 residents are evicted LRU when the free
+   list is short (``prefix_evict``);
+2. **prefill** — a cold prompt up to ``prefill_chunk`` tokens
+   prefills in one pass; a longer one prefills one
+   ``prefill_chunk``-token chunk per loop iteration, interleaved with
+   the decode step.  A warm prompt gathers its matched blocks into the
+   staging row and chunk-prefills only its cold tail, in block-wide
+   chunks.  The staging row is then inserted into the paged cache past
+   the shared blocks and the next token is sampled (the TTFT edge);
 3. **step** — the active slots advance one token through
    :func:`~veles_tpu_torch.serving.engine.paged_decode_step`, packed
    into a power-of-two occupancy bucket with a power-of-two block
@@ -26,18 +33,41 @@ are served by ONE background loop that owns every tensor:
    the correction token, so one pass emits up to ``spec_k + 1`` tokens
    and the stream stays the spec-off stream;
 4. **retire** — a request that produced its stop token or its last
-   step completes its future with prompt + generated tokens and frees
-   its slot and blocks.
+   step completes its future with prompt + generated tokens, donates
+   the full blocks of its written positions to the prefix cache, and
+   frees its slot and the rest of its blocks.
+
+The request lifecycle: every request carries a deadline (``timeout``
+or ``request_timeout``) enforced at each loop boundary — an expired
+request frees its slot and blocks and fails with
+:class:`DeadlineExceededError` carrying the tokens generated so far.
+:meth:`cancel` fails a queued request at once and reaps an in-flight
+one at the next boundary.  :meth:`request_preempt` (and a high-class
+head that cannot admit) evicts an active lower-class request: its
+blocks return to the pool, it keeps its generated prefix, requeues at
+the front of its class and resumes by re-prefilling prompt + prefix;
+its next token is draw ``len(generated)`` of its stream, so the stream
+never forks.  Block-pressure shedding (``shed_block_factor``, tripping
+earlier for lower classes) and the queue-depth cap raise
+:class:`QueueFullError` with a class-aware ``retry_after``;
+:meth:`drain` closes admission and finishes what is in flight; a
+watchdog thread fails every pending future when one loop iteration
+stalls past ``watchdog`` seconds (it never touches a tensor or the
+cache: the loop reaps the failed requests' blocks when it runs on).
+Injection points ``serving.scheduler.{loop,prefill,step}``
+(:mod:`veles_tpu_torch.faults`) exercise each path.
 
 Greedy streams are exact: each request attends only over its own
-blocks and sampling is row-wise, so a stream is independent of its
-slot, the packing order and its co-tenants.
+blocks (its shared prefix blocks hold the K/V its own prefill would
+have written) and sampling is row-wise, so a stream is independent of
+its slot, the packing order, its co-tenants and whether it was
+admitted warm.
 
 Not ported yet (the JAX scheduler has them): the Medusa draft heads
-and the hidden-state lane, the prefix cache and host tier,
-disaggregation, priorities, deadlines, cancel, preemption, the
-watchdog, tensor parallelism, the metrics registry, embed/score jobs
-and the dense KV layout.
+and the hidden-state lane, the host-RAM KV tier, disaggregation and
+prefix export/import, token streams and request traces, tensor
+parallelism, the metrics registry, embed/score jobs and the dense KV
+layout.
 """
 
 import collections
@@ -50,6 +80,7 @@ import time
 import numpy
 import torch
 
+from veles_tpu_torch import faults
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.ops.paged_attend import MAX_K1
 from veles_tpu_torch.serving.engine import (
@@ -58,6 +89,7 @@ from veles_tpu_torch.serving.kv_slots import PagedKVCache, paged_supported
 from veles_tpu_torch.serving.prefill import (
     chunked_supported, prefill, prefill_chunk, serving_supported,
     serving_window)
+from veles_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from veles_tpu_torch.serving.spec import (
     NgramIndex, NgramProposer, accept_drafts)
 
@@ -67,13 +99,65 @@ log = logging.getLogger(__name__)
 #: default ``prefill_bucket``, so both pad prompts alike)
 PREFILL_BUCKET = 8
 
+#: priority classes, lowest to highest; ints in [0, 2] also accepted
+PRIORITIES = {"low": 0, "normal": 1, "high": 2}
+CLASS_NAMES = ("low", "normal", "high")
+#: block-pressure shed trips at shed_block_factor x this fraction: the
+#: low class sheds at half the budget, normal at it, high at 1.5x
+_SHED_FRAC = (0.5, 1.0, 1.5)
+#: Retry-After seconds of a shed request, by class
+_RETRY_AFTER = (4, 2, 1)
+
+
+def resolve_priority(value):
+    """Normalize a client priority (class name or int) to [0, 2];
+    ``None`` means normal.  Raises ``ValueError`` on anything else."""
+    if value is None:
+        return PRIORITIES["normal"]
+    if isinstance(value, str):
+        try:
+            return PRIORITIES[value.lower()]
+        except KeyError:
+            raise ValueError(
+                "priority must be one of %s (or an int in [0, 2])"
+                % "/".join(CLASS_NAMES))
+    if isinstance(value, bool) or not isinstance(value, int):
+        raise ValueError("priority must be a class name or int")
+    if not 0 <= value <= 2:
+        raise ValueError("priority int must be in [0, 2]")
+    return value
+
 
 class SchedulerError(Exception):
     """Base serving failure."""
+    http_status = 500
 
 
 class QueueFullError(SchedulerError):
-    """Admission control: the queue-depth cap was hit."""
+    """Admission control: the queue-depth cap was hit or block pressure
+    shed the request (``retry_after`` seconds to wait)."""
+    http_status = 503
+    retry_after = 1
+
+
+class DrainingError(QueueFullError):
+    """Admission closed for a graceful drain."""
+    retry_after = 5
+
+
+class DeadlineExceededError(SchedulerError):
+    """The request crossed its deadline, still queued
+    (``tokens_generated == 0``) or mid-decode."""
+    http_status = 408
+
+    def __init__(self, message, tokens_generated=0):
+        super(DeadlineExceededError, self).__init__(message)
+        self.tokens_generated = int(tokens_generated)
+
+
+class RequestCancelledError(SchedulerError):
+    """The request was cancelled; its slot and blocks were released at
+    the next boundary."""
 
 
 def _bucket(n, floor, cap):
@@ -87,28 +171,39 @@ def _bucket(n, floor, cap):
 
 class _Request(object):
     __slots__ = ("prompt", "steps", "temperature", "top_k", "stop_token",
-                 "seed", "future", "slot", "generated", "t_submit",
-                 "t_first", "pf_seq", "pf_caches", "pf_off", "pf_width",
-                 "pf_chunk", "draft_k", "accept_ema", "gram_ix")
+                 "seed", "deadline", "priority", "future", "slot",
+                 "generated", "cancelled", "preempts", "t_submit",
+                 "t_admit", "t_first", "pf_seq", "pf_caches", "pf_off",
+                 "pf_width", "pf_chunk", "pf_matched", "prefix_handle",
+                 "draft_k", "accept_ema", "gram_ix")
 
     def __init__(self, prompt, steps, temperature, top_k, stop_token,
-                 seed):
+                 seed, deadline, priority):
         self.prompt = prompt
         self.steps = steps
         self.temperature = temperature
         self.top_k = top_k
         self.stop_token = stop_token
         self.seed = seed
+        self.deadline = deadline
+        self.priority = int(priority)   # 0 low / 1 normal / 2 high
         self.future = concurrent.futures.Future()
         self.slot = None
         self.generated = []
+        self.cancelled = False      # client gone: reap at next boundary
+        self.preempts = 0           # times evicted (resume re-prefills)
         self.t_submit = time.monotonic()
+        self.t_admit = None
         self.t_first = None
-        self.pf_seq = None          # the sequence being prefilled
+        self.pf_seq = None          # the sequence being prefilled: the
+        #                             prompt, plus the generated prefix
+        #                             on resume
         self.pf_caches = None       # chunked-prefill staging caches
         self.pf_off = 0
         self.pf_width = 0
         self.pf_chunk = 0
+        self.pf_matched = 0         # warm prefix blocks heading the slot
+        self.prefix_handle = None   # pinned radix-cache match
         # speculative drafting: the accept-rate-adaptive draft length
         # (set at the first draft), the accept-rate EMA by drafter and
         # the memoized trailing-n-gram index
@@ -117,6 +212,8 @@ class _Request(object):
         self.gram_ix = None
 
     def fail(self, error):
+        """Set the future's exception unless a racing path (watchdog,
+        cancel) beat us to it."""
         if not self.future.done():
             try:
                 self.future.set_exception(error)
@@ -137,11 +234,16 @@ class InferenceScheduler(object):
     ``spec_k`` n-gram drafts per slot and step; ``fused_verify`` —
     score fp32 pools' verify runs single-pass; ``draft_k_min`` /
     ``draft_ema`` — the floor of a slot's adaptive draft length and the
-    weight of its accept-rate EMA (the reference's defaults throughout).
-    ``device`` must be the chain's device (default ``cuda``).  The
-    parameters after ``max_queue`` are keyword-only: the reference's
-    fifth positional parameter is ``queue_timeout``, which the port
-    does not have."""
+    weight of its accept-rate EMA; ``request_timeout`` — the default
+    whole-request deadline in seconds; ``watchdog`` — the stalled-loop
+    threshold in seconds; ``shed_block_factor`` — shed new submits once
+    the queue's committed blocks exceed this many pools (by class);
+    ``prefix_cache`` / ``prefix_evict`` — the radix prefix cache and
+    its LRU eviction under pool pressure (each 0 or False disables;
+    the reference's defaults throughout).  ``device`` must be the
+    chain's device (default ``cuda``).  The parameters after
+    ``max_queue`` are keyword-only: the reference's fifth positional
+    parameter is ``queue_timeout``, which the port does not have."""
 
     #: a slot's draft length halves below this accept-rate EMA and
     #: doubles above ``DRAFT_GROW`` (the reference's thresholds)
@@ -150,7 +252,9 @@ class InferenceScheduler(object):
     def __init__(self, forwards, max_slots=4, window=None, max_queue=32,
                  *, block_size=16, kv_blocks=None, kv_dtype="fp32",
                  prefill_chunk=64, spec=True, spec_k=4, fused_verify=False,
-                 draft_k_min=1, draft_ema=0.5, device=None):
+                 draft_k_min=1, draft_ema=0.5, request_timeout=120.0,
+                 watchdog=300.0, shed_block_factor=4.0, prefix_cache=True,
+                 prefix_evict=True, device=None):
         self.device = resolve_device(device)
         if any(u.device != self.device for u in forwards):
             raise ValueError("the chain lies on %s, the scheduler was "
@@ -203,6 +307,19 @@ class InferenceScheduler(object):
         self.draft_ema = float(draft_ema)
         if not 0.0 < self.draft_ema <= 1.0:
             raise ValueError("draft_ema must be in (0, 1]")
+        self.request_timeout = float(request_timeout or 0)
+        self.watchdog = float(watchdog or 0)
+        self.shed_block_factor = float(shed_block_factor or 0)
+        #: the warm cold-tail prefill needs chunked prefill, and the
+        #: staging and chunk tilings a power-of-two block size
+        pfx = bool(prefix_cache)
+        if pfx and (not self.prefill_chunk
+                    or self.block_size & (self.block_size - 1)):
+            log.info("prefix cache needs chunked prefill and a "
+                     "power-of-two block size; disabled")
+            pfx = False
+        self.prefix_cache = pfx
+        self.prefix_evict = bool(prefix_evict)
         #: model passes so far: plain decode steps and verify steps (one
         #: of them per loop iteration with active slots) — what kernel
         #: launch counts are read against — and the tokens both kinds
@@ -217,6 +334,19 @@ class InferenceScheduler(object):
         self.verify_tokens = 0
         self.spec_drafted_tokens = 0
         self.spec_accepted_tokens = 0
+        #: lifecycle counters, under the reference's ``metrics()`` names:
+        #: tokens the chunked-prefill ticks ran; requests that expired
+        #: (queued or in flight), were cancelled, shed by block pressure
+        #: or a higher class, or rejected (sheds, a full queue, a
+        #: drain); preemptions, resumed re-prefills and watchdog trips
+        self.prefill_chunk_tokens = 0
+        self.requests_expired = 0
+        self.requests_cancelled = 0
+        self.requests_shed = 0
+        self.requests_rejected = 0
+        self.preempts = 0
+        self.preempt_resumes = 0
+        self.watchdog_trips = 0
         #: (time to first token, request latency) in seconds, one pair
         #: per completed request, from submit
         self.completed = []
@@ -228,9 +358,20 @@ class InferenceScheduler(object):
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         self._closed = False
+        self._draining = False
+        self._drained = threading.Event()
+        self._stop = threading.Event()   # wakes the watchdog at close()
+        self._preempts_owed = []     # eviction demands: class bound per
+        #                              entry (None = any victim)
+        self._queued_blocks = 0      # block budget committed in-queue
+        self._beat = None            # loop-iteration heartbeat stamp
+        self._working = False        # loop mid-iteration (not parked)
+        self._tripped_beat = None    # last beat the watchdog fired on
         self._thread = None
+        self._watchdog_thread = None
         self._ready = threading.Event()
         self.cache_ = None           # built by the loop thread
+        self.prefix_ = None          # radix cache (loop thread too)
 
     @property
     def spec_accept_rate(self):
@@ -239,10 +380,44 @@ class InferenceScheduler(object):
             return None
         return self.spec_accepted_tokens / self.spec_drafted_tokens
 
+    def _prefix_stat(self, name):
+        return getattr(self.prefix_, name) if self.prefix_ is not None \
+            else 0
+
+    @property
+    def prefix_cache_hits(self):
+        """Admissions that matched >= 1 resident block."""
+        return self._prefix_stat("hits")
+
+    @property
+    def prefix_cache_misses(self):
+        return self._prefix_stat("misses")
+
+    @property
+    def prefix_cache_evictions(self):
+        """Resident blocks evicted, cumulative."""
+        return self._prefix_stat("evictions")
+
+    @property
+    def prefix_cache_blocks_resident(self):
+        return self._prefix_stat("resident")
+
+    @property
+    def active_slots(self):
+        """Requests in the decode set."""
+        with self._lock:
+            return len(self._active)
+
+    @property
+    def kv_blocks_free(self):
+        cache = self.cache_
+        return cache.free_blocks if cache is not None else self.kv_blocks
+
     # -- client side -----------------------------------------------------------
 
     def start(self):
-        """Start the loop thread and wait until its cache is built."""
+        """Start the loop thread, wait until its cache is built, then
+        start the watchdog (``watchdog`` > 0)."""
         with self._lock:
             if self._thread is None:
                 self._thread = threading.Thread(
@@ -253,21 +428,49 @@ class InferenceScheduler(object):
         if self.error is not None:
             raise SchedulerError("scheduler failed to start: %r"
                                  % (self.error,))
+        with self._lock:
+            if self.watchdog > 0 and self._watchdog_thread is None:
+                self._watchdog_thread = threading.Thread(
+                    target=self._watchdog_loop, daemon=True,
+                    name="serving-watchdog")
+                self._watchdog_thread.start()
         return self
 
     def submit(self, prompt, steps, temperature=0.0, top_k=0, seed=None,
-               stop_token=None):
+               stop_token=None, timeout=None, priority=None, *,
+               resume_tokens=None):
         """Queue one sequence; returns a Future whose result is the
         prompt followed by the generated tokens (ending at the first
-        generated stop token, if one fired).  Raises ``ValueError`` on
-        a malformed request and :class:`QueueFullError` when the queue
-        is full."""
+        generated stop token, if one fired).
+
+        ``timeout`` overrides the whole-request deadline (default
+        ``request_timeout``; it covers queueing and decoding).
+        ``priority`` ("low"/"normal"/"high" or 0-2, default normal) sets
+        the request's class: admission order, shed threshold and
+        Retry-After, and preemption victimhood.  ``resume_tokens``
+        adopts an already-generated prefix: the request admits with it
+        as its generated tokens, re-prefills prompt + prefix and draws
+        its next token at counter ``len(resume_tokens)``, so the stream
+        continues an uninterrupted run's; ``steps`` stays the total
+        budget, the prefix included.
+
+        Raises ``ValueError`` on a malformed request,
+        :class:`QueueFullError` when admission control rejects it (a
+        full queue, block-pressure shed, :class:`DrainingError` once a
+        drain began) and :class:`SchedulerError` once closed."""
+        prio = resolve_priority(priority)
         prompt = [int(t) for t in prompt]
         steps = int(steps)
         if not prompt:
             raise ValueError("prompt must be non-empty")
         if steps < 1:
             raise ValueError("steps must be >= 1")
+        resume = [int(t) for t in resume_tokens] if resume_tokens else []
+        if len(resume) >= steps:
+            raise ValueError(
+                "resume_tokens already cover the %d-step budget (%d "
+                "resumed) — nothing left to generate"
+                % (steps, len(resume)))
         if len(prompt) + steps > self.window:
             raise ValueError("prompt_len + steps = %d exceeds the serving "
                              "window (%d)" % (len(prompt) + steps,
@@ -283,36 +486,193 @@ class InferenceScheduler(object):
                              "temperature > 0")
         if seed is None:
             seed = int.from_bytes(os.urandom(4), "little")
+        ttl = float(timeout or self.request_timeout or 0)
         req = _Request(prompt, steps, temperature, top_k,
                        int(stop_token) if stop_token is not None else None,
-                       int(seed) & 0xFFFFFFFF)
+                       int(seed) & 0xFFFFFFFF,
+                       time.monotonic() + ttl if ttl > 0 else None, prio)
+        req.generated = resume
+        self._admission_enqueue(req)
+        return req.future
+
+    def _admission_enqueue(self, req):
+        """Admission control and enqueue under the wake lock: closed,
+        draining, the depth cap (a higher class may shed a queued lower
+        one), then the class-fractioned block-pressure shed."""
+        prio = req.priority
+        need = self._blocks_for(req)
         with self._wake:
             if self._closed:
                 raise SchedulerError("scheduler is closed")
-            if len(self._queue) >= self.max_queue:
-                raise QueueFullError("serving queue full (%d waiting)"
+            if self._draining:
+                self.requests_rejected += 1
+                raise DrainingError("scheduler is draining")
+            if len(self._queue) >= self.max_queue \
+                    and not self._evict_queued_locked(prio):
+                self.requests_rejected += 1
+                err = QueueFullError("serving queue full (%d waiting)"
                                      % len(self._queue))
-            self._queue.append(req)
+                err.retry_after = _RETRY_AFTER[prio]
+                raise err
+            if self.shed_block_factor > 0 \
+                    and self._queued_blocks + need \
+                    > self.shed_block_factor * _SHED_FRAC[prio] \
+                    * self.kv_blocks:
+                self.requests_shed += 1
+                self.requests_rejected += 1
+                err = QueueFullError(
+                    "overloaded: %d KV blocks committed in-queue (pool "
+                    "%d, %s-class shed at factor %.1f)"
+                    % (self._queued_blocks, self.kv_blocks,
+                       CLASS_NAMES[prio],
+                       self.shed_block_factor * _SHED_FRAC[prio]))
+                err.retry_after = _RETRY_AFTER[prio]
+                raise err
+            self._enqueue_locked(req)
+            self._queued_blocks += need
             self._wake.notify()
-        return req.future
+
+    def _enqueue_locked(self, req, front=False):
+        """Insert one request into the class-ordered queue (highest
+        class first, FIFO within a class); ``front=True`` requeues a
+        preempted victim at the head of its class."""
+        q = self._queue
+        if front:
+            i = 0
+            while i < len(q) and q[i].priority > req.priority:
+                i += 1
+        else:
+            i = len(q)
+            while i > 0 and q[i - 1].priority < req.priority:
+                i -= 1
+        q.insert(i, req)
+
+    def _evict_queued_locked(self, prio):
+        """Depth-cap relief for a higher-class arrival: shed the
+        youngest queued strictly-lower-class request; returns whether
+        a seat opened."""
+        victim = None
+        for req in reversed(self._queue):
+            if req.priority < prio:
+                victim = req
+                break
+        if victim is None:
+            return False
+        self._queue.remove(victim)
+        self._queued_blocks -= self._blocks_for(victim)
+        self.requests_shed += 1
+        self.requests_rejected += 1
+        err = QueueFullError("shed while queued: a higher-priority "
+                             "request took the last queue seat")
+        err.retry_after = _RETRY_AFTER[victim.priority]
+        victim.fail(err)
+        return True
+
+    def _blocks_for(self, req):
+        """The block budget a request commits."""
+        return -(-(len(req.prompt) + req.steps) // self.block_size)
+
+    def cancel(self, future, reason="cancelled by client"):
+        """Cancel the request behind ``future``: a queued request fails
+        at once; an in-flight one is reaped at the next boundary, its
+        slot and blocks returned.  Returns True when the future belonged
+        to this scheduler and was still queued or in flight."""
+        victim = None
+        with self._wake:
+            for req in self._queue:
+                if req.future is future:
+                    self._queue.remove(req)
+                    self._queued_blocks -= self._blocks_for(req)
+                    victim = req
+                    break
+            else:
+                for req in list(self._prefilling) \
+                        + list(self._active.values()) \
+                        + list(self._admitting):
+                    if req.future is future:
+                        req.cancelled = True
+                        victim = req
+                        self._wake.notify()
+                        break
+            if victim is not None and victim.slot is None \
+                    and not victim.cancelled:
+                self.requests_cancelled += 1
+        if victim is None:
+            return False
+        if victim.slot is None and not victim.cancelled:
+            victim.fail(RequestCancelledError(reason))
+        return True
+
+    def request_preempt(self, n=1, below=None):
+        """Ask the loop to evict ``n`` active requests at the next
+        boundary, lowest class first, youngest within it; ``below``
+        bounds victimhood to classes strictly under it (a demand with
+        no qualifying victim is dropped).  Each victim keeps its
+        generated prefix and requeues at the front of its class."""
+        with self._wake:
+            self._preempts_owed.extend(
+                [None if below is None else int(below)] * int(n))
+            self._wake.notify()
+
+    def drain(self, timeout=None):
+        """Begin a graceful drain: submits raise :class:`DrainingError`,
+        every queued and in-flight request runs to completion, then
+        ``drained`` sets.  With ``timeout`` the call waits for that and
+        returns whether it happened; otherwise it returns at once."""
+        with self._wake:
+            first = not self._draining
+            self._draining = True
+            if not (self._queue or self._active or self._prefilling
+                    or self._admitting):
+                self._drained.set()
+            self._wake.notify()
+        if first:
+            log.info("draining: admission closed, %d in flight",
+                     self.in_flight)
+        if timeout is not None:
+            return self._drained.wait(timeout)
+        return self._drained.is_set()
+
+    @property
+    def draining(self):
+        return self._draining
+
+    @property
+    def drained(self):
+        return self._drained.is_set()
+
+    @property
+    def in_flight(self):
+        """Requests still owed an answer (queued, admitting, prefilling,
+        decoding)."""
+        with self._lock:
+            return len(self._queue) + len(self._prefilling) \
+                + len(self._active) + len(self._admitting)
 
     def check_kv(self):
-        """The paged cache's invariant sweep (loop idle or closed)."""
+        """The paged cache's invariant sweep, the prefix cache's
+        resident blocks included (loop idle or closed)."""
         if self.cache_ is not None:
-            self.cache_.check()
+            self.cache_.check(
+                resident=self.prefix_.resident_blocks()
+                if self.prefix_ is not None else ())
 
     def close(self):
-        """Stop the loop, fail every unfinished request, and return
-        every in-flight slot and block to the cache (``check_kv()``
-        holds afterwards)."""
+        """Stop the loop and the watchdog, fail every unfinished
+        request, and return every in-flight slot, block and prefix pin
+        (``check_kv()`` holds afterwards; resident prefix blocks stay
+        the trie's)."""
         with self._wake:
             if self._closed and self._thread is None:
                 return
             self._closed = True
             self._wake.notify()
+        self._stop.set()
         thread, self._thread = self._thread, None
+        loop_dead = True
         if thread is not None:
-            thread.join()
+            thread.join(30)
+            loop_dead = not thread.is_alive()
         err = SchedulerError("scheduler closed")
         with self._lock:
             pending = list(self._queue) + list(self._prefilling) \
@@ -321,11 +681,18 @@ class InferenceScheduler(object):
             self._prefilling = []
             self._active.clear()
             self._admitting = []
+            self._queued_blocks = 0
+        # the loop thread is joined: its cache and trie are ours now
+        cache = self.cache_ if loop_dead else None
         for req in pending:
-            if req.slot is not None and self.cache_ is not None:
-                self.cache_.release(req.slot)
-                req.slot = None
+            if req.slot is not None and cache is not None:
+                self._release_slot(req, cache)
             req.fail(err)
+        self._drained.set()
+        with self._lock:
+            wd, self._watchdog_thread = self._watchdog_thread, None
+        if wd is not None:
+            wd.join(5)
 
     # -- decode loop -------------------------------------------------------------
 
@@ -335,6 +702,8 @@ class InferenceScheduler(object):
                 self.forwards, self.max_slots, self.window,
                 block_size=self.block_size, kv_blocks=self.kv_blocks,
                 kv_dtype=self.kv_dtype)
+            if self.prefix_cache:
+                self.prefix_ = RadixPrefixCache(self.block_size)
         except Exception as e:
             self.error = e
             with self._wake:
@@ -355,6 +724,7 @@ class InferenceScheduler(object):
             self.error = e
             with self._wake:
                 self._closed = True
+                self._working = False
                 pending = list(self._queue) + list(self._prefilling) \
                     + list(self._active.values()) + list(self._admitting)
             for req in pending:
@@ -363,18 +733,44 @@ class InferenceScheduler(object):
     def _serve(self, cache):
         while True:
             with self._wake:
+                self._working = False
                 while not self._closed and not self._queue \
-                        and not self._active and not self._prefilling:
+                        and not self._active and not self._prefilling \
+                        and not self._preempts_owed:
+                    if self._draining:
+                        self._drained.set()
                     self._wake.wait()
                 if self._closed:
                     return
+                # the watchdog measures from here: one iteration = one
+                # reap + admit + chunk + step
+                self._working = True
+                self._beat = time.monotonic()
+                self._expire_locked()
                 admits = []
-                while self._queue and cache.can_admit(
-                        len(self._queue[0].prompt) + self._queue[0].steps):
+                while self._queue and self._can_admit(cache,
+                                                      self._queue[0]):
                     req = self._queue.popleft()
-                    req.slot = cache.alloc(len(req.prompt) + req.steps)
+                    self._queued_blocks -= self._blocks_for(req)
+                    if not self._admit_claim(cache, req):
+                        self._queue.appendleft(req)
+                        self._queued_blocks += self._blocks_for(req)
+                        break
                     admits.append(req)
                     self._admitting.append(req)
+                # priority preemption: the head outranks an active
+                # lower-class request but cannot admit — owe ONE
+                # eviction at this boundary
+                if self._queue and not self._preempts_owed:
+                    head = self._queue[0]
+                    if head.priority > 0 \
+                            and not self._can_admit(cache, head) \
+                            and any(r.priority < head.priority
+                                    for r in self._active.values()):
+                        self._preempts_owed.append(head.priority)
+            faults.fire("serving.scheduler.loop")
+            self._reap(cache)
+            self._do_preempts(cache)
             for req in admits:
                 self._begin_admit(req, cache)
                 with self._lock:
@@ -384,6 +780,202 @@ class InferenceScheduler(object):
             if self._active:
                 self._step(cache)
 
+    def _can_admit(self, cache, req):
+        """Admission sizing for the head of the queue: a warm prompt
+        needs only its cold blocks, and refcount-0 residents count as
+        headroom when they may be evicted."""
+        if not cache.free_slots:
+            return False
+        need = cache.blocks_needed(len(req.prompt) + req.steps)
+        head = cache.free_blocks
+        if self.prefix_ is not None:
+            seq = list(req.prompt) + list(req.generated)
+            need -= self.prefix_.peek(
+                seq, max_blocks=(len(seq) - 1) // cache.block_size)
+            if self.prefix_evict:
+                head += self.prefix_.evictable_blocks()
+        return need <= head
+
+    def _admit_claim(self, cache, req):
+        """Claim a slot and blocks for one admitted request: pin the
+        longest resident prefix (capped so >= 1 token stays cold: the
+        first-token logits come from a prefill pass), evict cold
+        residents if the free list is short, then alloc with the
+        matched blocks heading the table."""
+        total = len(req.prompt) + req.steps
+        handle = None
+        if self.prefix_ is not None:
+            seq = list(req.prompt) + list(req.generated)
+            handle = self.prefix_.match(
+                seq, max_blocks=(len(seq) - 1) // cache.block_size)
+            if not len(handle):
+                handle = None
+        matched = len(handle) if handle is not None else 0
+        need_new = cache.blocks_needed(total) - matched
+        if self.prefix_ is not None and self.prefix_evict \
+                and need_new > cache.free_blocks:
+            cache.reclaim(self.prefix_.evict(need_new - cache.free_blocks))
+        slot = cache.alloc(
+            total, shared=handle.blocks if handle is not None else ())
+        if slot is None:
+            if handle is not None:
+                self.prefix_.release(handle)
+            return False
+        req.slot = slot
+        req.prefix_handle = handle
+        req.pf_matched = matched
+        return True
+
+    def _release_slot(self, req, cache, finished=False):
+        """Return one request's slot, blocks and prefix pins.  A request
+        that FINISHED donates the full blocks of its written positions
+        to the prefix cache (insert-on-release)."""
+        if req.slot is None:
+            if req.prefix_handle is not None:
+                self.prefix_.release(req.prefix_handle)
+                req.prefix_handle = None
+            return
+        if self.prefix_ is None:
+            cache.release(req.slot)
+        else:
+            donate = 0
+            seq = None
+            if finished:
+                seq = list(req.prompt) + list(req.generated)
+                # the FINAL token was sampled but never fed back, so its
+                # K/V row was never written (and a rejected draft's may
+                # sit there): donate only blocks fully covered by the
+                # written positions [0, len - 1), the admission match's
+                # own cap
+                donate = (len(seq) - 1) // cache.block_size \
+                    - req.pf_matched
+            shared, donated = cache.release(req.slot,
+                                            donate=max(0, donate))
+            if req.prefix_handle is not None:
+                self.prefix_.release(req.prefix_handle)
+                req.prefix_handle = None
+            if seq is not None and (shared or donated):
+                _, rejected = self.prefix_.insert(seq, shared + donated)
+                if rejected:  # an identical twin donated first
+                    cache.reclaim(rejected)
+        req.slot = None
+        req.pf_matched = 0
+
+    def _reap(self, cache):
+        """Boundary sweep over the in-flight set: release the slot and
+        blocks of every request that was cancelled, crossed its
+        deadline, or whose future the watchdog already failed."""
+        now = time.monotonic()
+        with self._lock:
+            flight = list(self._prefilling) + list(self._active.values())
+        for req in flight:
+            if req.future.done():      # the watchdog raced ahead
+                self._drop_inflight(req, cache)
+            elif req.cancelled:
+                self._drop_inflight(req, cache)
+                with self._lock:
+                    self.requests_cancelled += 1
+                req.fail(RequestCancelledError(
+                    "cancelled after %d generated tokens"
+                    % len(req.generated)))
+            elif req.deadline is not None and now > req.deadline:
+                self._drop_inflight(req, cache)
+                with self._lock:
+                    self.requests_expired += 1
+                req.fail(DeadlineExceededError(
+                    "deadline exceeded after %.0f ms (%d tokens "
+                    "generated)" % ((now - req.t_submit) * 1e3,
+                                    len(req.generated)),
+                    tokens_generated=len(req.generated)))
+
+    def _drop_inflight(self, req, cache):
+        """Remove one admitted request from the in-flight set and
+        return its slot and blocks (loop thread only)."""
+        with self._lock:
+            if req in self._prefilling:
+                self._prefilling.remove(req)
+            self._active.pop(req.slot, None)
+        self._release_slot(req, cache)
+        req.pf_seq = req.pf_caches = None
+
+    def _do_preempts(self, cache):
+        """Evict the owed preemptions: lowest class first, youngest
+        admission within it.  The victim keeps its generated prefix and
+        requeues at the front of its class."""
+        while True:
+            with self._lock:
+                if not self._preempts_owed:
+                    return
+                if not self._active:
+                    del self._preempts_owed[:]   # no targets: the demand
+                    return                       # dies here
+                below = self._preempts_owed.pop(0)
+                victims = [r for r in self._active.values()
+                           if below is None or r.priority < below]
+                if not victims:
+                    continue   # bounded demand, no qualifying victim
+                req = max(victims,
+                          key=lambda r: (-r.priority, r.t_admit, r.slot))
+                self._active.pop(req.slot, None)
+            self._release_slot(req, cache)
+            req.preempts += 1
+            with self._lock:
+                self.preempts += 1
+                self._enqueue_locked(req, front=True)
+                self._queued_blocks += self._blocks_for(req)
+
+    def _watchdog_loop(self):
+        """Fail the pending futures when one loop iteration stalls past
+        ``watchdog`` seconds; when the loop runs on, :meth:`_reap`
+        returns the failed requests' slots and blocks."""
+        period = max(0.02, min(1.0, self.watchdog / 8.0))
+        while not self._stop.wait(period):
+            with self._lock:
+                if self._closed:
+                    return
+                beat, working = self._beat, self._working
+                tripped = self._tripped_beat
+            if not working or beat is None or beat == tripped:
+                continue
+            stalled = time.monotonic() - beat
+            if stalled <= self.watchdog:
+                continue
+            with self._lock:
+                self._tripped_beat = beat
+                self.watchdog_trips += 1
+                victims = [r for r in list(self._queue)
+                           + list(self._prefilling)
+                           + list(self._active.values())
+                           + list(self._admitting)
+                           if not r.future.done()]
+            err = SchedulerError(
+                "decode loop stalled %.1fs (watchdog %.1fs) — request "
+                "failed instead of hanging" % (stalled, self.watchdog))
+            for req in victims:
+                req.fail(err)
+            log.warning("decode loop stalled %.1fs — failed %d pending "
+                        "requests", stalled, len(victims))
+
+    def _expire_locked(self):
+        """Drop queued requests past their deadline (or failed by the
+        watchdog) — caller holds the lock."""
+        now = time.monotonic()
+        kept = collections.deque()
+        while self._queue:
+            req = self._queue.popleft()
+            if req.future.done():
+                self._queued_blocks -= self._blocks_for(req)
+            elif req.deadline is not None and now > req.deadline:
+                self._queued_blocks -= self._blocks_for(req)
+                self.requests_expired += 1
+                req.fail(DeadlineExceededError(
+                    "queued %.0f ms without a free slot"
+                    % ((now - req.t_submit) * 1e3),
+                    tokens_generated=len(req.generated)))
+            else:
+                kept.append(req)
+        self._queue = kept
+
     def _staging_width(self, p_len, chunk):
         """Width of the batch-1 staging row a prompt prefills into:
         the power-of-two bucket of the prompt, floored so it tiles the
@@ -391,10 +983,24 @@ class InferenceScheduler(object):
         floor = max(PREFILL_BUCKET, self.block_size, chunk or 1)
         return _bucket(p_len, floor, 1 << 30)
 
+    def _staging(self, width):
+        return {i: u.init_cache(1, width, u.dtype)
+                for i, u in enumerate(self.forwards)
+                if hasattr(u, "init_cache")}
+
     def _begin_admit(self, req, cache):
-        """Route one joining request: short prompts prefill one-shot,
-        long ones start the chunked-prefill ride-along."""
-        req.pf_seq = list(req.prompt)
+        """Route one joining request: a warm match gathers its blocks
+        and prefills the cold tail, short sequences prefill one-shot,
+        long ones start the chunked-prefill ride-along.  A preempted
+        request resumes here: its sequence is prompt + the kept
+        generated prefix."""
+        req.t_admit = time.monotonic()
+        req.pf_seq = list(req.prompt) + list(req.generated)
+        if req.preempts and req.generated:
+            self.preempt_resumes += 1
+        if req.pf_matched:
+            self._admit_warm(req, cache)
+            return
         p_len = len(req.pf_seq)
         chunk = self.prefill_chunk
         if not chunk or p_len <= chunk:
@@ -403,16 +1009,37 @@ class InferenceScheduler(object):
         req.pf_chunk = chunk
         req.pf_width = self._staging_width(p_len, chunk)
         req.pf_off = 0
-        req.pf_caches = {
-            i: u.init_cache(1, req.pf_width, u.dtype)
-            for i, u in enumerate(self.forwards)
-            if hasattr(u, "init_cache")}
+        try:
+            req.pf_caches = self._staging(req.pf_width)
+        except Exception as e:
+            self._retire(req, cache, error=e)
+            return
+        with self._lock:
+            self._prefilling.append(req)
+
+    def _admit_warm(self, req, cache):
+        """Prefix-cache hit: the matched blocks hold the K/V of tokens
+        [0, matched · block_size); gather them into the staging row and
+        chunk-prefill the cold tail only.  The chunk narrows to the
+        block size so every offset stays chunk-aligned from the warm
+        boundary."""
+        bs = self.block_size
+        req.pf_chunk = min(self.prefill_chunk, bs)
+        req.pf_width = self._staging_width(len(req.pf_seq),
+                                           self.prefill_chunk)
+        req.pf_off = req.pf_matched * bs
+        try:
+            req.pf_caches = cache.load_staging(
+                self._staging(req.pf_width), req.prefix_handle.blocks)
+        except Exception as e:
+            self._retire(req, cache, error=e)
+            return
         with self._lock:
             self._prefilling.append(req)
 
     def _admit_oneshot(self, req, cache):
-        """Prefill one request's prompt in a single pass and emit its
-        first token."""
+        """Prefill one request's sequence in a single pass and emit its
+        next token."""
         p_len = len(req.pf_seq)
         width = self._staging_width(p_len, 0)
         # the token array stays inside the positional table; the
@@ -421,13 +1048,20 @@ class InferenceScheduler(object):
         p_w = min(width, max(self.window, p_len))
         padded = numpy.zeros((1, p_w), numpy.int32)
         padded[0, :p_len] = req.pf_seq
-        row_caches, last = prefill(self.forwards, padded,
-                                   prompt_lens=[p_len], window=width)
+        try:
+            faults.fire("serving.scheduler.prefill")
+            row_caches, last = prefill(self.forwards, padded,
+                                       prompt_lens=[p_len], window=width)
+        except Exception as e:
+            self._retire(req, cache, error=e)
+            return
         self._finish_admit(req, cache, row_caches, last)
 
     def _prefill_tick(self, cache):
         """Advance the oldest mid-prefill request by ONE chunk."""
         with self._lock:
+            if not self._prefilling:
+                return
             req = self._prefilling[0]
         p_len = len(req.pf_seq)
         c = req.pf_chunk
@@ -437,25 +1071,43 @@ class InferenceScheduler(object):
         padded = numpy.zeros((1, c), numpy.int32)
         padded[0, :clen] = req.pf_seq[off:end]
         kw = _bucket(off + c, c, req.pf_width)
-        req.pf_caches, last = prefill_chunk(
-            self.forwards, padded, off, [clen], req.pf_caches,
-            key_width=kw)
+        try:
+            faults.fire("serving.scheduler.prefill")
+            req.pf_caches, last = prefill_chunk(
+                self.forwards, padded, off, [clen], req.pf_caches,
+                key_width=kw)
+        except Exception as e:
+            with self._lock:
+                if req in self._prefilling:
+                    self._prefilling.remove(req)
+            self._retire(req, cache, error=e)
+            return
+        self.prefill_chunk_tokens += clen
         req.pf_off = end
         if end >= p_len:
             with self._lock:
-                self._prefilling.remove(req)
+                if req in self._prefilling:
+                    self._prefilling.remove(req)
             self._finish_admit(req, cache, req.pf_caches, last)
 
     def _finish_admit(self, req, cache, row_caches, last):
-        """Insert the prefilled staging row and emit the first token."""
-        cache.insert(req.slot, row_caches, len(req.pf_seq))
+        """Insert the prefilled staging row past the warm shared blocks
+        (they are the prefix cache's and already hold these rows) and
+        emit the next token."""
+        try:
+            cache.insert(req.slot, row_caches, len(req.pf_seq),
+                         from_block=req.pf_matched)
+        except Exception as e:
+            self._retire(req, cache, error=e)
+            return
         req.pf_caches = None
         req.pf_seq = None
         self._activate(req, cache, last)
 
     def _activate(self, req, cache, last):
-        """Sample the first token (draw ``len(generated)`` of the
-        request's stream) and join the active decode set."""
+        """Sample the next token — draw ``len(generated)`` of the
+        request's stream, so a resumed stream never forks — and join
+        the active decode set."""
         tok = int(first_tokens(last, [req.temperature], [req.top_k],
                                [req.seed],
                                counts=[len(req.generated)])[0])
@@ -472,8 +1124,10 @@ class InferenceScheduler(object):
     def _step(self, cache):
         with self._lock:
             active = dict(self._active)
-        if active:
-            self._step_paged(cache, active)
+        if not active:
+            return
+        faults.fire("serving.scheduler.step")
+        self._step_paged(cache, active)
 
     def _step_paged(self, cache, active):
         """Packed step: only the active slots ride the batch, padded to
@@ -626,13 +1280,24 @@ class InferenceScheduler(object):
                     and req.generated[-1] == req.stop_token):
             self._retire(req, cache)
 
-    def _retire(self, req, cache):
+    def _retire(self, req, cache, error=None):
+        """Leave the decode set and release the slot (a clean finish
+        donates to the prefix cache), then settle the future: the
+        error, or the tokens unless the watchdog or a cancel failed it
+        first."""
         with self._lock:
             self._active.pop(req.slot, None)
-        cache.release(req.slot)
-        req.slot = None
+        self._release_slot(req, cache, finished=error is None)
+        if error is not None:
+            req.fail(error if isinstance(error, SchedulerError)
+                     else SchedulerError(repr(error)))
+            return
+        if req.future.done():
+            return
         now = time.monotonic()
         self.completed.append((req.t_first - req.t_submit,
                                now - req.t_submit))
-        if not req.future.done():
+        try:
             req.future.set_result(list(req.prompt) + req.generated)
+        except concurrent.futures.InvalidStateError:
+            pass
