@@ -27,7 +27,15 @@ result line):
    shapes and in f32, run twice bit-equal, a planted lost split failing
    its check by 5x, and timed as replays of a CUDA graph of one decode
    step's 24 launches as well as by an eager loop, and of one verify
-   pass's at m 40 and 72); the three FlashAttention kernels
+   pass's at m 40 and 72); the general tiled GEMM (``pallas_matmul``,
+   both kernel families: MM_CASES — f32 and bf16 operands, int8 ``b``
+   with ``col_scale``, the fused ReLU and an unfused callable, bf16
+   output, shapes off the vector loads, the serving widths — each case's
+   launch plan printed, run twice bit-equal, a zeroed last k-tile of
+   ``b`` failing by 5x, timed at MM_TIMED as CUDA-graph replays beside
+   the library call, and its entry point driven once per timed shape
+   with its count zeroed just before and read just after); the three
+   FlashAttention kernels
    (forward, dq, dk/dv) at the training shapes (b 4, s 2048, 16 heads
    of 128, bf16, causal), at hd 256 full length, and at small odd ones
    (f32 and bf16, sq != sk, non-causal, lengths one past a tile,
@@ -58,7 +66,14 @@ result line):
    The kernels' launch
    counts are zeroed just before and read just after: ``paged_attend``
    must launch once per layer per decode step, all on its split
-   kernel, ``int8_gemm`` three times;
+   kernel, ``int8_gemm`` three times, the general matmul never; its
+   ``metrics()`` must count the run's requests, tokens, prefill chunks
+   and slot steps as the phase counts them and ``debug_requests()`` be
+   empty after it; one request under a given trace id must record its
+   ``req.*`` events in order (queue, admit, prefill chunks, first
+   token, steps, retire); then the same configuration with request
+   tracing on and off, alternated three times each (the decode-step
+   median of each and their ratio, no limit);
 6b. spec — ``bench.py``'s ``bench_spec`` on the card: the serving model
    at 8 layers trained 60 SGD steps (batch 16, bf16) to continue a
    12-token pattern, then served with int8 KV and ``int8_decode``,
@@ -76,14 +91,16 @@ result line):
    must hit and prefill one 16-token block — then one cold and one
    warm admission profiled; (b) the peak of concurrent streams a
    20-block pool holds on a shared 64-token prompt (16 steps each),
-   cold (prefix cache off, 4 requests) and warm (20 after a seeding
-   one), with the kernels' counts zeroed just before and read after:
+   sampled from ``metrics()["active_slots"]``, cold (prefix cache off,
+   4 requests) and warm (20 after a seeding one), with the kernels'
+   counts zeroed just before and read after:
    warm must exceed cold, and each model pass launch ``paged_attend``
    once per layer, all split, and ``int8_gemm`` three times; (c) on the
    spec phase's trained chain, a warm resubmit, preempt→resume by a
    high-class arrival at one slot, cancel and a deadline mid-decode,
-   drain, and the watchdog over an injected 1.5 s hang: each stream
-   must equal its uninterrupted run, each error be its kind, and
+   drain, and the watchdog over an injected 1.5 s hang (whose stuck
+   requests ``debug_requests()`` must list while the hang holds): each
+   stream must equal its uninterrupted run, each error be its kind, and
    ``check_kv()`` clean after each;
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
@@ -133,7 +150,10 @@ one), with the host-paced eager loops under ``eager_ms`` and
 ``library_eager_ms``, the verify widths' graph times under ``verify``
 and the spec and lifecycle phases' launches under ``spec_launches``
 and ``lifecycle_launches``;
-``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too;
+``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
+and so are ``matmul``'s (one launch at bf16 4096^3, the other timed
+shapes under ``shapes``; its ``launches`` are its entry point's at the
+timed shapes, as no other path calls it);
 every other kernel's ``ms`` and ``library_ms``, and every ``plain_ms``,
 are eager loops timed by CUDA events.
 """
@@ -160,6 +180,37 @@ GEMM_SHAPES = ((DIM, DIM), (DIM, 4 * DIM), (4 * DIM, DIM))
 GEMM_RAGGED = ((100, 70), (100, 1001), (1000, 70), (1000, 1001))
 GEMM_ROWS = (1, 2, 4, 8, 13, 136)
 GEMM_FAULT_MIN = 5.0
+
+#: the general tiled GEMM (``pallas_matmul`` without ``col_scale`` as
+#: well as with it): (m, k, n, a type, b int8 with col_scale, epilogue,
+#: out type) — the CPU tests' shapes (the JAX tests' 128 x 256 x 128,
+#: 128^3 with ReLU, 8 x 64 x 128), shapes that tile only by min(block,
+#: dim) (m 100, k 50) and off the 8-element loads, int8 b, a bf16 output,
+#: a callable the kernel does not fuse, the serving widths (m 8/40/72 x
+#: 1024 x 4096, bf16) and the large tiles; each run twice bit-equal
+MM_CASES = [(128, 256, 128, "float32", False, None, "float32"),
+            (128, 128, 128, "float32", False, "relu", "float32"),
+            (8, 64, 128, "float32", False, None, "float32"),
+            (100, 50, 64, "float32", False, None, "float32"),
+            (100, 50, 72, "bfloat16", True, "relu", "float32"),
+            (64, 128, 96, "bfloat16", False, None, "bfloat16"),
+            (24, 40, 32, "float32", False, "tanh", "float32"),
+            (24, 40, 32, "bfloat16", False, "tanh", "bfloat16"),
+            (8, DIM, 4 * DIM, "bfloat16", False, None, "float32"),
+            (40, DIM, 4 * DIM, "bfloat16", False, None, "float32"),
+            (72, DIM, 4 * DIM, "bfloat16", False, "relu", "float32"),
+            (72, DIM, 4 * DIM, "bfloat16", True, None, "bfloat16"),
+            (512, 384, 512, "bfloat16", False, "relu", "float32"),
+            (256, 258, 256, "float32", True, None, "bfloat16"),
+            (256, 500, 512, "bfloat16", False, "tanh", "bfloat16"),
+            (1024, 1024, 1024, "float32", False, None, "float32")]
+#: the timed shapes: (label, m, k, n, type) — the operations-bound
+#: squares and the serving width, which the weight bytes bound
+MM_TIMED = (("bf16 4096^3", 4096, 4096, 4096, "bfloat16"),
+            ("f32 2048^3", 2048, 2048, 2048, "float32"),
+            ("bf16 8x1024x4096", 8, DIM, 4 * DIM, "bfloat16"))
+#: how far the kernel run on b with its last k-tile zeroed must fail
+MM_FAULT_MIN = 5.0
 
 #: the spec phase (``bench.py``'s ``bench_spec`` on a chip: the serving
 #: model above at full depth, trained to continue the 12-token pattern
@@ -629,6 +680,154 @@ def check_gemm(torch, dev, rng):
     log("int8_gemm: %d cases within TOL"
         % (2 * len(GEMM_ROWS) * len(GEMM_SHAPES + GEMM_RAGGED)))
     return worst
+
+
+def _mm_inputs(torch, dev, rng, m, k, n, dt, int8_b):
+    dtype = getattr(torch, dt)
+    a = torch.as_tensor(rng.standard_normal((m, k)),
+                        dtype=torch.float32).to(dev, dtype)
+    if int8_b:
+        b = torch.as_tensor(rng.integers(-127, 128, (k, n)),
+                            dtype=torch.int8).to(dev)
+        return a, b, torch.as_tensor(rng.random(n) * 0.01,
+                                     dtype=torch.float32).to(dev)
+    return a, torch.as_tensor(rng.standard_normal((k, n)),
+                              dtype=torch.float32).to(dev, dtype), None
+
+
+def mm_excess(got, want):
+    """The largest ratio of ``|got - want|`` to its limit: 1e-5 of the
+    largest magnitude (the f32 sums run in another order), plus for a
+    bf16 output one bf16 step of the element (both sides round an f32
+    sum that differs in its last bits).  At most 1 passes."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    floor = 1e-5 * want.abs().max()
+    if str(got.dtype) == "torch.float32":
+        return float(diff.max() / floor)
+    return float((diff / (2.0 ** -7 * want.abs() + floor)).max())
+
+
+def check_matmul(torch, dev, rng):
+    """``pallas_matmul`` against ``pallas_matmul_plain`` (TF32 off) at
+    MM_CASES: each case's launch plan printed, two runs bit-equal, the
+    error within ``mm_excess``'s limit; at the serving width and at an
+    f32 square the kernel run on ``b`` with its last k-tile zeroed must
+    fail by MM_FAULT_MIN.  Returns the largest error."""
+    from veles_tpu_torch import _build
+    from veles_tpu_torch.ops import gemm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("ptxas matmul:\n" + _build.ptxas_reports.get(
+        "matmul", "(built before this process)").strip())
+    eps = {None: None, "relu": torch.relu, "tanh": torch.tanh}
+    worst = 0.0
+    for m, k, n, dt, int8_b, ep, out_dt in MM_CASES:
+        a, b, scale = _mm_inputs(torch, dev, rng, m, k, n, dt, int8_b)
+        kw = dict(epilogue=eps[ep], out_dtype=getattr(torch, out_dt),
+                  col_scale=scale)
+        first = gemm.pallas_matmul(a, b, **kw)
+        second = gemm.pallas_matmul(a, b, **kw)
+        want = gemm.pallas_matmul_plain(a, b, **kw)
+        plan = gemm.matmul_plan(a, b)
+        fault = None
+        if (m, k) in ((72, DIM), (1024, 1024)):
+            lost = b.clone()
+            lost[k - plan["bk"]:] = 0
+            fault = mm_excess(gemm.pallas_matmul(a, lost, **kw), want)
+        torch.cuda.synchronize()
+        err = float((first.float() - want.float()).abs().max())
+        excess = mm_excess(first, want)
+        same = torch.equal(first, second)
+        log("matmul %s%s m=%d k=%d n=%d epilogue %s out %s: max_abs_err "
+            "%.3g, %.3g of the limit, twice bit-equal %s, plan %s%s"
+            % (dt, " x int8" if int8_b else "", m, k, n, ep, out_dt, err,
+               excess, same, plan, "" if fault is None else
+               "; last k-tile of b zeroed: %.3g of the limit" % fault))
+        if not excess <= 1.0:
+            raise SystemExit("matmul disagrees with its plain version (%s "
+                             "m=%d k=%d n=%d): %.3g of the limit"
+                             % (dt, m, k, n, excess))
+        if not same:
+            raise SystemExit("matmul is not deterministic")
+        if fault is not None and not fault >= MM_FAULT_MIN:
+            raise SystemExit("matmul: a lost k-tile fails the check by "
+                             "only %.3g" % fault)
+        worst = max(worst, err)
+    log("matmul: %d cases within their limits" % len(MM_CASES))
+    return worst
+
+
+def matmul_library(torch):
+    """The library call timed beside the kernel, and its name: for bf16
+    ``torch.mm(a, b, out_dtype=torch.float32)`` where this torch has it
+    (else ``torch.mm(a, b).float()``, which rounds to bf16 first); for
+    f32 ``torch.mm`` with TF32 off."""
+    x = torch.ones((16, 16), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(x, x, out_dtype=torch.float32)
+    except TypeError:
+        return (lambda a, b: torch.mm(a, b).float()
+                if a.dtype == torch.bfloat16 else torch.mm(a, b),
+                "torch.mm(a, b).float() (bf16), torch.mm (f32)")
+    return (lambda a, b: torch.mm(a, b, out_dtype=torch.float32)
+            if a.dtype == torch.bfloat16 else torch.mm(a, b),
+            "torch.mm(a, b, out_dtype=torch.float32) (bf16), torch.mm (f32)")
+
+
+def matmul_path(torch, dev, rng):
+    """The kernel's path: its public entry point ``pallas_matmul`` called
+    once at each MM_TIMED shape with its count zeroed just before and
+    read just after (nothing else in the port calls it).  Returns the
+    count."""
+    from veles_tpu_torch.ops import gemm
+    work = [_mm_inputs(torch, dev, rng, m, k, n, dt, False)[:2]
+            for _, m, k, n, dt in MM_TIMED]
+    torch.cuda.synchronize()
+    gemm.matmul_launches = 0
+    outs = [gemm.pallas_matmul(a, b) for a, b in work]
+    torch.cuda.synchronize()
+    count = gemm.matmul_launches
+    if count != len(MM_TIMED) or not all(
+            bool(torch.isfinite(o).all()) for o in outs):
+        raise SystemExit("matmul path: %d launches for %d calls, or a "
+                         "non-finite result" % (count, len(MM_TIMED)))
+    return count
+
+
+def time_matmul(torch, dev, rng, rate, err):
+    """Each MM_TIMED shape as CUDA-graph replays of one launch beside
+    the library call replayed the same way, the plain version by an
+    eager loop, and the bound (bytes: each operand read once and the
+    f32 output written once; operations: 2 m k n at the operands'
+    type).  Returns the kernels line's fields: the first shape's at the
+    top, every shape under ``shapes``."""
+    from veles_tpu_torch.ops import gemm
+    library, lib_name = matmul_library(torch)
+    shapes = {}
+    for label, m, k, n, dt in MM_TIMED:
+        a, b, _ = _mm_inputs(torch, dev, rng, m, k, n, dt, False)
+        size = 2 if dt == "bfloat16" else 4
+        nbytes = m * k * size + k * n * size + m * n * 4
+        b_ms, b_by = bound(nbytes, 2 * m * k * n, dt, rate)
+        before = gemm.matmul_launches
+        f = {"ms": graph_ms(torch, lambda: gemm.pallas_matmul(a, b)),
+             "library_ms": graph_ms(torch, lambda: library(a, b)),
+             "plain_ms": time_ms(torch,
+                                 lambda: gemm.pallas_matmul_plain(a, b),
+                                 reps=5),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "plan": gemm.matmul_plan(a, b)}
+        gemm.matmul_launches = before
+        f["tflops"] = 2 * m * k * n / f["ms"] / 1e9
+        log("matmul %s (plan %s): graph-replayed %.4f ms (%.1f TFLOP/s, "
+            "%.1f %% of the %.4f ms bound by %s), library %.4f ms (%s), "
+            "plain %.4f ms" % (label, f["plan"], f["ms"], f["tflops"],
+                               100 * b_ms / f["ms"], b_ms, b_by,
+                               f["library_ms"], lib_name, f["plain_ms"]))
+        shapes[label] = f
+    first = dict(shapes[MM_TIMED[0][0]])
+    first.update(max_abs_err=err, library=lib_name, shapes=shapes)
+    return first
 
 
 def graph_ms(torch, fn, reps=50):
@@ -1253,10 +1452,12 @@ def serve_check(torch, dev):
                              % len(warm))
         steps0, toks0 = sch.decode_steps, sch.decode_tokens
         secs0, done0 = sch.decode_seconds, len(sch.completed)
+        snap0, total0 = sch.metrics(), sch.stats.slot_total_steps
         torch.cuda.synchronize()
         pa.launches = 0
         pa.variant_launches.update(split=0, column=0)
         gemm.launches = 0
+        gemm.matmul_launches = 0
         t0 = time.perf_counter()
         futs = [sch.submit(p, STEPS) for p in prompts]
         outs = [f.result(600) for f in futs]
@@ -1265,10 +1466,14 @@ def serve_check(torch, dev):
         launches = {"paged_attend": pa.launches,
                     "int8_gemm": gemm.launches}
         variants = dict(pa.variant_launches)
+        others = {"matmul": gemm.matmul_launches}
         steps = sch.decode_steps - steps0
         dtoks = sch.decode_tokens - toks0
         dsecs = sch.decode_seconds - secs0
         times = sch.completed[done0:]
+        snap, total = sch.metrics(), sch.stats.slot_total_steps - total0
+        left = sch.debug_requests()
+        traced = traced_request(sch, prompts[1])
         prof = profile_window(torch, sch, prompts)
     finally:
         sch.close()
@@ -1289,18 +1494,106 @@ def serve_check(torch, dev):
                          "step, all paged_attend on the split kernel)"
                          % (steps, launches, variants, LAYERS, 3 * LAYERS))
     ttft = sorted(t for t, _ in times)
+    got = {k: snap[k] - snap0[k] for k in (
+        "requests_completed", "tokens_generated", "slot_busy_steps",
+        "prefill_chunks")}
+    want = {"requests_completed": len(outs),
+            "tokens_generated": len(outs) * STEPS,
+            "slot_busy_steps": dtoks,
+            "prefill_chunks": len(outs) * -(-PROMPT // CHUNK)}
+    if got != want or not dtoks <= total <= SLOTS * steps or left:
+        raise SystemExit("serve: metrics() counted %s over %d slot steps "
+                         "(want %s over %d decode steps of at most %d rows),"
+                         " %d requests still in flight"
+                         % (got, total, want, steps, SLOTS, len(left)))
+    if others["matmul"]:
+        raise SystemExit("serve: the general matmul launched %d times on "
+                         "the serving path" % others["matmul"])
     log(json.dumps({"serve": {
         "requests": len(outs), "prompt": PROMPT, "steps": STEPS,
         "decode_steps": steps, "launches": launches,
+        "other_launches": others,
         "paged_attend_launches_by_kernel": variants,
         "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft),
         "ttft_ms_max": 1e3 * ttft[-1],
         "decode_tokens_per_s": dtoks / dsecs,
         "decode_step_ms": 1e3 * dsecs / steps,
         "wall_s": wall,
-        "tokens_per_s": len(outs) * STEPS / wall}}))
+        "tokens_per_s": len(outs) * STEPS / wall,
+        "metrics": dict(got, slot_steps=total, **{k: snap[k] for k in (
+            "ttft_ms_p50", "ttft_ms_p95", "ttft_ms_p99", "slot_occupancy",
+            "goodput_tokens_per_sec", "bucket_padding_efficiency",
+            "kv_bytes_per_token")})}}))
+    log(json.dumps({"traced_request": traced}))
     log(json.dumps({"profile": prof}))
+    log(json.dumps({"tracing_cost": tracing_cost(torch, dev, chain,
+                                                 prompts)}))
     return {"launches": launches, "chain": chain}
+
+
+#: a traced request's phase events, in order (``+``: one or more)
+TRACE_ORDER = ("req.queue", "req.admit", "req.prefill_chunk+",
+               "req.first_token", "req.step+", "req.retire")
+
+
+def traced_request(sch, prompt, trace="smoke-trace-1"):
+    """One request under a given trace id: its ``req.*`` events, each
+    carrying the id (a ``req.step`` in its ``traces`` map), must come
+    in TRACE_ORDER on the request's timeline — ordered by when each
+    phase began (an event with a ``duration`` ends the phase it
+    measures, as ``trace_export`` draws it; the last step's event is
+    recorded after the retire it caused).  Returns the names and
+    counts."""
+    from veles_tpu_torch.logger import events
+    out = sch.submit(prompt, STEPS, trace=trace).result(600)
+    mine = [ev for ev in list(events.ring) if ev["name"].startswith("req.")
+            and (ev.get("trace") == trace
+                 or trace in (ev.get("traces") or {}))]
+    mine.sort(key=lambda ev: ev["time"] - ev.get("duration", 0.0))
+    names = []
+    for ev in mine:
+        if not names or names[-1] != ev["name"] \
+                or ev["name"] not in ("req.prefill_chunk", "req.step"):
+            names.append(ev["name"])
+    want = [n.rstrip("+") for n in TRACE_ORDER]
+    if names != want or len(out) != PROMPT + STEPS:
+        raise SystemExit("serve: the traced request's events came as %s, "
+                         "not %s" % (names, want))
+    counts = {n: sum(1 for ev in mine if ev["name"] == n) for n in want}
+    return {"trace": trace, "order": names, "events": counts}
+
+
+def tracing_cost(torch, dev, chain, prompts, runs=3):
+    """The serve phase's configuration with request tracing on and off:
+    two schedulers over the same chain, the measured run (8 prompts x
+    STEPS) alternated on, off, on, ... ``runs`` times each after a
+    warm-up of each.  Returns each arm's median decode-step ms (host
+    seconds of the decode steps) and their ratio; no limit is held (the
+    host-paced step moves by a quarter between calls)."""
+    from veles_tpu_torch.serving import InferenceScheduler
+    arms = {}
+    for on in (True, False):
+        arms[on] = InferenceScheduler(
+            chain, max_slots=SLOTS, window=WINDOW, block_size=BLOCK,
+            kv_dtype="int8", prefill_chunk=CHUNK, spec=False,
+            prefix_cache=False, reqtrace=on, device=dev).start()
+    per = {True: [], False: []}
+    try:
+        for sch in arms.values():
+            sch.submit(prompts[0], STEPS).result(600)
+        for _ in range(runs):
+            for on, sch in arms.items():
+                s0, t0 = sch.decode_steps, sch.decode_seconds
+                for f in [sch.submit(p, STEPS) for p in prompts]:
+                    f.result(600)
+                per[on].append(1e3 * (sch.decode_seconds - t0)
+                               / (sch.decode_steps - s0))
+    finally:
+        for sch in arms.values():
+            sch.close()
+    on, off = (float(numpy.median(per[k])) for k in (True, False))
+    return {"decode_step_ms_on": per[True], "decode_step_ms_off": per[False],
+            "median_on": on, "median_off": off, "ratio_on_off": on / off}
 
 
 def profile_window(torch, sch, prompts, steps=8):
@@ -1628,7 +1921,8 @@ def peak_streams(torch, dev, chain, prefix):
     the prefix cache off; warm, the trie seeded by one request, then
     SHARED_POOL submits.  Every submit is the same SHARED_PROMPT-token
     prompt for SHARED_STEPS greedy steps; ``active_slots`` is sampled
-    every 5 ms.  The kernels' counts are zeroed just before the
+    every 5 ms from ``metrics()`` (as ``bench.py:1180`` reads it).  The
+    kernels' counts are zeroed just before the
     measured submits and read after.  Speculative decoding is off: on
     an untrained chain a degenerate repeating stream would accept
     drafts and finish before the last warm stream joined."""
@@ -1651,7 +1945,7 @@ def peak_streams(torch, dev, chain, prefix):
         futs = [sch.submit(shared, SHARED_STEPS, seed=i) for i in range(n)]
         peak = 0
         while not all(f.done() for f in futs):
-            peak = max(peak, sch.active_slots)
+            peak = max(peak, sch.metrics()["active_slots"])
             time.sleep(0.005)
         outs = [f.result(600) for f in futs]
         torch.cuda.synchronize()
@@ -1788,7 +2082,8 @@ def lifecycle_events(torch, dev, chain, pattern):
     try:
         sch.submit(other, 8).result(600)
         faults.load("serving.scheduler.step=hang:%gx1" % LIFE_HANG)
-        futs = [sch.submit(prompt, 64), sch.submit(other, 64)]
+        futs = [sch.submit(prompt, 64, trace="hung-0"),
+                sch.submit(other, 64, trace="hung-1")]
         t0 = time.perf_counter()
         for f in futs:
             try:
@@ -1799,6 +2094,14 @@ def lifecycle_events(torch, dev, chain, pattern):
                 if "stalled" not in str(e):
                     raise
         failed_after = time.perf_counter() - t0
+        # the loop is still held by the hang: its table lists both
+        stuck = [r for r in sch.debug_requests()
+                 if r["trace"] in ("hung-0", "hung-1")]
+        held = time.perf_counter() - t0 < LIFE_HANG
+        if len(stuck) != 2 or not held:
+            raise SystemExit("lifecycle (c): while the hang held (%s), "
+                             "debug_requests() listed %s, not both stuck "
+                             "requests" % (held, stuck))
         faults.clear()
         _wait_for(lambda: sch.in_flight == 0, "the watchdog's zombies")
         after = sch.submit(prompt, 64).result(600)
@@ -1808,7 +2111,9 @@ def lifecycle_events(torch, dev, chain, pattern):
                              "(hang %.1f), %d trips, the next stream equal "
                              "%s" % (failed_after, LIFE_HANG,
                                      sch.watchdog_trips, after == cold))
-        out["watchdog"] = dict(counters(sch), failed_after_s=failed_after)
+        out["watchdog"] = dict(counters(sch), failed_after_s=failed_after,
+                               stuck_rows=[(r["trace"], r["phase"])
+                                           for r in stuck])
     finally:
         faults.clear()
         sch.close()
@@ -2403,11 +2708,15 @@ def main():
 
     measured = check_kernels(torch, dev, rate)
     measured.update(check_flash(torch, dev, rate))
+    rng = numpy.random.default_rng(2)
+    measured["matmul"] = time_matmul(torch, dev, rng, rate,
+                                     check_matmul(torch, dev, rng))
+    mm_launches = matmul_path(torch, dev, rng)
     reference_check(torch, dev)
     train_reference(torch, dev)
     learns(torch, dev)
     served = serve_check(torch, dev)
-    launches = served["launches"]
+    launches = dict(served["launches"], matmul=mm_launches)
     spec_launches, trained, pattern = spec_check(torch, dev)
     life_launches = lifecycle_check(torch, dev, served.pop("chain"),
                                     trained, pattern)
@@ -2421,6 +2730,7 @@ def main():
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
         "int8_gemm": ("int8_gemm.cu", "gemm.py:131"),
+        "matmul": ("matmul.cu", "gemm.py:131"),
         "flash_attn_fwd": ("flash_attention.cu", "pallas_attention.py:179"),
         "flash_attn_dq": ("flash_attention.cu", "pallas_attention.py:330"),
         "flash_attn_dkv": ("flash_attention.cu", "pallas_attention.py:352"),

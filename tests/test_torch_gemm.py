@@ -2,15 +2,19 @@
 against the JAX package on the CPU: the int8 weight quantization
 bit-equal, the int8 GEMM's plain version against ``pallas_matmul`` with
 the fused ``col_scale`` epilogue (interpret mode) at tile-multiple
-shapes and against ``int8_matmul`` at ragged ones, and the policy
-matmul.  The tolerance is 1e-5: the sums run in another order.  The
-kernel itself is held against this plain version on the card in
-``test_torch_kernels.py``."""
+shapes and against ``int8_matmul`` at ragged ones, the policy matmul,
+and the general ``pallas_matmul`` (f32 and bf16 operands, int8 ``b``
+with ``col_scale``, fused and other epilogues, bf16 output, the shapes
+it refuses).  The tolerance is 1e-5 (of the largest magnitude for
+``pallas_matmul``): the sums run in another order; a bf16 output may
+round to the neighbouring bf16 value.  The kernels themselves are held
+against these plain versions on the card in ``test_torch_kernels.py``."""
 
 import numpy
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from veles_tpu.config import root
@@ -106,3 +110,122 @@ def test_policy_matmul_matches_jax():
                        torch.float32)
     numpy.testing.assert_allclose(got.numpy(), numpy.asarray(want), **TOL)
 
+
+
+#: pallas_matmul cases: (m, k, n, blocks, a dtype, b int8 with col_scale,
+#: epilogue, out dtype) — the JAX tests' shapes and blocks (128 x 256 x
+#: 128 at 64/64/128; 128^3 at 64 with ReLU; 8 x 64 x 128 at the
+#: defaults), bf16 operands, int8 b, a bf16 output, shapes that tile only
+#: by min(block, dim) (m 100, k 50) and a callable the kernel does not
+#: fuse
+MM_CASES = [
+    (128, 256, 128, (64, 64, 128), "float32", False, None, "float32"),
+    (128, 128, 128, (64, 64, 64), "float32", False, "relu", "float32"),
+    (8, 64, 128, (256, 256, 512), "float32", False, None, "float32"),
+    (64, 128, 96, (32, 32, 64), "bfloat16", False, None, "float32"),
+    (16, 256, 64, (256, 256, 512), "bfloat16", True, None, "float32"),
+    (32, 96, 48, (256, 256, 512), "float32", True, "relu", "float32"),
+    (64, 64, 128, (32, 64, 64), "bfloat16", False, "relu", "bfloat16"),
+    (100, 50, 64, (256, 256, 512), "float32", False, None, "float32"),
+    (100, 50, 72, (256, 256, 512), "bfloat16", True, "relu", "float32"),
+    (24, 40, 32, (256, 256, 512), "float32", False, "tanh", "float32"),
+    (24, 40, 32, (256, 256, 512), "bfloat16", False, "tanh", "bfloat16"),
+]
+
+#: the epilogues by name: (JAX's, the port's)
+MM_EPILOGUES = {None: (None, None), "relu": (jax.nn.relu, torch.relu),
+                "tanh": (jnp.tanh, torch.tanh)}
+
+
+def _mm_operands(rng, m, k, n, dtype, int8_b):
+    a = rng.standard_normal((m, k)).astype(numpy.float32)
+    if int8_b:
+        b = rng.integers(-127, 128, (k, n)).astype(numpy.int8)
+        scale = (rng.random(n) * 0.01).astype(numpy.float32)
+        return a, b, scale
+    return a, rng.standard_normal((k, n)).astype(numpy.float32), None
+
+
+@pytest.mark.parametrize("case", MM_CASES, ids=lambda c: "%dx%dx%d-%s%s-%s-%s"
+                         % (c[0], c[1], c[2], c[4], "-int8" if c[5] else "",
+                            c[6], c[7]))
+def test_pallas_matmul_matches_jax(case):
+    """The port's ``pallas_matmul`` against JAX's in interpret mode on
+    the same operands: within 1e-5 of the largest magnitude, plus for a
+    bf16 output one bf16 step of each element (both round an f32 sum
+    that differs in its last bits)."""
+    from veles_tpu.ops import gemm as jgemm
+    from veles_tpu_torch.ops import gemm as tgemm
+    m, k, n, (bm, bn, bk), dt, int8_b, ep, out_dt = case
+    rng = numpy.random.default_rng(m * 7 + k * 3 + n)
+    a, b, scale = _mm_operands(rng, m, k, n, dt, int8_b)
+    jep, tep = MM_EPILOGUES[ep]
+    want = jgemm.pallas_matmul(
+        jnp.asarray(a).astype(dt), jnp.asarray(b).astype(
+            numpy.int8 if int8_b else dt),
+        block_m=bm, block_n=bn, block_k=bk, epilogue=jep,
+        out_dtype=getattr(jnp, out_dt), interpret=True,
+        col_scale=None if scale is None else jnp.asarray(scale))
+    tdt = getattr(torch, dt)
+    got = tgemm.pallas_matmul(
+        torch.as_tensor(a).to(tdt),
+        torch.as_tensor(b) if int8_b else torch.as_tensor(b).to(tdt),
+        block_m=bm, block_n=bn, block_k=bk, epilogue=tep,
+        out_dtype=getattr(torch, out_dt),
+        col_scale=None if scale is None else torch.as_tensor(scale))
+    assert got.dtype == getattr(torch, out_dt) and got.shape == (m, n)
+    want = numpy.asarray(want.astype(jnp.float32))
+    got = got.to(torch.float32).numpy()
+    step = 2.0 ** -7 if out_dt == "bfloat16" else 0.0
+    assert (numpy.abs(got - want) <= step * numpy.abs(want)
+            + 1e-5 * numpy.abs(want).max()).all()
+
+
+@pytest.mark.parametrize("epilogue", ["relu", torch.relu,
+                                      torch.nn.functional.relu])
+def test_pallas_matmul_relu_spellings(epilogue):
+    """Every spelling of the fused ReLU gives JAX's ``jax.nn.relu``."""
+    from veles_tpu.ops import gemm as jgemm
+    from veles_tpu_torch.ops import gemm as tgemm
+    rng = numpy.random.default_rng(3)
+    a, b, _ = _mm_operands(rng, 16, 32, 24, "float32", False)
+    want = numpy.asarray(jgemm.pallas_matmul(
+        jnp.asarray(a), jnp.asarray(b), epilogue=jax.nn.relu,
+        interpret=True))
+    got = tgemm.pallas_matmul(torch.as_tensor(a), torch.as_tensor(b),
+                              epilogue=epilogue).numpy()
+    numpy.testing.assert_allclose(got, want, rtol=0,
+                                  atol=1e-5 * numpy.abs(want).max())
+
+
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (100, 64, 64, (64, 64, 64)),     # m off its 64-row block
+    (64, 96, 64, (64, 64, 64)),      # k off its block
+    (64, 64, 80, (64, 64, 64)),      # n off its block
+])
+def test_pallas_matmul_refuses_what_jax_refuses(m, k, n, blocks):
+    from veles_tpu.ops import gemm as jgemm
+    from veles_tpu_torch.ops import gemm as tgemm
+    rng = numpy.random.default_rng(9)
+    a, b, _ = _mm_operands(rng, m, k, n, "float32", False)
+    bm, bn, bk = blocks
+    with pytest.raises(AssertionError, match="tile evenly"):
+        jgemm.pallas_matmul(jnp.asarray(a), jnp.asarray(b), block_m=bm,
+                            block_n=bn, block_k=bk, interpret=True)
+    with pytest.raises(ValueError, match="tile evenly"):
+        tgemm.pallas_matmul(torch.as_tensor(a), torch.as_tensor(b),
+                            block_m=bm, block_n=bn, block_k=bk)
+
+
+def test_pallas_matmul_refuses_other_types_and_precisions():
+    from veles_tpu_torch.ops import gemm as tgemm
+    a = torch.ones((8, 16))
+    with pytest.raises(ValueError, match="b must be"):
+        tgemm.pallas_matmul(a, torch.ones((16, 8), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="precision"):
+        tgemm.pallas_matmul(a, torch.ones((16, 8)), precision="default")
+    with pytest.raises(ValueError, match="col_scale"):
+        tgemm.pallas_matmul(a, torch.ones((16, 8)),
+                            col_scale=torch.ones(4))
+    out = tgemm.pallas_matmul(a, torch.ones((16, 8)), precision="highest")
+    assert torch.equal(out, torch.full((8, 8), 16.0))

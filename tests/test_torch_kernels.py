@@ -11,7 +11,9 @@ kernels and odd ones off their tiles (with the backward bit-equal from run to
 run, and a head dim they are not built for kept off them), at
 AlexNet's LRN shapes and odd ones (each on the variant ``ops.lrn.plan``
 names, the backward bit-equal across two runs, an offset view on the
-tile kernels), and the uniform fill bit for bit.
+tile kernels), the uniform fill bit for bit, and the general tiled
+GEMM (``pallas_matmul``: both kernel families, int8 ``b``, the fused
+and unfused epilogues, bit-equal twice, misaligned views).
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -353,6 +355,99 @@ def test_int8_gemm_is_deterministic(card, dtype):
     second = gemm.int8_matmul(a, wq, scale)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+#: pallas_matmul on the card: (m, k, n, a dtype, b int8 + col_scale,
+#: epilogue, out dtype) — both kernel families, the vector and element
+#: loads (k or n off 8), shapes that tile only by min(block, dim), int8
+#: b, a bf16 output, the serving widths and the large tiles
+MM_CARD = [
+    (128, 256, 128, torch.float32, False, None, torch.float32),
+    (128, 128, 128, torch.float32, False, "relu", torch.float32),
+    (8, 64, 128, torch.float32, False, None, torch.float32),
+    (100, 50, 64, torch.float32, False, None, torch.float32),
+    (100, 50, 72, torch.bfloat16, True, "relu", torch.float32),
+    (64, 128, 96, torch.bfloat16, False, None, torch.bfloat16),
+    (8, 1024, 4096, torch.bfloat16, False, None, torch.float32),
+    (72, 1024, 4096, torch.bfloat16, True, None, torch.float32),
+    (512, 384, 512, torch.bfloat16, False, torch.relu, torch.float32),
+    (256, 258, 256, torch.float32, True, None, torch.bfloat16),
+    (256, 500, 512, torch.bfloat16, False, torch.tanh, torch.bfloat16),
+]
+
+
+def _mm_card_inputs(card, m, k, n, dtype, int8_b, seed):
+    rng = numpy.random.default_rng(seed)
+    a = torch.as_tensor(rng.standard_normal((m, k)),
+                        dtype=torch.float32).to(card, dtype)
+    if int8_b:
+        b = torch.as_tensor(rng.integers(-127, 128, (k, n)),
+                            dtype=torch.int8).to(card)
+        scale = torch.as_tensor(rng.random(n) * 0.01,
+                                dtype=torch.float32).to(card)
+        return a, b, scale
+    b = torch.as_tensor(rng.standard_normal((k, n)),
+                        dtype=torch.float32).to(card, dtype)
+    return a, b, None
+
+
+@pytest.mark.parametrize("case", MM_CARD, ids=lambda c: "%dx%dx%d-%s%s-%s-%s"
+                         % (c[0], c[1], c[2], str(c[3])[6:],
+                            "-int8" if c[4] else "",
+                            getattr(c[5], "__name__", c[5]),
+                            str(c[6])[6:]))
+def test_pallas_matmul_kernel_matches_plain(card, case):
+    from veles_tpu_torch.ops import gemm
+    m, k, n, dtype, int8_b, epilogue, out_dtype = case
+    a, b, scale = _mm_card_inputs(card, m, k, n, dtype, int8_b, m + k + n)
+    before = gemm.matmul_launches
+    got = gemm.pallas_matmul(a, b, epilogue=epilogue, out_dtype=out_dtype,
+                             col_scale=scale)
+    want = gemm.pallas_matmul_plain(a, b, epilogue=epilogue,
+                                    out_dtype=out_dtype, col_scale=scale)
+    torch.cuda.synchronize()
+    assert gemm.matmul_launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    # 1e-5 of the largest magnitude (sums in another order), plus one
+    # bf16 step of the element for a bf16 output
+    got, want = got.float(), want.float()
+    floor = 1e-5 * float(want.abs().max())
+    step = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    assert bool(((got - want).abs() <= step * want.abs() + floor).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_pallas_matmul_is_deterministic_and_misaligned_views(card, dtype):
+    """Every element summed by one thread in a fixed order: two runs are
+    bit-equal.  An operand one element into its buffer takes the
+    element loads and agrees with the aligned run."""
+    from veles_tpu_torch.ops import gemm
+    a, b, _ = _mm_card_inputs(card, 256, 512, 256, dtype, False, 5)
+    first = gemm.pallas_matmul(a, b)
+    second = gemm.pallas_matmul(a, b)
+    flat = torch.empty(a.numel() + 1, dtype=dtype, device=card)
+    view = flat[1:].view(a.shape)
+    view.copy_(a)
+    assert gemm.matmul_plan(a, b)["aligned"]
+    assert not gemm.matmul_plan(view, b)["aligned"]
+    third = gemm.pallas_matmul(view, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, third)
+
+
+def test_pallas_matmul_refuses_on_the_card(card):
+    from veles_tpu_torch.ops import gemm
+    a = torch.ones((64, 64), device=card)
+    with pytest.raises(ValueError, match="tile evenly"):
+        gemm.pallas_matmul(a[:60], torch.ones((64, 64), device=card),
+                           block_m=32)
+    with pytest.raises(ValueError, match="lies on"):
+        gemm.pallas_matmul(a, torch.ones((64, 64)))
+    with pytest.raises(ValueError, match="out_dtype"):
+        gemm.pallas_matmul(a, torch.ones((64, 64), device=card),
+                           out_dtype=torch.float16)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -6,7 +6,9 @@ TokenProjection`` through a paged KV cache (fp32 or int8 pools), with
 speculative decoding (n-gram drafts scored in one verify pass), a
 radix prefix cache over the KV blocks and the request lifecycle
 (priorities and shed, deadlines, cancel, preempt→resume, drain, a
-watchdog; ``faults`` injects failures into it), trains
+watchdog; ``faults`` injects failures into it), reports its serving
+metrics and per-request traces (``telemetry``, ``logger.events``),
+trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
 a device-resident ``FullBatchLoader``) and trains AlexNet
 (``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
@@ -19,6 +21,8 @@ kernels written by hand for ``sm_90a`` under ``csrc/``:
 - ``ops/gemm.py::int8_matmul`` — the weight-only int8 GEMM with the
   per-column scale fused into the store (replaces the ``col_scale``
   epilogue of ``veles_tpu/ops/gemm.py::pallas_matmul``);
+- ``ops/gemm.py::pallas_matmul`` — the general tiled GEMM with a fused
+  epilogue (the rest of ``veles_tpu/ops/gemm.py::pallas_matmul``);
 - ``ops/flash_attention.py`` — FlashAttention-2 forward, dq and dk/dv
   kernels behind an autograd Function (replaces
   ``veles_tpu/ops/pallas_attention.py``, and serves
@@ -44,6 +48,10 @@ SUBMODULES = (
     "veles_tpu_torch.backends",
     "veles_tpu_torch.dtypes",
     "veles_tpu_torch.faults",
+    "veles_tpu_torch.logger",
+    "veles_tpu_torch.telemetry",
+    "veles_tpu_torch.telemetry.registry",
+    "veles_tpu_torch.telemetry.reqtrace",
     "veles_tpu_torch._build",
     "veles_tpu_torch.convert",
     "veles_tpu_torch.ops",
@@ -87,4 +95,5 @@ SUBMODULES = (
     "veles_tpu_torch.serving.prefix_cache",
     "veles_tpu_torch.serving.scheduler",
     "veles_tpu_torch.serving.spec",
+    "veles_tpu_torch.serving.metrics",
 )

@@ -30,6 +30,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = {
     "paged_attend": "paged_attend.cu",
     "int8_gemm": "int8_gemm.cu",
+    "matmul": "matmul.cu",
     "flash_attention": "flash_attention.cu",
     "lrn": "lrn.cu",
     "uniform": "uniform.cu",

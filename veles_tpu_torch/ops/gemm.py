@@ -9,6 +9,10 @@ port of ``veles_tpu/ops/gemm.py``.
   CUDA tensors, :func:`int8_matmul_plain` for CPU tensors.  It replaces
   ``pallas_matmul``'s ``col_scale`` epilogue path that
   ``int8_matmul`` takes in the JAX package.
+- :func:`pallas_matmul` is the general form of that kernel, with the
+  JAX function's signature: ``epilogue(a @ b [* col_scale])`` summed
+  in f32, ``csrc/matmul.cu`` for CUDA tensors and
+  :func:`pallas_matmul_plain` for CPU tensors.
 """
 
 import ctypes
@@ -23,10 +27,16 @@ from veles_tpu_torch.ops import (
 INT8_QMAX = 127.0
 
 #: kernel launches so far (a plain count: the wrapper adds one per
-#: launch and nothing else touches it but a caller resetting it)
+#: launch and nothing else touches it but a caller resetting it):
+#: ``int8_gemm``'s, and ``matmul``'s (:func:`pallas_matmul`)
 launches = 0
+matmul_launches = 0
 
 _argtypes_set = False
+_mm_argtypes_set = False
+
+#: epilogues the matmul kernel fuses into its store (as ReLU)
+_RELU = {"relu", torch.relu, torch.nn.functional.relu}
 
 
 def matmul(a, b, compute_dtype, out_dtype=None):
@@ -114,3 +124,133 @@ def int8_matmul(a, wq, scale, out_dtype=torch.float32):
         _build.check(rc, "int8_gemm launch")
         launches += 1
     return out if out_dtype == torch.float32 else out.to(out_dtype)
+
+
+# -- the general tiled GEMM ---------------------------------------------------
+
+def _mm_lib():
+    global _mm_argtypes_set
+    lib = _build.library("matmul")
+    if not _mm_argtypes_set:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.veles_matmul.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci, ci,
+                                     ci, vp]
+        lib.veles_matmul.restype = ci
+        lib.veles_matmul_plan.argtypes = [vp, ci, vp, ci, ci, ci, ci,
+                                          ctypes.POINTER(ci)]
+        lib.veles_matmul_plan.restype = None
+        _mm_argtypes_set = True
+    return lib
+
+
+def _check_matmul(a, b, block_m, block_n, block_k, precision, col_scale):
+    """The JAX function's preconditions: ``a`` [m, k] f32/bf16, ``b``
+    [k, n] of ``a``'s type or int8, ``m``, ``n`` and ``k`` tiling evenly
+    by ``min(block, dim)``; ``precision`` None or "highest" (f32 sums
+    are always exact f32); ``col_scale`` f32 [n]."""
+    require(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
+            "pallas_matmul: %s @ %s", tuple(a.shape), tuple(b.shape))
+    require(a.dtype in (torch.float32, torch.bfloat16),
+            "pallas_matmul: a must be float32 or bfloat16, not %s", a.dtype)
+    require(b.dtype in (a.dtype, torch.int8),
+            "pallas_matmul: b must be %s or int8, not %s", a.dtype, b.dtype)
+    m, k = a.shape
+    n = b.shape[1]
+    bm, bn, bk = min(block_m, m), min(block_n, n), min(block_k, k)
+    require(bm > 0 and bn > 0 and bk > 0
+            and m % bm == 0 and n % bn == 0 and k % bk == 0,
+            "pallas_matmul: shapes must tile evenly; pad first (%s @ %s at "
+            "blocks %d/%d/%d)", tuple(a.shape), tuple(b.shape), block_m,
+            block_n, block_k)
+    require(precision is None or str(precision).lower() == "highest",
+            "pallas_matmul: precision must be None or 'highest', not %r",
+            precision)
+    require(col_scale is None or (col_scale.dtype == torch.float32
+                                  and tuple(col_scale.shape) == (n,)),
+            "pallas_matmul: col_scale must be f32 [%d]", n)
+
+
+def _epilogue_out(acc, epilogue, out_dtype):
+    if epilogue is not None:
+        acc = epilogue(acc)
+    return acc.to(out_dtype)
+
+
+def pallas_matmul_plain(a, b, block_m=256, block_n=256, block_k=512,
+                        epilogue=None, out_dtype=torch.float32,
+                        precision=None, col_scale=None):
+    """Plain PyTorch version of :func:`pallas_matmul`: ``a @ b`` in f32
+    (``b`` widened to ``a``'s type first, as the TPU kernel does; both
+    products are exact in f32), times ``col_scale``, then ``epilogue``
+    (``"relu"`` or a callable), cast to ``out_dtype``."""
+    _check_matmul(a, b, block_m, block_n, block_k, precision, col_scale)
+    if epilogue == "relu":
+        epilogue = torch.relu
+    acc = torch.matmul(a.to(torch.float32),
+                       b.to(a.dtype).to(torch.float32))
+    if col_scale is not None:
+        acc = acc * col_scale[None, :]
+    return _epilogue_out(acc, epilogue, out_dtype)
+
+
+def matmul_plan(a, b):
+    """The matmul kernel's launch plan for these operands: variant
+    (``tc_big``/``tc_small`` on the tensor cores for bf16 ``a``,
+    ``simt_big``/``simt_small`` for f32), tile rows and columns, k per
+    tile, threads per CTA, and whether it takes the vector loads (k and
+    n multiples of the load width, aligned pointers).  Needs the built
+    library (the card's machine)."""
+    out = (ctypes.c_int * 6)()
+    m, k = a.shape
+    _mm_lib().veles_matmul_plan(ptr(a), DTYPE_CODES[a.dtype], ptr(b),
+                                DTYPE_CODES[b.dtype], m, k, b.shape[1], out)
+    names = ("tc_big", "tc_small", "simt_big", "simt_small")
+    return dict(zip(("variant", "bm", "bn", "bk", "threads", "aligned"),
+                    [names[out[0]]] + list(out[1:5]) + [bool(out[5])]))
+
+
+def pallas_matmul(a, b, block_m=256, block_n=256, block_k=512,
+                  epilogue=None, out_dtype=torch.float32, precision=None,
+                  col_scale=None):
+    """Tiled GEMM with a fused epilogue — the port of the JAX
+    ``pallas_matmul`` (signature of :func:`pallas_matmul_plain`): the
+    plain version for CPU tensors, ``csrc/matmul.cu`` for CUDA tensors.
+
+    ``a`` [m, k] f32 or bf16; ``b`` [k, n] of ``a``'s type or int8
+    (widened to ``a``'s type); products summed in f32 — for f32
+    operands always exact f32 (``precision`` None or "highest"; never
+    TF32).  ``col_scale`` ([n] f32) multiplies each column before
+    ``epilogue``.  The kernel fuses ``epilogue`` None, ``"relu"``,
+    ``torch.relu`` and ``torch.nn.functional.relu`` into its store;
+    any other callable is applied to the kernel's f32 result and then
+    cast to ``out_dtype``: the same values, only the fusion is lost.
+    ``m``, ``n`` and ``k`` must tile evenly by ``min(block, dim)`` as in
+    the JAX function (``block_*`` only check that; the kernel picks its
+    own tiles).  Raises on anything else."""
+    global matmul_launches
+    if a.device.type == "cpu":
+        return pallas_matmul_plain(a, b, block_m, block_n, block_k,
+                                   epilogue, out_dtype, precision,
+                                   col_scale)
+    require(a.device.type == "cuda", "pallas_matmul: unsupported device %s",
+            a.device)
+    _check_matmul(a, b, block_m, block_n, block_k, precision, col_scale)
+    check_cuda_inputs("pallas_matmul", a.device, a=a, b=b,
+                      col_scale=col_scale)
+    fused = epilogue is None or epilogue in _RELU
+    store = out_dtype if fused else torch.float32
+    require(store in (torch.float32, torch.bfloat16),
+            "pallas_matmul: out_dtype %s (the kernel stores f32 or bf16)",
+            store)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=store, device=a.device)
+    if m and n:
+        rc = _mm_lib().veles_matmul(
+            ptr(a), DTYPE_CODES[a.dtype], ptr(b), DTYPE_CODES[b.dtype],
+            ptr(col_scale), ptr(out), int(store == torch.bfloat16),
+            int(fused and epilogue is not None), m, k, n,
+            stream_ptr(a.device))
+        _build.check(rc, "matmul launch")
+        matmul_launches += 1
+    return out if fused else _epilogue_out(out, epilogue, out_dtype)

@@ -81,6 +81,10 @@ class PagedKVCache:
         return len(self._free_slots)
 
     @property
+    def active_slots(self):
+        return self.max_slots - len(self._free_slots)
+
+    @property
     def free_blocks(self):
         return len(self._free_blocks)
 
@@ -88,8 +92,29 @@ class PagedKVCache:
     def used_blocks(self):
         return self.capacity_blocks - len(self._free_blocks)
 
+    def bytes_per_token(self):
+        """Device bytes ONE cached token costs across every layer's
+        pools: ``d`` elements of K and of V per layer, plus one f32
+        scale each under int8 (the ``kv_bytes_per_token`` gauge).  The
+        port serves on one card, so no pool is sharded."""
+        total = 0
+        for layer in self.pools.values():
+            for name, arr in layer.items():
+                if name.endswith("_scale"):   # one scale per row
+                    total += arr.element_size()
+                else:
+                    total += arr.shape[-1] * arr.element_size()
+        return int(total)
+
     def blocks_needed(self, total_tokens):
         return -(-max(int(total_tokens), 1) // self.block_size)
+
+    def can_admit(self, total_tokens):
+        """A free slot and enough free blocks for the request's whole
+        budget (prompt + steps, reserved up front so decode never
+        starves for a block mid-flight)."""
+        return bool(self._free_slots) \
+            and self.blocks_needed(total_tokens) <= len(self._free_blocks)
 
     def alloc(self, total_tokens, shared=()):
         """Claim a slot and its full block budget, or None when slots

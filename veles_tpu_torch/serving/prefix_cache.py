@@ -132,6 +132,26 @@ class RadixPrefixCache:
             return free, pinned
         return sum(sweep(n)[0] for n in self._root.values())
 
+    def path_digests(self, max_entries=1024):
+        """Rolling digests (:func:`chunk_digests`) of every resident
+        path, breadth-first so the shallow (most shareable) prefixes
+        survive the cap: the cache's advertisement of what it holds
+        (``metrics()["prefix_digests"]``)."""
+        out = []
+        queue = [(0, n) for n in self._root.values()]
+        while queue and len(out) < int(max_entries):
+            next_q = []
+            for seed, node in queue:
+                d = zlib.crc32(
+                    (",".join(str(int(t)) for t in node.key))
+                    .encode("ascii"), seed)
+                out.append(d)
+                if len(out) >= int(max_entries):
+                    break
+                next_q.extend((d, c) for c in node.children.values())
+            queue = next_q
+        return out
+
     def peek(self, tokens, max_blocks=None):
         """How many leading blocks of ``tokens`` are resident —
         :meth:`match` without pinning (admission sizing)."""

@@ -37,9 +37,9 @@ are served by ONE background loop that owns every tensor:
    the full blocks of its written positions to the prefix cache, and
    frees its slot and the rest of its blocks.
 
-The request lifecycle: every request carries a deadline (``timeout``
-or ``request_timeout``) enforced at each loop boundary — an expired
-request frees its slot and blocks and fails with
+The request lifecycle: every request carries a deadline (``timeout``,
+else ``request_timeout``, else ``queue_timeout``) enforced at each loop
+boundary — an expired request frees its slot and blocks and fails with
 :class:`DeadlineExceededError` carrying the tokens generated so far.
 :meth:`cancel` fails a queued request at once and reaps an in-flight
 one at the next boundary.  :meth:`request_preempt` (and a high-class
@@ -63,15 +63,29 @@ have written) and sampling is row-wise, so a stream is independent of
 its slot, the packing order, its co-tenants and whether it was
 admitted warm.
 
+Observability, as in the reference: every request carries a trace id
+(``submit(trace=)``, sanitized, or minted) and, with ``reqtrace`` on,
+records ``req.queue``/``req.admit``/``req.prefill``/
+``req.prefill_chunk``/``req.first_token``/``req.retire`` events at its
+phase boundaries and ONE batched ``req.step`` event per decode or
+verify boundary (:mod:`veles_tpu_torch.telemetry.reqtrace`).  The
+counters and latency windows live in a
+:class:`~veles_tpu_torch.serving.metrics.ServingMetrics`
+(``self.stats``), mirrored into the process-wide registry;
+:meth:`InferenceScheduler.metrics` is their snapshot with the queue,
+KV and prefix-cache state, and :meth:`debug_requests` the live
+in-flight table.
+
 Not ported yet (the JAX scheduler has them): the Medusa draft heads
 and the hidden-state lane, the host-RAM KV tier, disaggregation and
-prefix export/import, token streams and request traces, tensor
-parallelism, the metrics registry, embed/score jobs and the dense KV
-layout.
+prefix export/import, token streams, tenants, tensor parallelism,
+embed/score jobs and the dense KV layout; ``metrics()`` reports their
+keys as the reference does with them off.
 """
 
 import collections
 import concurrent.futures
+import itertools
 import logging
 import os
 import threading
@@ -86,12 +100,14 @@ from veles_tpu_torch.ops.paged_attend import MAX_K1
 from veles_tpu_torch.serving.engine import (
     first_tokens, paged_decode_step, verify_step_paged, verify_supported)
 from veles_tpu_torch.serving.kv_slots import PagedKVCache, paged_supported
+from veles_tpu_torch.serving.metrics import ServingMetrics
 from veles_tpu_torch.serving.prefill import (
     chunked_supported, prefill, prefill_chunk, serving_supported,
     serving_window)
 from veles_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from veles_tpu_torch.serving.spec import (
     NgramIndex, NgramProposer, accept_drafts)
+from veles_tpu_torch.telemetry import reqtrace as tracing
 
 log = logging.getLogger(__name__)
 
@@ -107,6 +123,10 @@ CLASS_NAMES = ("low", "normal", "high")
 _SHED_FRAC = (0.5, 1.0, 1.5)
 #: Retry-After seconds of a shed request, by class
 _RETRY_AFTER = (4, 2, 1)
+#: process-unique replica names of schedulers given no ``replica_id``
+_SCHED_SEQ = itertools.count(1)
+#: most prefix digests ``metrics()`` advertises
+_DIGEST_MAX = 512
 
 
 def resolve_priority(value):
@@ -175,10 +195,10 @@ class _Request(object):
                  "generated", "cancelled", "preempts", "t_submit",
                  "t_admit", "t_first", "pf_seq", "pf_caches", "pf_off",
                  "pf_width", "pf_chunk", "pf_matched", "prefix_handle",
-                 "draft_k", "accept_ema", "gram_ix")
+                 "draft_k", "accept_ema", "gram_ix", "trace")
 
     def __init__(self, prompt, steps, temperature, top_k, stop_token,
-                 seed, deadline, priority):
+                 seed, deadline, priority, trace=None):
         self.prompt = prompt
         self.steps = steps
         self.temperature = temperature
@@ -187,6 +207,7 @@ class _Request(object):
         self.seed = seed
         self.deadline = deadline
         self.priority = int(priority)   # 0 low / 1 normal / 2 high
+        self.trace = trace              # request trace id
         self.future = concurrent.futures.Future()
         self.slot = None
         self.generated = []
@@ -227,7 +248,9 @@ class InferenceScheduler(object):
     ``max_slots`` — concurrent requests per decode step; ``window`` —
     per-request bound ``prompt_len + steps <= window`` (default: the
     chain's positional table); ``max_queue`` — waiting-request cap
-    (:class:`QueueFullError` above it); ``block_size`` /
+    (:class:`QueueFullError` above it); ``queue_timeout`` — the
+    deadline in seconds of a request given no ``timeout`` while
+    ``request_timeout`` is 0; ``block_size`` /
     ``kv_blocks`` / ``kv_dtype`` ("fp32" or "int8") — the paged cache;
     ``prefill_chunk`` — chunk width of chunked prefill (0 = always
     one-shot); ``spec`` / ``spec_k`` — speculative decoding with up to
@@ -240,21 +263,27 @@ class InferenceScheduler(object):
     the queue's committed blocks exceed this many pools (by class);
     ``prefix_cache`` / ``prefix_evict`` — the radix prefix cache and
     its LRU eviction under pool pressure (each 0 or False disables;
-    the reference's defaults throughout).  ``device`` must be the
+    the reference's defaults throughout); ``reqtrace`` — record each
+    request's phase events (``req.*``) in the event sink (trace ids are
+    minted either way); ``replica_id`` — the label of this scheduler's
+    per-replica gauges.  ``device`` must be the
     chain's device (default ``cuda``).  The parameters after
-    ``max_queue`` are keyword-only: the reference's fifth positional
-    parameter is ``queue_timeout``, which the port does not have."""
+    ``max_queue`` are keyword-only, so no positional call binds the
+    reference's order (``queue_timeout`` is its fifth) to other
+    knobs."""
 
     #: a slot's draft length halves below this accept-rate EMA and
     #: doubles above ``DRAFT_GROW`` (the reference's thresholds)
     DRAFT_SHRINK, DRAFT_GROW = 0.5, 0.8
 
     def __init__(self, forwards, max_slots=4, window=None, max_queue=32,
-                 *, block_size=16, kv_blocks=None, kv_dtype="fp32",
-                 prefill_chunk=64, spec=True, spec_k=4, fused_verify=False,
-                 draft_k_min=1, draft_ema=0.5, request_timeout=120.0,
-                 watchdog=300.0, shed_block_factor=4.0, prefix_cache=True,
-                 prefix_evict=True, device=None):
+                 *, queue_timeout=30.0, block_size=16, kv_blocks=None,
+                 kv_dtype="fp32", prefill_chunk=64, spec=True, spec_k=4,
+                 fused_verify=False, draft_k_min=1, draft_ema=0.5,
+                 request_timeout=120.0, watchdog=300.0,
+                 shed_block_factor=4.0, prefix_cache=True,
+                 prefix_evict=True, reqtrace=True, replica_id=None,
+                 device=None):
         self.device = resolve_device(device)
         if any(u.device != self.device for u in forwards):
             raise ValueError("the chain lies on %s, the scheduler was "
@@ -270,6 +299,7 @@ class InferenceScheduler(object):
         self.max_slots = int(max_slots)
         self.window = int(window)
         self.max_queue = int(max_queue)
+        self.queue_timeout = float(queue_timeout or 0)
         self.block_size = int(block_size)
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
@@ -329,27 +359,19 @@ class InferenceScheduler(object):
         self.verify_steps = 0
         self.decode_tokens = 0
         self.decode_seconds = 0.0
-        #: the tokens the verify steps emitted (part of decode_tokens),
-        #: the drafts proposed, and those the verify passes kept
+        #: the tokens the verify steps emitted (part of decode_tokens)
         self.verify_tokens = 0
-        self.spec_drafted_tokens = 0
-        self.spec_accepted_tokens = 0
-        #: lifecycle counters, under the reference's ``metrics()`` names:
-        #: tokens the chunked-prefill ticks ran; requests that expired
-        #: (queued or in flight), were cancelled, shed by block pressure
-        #: or a higher class, or rejected (sheds, a full queue, a
-        #: drain); preemptions, resumed re-prefills and watchdog trips
-        self.prefill_chunk_tokens = 0
-        self.requests_expired = 0
-        self.requests_cancelled = 0
-        self.requests_shed = 0
-        self.requests_rejected = 0
-        self.preempts = 0
-        self.preempt_resumes = 0
-        self.watchdog_trips = 0
         #: (time to first token, request latency) in seconds, one pair
         #: per completed request, from submit
         self.completed = []
+        #: the label of this scheduler's per-replica series
+        self.replica_id = str(replica_id) if replica_id \
+            else "sched%d" % next(_SCHED_SEQ)
+        #: counters and latency windows behind ``metrics()``, mirrored
+        #: into the process-wide registry
+        self.stats = ServingMetrics(replica=self.replica_id)
+        #: request tracing: phase events on (trace ids minted either way)
+        self._tron = bool(reqtrace)
         self.error = None            # what killed the loop, if anything
         self._queue = collections.deque()
         self._active = {}            # slot -> _Request (decoding)
@@ -372,6 +394,27 @@ class InferenceScheduler(object):
         self._ready = threading.Event()
         self.cache_ = None           # built by the loop thread
         self.prefix_ = None          # radix cache (loop thread too)
+
+    # the lifecycle and spec counters, read from ``stats`` under the
+    # reference's ``metrics()`` names: drafts proposed and kept; tokens
+    # the chunked-prefill ticks ran; requests that expired (queued or
+    # in flight), were cancelled, shed by block pressure or a higher
+    # class, or rejected (sheds, a full queue, a drain); preemptions,
+    # resumed re-prefills and watchdog trips
+
+    spec_drafted_tokens = property(lambda self:
+                                   self.stats.spec_drafted_tokens)
+    spec_accepted_tokens = property(lambda self:
+                                    self.stats.spec_accepted_tokens)
+    prefill_chunk_tokens = property(lambda self:
+                                    self.stats.prefill_chunk_tokens)
+    requests_expired = property(lambda self: self.stats.expired)
+    requests_cancelled = property(lambda self: self.stats.cancelled)
+    requests_shed = property(lambda self: self.stats.shed)
+    requests_rejected = property(lambda self: self.stats.rejected)
+    preempts = property(lambda self: self.stats.preempts)
+    preempt_resumes = property(lambda self: self.stats.preempt_resumes)
+    watchdog_trips = property(lambda self: self.stats.watchdog_trips)
 
     @property
     def spec_accept_rate(self):
@@ -434,11 +477,14 @@ class InferenceScheduler(object):
                     target=self._watchdog_loop, daemon=True,
                     name="serving-watchdog")
                 self._watchdog_thread.start()
+        # the in-flight registry (held weakly: close() needs no
+        # deregistration)
+        tracing.register("scheduler", self)
         return self
 
     def submit(self, prompt, steps, temperature=0.0, top_k=0, seed=None,
                stop_token=None, timeout=None, priority=None, *,
-               resume_tokens=None):
+               trace=None, resume_tokens=None):
         """Queue one sequence; returns a Future whose result is the
         prompt followed by the generated tokens (ending at the first
         generated stop token, if one fired).
@@ -447,7 +493,9 @@ class InferenceScheduler(object):
         ``request_timeout``; it covers queueing and decoding).
         ``priority`` ("low"/"normal"/"high" or 0-2, default normal) sets
         the request's class: admission order, shed threshold and
-        Retry-After, and preemption victimhood.  ``resume_tokens``
+        Retry-After, and preemption victimhood.  ``trace`` attaches a
+        request trace id (sanitized; None mints one): every phase event
+        of the request carries it.  ``resume_tokens``
         adopts an already-generated prefix: the request admits with it
         as its generated tokens, re-prefills prompt + prefix and draws
         its next token at counter ``len(resume_tokens)``, so the stream
@@ -486,11 +534,13 @@ class InferenceScheduler(object):
                              "temperature > 0")
         if seed is None:
             seed = int.from_bytes(os.urandom(4), "little")
-        ttl = float(timeout or self.request_timeout or 0)
+        ttl = float(timeout or self.request_timeout
+                    or self.queue_timeout or 0)
         req = _Request(prompt, steps, temperature, top_k,
                        int(stop_token) if stop_token is not None else None,
                        int(seed) & 0xFFFFFFFF,
-                       time.monotonic() + ttl if ttl > 0 else None, prio)
+                       time.monotonic() + ttl if ttl > 0 else None, prio,
+                       trace=tracing.ensure_trace_id(trace))
         req.generated = resume
         self._admission_enqueue(req)
         return req.future
@@ -501,15 +551,16 @@ class InferenceScheduler(object):
         one), then the class-fractioned block-pressure shed."""
         prio = req.priority
         need = self._blocks_for(req)
+        cls = CLASS_NAMES[prio]
         with self._wake:
             if self._closed:
                 raise SchedulerError("scheduler is closed")
             if self._draining:
-                self.requests_rejected += 1
+                self.stats.record_reject(len(self._queue))
                 raise DrainingError("scheduler is draining")
             if len(self._queue) >= self.max_queue \
                     and not self._evict_queued_locked(prio):
-                self.requests_rejected += 1
+                self.stats.record_reject(len(self._queue))
                 err = QueueFullError("serving queue full (%d waiting)"
                                      % len(self._queue))
                 err.retry_after = _RETRY_AFTER[prio]
@@ -518,16 +569,16 @@ class InferenceScheduler(object):
                     and self._queued_blocks + need \
                     > self.shed_block_factor * _SHED_FRAC[prio] \
                     * self.kv_blocks:
-                self.requests_shed += 1
-                self.requests_rejected += 1
+                self.stats.record_shed(self._queued_blocks, cls=cls,
+                                       trace=req.trace)
                 err = QueueFullError(
                     "overloaded: %d KV blocks committed in-queue (pool "
                     "%d, %s-class shed at factor %.1f)"
-                    % (self._queued_blocks, self.kv_blocks,
-                       CLASS_NAMES[prio],
+                    % (self._queued_blocks, self.kv_blocks, cls,
                        self.shed_block_factor * _SHED_FRAC[prio]))
                 err.retry_after = _RETRY_AFTER[prio]
                 raise err
+            self.stats.record_submit(cls=cls)
             self._enqueue_locked(req)
             self._queued_blocks += need
             self._wake.notify()
@@ -560,8 +611,9 @@ class InferenceScheduler(object):
             return False
         self._queue.remove(victim)
         self._queued_blocks -= self._blocks_for(victim)
-        self.requests_shed += 1
-        self.requests_rejected += 1
+        self.stats.record_shed(self._queued_blocks,
+                               cls=CLASS_NAMES[victim.priority],
+                               trace=victim.trace)
         err = QueueFullError("shed while queued: a higher-priority "
                              "request took the last queue seat")
         err.retry_after = _RETRY_AFTER[victim.priority]
@@ -594,13 +646,13 @@ class InferenceScheduler(object):
                         victim = req
                         self._wake.notify()
                         break
-            if victim is not None and victim.slot is None \
-                    and not victim.cancelled:
-                self.requests_cancelled += 1
         if victim is None:
             return False
         if victim.slot is None and not victim.cancelled:
+            # was queued: nothing on the card to release
             victim.fail(RequestCancelledError(reason))
+            self.stats.record_cancel(len(victim.generated),
+                                     trace=victim.trace)
         return True
 
     def request_preempt(self, n=1, below=None):
@@ -627,6 +679,7 @@ class InferenceScheduler(object):
                 self._drained.set()
             self._wake.notify()
         if first:
+            self.stats.record_drain()
             log.info("draining: admission closed, %d in flight",
                      self.in_flight)
         if timeout is not None:
@@ -648,6 +701,120 @@ class InferenceScheduler(object):
         with self._lock:
             return len(self._queue) + len(self._prefilling) \
                 + len(self._active) + len(self._admitting)
+
+    def _kv_snapshot(self):
+        """The KV, speculative-decoding and prefix-cache part of
+        :meth:`metrics`.  The loop thread owns the cache and the trie;
+        these reads are monitoring-grade (``len()`` and int reads)."""
+        cache = self.cache_
+        out = {"kv_mode": "paged",
+               "prefill_chunk": self.prefill_chunk,
+               "prefilling": len(self._prefilling),
+               "tp": 0,
+               "role": "both",
+               "replica": self.replica_id,
+               "kv_exports_pending": 0,
+               "kv_dtype": self.kv_dtype,
+               "kv_bytes_per_token":
+                   cache.bytes_per_token() if cache is not None else None,
+               "kv_block_size": self.block_size,
+               "kv_blocks_total": self.kv_blocks,
+               "kv_blocks_used": cache.used_blocks if cache is not None
+               else 0,
+               "kv_blocks_free": cache.free_blocks if cache is not None
+               else self.kv_blocks,
+               "spec": self.spec,
+               "spec_k": self.spec_k if self.spec else 0,
+               "drafter": "ngram" if self.spec else None,
+               "draft_k_min": self.draft_k_min if self.spec else 0}
+        pfx = self.prefix_
+        out["prefix_cache"] = pfx is not None
+        if pfx is not None:
+            total = pfx.hits + pfx.misses
+            out["prefix_cache_hits"] = pfx.hits
+            out["prefix_cache_misses"] = pfx.misses
+            out["prefix_cache_evictions"] = pfx.evictions
+            out["prefix_cache_hit_blocks"] = pfx.hit_blocks
+            out["prefix_cache_blocks_resident"] = pfx.resident
+            out["prefix_cache_hit_rate"] = \
+                round(pfx.hits / total, 4) if total else None
+            # the trie walks: its shared blocks, and the rolling digests
+            # of every resident prefix (what a router would match
+            # prompts against).  A walk that meets a node list the loop
+            # is changing raises, and is taken again
+            for attempt in range(8):
+                try:
+                    shared = pfx.shared_blocks()
+                    digests = pfx.path_digests(_DIGEST_MAX)
+                    break
+                except RuntimeError:
+                    if attempt == 7:
+                        raise
+            out["prefix_cache_blocks_shared"] = shared
+            out["prefix_digests"] = digests
+        return out
+
+    def metrics(self):
+        """The serving snapshot (the reference's ``metrics()`` keys):
+        request, token, slot-step, prefill, lifecycle and speculative
+        counters, TTFT and queue-wait percentiles, goodput and padding
+        efficiency over the recent steps, the SLO block, and the queue,
+        KV and prefix-cache state.  The keys of features the port does
+        not have read as the reference's do with them off."""
+        with self._lock:
+            depth, active = len(self._queue), len(self._active)
+            draining = self._draining
+            queued_blocks = self._queued_blocks
+        snap = self.stats.snapshot(queue_depth=depth, active_slots=active,
+                                   max_slots=self.max_slots,
+                                   kv=self._kv_snapshot())
+        snap["window"] = self.window
+        snap["draining"] = draining
+        snap["drained"] = self._drained.is_set()
+        snap["queued_kv_blocks"] = queued_blocks
+        snap["tenants"] = self.stats.tenant_usage_snapshot()
+        return snap
+
+    def debug_requests(self):
+        """The live in-flight table: one row per request still owed an
+        answer, with its trace id, phase (queued, admitting, prefill,
+        decode), class, age, tokens and the KV blocks it holds.  The
+        loop owns the cache's tables, so block counts are
+        monitoring-grade reads, not a transaction."""
+        now = time.monotonic()
+        cache = self.cache_
+        with self._lock:
+            rows = [("queued", r) for r in self._queue] \
+                + [("admitting", r) for r in self._admitting] \
+                + [("prefill", r) for r in self._prefilling] \
+                + [("decode", r) for r in self._active.values()]
+        out = []
+        for phase, req in rows:
+            blocks = shared = 0
+            if req.slot is not None and cache is not None:
+                blocks = int(cache.n_blocks[req.slot])
+                shared = int(cache.n_shared[req.slot])
+            row = {
+                "trace": req.trace,
+                "phase": phase,
+                "cls": CLASS_NAMES[req.priority],
+                "tenant": None,
+                "age_s": round(now - req.t_submit, 3),
+                "prompt_tokens": len(req.prompt),
+                "tokens": len(req.generated),
+                "steps": req.steps,
+                "blocks": blocks,
+                "blocks_shared": shared,
+                "blocks_budget": self._blocks_for(req),
+                "preempts": req.preempts,
+                "stream": False,
+                "deadline_in_s": round(req.deadline - now, 3)
+                if req.deadline is not None else None,
+            }
+            if phase == "prefill":
+                row["prefill_off"] = req.pf_off
+            out.append(row)
+        return out
 
     def check_kv(self):
         """The paged cache's invariant sweep, the prefix cache's
@@ -704,6 +871,8 @@ class InferenceScheduler(object):
                 kv_dtype=self.kv_dtype)
             if self.prefix_cache:
                 self.prefix_ = RadixPrefixCache(self.block_size)
+            self.stats.set_kv_dtype(self.kv_dtype,
+                                    self.cache_.bytes_per_token())
         except Exception as e:
             self.error = e
             with self._wake:
@@ -771,6 +940,7 @@ class InferenceScheduler(object):
             faults.fire("serving.scheduler.loop")
             self._reap(cache)
             self._do_preempts(cache)
+            self._sync_kv_gauges(cache)
             for req in admits:
                 self._begin_admit(req, cache)
                 with self._lock:
@@ -808,13 +978,17 @@ class InferenceScheduler(object):
             seq = list(req.prompt) + list(req.generated)
             handle = self.prefix_.match(
                 seq, max_blocks=(len(seq) - 1) // cache.block_size)
+            self.stats.record_prefix_lookup(len(handle), cache.block_size)
             if not len(handle):
                 handle = None
         matched = len(handle) if handle is not None else 0
         need_new = cache.blocks_needed(total) - matched
         if self.prefix_ is not None and self.prefix_evict \
                 and need_new > cache.free_blocks:
-            cache.reclaim(self.prefix_.evict(need_new - cache.free_blocks))
+            freed = self.prefix_.evict(need_new - cache.free_blocks)
+            if freed:
+                cache.reclaim(freed)
+                self.stats.record_prefix_evict(len(freed))
         slot = cache.alloc(
             total, shared=handle.blocks if handle is not None else ())
         if slot is None:
@@ -858,8 +1032,13 @@ class InferenceScheduler(object):
                 _, rejected = self.prefix_.insert(seq, shared + donated)
                 if rejected:  # an identical twin donated first
                     cache.reclaim(rejected)
+            self.stats.set_prefix_blocks(self.prefix_.resident,
+                                         self.prefix_.shared_blocks())
         req.slot = None
         req.pf_matched = 0
+
+    def _sync_kv_gauges(self, cache):
+        self.stats.set_kv_blocks(cache.used_blocks, cache.free_blocks)
 
     def _reap(self, cache):
         """Boundary sweep over the in-flight set: release the slot and
@@ -873,19 +1052,19 @@ class InferenceScheduler(object):
                 self._drop_inflight(req, cache)
             elif req.cancelled:
                 self._drop_inflight(req, cache)
-                with self._lock:
-                    self.requests_cancelled += 1
+                self.stats.record_cancel(len(req.generated),
+                                         trace=req.trace)
                 req.fail(RequestCancelledError(
                     "cancelled after %d generated tokens"
                     % len(req.generated)))
             elif req.deadline is not None and now > req.deadline:
                 self._drop_inflight(req, cache)
-                with self._lock:
-                    self.requests_expired += 1
+                age_ms = (now - req.t_submit) * 1e3
+                self.stats.record_expire(age_ms, tokens=len(req.generated),
+                                         trace=req.trace)
                 req.fail(DeadlineExceededError(
                     "deadline exceeded after %.0f ms (%d tokens "
-                    "generated)" % ((now - req.t_submit) * 1e3,
-                                    len(req.generated)),
+                    "generated)" % (age_ms, len(req.generated)),
                     tokens_generated=len(req.generated)))
 
     def _drop_inflight(self, req, cache):
@@ -897,6 +1076,7 @@ class InferenceScheduler(object):
             self._active.pop(req.slot, None)
         self._release_slot(req, cache)
         req.pf_seq = req.pf_caches = None
+        self._sync_kv_gauges(cache)
 
     def _do_preempts(self, cache):
         """Evict the owed preemptions: lowest class first, youngest
@@ -919,8 +1099,11 @@ class InferenceScheduler(object):
                 self._active.pop(req.slot, None)
             self._release_slot(req, cache)
             req.preempts += 1
+            self.stats.record_preempt(len(req.generated),
+                                      cls=CLASS_NAMES[req.priority],
+                                      trace=req.trace)
+            self._sync_kv_gauges(cache)
             with self._lock:
-                self.preempts += 1
                 self._enqueue_locked(req, front=True)
                 self._queued_blocks += self._blocks_for(req)
 
@@ -942,7 +1125,6 @@ class InferenceScheduler(object):
                 continue
             with self._lock:
                 self._tripped_beat = beat
-                self.watchdog_trips += 1
                 victims = [r for r in list(self._queue)
                            + list(self._prefilling)
                            + list(self._active.values())
@@ -953,6 +1135,7 @@ class InferenceScheduler(object):
                 "failed instead of hanging" % (stalled, self.watchdog))
             for req in victims:
                 req.fail(err)
+            self.stats.record_watchdog_trip(len(victims), stalled)
             log.warning("decode loop stalled %.1fs — failed %d pending "
                         "requests", stalled, len(victims))
 
@@ -967,10 +1150,12 @@ class InferenceScheduler(object):
                 self._queued_blocks -= self._blocks_for(req)
             elif req.deadline is not None and now > req.deadline:
                 self._queued_blocks -= self._blocks_for(req)
-                self.requests_expired += 1
+                queued_ms = (now - req.t_submit) * 1e3
+                self.stats.record_expire(queued_ms,
+                                         tokens=len(req.generated),
+                                         trace=req.trace)
                 req.fail(DeadlineExceededError(
-                    "queued %.0f ms without a free slot"
-                    % ((now - req.t_submit) * 1e3),
+                    "queued %.0f ms without a free slot" % queued_ms,
                     tokens_generated=len(req.generated)))
             else:
                 kept.append(req)
@@ -997,7 +1182,20 @@ class InferenceScheduler(object):
         req.t_admit = time.monotonic()
         req.pf_seq = list(req.prompt) + list(req.generated)
         if req.preempts and req.generated:
-            self.preempt_resumes += 1
+            self.stats.record_resume(len(req.pf_seq))
+        if self._tron:
+            # the queue wait [submit, admit], then the admission: warm
+            # blocks matched and cold blocks claimed
+            tracing.record(req.trace, "queue",
+                           duration=req.t_admit - req.t_submit,
+                           cls=CLASS_NAMES[req.priority], tenant=None,
+                           resume=bool(req.preempts))
+            tracing.record(req.trace, "admit", slot=req.slot,
+                           tokens=len(req.pf_seq),
+                           warm_blocks=req.pf_matched,
+                           blocks_claimed=max(0, self._blocks_for(req)
+                                              - req.pf_matched),
+                           resume=bool(req.preempts))
         if req.pf_matched:
             self._admit_warm(req, cache)
             return
@@ -1048,6 +1246,7 @@ class InferenceScheduler(object):
         p_w = min(width, max(self.window, p_len))
         padded = numpy.zeros((1, p_w), numpy.int32)
         padded[0, :p_len] = req.pf_seq
+        t0 = time.perf_counter()
         try:
             faults.fire("serving.scheduler.prefill")
             row_caches, last = prefill(self.forwards, padded,
@@ -1055,6 +1254,9 @@ class InferenceScheduler(object):
         except Exception as e:
             self._retire(req, cache, error=e)
             return
+        if self._tron:
+            tracing.record(req.trace, "prefill",
+                           duration=time.perf_counter() - t0, tokens=p_len)
         self._finish_admit(req, cache, row_caches, last)
 
     def _prefill_tick(self, cache):
@@ -1071,6 +1273,7 @@ class InferenceScheduler(object):
         padded = numpy.zeros((1, c), numpy.int32)
         padded[0, :clen] = req.pf_seq[off:end]
         kw = _bucket(off + c, c, req.pf_width)
+        t0 = time.perf_counter()
         try:
             faults.fire("serving.scheduler.prefill")
             req.pf_caches, last = prefill_chunk(
@@ -1082,7 +1285,11 @@ class InferenceScheduler(object):
                     self._prefilling.remove(req)
             self._retire(req, cache, error=e)
             return
-        self.prefill_chunk_tokens += clen
+        dt = time.perf_counter() - t0
+        self.stats.record_prefill_chunk(clen, dt * 1e3)
+        if self._tron:
+            tracing.record(req.trace, "prefill_chunk", duration=dt, off=off,
+                           tokens=clen)
         req.pf_off = end
         if end >= p_len:
             with self._lock:
@@ -1112,8 +1319,15 @@ class InferenceScheduler(object):
                                [req.seed],
                                counts=[len(req.generated)])[0])
         self._emit(req, tok)
-        if req.t_first is None:
+        if req.t_first is None:   # TTFT is the FIRST first token only
             req.t_first = time.monotonic()
+            ttft_ms = (req.t_first - req.t_submit) * 1e3
+            self.stats.record_first_token(
+                ttft_ms, (req.t_admit - req.t_submit) * 1e3,
+                cls=CLASS_NAMES[req.priority])
+            if self._tron:
+                tracing.record(req.trace, "first_token",
+                               ttft_ms=round(ttft_ms, 3))
         with self._lock:
             self._active[req.slot] = req
         self._maybe_finish(req, cache)
@@ -1165,13 +1379,23 @@ class InferenceScheduler(object):
         t0 = time.perf_counter()
         nxt = paged_decode_step(self.forwards, cache, toks, pos, tables,
                                 temps, topks, seeds, counts)
-        self.decode_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.decode_seconds += dt
         self.decode_steps += 1
         self.decode_tokens += n
+        # plain decode: every active slot emits exactly one token
+        self.stats.record_step(n, b, tokens=n, duration_s=dt)
         for j, slot in enumerate(slots):
             req = active[slot]
             self._emit(req, int(nxt[j]))
             self._maybe_finish(req, cache)
+        if self._tron:
+            emitted = {}
+            for slot in slots:   # rows may share a client's trace id
+                tr = active[slot].trace
+                emitted[tr] = emitted.get(tr, 0) + 1
+            tracing.record_step(emitted, duration=dt, mode="decode",
+                                slots=n, bucket=b)
 
     def _draft(self, active):
         """Draft tokens per slot: up to its adaptive ``draft_k``, capped
@@ -1211,8 +1435,8 @@ class InferenceScheduler(object):
             req.draft_k = max(self.draft_k_min, req.draft_k >> 1)
         elif ema > self.DRAFT_GROW:
             req.draft_k = min(self.spec_k, req.draft_k << 1)
-        self.spec_drafted_tokens += drafted
-        self.spec_accepted_tokens += accepted
+        self.stats.record_spec(drafted, accepted, drafter="ngram",
+                               draft_k=req.draft_k)
 
     def _step_verify(self, cache, active, drafts):
         """Speculative step: every active slot rides ONE verify pass of
@@ -1254,8 +1478,10 @@ class InferenceScheduler(object):
         nxt = verify_step_paged(self.forwards, cache, toks, pos, lens,
                                 tables, temps, topks, seeds, counts,
                                 fused_verify=self.fused_verify)
-        self.decode_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.decode_seconds += dt
         self.verify_steps += 1
+        traced = {}
         for j, slot in enumerate(slots):
             req = active[slot]
             d = drafts.get(slot, [])
@@ -1272,7 +1498,14 @@ class InferenceScheduler(object):
             self.verify_tokens += emitted
             if d:
                 self._adapt_draft_k(req, len(d), len(out) - 1)
+            traced[req.trace] = traced.get(req.trace, 0) + emitted
             self._maybe_finish(req, cache)
+        # recorded after acceptance: goodput counts what the pass emitted
+        self.stats.record_step(n, b, tokens=sum(traced.values()),
+                               duration_s=dt)
+        if self._tron:
+            tracing.record_step(traced, duration=dt, mode="verify",
+                                slots=n, bucket=b, k=k)
 
     def _maybe_finish(self, req, cache):
         if len(req.generated) >= req.steps \
@@ -1288,6 +1521,16 @@ class InferenceScheduler(object):
         with self._lock:
             self._active.pop(req.slot, None)
         self._release_slot(req, cache, finished=error is None)
+        self._sync_kv_gauges(cache)
+        if self._tron:
+            # an instant at the retire boundary; total_s is the whole
+            # submit-to-retire time
+            tracing.record(req.trace, "retire", tokens=len(req.generated),
+                           total_s=round(time.monotonic() - req.t_submit,
+                                         6),
+                           preempts=req.preempts,
+                           outcome="ok" if error is None
+                           else type(error).__name__)
         if error is not None:
             req.fail(error if isinstance(error, SchedulerError)
                      else SchedulerError(repr(error)))
@@ -1297,6 +1540,11 @@ class InferenceScheduler(object):
         now = time.monotonic()
         self.completed.append((req.t_first - req.t_submit,
                                now - req.t_submit))
+        self.stats.record_complete(
+            len(req.generated), now - req.t_submit,
+            (req.t_first - req.t_submit) * 1e3,
+            (req.t_admit - req.t_submit) * 1e3,
+            cls=CLASS_NAMES[req.priority], trace=req.trace)
         try:
             req.future.set_result(list(req.prompt) + req.generated)
         except concurrent.futures.InvalidStateError:
