@@ -28,13 +28,19 @@ result line):
    its check by 5x, and timed as replays of a CUDA graph of one decode
    step's 24 launches as well as by an eager loop, and of one verify
    pass's at m 40 and 72); the general tiled GEMM (``pallas_matmul``,
-   both kernel families: MM_CASES — f32 and bf16 operands, int8 ``b``
+   every kernel variant: MM_CASES — f32 and bf16 operands, int8 ``b``
    with ``col_scale``, the fused ReLU and an unfused callable, bf16
-   output, shapes off the vector loads, the serving widths — each case's
-   launch plan printed, run twice bit-equal, a zeroed last k-tile of
-   ``b`` failing by 5x, timed at MM_TIMED as CUDA-graph replays beside
-   the library call, and its entry point driven once per timed shape
-   with its count zeroed just before and read just after); the three
+   output, shapes off the vector loads, the serving widths, and the
+   edges of the TMA + ``wgmma``, split-K and ``cp.async`` ring variants
+   (tiles one past and short, one k-tile, 16-byte and misaligned offset
+   views) — each case held to the variant its launch plan must name,
+   run twice bit-equal, planted faults (a zeroed last k-tile, a lost
+   split-K rank) failing by 5x; its entry point driven once per
+   MM_TIMED shape with its count zeroed just before and read just
+   after, each result held against the plain version; timed there as
+   CUDA-graph replays of one launch and of 20 back-to-back launches
+   beside the library call, and split-K against ``wgmma`` over m across
+   their crossover, each output checked); the three
    FlashAttention kernels
    (forward, dq, dk/dv) at the training shapes (b 4, s 2048, 16 heads
    of 128, bf16, causal), at hd 256 full length, and at small odd ones
@@ -151,9 +157,12 @@ one), with the host-paced eager loops under ``eager_ms`` and
 and the spec and lifecycle phases' launches under ``spec_launches``
 and ``lifecycle_launches``;
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
-and so are ``matmul``'s (one launch at bf16 4096^3, the other timed
-shapes under ``shapes``; its ``launches`` are its entry point's at the
-timed shapes, as no other path calls it);
+and so are ``matmul``'s (one launch per replay, at bf16 4096^3, the
+other timed shapes under ``shapes``; graphs of 20 back-to-back launches
+divided by 20 under ``ms_20`` and ``library_ms_20``, since a graph of
+one launch of a few microseconds times the host's replay rate; the
+split-K / ``wgmma`` crossover under ``crossover``; its ``launches`` are
+its entry point's at the timed shapes, as no other path calls it);
 every other kernel's ``ms`` and ``library_ms``, and every ``plain_ms``,
 are eager loops timed by CUDA events.
 """
@@ -182,35 +191,126 @@ GEMM_ROWS = (1, 2, 4, 8, 13, 136)
 GEMM_FAULT_MIN = 5.0
 
 #: the general tiled GEMM (``pallas_matmul`` without ``col_scale`` as
-#: well as with it): (m, k, n, a type, b int8 with col_scale, epilogue,
-#: out type) — the CPU tests' shapes (the JAX tests' 128 x 256 x 128,
-#: 128^3 with ReLU, 8 x 64 x 128), shapes that tile only by min(block,
-#: dim) (m 100, k 50) and off the 8-element loads, int8 b, a bf16 output,
-#: a callable the kernel does not fuse, the serving widths (m 8/40/72 x
-#: 1024 x 4096, bf16) and the large tiles; each run twice bit-equal
-MM_CASES = [(128, 256, 128, "float32", False, None, "float32"),
-            (128, 128, 128, "float32", False, "relu", "float32"),
-            (8, 64, 128, "float32", False, None, "float32"),
-            (100, 50, 64, "float32", False, None, "float32"),
-            (100, 50, 72, "bfloat16", True, "relu", "float32"),
-            (64, 128, 96, "bfloat16", False, None, "bfloat16"),
-            (24, 40, 32, "float32", False, "tanh", "float32"),
-            (24, 40, 32, "bfloat16", False, "tanh", "bfloat16"),
-            (8, DIM, 4 * DIM, "bfloat16", False, None, "float32"),
-            (40, DIM, 4 * DIM, "bfloat16", False, None, "float32"),
-            (72, DIM, 4 * DIM, "bfloat16", False, "relu", "float32"),
-            (72, DIM, 4 * DIM, "bfloat16", True, None, "bfloat16"),
-            (512, 384, 512, "bfloat16", False, "relu", "float32"),
-            (256, 258, 256, "float32", True, None, "bfloat16"),
-            (256, 500, 512, "bfloat16", False, "tanh", "bfloat16"),
-            (1024, 1024, 1024, "float32", False, None, "float32")]
+#: well as with it), each case with the variant its plan must name
+#: (``ops.gemm.matmul_plan``): (m, k, n, a type, b — "same" (a's type),
+#: "int8" (with col_scale) or "scaled" (a's type with col_scale) —,
+#: epilogue, out type, offset of both operands into their buffers in
+#: elements, variant, planted fault — None, "k_tile" (b's last k-tile
+#: zeroed) or "rank" (the last split-K rank's k rows of b zeroed)).  Every
+#: case passes ``block_*`` equal to its dims, so it tiles.  The CPU tests'
+#: shapes (the JAX tests' 128 x 256 x 128, 128^3 with ReLU, 8 x 64 x
+#: 128), shapes that tile only by min(block, dim) (m 100, k 50) and off
+#: the 8-element loads, int8 b, a bf16 output, a callable the kernel does
+#: not fuse, the serving widths (m 1/8/9/16/40/72/136 x 1024 x 4096,
+#: bf16) and the large tiles; then each new variant's edges: wgmma at m
+#: one past and one short of its 128-row tile, n and k 8 past and 8 short
+#: of its tiles (64-column boxes, 64-deep k-tiles) at each of its three
+#: tile widths, one k-tile; split_k at k one half step past and short of
+#: 1024, n 8 past and short of its 64 columns, one k16 step, n under 64
+#: at m 100 (its 32-row tiles); simt_pipe past and short of its 128- and
+#: 32-row tiles and its 16-deep stages, one stage; for each a bf16 output
+#: with ReLU and col_scale, a 16-byte offset view (the new variant) and a
+#: 2- or 4-byte one (the register-staged kernels); and the two timed
+#: squares, bf16 4096^3 (wgmma's persistent CTAs, each walking 3-4
+#: tiles with the ring running on) and f32 2048^3; each run twice
+#: bit-equal
+MM_CASES = [
+    (128, 256, 128, "float32", "same", None, "float32", 0, "simt_pipe", None),
+    (128, 128, 128, "float32", "same", "relu", "float32", 0, "simt_pipe",
+     None),
+    (8, 64, 128, "float32", "same", None, "float32", 0, "simt_pipe", None),
+    (100, 50, 64, "float32", "same", None, "float32", 0, "simt_pipe", None),
+    (100, 50, 72, "bfloat16", "int8", "relu", "float32", 0, "tc_small",
+     None),
+    (64, 128, 96, "bfloat16", "same", None, "bfloat16", 0, "wgmma", None),
+    (24, 40, 32, "float32", "same", "tanh", "float32", 0, "simt_pipe", None),
+    (24, 40, 32, "bfloat16", "same", "tanh", "bfloat16", 0, "split_k", None),
+    (8, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 0, "split_k",
+     "rank"),
+    (40, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 0, "wgmma",
+     None),
+    (72, DIM, 4 * DIM, "bfloat16", "same", "relu", "float32", 0, "wgmma",
+     "k_tile"),
+    (72, DIM, 4 * DIM, "bfloat16", "int8", None, "bfloat16", 0, "tc_small",
+     None),
+    (512, 384, 512, "bfloat16", "same", "relu", "float32", 0, "wgmma", None),
+    (256, 258, 256, "float32", "int8", None, "bfloat16", 0, "simt_big", None),
+    (256, 500, 512, "bfloat16", "same", "tanh", "bfloat16", 0, "tc_big",
+     None),
+    (1024, 1024, 1024, "float32", "same", None, "float32", 0, "simt_pipe",
+     "k_tile"),
+    # wgmma: m past / short of 128, n and k past / short of their tiles,
+    # at the 64-, 128- and 256-column tiles; one k-tile
+    (129, 136, 264, "bfloat16", "same", None, "float32", 0, "wgmma", None),
+    (127, 120, 248, "bfloat16", "same", None, "float32", 0, "wgmma", None),
+    (1023, 1016, 2040, "bfloat16", "same", None, "float32", 0, "wgmma",
+     "k_tile"),
+    (1537, 520, 2824, "bfloat16", "same", None, "float32", 0, "wgmma", None),
+    (256, 64, 512, "bfloat16", "same", None, "float32", 0, "wgmma", None),
+    (384, 256, 512, "bfloat16", "scaled", "relu", "bfloat16", 0, "wgmma",
+     None),
+    (384, 256, 512, "bfloat16", "same", None, "float32", 8, "wgmma", None),
+    (384, 256, 512, "bfloat16", "same", None, "float32", 1, "tc_big", None),
+    # split_k: the serving rows, k a half step past / short of 1024, n 8
+    # past / short of its 64 columns, one k16 step, n under 64
+    (1, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 0, "split_k",
+     None),
+    (9, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 0, "split_k",
+     None),
+    (16, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 0, "split_k",
+     "k_tile"),
+    (136, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 0, "wgmma",
+     None),
+    (8, DIM + 8, 4 * DIM + 8, "bfloat16", "same", None, "float32", 0,
+     "split_k", None),
+    (9, DIM - 8, 4 * DIM - 8, "bfloat16", "same", None, "float32", 0,
+     "split_k", "rank"),
+    (8, 16, 4 * DIM, "bfloat16", "same", None, "float32", 0, "split_k",
+     None),
+    (100, 72, 56, "bfloat16", "same", None, "float32", 0, "split_k", None),
+    (8, DIM, 4 * DIM, "bfloat16", "scaled", "relu", "bfloat16", 0,
+     "split_k", None),
+    (8, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 8, "split_k",
+     None),
+    (8, DIM, 4 * DIM, "bfloat16", "same", None, "float32", 1, "tc_small",
+     None),
+    # simt_pipe: past / short of its 128- and 32-row tiles and 16-deep
+    # stages, one stage
+    (257, 264, 264, "float32", "same", None, "float32", 0, "simt_pipe",
+     None),
+    (255, 248, 248, "float32", "same", None, "float32", 0, "simt_pipe",
+     None),
+    (64, 16, 128, "float32", "same", None, "float32", 0, "simt_pipe", None),
+    (8, DIM, 4 * DIM, "float32", "same", None, "float32", 0, "simt_pipe",
+     "k_tile"),
+    (256, 128, 256, "float32", "scaled", "relu", "bfloat16", 0, "simt_pipe",
+     None),
+    (256, 128, 256, "float32", "same", None, "float32", 4, "simt_pipe",
+     None),
+    (256, 128, 256, "float32", "same", None, "float32", 1, "simt_big",
+     None),
+    # the timed squares
+    (4096, 4096, 4096, "bfloat16", "same", None, "float32", 0, "wgmma",
+     "k_tile"),
+    (2048, 2048, 2048, "float32", "same", None, "float32", 0, "simt_pipe",
+     None)]
 #: the timed shapes: (label, m, k, n, type) — the operations-bound
-#: squares and the serving width, which the weight bytes bound
+#: squares, the serving width, which the weight bytes bound, and the
+#: verify widths on each side of the split_k / wgmma crossover
 MM_TIMED = (("bf16 4096^3", 4096, 4096, 4096, "bfloat16"),
             ("f32 2048^3", 2048, 2048, 2048, "float32"),
-            ("bf16 8x1024x4096", 8, DIM, 4 * DIM, "bfloat16"))
-#: how far the kernel run on b with its last k-tile zeroed must fail
+            ("bf16 8x1024x4096", 8, DIM, 4 * DIM, "bfloat16"),
+            ("bf16 72x1024x4096", 72, DIM, 4 * DIM, "bfloat16"),
+            ("bf16 136x1024x4096", 136, DIM, 4 * DIM, "bfloat16"))
+#: the rows at which split_k and wgmma (``gemm.matmul_variant``) are
+#: timed against each other at 1024 x 4096 (bf16): their crossover
+MM_CROSSOVER_M = (8, 16, 24, 40, 72, 136)
+#: how far the kernel run on a planted fault must fail
 MM_FAULT_MIN = 5.0
+#: launches per CUDA graph in the matmul's ``ms_20`` timings (its ``ms``
+#: replays a graph of one launch, which for a launch of a few
+#: microseconds measures the host's replay rate)
+MM_GRAPH_CALLS = 20
 
 #: the spec phase (``bench.py``'s ``bench_spec`` on a chip: the serving
 #: model above at full depth, trained to continue the 12-token pattern
@@ -682,17 +782,25 @@ def check_gemm(torch, dev, rng):
     return worst
 
 
-def _mm_inputs(torch, dev, rng, m, k, n, dt, int8_b):
+def _mm_inputs(torch, dev, rng, m, k, n, dt, b_kind="same", offset=0):
+    """Operands of a matmul case: a [m, k] of ``dt``, b [k, n] of
+    ``dt`` or int8, col_scale [n] f32 for "int8" and "scaled" b (else
+    None); with ``offset``, a and b lie that many elements into their
+    buffers."""
     dtype = getattr(torch, dt)
     a = torch.as_tensor(rng.standard_normal((m, k)),
                         dtype=torch.float32).to(dev, dtype)
-    if int8_b:
+    if b_kind == "int8":
         b = torch.as_tensor(rng.integers(-127, 128, (k, n)),
                             dtype=torch.int8).to(dev)
-        return a, b, torch.as_tensor(rng.random(n) * 0.01,
-                                     dtype=torch.float32).to(dev)
-    return a, torch.as_tensor(rng.standard_normal((k, n)),
-                              dtype=torch.float32).to(dev, dtype), None
+    else:
+        b = torch.as_tensor(rng.standard_normal((k, n)),
+                            dtype=torch.float32).to(dev, dtype)
+    scale = None if b_kind == "same" else torch.as_tensor(
+        rng.random(n) * 0.01, dtype=torch.float32).to(dev)
+    if offset:
+        a, b = _offset_view(torch, a, offset), _offset_view(torch, b, offset)
+    return a, b, scale
 
 
 def mm_excess(got, want):
@@ -708,53 +816,69 @@ def mm_excess(got, want):
     return float((diff / (2.0 ** -7 * want.abs() + floor)).max())
 
 
+def _mm_fault(b, plan, fault):
+    """``b`` with a planted fault: its last k-tile (the plan's k per
+    tile) or its last split-K rank's k rows zeroed."""
+    lost = b.clone()
+    k = b.shape[0]
+    if fault == "k_tile":
+        lost[k - plan["bk"]:] = 0
+    else:
+        lost[(plan["cluster"] - 1) * plan["k_per_rank"]:] = 0
+    return lost
+
+
 def check_matmul(torch, dev, rng):
     """``pallas_matmul`` against ``pallas_matmul_plain`` (TF32 off) at
-    MM_CASES: each case's launch plan printed, two runs bit-equal, the
-    error within ``mm_excess``'s limit; at the serving width and at an
-    f32 square the kernel run on ``b`` with its last k-tile zeroed must
-    fail by MM_FAULT_MIN.  Returns the largest error."""
+    MM_CASES: each case on the variant its plan must name (printed), two
+    runs bit-equal, the error within ``mm_excess``'s limit, and each
+    planted fault failing by MM_FAULT_MIN.  Returns the largest error
+    and the cases run per variant."""
     from veles_tpu_torch import _build
     from veles_tpu_torch.ops import gemm
     torch.backends.cuda.matmul.allow_tf32 = False
     log("ptxas matmul:\n" + _build.ptxas_reports.get(
         "matmul", "(built before this process)").strip())
     eps = {None: None, "relu": torch.relu, "tanh": torch.tanh}
-    worst = 0.0
-    for m, k, n, dt, int8_b, ep, out_dt in MM_CASES:
-        a, b, scale = _mm_inputs(torch, dev, rng, m, k, n, dt, int8_b)
-        kw = dict(epilogue=eps[ep], out_dtype=getattr(torch, out_dt),
-                  col_scale=scale)
+    worst, per_variant = 0.0, {}
+    for m, k, n, dt, b_kind, ep, out_dt, offset, variant, fault in MM_CASES:
+        a, b, scale = _mm_inputs(torch, dev, rng, m, k, n, dt, b_kind,
+                                 offset)
+        kw = dict(block_m=m, block_n=n, block_k=k, epilogue=eps[ep],
+                  out_dtype=getattr(torch, out_dt), col_scale=scale)
+        plan = gemm.matmul_plan(a, b)
+        if plan["variant"] != variant:
+            raise SystemExit("matmul (%s m=%d k=%d n=%d, offset %d): plan "
+                             "names %s, not %s" % (dt, m, k, n, offset,
+                                                   plan["variant"], variant))
         first = gemm.pallas_matmul(a, b, **kw)
         second = gemm.pallas_matmul(a, b, **kw)
         want = gemm.pallas_matmul_plain(a, b, **kw)
-        plan = gemm.matmul_plan(a, b)
-        fault = None
-        if (m, k) in ((72, DIM), (1024, 1024)):
-            lost = b.clone()
-            lost[k - plan["bk"]:] = 0
-            fault = mm_excess(gemm.pallas_matmul(a, lost, **kw), want)
+        bad = None if fault is None else mm_excess(
+            gemm.pallas_matmul(a, _mm_fault(b, plan, fault), **kw), want)
         torch.cuda.synchronize()
         err = float((first.float() - want.float()).abs().max())
         excess = mm_excess(first, want)
         same = torch.equal(first, second)
-        log("matmul %s%s m=%d k=%d n=%d epilogue %s out %s: max_abs_err "
-            "%.3g, %.3g of the limit, twice bit-equal %s, plan %s%s"
-            % (dt, " x int8" if int8_b else "", m, k, n, ep, out_dt, err,
-               excess, same, plan, "" if fault is None else
-               "; last k-tile of b zeroed: %.3g of the limit" % fault))
+        log("matmul %s x %s m=%d k=%d n=%d offset %d epilogue %s out %s: "
+            "max_abs_err %.3g, %.3g of the limit, twice bit-equal %s, plan "
+            "%s%s" % (dt, b_kind, m, k, n, offset, ep, out_dt, err, excess,
+                      same, plan, "" if bad is None else
+                      "; planted %s: %.3g of the limit" % (fault, bad)))
         if not excess <= 1.0:
             raise SystemExit("matmul disagrees with its plain version (%s "
-                             "m=%d k=%d n=%d): %.3g of the limit"
-                             % (dt, m, k, n, excess))
+                             "m=%d k=%d n=%d, %s): %.3g of the limit"
+                             % (dt, m, k, n, variant, excess))
         if not same:
-            raise SystemExit("matmul is not deterministic")
-        if fault is not None and not fault >= MM_FAULT_MIN:
-            raise SystemExit("matmul: a lost k-tile fails the check by "
-                             "only %.3g" % fault)
+            raise SystemExit("matmul is not deterministic (%s)" % variant)
+        if bad is not None and not bad >= MM_FAULT_MIN:
+            raise SystemExit("matmul (%s): a planted %s fails the check by "
+                             "only %.3g" % (variant, fault, bad))
         worst = max(worst, err)
-    log("matmul: %d cases within their limits" % len(MM_CASES))
-    return worst
+        per_variant[variant] = per_variant.get(variant, 0) + 1
+    log("matmul: %d cases within their limits, by variant %s"
+        % (len(MM_CASES), per_variant))
+    return worst, per_variant
 
 
 def matmul_library(torch):
@@ -777,63 +901,131 @@ def matmul_library(torch):
 def matmul_path(torch, dev, rng):
     """The kernel's path: its public entry point ``pallas_matmul`` called
     once at each MM_TIMED shape with its count zeroed just before and
-    read just after (nothing else in the port calls it).  Returns the
-    count."""
+    read just after (nothing else in the port calls it), each result
+    then held against the plain version within ``mm_excess``'s limit.
+    Returns the count and the largest error."""
     from veles_tpu_torch.ops import gemm
-    work = [_mm_inputs(torch, dev, rng, m, k, n, dt, False)[:2]
+    work = [_mm_inputs(torch, dev, rng, m, k, n, dt)[:2]
             for _, m, k, n, dt in MM_TIMED]
     torch.cuda.synchronize()
     gemm.matmul_launches = 0
     outs = [gemm.pallas_matmul(a, b) for a, b in work]
     torch.cuda.synchronize()
     count = gemm.matmul_launches
-    if count != len(MM_TIMED) or not all(
-            bool(torch.isfinite(o).all()) for o in outs):
-        raise SystemExit("matmul path: %d launches for %d calls, or a "
-                         "non-finite result" % (count, len(MM_TIMED)))
-    return count
+    if count != len(MM_TIMED):
+        raise SystemExit("matmul path: %d launches for %d calls"
+                         % (count, len(MM_TIMED)))
+    worst = 0.0
+    for (label, *_), (a, b), out in zip(MM_TIMED, work, outs):
+        want = gemm.pallas_matmul_plain(a, b)
+        excess = mm_excess(out, want)
+        err = float((out - want).abs().max())
+        log("matmul path %s: max_abs_err %.3g, %.3g of the limit"
+            % (label, err, excess))
+        if not excess <= 1.0:
+            raise SystemExit("matmul path %s disagrees with its plain "
+                             "version: %.3g of the limit" % (label, excess))
+        worst = max(worst, err)
+    return count, worst
 
 
-def time_matmul(torch, dev, rng, rate, err):
-    """Each MM_TIMED shape as CUDA-graph replays of one launch beside
-    the library call replayed the same way, the plain version by an
-    eager loop, and the bound (bytes: each operand read once and the
-    f32 output written once; operations: 2 m k n at the operands'
-    type).  Returns the kernels line's fields: the first shape's at the
-    top, every shape under ``shapes``."""
+def time_matmul(torch, dev, rng, rate, checked):
+    """Each MM_TIMED shape as CUDA-graph replays of one launch (``ms``)
+    and of MM_GRAPH_CALLS back-to-back launches (``ms_20``) beside the
+    library call replayed the same ways, the plain version by an eager
+    loop, and the bound (bytes: each operand read once and the f32
+    output written once; operations: 2 m k n at the operands' type);
+    then split_k against wgmma at MM_CROSSOVER_M rows, each output held
+    against the plain version first.  Returns the kernels line's
+    fields: the first shape's at the top, every shape under
+    ``shapes``."""
     from veles_tpu_torch.ops import gemm
+    err, per_variant = checked
     library, lib_name = matmul_library(torch)
+    before = gemm.matmul_launches
     shapes = {}
     for label, m, k, n, dt in MM_TIMED:
-        a, b, _ = _mm_inputs(torch, dev, rng, m, k, n, dt, False)
+        a, b, _ = _mm_inputs(torch, dev, rng, m, k, n, dt)
         size = 2 if dt == "bfloat16" else 4
         nbytes = m * k * size + k * n * size + m * n * 4
         b_ms, b_by = bound(nbytes, 2 * m * k * n, dt, rate)
-        before = gemm.matmul_launches
         f = {"ms": graph_ms(torch, lambda: gemm.pallas_matmul(a, b)),
              "library_ms": graph_ms(torch, lambda: library(a, b)),
+             "ms_20": graph_ms(torch, _repeat(
+                 MM_GRAPH_CALLS, lambda: gemm.pallas_matmul(a, b)))
+             / MM_GRAPH_CALLS,
+             "library_ms_20": graph_ms(torch, _repeat(
+                 MM_GRAPH_CALLS, lambda: library(a, b))) / MM_GRAPH_CALLS,
              "plain_ms": time_ms(torch,
                                  lambda: gemm.pallas_matmul_plain(a, b),
                                  reps=5),
              "bound_ms": b_ms, "bound_by": b_by,
              "plan": gemm.matmul_plan(a, b)}
-        gemm.matmul_launches = before
         f["tflops"] = 2 * m * k * n / f["ms"] / 1e9
-        log("matmul %s (plan %s): graph-replayed %.4f ms (%.1f TFLOP/s, "
-            "%.1f %% of the %.4f ms bound by %s), library %.4f ms (%s), "
-            "plain %.4f ms" % (label, f["plan"], f["ms"], f["tflops"],
-                               100 * b_ms / f["ms"], b_ms, b_by,
-                               f["library_ms"], lib_name, f["plain_ms"]))
+        log("matmul %s (plan %s): graph-replayed, one launch per replay "
+            "%.4f ms (%.1f TFLOP/s, %.1f %% of the %.4f ms bound by %s), "
+            "library %.4f ms (%s); %d launches per replay %.4f ms, library "
+            "%.4f ms; plain %.4f ms"
+            % (label, f["plan"], f["ms"], f["tflops"], 100 * b_ms / f["ms"],
+               b_ms, b_by, f["library_ms"], lib_name, MM_GRAPH_CALLS,
+               f["ms_20"], f["library_ms_20"], f["plain_ms"]))
         shapes[label] = f
+    crossover = {}
+    for m in MM_CROSSOVER_M:
+        a, b, _ = _mm_inputs(torch, dev, rng, m, DIM, 4 * DIM, "bfloat16")
+        want = gemm.pallas_matmul_plain(a, b)
+        row = {}
+        for variant in ("split_k", "wgmma"):
+            plan = gemm.matmul_plan(a, b, variant)
+            excess = mm_excess(gemm.matmul_variant(a, b, variant), want)
+            if not excess <= 1.0:
+                raise SystemExit("matmul %s at m %d disagrees with its "
+                                 "plain version: %.3g of the limit"
+                                 % (variant, m, excess))
+            row[variant] = graph_ms(torch, _repeat(
+                MM_GRAPH_CALLS, lambda: gemm.matmul_variant(a, b, variant))) \
+                / MM_GRAPH_CALLS
+            log("matmul %s at %dx1024x4096 (plan %s): %.3g of the limit, "
+                "%d launches per replay %.4f ms"
+                % (variant, m, plan, excess, MM_GRAPH_CALLS, row[variant]))
+        crossover[m] = row
+    gemm.matmul_launches = before
+    faster = [m for m in MM_CROSSOVER_M
+              if crossover[m]["split_k"] > crossover[m]["wgmma"]]
+    log("matmul crossover at k 1024, n 4096: wgmma is faster than split_k "
+        "from m %s (the plan switches past m %d)"
+        % (faster[0] if faster else "> %d" % MM_CROSSOVER_M[-1],
+           split_max_m(torch)))
     first = dict(shapes[MM_TIMED[0][0]])
-    first.update(max_abs_err=err, library=lib_name, shapes=shapes)
+    first.update(max_abs_err=err, library=lib_name, shapes=shapes,
+                 crossover=crossover, cases_by_variant=per_variant)
     return first
+
+
+def _repeat(count, fn):
+    """``fn`` called ``count`` times in a row (one graph of back-to-back
+    launches)."""
+    def run():
+        for _ in range(count):
+            fn()
+    return run
+
+
+def split_max_m(torch):
+    """The largest m the matmul plan sends to split_k at 1024 x 4096
+    (bf16, aligned): read from the plans, not restated."""
+    from veles_tpu_torch.ops import gemm
+    b = torch.empty((DIM, 4 * DIM), dtype=torch.bfloat16, device="cuda")
+    return max(m for m in range(1, 257) if gemm.matmul_plan(
+        torch.empty((m, DIM), dtype=torch.bfloat16, device="cuda"),
+        b)["variant"] == "split_k")
 
 
 def graph_ms(torch, fn, reps=50):
     """Mean milliseconds of ``fn()`` captured once in a CUDA graph and
     replayed ``reps`` times between two events: the device's time for
-    its launches, without the host's dispatch of each."""
+    its launches, without the host's dispatch of each (as long as the
+    host replays a graph faster than the device runs it)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2711,7 +2903,9 @@ def main():
     rng = numpy.random.default_rng(2)
     measured["matmul"] = time_matmul(torch, dev, rng, rate,
                                      check_matmul(torch, dev, rng))
-    mm_launches = matmul_path(torch, dev, rng)
+    mm_launches, mm_err = matmul_path(torch, dev, rng)
+    measured["matmul"]["max_abs_err"] = max(
+        measured["matmul"]["max_abs_err"], mm_err)
     reference_check(torch, dev)
     train_reference(torch, dev)
     learns(torch, dev)

@@ -112,12 +112,19 @@ def test_policy_matmul_matches_jax():
 
 
 
-#: pallas_matmul cases: (m, k, n, blocks, a dtype, b int8 with col_scale,
+#: pallas_matmul cases: (m, k, n, blocks, a dtype, b — True: int8 with
+#: col_scale, "scaled": a's type with col_scale, False: a's type —,
 #: epilogue, out dtype) — the JAX tests' shapes and blocks (128 x 256 x
 #: 128 at 64/64/128; 128^3 at 64 with ReLU; 8 x 64 x 128 at the
 #: defaults), bf16 operands, int8 b, a bf16 output, shapes that tile only
 #: by min(block, dim) (m 100, k 50) and a callable the kernel does not
-#: fuse
+#: fuse; then the edges of the card kernel's variants, with blocks that
+#: tile them: the wgmma tiles' (m one past / short of 128 rows, n and k 8
+#: past / short of 64-wide tiles, one 64-deep k-tile), split_k's (the
+#: serving rows 1, 9, 136 at 1024 x 4096, k and n 8 past / short of its
+#: steps and columns, one k16 step, n under 64) and the f32 ring's (past
+#: / short of its 128- and 32-row tiles, one stage), each with a bf16
+#: output under ReLU and col_scale
 MM_CASES = [
     (128, 256, 128, (64, 64, 128), "float32", False, None, "float32"),
     (128, 128, 128, (64, 64, 64), "float32", False, "relu", "float32"),
@@ -130,6 +137,25 @@ MM_CASES = [
     (100, 50, 72, (256, 256, 512), "bfloat16", True, "relu", "float32"),
     (24, 40, 32, (256, 256, 512), "float32", False, "tanh", "float32"),
     (24, 40, 32, (256, 256, 512), "bfloat16", False, "tanh", "bfloat16"),
+    (129, 136, 264, (129, 264, 136), "bfloat16", False, None, "float32"),
+    (127, 120, 248, (127, 248, 120), "bfloat16", False, None, "float32"),
+    (256, 64, 512, (256, 256, 512), "bfloat16", False, None, "float32"),
+    (384, 256, 512, (128, 256, 256), "bfloat16", "scaled", "relu",
+     "bfloat16"),
+    (1, 1024, 4096, (256, 256, 512), "bfloat16", False, None, "float32"),
+    (9, 1024, 4096, (256, 256, 512), "bfloat16", False, None, "float32"),
+    (136, 1024, 4096, (256, 256, 512), "bfloat16", False, None, "float32"),
+    (8, 1032, 4104, (8, 4104, 1032), "bfloat16", False, None, "float32"),
+    (9, 1016, 4088, (9, 4088, 1016), "bfloat16", False, None, "float32"),
+    (8, 16, 4096, (256, 256, 512), "bfloat16", False, None, "float32"),
+    (100, 72, 56, (256, 256, 512), "bfloat16", False, None, "float32"),
+    (8, 1024, 4096, (256, 256, 512), "bfloat16", "scaled", "relu",
+     "bfloat16"),
+    (257, 264, 264, (257, 264, 264), "float32", False, None, "float32"),
+    (255, 248, 248, (255, 248, 248), "float32", False, None, "float32"),
+    (64, 16, 128, (256, 256, 512), "float32", False, None, "float32"),
+    (256, 128, 256, (256, 256, 512), "float32", "scaled", "relu",
+     "bfloat16"),
 ]
 
 #: the epilogues by name: (JAX's, the port's)
@@ -139,15 +165,19 @@ MM_EPILOGUES = {None: (None, None), "relu": (jax.nn.relu, torch.relu),
 
 def _mm_operands(rng, m, k, n, dtype, int8_b):
     a = rng.standard_normal((m, k)).astype(numpy.float32)
-    if int8_b:
+    if int8_b is True:
         b = rng.integers(-127, 128, (k, n)).astype(numpy.int8)
-        scale = (rng.random(n) * 0.01).astype(numpy.float32)
-        return a, b, scale
-    return a, rng.standard_normal((k, n)).astype(numpy.float32), None
+    else:
+        b = rng.standard_normal((k, n)).astype(numpy.float32)
+    scale = None if int8_b is False else (rng.random(n) * 0.01).astype(
+        numpy.float32)
+    return a, b, scale
 
 
 @pytest.mark.parametrize("case", MM_CASES, ids=lambda c: "%dx%dx%d-%s%s-%s-%s"
-                         % (c[0], c[1], c[2], c[4], "-int8" if c[5] else "",
+                         % (c[0], c[1], c[2], c[4],
+                            {True: "-int8", "scaled": "-scaled"}.get(c[5],
+                                                                     ""),
                             c[6], c[7]))
 def test_pallas_matmul_matches_jax(case):
     """The port's ``pallas_matmul`` against JAX's in interpret mode on
@@ -162,14 +192,14 @@ def test_pallas_matmul_matches_jax(case):
     jep, tep = MM_EPILOGUES[ep]
     want = jgemm.pallas_matmul(
         jnp.asarray(a).astype(dt), jnp.asarray(b).astype(
-            numpy.int8 if int8_b else dt),
+            numpy.int8 if int8_b is True else dt),
         block_m=bm, block_n=bn, block_k=bk, epilogue=jep,
         out_dtype=getattr(jnp, out_dt), interpret=True,
         col_scale=None if scale is None else jnp.asarray(scale))
     tdt = getattr(torch, dt)
     got = tgemm.pallas_matmul(
         torch.as_tensor(a).to(tdt),
-        torch.as_tensor(b) if int8_b else torch.as_tensor(b).to(tdt),
+        torch.as_tensor(b) if int8_b is True else torch.as_tensor(b).to(tdt),
         block_m=bm, block_n=bn, block_k=bk, epilogue=tep,
         out_dtype=getattr(torch, out_dt),
         col_scale=None if scale is None else torch.as_tensor(scale))
@@ -229,3 +259,22 @@ def test_pallas_matmul_refuses_other_types_and_precisions():
                             col_scale=torch.ones(4))
     out = tgemm.pallas_matmul(a, torch.ones((16, 8)), precision="highest")
     assert torch.equal(out, torch.full((8, 8), 16.0))
+
+
+def test_matmul_plan_names_follow_the_kernel_enum():
+    """``matmul_plan`` labels a launch plan by its index into
+    ``MATMUL_VARIANTS``: the kernel's ``enum Variant`` must list the same
+    names (``kSplitK`` as ``split_k``) with the values 0, 1, ... in the
+    same order, or a plan would be mislabelled on the card."""
+    import os
+    import re
+    from veles_tpu_torch import _build
+    from veles_tpu_torch.ops import gemm as tgemm
+    with open(os.path.join(_build.CSRC, "matmul.cu")) as f:
+        src = f.read()
+    body = re.search(r"enum Variant : int \{(.*?)\};", src, re.S).group(1)
+    entries = re.findall(r"\bk(\w+) = (\d+)", body)
+    assert [int(v) for _, v in entries] == list(range(len(entries)))
+    names = tuple(re.sub(r"(?<!^)([A-Z])", r"_\1", name).lower()
+                  for name, _ in entries)
+    assert names == tgemm.MATMUL_VARIANTS

@@ -12,8 +12,10 @@ run, and a head dim they are not built for kept off them), at
 AlexNet's LRN shapes and odd ones (each on the variant ``ops.lrn.plan``
 names, the backward bit-equal across two runs, an offset view on the
 tile kernels), the uniform fill bit for bit, and the general tiled
-GEMM (``pallas_matmul``: both kernel families, int8 ``b``, the fused
-and unfused epilogues, bit-equal twice, misaligned views).
+GEMM (``pallas_matmul``: every kernel variant on the inputs its plan
+must send it, int8 ``b``, the fused and unfused epilogues, bit-equal
+twice, 16-byte and misaligned views, the timed squares, split_k and
+wgmma forced across their crossover).
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -357,84 +359,211 @@ def test_int8_gemm_is_deterministic(card, dtype):
     assert torch.equal(first, second)
 
 
-#: pallas_matmul on the card: (m, k, n, a dtype, b int8 + col_scale,
-#: epilogue, out dtype) — both kernel families, the vector and element
-#: loads (k or n off 8), shapes that tile only by min(block, dim), int8
-#: b, a bf16 output, the serving widths and the large tiles
+#: pallas_matmul on the card: (m, k, n, a dtype, b — True: int8 with
+#: col_scale, "scaled": a's type with col_scale, False: a's type —,
+#: epilogue, out dtype, the variant its plan must name) — every kernel
+#: variant: the register-staged kernels on what the new ones refuse
+#: (int8 b, k off 8), shapes that tile only by min(block, dim), int8 b, a
+#: bf16 output, the serving widths and the large tiles; then the new
+#: variants' edges:
+#: wgmma at m one past / short of its 128 rows, n and k 8 past / short of
+#: its tiles at its 64-, 128- and 256-column tiles, one k-tile; split_k at
+#: the serving rows, k and n off its steps and columns, one k16 step, n
+#: under 64; simt_pipe past / short of its tiles and stages, one stage;
+#: each with a bf16 output under ReLU and col_scale; and the squares the
+#: smoke times (wgmma's persistent CTAs walking several tiles each)
 MM_CARD = [
-    (128, 256, 128, torch.float32, False, None, torch.float32),
-    (128, 128, 128, torch.float32, False, "relu", torch.float32),
-    (8, 64, 128, torch.float32, False, None, torch.float32),
-    (100, 50, 64, torch.float32, False, None, torch.float32),
-    (100, 50, 72, torch.bfloat16, True, "relu", torch.float32),
-    (64, 128, 96, torch.bfloat16, False, None, torch.bfloat16),
-    (8, 1024, 4096, torch.bfloat16, False, None, torch.float32),
-    (72, 1024, 4096, torch.bfloat16, True, None, torch.float32),
-    (512, 384, 512, torch.bfloat16, False, torch.relu, torch.float32),
-    (256, 258, 256, torch.float32, True, None, torch.bfloat16),
-    (256, 500, 512, torch.bfloat16, False, torch.tanh, torch.bfloat16),
+    (128, 256, 128, torch.float32, False, None, torch.float32, "simt_pipe"),
+    (128, 128, 128, torch.float32, False, "relu", torch.float32,
+     "simt_pipe"),
+    (8, 64, 128, torch.float32, False, None, torch.float32, "simt_pipe"),
+    (100, 50, 64, torch.float32, False, None, torch.float32, "simt_pipe"),
+    (100, 50, 72, torch.bfloat16, True, "relu", torch.float32, "tc_small"),
+    (64, 128, 96, torch.bfloat16, False, None, torch.bfloat16, "wgmma"),
+    (8, 1024, 4096, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (72, 1024, 4096, torch.bfloat16, True, None, torch.float32, "tc_small"),
+    (512, 384, 512, torch.bfloat16, False, torch.relu, torch.float32,
+     "wgmma"),
+    (256, 258, 256, torch.float32, True, None, torch.bfloat16, "simt_big"),
+    (256, 500, 512, torch.bfloat16, False, torch.tanh, torch.bfloat16,
+     "tc_big"),
+    (129, 136, 264, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (127, 120, 248, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (1023, 1016, 2040, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (1537, 520, 2824, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (256, 64, 512, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (384, 256, 512, torch.bfloat16, "scaled", "relu", torch.bfloat16,
+     "wgmma"),
+    (72, 1024, 4096, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (136, 1024, 4096, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (1, 1024, 4096, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (9, 1024, 4096, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (16, 1024, 4096, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (8, 1032, 4104, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (9, 1016, 4088, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (8, 16, 4096, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (100, 72, 56, torch.bfloat16, False, None, torch.float32, "split_k"),
+    (8, 1024, 4096, torch.bfloat16, "scaled", "relu", torch.bfloat16,
+     "split_k"),
+    (257, 264, 264, torch.float32, False, None, torch.float32, "simt_pipe"),
+    (255, 248, 248, torch.float32, False, None, torch.float32, "simt_pipe"),
+    (64, 16, 128, torch.float32, False, None, torch.float32, "simt_pipe"),
+    (8, 1024, 4096, torch.float32, False, None, torch.float32, "simt_pipe"),
+    (256, 128, 256, torch.float32, "scaled", "relu", torch.bfloat16,
+     "simt_pipe"),
+    (4096, 4096, 4096, torch.bfloat16, False, None, torch.float32, "wgmma"),
+    (2048, 2048, 2048, torch.float32, False, None, torch.float32,
+     "simt_pipe"),
 ]
 
 
-def _mm_card_inputs(card, m, k, n, dtype, int8_b, seed):
+def _mm_card_inputs(card, m, k, n, dtype, int8_b, seed, offset=0):
+    """a, b and col_scale (None unless ``int8_b`` is True — int8 b — or
+    "scaled"); with ``offset``, both operands lie that many elements into
+    their buffers."""
     rng = numpy.random.default_rng(seed)
     a = torch.as_tensor(rng.standard_normal((m, k)),
                         dtype=torch.float32).to(card, dtype)
-    if int8_b:
+    if int8_b is True:
         b = torch.as_tensor(rng.integers(-127, 128, (k, n)),
                             dtype=torch.int8).to(card)
-        scale = torch.as_tensor(rng.random(n) * 0.01,
-                                dtype=torch.float32).to(card)
-        return a, b, scale
-    b = torch.as_tensor(rng.standard_normal((k, n)),
-                        dtype=torch.float32).to(card, dtype)
-    return a, b, None
+    else:
+        b = torch.as_tensor(rng.standard_normal((k, n)),
+                            dtype=torch.float32).to(card, dtype)
+    scale = None if int8_b is False else torch.as_tensor(
+        rng.random(n) * 0.01, dtype=torch.float32).to(card)
+    if offset:
+        a, b = (_offset(x, offset) for x in (a, b))
+    return a, b, scale
+
+
+def _offset(x, offset):
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _mm_close(got, want, out_dtype):
+    """1e-5 of the largest magnitude (sums in another order), plus one
+    bf16 step of the element for a bf16 output."""
+    got, want = got.float(), want.float()
+    floor = 1e-5 * float(want.abs().max())
+    step = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    return bool(((got - want).abs() <= step * want.abs() + floor).all())
 
 
 @pytest.mark.parametrize("case", MM_CARD, ids=lambda c: "%dx%dx%d-%s%s-%s-%s"
                          % (c[0], c[1], c[2], str(c[3])[6:],
-                            "-int8" if c[4] else "",
+                            {True: "-int8", "scaled": "-scaled"}.get(c[4],
+                                                                     ""),
                             getattr(c[5], "__name__", c[5]),
                             str(c[6])[6:]))
 def test_pallas_matmul_kernel_matches_plain(card, case):
     from veles_tpu_torch.ops import gemm
-    m, k, n, dtype, int8_b, epilogue, out_dtype = case
+    m, k, n, dtype, int8_b, epilogue, out_dtype, variant = case
     a, b, scale = _mm_card_inputs(card, m, k, n, dtype, int8_b, m + k + n)
+    assert gemm.matmul_plan(a, b)["variant"] == variant
+    kw = dict(block_m=m, block_n=n, block_k=k, epilogue=epilogue,
+              out_dtype=out_dtype, col_scale=scale)
     before = gemm.matmul_launches
-    got = gemm.pallas_matmul(a, b, epilogue=epilogue, out_dtype=out_dtype,
-                             col_scale=scale)
-    want = gemm.pallas_matmul_plain(a, b, epilogue=epilogue,
-                                    out_dtype=out_dtype, col_scale=scale)
+    got = gemm.pallas_matmul(a, b, **kw)
+    want = gemm.pallas_matmul_plain(a, b, **kw)
     torch.cuda.synchronize()
     assert gemm.matmul_launches == before + 1
     assert got.dtype == out_dtype and got.shape == (m, n)
-    # 1e-5 of the largest magnitude (sums in another order), plus one
-    # bf16 step of the element for a bf16 output
-    got, want = got.float(), want.float()
-    floor = 1e-5 * float(want.abs().max())
-    step = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
-    assert bool(((got - want).abs() <= step * want.abs() + floor).all())
+    assert _mm_close(got, want, out_dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-def test_pallas_matmul_is_deterministic_and_misaligned_views(card, dtype):
-    """Every element summed by one thread in a fixed order: two runs are
-    bit-equal.  An operand one element into its buffer takes the
-    element loads and agrees with the aligned run."""
+#: (id, m, k, n, dtype, variant, variant of a view 16 bytes into its
+#: buffer, element offset off 16 bytes, variant of that view)
+MM_VIEWS = [
+    ("bf16", 256, 512, 256, torch.bfloat16, "wgmma", 8, "tc_big"),
+    ("f32", 256, 512, 256, torch.float32, "simt_pipe", 4, "simt_big"),
+    ("bf16-split_k", 8, 1024, 4096, torch.bfloat16, "split_k", 8,
+     "tc_small"),
+    ("f32-small", 8, 1024, 4096, torch.float32, "simt_pipe", 4,
+     "simt_small"),
+]
+
+
+@pytest.mark.parametrize("case", MM_VIEWS, ids=lambda c: c[0])
+def test_pallas_matmul_is_deterministic_and_misaligned_views(card, case):
+    """Every element summed in a fixed order: two runs are bit-equal.
+    Operands 16 bytes into their buffers stay on the variant and give
+    the same bits; one element in, they leave the TMA / cp.async
+    variants for the register-staged kernels (element loads) and agree
+    with the plain version."""
     from veles_tpu_torch.ops import gemm
-    a, b, _ = _mm_card_inputs(card, 256, 512, 256, dtype, False, 5)
+    _, m, k, n, dtype, variant, offset16, other = case
+    a, b, _ = _mm_card_inputs(card, m, k, n, dtype, False, 5)
+    a16, b16, _ = _mm_card_inputs(card, m, k, n, dtype, False, 5, offset16)
+    a1, b1, _ = _mm_card_inputs(card, m, k, n, dtype, False, 5, 1)
+    assert gemm.matmul_plan(a, b)["variant"] == variant
+    assert gemm.matmul_plan(a16, b16)["variant"] == variant
+    plan1 = gemm.matmul_plan(a1, b1)
+    assert plan1["variant"] == other and not plan1["aligned"]
     first = gemm.pallas_matmul(a, b)
     second = gemm.pallas_matmul(a, b)
-    flat = torch.empty(a.numel() + 1, dtype=dtype, device=card)
-    view = flat[1:].view(a.shape)
-    view.copy_(a)
-    assert gemm.matmul_plan(a, b)["aligned"]
-    assert not gemm.matmul_plan(view, b)["aligned"]
-    third = gemm.pallas_matmul(view, b)
+    third = gemm.pallas_matmul(a16, b16)
+    fourth = gemm.pallas_matmul(a1, b1)
+    want = gemm.pallas_matmul_plain(a, b)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     assert torch.equal(first, third)
+    assert _mm_close(fourth, want, torch.float32)
+
+
+#: inputs the TMA / cp.async variants refuse, on the register-staged
+#: kernel the plan names: (id, m, k, n, a dtype, b int8, variant)
+MM_REFUSED = [
+    ("bf16-int8-big", 256, 512, 256, torch.bfloat16, True, "tc_big"),
+    ("bf16-int8-small", 8, 1024, 4096, torch.bfloat16, True, "tc_small"),
+    ("bf16-k-off-8", 64, 100, 128, torch.bfloat16, False, "tc_small"),
+    ("bf16-n-off-8", 300, 64, 260, torch.bfloat16, False, "tc_big"),
+    ("f32-int8", 256, 512, 256, torch.float32, True, "simt_big"),
+    ("f32-n-off-4", 64, 64, 130, torch.float32, False, "simt_small"),
+]
+
+
+@pytest.mark.parametrize("case", MM_REFUSED, ids=lambda c: c[0])
+def test_pallas_matmul_refused_inputs_take_the_old_kernels(card, case):
+    from veles_tpu_torch.ops import gemm
+    _, m, k, n, dtype, int8_b, variant = case
+    a, b, scale = _mm_card_inputs(card, m, k, n, dtype, int8_b, 7)
+    assert gemm.matmul_plan(a, b)["variant"] == variant
+    kw = dict(block_m=m, block_n=n, block_k=k, col_scale=scale)
+    got = gemm.pallas_matmul(a, b, **kw)
+    want = gemm.pallas_matmul_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    assert _mm_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("case", [
+    ("wgmma", 8, 1024, 4096, "split_k"),
+    ("split_k", 72, 1024, 4096, "wgmma"),
+    ("split_k-m136", 136, 1024, 4096, "wgmma")], ids=lambda c: c[0])
+def test_pallas_matmul_forced_variants_match_plain(card, case):
+    """``matmul_variant`` (split_k and wgmma, which the smoke times
+    across their crossover): a forced variant on the other side of the
+    crossover agrees with the plain version, and operands it refuses
+    (f32, a variant that cannot be forced) raise instead of running
+    another kernel."""
+    from veles_tpu_torch.ops import gemm
+    name, m, k, n, planned = case
+    variant = name.split("-")[0]
+    a, b, _ = _mm_card_inputs(card, m, k, n, torch.bfloat16, False, 9)
+    assert gemm.matmul_plan(a, b)["variant"] == planned
+    assert gemm.matmul_plan(a, b, variant)["variant"] == variant
+    got = gemm.matmul_variant(a, b, variant)
+    want = gemm.pallas_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert _mm_close(got, want, torch.float32)
+    for x, y, refused in ((a.float(), b.float(), variant),
+                          (a, b, "simt_pipe")):
+        assert gemm.matmul_plan(x, y, refused)["variant"] is None
+        with pytest.raises(RuntimeError, match="forced variant"):
+            gemm.matmul_variant(x, y, refused)
 
 
 def test_pallas_matmul_refuses_on_the_card(card):

@@ -65,18 +65,16 @@
 // cluster barrier and no remote round trip); the owner adds the ranks'
 // partials in rank order, applies the scale and stores.  The barrier
 // that every CTA has started, which remote stores need, is arrived at
-// on entry and waited on only before the pushes.  Ragged m, n and k are
+// on entry and waited on only before the pushes.  The cluster plan,
+// this merge and the launch are common.cuh's, shared with matmul.cu's
+// split_k (the same design on bf16 weights).  Ragged m, n and k are
 // masked in the kernel (byte loads where a vector load would leave the
 // matrix or be misaligned: a template variant, so the aligned kernel
 // carries no such code; the same choice as a run-time branch cost ~1 us
 // of a 5-7 us launch on an H100), so every shape is taken: the JAX package falls
 // back to an XLA dot for shapes that do not tile; this is the same
 // function, so no fallback here.
-#include <cooperative_groups.h>
-
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -84,7 +82,6 @@ using veles::widen4;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxCluster = 8;      // the portable cluster size
 // weight bytes per lane per row: 8-byte loads, 64 columns per CTA (on an
 // H100 16-byte loads and 128-column CTAs took 5-17 % longer per layer)
 constexpr int kVec = 8;
@@ -223,12 +220,9 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(
   __shared__ float red[kWarps][kTile];           // the warps' partials
   __shared__ float recv[kTile];                  // the ranks' partials of
                                                  // this rank's slice
-  // every CTA of the cluster must have started before another writes
-  // its shared memory: arrive now, wait before the first remote store
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+  veles::cluster_arrive();
+  const int rank =
+      static_cast<int>(cooperative_groups::this_cluster().block_rank());
   const int csize = static_cast<int>(gridDim.x);   // the cluster spans x
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -317,57 +311,26 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(
         if (t == 0) mine[i * kCols + kVec * g + c] = v;
       }
   }
-  __syncthreads();
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  // the CTA's sum, in warp order, pushed to the rank that owns its slice
-  const int per = kTile / csize;
-  for (int e = threadIdx.x; e < kTile; e += kThreads) {
-    float v = red[0][e];
-#pragma unroll
-    for (int x = 1; x < kWarps; ++x) v += red[x][e];
-    const int q = e / per;
-    cluster.map_shared_rank(recv, q)[rank * per + e - q * per] = v;
-  }
-  cluster.sync();                       // every push has landed
-  // this rank's slice: the ranks' partials in rank order, scaled, stored
-  for (int j = threadIdx.x; j < per; j += kThreads) {
-    float v = 0.f;
-    for (int x = 0; x < csize; ++x) v += recv[x * per + j];
-    const int e = rank * per + j;
+  // the ranks' partials of this rank's slice in rank order, scaled
+  veles::cluster_merge<kThreads>(red, recv, rank, csize, [&](int e, float v) {
     const int row = m0 + e / kCols;
     const int cc = c0 + e % kCols;
     if (row < m && cc < n)
       out[static_cast<size_t>(row) * n + cc] = v * scale[cc];
-  }
+  });
 }
 
 struct Plan {
   int cluster, steps_per_rank, rows;
 };
 
-int sm_count() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-               != cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
-// the smallest cluster whose CTAs fill a wave (7/8 of the SMs or more),
-// at most kMaxCluster, at least one k16 step per rank
+// the smallest cluster that fills a wave (veles::split_cluster)
 Plan plan(int m, int k, int n, int a_dtype) {
   const int rows = a_dtype == veles::kBF16 ? Tile<__nv_bfloat16>::kRows
                                            : Tile<float>::kRows;
   const int tiles = (n + kCols - 1) / kCols * ((m + rows - 1) / rows);
   const int steps = (k + 15) / 16;
-  int cs = 1;
-  while (cs < kMaxCluster && 2 * cs <= steps
-         && 8 * tiles * cs < 7 * sm_count())
-    cs *= 2;
+  const int cs = veles::split_cluster(tiles, steps);
   return {cs, (steps + cs - 1) / cs, rows};
 }
 
@@ -377,23 +340,10 @@ cudaError_t launch(const Plan& p, const AT* a, const int8_t* w,
                    cudaStream_t stream) {
   const int a_vec = k % 4 == 0
       && reinterpret_cast<uintptr_t>(a) % (4 * sizeof(AT)) == 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cluster, (n + kCols - 1) / kCols,
-                     (m + p.rows - 1) / p.rows);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, int8_gemm_kernel<AT, ALIGNED>, a, w, scale, out, m, k, n,
-      p.steps_per_rank, a_vec);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return veles::launch_cluster(
+      int8_gemm_kernel<AT, ALIGNED>, p.cluster, (n + kCols - 1) / kCols,
+      (m + p.rows - 1) / p.rows, kThreads, stream, a, w, scale, out, m, k,
+      n, p.steps_per_rank, a_vec);
 }
 
 // the vector-load kernel where n and the weights' base are multiples of

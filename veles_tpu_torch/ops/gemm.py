@@ -134,9 +134,9 @@ def _mm_lib():
     if not _mm_argtypes_set:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.veles_matmul.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci, ci,
-                                     ci, vp]
+                                     ci, ci, vp]
         lib.veles_matmul.restype = ci
-        lib.veles_matmul_plan.argtypes = [vp, ci, vp, ci, ci, ci, ci,
+        lib.veles_matmul_plan.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci,
                                           ctypes.POINTER(ci)]
         lib.veles_matmul_plan.restype = None
         _mm_argtypes_set = True
@@ -193,20 +193,71 @@ def pallas_matmul_plain(a, b, block_m=256, block_n=256, block_k=512,
     return _epilogue_out(acc, epilogue, out_dtype)
 
 
-def matmul_plan(a, b):
+#: the kernel's variants, in the order of ``enum Variant`` in
+#: ``csrc/matmul.cu``
+MATMUL_VARIANTS = ("tc_big", "tc_small", "simt_big", "simt_small", "wgmma",
+                   "split_k", "simt_pipe")
+
+#: the C entry's own error codes (beside ``cudaError_t``)
+_MM_ERRORS = {-1: "unsupported types", -3: "the forced variant does not "
+              "take these operands", -4: "no cuTensorMapEncodeTiled in "
+              "libcuda", -5: "libcuda refused a tensor map"}
+
+
+def matmul_plan(a, b, variant=None):
     """The matmul kernel's launch plan for these operands: variant
-    (``tc_big``/``tc_small`` on the tensor cores for bf16 ``a``,
+    (``wgmma`` — TMA and ``wgmma`` — for bf16 ``a`` and ``b`` with k
+    and n multiples of 8 and 16-byte aligned bases at large m and n,
+    ``split_k`` for those at small m, ``simt_pipe`` for f32 ``a`` and
+    ``b`` with n a multiple of 4 and ``b`` 16-byte aligned; else the
+    register-staged ``tc_big``/``tc_small`` for bf16 ``a`` and
     ``simt_big``/``simt_small`` for f32), tile rows and columns, k per
-    tile, threads per CTA, and whether it takes the vector loads (k and
-    n multiples of the load width, aligned pointers).  Needs the built
-    library (the card's machine)."""
-    out = (ctypes.c_int * 6)()
+    tile, threads per CTA, whether it takes the vector loads, stages in
+    flight, the cluster size along k and the k rows per cluster rank
+    (``split_k``), and the CTAs launched.
+    ``variant`` (``"wgmma"`` or ``"split_k"``) asks for the plan that
+    variant makes for these operands instead (:func:`matmul_variant`);
+    its ``variant`` is None where these operands cannot take it.  Needs
+    the built library (the card's machine)."""
+    out = (ctypes.c_int * 10)()
     m, k = a.shape
+    code = -1 if variant is None else MATMUL_VARIANTS.index(variant)
     _mm_lib().veles_matmul_plan(ptr(a), DTYPE_CODES[a.dtype], ptr(b),
-                                DTYPE_CODES[b.dtype], m, k, b.shape[1], out)
-    names = ("tc_big", "tc_small", "simt_big", "simt_small")
-    return dict(zip(("variant", "bm", "bn", "bk", "threads", "aligned"),
-                    [names[out[0]]] + list(out[1:5]) + [bool(out[5])]))
+                                DTYPE_CODES[b.dtype], m, k, b.shape[1],
+                                code, out)
+    return dict(zip(("variant", "bm", "bn", "bk", "threads", "aligned",
+                     "stages", "cluster", "k_per_rank", "ctas"),
+                    [MATMUL_VARIANTS[out[0]] if out[0] >= 0 else None]
+                    + list(out[1:5]) + [bool(out[5])] + list(out[6:10])))
+
+
+def _mm_launch(a, b, col_scale, store, relu, variant):
+    global matmul_launches
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=store, device=a.device)
+    if m and n:
+        rc = _mm_lib().veles_matmul(
+            ptr(a), DTYPE_CODES[a.dtype], ptr(b), DTYPE_CODES[b.dtype],
+            ptr(col_scale), ptr(out), int(store == torch.bfloat16),
+            int(relu), m, k, n, variant, stream_ptr(a.device))
+        if rc in _MM_ERRORS:
+            raise RuntimeError("matmul launch failed: " + _MM_ERRORS[rc])
+        _build.check(rc, "matmul launch")
+        matmul_launches += 1
+    return out
+
+
+def matmul_variant(a, b, variant):
+    """``a @ b`` (f32 result) on ``variant``, ``"wgmma"`` or
+    ``"split_k"``, whichever the plan would pick — for timing the two
+    across their crossover in m.  CUDA tensors only; raises where the
+    variant does not take them."""
+    require(a.device.type == "cuda", "matmul_variant: CUDA tensors only")
+    _check_matmul(a, b, 1 << 30, 1 << 30, 1 << 30, None, None)
+    check_cuda_inputs("matmul_variant", a.device, a=a, b=b)
+    return _mm_launch(a, b, None, torch.float32, False,
+                      MATMUL_VARIANTS.index(variant))
 
 
 def pallas_matmul(a, b, block_m=256, block_n=256, block_k=512,
@@ -226,8 +277,13 @@ def pallas_matmul(a, b, block_m=256, block_n=256, block_k=512,
     cast to ``out_dtype``: the same values, only the fusion is lost.
     ``m``, ``n`` and ``k`` must tile evenly by ``min(block, dim)`` as in
     the JAX function (``block_*`` only check that; the kernel picks its
-    own tiles).  Raises on anything else."""
-    global matmul_launches
+    own tiles, :func:`matmul_plan`).  Raises on anything else.
+
+    Two calls on the same operands give the same bits.  The plan also
+    reads the card's SM count and whether the operands' addresses are
+    16-byte aligned, so bit equality holds only for operands of the same
+    shape and alignment on the same card: a view one element into its
+    buffer runs another variant, which sums in another order."""
     if a.device.type == "cpu":
         return pallas_matmul_plain(a, b, block_m, block_n, block_k,
                                    epilogue, out_dtype, precision,
@@ -242,15 +298,6 @@ def pallas_matmul(a, b, block_m=256, block_n=256, block_k=512,
     require(store in (torch.float32, torch.bfloat16),
             "pallas_matmul: out_dtype %s (the kernel stores f32 or bf16)",
             store)
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=store, device=a.device)
-    if m and n:
-        rc = _mm_lib().veles_matmul(
-            ptr(a), DTYPE_CODES[a.dtype], ptr(b), DTYPE_CODES[b.dtype],
-            ptr(col_scale), ptr(out), int(store == torch.bfloat16),
-            int(fused and epilogue is not None), m, k, n,
-            stream_ptr(a.device))
-        _build.check(rc, "matmul launch")
-        matmul_launches += 1
+    out = _mm_launch(a, b, col_scale, store,
+                     fused and epilogue is not None, -1)
     return out if fused else _epilogue_out(out, epilogue, out_dtype)
