@@ -52,7 +52,10 @@ result line):
 3. reference — a small float32 chain served through the kernels on the
    card, its prefill, decode and verify (K1 5) logits held against the
    same chain on the CPU (plain versions), and its verify logits
-   against sequential decode steps on the card;
+   against sequential decode steps on the card; then the serving
+   surface on the same weights, card against CPU: greedy ``generate``
+   with and without the kv cache (tokens equal), ``embed_pool``
+   (within 1e-5) and ``slot_decode_step`` (tokens equal);
 4. train reference — a small float32 chain (d 256, 2 heads of 128, 2
    layers) takes 3 SGD-momentum steps from the same weights and
    minibatches on the card through the attention kernels, on the card
@@ -108,6 +111,28 @@ result line):
    requests ``debug_requests()`` must list while the hang holds): each
    stream must equal its uninterrupted run, each error be its kind, and
    ``check_kv()`` clean after each;
+6d. surface — the serving surface, on the spec phase's trained chain
+   unless named: (a) ``submit(stream=True)`` at 1 and 4 slots, spec off
+   and on, SURF_STEPS greedy tokens after the pattern prompt, each
+   stream iterated on a thread of its own: its tokens must equal its
+   ``result()`` and the batch reply, every pass launch ``paged_attend``
+   8 times (all split) and ``int8_gemm`` 24; at one slot a low-class
+   stream preempted by a high-class arrival resumes without a repeated
+   token and a cancelled stream leaves the pool clean; first-token
+   times and token gaps printed beside the batch path's; (b) on the
+   serve phase's chain, AUX_ROWS embed and score rows of AUX_LEN
+   tokens, direct and as aux jobs alone and beside AUX_STREAMS
+   decoding streams: equal to the direct results within 1e-5, unit
+   norms within 1e-5, no launch of kernels 1-3, each job's ms and the
+   streams' gaps printed; (c) greedy ``generate`` at batch 1 and
+   GEN_BATCH, rescan and kv: FlashAttention forward once per layer per
+   rescan step and no kernel on the kv form, every row equal to the
+   scheduler's stream; a var-length batch, a stop token, and
+   ``generate_beam`` (beam 1 = greedy, beam 0's score = its
+   teacher-forced re-score within 1e-3), tokens/s per form; (d)
+   ``kv="dense"`` against paged fp32 pools at SLOTS x PROMPT x STEPS:
+   equal streams, no kernel launch on the dense run, each decode step's
+   ms and cache bytes;
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
    bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
@@ -154,8 +179,10 @@ serving kernels' (``paged_attend``, ``int8_gemm``) ``ms`` and
 step's launches (their launches are shorter than the host's dispatch of
 one), with the host-paced eager loops under ``eager_ms`` and
 ``library_eager_ms``, the verify widths' graph times under ``verify``
-and the spec and lifecycle phases' launches under ``spec_launches``
-and ``lifecycle_launches``;
+and the spec, lifecycle and surface phases' launches under
+``spec_launches``, ``lifecycle_launches`` and ``surface_launches``
+(``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
+runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
 and so are ``matmul``'s (one launch per replay, at bf16 4096^3, the
 other timed shapes under ``shapes``; graphs of 20 back-to-back launches
@@ -171,6 +198,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy
@@ -337,6 +365,16 @@ SHARED_PROMPT, SHARED_STEPS = 4 * BLOCK, BLOCK
 SHARED_POOL = 4 * -(-(SHARED_PROMPT + SHARED_STEPS) // BLOCK)
 #: the lifecycle checks' watchdog and the hang it must catch (seconds)
 LIFE_WATCHDOG, LIFE_HANG = 0.5, 1.5
+
+#: the surface phase: streamed requests of SURF_STEPS greedy tokens after
+#: the spec phase's SPEC_PROMPT-token pattern prompt (at SPEC_SLOTS, spec
+#: off and on); AUX_ROWS embed and AUX_ROWS score rows of AUX_LEN tokens
+#: while AUX_STREAMS streams decode; ``generate`` of GEN_STEPS tokens at
+#: batch 1 and GEN_BATCH, a var-length batch of GEN_LENS, beam search of
+#: width BEAM; the dense layout at the serve phase's SLOTS x PROMPT x STEPS
+SURF_STEPS, AUX_ROWS, AUX_LEN, AUX_STREAMS = 128, 8, 128, 4
+GEN_STEPS, GEN_BATCH, BEAM = 64, 8, 4
+GEN_LENS = (64, 48, 33, 17, 64, 5, 40, 64)
 
 #: the training model of the smoke (``bench.py``'s ``bench_lm``)
 T_VOCAB, T_DIM, T_LAYERS, T_HEADS, T_SEQ, T_BATCH = 32768, 2048, 8, 16, 2048, 4
@@ -1498,6 +1536,60 @@ def reference_check(torch, dev):
             or not torch.allclose(card, seq, rtol=1e-3, atol=1e-3):
         raise SystemExit("reference: the card's verify logits disagree: "
                          "%g (CPU), %g (sequential)" % errs)
+    reference_surface(torch, dev, spec)
+
+
+def reference_surface(torch, dev, spec):
+    """Phase 3's checks of the serving surface on the same small chain
+    (weights from seed 3), card against CPU: greedy ``generate`` with
+    and without the kv cache (16 steps after two 24-token prompts; the
+    tokens equal across both forms and both devices), ``embed_pool``
+    of three ragged rows within 1e-5, and ``slot_decode_step`` (3 steps
+    over a greedy and a seeded slot beside a free one, the tokens
+    equal)."""
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.models.generate import generate
+    from veles_tpu_torch.serving import SlotKVCache, prefill, slot_decode_step
+    from veles_tpu_torch.serving.openai_api import embed_pool
+    rng = numpy.random.default_rng(7)
+    prompts = rng.integers(0, 512, (2, 24))
+    rows, lens = rng.integers(0, 512, (3, 32)), [32, 17, 5]
+    temps = numpy.asarray([0.0, 0.9, 0.0], numpy.float32)
+    topks = numpy.asarray([0, 0, 0], numpy.int32)
+    seeds = numpy.asarray([0, 77, 0], numpy.uint32)
+    got = {}
+    for d in ("cpu", dev):
+        chain = init_params(spec, 3, 128, device=d, dtype="float32")
+        gen = [generate(chain, prompts, 16, kv_cache=kv).cpu()
+               for kv in (False, True)]
+        emb = embed_pool(chain, rows, lens).cpu()
+        cache = SlotKVCache(chain, 3, 128)
+        for n in range(2):
+            caches, _ = prefill(chain, prompts[n:n + 1], window=32)
+            cache.insert(cache.alloc(24), caches, 24)
+        toks = numpy.zeros((3, 1), numpy.int32)
+        toks[:2, 0] = prompts[:, -1]
+        pos = numpy.asarray([23, 23, 0], numpy.int32)
+        steps = []
+        for step in range(3):
+            nxt = slot_decode_step(chain, cache, toks, pos, temps, topks,
+                                   seeds, numpy.full(3, step, numpy.int32))
+            steps.append(nxt[:2].tolist())
+            toks[:2, 0] = nxt[:2]
+            pos[:2] += 1
+        got[str(d)] = (gen, emb, steps)
+    (cgen, cemb, csteps), (dgen, demb, dsteps) = got["cpu"], got[str(dev)]
+    err = float((demb - cemb).abs().max())
+    log("reference: generate (rescan and kv) %s, embed_pool max_abs_err="
+        "%.3g, slot_decode_step tokens %s card against CPU"
+        % ("equal" if all(torch.equal(a, b) for a in cgen + dgen
+                          for b in cgen) else "DIFFER", err,
+           "equal" if csteps == dsteps else "DIFFER"))
+    if not all(torch.equal(a, cgen[0]) for a in cgen + dgen) \
+            or not torch.isfinite(demb).all() or err > 1e-5 \
+            or csteps != dsteps:
+        raise SystemExit("reference: the serving surface disagrees card "
+                         "against CPU")
 
 
 # -- phase 4: train reference -------------------------------------------------
@@ -2338,6 +2430,496 @@ def lifecycle_check(torch, dev, serve_chain, spec_chain_, pattern):
     return total
 
 
+# -- phase 6d: the serving surface --------------------------------------------
+
+def zero_all_counts():
+    """Set every count the surface phase reads to 0: the two serving
+    kernels', the general matmul's and the FlashAttention forward's."""
+    from veles_tpu_torch.ops import flash_attention as fa, gemm
+    zero_serving_counts()
+    gemm.matmul_launches = 0
+    fa.launches["flash_attn_fwd"] = 0
+
+
+def read_all_counts():
+    from veles_tpu_torch.ops import flash_attention as fa, gemm
+    return dict(read_serving_counts(), matmul=gemm.matmul_launches,
+                flash_attn_fwd=fa.launches["flash_attn_fwd"])
+
+
+def check_no_kernels(what, launches):
+    """Fail unless ``launches`` (a :func:`read_all_counts`) holds no
+    launch of kernels 1-3 (nor of the general matmul)."""
+    if any(launches[n] for n in ("paged_attend", "int8_gemm", "matmul",
+                                 "flash_attn_fwd")):
+        raise SystemExit("%s: launched %s (want no kernel)"
+                         % (what, launches))
+
+
+def _quantiles(xs):
+    xs = sorted(xs)
+    if not xs:
+        return {"p50": None, "p95": None, "max": None}
+    return {"p50": xs[len(xs) // 2],
+            "p95": xs[max(0, int(len(xs) * 0.95) - 1)], "max": xs[-1]}
+
+
+def consume_streams(streams, during=None):
+    """Iterate every stream on a thread of its own, stamping each
+    token's arrival (``during()``, if given, runs on this thread once
+    the consumers are started); returns each stream's arrival stamps
+    (``time.perf_counter()``) and its iterated tokens."""
+    stamps = [[] for _ in streams]
+    toks = [[] for _ in streams]
+    errors = []
+
+    def run(i, ts):
+        try:
+            for tok in ts:
+                stamps[i].append(time.perf_counter())
+                toks[i].append(tok)
+        except Exception as e:  # surfaced below, with the stream's index
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=run, args=(i, ts))
+               for i, ts in enumerate(streams)]
+    for t in threads:
+        t.start()
+    if during is not None:
+        during()
+    for t in threads:
+        t.join()
+    if errors:
+        raise SystemExit("surface: stream %d raised %r" % errors[0])
+    return stamps, toks
+
+
+def token_gaps(stamps, after=None):
+    """The gaps between consecutive tokens of each stream, in ms; with
+    ``after``, only gaps that start at or after that stamp."""
+    return [(b - a) * 1e3 for s in stamps for a, b in zip(s, s[1:])
+            if after is None or a >= after]
+
+
+def stream_arm(torch, dev, chain, prompt, slots, spec, events=False):
+    """Part (a), one arm: a scheduler over the spec phase's trained
+    chain (as :func:`spec_arm`'s) serves ``slots`` batch requests of
+    SURF_STEPS greedy tokens, then the same as streams iterated on
+    threads of their own, the kernels' counts zeroed just before the
+    streams and read after.  Returns the streams and the arm's
+    numbers.  With ``events`` (one slot, spec off) a low-class stream
+    is then preempted by a high-class arrival and resumed, and another
+    is cancelled mid-way."""
+    from veles_tpu_torch.serving import (
+        InferenceScheduler, RequestCancelledError)
+    sch = InferenceScheduler(chain, max_slots=slots, window=WINDOW,
+                             max_queue=4 * slots, block_size=BLOCK,
+                             kv_dtype="int8", prefill_chunk=0, spec=spec,
+                             spec_k=SPEC_K, prefix_cache=False,
+                             device=dev).start()
+    try:
+        done0 = len(sch.completed)
+        t0 = time.perf_counter()
+        futs = [sch.submit(prompt, SURF_STEPS) for _ in range(slots)]
+        batch = [f.result(600) for f in futs]
+        batch_wall = (time.perf_counter() - t0) * 1e3
+        batch_ttft = [1e3 * t for t, _ in sch.completed[done0:]]
+        passes0 = _passes(sch)
+        torch.cuda.synchronize()
+        zero_serving_counts()
+        t0 = time.perf_counter()
+        streams = [sch.submit(prompt, SURF_STEPS, stream=True)
+                   for _ in range(slots)]
+        stamps, toks = consume_streams(streams)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_serving_counts()
+        passes = _passes(sch) - passes0
+        for ts, got in zip(streams, toks):
+            if got != ts.tokens or ts.result(60) != prompt + got \
+                    or prompt + got != batch[0]:
+                raise SystemExit("surface (a): at %d slots (spec %s) a "
+                                 "stream's tokens differ from its result or "
+                                 "the batch reply" % (slots, spec))
+        check_pass_launches("surface (a)", passes, launches)
+        ev = lifecycle_streams(sch, prompt, batch[0]) if events else None
+    finally:
+        sch.close()
+    sch.check_kv()
+    if sch.cache_.free_blocks != sch.cache_.capacity_blocks:
+        raise SystemExit("surface (a): blocks held after close()")
+    arm = {"slots": slots, "spec": spec, "passes": passes,
+           "launches": launches,
+           "stream_first_token_ms": _quantiles([(s[0] - t0) * 1e3
+                                                for s in stamps]),
+           "stream_gap_ms": _quantiles(token_gaps(stamps)),
+           "stream_wall_ms": wall,
+           "batch_first_token_server_ttft_ms": _quantiles(batch_ttft),
+           "batch_reply_ms": batch_wall}
+    if ev is not None:
+        arm["events"] = ev
+    log(json.dumps({"surface_stream_arm": arm}))
+    return batch[0], arm
+
+
+def lifecycle_streams(sch, prompt, alone):
+    """On a one-slot spec-off scheduler: a low-class stream is preempted
+    by a high-class arrival after 8 tokens and resumes (no token twice:
+    its tokens equal its uninterrupted run ``alone``); another stream
+    is cancelled after 8 tokens (the pool clean after the reap)."""
+    from veles_tpu_torch.serving import RequestCancelledError
+    other = prompt[5:] + prompt[:5]
+    want_high = sch.submit(other, 16).result(600)
+    p0, r0 = sch.preempts, sch.preempt_resumes
+    low = sch.submit(prompt, SURF_STEPS, priority="low", stream=True)
+    it = iter(low)
+    head = [next(it) for _ in range(8)]
+    high = sch.submit(other, 16, priority="high")
+    rest = list(it)
+    got_high = high.result(600)
+    if prompt + head + rest != alone or got_high != want_high \
+            or sch.preempts - p0 != 1 or sch.preempt_resumes - r0 != 1:
+        raise SystemExit("surface (a): preempt→resume of a stream: %d "
+                         "preempts, %d resumes, stream equal %s, high "
+                         "equal %s" % (sch.preempts - p0,
+                                       sch.preempt_resumes - r0,
+                                       prompt + head + rest == alone,
+                                       got_high == want_high))
+    gone = sch.submit(prompt, SURF_STEPS, stream=True)
+    it = iter(gone)
+    head = [next(it) for _ in range(8)]
+    gone.cancel()
+    try:
+        for _ in it:
+            pass
+        raise SystemExit("surface (a): the cancelled stream ran to its end")
+    except RequestCancelledError:
+        pass
+    _wait_for(lambda: sch.in_flight == 0, "the cancelled stream's reap")
+    try:
+        sch.check_kv()
+    except AssertionError as e:
+        raise SystemExit("surface (a): the cancel left the pool unclean: %s"
+                         % e)
+    cache = sch.cache_
+    if cache.free_blocks != cache.capacity_blocks \
+            or cache.free_slots != cache.max_slots:
+        raise SystemExit("surface (a): the cancel left blocks or slots held")
+    return {"preempts": 1, "resumed_stream_equal": True,
+            "cancelled_after_tokens": len(gone.tokens),
+            "cancel_pool_clean": True}
+
+
+def streams_check(torch, dev, chain, pattern):
+    """Part (a): the four arms; every stream must equal its batch reply
+    and the spec phase's learned pattern.  Returns the spec-off 1-slot
+    stream (prompt + SURF_STEPS tokens) and the arms' launches."""
+    prompt = (pattern * 8)[:SPEC_PROMPT]
+    learned = [pattern[(SPEC_PROMPT + i) % len(pattern)]
+               for i in range(SURF_STEPS)]
+    total, ref = {"paged_attend": 0, "int8_gemm": 0}, None
+    for slots in SPEC_SLOTS:
+        for spec in (False, True):
+            out, arm = stream_arm(torch, dev, chain, prompt, slots, spec,
+                                  events=slots == 1 and not spec)
+            ref = ref or out
+            if out != ref or out[SPEC_PROMPT:] != learned:
+                raise SystemExit("surface (a): the %d-slot arm (spec %s) "
+                                 "streamed another stream than the pattern"
+                                 % (slots, spec))
+            for n in total:
+                total[n] += arm["launches"][n]
+    return ref, total
+
+
+def aux_check(torch, dev, chain):
+    """Part (b), on the serve phase's chain: AUX_ROWS embed and score
+    rows of AUX_LEN tokens, first called directly on the card (the
+    reference values, each job's ms, no kernel launch), then as
+    ``submit_embed``/``submit_score`` jobs on an idle scheduler (no
+    kernel launch) and while AUX_STREAMS streams decode, joining once
+    every stream is active: every result must equal the direct one
+    within 1e-5 and every embedding's norm be 1 within 1e-5.  The
+    streams' gaps are read from the moment every stream had its first
+    token (before that, prefill chunks sit between the steps), with
+    the jobs and in a run without them.  Each job delays one boundary,
+    which every stream sees: the first stream's two largest gaps with
+    the jobs, less its p50 gap without them, are the delays the two
+    jobs add."""
+    from veles_tpu_torch.serving import InferenceScheduler
+    from veles_tpu_torch.serving.openai_api import (
+        pooled_embeddings, score_rows)
+    rng = numpy.random.default_rng(5)
+    rows = [rng.integers(0, VOCAB, AUX_LEN).tolist()
+            for _ in range(AUX_ROWS)]
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist()
+               for _ in range(AUX_STREAMS)]
+    pooled_embeddings(chain, rows, WINDOW)          # warm-up
+    score_rows(chain, rows, WINDOW)
+    torch.cuda.synchronize()
+    zero_all_counts()
+    ms = {}
+    t0 = time.perf_counter()
+    want_e = numpy.asarray(pooled_embeddings(chain, rows, WINDOW))
+    ms["embed"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want_s = score_rows(chain, rows, WINDOW)
+    ms["score"] = (time.perf_counter() - t0) * 1e3
+    check_no_kernels("surface (b): the direct embed/score", read_all_counts())
+
+    def held(what, e, s):
+        e = numpy.asarray(e)
+        errs = (float(numpy.abs(e - want_e).max()),
+                float(numpy.abs(s - want_s).max()),
+                float(numpy.abs(numpy.linalg.norm(e, axis=-1) - 1).max()))
+        if e.shape != (AUX_ROWS, DIM) or s.shape != (AUX_ROWS, VOCAB) \
+                or not all(numpy.isfinite(x) for x in errs) \
+                or max(errs) > 1e-5:
+            raise SystemExit("surface (b): %s: embed err %g, score err %g, "
+                             "|norm - 1| %g" % ((what,) + errs))
+        return errs
+
+    sch = InferenceScheduler(chain, max_slots=AUX_STREAMS, window=WINDOW,
+                             block_size=BLOCK, kv_dtype="int8",
+                             prefill_chunk=CHUNK, spec=False,
+                             prefix_cache=False, device=dev).start()
+    try:
+        sch.submit(prompts[0], 4).result(600)
+        torch.cuda.synchronize()
+        zero_all_counts()
+        alone = (sch.submit_embed(rows).result(600),
+                 sch.submit_score(rows).result(600))
+        torch.cuda.synchronize()
+        check_no_kernels("surface (b): the aux jobs", read_all_counts())
+        errs = held("jobs alone", *alone)
+        runs = {}
+        for with_aux in (False, True):
+            streams = [sch.submit(p, SURF_STEPS, stream=True)
+                       for p in prompts]
+            jobs = []
+
+            def join_jobs():
+                # the jobs join once every stream decodes
+                _wait_for(lambda: sch.active_slots == AUX_STREAMS,
+                          "the streams")
+                jobs.extend([sch.submit_embed(rows), sch.submit_score(rows)])
+
+            stamps, _ = consume_streams(streams,
+                                        join_jobs if with_aux else None)
+            if jobs:
+                errs = tuple(map(max, errs, held(
+                    "jobs beside streams", *(j.result(600) for j in jobs))))
+            after = max(s[0] for s in stamps)
+            runs[with_aux] = (sorted(token_gaps(stamps, after)),
+                              sorted(token_gaps(stamps[:1], after)))
+    finally:
+        sch.close()
+    sch.check_kv()
+    first = _quantiles(runs[False][1])
+    out = {"rows": AUX_ROWS, "row_tokens": AUX_LEN, "job_ms": ms,
+           "max_err": errs, "streams": AUX_STREAMS,
+           "steady_gap_ms_without_jobs": _quantiles(runs[False][0]),
+           "steady_gap_ms_with_jobs": _quantiles(runs[True][0]),
+           "first_stream_largest_gaps_with_jobs_ms": runs[True][1][-2:],
+           "decode_step_delay_ms": [g - first["p50"]
+                                    for g in runs[True][1][-2:]]}
+    log(json.dumps({"surface_aux": out}))
+    return out
+
+
+def generate_check(torch, dev, chain, pattern, served):
+    """Part (c), on the spec phase's trained chain: greedy ``generate``
+    of GEN_STEPS tokens after the pattern prompt at batch 1 and
+    GEN_BATCH, rescan and kv (each after a short warm-up, the counts
+    zeroed just before and read after): every rescan step launches the
+    FlashAttention forward once per layer and nothing else of kernels
+    1-3, the kv form none; every row equals the scheduler's spec-off
+    stream ``served``.  Then a var-length batch (GEN_LENS, both forms
+    equal, each row continuing its pattern), a stop token, and
+    ``generate_beam`` at BEAM (beam 1 = greedy, beam 0's score = its
+    teacher-forced re-score on the kv path within 1e-3, no kernel
+    launch; the full forward's re-score is printed beside it).  Returns the rescan launches and the numbers."""
+    from veles_tpu_torch.models.generate import (
+        _chain_logits, _chain_step, _fill_caches, _init_caches, generate,
+        generate_beam)
+    prompt = (pattern * 8)[:SPEC_PROMPT]
+    want = served[:SPEC_PROMPT + GEN_STEPS]
+    out, flash = {}, 0
+
+    def timed(what, fn, flash_want, steps, tokens, warm=False):
+        if warm:
+            fn(2)
+        torch.cuda.synchronize()
+        zero_all_counts()
+        t0 = time.perf_counter()
+        res = fn(steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_all_counts()
+        if flash_want:
+            if launches["flash_attn_fwd"] != flash_want \
+                    or any(launches[n] for n in ("paged_attend",
+                                                 "int8_gemm", "matmul")):
+                raise SystemExit("surface (c): %s launched %s (want %d "
+                                 "flash_attn_fwd and nothing else)"
+                                 % (what, launches, flash_want))
+        else:
+            check_no_kernels("surface (c): " + what, launches)
+        out[what] = {"tokens_per_s": tokens / dt, "ms": dt * 1e3,
+                     "flash_attn_fwd": launches["flash_attn_fwd"]}
+        return res, launches["flash_attn_fwd"]
+
+    for b in (1, GEN_BATCH):
+        for kv in (False, True):
+            what = "%s_batch%d" % ("kv" if kv else "rescan", b)
+            toks, n = timed(what, lambda s: generate(
+                chain, [prompt] * b, s, kv_cache=kv).cpu(),
+                0 if kv else LAYERS * GEN_STEPS, GEN_STEPS, b * GEN_STEPS,
+                warm=b == 1)
+            flash += n
+            if any(row != want for row in toks.tolist()):
+                raise SystemExit("surface (c): %s differs from the "
+                                 "scheduler's stream" % what)
+    offs = numpy.arange(len(GEN_LENS)) * 5 % len(pattern)
+    width = max(GEN_LENS)
+    var = numpy.zeros((len(GEN_LENS), width), numpy.int64)
+    for n, (o, ln) in enumerate(zip(offs, GEN_LENS)):
+        var[n, :ln] = (pattern * 12)[o:o + ln]
+    total = width + GEN_STEPS
+    forms = {}
+    for kv in (False, True):
+        forms[kv], n = timed(
+            "varlen_%s" % ("kv" if kv else "rescan"),
+            lambda s: generate(chain, var, s, kv_cache=kv,
+                               prompt_lens=GEN_LENS).cpu(),
+            0 if kv else LAYERS * (total - min(GEN_LENS)), GEN_STEPS,
+            sum(total - ln for ln in GEN_LENS))
+        flash += n
+    for n, (o, ln) in enumerate(zip(offs, GEN_LENS)):
+        cont = [pattern[(o + ln + i) % len(pattern)]
+                for i in range(total - ln)]
+        if forms[False][n].tolist() != forms[True][n].tolist() \
+                or forms[True][n, ln:].tolist() != cont:
+            raise SystemExit("surface (c): var-length row %d (prompt %d): "
+                             "forms equal %s" % (n, ln, forms[False][n]
+                                                 .tolist() == forms[True][n]
+                                                 .tolist()))
+    stop = want[SPEC_PROMPT + 10]
+    got = generate(chain, [prompt], GEN_STEPS, kv_cache=True,
+                   stop_token=stop)[0, SPEC_PROMPT:].tolist()
+    first = want[SPEC_PROMPT:].index(stop)
+    if got != want[SPEC_PROMPT:SPEC_PROMPT + first + 1] \
+            + [stop] * (GEN_STEPS - first - 1):
+        raise SystemExit("surface (c): the stop token did not freeze the "
+                         "row at its first generation")
+    (beams, scores), _ = timed(
+        "beam%d" % BEAM, lambda s: generate_beam(chain, [prompt], s, BEAM),
+        0, GEN_STEPS, BEAM * GEN_STEPS)
+    one, _ = generate_beam(chain, [prompt], GEN_STEPS, 1)
+    best = beams[0, :1]
+    span = range(SPEC_PROMPT - 1, SPEC_PROMPT - 1 + GEN_STEPS)
+    with torch.no_grad():
+        # teacher-forced on the kv path (the beam's own arithmetic, so
+        # the two agree to the order of the sum), and by the full
+        # forward (the FlashAttention kernel in bf16: printed only)
+        caches = _init_caches(chain, 1, best.shape[1])
+        _fill_caches(chain, best, SPEC_PROMPT, caches)
+        kv_lp = sum(float(torch.log_softmax(_chain_step(
+            chain, best[:, t:t + 1], t, caches)[0, 0].float(), -1)[
+                best[0, t + 1]]) for t in span)
+        full = torch.log_softmax(_chain_logits(chain, best).float(), -1)[0]
+        full_lp = sum(float(full[t, best[0, t + 1]]) for t in span)
+    err = abs(kv_lp - float(scores[0, 0]))
+    if one[0, 0].tolist() != want or err > 1e-3 \
+            or not torch.isfinite(scores).all() \
+            or (scores[0, 1:] > scores[0, :-1] + 1e-6).any():
+        raise SystemExit("surface (c): beam 1 equal greedy %s, beam 0 "
+                         "score %g against its teacher-forced re-score %g"
+                         % (one[0, 0].tolist() == want,
+                            float(scores[0, 0]), kv_lp))
+    # where a batch-1 step of each form spends its time: 8 steps under
+    # the profiler
+    out["profile_8_steps"] = {
+        name: profile_step(torch, lambda: generate(chain, [prompt], 8,
+                                                   kv_cache=kv))
+        for name, kv in (("rescan", False), ("kv", True))}
+    out["beam"] = {"scores": scores[0].tolist(), "rescore_err": err,
+                   "full_forward_rescore_err":
+                       abs(full_lp - float(scores[0, 0])),
+                   "beam0_is_greedy": beams[0, 0].tolist() == want}
+    log(json.dumps({"surface_generate": out}))
+    return flash, out
+
+
+def dense_check(torch, dev, chain, pattern):
+    """Part (d): ``kv="dense"`` against the paged layout over fp32
+    (compute-dtype) pools on the spec phase's trained chain, its
+    ``int8_decode`` off for the part (the dense steps never take the
+    int8 path): SLOTS requests of PROMPT-token pattern prompts x STEPS
+    greedy steps after one warm-up, the counts zeroed just before and
+    read after.  The streams must be equal and the dense run launch
+    none of kernels 1-3."""
+    from veles_tpu_torch.serving import InferenceScheduler
+    blocks = [u for u in chain if hasattr(u, "int8_decode")]
+    for u in blocks:
+        u.int8_decode = False
+    prompts = [(pattern * 16)[o:o + PROMPT] for o in range(SLOTS)]
+    runs = {}
+    try:
+        for kv in ("paged", "dense"):
+            sch = InferenceScheduler(chain, max_slots=SLOTS, window=WINDOW,
+                                     kv=kv, block_size=BLOCK,
+                                     prefill_chunk=CHUNK, spec=False,
+                                     prefix_cache=False, device=dev).start()
+            try:
+                sch.submit(prompts[0], STEPS).result(600)
+                steps0, secs0 = sch.decode_steps, sch.decode_seconds
+                torch.cuda.synchronize()
+                zero_all_counts()
+                outs = [f.result(600) for f in
+                        [sch.submit(p, STEPS) for p in prompts]]
+                torch.cuda.synchronize()
+                launches = read_all_counts()
+                steps = sch.decode_steps - steps0
+                nbytes = sum(t.numel() * t.element_size()
+                             for layer in (sch.cache_.caches if kv == "dense"
+                                           else sch.cache_.pools).values()
+                             for t in layer.values())
+            finally:
+                sch.close()
+            runs[kv] = {"outs": outs, "launches": launches,
+                        "decode_steps": steps,
+                        "decode_step_ms": 1e3 * (sch.decode_seconds - secs0)
+                        / steps, "cache_bytes": nbytes}
+    finally:
+        for u in blocks:
+            u.int8_decode = True
+    check_no_kernels("surface (d): the dense run", runs["dense"]["launches"])
+    if runs["dense"]["outs"] != runs["paged"]["outs"] or any(
+            o[PROMPT:] != [pattern[(i + PROMPT + j) % len(pattern)]
+                           for j in range(STEPS)]
+            for i, o in enumerate(runs["dense"]["outs"])):
+        raise SystemExit("surface (d): the dense streams differ from the "
+                         "paged ones or leave the pattern")
+    out = {kv: {k: v for k, v in r.items() if k != "outs"}
+           for kv, r in runs.items()}
+    log(json.dumps({"surface_dense": out}))
+    return out
+
+
+def surface_check(torch, dev, serve_chain, spec_chain_, pattern):
+    """Phase 6d, the serving surface: (a) token streams, (b) the aux
+    lane, (c) decoding outside the scheduler, (d) the dense layout.
+    Returns the launches of kernels 1-3 on the surface paths."""
+    t0 = time.perf_counter()
+    served, launches = streams_check(torch, dev, spec_chain_, pattern)
+    aux_check(torch, dev, serve_chain)
+    flash, _ = generate_check(torch, dev, spec_chain_, pattern, served)
+    dense_check(torch, dev, spec_chain_, pattern)
+    log(json.dumps({"surface_seconds": time.perf_counter() - t0}))
+    return dict(launches, flash_attn_fwd=flash)
+
+
 # -- phase 7: train -----------------------------------------------------------
 
 def train_check(torch, dev):
@@ -2912,9 +3494,12 @@ def main():
     served = serve_check(torch, dev)
     launches = dict(served["launches"], matmul=mm_launches)
     spec_launches, trained, pattern = spec_check(torch, dev)
-    life_launches = lifecycle_check(torch, dev, served.pop("chain"),
-                                    trained, pattern)
-    del served, trained
+    serve_chain = served.pop("chain")
+    life_launches = lifecycle_check(torch, dev, serve_chain, trained,
+                                    pattern)
+    surface_launches = surface_check(torch, dev, serve_chain, trained,
+                                     pattern)
+    del served, trained, serve_chain
     launches.update(train_check(torch, dev)["launches"])
     measured.update(check_lrn(torch, dev, rate))
     measured.update(check_uniform(torch, dev, rate))
@@ -2942,6 +3527,8 @@ def main():
         if k["name"] in spec_launches:
             k["spec_launches"] = spec_launches[k["name"]]
             k["lifecycle_launches"] = life_launches[k["name"]]
+        if k["name"] in surface_launches:
+            k["surface_launches"] = surface_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -95,3 +95,22 @@ def test_entry_points_default_to_the_card():
     finally:
         sch.close()
     assert len(out) == 5 and out[:3] == [1, 2, 3]
+
+
+@pytest.mark.parametrize("module,names", [
+    ("veles_tpu_torch.serving", ("SSE_DONE", "StreamTimeoutError",
+                                 "TokenStream", "sse_event", "SlotKVCache",
+                                 "slot_decode_step", "openai_api")),
+    ("veles_tpu_torch.serving.openai_api", ("embed_supported", "embed_pool",
+                                            "pooled_embeddings",
+                                            "score_rows")),
+    ("veles_tpu_torch.models.generate", ("generate", "generate_beam",
+                                         "kv_cache_eligible"))])
+def test_slice_surface_is_exported(module, names):
+    """The streams, aux, generate and dense names are importable where
+    the reference exports them (``veles_tpu/serving/__init__.py``,
+    ``serving/openai_api.py``, ``models/generate.py``)."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert all(hasattr(mod, n) for n in names), \
+        [n for n in names if not hasattr(mod, n)]

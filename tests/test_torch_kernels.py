@@ -15,7 +15,9 @@ tile kernels), the uniform fill bit for bit, and the general tiled
 GEMM (``pallas_matmul``: every kernel variant on the inputs its plan
 must send it, int8 ``b``, the fused and unfused epilogues, bit-equal
 twice, 16-byte and misaligned views, the timed squares, split_k and
-wgmma forced across their crossover).
+wgmma forced across their crossover); ``generate``'s rescan form
+through the FlashAttention forward kernel and a streamed request
+through the serving kernels.
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -941,3 +943,75 @@ def test_warm_resubmit_on_the_card(card):
     assert outs[True] == outs[False]
     assert hits == 1
     assert warm_work == 40 + 8       # cold: 32 + 8; warm: the 8-token tail
+
+
+def _bf16_copies(chain, card):
+    """bf16 copies of a trained f32 LM chain, on the card and on the
+    CPU (the same weights)."""
+    from veles_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from veles_tpu_torch.samples.lm import lm_spec
+    spec = lm_spec(chain[-1].vocab, chain[0].dim,
+                   len(chain) - 2, chain[1].heads)
+    params = params_to_numpy(chain)
+    return [params_from_numpy(spec, params, device=d, dtype="bfloat16")
+            for d in (card, "cpu")]
+
+
+def test_generate_rescan_on_the_card(card):
+    """``generate(kv_cache=False)`` on a trained bf16 chain (head dim
+    128): on the card every rescan step runs the FlashAttention
+    forward kernel once per layer (8 steps x 2 layers) and nothing of
+    kernels 1 and 2; its greedy stream equals the CPU's (the plain
+    version), the kv form's on the card (no kernel launch) and the
+    pattern."""
+    from veles_tpu_torch.models.generate import generate
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.ops import flash_attention as fa
+    chain, pattern = _trained_pattern_chain(card)
+    on_card, on_cpu = _bf16_copies(chain, card)
+    prompt = [(pattern * 4)[o:o + 20] for o in (0, 5)]
+    before = (fa.launches["flash_attn_fwd"], pa.launches, gemm.launches)
+    got = generate(on_card, prompt, 8).cpu()
+    torch.cuda.synchronize()
+    launched = (fa.launches["flash_attn_fwd"] - before[0],
+                pa.launches - before[1], gemm.launches - before[2])
+    assert launched == (8 * 2, 0, 0)
+    want = generate(on_cpu, prompt, 8)
+    assert got.tolist() == want.tolist()
+    before = fa.launches["flash_attn_fwd"]
+    kv = generate(on_card, prompt, 8, kv_cache=True).cpu()
+    assert fa.launches["flash_attn_fwd"] == before
+    assert kv.tolist() == got.tolist()
+    for n, o in enumerate((0, 5)):
+        assert got[n, 20:].tolist() == [pattern[(o + 20 + i) % 12]
+                                        for i in range(8)]
+
+
+def test_streamed_request_runs_the_serving_kernels(card):
+    """One streamed request on the card (int8 KV, ``int8_decode``, spec
+    off): every decode step launches ``paged_attend`` once per layer
+    and ``int8_gemm`` three times, and the iterated tokens equal the
+    batch reply's."""
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.serving import InferenceScheduler
+    from veles_tpu_torch.samples.lm import lm_spec
+    chain = init_params(lm_spec(256, 256, 2, 2, int8_decode=True), 0, 64,
+                        device=card, dtype="bfloat16")
+    sch = InferenceScheduler(chain, max_slots=2, window=64, block_size=BS,
+                             kv_dtype="int8", spec=False, prefix_cache=False,
+                             device=card).start()
+    try:
+        prompt = list(range(3, 40))
+        batch = sch.submit(prompt, 12).result(120)
+        steps = sch.decode_steps
+        before = (pa.launches, gemm.launches)
+        ts = sch.submit(prompt, 12, stream=True)
+        toks = list(ts)
+        steps = sch.decode_steps - steps
+        launched = (pa.launches - before[0], gemm.launches - before[1])
+    finally:
+        sch.close()
+    sch.check_kv()
+    assert prompt + toks == batch == ts.result(1)
+    assert steps == 11 and launched == (2 * steps, 6 * steps)

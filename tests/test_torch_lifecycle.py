@@ -431,20 +431,20 @@ def test_resolve_priority_matches_reference():
 
 
 def test_submit_positional_order_matches_reference():
-    """``submit``'s first eight parameters are the reference's, in its
-    order, so a call by position binds ``timeout`` and ``priority`` as
-    the JAX one does (a bad priority by position is refused; a timeout
-    by position expires a queued request)."""
+    """``submit``'s first nine parameters are the reference's, in its
+    order, so a call by position binds ``timeout``, ``priority`` and
+    ``stream`` as the JAX one does (a bad priority by position is
+    refused; a timeout by position expires a queued request)."""
     from veles_tpu.serving import InferenceScheduler as JaxScheduler
     from veles_tpu_torch.serving import (
         DeadlineExceededError, InferenceScheduler)
     names = [p.name for p in inspect.signature(
         InferenceScheduler.submit).parameters.values()
         if p.kind == p.POSITIONAL_OR_KEYWORD]
-    want = list(inspect.signature(JaxScheduler.submit).parameters)[:9]
+    want = list(inspect.signature(JaxScheduler.submit).parameters)[:10]
     assert names == want == ["self", "prompt", "steps", "temperature",
                              "top_k", "seed", "stop_token", "timeout",
-                             "priority"]
+                             "priority", "stream"]
     sch = _sched(_tiny())
     try:
         with pytest.raises(ValueError, match="priority"):

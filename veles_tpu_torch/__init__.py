@@ -8,7 +8,10 @@ radix prefix cache over the KV blocks and the request lifecycle
 (priorities and shed, deadlines, cancel, preempt→resume, drain, a
 watchdog; ``faults`` injects failures into it), reports its serving
 metrics and per-request traces (``telemetry``, ``logger.events``),
-trains
+streams tokens as they are accepted and runs embedding and scoring jobs
+on an aux lane, serves the dense slot-major KV layout on request
+(``kv="dense"``), decodes outside the scheduler (``models/generate.py``:
+greedy, sampled and beam search), trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
 a device-resident ``FullBatchLoader``) and trains AlexNet
 (``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
@@ -82,6 +85,7 @@ SUBMODULES = (
     "veles_tpu_torch.models.solvers",
     "veles_tpu_torch.models.lr_adjust",
     "veles_tpu_torch.models.gd",
+    "veles_tpu_torch.models.generate",
     "veles_tpu_torch.loader",
     "veles_tpu_torch.loader.base",
     "veles_tpu_torch.loader.fullbatch",
@@ -96,4 +100,6 @@ SUBMODULES = (
     "veles_tpu_torch.serving.scheduler",
     "veles_tpu_torch.serving.spec",
     "veles_tpu_torch.serving.metrics",
+    "veles_tpu_torch.serving.streams",
+    "veles_tpu_torch.serving.openai_api",
 )

@@ -4,9 +4,9 @@ lifecycle paths (deadlines, cancel, preemption, the watchdog) are
 driven through in tests.
 
 Named **injection points** are planted through the scheduler
-(``serving.scheduler.loop``, ``.prefill``, ``.step``); each point is a
-no-op until a matching :class:`FaultSpec` is armed, at which moment it
-deterministically misbehaves:
+(``serving.scheduler.loop``, ``.prefill``, ``.step``, ``.aux``); each
+point is a no-op until a matching :class:`FaultSpec` is armed, at which
+moment it deterministically misbehaves:
 
 =============  =========================================================
 action         behavior at the injection point

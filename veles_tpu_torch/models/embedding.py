@@ -65,6 +65,14 @@ class Embedding(ForwardBase):
             y = y + pos[idx][None]
         return y
 
+    def apply_step(self, x, pos):
+        """Single-position decode (``models/generate.py``): x [batch, 1]
+        at sequence index ``pos`` (an int)."""
+        y = self._lookup(x)
+        if self.learned_positions:
+            y = y + self.cast("positions")[int(pos)][None, None, :]
+        return y
+
     def apply_step_slots(self, x, pos):
         """Per-slot decode step: x [batch, 1] with row n at sequence
         index ``pos[n]``."""

@@ -4,8 +4,11 @@ of ``veles_tpu/models/transformer.py`` (dense FFN).
 :meth:`TransformerBlock.apply` is the training forward: its attention
 core is ``models/attention.attention_core`` with the JAX package's
 selection rule (the FlashAttention kernels on the card at head_dim %
-128 == 0).  Serving prefill keeps the plain masked softmax
-(:meth:`TransformerBlock._attend`), as the JAX prefill does.
+128 == 0).  Serving prefill and the dense decode steps
+(:meth:`~TransformerBlock.apply_step` for ``models/generate.py``,
+:meth:`~TransformerBlock.apply_step_slots` for the dense slot cache)
+keep the plain masked softmax (:meth:`TransformerBlock._attend`), as
+the JAX methods do: they are einsums there, not Pallas kernels.
 
 Every method keeps the JAX unit's dtype conventions so the two agree
 in float32 to rounding: projections take compute-dtype operands and
@@ -14,10 +17,11 @@ the compute dtype, layer norm and the logits run in f32.  Caches and
 pools are updated in place (the JAX methods return new arrays; these
 return the same dicts they were given, written).
 
-``int8_decode`` routes the decode and verify steps' output projection
-and both FFN matmuls through the weight-only int8 GEMM
+``int8_decode`` routes the paged decode and verify steps' output
+projection and both FFN matmuls through the weight-only int8 GEMM
 (``ops/gemm.int8_matmul``, the hand-written kernel on the card) — three
-launches per layer per step; prefill keeps the policy matmul.
+launches per layer per step; prefill and the dense steps keep the
+policy matmul.
 """
 
 import torch
@@ -136,6 +140,12 @@ class TransformerBlock(ForwardBase):
         return y + self._ffn(_layer_norm(y, self.params["ln2_scale"],
                                          self.params["ln2_bias"]), w8=w8)
 
+    def _attn_out(self, x, q, k, v, keep):
+        """Masked attention + the shared tail, never on the int8
+        weight path (prefill and the dense decode steps, as in the
+        reference)."""
+        return self._attn_tail(x, self._attend(q, k, v, keep))
+
     # -- full sequence -------------------------------------------------------
 
     def apply(self, x):
@@ -180,8 +190,7 @@ class TransformerBlock(ForwardBase):
         q, k, v = self._qkv(x)
         k, v = self._write_rows(cache, k, v, 0, lens)
         ar = torch.arange(p, device=x.device)
-        o = self._attend(q, k, v, ar[None, :] <= ar[:, None])
-        return self._attn_tail(x, o), cache
+        return self._attn_out(x, q, k, v, ar[None, :] <= ar[:, None]), cache
 
     def apply_prefill_chunk(self, x, cache, offset, chunk_lens=None,
                             key_width=None):
@@ -196,8 +205,35 @@ class TransformerBlock(ForwardBase):
         kw = int(key_width or cache["k"].shape[1])
         keep = (torch.arange(kw, device=x.device)[None, :]
                 <= (offset + torch.arange(c, device=x.device))[:, None])
-        o = self._attend(q, cache["k"][:, :kw], cache["v"][:, :kw], keep)
-        return self._attn_tail(x, o), cache
+        return self._attn_out(x, q, cache["k"][:, :kw], cache["v"][:, :kw],
+                              keep), cache
+
+    def apply_step(self, x, pos, cache):
+        """Decode ONE position: x [batch, 1, d] at sequence index
+        ``pos`` (an int), its K/V written into cache row ``pos``; the
+        query attends over the whole cache with keys past ``pos``
+        masked (``models/generate.py``'s kv path)."""
+        pos = int(pos)
+        q, k_new, v_new = self._qkv(x)
+        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+        keep = (torch.arange(cache["k"].shape[1], device=x.device)
+                <= pos)[None, :]
+        return self._attn_out(x, q, cache["k"], cache["v"], keep), cache
+
+    def apply_step_slots(self, x, pos, cache):
+        """Decode ONE position PER ROW against dense slot caches: x
+        [batch, 1, d] with row n at ``pos[n]`` ([batch] ints), written
+        there; row n attends over its keys <= ``pos[n]``.  Row for row
+        :meth:`apply_step`."""
+        q, k_new, v_new = self._qkv(x)
+        rows = torch.arange(x.shape[0], device=x.device)
+        pos = pos.long()
+        cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+        keep = (torch.arange(cache["k"].shape[1], device=x.device)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        return self._attn_out(x, q, cache["k"], cache["v"], keep), cache
 
     def init_block_pool(self, num_blocks, block_size, dtype,
                         kv_dtype="fp32"):

@@ -1,12 +1,14 @@
-"""Paged-KV serving of the LM chain: cache, prefill, decode and verify
-steps, the n-gram draft proposer, the radix prefix cache and the
+"""Serving of the LM chain: the paged and dense KV caches, prefill,
+the decode and verify steps, the n-gram draft proposer, the radix
+prefix cache, token streams, the embed/score computations and the
 continuous-batching scheduler with its request lifecycle."""
 
 from veles_tpu_torch.serving.engine import (  # noqa: F401
     first_tokens, paged_decode_logits, paged_decode_step, sample_first,
-    sample_slots, verify_logits, verify_step_paged, verify_supported)
+    sample_slots, slot_decode_step, verify_logits, verify_step_paged,
+    verify_supported)
 from veles_tpu_torch.serving.kv_slots import (  # noqa: F401
-    PagedKVCache, paged_supported)
+    PagedKVCache, SlotKVCache, paged_supported)
 from veles_tpu_torch.serving.prefill import (  # noqa: F401
     chunked_supported, prefill, prefill_chunk, serving_supported,
     serving_window)
@@ -18,3 +20,6 @@ from veles_tpu_torch.serving.scheduler import (  # noqa: F401
     SchedulerError, resolve_priority)
 from veles_tpu_torch.serving.spec import (  # noqa: F401
     NgramIndex, NgramProposer, accept_drafts)
+from veles_tpu_torch.serving.streams import (  # noqa: F401
+    SSE_DONE, StreamTimeoutError, TokenStream, sse_event)
+from veles_tpu_torch.serving import openai_api  # noqa: F401

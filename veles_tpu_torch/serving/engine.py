@@ -1,5 +1,5 @@
 """The shared decode and verify steps over serving slots — the port of
-``veles_tpu/serving/engine.py`` (paged path).
+``veles_tpu/serving/engine.py``.
 
 :func:`paged_decode_step` advances a PACKED batch of active slots one
 token: the scheduler pads the active slots to a power-of-two occupancy
@@ -8,6 +8,9 @@ bucket ``T`` over the deepest slot.  Padding rows (token 0, position 0,
 an all-zero table) write into and read from the trash block.
 :func:`verify_step_paged` is the speculative-decoding step: each row's
 pending token and its drafts, scored in ONE model pass.
+:func:`slot_decode_step` is the dense layout's step (``kv="dense"``):
+every slot rides the batch, free ones as garbage rows, against the
+slot-major caches through ``apply_step_slots`` (plain ops, no kernel).
 
 Sampling is row-wise.  Greedy rows (temperature 0) take the argmax —
 the same token the JAX package picks from the same logits.  Sampling
@@ -82,6 +85,39 @@ def first_tokens(last_logits, temps, topks, seeds, counts=None):
 
 def _ints(a, dtype, device):
     return torch.as_tensor(numpy.asarray(a, dtype), device=device)
+
+
+def slot_decode_logits(forwards, cache, toks, pos):
+    """The chain's forward of ONE dense decode step over every slot of
+    ``cache`` (:class:`~veles_tpu_torch.serving.kv_slots.SlotKVCache`,
+    whose rows update in place): ``toks`` [S, 1] each slot's last token
+    at ``pos`` [S] — host arrays.  Returns the [S, vocab] f32 logits on
+    the cache's device."""
+    h = _ints(toks, numpy.int64, cache.device)
+    pos_t = _ints(pos, numpy.int64, cache.device)
+    for i, u in enumerate(forwards):
+        if i in cache.caches:
+            h, cache.caches[i] = u.apply_step_slots(h, pos_t,
+                                                    cache.caches[i])
+        elif hasattr(u, "apply_step_slots"):
+            h = u.apply_step_slots(h, pos_t)
+        else:
+            h = u.apply(h)
+    return h[:, 0].to(torch.float32)
+
+
+def slot_decode_step(forwards, cache, toks, pos, temps, topks, seeds,
+                     counts):
+    """Run ONE dense decode step (:func:`slot_decode_logits`; free slots
+    decode garbage rows) and sample each row with its settings
+    ``temps``/``topks`` and the draw ``counts[n]`` of stream
+    ``seeds[n]`` (host arrays [S]).  Returns the [S] next tokens as a
+    host numpy array."""
+    logits = slot_decode_logits(forwards, cache, toks, pos)
+    return sample_slots(logits, list(numpy.asarray(temps)),
+                        list(numpy.asarray(topks)),
+                        list(numpy.asarray(seeds)),
+                        list(numpy.asarray(counts))).cpu().numpy()
 
 
 def paged_decode_logits(forwards, cache, toks, pos, tables):

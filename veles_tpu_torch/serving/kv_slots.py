@@ -1,8 +1,9 @@
-"""Block-paged KV cache — the port of
-``veles_tpu/serving/kv_slots.py::PagedKVCache`` (PagedAttention
-layout, Kwon et al., SOSP 2023).
+"""The serving KV caches — the port of ``veles_tpu/serving/kv_slots.py``:
+the block-paged :class:`PagedKVCache` (PagedAttention layout, Kwon et
+al., SOSP 2023; the scheduler's default) and the dense
+:class:`SlotKVCache` (``kv="dense"``).
 
-K/V live in per-layer pools of fixed-size blocks
+Paged K/V live in per-layer pools of fixed-size blocks
 (``[num_blocks, block_size, d]``) plus a per-slot block table; a
 request holds ``ceil((prompt + steps) / block_size)`` blocks instead of
 a window row.  Physical block 0 is the reserved TRASH block: never
@@ -12,7 +13,7 @@ backs the stale tail of every table (the causal mask hides it).
 beside them, indexed by the same physical block ids, so scales follow
 their blocks; inserts quantize.
 
-Host bookkeeping (free lists, tables) is numpy; the pools are tensors
+Host bookkeeping (free lists, tables) is numpy; the buffers are tensors
 on the chain's device, updated in place.  One thread (the scheduler's
 loop) calls every method.
 """
@@ -29,6 +30,59 @@ def paged_supported(forwards):
     cacheable = [u for u in forwards if hasattr(u, "init_cache")]
     return bool(cacheable) and all(hasattr(u, "apply_step_paged")
                                    for u in cacheable)
+
+
+class SlotKVCache:
+    """Per-layer dense slot-major K/V buffers ``[max_slots, window, d]``
+    + free-slot bookkeeping — the reference's legacy layout and the
+    parity baseline of the paged cache (``kv="dense"``).  A slot
+    reserves a whole window row whatever the request's length."""
+
+    def __init__(self, forwards, max_slots, window):
+        self.max_slots = int(max_slots)
+        self.window = int(window)
+        if self.max_slots < 1 or self.window < 2:
+            raise ValueError("need max_slots >= 1 and window >= 2")
+        self.caches = {
+            i: u.init_cache(self.max_slots, self.window, u.dtype)
+            for i, u in enumerate(forwards) if hasattr(u, "init_cache")}
+        if not self.caches:
+            raise ValueError("chain has no cacheable blocks")
+        self.device = next(iter(self.caches.values()))["k"].device
+        # lowest slot first — keeps occupancy dense and debuggable
+        self._free = list(range(self.max_slots - 1, -1, -1))
+
+    @property
+    def free_slots(self):
+        return len(self._free)
+
+    @property
+    def active_slots(self):
+        return self.max_slots - len(self._free)
+
+    def can_admit(self, total_tokens):
+        """A free slot is the only requirement."""
+        return bool(self._free)
+
+    def alloc(self, total_tokens=0):
+        """Claim a free slot index, or None when all are busy."""
+        return self._free.pop() if self._free else None
+
+    def release(self, slot):
+        slot = int(slot)
+        if slot in self._free:
+            raise ValueError("slot %d double-freed" % slot)
+        self._free.append(slot)
+
+    def insert(self, slot, row_caches, length=None):
+        """Adopt a prefilled batch-1 staging row (trimmed to the window)
+        into ``slot``'s row from position 0.  Rows the staging does not
+        cover keep the previous occupant's K/V: decode attends only
+        over ``[0, len)`` and writes every later position itself."""
+        for i, layer in self.caches.items():
+            for name, dst in layer.items():
+                src = row_caches[i][name][0, :self.window]
+                dst[int(slot), :src.shape[0]] = src.to(dst.dtype)
 
 
 class PagedKVCache:

@@ -12,20 +12,27 @@ key: the JAX package's per-shape compile caches have no counterpart.
 import numpy
 import torch
 
+from veles_tpu_torch.models.generate import kv_cache_eligible
+
 
 def serving_supported(forwards):
-    """True when the chain can serve through the scheduler: causal
-    cacheable blocks with a batched prefill and a paged decode step,
-    and every other unit position-wise or speaking per-slot steps."""
+    """True when the chain can serve through the scheduler: kv-cache
+    eligible (``models.generate.kv_cache_eligible``), every cacheable
+    block speaks a batched prefill and the per-slot step
+    (``apply_step_slots``), and every other unit with a single-token
+    step is position-wise or has a per-slot one.  The paged layout
+    needs ``apply_step_paged`` besides (``kv_slots.paged_supported``)."""
+    if not kv_cache_eligible(forwards):
+        return False
     has_cache = False
     for u in forwards:
         if hasattr(u, "init_cache"):
             has_cache = True
-            if not getattr(u, "causal", False) \
-                    or not hasattr(u, "apply_prefill") \
-                    or not hasattr(u, "apply_step_paged"):
+            if not hasattr(u, "apply_prefill") \
+                    or not hasattr(u, "apply_step_slots"):
                 return False
-        elif not getattr(u, "DECODE_POINTWISE", False) \
+        elif hasattr(u, "apply_step") \
+                and not getattr(u, "DECODE_POINTWISE", False) \
                 and not hasattr(u, "apply_step_slots"):
             return False
     return has_cache

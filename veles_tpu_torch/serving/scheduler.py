@@ -76,11 +76,27 @@ counters and latency windows live in a
 KV and prefix-cache state, and :meth:`debug_requests` the live
 in-flight table.
 
+Delivery and the aux lane, as in the reference: ``submit(...,
+stream=True)`` returns a :class:`~veles_tpu_torch.serving.streams.
+TokenStream` that :meth:`_emit` pushes every accepted token into in the
+boundary that appends it (spec bursts back to back, a resumed request
+only its newly drawn tokens); :meth:`submit_embed` and
+:meth:`submit_score` queue batched embedding and class-scoring jobs
+(:mod:`~veles_tpu_torch.serving.openai_api`), of which the loop runs
+ONE per boundary (injection point ``serving.scheduler.aux``); they
+count as in flight, so :meth:`drain` waits for them.
+
+``kv="dense"`` swaps the block-paged cache for the reference's legacy
+slot-major :class:`~veles_tpu_torch.serving.kv_slots.SlotKVCache`: each
+step is one full-batch :func:`~veles_tpu_torch.serving.engine.
+slot_decode_step` over every slot, and int8 pools, speculative
+decoding, the prefix cache and the block budget and shed switch off
+where the reference switches them off.
+
 Not ported yet (the JAX scheduler has them): the Medusa draft heads
 and the hidden-state lane, the host-RAM KV tier, disaggregation and
-prefix export/import, token streams, tenants, tensor parallelism,
-embed/score jobs and the dense KV layout; ``metrics()`` reports their
-keys as the reference does with them off.
+prefix export/import, tenants and tensor parallelism; ``metrics()``
+reports their keys as the reference does with them off.
 """
 
 import collections
@@ -98,15 +114,20 @@ from veles_tpu_torch import faults
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.ops.paged_attend import MAX_K1
 from veles_tpu_torch.serving.engine import (
-    first_tokens, paged_decode_step, verify_step_paged, verify_supported)
-from veles_tpu_torch.serving.kv_slots import PagedKVCache, paged_supported
+    first_tokens, paged_decode_step, slot_decode_step, verify_step_paged,
+    verify_supported)
+from veles_tpu_torch.serving.kv_slots import (
+    PagedKVCache, SlotKVCache, paged_supported)
 from veles_tpu_torch.serving.metrics import ServingMetrics
+from veles_tpu_torch.serving.openai_api import (
+    embed_supported, pooled_embeddings, score_rows)
 from veles_tpu_torch.serving.prefill import (
     chunked_supported, prefill, prefill_chunk, serving_supported,
     serving_window)
 from veles_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from veles_tpu_torch.serving.spec import (
     NgramIndex, NgramProposer, accept_drafts)
+from veles_tpu_torch.serving.streams import TokenStream
 from veles_tpu_torch.telemetry import reqtrace as tracing
 
 log = logging.getLogger(__name__)
@@ -195,10 +216,10 @@ class _Request(object):
                  "generated", "cancelled", "preempts", "t_submit",
                  "t_admit", "t_first", "pf_seq", "pf_caches", "pf_off",
                  "pf_width", "pf_chunk", "pf_matched", "prefix_handle",
-                 "draft_k", "accept_ema", "gram_ix", "trace")
+                 "draft_k", "accept_ema", "gram_ix", "sink", "trace")
 
     def __init__(self, prompt, steps, temperature, top_k, stop_token,
-                 seed, deadline, priority, trace=None):
+                 seed, deadline, priority, sink=None, trace=None):
         self.prompt = prompt
         self.steps = steps
         self.temperature = temperature
@@ -207,6 +228,7 @@ class _Request(object):
         self.seed = seed
         self.deadline = deadline
         self.priority = int(priority)   # 0 low / 1 normal / 2 high
+        self.sink = sink                # TokenStream._push (or None)
         self.trace = trace              # request trace id
         self.future = concurrent.futures.Future()
         self.slot = None
@@ -250,7 +272,11 @@ class InferenceScheduler(object):
     chain's positional table); ``max_queue`` — waiting-request cap
     (:class:`QueueFullError` above it); ``queue_timeout`` — the
     deadline in seconds of a request given no ``timeout`` while
-    ``request_timeout`` is 0; ``block_size`` /
+    ``request_timeout`` is 0; ``kv`` — the KV layout, "paged" (the
+    reference's default) or "dense" (:class:`~veles_tpu_torch.serving.
+    kv_slots.SlotKVCache`: a window row per slot, no int8 pools,
+    speculative decoding, prefix cache or block budget — each falls back
+    off as in the reference); ``block_size`` /
     ``kv_blocks`` / ``kv_dtype`` ("fp32" or "int8") — the paged cache;
     ``prefill_chunk`` — chunk width of chunked prefill (0 = always
     one-shot); ``spec`` / ``spec_k`` — speculative decoding with up to
@@ -277,7 +303,8 @@ class InferenceScheduler(object):
     DRAFT_SHRINK, DRAFT_GROW = 0.5, 0.8
 
     def __init__(self, forwards, max_slots=4, window=None, max_queue=32,
-                 *, queue_timeout=30.0, block_size=16, kv_blocks=None,
+                 *, queue_timeout=30.0, kv="paged", block_size=16,
+                 kv_blocks=None,
                  kv_dtype="fp32", prefill_chunk=64, spec=True, spec_k=4,
                  fused_verify=False, draft_k_min=1, draft_ema=0.5,
                  request_timeout=120.0, watchdog=300.0,
@@ -288,10 +315,10 @@ class InferenceScheduler(object):
         if any(u.device != self.device for u in forwards):
             raise ValueError("the chain lies on %s, the scheduler was "
                              "given %s" % (forwards[0].device, self.device))
-        if not serving_supported(forwards) or not paged_supported(forwards):
+        if not serving_supported(forwards):
             raise ValueError(
                 "chain cannot serve through the scheduler (needs causal "
-                "cacheable blocks with apply_prefill/apply_step_paged)")
+                "cacheable blocks with apply_prefill/apply_step_slots)")
         window = window or serving_window(forwards)
         if not window or int(window) < 2:
             raise ValueError("no usable decode window: pass window=")
@@ -300,14 +327,26 @@ class InferenceScheduler(object):
         self.window = int(window)
         self.max_queue = int(max_queue)
         self.queue_timeout = float(queue_timeout or 0)
+        if kv not in ("paged", "dense"):
+            raise ValueError("kv must be 'paged' or 'dense'")
+        if kv == "paged" and not paged_supported(forwards):
+            log.info("chain has no paged decode step; falling back to the "
+                     "dense slot cache")
+            kv = "dense"
+        self.kv = kv
         self.block_size = int(block_size)
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
         self.blocks_per_slot = -(-self.window // self.block_size)
         self.kv_blocks = int(kv_blocks
-                             or self.max_slots * self.blocks_per_slot)
+                             or self.max_slots * self.blocks_per_slot) \
+            if self.kv == "paged" else 0
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError("kv_dtype must be 'fp32' or 'int8'")
+        if kv_dtype == "int8" and self.kv != "paged":
+            log.info("kv_dtype='int8' needs the paged cache; falling back "
+                     "to fp32")
+            kv_dtype = "fp32"
         self.kv_dtype = kv_dtype
         chunk = int(prefill_chunk or 0)
         if chunk and not chunked_supported(forwards):
@@ -320,8 +359,8 @@ class InferenceScheduler(object):
         self.spec_k = int(spec_k)
         if spec and self.spec_k < 1:
             raise ValueError("spec_k must be >= 1")
-        if spec and not verify_supported(forwards):
-            log.info("chain cannot run the paged verify step; "
+        if spec and (self.kv != "paged" or not verify_supported(forwards)):
+            log.info("chain/kv mode cannot run the paged verify step; "
                      "speculative decoding disabled")
             spec = False
         self.fused_verify = bool(fused_verify)
@@ -343,9 +382,9 @@ class InferenceScheduler(object):
         #: the warm cold-tail prefill needs chunked prefill, and the
         #: staging and chunk tilings a power-of-two block size
         pfx = bool(prefix_cache)
-        if pfx and (not self.prefill_chunk
+        if pfx and (self.kv != "paged" or not self.prefill_chunk
                     or self.block_size & (self.block_size - 1)):
-            log.info("prefix cache needs chunked prefill and a "
+            log.info("prefix cache needs kv='paged', chunked prefill and a "
                      "power-of-two block size; disabled")
             pfx = False
         self.prefix_cache = pfx
@@ -385,6 +424,7 @@ class InferenceScheduler(object):
         self._stop = threading.Event()   # wakes the watchdog at close()
         self._preempts_owed = []     # eviction demands: class bound per
         #                              entry (None = any victim)
+        self._aux = collections.deque()  # embed/score jobs (loop-run)
         self._queued_blocks = 0      # block budget committed in-queue
         self._beat = None            # loop-iteration heartbeat stamp
         self._working = False        # loop mid-iteration (not parked)
@@ -453,7 +493,7 @@ class InferenceScheduler(object):
 
     @property
     def kv_blocks_free(self):
-        cache = self.cache_
+        cache = self.cache_ if self.kv == "paged" else None
         return cache.free_blocks if cache is not None else self.kv_blocks
 
     # -- client side -----------------------------------------------------------
@@ -483,11 +523,15 @@ class InferenceScheduler(object):
         return self
 
     def submit(self, prompt, steps, temperature=0.0, top_k=0, seed=None,
-               stop_token=None, timeout=None, priority=None, *,
-               trace=None, resume_tokens=None):
+               stop_token=None, timeout=None, priority=None, stream=False,
+               *, trace=None, resume_tokens=None):
         """Queue one sequence; returns a Future whose result is the
         prompt followed by the generated tokens (ending at the first
-        generated stop token, if one fired).
+        generated stop token, if one fired).  ``stream=True`` returns a
+        :class:`~veles_tpu_torch.serving.streams.TokenStream` instead
+        (its ``.future`` is that Future) that yields each token as the
+        loop accepts it; ``stream`` is the ninth positional parameter,
+        as in the reference.
 
         ``timeout`` overrides the whole-request deadline (default
         ``request_timeout``; it covers queueing and decoding).
@@ -499,8 +543,9 @@ class InferenceScheduler(object):
         adopts an already-generated prefix: the request admits with it
         as its generated tokens, re-prefills prompt + prefix and draws
         its next token at counter ``len(resume_tokens)``, so the stream
-        continues an uninterrupted run's; ``steps`` stays the total
-        budget, the prefix included.
+        continues an uninterrupted run's (a stream yields only the
+        newly drawn tokens); ``steps`` stays the total budget, the
+        prefix included.
 
         Raises ``ValueError`` on a malformed request,
         :class:`QueueFullError` when admission control rejects it (a
@@ -523,10 +568,12 @@ class InferenceScheduler(object):
             raise ValueError("prompt_len + steps = %d exceeds the serving "
                              "window (%d)" % (len(prompt) + steps,
                                               self.window))
-        need = -(-(len(prompt) + steps) // self.block_size)
-        if need > self.kv_blocks:
-            raise ValueError("request needs %d KV blocks > pool capacity "
-                             "%d (kv_blocks)" % (need, self.kv_blocks))
+        if self.kv == "paged":
+            need = -(-(len(prompt) + steps) // self.block_size)
+            if need > self.kv_blocks:
+                raise ValueError("request needs %d KV blocks > pool "
+                                 "capacity %d (kv_blocks)"
+                                 % (need, self.kv_blocks))
         temperature = float(temperature or 0.0)
         top_k = int(top_k or 0)
         if top_k and not temperature:
@@ -536,13 +583,23 @@ class InferenceScheduler(object):
             seed = int.from_bytes(os.urandom(4), "little")
         ttl = float(timeout or self.request_timeout
                     or self.queue_timeout or 0)
+        trace = tracing.ensure_trace_id(trace)
+        ts = TokenStream(prompt) if stream else None
+        if ts is not None:
+            ts.trace = trace
         req = _Request(prompt, steps, temperature, top_k,
                        int(stop_token) if stop_token is not None else None,
                        int(seed) & 0xFFFFFFFF,
                        time.monotonic() + ttl if ttl > 0 else None, prio,
-                       trace=tracing.ensure_trace_id(trace))
+                       sink=ts._push if ts is not None else None,
+                       trace=trace)
+        # a resumed prefix is the request's, not the stream's: the sink
+        # sees only the tokens drawn here
         req.generated = resume
         self._admission_enqueue(req)
+        if ts is not None:
+            ts._bind(self, req.future)
+            return ts
         return req.future
 
     def _admission_enqueue(self, req):
@@ -565,7 +622,7 @@ class InferenceScheduler(object):
                                      % len(self._queue))
                 err.retry_after = _RETRY_AFTER[prio]
                 raise err
-            if self.shed_block_factor > 0 \
+            if self.kv == "paged" and self.shed_block_factor > 0 \
                     and self._queued_blocks + need \
                     > self.shed_block_factor * _SHED_FRAC[prio] \
                     * self.kv_blocks:
@@ -621,7 +678,9 @@ class InferenceScheduler(object):
         return True
 
     def _blocks_for(self, req):
-        """The block budget a request commits."""
+        """The paged block budget a request commits (0 when dense)."""
+        if self.kv != "paged":
+            return 0
         return -(-(len(req.prompt) + req.steps) // self.block_size)
 
     def cancel(self, future, reason="cancelled by client"):
@@ -666,6 +725,84 @@ class InferenceScheduler(object):
                 [None if below is None else int(below)] * int(n))
             self._wake.notify()
 
+    def submit_embed(self, rows):
+        """Queue ONE batched embedding job (``/v1/embeddings``): ``rows``
+        are non-empty token lists; the future resolves to a list of
+        pooled unit-norm vectors (:func:`~veles_tpu_torch.serving.
+        openai_api.embed_pool`).  The job runs on the loop thread
+        between decode boundaries."""
+        return self._submit_aux("embed", rows)
+
+    def submit_score(self, rows):
+        """Queue ONE batched classifier-scoring job (``/v1/classify``):
+        the future resolves to per-row class log-probabilities [n,
+        classes] from the full chain's last-position logits."""
+        return self._submit_aux("score", rows)
+
+    def _submit_aux(self, kind, rows):
+        rows = [[int(t) for t in r] for r in rows]
+        if not rows or any(not r for r in rows):
+            raise ValueError("input must be non-empty token rows")
+        widest = max(len(r) for r in rows)
+        if widest > self.window:
+            raise ValueError("input row of %d tokens exceeds the serving "
+                             "window (%d)" % (widest, self.window))
+        if kind == "embed" and not embed_supported(self.forwards):
+            raise ValueError("chain cannot serve embeddings")
+        fut = concurrent.futures.Future()
+        with self._wake:
+            if self._closed:
+                raise SchedulerError("scheduler is closed")
+            if self._draining:
+                raise DrainingError("scheduler is draining")
+            if len(self._aux) >= self.max_queue:
+                self.stats.record_reject(len(self._aux))
+                raise QueueFullError("aux queue full (%d waiting)"
+                                     % len(self._aux))
+            self._aux.append((kind, rows, fut))
+            self._wake.notify()
+        return fut
+
+    def _aux_tick(self):
+        """Run ONE queued embed/score job at this boundary: like a
+        prefill chunk, it delays in-flight decode by one bounded pass,
+        not by the whole aux backlog.  The job leaves the queue only
+        once its future is settled, so :attr:`in_flight` and
+        :meth:`drain` count it while it runs (the reference pops it
+        first)."""
+        with self._lock:
+            if not self._aux:
+                return
+            job = self._aux[0]
+        kind, rows, fut = job
+        try:
+            if not fut.done():   # else the consumer already gave up
+                self._run_aux(kind, rows, fut)
+        finally:
+            with self._lock:
+                if self._aux and self._aux[0] is job:
+                    self._aux.popleft()
+
+    def _run_aux(self, kind, rows, fut):
+        try:
+            faults.fire("serving.scheduler.aux")
+            if kind == "embed":
+                out = pooled_embeddings(self.forwards, rows, self.window)
+            else:
+                out = score_rows(self.forwards, rows, self.window)
+        except Exception as e:
+            out = e if isinstance(e, SchedulerError) \
+                else SchedulerError(repr(e))
+        # a client may cancel the future meanwhile: that must not reach
+        # the loop
+        try:
+            if isinstance(out, Exception):
+                fut.set_exception(out)
+            else:
+                fut.set_result(out)
+        except concurrent.futures.InvalidStateError:
+            pass
+
     def drain(self, timeout=None):
         """Begin a graceful drain: submits raise :class:`DrainingError`,
         every queued and in-flight request runs to completion, then
@@ -675,7 +812,7 @@ class InferenceScheduler(object):
             first = not self._draining
             self._draining = True
             if not (self._queue or self._active or self._prefilling
-                    or self._admitting):
+                    or self._admitting or self._aux):
                 self._drained.set()
             self._wake.notify()
         if first:
@@ -697,36 +834,39 @@ class InferenceScheduler(object):
     @property
     def in_flight(self):
         """Requests still owed an answer (queued, admitting, prefilling,
-        decoding)."""
+        decoding) and aux jobs not yet settled."""
         with self._lock:
             return len(self._queue) + len(self._prefilling) \
-                + len(self._active) + len(self._admitting)
+                + len(self._active) + len(self._admitting) \
+                + len(self._aux)
 
     def _kv_snapshot(self):
         """The KV, speculative-decoding and prefix-cache part of
         :meth:`metrics`.  The loop thread owns the cache and the trie;
         these reads are monitoring-grade (``len()`` and int reads)."""
         cache = self.cache_
-        out = {"kv_mode": "paged",
+        out = {"kv_mode": self.kv,
                "prefill_chunk": self.prefill_chunk,
                "prefilling": len(self._prefilling),
                "tp": 0,
                "role": "both",
                "replica": self.replica_id,
-               "kv_exports_pending": 0,
-               "kv_dtype": self.kv_dtype,
-               "kv_bytes_per_token":
-                   cache.bytes_per_token() if cache is not None else None,
-               "kv_block_size": self.block_size,
-               "kv_blocks_total": self.kv_blocks,
-               "kv_blocks_used": cache.used_blocks if cache is not None
-               else 0,
-               "kv_blocks_free": cache.free_blocks if cache is not None
-               else self.kv_blocks,
-               "spec": self.spec,
-               "spec_k": self.spec_k if self.spec else 0,
-               "drafter": "ngram" if self.spec else None,
-               "draft_k_min": self.draft_k_min if self.spec else 0}
+               "kv_exports_pending": 0}
+        if self.kv == "paged":
+            out.update({
+                "kv_dtype": self.kv_dtype,
+                "kv_bytes_per_token":
+                    cache.bytes_per_token() if cache is not None else None,
+                "kv_block_size": self.block_size,
+                "kv_blocks_total": self.kv_blocks,
+                "kv_blocks_used": cache.used_blocks if cache is not None
+                else 0,
+                "kv_blocks_free": cache.free_blocks if cache is not None
+                else self.kv_blocks})
+        out.update({"spec": self.spec,
+                    "spec_k": self.spec_k if self.spec else 0,
+                    "drafter": "ngram" if self.spec else None,
+                    "draft_k_min": self.draft_k_min if self.spec else 0})
         pfx = self.prefix_
         out["prefix_cache"] = pfx is not None
         if pfx is not None:
@@ -791,7 +931,8 @@ class InferenceScheduler(object):
         out = []
         for phase, req in rows:
             blocks = shared = 0
-            if req.slot is not None and cache is not None:
+            if req.slot is not None and self.kv == "paged" \
+                    and cache is not None:
                 blocks = int(cache.n_blocks[req.slot])
                 shared = int(cache.n_shared[req.slot])
             row = {
@@ -807,7 +948,7 @@ class InferenceScheduler(object):
                 "blocks_shared": shared,
                 "blocks_budget": self._blocks_for(req),
                 "preempts": req.preempts,
-                "stream": False,
+                "stream": req.sink is not None,
                 "deadline_in_s": round(req.deadline - now, 3)
                 if req.deadline is not None else None,
             }
@@ -818,8 +959,9 @@ class InferenceScheduler(object):
 
     def check_kv(self):
         """The paged cache's invariant sweep, the prefix cache's
-        resident blocks included (loop idle or closed)."""
-        if self.cache_ is not None:
+        resident blocks included (loop idle or closed); the dense cache
+        has no blocks to sweep."""
+        if self.cache_ is not None and self.kv == "paged":
             self.cache_.check(
                 resident=self.prefix_.resident_blocks()
                 if self.prefix_ is not None else ())
@@ -844,17 +986,27 @@ class InferenceScheduler(object):
         with self._lock:
             pending = list(self._queue) + list(self._prefilling) \
                 + list(self._active.values()) + list(self._admitting)
+            aux = list(self._aux)
             self._queue.clear()
             self._prefilling = []
             self._active.clear()
             self._admitting = []
+            self._aux.clear()
             self._queued_blocks = 0
+        for _, _, fut in aux:
+            if not fut.done():
+                try:
+                    fut.set_exception(err)
+                except concurrent.futures.InvalidStateError:
+                    pass
         # the loop thread is joined: its cache and trie are ours now
         cache = self.cache_ if loop_dead else None
         for req in pending:
             if req.slot is not None and cache is not None:
                 self._release_slot(req, cache)
             req.fail(err)
+        if cache is not None:
+            self._sync_kv_gauges(cache)
         self._drained.set()
         with self._lock:
             wd, self._watchdog_thread = self._watchdog_thread, None
@@ -865,14 +1017,12 @@ class InferenceScheduler(object):
 
     def _loop(self):
         try:
-            self.cache_ = PagedKVCache(
-                self.forwards, self.max_slots, self.window,
-                block_size=self.block_size, kv_blocks=self.kv_blocks,
-                kv_dtype=self.kv_dtype)
+            self.cache_ = self._make_cache()
             if self.prefix_cache:
                 self.prefix_ = RadixPrefixCache(self.block_size)
-            self.stats.set_kv_dtype(self.kv_dtype,
-                                    self.cache_.bytes_per_token())
+            if self.kv == "paged":
+                self.stats.set_kv_dtype(self.kv_dtype,
+                                        self.cache_.bytes_per_token())
         except Exception as e:
             self.error = e
             with self._wake:
@@ -899,13 +1049,21 @@ class InferenceScheduler(object):
             for req in pending:
                 req.fail(SchedulerError(repr(e)))
 
+    def _make_cache(self):
+        if self.kv == "paged":
+            return PagedKVCache(
+                self.forwards, self.max_slots, self.window,
+                block_size=self.block_size, kv_blocks=self.kv_blocks,
+                kv_dtype=self.kv_dtype)
+        return SlotKVCache(self.forwards, self.max_slots, self.window)
+
     def _serve(self, cache):
         while True:
             with self._wake:
                 self._working = False
                 while not self._closed and not self._queue \
                         and not self._active and not self._prefilling \
-                        and not self._preempts_owed:
+                        and not self._preempts_owed and not self._aux:
                     if self._draining:
                         self._drained.set()
                     self._wake.wait()
@@ -945,6 +1103,8 @@ class InferenceScheduler(object):
                 self._begin_admit(req, cache)
                 with self._lock:
                     self._admitting.remove(req)
+            if self._aux:
+                self._aux_tick()
             if self._prefilling:
                 self._prefill_tick(cache)
             if self._active:
@@ -953,7 +1113,10 @@ class InferenceScheduler(object):
     def _can_admit(self, cache, req):
         """Admission sizing for the head of the queue: a warm prompt
         needs only its cold blocks, and refcount-0 residents count as
-        headroom when they may be evicted."""
+        headroom when they may be evicted.  A dense slot needs only
+        itself."""
+        if self.kv != "paged":
+            return cache.can_admit(len(req.prompt) + req.steps)
         if not cache.free_slots:
             return False
         need = cache.blocks_needed(len(req.prompt) + req.steps)
@@ -973,6 +1136,9 @@ class InferenceScheduler(object):
         residents if the free list is short, then alloc with the
         matched blocks heading the table."""
         total = len(req.prompt) + req.steps
+        if self.kv != "paged":
+            req.slot = cache.alloc(total)
+            return req.slot is not None
         handle = None
         if self.prefix_ is not None:
             seq = list(req.prompt) + list(req.generated)
@@ -1009,7 +1175,7 @@ class InferenceScheduler(object):
                 self.prefix_.release(req.prefix_handle)
                 req.prefix_handle = None
             return
-        if self.prefix_ is None:
+        if self.kv != "paged" or self.prefix_ is None:
             cache.release(req.slot)
         else:
             donate = 0
@@ -1038,7 +1204,8 @@ class InferenceScheduler(object):
         req.pf_matched = 0
 
     def _sync_kv_gauges(self, cache):
-        self.stats.set_kv_blocks(cache.used_blocks, cache.free_blocks)
+        if self.kv == "paged":
+            self.stats.set_kv_blocks(cache.used_blocks, cache.free_blocks)
 
     def _reap(self, cache):
         """Boundary sweep over the in-flight set: release the slot and
@@ -1164,8 +1331,9 @@ class InferenceScheduler(object):
     def _staging_width(self, p_len, chunk):
         """Width of the batch-1 staging row a prompt prefills into:
         the power-of-two bucket of the prompt, floored so it tiles the
-        chunk width and the block size."""
-        floor = max(PREFILL_BUCKET, self.block_size, chunk or 1)
+        chunk width and (paged) the block size."""
+        bs = self.block_size if self.kv == "paged" else 1
+        floor = max(PREFILL_BUCKET, bs, chunk or 1)
         return _bucket(p_len, floor, 1 << 30)
 
     def _staging(self, width):
@@ -1302,8 +1470,11 @@ class InferenceScheduler(object):
         (they are the prefix cache's and already hold these rows) and
         emit the next token."""
         try:
-            cache.insert(req.slot, row_caches, len(req.pf_seq),
-                         from_block=req.pf_matched)
+            if self.kv == "paged":
+                cache.insert(req.slot, row_caches, len(req.pf_seq),
+                             from_block=req.pf_matched)
+            else:
+                cache.insert(req.slot, row_caches, len(req.pf_seq))
         except Exception as e:
             self._retire(req, cache, error=e)
             return
@@ -1333,7 +1504,12 @@ class InferenceScheduler(object):
         self._maybe_finish(req, cache)
 
     def _emit(self, req, tok):
+        """Accept one token: append it and push it to the request's
+        stream in the same boundary (a resumed request re-prefills but
+        never re-emits: only newly drawn tokens pass here)."""
         req.generated.append(tok)
+        if req.sink is not None:
+            req.sink(tok)
 
     def _step(self, cache):
         with self._lock:
@@ -1341,7 +1517,46 @@ class InferenceScheduler(object):
         if not active:
             return
         faults.fire("serving.scheduler.step")
-        self._step_paged(cache, active)
+        if self.kv == "paged":
+            self._step_paged(cache, active)
+        else:
+            self._step_dense(cache, active)
+
+    def _step_dense(self, cache, active):
+        """The dense layout's full-batch step: every slot rides it, free
+        ones decoding garbage rows."""
+        s = self.max_slots
+        toks = numpy.zeros((s, 1), numpy.int32)
+        pos = numpy.zeros((s,), numpy.int32)
+        temps = numpy.zeros((s,), numpy.float32)
+        topks = numpy.zeros((s,), numpy.int32)
+        seeds = numpy.zeros((s,), numpy.uint32)
+        counts = numpy.zeros((s,), numpy.int32)
+        for slot, req in active.items():
+            toks[slot, 0] = req.generated[-1]
+            pos[slot] = len(req.prompt) + len(req.generated) - 1
+            temps[slot] = req.temperature
+            topks[slot] = req.top_k
+            seeds[slot] = req.seed
+            counts[slot] = len(req.generated)
+        t0 = time.perf_counter()
+        nxt = slot_decode_step(self.forwards, cache, toks, pos, temps,
+                               topks, seeds, counts)
+        dt = time.perf_counter() - t0
+        n = len(active)
+        self.decode_seconds += dt
+        self.decode_steps += 1
+        self.decode_tokens += n
+        self.stats.record_step(n, s, tokens=n, duration_s=dt)
+        for slot, req in active.items():
+            self._emit(req, int(nxt[slot]))
+            self._maybe_finish(req, cache)
+        if self._tron:
+            emitted = {}
+            for r in active.values():
+                emitted[r.trace] = emitted.get(r.trace, 0) + 1
+            tracing.record_step(emitted, duration=dt, mode="decode",
+                                slots=n, bucket=s)
 
     def _step_paged(self, cache, active):
         """Packed step: only the active slots ride the batch, padded to
