@@ -133,6 +133,27 @@ result line):
    ``kv="dense"`` against paged fp32 pools at SLOTS x PROMPT x STEPS:
    equal streams, no kernel launch on the dense run, each decode step's
    ms and cache bytes;
+6e. rest — ``veles_tpu_torch.restful_api.RESTfulAPI`` in front of the
+   scheduler on the spec phase's trained chain at the reference's REST
+   defaults (spec on at spec_k 4, the prefix cache on, ``prefill_chunk``
+   64), 4 slots, int8 KV pools, block 16, on 127.0.0.1: (a)
+   REST_CLIENTS concurrent ``/generate`` clients of the pattern prompt x
+   SURF_STEPS greedy steps, each reply equal to the direct
+   ``scheduler_.submit`` result, then REST_CLIENTS sequential round
+   trips against direct submits, one-token requests against direct
+   ones, and ``/healthz`` (p50); (b) ``/generate`` and
+   ``/v1/completions`` streamed over SSE at one client, the frames equal
+   to the batch reply, first frame and gaps against a direct
+   ``TokenStream``'s; (c) ``/v1/embeddings`` and ``/v1/classify`` of
+   AUX_ROWS rows of AUX_LEN tokens within 1e-5 of the direct calls; (d)
+   beam BEAM over HTTP equal to ``generate_beam``, and a
+   ``serving=False`` server equal to ``generate``; (e)
+   ``/serving/metrics`` and ``/metrics`` counting the phase's requests
+   and tokens, ``/healthz`` 200; (f) an SSE client reset mid-stream
+   (the pool clean, one more cancel); (g) ``/drain`` (``/healthz`` and a
+   new ``/generate`` 503) and ``stop()`` (connections refused).
+   ``paged_attend`` 8 and ``int8_gemm`` 24 launches per model pass on
+   (a), (b) and (f), all split; none of kernels 1-3 on (c) and (d);
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
    bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
@@ -179,8 +200,9 @@ serving kernels' (``paged_attend``, ``int8_gemm``) ``ms`` and
 step's launches (their launches are shorter than the host's dispatch of
 one), with the host-paced eager loops under ``eager_ms`` and
 ``library_eager_ms``, the verify widths' graph times under ``verify``
-and the spec, lifecycle and surface phases' launches under
-``spec_launches``, ``lifecycle_launches`` and ``surface_launches``
+and the spec, lifecycle, surface and REST phases' launches under
+``spec_launches``, ``lifecycle_launches``, ``surface_launches`` and
+``rest_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -375,6 +397,10 @@ LIFE_WATCHDOG, LIFE_HANG = 0.5, 1.5
 SURF_STEPS, AUX_ROWS, AUX_LEN, AUX_STREAMS = 128, 8, 128, 4
 GEN_STEPS, GEN_BATCH, BEAM = 64, 8, 4
 GEN_LENS = (64, 48, 33, 17, 64, 5, 40, 64)
+#: the REST phase: concurrent /generate clients of the pattern prompt, then
+#: as many sequential round trips; beam search and the serialized decode
+#: over REST_BEAM_STEPS steps
+REST_CLIENTS, REST_BEAM_STEPS = 8, 32
 
 #: the training model of the smoke (``bench.py``'s ``bench_lm``)
 T_VOCAB, T_DIM, T_LAYERS, T_HEADS, T_SEQ, T_BATCH = 32768, 2048, 8, 16, 2048, 4
@@ -2920,6 +2946,444 @@ def surface_check(torch, dev, serve_chain, spec_chain_, pattern):
     return dict(launches, flash_attn_fwd=flash)
 
 
+# -- phase 6e: the REST server ------------------------------------------------
+
+def _http(port, path, body=None, timeout=600):
+    """One request to the phase's server: (status, headers, JSON body).
+    Error statuses are returned, not raised."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d%s" % (port, path),
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        resp = urllib.request.urlopen(req, timeout=timeout)
+    except urllib.error.HTTPError as e:
+        resp = e
+    raw = resp.read()
+    code = resp.status if hasattr(resp, "status") else resp.code
+    return code, resp.headers, json.loads(raw) if raw.startswith(b"{") \
+        else raw
+
+
+def sse_client(port, path, body):
+    """POST ``body`` to an SSE route and read its frames as they arrive:
+    returns the perf_counter stamp before sending, each frame's payload
+    and arrival stamp, and whether ``data: [DONE]`` ended it."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise SystemExit("rest: %s answered %d: %r"
+                             % (path, resp.status, resp.read()))
+        frames, done = [], False
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.strip() == b"data: [DONE]":
+                done = True
+                break
+            if line.startswith(b"data: "):
+                frames.append((time.perf_counter(), json.loads(line[6:])))
+    finally:
+        conn.close()
+    return t0, frames, done
+
+
+def prometheus(port):
+    """``GET /metrics`` parsed: its family names and each sample's value
+    (by its name and labels).  Fails on a reply that does not parse."""
+    code, headers, text = _http(port, "/metrics")
+    if code != 200 or not headers["Content-Type"].startswith("text/plain"):
+        raise SystemExit("rest: /metrics answered %d %s"
+                         % (code, headers["Content-Type"]))
+    families, values = set(), {}
+    for line in text.decode().splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            values[name] = float(value)
+    return families, values
+
+
+def rest_counts(sch):
+    return {"passes": _passes(sch), **read_serving_counts()}
+
+
+def rest_launches(what, sch, before, launches):
+    """Fail unless the serving kernels ran 8 and 24 times per model pass
+    of ``sch`` since ``before`` (a :func:`rest_counts`), all split; adds
+    them to ``launches``."""
+    now = rest_counts(sch)
+    passes = now["passes"] - before["passes"]
+    got = {"paged_attend": now["paged_attend"] - before["paged_attend"],
+           "int8_gemm": now["int8_gemm"] - before["int8_gemm"],
+           "paged_attend_by_kernel": {
+               k: now["paged_attend_by_kernel"][k]
+               - before["paged_attend_by_kernel"][k]
+               for k in now["paged_attend_by_kernel"]}}
+    check_pass_launches(what, passes, got)
+    for n in launches:
+        launches[n] += got[n]
+    return passes
+
+
+def rest_check(torch, dev, chain, pattern):
+    """Phase 6e: ``veles_tpu_torch.restful_api.RESTfulAPI`` on the spec
+    phase's trained chain at the reference's REST defaults (spec on at
+    spec_k 4, the prefix cache on, ``prefill_chunk`` 64) with 4 slots,
+    int8 KV pools and block 16, on 127.0.0.1.  (a) REST_CLIENTS
+    concurrent ``/generate`` clients of the SPEC_PROMPT-token pattern
+    prompt x SURF_STEPS greedy steps, each reply equal to the prompt's
+    direct ``scheduler_.submit`` result; then one client at a time,
+    REST_CLIENTS times, the round trip against the direct submit; (b)
+    ``/generate`` and ``/v1/completions`` with ``"stream": true``, the
+    frames' tokens equal to the batch reply, the first frame against a
+    direct ``TokenStream``'s first token and the gaps; (c)
+    ``/v1/embeddings`` and ``/v1/classify`` of AUX_ROWS rows of AUX_LEN
+    tokens within 1e-5 of ``pooled_embeddings``/``score_rows`` called
+    directly; (d) ``beam`` BEAM over HTTP equal to ``generate_beam`` and
+    a second server (``serving=False``) equal to ``generate``; (e)
+    ``/serving/metrics`` counting the phase's requests and tokens,
+    ``/metrics`` parsing with its ``veles_serving_*`` families and
+    ``/healthz`` 200; (f) an SSE client reset mid-stream, the pool clean
+    and one more cancel; (g) ``/drain``, then ``/healthz`` and a new
+    ``/generate`` 503, and ``stop()`` leaving the port refusing
+    connections.  Kernels 1 and 2 must run 8 and 24 times per model pass
+    on (a), (b) and (f), all split, and none of kernels 1-3 on (c) and
+    (d).  Returns (a), (b) and (f)'s launches."""
+    import socket
+    import struct
+    import urllib.error
+    import urllib.request
+    from veles_tpu_torch.models.generate import generate, generate_beam
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    from veles_tpu_torch.serving import openai_api
+    from veles_tpu_torch.serving.openai_api import (
+        pooled_embeddings, score_rows)
+    t_phase = time.perf_counter()
+    prompt = (pattern * 8)[:SPEC_PROMPT]
+    learned = [pattern[(SPEC_PROMPT + i) % len(pattern)]
+               for i in range(SURF_STEPS)]
+    api = RESTfulAPI(forwards=chain, max_slots=4, serving_kv_dtype="int8",
+                     serving_block_size=BLOCK, device=dev)
+    api.initialize()
+    sch = api.scheduler_
+    out, launches = {"port": api.port}, {"paged_attend": 0, "int8_gemm": 0}
+    served = {"requests": 0, "tokens": 0}
+
+    def count(tokens):
+        served["requests"] += 1
+        served["tokens"] += tokens
+
+    try:
+        if not (sch.spec and sch.spec_k == 4 and sch.prefix_cache
+                and sch.prefill_chunk == 64 and sch.kv_dtype == "int8"):
+            raise SystemExit("rest: the server's scheduler is not at the "
+                             "REST defaults: %s" % sch.metrics())
+        base = sch.metrics()
+        prom0 = prometheus(api.port)[1]
+        want = sch.submit(prompt, SURF_STEPS).result(600)
+        count(SURF_STEPS)
+        if want[SPEC_PROMPT:] != learned:
+            raise SystemExit("rest: the direct submit leaves the pattern")
+        body = {"prompt": prompt, "steps": SURF_STEPS}
+        # (a) concurrent clients, then one at a time against the direct
+        torch.cuda.synchronize()
+        before = rest_counts(sch)
+        results = [None] * REST_CLIENTS
+
+        def client(i):
+            results[i] = _http(api.port, "/generate", body)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(REST_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        concurrent_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        passes = rest_launches("rest (a)", sch, before, launches)
+        if any(r is None or r[0] != 200 or r[2]["tokens"] != want
+               for r in results):
+            raise SystemExit("rest (a): a concurrent reply differs from the "
+                             "direct submit: %s"
+                             % [r and (r[0], r[2] == want) for r in results])
+        for _ in results:
+            count(SURF_STEPS)
+        # one at a time, interleaved: the whole request, a one-token
+        # request (its prefill and first token, so the server's share is
+        # not lost in a long decode's spread) and /healthz (HTTP and JSON
+        # alone)
+        ms = {k: [] for k in ("generate", "direct", "generate_1",
+                              "direct_1", "healthz")}
+
+        def timed(key, fn):
+            t0 = time.perf_counter()
+            got = fn()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+            return got
+
+        short = {"prompt": prompt, "steps": 1}
+        before = rest_counts(sch)
+        for _ in range(REST_CLIENTS):
+            code, _, reply = timed("generate", lambda: _http(
+                api.port, "/generate", body))
+            again = timed("direct", lambda: sch.submit(
+                prompt, SURF_STEPS).result(600))
+            if code != 200 or reply["tokens"] != want or again != want:
+                raise SystemExit("rest (a): a sequential reply differs")
+            count(SURF_STEPS)
+            count(SURF_STEPS)
+            for _ in range(2):
+                code, _, reply = timed("generate_1", lambda: _http(
+                    api.port, "/generate", short))
+                again = timed("direct_1", lambda: sch.submit(
+                    prompt, 1).result(600))
+                if code != 200 or reply["tokens"] != want[:SPEC_PROMPT + 1] \
+                        or again != reply["tokens"]:
+                    raise SystemExit("rest (a): a one-token reply differs")
+                count(1)
+                count(1)
+                if timed("healthz", lambda: _http(api.port,
+                                                  "/healthz"))[0] != 200:
+                    raise SystemExit("rest (a): /healthz failed")
+        torch.cuda.synchronize()
+        passes += rest_launches("rest (a) sequential", sch, before, launches)
+        q = {k: _quantiles(v) for k, v in ms.items()}
+        out["a"] = {"clients": REST_CLIENTS, "steps": SURF_STEPS,
+                    "passes": passes, "concurrent_wall_ms": concurrent_ms,
+                    "generate_ms": q["generate"],
+                    "direct_submit_ms": q["direct"],
+                    "overhead_ms_p50": q["generate"]["p50"]
+                    - q["direct"]["p50"],
+                    "generate_1_token_ms": q["generate_1"],
+                    "direct_1_token_ms": q["direct_1"],
+                    "overhead_1_token_ms_p50": q["generate_1"]["p50"]
+                    - q["direct_1"]["p50"],
+                    "healthz_ms": q["healthz"]}
+        # (b) SSE at one client, against a direct stream
+        before = rest_counts(sch)
+        t0 = time.perf_counter()
+        ts = sch.submit(prompt, SURF_STEPS, stream=True)
+        stamps = []
+        for _ in ts:
+            stamps.append(time.perf_counter())
+        if prompt + ts.tokens != want:
+            raise SystemExit("rest (b): the direct stream differs")
+        count(SURF_STEPS)
+        direct_first = (stamps[0] - t0) * 1e3
+        direct_gaps = token_gaps([stamps])
+        t0, frames, done = sse_client(api.port, "/generate",
+                                      dict(body, stream=True))
+        toks = [f["token"] for _, f in frames if "token" in f]
+        final = frames[-1][1] if frames else {}
+        if not done or prompt + toks != want or final.get("tokens") != want \
+                or final.get("usage", {}).get("completion_tokens") \
+                != SURF_STEPS:
+            raise SystemExit("rest (b): the /generate SSE frames differ from "
+                             "the batch reply (done %s)" % done)
+        count(SURF_STEPS)
+        sse_stamps = [t for t, f in frames if "token" in f]
+        c0, cframes, cdone = sse_client(
+            api.port, "/v1/completions",
+            {"prompt": prompt, "max_tokens": SURF_STEPS, "stream": True})
+        ctoks = [t for _, f in cframes for t in f["choices"][0]["tokens"]]
+        if not cdone or ctoks != want[SPEC_PROMPT:] \
+                or cframes[-1][1]["choices"][0]["finish_reason"] != "length" \
+                or cframes[-1][1]["usage"]["completion_tokens"] != SURF_STEPS:
+            raise SystemExit("rest (b): the /v1/completions SSE chunks differ "
+                             "from the batch reply")
+        count(SURF_STEPS)
+        code, _, batch = _http(api.port, "/v1/completions",
+                               {"prompt": prompt, "max_tokens": SURF_STEPS})
+        if code != 200 or batch["choices"][0]["tokens"] \
+                != want[SPEC_PROMPT:]:
+            raise SystemExit("rest (b): /v1/completions differs")
+        count(SURF_STEPS)
+        c_stamps = [t for t, f in cframes if f["choices"][0]["tokens"]]
+        torch.cuda.synchronize()
+        passes = rest_launches("rest (b)", sch, before, launches)
+        out["b"] = {"passes": passes,
+                    "direct_first_token_ms": direct_first,
+                    "sse_first_frame_ms": (sse_stamps[0] - t0) * 1e3,
+                    "completions_first_chunk_ms": (c_stamps[0] - c0) * 1e3,
+                    "direct_gap_ms": _quantiles(direct_gaps),
+                    "sse_gap_ms": _quantiles(token_gaps([sse_stamps])),
+                    "completions_gap_ms": _quantiles(token_gaps([c_stamps]))}
+        # (c) the aux lane over HTTP, against the direct calls
+        rng = numpy.random.default_rng(5)
+        rows = [rng.integers(0, VOCAB, AUX_LEN).tolist()
+                for _ in range(AUX_ROWS)]
+        want_e = numpy.asarray(pooled_embeddings(chain, rows, WINDOW))
+        want_s = score_rows(chain, rows, WINDOW)
+        torch.cuda.synchronize()
+        zero_all_counts()
+        ms = {}
+        t0 = time.perf_counter()
+        code_e, _, emb = _http(api.port, "/v1/embeddings", {"input": rows})
+        ms["embeddings"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        code_s, _, cls = _http(api.port, "/v1/classify",
+                               {"input": rows, "top": 3})
+        ms["classify"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        check_no_kernels("rest (c)", read_all_counts())
+        if code_e != 200 or code_s != 200:
+            raise SystemExit("rest (c): %d / %d" % (code_e, code_s))
+        e = numpy.asarray([d["embedding"] for d in emb["data"]])
+        lp = numpy.asarray([d["logprobs"] for d in cls["data"]])
+        errs = (float(numpy.abs(e - want_e).max()),
+                float(numpy.abs(lp - want_s).max()),
+                float(numpy.abs(numpy.linalg.norm(e, axis=-1) - 1).max()))
+        if e.shape != (AUX_ROWS, DIM) or lp.shape != (AUX_ROWS, VOCAB) \
+                or not all(numpy.isfinite(errs)) or max(errs) > 1e-5:
+            raise SystemExit("rest (c): embed err %g, classify err %g, "
+                             "|norm - 1| %g" % errs)
+        # the replies' shaping and JSON on the host alone (the server's
+        # part of each request besides the job)
+        for key, fn in (
+                ("embeddings_reply",
+                 lambda: openai_api.embeddings_reply("m", want_e, rows)),
+                ("classify_reply",
+                 lambda: openai_api.classify_reply("m", want_s, rows, 3))):
+            t0 = time.perf_counter()
+            blob = json.dumps(fn()).encode()
+            ms[key + "_and_json"] = (time.perf_counter() - t0) * 1e3
+            ms[key + "_bytes"] = len(blob)
+        out["c"] = {"rows": AUX_ROWS, "row_tokens": AUX_LEN, "ms": ms,
+                    "max_err": errs}
+        # (d) beam search over HTTP, and the serialized decode
+        zero_all_counts()
+        t0 = time.perf_counter()
+        code, _, beam = _http(api.port, "/generate",
+                              {"prompt": prompt, "steps": REST_BEAM_STEPS,
+                               "beam": BEAM})
+        beam_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        check_no_kernels("rest (d) beam", read_all_counts())
+        btoks, bscores = generate_beam(chain, [prompt], REST_BEAM_STEPS, BEAM)
+        if code != 200 or beam["beams"] != btoks[0].tolist() \
+                or not numpy.allclose(beam["scores"], bscores[0].tolist(),
+                                      rtol=0, atol=1e-5):
+            raise SystemExit("rest (d): beam %d over HTTP differs from "
+                             "generate_beam" % BEAM)
+        legacy = RESTfulAPI(forwards=chain, serving=False, device=dev)
+        legacy.initialize()
+        try:
+            zero_all_counts()
+            t0 = time.perf_counter()
+            code, _, lreply = _http(
+                legacy.port, "/generate",
+                {"prompt": [prompt, prompt[5:] + prompt[:5]],
+                 "steps": REST_BEAM_STEPS})
+            legacy_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            check_no_kernels("rest (d) serialized decode", read_all_counts())
+        finally:
+            legacy.stop()
+        gen = generate(chain, [prompt, prompt[5:] + prompt[:5]],
+                       REST_BEAM_STEPS, kv_cache=True).cpu().tolist()
+        if code != 200 or lreply["tokens"] != gen \
+                or lreply["tokens"][0] != want[:SPEC_PROMPT + REST_BEAM_STEPS]:
+            raise SystemExit("rest (d): the serialized decode differs from "
+                             "generate")
+        out["d"] = {"beam": BEAM, "steps": REST_BEAM_STEPS,
+                    "beam_ms": beam_ms, "serialized_decode_ms": legacy_ms}
+        # (e) the metrics surfaces
+        code, _, snap = _http(api.port, "/serving/metrics")
+        got = {"requests": snap["requests_completed"]
+               - base["requests_completed"],
+               "submitted": snap["requests_submitted"]
+               - base["requests_submitted"],
+               "tokens": snap["tokens_generated"] - base["tokens_generated"]}
+        if code != 200 or got != dict(served, submitted=served["requests"]):
+            raise SystemExit("rest (e): /serving/metrics counted %s, the "
+                             "phase %s" % (got, served))
+        families, values = prometheus(api.port)
+        # the process-wide counters: every scheduler of the smoke adds
+        prom = {"requests": values["veles_serving_requests_completed_total"]
+                - prom0["veles_serving_requests_completed_total"],
+                "tokens": values["veles_serving_tokens_generated_total"]
+                - prom0["veles_serving_tokens_generated_total"]}
+        if prom != {"requests": served["requests"],
+                    "tokens": served["tokens"]} \
+                or not {"veles_serving_requests_completed_total",
+                        "veles_serving_tokens_generated_total",
+                        "veles_serving_ttft_ms"} <= families:
+            raise SystemExit("rest (e): /metrics counted %s, the phase %s "
+                             "(%d families)" % (prom, served, len(families)))
+        code, _, health = _http(api.port, "/healthz")
+        if code != 200 or health["status"] not in ("ok", "degraded"):
+            raise SystemExit("rest (e): /healthz %d %s" % (code, health))
+        out["e"] = {"counted": got, "families": len(
+            [f for f in families if f.startswith("veles_serving_")])}
+        # (f) an SSE client resets its socket mid-stream
+        cancelled = sch.metrics()["requests_cancelled"]
+        before = rest_counts(sch)
+        s = socket.create_connection(("127.0.0.1", api.port), timeout=60)
+        # a long request, so it is still decoding when the reset lands
+        blob = json.dumps({"prompt": prompt, "steps": SPEC_STEPS,
+                           "stream": True}).encode()
+        s.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                  b"application/json\r\nContent-Length: %d\r\n\r\n"
+                  % len(blob) + blob)
+        got_bytes = b""
+        while got_bytes.count(b"data: ") < 8:
+            chunk = s.recv(4096)
+            if not chunk:
+                raise SystemExit("rest (f): the stream ended early")
+            got_bytes += chunk
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                     struct.pack("ii", 1, 0))
+        s.close()
+        _wait_for(lambda: sch.in_flight == 0, "the reset stream's reap")
+        torch.cuda.synchronize()
+        passes = rest_launches("rest (f)", sch, before, launches)
+        try:
+            sch.check_kv()
+        except AssertionError as e:
+            raise SystemExit("rest (f): the reset left the pool unclean: %s"
+                             % e)
+        if sch.metrics()["requests_cancelled"] != cancelled + 1:
+            raise SystemExit("rest (f): the reset was not counted as a "
+                             "cancel")
+        out["f"] = {"passes": passes, "frames_before_reset":
+                    got_bytes.count(b"data: ")}
+        # (g) drain, then stop
+        code, _, reply = _http(api.port, "/drain", {})
+        hcode, _, health = _http(api.port, "/healthz")
+        gcode, gheaders, gen_reply = _http(api.port, "/generate", body)
+        if code != 202 or hcode != 503 or health["status"] != "draining" \
+                or gcode != 503 or not gen_reply["error"].get("draining") \
+                or gheaders["Retry-After"] is None:
+            raise SystemExit("rest (g): drain %d, healthz %d %s, generate %d"
+                             % (code, hcode, health.get("status"), gcode))
+    finally:
+        api.stop()
+    try:
+        urllib.request.urlopen("http://127.0.0.1:%d/healthz" % out["port"],
+                               timeout=5)
+        raise SystemExit("rest (g): the stopped server still answers")
+    except urllib.error.URLError as e:
+        if not isinstance(e.reason, ConnectionRefusedError):
+            raise SystemExit("rest (g): after stop() %r" % (e.reason,))
+    out["g"] = {"drained": reply.get("drained"), "refused_after_stop": True}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"rest": out}))
+    return launches
+
+
 # -- phase 7: train -----------------------------------------------------------
 
 def train_check(torch, dev):
@@ -3499,6 +3963,7 @@ def main():
                                     pattern)
     surface_launches = surface_check(torch, dev, serve_chain, trained,
                                      pattern)
+    rest_launches_ = rest_check(torch, dev, trained, pattern)
     del served, trained, serve_chain
     launches.update(train_check(torch, dev)["launches"])
     measured.update(check_lrn(torch, dev, rate))
@@ -3529,6 +3994,8 @@ def main():
             k["lifecycle_launches"] = life_launches[k["name"]]
         if k["name"] in surface_launches:
             k["surface_launches"] = surface_launches[k["name"]]
+        if k["name"] in rest_launches_:
+            k["rest_launches"] = rest_launches_[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

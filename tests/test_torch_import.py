@@ -89,6 +89,9 @@ def test_entry_points_default_to_the_card():
         init_params(spec, 0, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceScheduler(chain)
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RESTfulAPI(forwards=chain)
     sch = InferenceScheduler(chain, device="cpu").start()
     try:
         out = sch.submit([1, 2, 3], 2).result(60)
@@ -100,16 +103,39 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("module,names", [
     ("veles_tpu_torch.serving", ("SSE_DONE", "StreamTimeoutError",
                                  "TokenStream", "sse_event", "SlotKVCache",
-                                 "slot_decode_step", "openai_api")),
+                                 "slot_decode_step", "openai_api",
+                                 "ServingMetrics")),
     ("veles_tpu_torch.serving.openai_api", ("embed_supported", "embed_pool",
                                             "pooled_embeddings",
-                                            "score_rows")),
+                                            "score_rows", "model_id",
+                                            "parse_token_rows",
+                                            "parse_completions",
+                                            "completion_id", "text_of",
+                                            "finish_reason",
+                                            "completion_choice", "usage_of",
+                                            "completion_reply",
+                                            "completion_chunk",
+                                            "models_reply",
+                                            "embeddings_reply",
+                                            "classify_reply")),
     ("veles_tpu_torch.models.generate", ("generate", "generate_beam",
-                                         "kv_cache_eligible"))])
+                                         "kv_cache_eligible")),
+    ("veles_tpu_torch.telemetry", ("FlightRecorder", "recorder",
+                                   "HealthMonitor", "health_config",
+                                   "monitor", "configure")),
+    ("veles_tpu_torch.telemetry.health", ("POLICIES", "STATUS_NAMES",
+                                          "HealthMonitor", "monitor",
+                                          "health_config", "configure")),
+    ("veles_tpu_torch.telemetry.flight_recorder", ("FlightRecorder",
+                                                   "recorder", "_LogTail")),
+    ("veles_tpu_torch.restful_api", ("RESTfulAPI", "_status_text"))])
 def test_slice_surface_is_exported(module, names):
-    """The streams, aux, generate and dense names are importable where
-    the reference exports them (``veles_tpu/serving/__init__.py``,
-    ``serving/openai_api.py``, ``models/generate.py``)."""
+    """The names of the streams, aux, generate, dense and REST slices are
+    importable where the reference exports them
+    (``veles_tpu/serving/__init__.py``, ``serving/openai_api.py``,
+    ``models/generate.py``, ``telemetry/__init__.py``,
+    ``telemetry/health.py``, ``telemetry/flight_recorder.py``,
+    ``restful_api.py``)."""
     import importlib
     mod = importlib.import_module(module)
     assert all(hasattr(mod, n) for n in names), \

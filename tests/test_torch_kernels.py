@@ -16,8 +16,10 @@ GEMM (``pallas_matmul``: every kernel variant on the inputs its plan
 must send it, int8 ``b``, the fused and unfused epilogues, bit-equal
 twice, 16-byte and misaligned views, the timed squares, split_k and
 wgmma forced across their crossover); ``generate``'s rescan form
-through the FlashAttention forward kernel and a streamed request
-through the serving kernels.
+through the FlashAttention forward kernel, a streamed request through
+the serving kernels, and the REST server's ``/generate`` (batch and
+SSE) through them while its embeddings, beam search and serialized
+decode launch none.
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -1015,3 +1017,94 @@ def test_streamed_request_runs_the_serving_kernels(card):
     sch.check_kv()
     assert prompt + toks == batch == ts.result(1)
     assert steps == 11 and launched == (2 * steps, 6 * steps)
+
+
+def _http(port, path, body=None):
+    import json
+    import urllib.request
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d%s" % (port, path),
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        raw = resp.read()
+    return raw if body is not None and body.get("stream") \
+        else json.loads(raw)
+
+
+def test_rest_generate_runs_the_serving_kernels(card):
+    """The REST server on the card over a trained bf16 chain with int8
+    KV pools and ``int8_decode`` (spec on, spec_k 4): ``/generate``'s
+    batch and SSE replies equal the scheduler's own results, and every
+    model pass (decode or verify) launches ``paged_attend`` once per
+    layer, all on its split kernel, and ``int8_gemm`` three times;
+    ``/v1/embeddings``, beam search and the serialized decode
+    (``serving=False``) launch none of kernels 1-3."""
+    import json
+    from veles_tpu_torch.models.generate import generate, generate_beam
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    chain, pattern = _trained_pattern_chain(card)
+    on_card, _ = _bf16_copies(chain, card)
+    layers = len(on_card) - 2
+    for u in on_card:
+        if hasattr(u, "int8_decode"):
+            u.int8_decode = True
+
+    def counts():
+        return (pa.launches, pa.variant_launches["split"], gemm.launches,
+                fa.launches["flash_attn_fwd"])
+
+    prompt = (pattern * 4)[:24]
+    api = RESTfulAPI(forwards=on_card, max_slots=2, serving_kv_dtype="int8",
+                     serving_block_size=BS, device=card)
+    api.initialize()
+    try:
+        sch = api.scheduler_
+        want = sch.submit(prompt, 20).result(300)
+        for body in ({"prompt": prompt, "steps": 20},
+                     {"prompt": prompt, "steps": 20, "stream": True}):
+            passes = sch.decode_steps + sch.verify_steps
+            before = counts()
+            reply = _http(api.port, "/generate", body)
+            torch.cuda.synchronize()
+            passes = sch.decode_steps + sch.verify_steps - passes
+            got = [b - a for a, b in zip(before, counts())]
+            if body.get("stream"):
+                frames = [json.loads(line[6:]) for line in reply.split(b"\n")
+                          if line.startswith(b"data: {")]
+                toks = [f["token"] for f in frames if "token" in f]
+                assert prompt + toks == frames[-1]["tokens"] == want
+            else:
+                assert reply["tokens"] == want
+            assert passes > 0
+            assert got == [layers * passes, layers * passes,
+                           3 * layers * passes, 0]
+        before = counts()
+        emb = _http(api.port, "/v1/embeddings",
+                    {"input": [prompt, prompt[3:]]})
+        beam = _http(api.port, "/generate",
+                     {"prompt": prompt, "steps": 8, "beam": 2})
+        torch.cuda.synchronize()
+        assert counts() == before
+        assert len(emb["data"]) == 2
+        toks, scores = generate_beam(on_card, [prompt], 8, 2)
+        assert beam["beams"] == toks[0].tolist()
+        numpy.testing.assert_allclose(beam["scores"], scores[0].tolist(),
+                                      rtol=0, atol=1e-5)
+    finally:
+        api.stop()
+    legacy = RESTfulAPI(forwards=on_card, serving=False, device=card)
+    legacy.initialize()
+    try:
+        before = counts()
+        reply = _http(legacy.port, "/generate",
+                      {"prompt": prompt, "steps": 12})
+        torch.cuda.synchronize()
+        assert counts() == before
+        assert reply["tokens"] == generate(on_card, [prompt], 12,
+                                           kv_cache=True)[0].tolist()
+        assert reply["tokens"] == want[:len(prompt) + 12]
+    finally:
+        legacy.stop()

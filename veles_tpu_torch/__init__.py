@@ -11,7 +11,11 @@ metrics and per-request traces (``telemetry``, ``logger.events``),
 streams tokens as they are accepted and runs embedding and scoring jobs
 on an aux lane, serves the dense slot-major KV layout on request
 (``kv="dense"``), decodes outside the scheduler (``models/generate.py``:
-greedy, sampled and beam search), trains
+greedy, sampled and beam search), answers HTTP clients in front of all
+of it (``restful_api.py``: ``/generate`` with SSE, the OpenAI
+``/v1/*`` routes, ``/healthz`` over the training-health monitor,
+``/metrics``, ``/debug/state`` over the flight recorder, ``/drain``),
+trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
 a device-resident ``FullBatchLoader``) and trains AlexNet
 (``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
@@ -55,6 +59,8 @@ SUBMODULES = (
     "veles_tpu_torch.telemetry",
     "veles_tpu_torch.telemetry.registry",
     "veles_tpu_torch.telemetry.reqtrace",
+    "veles_tpu_torch.telemetry.health",
+    "veles_tpu_torch.telemetry.flight_recorder",
     "veles_tpu_torch._build",
     "veles_tpu_torch.convert",
     "veles_tpu_torch.ops",
@@ -102,4 +108,5 @@ SUBMODULES = (
     "veles_tpu_torch.serving.metrics",
     "veles_tpu_torch.serving.streams",
     "veles_tpu_torch.serving.openai_api",
+    "veles_tpu_torch.restful_api",
 )

@@ -4,7 +4,10 @@ lifecycle paths (deadlines, cancel, preemption, the watchdog) are
 driven through in tests.
 
 Named **injection points** are planted through the scheduler
-(``serving.scheduler.loop``, ``.prefill``, ``.step``, ``.aux``); each
+(``serving.scheduler.loop``, ``.prefill``, ``.step``, ``.aux``) and the
+REST server (``restful.generate``, on every client request route of
+:mod:`veles_tpu_torch.restful_api`, where ``http_error`` answers the
+injected status as a structured error); each
 point is a no-op until a matching :class:`FaultSpec` is armed, at which
 moment it deterministically misbehaves:
 
@@ -31,9 +34,7 @@ wildcards; a keyless :func:`fire` never matches a keyed spec.
 Arming happens through :func:`inject`, :func:`load` (a spec string) or
 the ``VELES_FAULTS`` environment variable, read once on the first
 :func:`fire`.  The variable is the reference registry's too, so this
-one parses every action the reference knows: a clause meant for the
-reference's REST layer (``http_error``) must not make the port's
-registry raise.  Spec-string grammar, clauses separated by ``;``::
+one parses every action the reference knows.  Spec-string grammar, clauses separated by ``;``::
 
     point=action[:arg][@after][xtimes][~key]
     VELES_FAULTS="serving.scheduler.step=hang:1.5@3x1"

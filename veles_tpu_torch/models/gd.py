@@ -27,10 +27,17 @@ mask).  Keys stay on the host: the mask kernel takes the key's words as
 launch arguments, so no step waits on a device read.  A final
 ``All2AllSoftmax`` gives the trainer its f32 logits.
 
-Health is configured by constructor arguments (the JAX package reads
-``root.common.health``): ``health`` on or off, ``health_policy`` one of
-"warn", "skip_step", "halt".  Not ported: meshes (dp/tp/pp/sp), the
-DCN master/worker exchange and augmentation.
+Health, as in the JAX package: every train dispatch reports its health
+vector to the process-wide monitor (:data:`veles_tpu_torch.telemetry.
+health.monitor`, read by ``GET /healthz``), every ``sync_every``-th one
+on the per-minibatch path and every span, and acts on its verdict.  The
+policy ("warn", "skip_step" or "halt") and ``enabled`` are the knobs of
+:mod:`veles_tpu_torch.telemetry.health`, read per step as the JAX
+trainer reads ``root.common.health``: the policy the trainer acts on is
+the one the monitor reports.  ``health=False`` turns it off for this
+trainer; a ``health_policy`` given to the constructor configures the
+process-wide policy.  Not ported: meshes (dp/tp/pp/sp), the DCN
+master/worker exchange and augmentation.
 """
 
 import logging
@@ -43,8 +50,7 @@ from veles_tpu_torch.models.dropout import DropoutForward
 from veles_tpu_torch.models.lr_adjust import get_schedule
 from veles_tpu_torch.models.solvers import get_solver
 from veles_tpu_torch.prng import RandomGenerator, threefry
-
-POLICIES = ("warn", "skip_step", "halt")
+from veles_tpu_torch.telemetry import health as health_lib
 
 log = logging.getLogger("veles_tpu_torch.gd")
 
@@ -64,10 +70,10 @@ class GradientDescent:
                  learning_rate_bias=None, weights_decay=0.0,
                  weights_decay_bias=None, l1_vs_l2=0.0, gradient_moment=0.0,
                  gradient_moment_bias=None, lr_schedule="constant",
-                 lr_schedule_params=None, health=True, health_policy="warn",
+                 lr_schedule_params=None, health=True, health_policy=None,
                  seed=None):
-        if health_policy not in POLICIES:
-            raise ValueError("health_policy must be one of %s" % (POLICIES,))
+        if health_policy is not None:
+            health_lib.configure(policy=health_policy)
         self.forwards = list(forwards)
         self.evaluator = evaluator
         self.device = self.forwards[0].device
@@ -85,7 +91,6 @@ class GradientDescent:
         self.schedule = get_schedule(lr_schedule,
                                      **(lr_schedule_params or {}))
         self.health = bool(health)
-        self.health_policy = health_policy
         self.global_step = 0
         #: the trainer's key stream (the JAX trainer's prng_key="trainer")
         self.prng = RandomGenerator("trainer", seed)
@@ -108,6 +113,19 @@ class GradientDescent:
         self.skipped_steps = 0
         #: set by the "halt" policy at the first non-finite step
         self.halted = False
+        self._health_ticks = 0
+
+    @property
+    def health_policy(self):
+        """The policy the trainer acts on: the one
+        :mod:`~veles_tpu_torch.telemetry.health` is configured with."""
+        return health_lib.health_config()["policy"]
+
+    @property
+    def health_on(self):
+        """Whether steps compute and report their health vector: this
+        trainer's ``health`` and the configured ``enabled``."""
+        return self.health and health_lib.health_config()["enabled"]
 
     def _param(self, i, name):
         return self.forwards[i].params[name]
@@ -178,9 +196,10 @@ class GradientDescent:
         scale = torch.as_tensor(self.schedule(
             torch.tensor(float(step), dtype=torch.float32)),
             dtype=torch.float32)
-        skip = self.health and self.health_policy == "skip_step"
+        health_on = self.health_on
+        skip = health_on and self.health_policy == "skip_step"
         with torch.no_grad():
-            if self.health:
+            if health_on:
                 grad_sq = _sq_norm(grads)
                 bad = torch.where(
                     torch.isfinite(loss) & torch.isfinite(grad_sq),
@@ -197,7 +216,7 @@ class GradientDescent:
                     new_p = torch.where(keep_old, p, new_p)
                     new_s = {s: torch.where(keep_old, state[s], v)
                              for s, v in new_s.items()}
-                if self.health:
+                if health_on:
                     w = _sq_norm([new_p])
                     u = _sq_norm([new_p - p])
                     weight_sq = w if weight_sq is None else weight_sq + w
@@ -205,7 +224,7 @@ class GradientDescent:
                 p.copy_(new_p)
                 for s, v in new_s.items():
                     state[s].copy_(v)
-            if not self.health:
+            if not health_on:
                 return loss, n_err, torch.zeros(5, device=self.device)
             w_norm = torch.sqrt(weight_sq)
             health = torch.stack([
@@ -220,7 +239,7 @@ class GradientDescent:
                                                  False)
             zero = torch.zeros((), device=self.device)
             bad = (~torch.isfinite(loss)).to(torch.float32) \
-                if self.health else zero
+                if self.health_on else zero
             health = torch.stack([zero, zero, zero, bad,
                                   loss.to(torch.float32)])
         return loss, n_err, health
@@ -239,8 +258,8 @@ class GradientDescent:
             fsize = torch.tensor(float(size), device=self.device)
             row = torch.stack([n_err.to(torch.float32) / per_sample,
                                loss * size, fsize])
-            if self.health and self.health_policy == "skip_step" \
-                    and class_id == TRAIN:
+            if class_id == TRAIN and self.health_on \
+                    and self.health_policy == "skip_step":
                 zero = torch.zeros((), device=self.device)
                 row = torch.where(health[3] > 0,
                                   torch.stack([zero, zero, fsize]), row)
@@ -283,23 +302,31 @@ class GradientDescent:
                             healths[-1][4:]])
         if cls == TRAIN:
             self.global_step += len(sizes)
-            self._observe_health(health)
+            self._observe_health(health, force=True)
         return self.loss, self.n_err, health
 
-    def _observe_health(self, health):
-        """One small device→host read per train dispatch: count
-        non-finite steps and act on the policy."""
-        if not self.health:
+    def _observe_health(self, health, force=False):
+        """Report the step's health vector to the process-wide monitor —
+        one small device→host read per observed dispatch, every
+        ``sync_every``-th on the per-minibatch path (``force``: a span,
+        always) — and act on its verdict: "halt" sets :attr:`halted`."""
+        if not self.health_on:
             return
-        bad = float(health[3])
-        if bad <= 0:
+        self._health_ticks += 1
+        every = max(int(health_lib.health_config()["sync_every"]), 1)
+        if not force and self._health_ticks % every:
             return
-        self.nonfinite_steps += int(bad)
-        if self.health_policy == "skip_step":
-            self.skipped_steps += int(bad)
-        log.warning("non-finite training step (policy %s): loss %s",
-                    self.health_policy, float(health[4]))
-        if self.health_policy == "halt":
+        g, w, u, bad, loss = (float(v) for v in health.tolist())
+        action = health_lib.monitor.on_train_step(
+            grad_norm=g, weight_norm=w, update_ratio=u, nonfinite=bad,
+            loss=loss, unit=type(self).__name__)
+        if bad > 0:
+            self.nonfinite_steps += int(bad)
+            if action == "skip_step":
+                self.skipped_steps += int(bad)
+        if action == "halt":
+            log.error("health policy 'halt': non-finite training step - "
+                      "stopping (see GET /healthz)")
             self.halted = True
 
     def read_epoch_acc(self, reset_classes=()):

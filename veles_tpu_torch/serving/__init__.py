@@ -1,7 +1,10 @@
 """Serving of the LM chain: the paged and dense KV caches, prefill,
 the decode and verify steps, the n-gram draft proposer, the radix
 prefix cache, token streams, the embed/score computations and the
-continuous-batching scheduler with its request lifecycle."""
+continuous-batching scheduler with its request lifecycle and its
+serving metrics.  The HTTP server in front of it is
+:mod:`veles_tpu_torch.restful_api`; the OpenAI facade's parsing and
+reply shaping live in :mod:`~veles_tpu_torch.serving.openai_api`."""
 
 from veles_tpu_torch.serving.engine import (  # noqa: F401
     first_tokens, paged_decode_logits, paged_decode_step, sample_first,
@@ -9,6 +12,7 @@ from veles_tpu_torch.serving.engine import (  # noqa: F401
     verify_supported)
 from veles_tpu_torch.serving.kv_slots import (  # noqa: F401
     PagedKVCache, SlotKVCache, paged_supported)
+from veles_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
 from veles_tpu_torch.serving.prefill import (  # noqa: F401
     chunked_supported, prefill, prefill_chunk, serving_supported,
     serving_window)
