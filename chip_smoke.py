@@ -154,6 +154,35 @@ result line):
    new ``/generate`` 503) and ``stop()`` (connections refused).
    ``paged_attend`` 8 and ``int8_gemm`` 24 launches per model pass on
    (a), (b) and (f), all split; none of kernels 1-3 on (c) and (d);
+6f. tiers — the model drafter and the KV tiers, each part's kernel
+   counts zeroed just before it and read just after: (a)
+   ``bench_spec``'s held-out arm: a chain trained as the spec phase's
+   on the single-cycle orbit ``default_rng(0).permutation(VOCAB)`` (each
+   FlashAttention kernel once per layer per step), served from a
+   float32 copy (int8 KV, ``int8_decode``), a ``MedusaDraftHead`` of
+   SPEC_K heads trained DRAFT_TRAIN steps on it (the FlashAttention
+   forward once per layer per teacher step), and ``orbit[:64]`` x
+   DRAFT_STEPS greedy steps at 1 and 4 slots with spec off, n-gram and
+   model drafts: decode tokens/s, accept rate by drafter, tokens per
+   verify pass, the ladder's widths; every pass 8 / 24 launches, all
+   split; each spec-on stream equal to spec off or parting from it
+   only at a near-tie (``same_or_near_tie``); (b)
+   ``weight_quant_quality`` on a float32 copy with ``int8_decode`` off
+   (refused on an int8 checkpoint; no kernel in the gate), the weight
+   bytes before and after, the quantized chain served spec off and on;
+   (c) ``kv_quant_quality`` at block 16 and 32 (ceil(block / 16)
+   ``paged_attend`` launches per layer per int8 pass: fault C6), each
+   within 0.05 nats; ``paged_attend`` at K1 16, 17 and 32, T 64, held
+   against its plain version and timed as CUDA-graph replays beside its
+   bound and SDPA after a gather; (d) the host tier on the spec phase's
+   chain: pattern probes cold, device-warm and host-warm after two long
+   prompts demote them (``kv_host_bytes`` 64 MB, a HOST_POOL-block
+   pool), TTFT p95 per tier, promotions and demotions, every resubmit
+   equal to its cold stream; (e) a prefill-role and a decode-role
+   scheduler beside a colocated one: handoffs over the b64 JSON and
+   VKV1 wires and through two ``RESTfulAPI`` servers, each stream equal
+   to the colocated one, first token against colocated, the wire's
+   MB/s;
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
    bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
@@ -201,8 +230,10 @@ step's launches (their launches are shorter than the host's dispatch of
 one), with the host-paced eager loops under ``eager_ms`` and
 ``library_eager_ms``, the verify widths' graph times under ``verify``
 and the spec, lifecycle, surface and REST phases' launches under
-``spec_launches``, ``lifecycle_launches``, ``surface_launches`` and
-``rest_launches``
+``spec_launches``, ``lifecycle_launches``, ``surface_launches``,
+``rest_launches`` and ``tiers_launches`` (phase 6f's, with the
+FlashAttention kernels' there too), and ``paged_attend``'s graph times
+at K1 16, 17 and 32 under ``wide``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -401,6 +432,21 @@ GEN_LENS = (64, 48, 33, 17, 64, 5, 40, 64)
 #: as many sequential round trips; beam search and the serialized decode
 #: over REST_BEAM_STEPS steps
 REST_CLIENTS, REST_BEAM_STEPS = 8, 32
+#: the drafter and KV-tier phase: the draft head's training steps and the
+#: held-out arms' greedy steps (``bench_spec``'s 512 cut to 256); the
+#: quality gates' sequence length; the quantized chain's served steps;
+#: the host tier's probes (HOST_PROBES pattern prompts of HOST_PROMPT
+#: tokens, HOST_STEPS steps, demoted by two HOST_LONG-token prompts in a
+#: pool of HOST_POOL blocks); the handoff's prompt, steps and repeats
+DRAFT_TRAIN, DRAFT_STEPS, QUALITY_LEN, W8_STEPS = 300, 256, 256, 64
+#: how far below its row's largest logit (nats) a token of a spec-on
+#: stream that parted from spec off at a near-tie may lie on the decode
+#: path: int8 KV rows quantized by a verify pass and by a decode step
+#: differ by a step here and there; a wrongly accepted draft lies whole
+#: nats below
+NEAR_TIE = 0.05
+HOST_PROBES, HOST_PROMPT, HOST_STEPS, HOST_LONG, HOST_POOL = 6, 128, 4, 512, 64
+DISAGG_PROMPT, DISAGG_STEPS, DISAGG_REPS = 256, 16, 8
 
 #: the training model of the smoke (``bench.py``'s ``bench_lm``)
 T_VOCAB, T_DIM, T_LAYERS, T_HEADS, T_SEQ, T_BATCH = 32768, 2048, 8, 16, 2048, 4
@@ -1160,7 +1206,8 @@ def _time_attend_at(torch, dev, rng, nb, rate, t, lo, hi, k1, eager):
     f = {"ms": graph_ms(torch, kernel) / LAYERS,
          "library_ms": graph_ms(torch, library) / LAYERS,
          "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-         "plan": pa.plan(8, k1, DIM, HEADS, BLOCK, t, torch.int8)}
+         "plan": pa.plan(8, min(k1, pa.MAX_K1), DIM, HEADS, BLOCK, t,
+                         torch.int8)}
     if eager:
         f.update(eager_ms=time_ms(torch, kernel) / LAYERS,
                  plain_ms=time_ms(torch, plain) / LAYERS,
@@ -1944,15 +1991,17 @@ def profile_window(torch, sch, prompts, steps=8):
 
 # -- phase 6b: speculative decoding -------------------------------------------
 
-def spec_chain(torch, dev):
+def spec_chain(torch, dev, pattern=None):
     """``bench_spec``'s chain trained on the card through the port's
-    trainer: bf16, SGD lr 0.05 momentum 0.9, SPEC_TRAIN steps at batch
+    trainer: bf16, SGD (SPEC_TRAINER), SPEC_TRAIN steps at batch
     SPEC_BATCH over 8 minibatches of WINDOW-long sequences cut from the
-    tiled pattern at offsets drawn by ``default_rng(0)``.  Returns the
-    chain, the pattern and the losses."""
+    tiled ``pattern`` (default the 12-token ``arange(12)·17``) at
+    offsets drawn by ``default_rng(0)``.  Returns the chain, the pattern
+    and the losses."""
     from veles_tpu_torch.loader import FullBatchLoader
     from veles_tpu_torch.samples.lm import build_lm
-    pattern = (numpy.arange(12) * 17 % VOCAB).tolist()
+    if pattern is None:
+        pattern = (numpy.arange(12) * 17 % VOCAB).tolist()
     n = SPEC_BATCH * 8
     tiled = numpy.tile(pattern, WINDOW // len(pattern) + 2)
     data = numpy.stack([
@@ -3384,6 +3433,618 @@ def rest_check(torch, dev, chain, pattern):
     return launches
 
 
+# -- phase 6f: the model drafter and the KV tiers ------------------------------
+
+def zero_tier_counts():
+    """Set every count phase 6f reads to 0: the serving kernels' and the
+    three FlashAttention kernels'."""
+    from veles_tpu_torch.ops import flash_attention as fa
+    zero_serving_counts()
+    for name in fa.launches:
+        fa.launches[name] = 0
+
+
+def read_tier_counts():
+    from veles_tpu_torch.ops import flash_attention as fa
+    return dict(read_serving_counts(), **fa.launches)
+
+
+def _add_counts(total, got):
+    for name in total:
+        total[name] += got[name]
+
+
+def orbit_chain(torch, dev):
+    """``bench_spec``'s held-out chain: :func:`spec_chain`'s training on
+    the single-cycle successor orbit ``default_rng(0).permutation(VOCAB)``
+    (within a window no token repeats, so prompt lookup has nothing to
+    draft).  The training steps must launch each FlashAttention kernel
+    once per layer.  Returns the chain, the orbit, the losses and the
+    launches."""
+    order = numpy.random.default_rng(0).permutation(VOCAB).astype(numpy.int32)
+    zero_tier_counts()
+    chain, _, losses = spec_chain(torch, dev, pattern=order.tolist())
+    launches = read_tier_counts()
+    for name in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+        if launches[name] != LAYERS * SPEC_TRAIN:
+            raise SystemExit("tiers (a): %d training steps launched %s %d "
+                             "times (want %d)" % (SPEC_TRAIN, name,
+                                                  launches[name],
+                                                  LAYERS * SPEC_TRAIN))
+    if not all(numpy.isfinite(losses)):
+        raise SystemExit("tiers (a): non-finite training losses %s" % losses)
+    return chain, order, losses, launches
+
+
+def draft_head_fit(torch, dev, chain, order):
+    """``MedusaDraftHead.from_chain(chain, SPEC_K)`` trained DRAFT_TRAIN
+    steps (batch 8, window 32) on the orbit tiled 8 times; its teacher
+    forwards must launch the FlashAttention forward once per layer per
+    step and nothing of the backward."""
+    from veles_tpu_torch.serving import MedusaDraftHead
+    t0 = time.perf_counter()
+    head = MedusaDraftHead.from_chain(chain, SPEC_K)
+    zero_tier_counts()
+    losses = head.train(chain, numpy.tile(order, 8), steps=DRAFT_TRAIN,
+                        batch=8, window=32)
+    torch.cuda.synchronize()
+    launches = read_tier_counts()
+    if launches["flash_attn_fwd"] != LAYERS * DRAFT_TRAIN \
+            or launches["flash_attn_dq"] or launches["flash_attn_dkv"]:
+        raise SystemExit("tiers (a): the head's %d teacher forwards "
+                         "launched %s" % (DRAFT_TRAIN, launches))
+    if not all(numpy.isfinite(losses)):
+        raise SystemExit("tiers (a): non-finite head losses")
+    return head, {"train_s": time.perf_counter() - t0,
+                  "losses_first_last": [losses[0], losses[-1]]}, launches
+
+
+def drafter_arm(torch, dev, chain, prompt, slots, spec, head=None):
+    """One arm of (a): a scheduler over the orbit chain (int8 KV and
+    ``int8_decode``, block 16, one-shot prefill, spec_k SPEC_K, the
+    prefix cache off) serves a warm-up request, then ``slots``
+    concurrent greedy requests of DRAFT_STEPS tokens with the counts
+    zeroed just before and read just after.  Every model pass must
+    launch ``paged_attend`` once per layer (the ladder's widths stay
+    under 16 queries) and ``int8_gemm`` three times.  Returns the
+    streams and the arm's numbers."""
+    from veles_tpu_torch.serving import InferenceScheduler
+    kw = dict(drafter="model", draft_head=head) if head is not None else {}
+    sch = InferenceScheduler(chain, max_slots=slots, window=WINDOW,
+                             max_queue=4 * slots, block_size=BLOCK,
+                             kv_dtype="int8", prefill_chunk=0, spec=spec,
+                             spec_k=SPEC_K, prefix_cache=False, device=dev,
+                             **kw).start()
+    try:
+        sch.submit(prompt, DRAFT_STEPS).result(600)
+        base = {n: getattr(sch, n) for n in SPEC_COUNTERS}
+        widths0 = dict(sch.verify_widths)
+        by0 = {d: list(v) for d, v in sch.stats.spec_by_drafter.items()}
+        torch.cuda.synchronize()
+        zero_tier_counts()
+        t0 = time.perf_counter()
+        futs = [sch.submit(prompt, DRAFT_STEPS) for _ in range(slots)]
+        outs = [f.result(600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_tier_counts()
+        got = {n: getattr(sch, n) - base[n] for n in SPEC_COUNTERS}
+        widths = {w: n - widths0.get(w, 0)
+                  for w, n in sch.verify_widths.items()
+                  if n - widths0.get(w, 0)}
+        by = {d: [v[0] - by0.get(d, [0, 0])[0], v[1] - by0.get(d, [0, 0])[1]]
+              for d, v in sch.stats.spec_by_drafter.items()}
+    finally:
+        sch.close()
+    try:
+        sch.check_kv()
+    except AssertionError as e:
+        raise SystemExit("tiers (a): the pool leaked a block: %s" % e)
+    if sch.cache_.free_blocks != sch.cache_.capacity_blocks:
+        raise SystemExit("tiers (a): %d blocks held after close"
+                         % sch.cache_.used_blocks)
+    passes = got["decode_steps"] + got["verify_steps"]
+    check_pass_launches("tiers (a)", passes, launches)
+    arm = {"slots": slots, "spec": spec,
+           "drafter": sch.drafter if spec else None,
+           "decode_tokens_per_s": got["decode_tokens"] / got["decode_seconds"],
+           "tokens_per_s": sum(len(o) - len(prompt) for o in outs) / wall,
+           "decode_steps": got["decode_steps"],
+           "verify_steps": got["verify_steps"],
+           "tokens_per_verify_pass": (got["verify_tokens"]
+                                      / got["verify_steps"]
+                                      if got["verify_steps"] else None),
+           "accept_rate_by_drafter": {d: (a / n if n else None)
+                                      for d, (n, a) in by.items()},
+           "drafted_by_drafter": {d: v for d, v in by.items()},
+           "verify_widths": widths,
+           "paged_attend_launches_by_k1": dict(
+               {"1": LAYERS * got["decode_steps"]},
+               **{str(w): LAYERS * n for w, n in widths.items()}),
+           "launches": launches, "wall_s": wall}
+    log(json.dumps({"tiers_drafter_arm": arm}))
+    for out in outs:
+        if len(out) != len(prompt) + DRAFT_STEPS or out[:len(prompt)] \
+                != prompt:
+            raise SystemExit("tiers (a): a result is malformed")
+    return outs, arm
+
+
+def decode_gaps(torch, dev, chain, stream, p):
+    """Teacher-force ``stream`` (a ``p``-token prompt and its tokens)
+    through the decode path at batch 1 (one-shot prefill into int8 KV
+    pools, then one ``paged_decode_logits`` step per token): for each
+    emitted token, how far its logit lies below the row's largest.  A
+    greedy stream's tokens are the argmax (0) on the path that drew
+    them; on another path, rounding moves near-ties."""
+    from veles_tpu_torch.serving import (
+        PagedKVCache, paged_decode_logits, prefill)
+    cache = PagedKVCache(chain, 1, WINDOW, block_size=BLOCK,
+                         kv_dtype="int8")
+    slot = cache.alloc(len(stream))
+    width = -(-p // BLOCK) * BLOCK
+    caches, last = prefill(chain, numpy.asarray([stream[:p]]), window=width)
+    cache.insert(slot, caches, p)
+    tables = cache.table_rows([slot], cache.blocks_per_slot)
+    gaps = []
+    for pos in range(p, len(stream)):
+        row = last[0].float()
+        gaps.append(float(row.max() - row[stream[pos]]))
+        if pos + 1 < len(stream):
+            last = paged_decode_logits(chain, cache, [[stream[pos]]], [pos],
+                                       tables)
+    return gaps
+
+
+def same_or_near_tie(torch, dev, chain, off, on, p, what):
+    """``on`` equals ``off`` (lists of streams), or each stream that
+    differs parts from its spec-off twin at a near-tie and stays on
+    near-argmax tokens: with int8 KV a verify pass and a decode step
+    quantize their K/V rows apart, so a chain with near-ties (one that
+    has not learned the orbit) may resolve one differently.  Every
+    token of a differing stream must then lie within NEAR_TIE of the
+    largest logit of the decode path given its own prefix, which a
+    wrongly accepted draft would not.  Returns what was found."""
+    parted = []
+    for a, b in zip(off, on):
+        if a == b:
+            continue
+        at = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        gaps_on = decode_gaps(torch, dev, chain, b, p)
+        gaps_off = decode_gaps(torch, dev, chain, a, p)
+        worst = max(max(gaps_on), max(gaps_off))
+        parted.append({"at": at, "off_gap_there": gaps_off[at - p],
+                       "on_gap_there": gaps_on[at - p],
+                       "max_gap": worst})
+        if worst > NEAR_TIE:
+            raise SystemExit("%s: a stream parts from spec off at %d and "
+                             "holds a token %.4f below its row's largest "
+                             "logit (near-tie bound %.3f)"
+                             % (what, at, worst, NEAR_TIE))
+    return {"equal": not parted, "parted": parted}
+
+
+def drafter_part(torch, dev):
+    """(a) ``bench_spec``'s held-out arm: the orbit chain trained in bf16
+    as the spec phase's, served from a float32 copy of its weights
+    (``int8_decode`` on), its draft head trained on that copy, and
+    ``orbit[:64]`` served DRAFT_STEPS greedy steps at 1 and 4 slots with
+    spec off, n-gram and model drafts; every stream must equal the
+    spec-off one or part from it only at a near-tie
+    (:func:`same_or_near_tie`: a chain that has not learned the orbit
+    holds near-ties that a verify pass and a decode step, or batches of
+    1 and 4 rows, resolve apart, in bf16 and in float32 alike).  Returns
+    the copy, the orbit and the part's launches."""
+    t0 = time.perf_counter()
+    trained, order, losses, train_launches = orbit_chain(torch, dev)
+    chain = _copy_chain(trained, dev, "float32", int8_decode=True)
+    del trained
+    head, head_out, head_launches = draft_head_fit(torch, dev, chain, order)
+    prompt = order[:SPEC_PROMPT].tolist()
+    learned = [int(order[(SPEC_PROMPT + i) % VOCAB])
+               for i in range(DRAFT_STEPS)]
+    arms, checks, offs = [], {}, {}
+    total = {"paged_attend": 0, "int8_gemm": 0}
+    for slots in SPEC_SLOTS:
+        off, arm = drafter_arm(torch, dev, chain, prompt, slots, False)
+        offs[slots] = off
+        arms.append(arm)
+        _add_counts(total, arm["launches"])
+        for spec_arm_, h in (("ngram", None), ("model", head)):
+            on, arm = drafter_arm(torch, dev, chain, prompt, slots, True, h)
+            arms.append(arm)
+            _add_counts(total, arm["launches"])
+            checks["%s at %d slots" % (spec_arm_, slots)] = same_or_near_tie(
+                torch, dev, chain, off, on, SPEC_PROMPT,
+                "tiers (a) %s at %d slots" % (spec_arm_, slots))
+    follows = sum(a == b for a, b in zip(off[0][SPEC_PROMPT:], learned))
+    log(json.dumps({"tiers_drafter": {
+        "train_losses_first_last": [losses[0], losses[-1]],
+        "head": head_out, "steps": DRAFT_STEPS,
+        "stream_follows_orbit": follows, "against_spec_off": checks,
+        "spec_off_1_equals_4_slots": offs[1][0] == offs[4][0],
+        "seconds": time.perf_counter() - t0}}))
+    total.update({n: train_launches[n] + head_launches[n]
+                  for n in ("flash_attn_fwd", "flash_attn_dq",
+                            "flash_attn_dkv")})
+    return chain, order, total
+
+
+def _copy_chain(chain, dev, dtype, **block):
+    """A chain's weights in a new chain of compute dtype ``dtype`` on
+    the card (``block``: the blocks' options)."""
+    from veles_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from veles_tpu_torch.samples.lm import lm_spec
+    return params_from_numpy(lm_spec(VOCAB, DIM, LAYERS, HEADS, **block),
+                             params_to_numpy(chain), device=dev, dtype=dtype)
+
+
+def weights_part(torch, dev, chain, order):
+    """(b) ``weight_quant_quality`` on a float32 copy of the orbit chain
+    with ``int8_decode`` off (the port refuses it on an int8
+    checkpoint): the
+    CE delta against 0.05, the weight bytes before and after, then the
+    quantized chain served with spec off and on (n-gram), 1 slot, int8
+    KV: equal streams, ``paged_attend`` once per layer per pass, no
+    ``int8_gemm``."""
+    from veles_tpu_torch.serving import (
+        InferenceScheduler, per_chip_bytes, weight_quant_quality)
+    from veles_tpu_torch.serving.tp import chain_params
+    t0 = time.perf_counter()
+    copy = _copy_chain(chain, dev, "float32")
+
+    def block_bytes():
+        return per_chip_bytes([u.params for u in copy
+                               if hasattr(u, "quantize_weights")])
+
+    before = (per_chip_bytes(chain_params(copy)), block_bytes())
+    seqs = [order[o:o + QUALITY_LEN].tolist() for o in (0, VOCAB // 8)]
+    zero_tier_counts()
+    rec = weight_quant_quality(copy, seqs, block_size=BLOCK)
+    gate_launches = read_tier_counts()
+    after = (per_chip_bytes(chain_params(copy)), block_bytes())
+    try:
+        copy[1].int8_decode = True
+        raise SystemExit("tiers (b): int8_decode was accepted on an int8 "
+                         "checkpoint")
+    except ValueError:
+        pass
+    prompt = order[:SPEC_PROMPT].tolist()
+    streams, launches = {}, {"paged_attend": 0, "int8_gemm": 0}
+    for spec in (False, True):
+        sch = InferenceScheduler(copy, max_slots=1, window=WINDOW,
+                                 block_size=BLOCK, kv_dtype="int8",
+                                 prefill_chunk=0, spec=spec, spec_k=SPEC_K,
+                                 prefix_cache=False, device=dev).start()
+        try:
+            zero_tier_counts()
+            streams[spec] = sch.submit(prompt, W8_STEPS).result(600)
+            torch.cuda.synchronize()
+            got = read_tier_counts()
+            passes = _passes(sch)
+        finally:
+            sch.close()
+        sch.check_kv()
+        if got["paged_attend"] != LAYERS * passes or got["int8_gemm"] \
+                or got["paged_attend_by_kernel"]["split"] \
+                != got["paged_attend"]:
+            raise SystemExit("tiers (b): %d passes launched %s"
+                             % (passes, got))
+        _add_counts(launches, got)
+    against = same_or_near_tie(torch, dev, copy, [streams[False]],
+                               [streams[True]], SPEC_PROMPT, "tiers (b)")
+    out = {"record": rec, "bytes_before": before[0],
+           "bytes_after": after[0], "block_bytes_before": before[1],
+           "block_bytes_after": after[1],
+           "block_ratio": after[1] / before[1],
+           "gate_launches": gate_launches, "serve_launches": launches,
+           "against_spec_off": against, "seconds": time.perf_counter() - t0}
+    log(json.dumps({"tiers_weights": out}))
+    if gate_launches["paged_attend"] or gate_launches["int8_gemm"]:
+        raise SystemExit("tiers (b): the bf16-pool gate launched %s"
+                         % gate_launches)
+    del copy
+    return launches
+
+
+def quality_part(torch, dev, rate, chain, order):
+    """(c) ``kv_quant_quality`` on the orbit chain at block 16 and 32:
+    each int8 pass is a verify pass of ``block`` queries per row, so
+    ``paged_attend`` must launch ceil(block / 16) times per layer per
+    int8 pass (K1 32: fault C6) and ``int8_gemm`` three times per layer
+    per pass of both halves; the CE delta must be within 0.05.  Then
+    kernel 1 alone at K1 16, 17 and 32, T 64, each result held against
+    the plain version, timed as CUDA-graph replays beside its bound and
+    SDPA after a gather."""
+    from veles_tpu_torch.ops import paged_attend as pa
+    from veles_tpu_torch.serving import kv_quant_quality
+    t0 = time.perf_counter()
+    seqs = [order[o:o + QUALITY_LEN].tolist() for o in (0, VOCAB // 8)]
+    records, launches = {}, {"paged_attend": 0, "int8_gemm": 0}
+    for bs in (BLOCK, 2 * BLOCK):
+        zero_tier_counts()
+        rec = kv_quant_quality(chain, seqs, block_size=bs)
+        torch.cuda.synchronize()
+        got = read_tier_counts()
+        passes = sum(len(s) // bs for s in seqs)
+        want = (LAYERS * passes * -(-bs // pa.MAX_K1),
+                3 * LAYERS * 2 * passes)
+        if (got["paged_attend"], got["int8_gemm"]) != want \
+                or got["paged_attend_by_kernel"]["split"] \
+                != got["paged_attend"]:
+            raise SystemExit("tiers (c): the block-%d gate launched %s "
+                             "(want %s)" % (bs, got, want))
+        if not rec["kv_quant_within_tolerance"]:
+            raise SystemExit("tiers (c): block %d CE delta %s over %s"
+                             % (bs, rec["kv_quant_ce_delta"],
+                                rec["kv_quant_ce_tolerance"]))
+        records[bs] = dict(rec, launches=got)
+        _add_counts(launches, got)
+    rng = numpy.random.default_rng(15)
+    deep = WINDOW // BLOCK
+    nb = 8 * deep + 1
+    wide, err = {}, 0.0
+    for k1 in (16, 17, 32):
+        args, extra = _attend_inputs(torch, rng, dev, 8, deep, k1, "int8",
+                                     nb, WINDOW - 64, WINDOW - k1)
+        e = attend_excess(pa.paged_attend(*args, **extra),
+                          pa.paged_attend_plain(*args, **extra))
+        if e > 1.0:
+            raise SystemExit("tiers (c): paged_attend at K1 %d off its plain "
+                             "version by %.2fx the tolerance" % (k1, e))
+        err = max(err, e)
+        wide["K1 %d T %d" % (k1, deep)] = dict(
+            _time_attend_at(torch, dev, rng, nb, rate, deep, WINDOW - 64,
+                            WINDOW - k1, k1, True),
+            launches_per_call=-(-k1 // pa.MAX_K1), excess=e)
+    out = {"records": records, "wide": wide,
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps({"tiers_quality": out}))
+    return launches, wide
+
+
+def _p95(xs):
+    return sorted(xs)[int(0.95 * (len(xs) - 1))]
+
+
+def host_part(torch, dev, chain, pattern):
+    """(d) ``bench_tiered_kv``'s scheduler part at the serving width on
+    the spec phase's trained chain (int8 KV, ``int8_decode``), the
+    prefix cache on, ``kv_host_bytes`` 64 MB and a pool of HOST_POOL
+    blocks: HOST_PROBES pattern prompts of HOST_PROMPT tokens served
+    cold, then resubmitted while device-resident, then again after two
+    long random prompts demote them to the host tier; each request's
+    first token (TTFT, submit to the stream's first token) by tier, the
+    blocks each host-warm admission promoted and the tokens it
+    prefilled.  Every resubmit's stream must equal its cold stream,
+    each pass launch the serving kernels, and ``check_kv()`` be
+    clean."""
+    from veles_tpu_torch.serving import InferenceScheduler
+    t0 = time.perf_counter()
+    rng = numpy.random.default_rng(21)
+    probes = [(pattern * (HOST_PROMPT // len(pattern) + 2))[o:o + HOST_PROMPT]
+              for o in range(HOST_PROBES)]
+    sch = InferenceScheduler(chain, max_slots=2, window=WINDOW,
+                             block_size=BLOCK, kv_blocks=HOST_POOL,
+                             kv_dtype="int8", prefill_chunk=CHUNK,
+                             spec=False, prefix_cache=True,
+                             kv_host_bytes=64 << 20, request_timeout=600.0,
+                             device=dev).start()
+
+    def probe(p):
+        return _first_token_ms(sch.submit(p, HOST_STEPS, stream=True),
+                               time.perf_counter())
+
+    try:
+        sch.submit(rng.integers(0, VOCAB, (HOST_PROMPT,)).tolist(),
+                   1).result(600)                         # warm-up
+        zero_tier_counts()
+        p0 = _passes(sch)
+        ttft = {"cold": [], "device": [], "host": []}
+        promoted, prefilled, cold = [], {"device": [], "host": []}, []
+        for p in probes:
+            ms, stream = probe(p)
+            ttft["cold"].append(ms)
+            cold.append(stream)
+        for tier in ("device", "host"):
+            if tier == "host":
+                for _ in range(2):
+                    sch.submit(rng.integers(0, VOCAB, (HOST_LONG,)).tolist(),
+                               HOST_STEPS).result(600)
+                demoted = sch.metrics().get("kv_host_blocks", 0)
+            for p, want in zip(probes, cold):
+                before = sch.metrics()
+                ms, got = probe(p)
+                after = sch.metrics()
+                ttft[tier].append(ms)
+                prefilled[tier].append(after["prefill_chunk_tokens"]
+                                       - before["prefill_chunk_tokens"])
+                if tier == "host":
+                    promoted.append(after["kv_host_promotions"]
+                                    - before["kv_host_promotions"])
+                if got != want:
+                    raise SystemExit("tiers (d): a %s-resident resubmit's "
+                                     "stream differs from its cold one"
+                                     % tier)
+        torch.cuda.synchronize()
+        launches = read_tier_counts()
+        check_pass_launches("tiers (d)", _passes(sch) - p0, launches)
+        snap = sch.metrics()
+        sch.check_kv()
+    finally:
+        sch.close()
+    sch.check_kv()
+    if not demoted or snap["kv_host_promotions"] < 1:
+        raise SystemExit("tiers (d): %d host blocks, %d promotions"
+                         % (demoted, snap["kv_host_promotions"]))
+    out = {"ttft_ms": {k: {"p50": float(numpy.median(v)), "p95": _p95(v),
+                           "all": v} for k, v in ttft.items()},
+           "promoted_per_probe": promoted,
+           "prefill_tokens_per_probe": prefilled,
+           "host_blocks_after_churn": demoted,
+           "promotions": snap["kv_host_promotions"],
+           "demotions": snap["kv_host_demotions"],
+           "host_evictions": snap["kv_host_evictions"],
+           "prefix_hits": snap["prefix_cache_hits"],
+           "streams_equal": True, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps({"tiers_host": out}))
+    return launches
+
+
+def _mbps(nbytes, fn, reps=5):
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return nbytes * reps / (time.perf_counter() - t) / 1e6, out
+
+
+def _first_token_ms(ts, t0):
+    next(iter(ts))
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, ts.future.result(600)
+
+
+def disagg_part(torch, dev, chain, pattern):
+    """(e) ``bench.py``'s disaggregated arm at the serving width on the
+    spec phase's trained chain (int8 KV, ``int8_decode``): a
+    ``role="prefill"`` and a ``role="decode"`` scheduler in one process
+    hand a prompt off through ``submit_prefill`` → ``kv_export`` → the
+    b64 JSON or the VKV1 wire → ``submit_imported``, then two
+    ``RESTfulAPI`` servers through ``/serving/prefill`` →
+    ``/serving/kv_export/<h>`` → ``/serving/kv_import``; each stream must
+    equal a colocated scheduler's.  The wire's encode and decode MB/s,
+    and the first token against the colocated one (p50 of DISAGG_REPS)."""
+    import urllib.request
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    from veles_tpu_torch.serving import InferenceScheduler, disagg
+    t0 = time.perf_counter()
+    prompt = (pattern * (DISAGG_PROMPT // len(pattern) + 1))[:DISAGG_PROMPT]
+    kw = dict(max_slots=2, window=WINDOW, block_size=BLOCK, kv_dtype="int8",
+              prefill_chunk=CHUNK, spec=False, prefix_cache=False,
+              device=dev)
+    colo = InferenceScheduler(chain, **kw).start()
+    pre = InferenceScheduler(chain, role="prefill", **kw).start()
+    dec = InferenceScheduler(chain, role="decode", **kw).start()
+    scheds = (colo, pre, dec)
+    launches = {"paged_attend": 0, "int8_gemm": 0}
+    forms = {"json": (lambda r: json.dumps(disagg.encode_export(r)).encode(),
+                      lambda b: disagg.decode_export(json.loads(b))),
+             "binary": (disagg.encode_export_binary,
+                        lambda b: disagg.decode_export_binary(b)[0])}
+    try:
+        want = colo.submit(prompt, DISAGG_STEPS).result(600)   # warm-up
+        h = pre.submit_prefill(prompt).result(600)
+        dec.submit_imported(pre.kv_export(h["handle"]),
+                            DISAGG_STEPS).result(600)
+        torch.cuda.synchronize()
+        zero_tier_counts()
+        p0 = sum(_passes(s) for s in scheds)
+        ttft = {"colocated": [], "json": [], "binary": []}
+        wire = {}
+        for _ in range(DISAGG_REPS):
+            ms, got = _first_token_ms(colo.submit(prompt, DISAGG_STEPS,
+                                                  stream=True),
+                                      time.perf_counter())
+            ttft["colocated"].append(ms)
+            if got != want:
+                raise SystemExit("tiers (e): the colocated stream moved")
+            for form, (enc, dec_) in forms.items():
+                t = time.perf_counter()
+                h = pre.submit_prefill(prompt).result(600)
+                rec = pre.kv_export(h["handle"])
+                back = dec_(enc(rec))
+                ms, got = _first_token_ms(
+                    dec.submit_imported(back, DISAGG_STEPS, stream=True), t)
+                ttft[form].append(ms)
+                if got != want:
+                    raise SystemExit("tiers (e): the %s handoff's stream "
+                                     "differs from the colocated one" % form)
+        for form, (enc, dec_) in forms.items():
+            nbytes = disagg.record_nbytes(rec)
+            e_mbps, blob = _mbps(nbytes, lambda: enc(rec))
+            d_mbps, _ = _mbps(nbytes, lambda: dec_(blob))
+            wire[form] = {"record_bytes": nbytes, "wire_bytes": len(blob),
+                          "encode_mbps": e_mbps, "decode_mbps": d_mbps}
+        torch.cuda.synchronize()
+        launches = read_tier_counts()
+        check_pass_launches("tiers (e)",
+                            sum(_passes(s) for s in scheds) - p0, launches)
+    finally:
+        for s in scheds:
+            s.close()
+    for s in scheds:
+        s.check_kv()
+    apis = [RESTfulAPI(forwards=chain, max_slots=2, serving_kv_dtype="int8",
+                       serving_block_size=BLOCK, serving_spec=False,
+                       serving_prefix_cache=False, serving_role=role,
+                       device=dev) for role in ("prefill", "decode")]
+    rest = []
+    try:
+        for api in apis:
+            api.initialize()
+        for _ in range(2):
+            t = time.perf_counter()
+            code, _, h = _http(apis[0].port, "/serving/prefill",
+                               {"prompt": prompt})
+            if code != 200:
+                raise SystemExit("tiers (e): /serving/prefill %d %s"
+                                 % (code, h))
+            req = urllib.request.Request(
+                "http://127.0.0.1:%d/serving/kv_export/%s"
+                % (apis[0].port, h["handle"]),
+                headers={"Accept": disagg.WIRE_CONTENT_TYPE})
+            blob = urllib.request.urlopen(req, timeout=600).read()
+            rec, _ = disagg.decode_export_binary(blob)
+            req = urllib.request.Request(
+                "http://127.0.0.1:%d/serving/kv_import" % apis[1].port,
+                data=disagg.encode_export_binary(
+                    rec, extra={"steps": DISAGG_STEPS}),
+                headers={"Content-Type": disagg.WIRE_CONTENT_TYPE})
+            got = json.loads(urllib.request.urlopen(req, timeout=600).read())
+            rest.append((time.perf_counter() - t) * 1e3)
+            if got["tokens"] != want:
+                raise SystemExit("tiers (e): the REST handoff's stream "
+                                 "differs from the colocated one")
+        for api in apis:
+            api.scheduler_.check_kv()
+    finally:
+        for api in apis:
+            api.stop()
+    out = {"ttft_p50_ms": {k: float(numpy.median(v))
+                           for k, v in ttft.items()},
+           "wire": wire, "rest_round_trip_ms": rest,
+           "streams_equal": True, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps({"tiers_disagg": out}))
+    return launches
+
+
+def tiers_check(torch, dev, rate, spec_chain_, pattern):
+    """Phase 6f: (a) the model drafter on the held-out orbit, (b) int8
+    weight checkpoints, (c) the KV quality gate and kernel 1 past 16
+    queries, (d) the host-RAM tier, (e) disaggregation.  Returns the
+    launches of each kernel over the phase's parts and kernel 1's wide
+    times."""
+    t0 = time.perf_counter()
+    chain, order, launches = drafter_part(torch, dev)
+    _add_counts(launches, dict(weights_part(torch, dev, chain, order),
+                               flash_attn_fwd=0, flash_attn_dq=0,
+                               flash_attn_dkv=0))
+    got, wide = quality_part(torch, dev, rate, chain, order)
+    del chain
+    for part in (got, host_part(torch, dev, spec_chain_, pattern),
+                 disagg_part(torch, dev, spec_chain_, pattern)):
+        _add_counts(launches, dict({"flash_attn_fwd": 0, "flash_attn_dq": 0,
+                                    "flash_attn_dkv": 0}, **{
+                                        n: part[n] for n in
+                                        ("paged_attend", "int8_gemm")}))
+    log(json.dumps({"tiers_seconds": time.perf_counter() - t0,
+                    "tiers_launches": launches}))
+    return launches, wide
+
+
 # -- phase 7: train -----------------------------------------------------------
 
 def train_check(torch, dev):
@@ -3929,6 +4590,7 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     rate = hbm_rate(card)
+    log("card: %s" % card)
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -3964,6 +4626,8 @@ def main():
     surface_launches = surface_check(torch, dev, serve_chain, trained,
                                      pattern)
     rest_launches_ = rest_check(torch, dev, trained, pattern)
+    tier_launches, wide = tiers_check(torch, dev, rate, trained, pattern)
+    measured["paged_attend"]["wide"] = wide
     del served, trained, serve_chain
     launches.update(train_check(torch, dev)["launches"])
     measured.update(check_lrn(torch, dev, rate))
@@ -3996,6 +4660,8 @@ def main():
             k["surface_launches"] = surface_launches[k["name"]]
         if k["name"] in rest_launches_:
             k["rest_launches"] = rest_launches_[k["name"]]
+        if k["name"] in tier_launches:
+            k["tiers_launches"] = tier_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

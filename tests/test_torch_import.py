@@ -128,10 +128,27 @@ def test_entry_points_default_to_the_card():
                                           "health_config", "configure")),
     ("veles_tpu_torch.telemetry.flight_recorder", ("FlightRecorder",
                                                    "recorder", "_LogTail")),
-    ("veles_tpu_torch.restful_api", ("RESTfulAPI", "_status_text"))])
+    ("veles_tpu_torch.restful_api", ("RESTfulAPI", "_status_text")),
+    ("veles_tpu_torch.serving", ("MedusaDraftHead", "draft_supported",
+                                 "hidden_supported", "kv_quant_quality",
+                                 "weight_quant_quality", "per_chip_bytes",
+                                 "decode_export", "encode_export",
+                                 "RoleMismatchError", "HostKVTier")),
+    ("veles_tpu_torch.serving.disagg", ("WIRE_CONTENT_TYPE", "mint_handle",
+                                        "encode_export", "decode_export",
+                                        "encode_export_binary",
+                                        "decode_export_binary",
+                                        "record_nbytes", "quantize_record")),
+    ("veles_tpu_torch.serving.kv_quality", ("KV_QUANT_CE_TOLERANCE",
+                                            "WEIGHT_QUANT_CE_TOLERANCE",
+                                            "teacher_forced_logits",
+                                            "kv_quant_quality",
+                                            "weight_quant_quality")),
+    ("veles_tpu_torch.serving.scheduler", ("EXPORT_TTL", "EXPORT_BYTES",
+                                           "RoleMismatchError"))])
 def test_slice_surface_is_exported(module, names):
-    """The names of the streams, aux, generate, dense and REST slices are
-    importable where the reference exports them
+    """The names of the streams, aux, generate, dense, REST, drafter and
+    KV-tier slices are importable where the reference exports them
     (``veles_tpu/serving/__init__.py``, ``serving/openai_api.py``,
     ``models/generate.py``, ``telemetry/__init__.py``,
     ``telemetry/health.py``, ``telemetry/flight_recorder.py``,

@@ -3,8 +3,10 @@ PyTorch versions ON THE CARD, at the serving model's width (d=1024,
 8 heads, block 16; paged attention also at its split kernel's edges,
 bit-equal twice, rows whose queries all lie before their table, the
 column kernel for a head row off 16 bytes, and the C entry refusing a
-split launch it cannot take; a verify pass's logits against the CPU's
-and against sequential decode steps; tables sharing their leading
+split launch it cannot take, runs of 17 and 32 queries launched in
+chunks of 16; a verify pass's logits, and its hidden-state lane,
+against the CPU's and against sequential decode steps; tables sharing
+their leading
 blocks; a warm resubmit through the prefix cache on a chain trained on
 the card), at the training shapes of the attention
 kernels and odd ones off their tiles (with the backward bit-equal from run to
@@ -160,6 +162,69 @@ def test_paged_attend_split_edges(card, case):
     assert mod.variant_launches["split"] == before["split"] + 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, **_tol(args[0].dtype))
+
+
+@pytest.mark.parametrize("pool,k1", [("int8", 17), ("int8", 32),
+                                     ("bfloat16", 17), ("float32", 32)])
+def test_paged_attend_past_16_queries(card, pool, k1):
+    """A run wider than one launch's 16 queries (a verify pass past 15
+    drafts, the quality gate's block-wide passes) launches once per
+    chunk of 16 queries and matches the plain version, bit-equal
+    twice."""
+    from veles_tpu_torch.ops import paged_attend as mod
+    args, scales = _paged_inputs(card, pool, k1, 128, 16, [200, 40, 0], k1)
+    before = mod.launches
+    got = mod.paged_attend(*args, **scales)
+    again = mod.paged_attend(*args, **scales)
+    want = mod.paged_attend_plain(*args, **scales)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 2 * -(-k1 // mod.MAX_K1)
+    assert got.shape == (3, k1, D) and torch.equal(got, again)
+    torch.testing.assert_close(got, want, **_tol(args[0].dtype))
+
+
+def test_verify_hidden_lane_on_the_card(card):
+    """The hidden-state lane of a verify pass at K1 5 over int8 pools
+    with ``int8_decode``: the card's [B, K1, d] hidden states within
+    1e-3 of the CPU's, left on the card, and its tokens those of the
+    pass without the lane."""
+    import copy
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.serving import PagedKVCache, prefill
+    from veles_tpu_torch.serving.engine import verify_step_paged
+    spec = [{"type": "embedding", "vocab": 512, "dim": 256}]
+    spec += [{"type": "transformer_block", "heads": 2, "int8_decode": True}
+             for _ in range(2)]
+    spec += [{"type": "token_logits", "vocab": 512}]
+    rng = numpy.random.default_rng(5)
+    prompts = [rng.integers(0, 512, (1, n)) for n in (40, 23)]
+    toks = rng.integers(0, 512, (2, 5))
+    pos, lens = numpy.asarray([40, 23]), numpy.asarray([5, 3])
+    zf, zi = numpy.zeros(2, numpy.float32), numpy.zeros(2, numpy.int32)
+    seeds = numpy.asarray([1, 2], numpy.uint32)
+    hid = {}
+    for d in ("cpu", card):
+        chain = init_params(spec, 3, 128, device=d, dtype="float32")
+        cache = PagedKVCache(chain, 2, 128, block_size=BS, kv_dtype="int8")
+        slots = [cache.alloc(64) for _ in prompts]
+        for slot, p in zip(slots, prompts):
+            cache.insert(slot, prefill(chain, p, window=64)[0], p.shape[1])
+        tables = cache.table_rows(slots, 4)
+        twin = copy.copy(cache)
+        twin.pools = {i: {n: t.clone() for n, t in pool.items()}
+                      for i, pool in cache.pools.items()}
+        nxt, h = verify_step_paged(chain, cache, toks, pos, lens, tables,
+                                   zf, zi, seeds, zi, want_hidden=True)
+        plain = verify_step_paged(chain, twin, toks, pos, lens, tables, zf,
+                                  zi, seeds, zi)
+        assert h.device.type == torch.device(d).type
+        assert h.shape == (2, 5, 256) and h.dtype == torch.float32
+        assert numpy.array_equal(nxt, plain)
+        hid[str(d)] = h.cpu()
+    for n in range(2):
+        torch.testing.assert_close(hid["cuda"][n, :lens[n]],
+                                   hid["cpu"][n, :lens[n]], rtol=1e-3,
+                                   atol=1e-3)
 
 
 @pytest.mark.parametrize("kind", ["int8", "fused"])

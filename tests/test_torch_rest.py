@@ -29,6 +29,7 @@ import numpy
 import pytest
 
 from veles_tpu import faults as jax_faults
+from veles_tpu import prng as jax_prng
 from veles_tpu.config import root
 from veles_tpu_torch import faults
 
@@ -580,19 +581,25 @@ def test_queue_full_and_queue_deadline(pair):
 
 
 def test_alerts_history_and_unported_routes(pair):
+    """``/alerts`` and ``/metrics/history`` answer the reference's
+    feature-off replies, ``POST /api`` a 501 naming its item; the KV
+    routes are served (their error replies are the reference's)."""
     got, want = pair.both("/alerts")
     _same(got, want)
     assert got[2] == {"enabled": False}
     got, want = pair.both("/metrics/history")
     _same(got, want)
     assert got[0] == 503
-    for route in ("/api", "/serving/prefill", "/serving/kv_import",
-                  "/serving/prefix_export", "/serving/prefix_import"):
-        code, _, body = call(pair.port, route, {"prompt": [1]})
-        assert code == 501 and body["error"]["code"] == 501
-        assert "ROADMAP item" in body["error"]["message"]
-    code, _, body = call(pair.port, "/serving/kv_export/abc")
-    assert code == 501 and "item 8" in body["error"]["message"]
+    code, _, body = call(pair.port, "/api", {"prompt": [1]})
+    assert code == 501 and body["error"]["code"] == 501
+    assert "ROADMAP item 9" in body["error"]["message"]
+    for path, body in (("/serving/prefill", {"prompt": [[1], [2]]}),
+                       ("/serving/kv_import", {"export": {}, "steps": 2}),
+                       ("/serving/prefix_import", {"record": {}}),
+                       ("/serving/kv_export/abc", None)):
+        got, want = pair.both(path, body)
+        _same(got, want)
+        assert got[0] in (400, 404)
 
 
 def test_healthz_debug_requests_and_metrics_text(pair):
@@ -719,15 +726,171 @@ def test_tune_and_admin_guard(pair):
 
 
 def test_constructor_refuses_features_not_ported():
+    """The workflow and loader (item 9) and tensor parallelism (item 10)
+    are refused; the KV knobs reach the scheduler."""
     from veles_tpu_torch.restful_api import RESTfulAPI
     for kw, item in ((dict(workflow=object()), "item 9"),
                      (dict(loader=object()), "item 9"),
-                     (dict(serving_tp=2), "item 10"),
-                     (dict(serving_role="prefill"), "item 8"),
-                     (dict(serving_kv_host_bytes=1 << 20), "item 8"),
-                     (dict(serving_kv_export_bytes=1 << 20), "item 8")):
+                     (dict(serving_tp=2), "item 10")):
         with pytest.raises(ValueError, match=item):
             RESTfulAPI(device="cpu", **kw)
     RESTfulAPI(device="cpu", serving_tp=0, serving_role="both",
                serving_kv_host_bytes=0, serving_kv_export_bytes=None,
                serving_warm_buckets=True)
+    with jax_prng.get().preserve_state():
+        wf, dev, fw = _jax_chain()
+    api = RESTfulAPI(forwards=port_chain(_spec(fw), fw), device="cpu",
+                     serving_role="decode", serving_kv_host_bytes=1 << 20,
+                     serving_kv_export_bytes=1 << 16)
+    api.initialize()
+    try:
+        sch = api.scheduler_
+        assert (sch.role, sch.kv_host_bytes, sch.kv_export_bytes) \
+            == ("decode", 1 << 20, 1 << 16)
+    finally:
+        api.stop()
+
+
+# -- disaggregation and the prefix store ---------------------------------------
+
+PREFILL = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3]
+
+
+def _fetch(api, handle, binary):
+    """GET /serving/kv_export/<handle> as a decoded record (or the
+    error reply)."""
+    from veles_tpu_torch.serving import disagg
+    headers = {"Accept": disagg.WIRE_CONTENT_TYPE} if binary else {}
+    code, hdrs, body = call(api, "/serving/kv_export/%s" % handle,
+                            headers=headers)
+    if code != 200:
+        return code, body
+    if binary:
+        assert hdrs["Content-Type"] == disagg.WIRE_CONTENT_TYPE
+        return code, disagg.decode_export_binary(body)[0]
+    return code, disagg.decode_export(body)
+
+
+def _post_raw(api, path, blob, content_type):
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d%s" % (api.port, path), data=blob,
+        headers={"Content-Type": content_type})
+    try:
+        resp = urllib.request.urlopen(req, timeout=120)
+    except urllib.error.HTTPError as e:
+        resp = e
+    return resp.code, json.loads(resp.read())
+
+
+@pytest.mark.parametrize("binary", [False, True], ids=["json", "binary"])
+def test_prefill_export_import_match_reference(pair, binary):
+    """``/serving/prefill`` → ``/serving/kv_export/<h>`` →
+    ``/serving/kv_import`` on each server, and across them (the port's
+    record into the reference's server and the reverse), decodes what
+    ``/generate`` does; the replies' shapes are the reference's; a
+    second fetch is 409 on both, an unknown handle 404."""
+    from veles_tpu_torch.serving import disagg
+    body = {"prompt": PREFILL, "steps": 5, "seed": 3, "temperature": 0.7,
+            "top_k": 4}
+    want = call(pair.ref, "/generate", body)[2]["tokens"]
+    records = {}
+    for api in pair.apis:
+        code, _, out = call(api, "/serving/prefill", {"prompt": PREFILL})
+        assert code == 200
+        assert (out["prompt_tokens"], out["blocks"]) == (len(PREFILL), 2)
+        assert set(out) == {"handle", "prompt_tokens", "blocks", "trace_id"}
+        code, rec = _fetch(api, out["handle"], binary)
+        assert code == 200 and rec["prompt"] == PREFILL
+        records[api] = rec
+        assert _fetch(api, out["handle"], binary)[0] == 409
+        assert _fetch(api, "0" * 32, binary)[0] == 404
+    extra = {k: body[k] for k in ("steps", "seed", "temperature", "top_k")}
+    for src in pair.apis:
+        for dst in pair.apis:
+            if binary:
+                code, out = _post_raw(
+                    dst, "/serving/kv_import",
+                    disagg.encode_export_binary(records[src], extra=extra),
+                    disagg.WIRE_CONTENT_TYPE)
+            else:
+                code, _, out = call(dst, "/serving/kv_import", dict(
+                    extra, export=disagg.encode_export(records[src])))
+            assert code == 200 and out == {"tokens": want}
+
+
+def test_roles_and_kv_knobs_match_reference():
+    """A prefill-role pair refuses ``/generate`` (409) and serves
+    ``/serving/prefill``; a decode-role pair the reverse; ``/healthz``
+    and ``/serving/metrics`` report the role, the pending exports and
+    the host tier's keys as the reference's do."""
+    saved = root.common.precision.get("compute_dtype", "bfloat16")
+    root.common.precision.compute_dtype = "float32"
+    pre = dec = None
+    try:
+        # the process-wide generator other files' chains draw from is
+        # left as it was
+        with jax_prng.get().preserve_state():
+            pre = Pair(serving_role="prefill",
+                       serving_kv_export_bytes=1 << 20)
+            dec = Pair(serving_role="decode", serving_kv_host_bytes=1 << 20)
+        got, want = pre.both("/generate", {"prompt": [3, 1], "steps": 2})
+        _same(got, want)
+        assert got[0] == 409
+        got, want = dec.both("/serving/prefill", {"prompt": PREFILL})
+        _same(got, want)
+        assert got[0] == 409
+        got, want = pre.both("/serving/prefill", {"prompt": PREFILL})
+        assert got[0] == want[0] == 200
+        for p, role in ((pre, "prefill"), (dec, "decode")):
+            got, want = p.both("/healthz")
+            assert got[2]["role"] == want[2]["role"] == role
+            got, want = p.both("/serving/metrics")
+            assert got[0] == want[0] == 200
+            keys = [k for k in want[2] if k.startswith("kv_host_")
+                    or k in ("role", "kv_exports_pending")]
+            assert keys and {k: got[2].get(k) for k in keys} \
+                == {k: want[2][k] for k in keys}
+        assert pre.port.scheduler_.metrics()["kv_exports_pending"] == 1
+        assert "kv_host_bytes" in dec.port.scheduler_.metrics()
+    finally:
+        for p in (pre, dec):
+            if p is not None:
+                p.stop()
+        root.common.precision.compute_dtype = saved
+
+
+def test_prefix_export_import_match_reference(pair):
+    """``/serving/prefix_export`` reads a resident prefix (404 before
+    there is one), ``/serving/prefix_import`` adopts it (``{"blocks":
+    n}``) on either server, whichever server exported it."""
+    from veles_tpu_torch.serving import disagg
+    prompt = [7, 7, 1, 2, 8, 3, 0, 4, 6, 6, 2, 9, 1, 1, 5, 10, 4, 2]
+    got, want = pair.both("/serving/prefix_export", {"tokens": prompt})
+    _same(got, want)
+    assert got[0] == 404
+    got, want = pair.both("/generate", {"prompt": prompt, "steps": 3})
+    _same(got, want)
+    records = {}
+    for api in pair.apis:
+        code, _, body = call(api, "/serving/prefix_export",
+                             {"tokens": prompt})
+        assert code == 200
+        records[api] = disagg.decode_export(body)
+        assert records[api]["prompt"] == prompt[:16]
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/serving/prefix_export" % api.port,
+            data=json.dumps({"tokens": prompt}).encode(),
+            headers={"Content-Type": "application/json",
+                     "Accept": disagg.WIRE_CONTENT_TYPE})
+        blob = urllib.request.urlopen(req, timeout=60).read()
+        rec, _ = disagg.decode_export_binary(blob)
+        assert rec["prompt"] == records[api]["prompt"]
+    for src in pair.apis:
+        for dst in pair.apis:
+            code, _, out = call(dst, "/serving/prefix_import", {
+                "record": disagg.encode_export(records[src])})
+            assert code == 200 and out == {"blocks": 0}   # resident there
+    got, want = pair.both("/serving/prefix_import", {"record": dict(
+        disagg.encode_export(records[pair.port]), block_size=4)})
+    _same(got, want)
+    assert got[0] == 400

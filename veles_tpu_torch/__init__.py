@@ -108,5 +108,10 @@ SUBMODULES = (
     "veles_tpu_torch.serving.metrics",
     "veles_tpu_torch.serving.streams",
     "veles_tpu_torch.serving.openai_api",
+    "veles_tpu_torch.serving.draft",
+    "veles_tpu_torch.serving.kv_quality",
+    "veles_tpu_torch.serving.kv_host",
+    "veles_tpu_torch.serving.disagg",
+    "veles_tpu_torch.serving.tp",
     "veles_tpu_torch.restful_api",
 )

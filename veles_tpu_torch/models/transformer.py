@@ -22,8 +22,18 @@ projection and both FFN matmuls through the weight-only int8 GEMM
 (``ops/gemm.int8_matmul``, the hand-written kernel on the card) — three
 launches per layer per step; prefill and the dense steps keep the
 policy matmul.
+
+Int8 weight checkpoints (:meth:`TransformerBlock.quantize_weights`, or
+``load_params`` given int8 weights with their ``*_scale`` arrays) store
+the six matmul weights int8 with one f32 scale per output column; every
+path multiplies the f32 sum of the int8 weight by its scale
+(``_dequant_dot`` in the reference).  ``int8_decode`` on such a block is
+refused with a ``ValueError``: the reference's weight-only decode
+re-quantizes the stored int8 values and never applies the scales, so
+its logits are those of a different model.
 """
 
+import numpy
 import torch
 
 from veles_tpu_torch.models.attention import attention_core
@@ -46,6 +56,15 @@ def _layer_norm(x, scale, bias, eps=1e-5):
             + bias.to(torch.float32)).to(x.dtype)
 
 
+#: the matmul weights an int8 checkpoint stores quantized
+INT8_WEIGHTS = ("wq", "wk", "wv", "wo", "ffn_w1", "ffn_w2")
+_W8_REFUSED = (
+    "int8_decode on an int8 weight checkpoint: the weight-only decode "
+    "path would re-quantize the stored int8 values and drop their "
+    "*_scale arrays (the reference's logits then belong to another "
+    "model); serve an int8 checkpoint with int8_decode=False")
+
+
 class TransformerBlock(ForwardBase):
     """x → x + MHA(LN(x)) → + FFN(LN(.)), x: [batch, seq, d]."""
 
@@ -63,9 +82,22 @@ class TransformerBlock(ForwardBase):
         #: attention core of :meth:`apply` (models/attention.py)
         self.attn_block_size = attn_block_size
         self.attn_impl = attn_impl
+        #: int8 weight checkpoint: the INT8_WEIGHTS stored int8 beside
+        #: their per-column ``*_scale`` arrays
+        self.weights_int8 = False
         #: weight-only int8 matmuls for the decode step's output
         #: projection and FFN (the weights quantize once, at first use)
         self.int8_decode = bool(int8_decode)
+
+    @property
+    def int8_decode(self):
+        return self._int8_decode
+
+    @int8_decode.setter
+    def int8_decode(self, on):
+        if on and self.weights_int8:
+            raise ValueError(_W8_REFUSED)
+        self._int8_decode = bool(on)
 
     def param_shapes(self, in_shape, window):
         d = in_shape[-1]
@@ -81,8 +113,58 @@ class TransformerBlock(ForwardBase):
         return shapes
 
     def load_params(self, arrays):
+        """Load f32 weights, or an int8 checkpoint: the INT8_WEIGHTS as
+        int8 arrays, each with its ``{name}_scale`` f32 vector."""
+        int8 = any(n + "_scale" in arrays for n in INT8_WEIGHTS)
+        if int8:
+            if self.int8_decode:
+                raise ValueError(_W8_REFUSED)
+            bad = [n for n in INT8_WEIGHTS
+                   if numpy.asarray(arrays.get(n)).dtype != numpy.int8
+                   or n + "_scale" not in arrays]
+            if bad:
+                raise ValueError("int8 checkpoint: %s must be int8 with "
+                                 "*_scale arrays" % bad)
+        self.PARAMS = type(self).PARAMS + (
+            tuple(n + "_scale" for n in INT8_WEIGHTS) if int8 else ())
         super().load_params(arrays)
+        if int8:
+            for n in INT8_WEIGHTS:   # integers in [-127, 127]: exact
+                self.params[n] = self.params[n].to(torch.int8)
+        self.weights_int8 = int8
         self.hidden = int(self.params["ffn_w1"].shape[1])
+
+    def quantize_weights(self):
+        """Re-store the six matmul weights as an int8 checkpoint:
+        per-output-column symmetric absmax quantization
+        (``ops/gemm.int8_weight_quantize``), the int8 tensor replacing
+        the f32 one and a ``{name}_scale`` f32 vector joining ``PARAMS``.
+        Idempotent.  Refused while ``int8_decode`` is on (see the module
+        docstring)."""
+        if self.weights_int8:
+            return
+        if self.int8_decode:
+            raise ValueError(_W8_REFUSED)
+        for name in INT8_WEIGHTS:
+            wq, scale = int8_weight_quantize(self.params[name])
+            self.params[name] = wq
+            self.params[name + "_scale"] = scale.to(torch.float32)
+        self.PARAMS = type(self).PARAMS + tuple(
+            n + "_scale" for n in INT8_WEIGHTS)
+        self.weights_int8 = True
+        self._derived = {}
+
+    def _proj(self, x, name):
+        """``x @ params[name]`` under the dtype policy, f32 result; an
+        int8 weight's f32 sum is multiplied by its column scales (the
+        upcast operand is transient, so the int8 bytes are all that
+        stays resident)."""
+        w = self.params[name]
+        if w.dtype != torch.int8:
+            return self.linear(x, name)
+        y = torch.matmul(x.to(self.dtype).to(torch.float32),
+                         w.to(torch.float32))
+        return y * self.params[name + "_scale"]
 
     @property
     def d_model(self):
@@ -96,7 +178,7 @@ class TransformerBlock(ForwardBase):
         write identical K/V rows)."""
         ln = _layer_norm(x, self.params["ln1_scale"],
                          self.params["ln1_bias"])
-        return tuple(self.linear(ln, n).to(self.dtype)
+        return tuple(self._proj(ln, n).to(self.dtype)
                      for n in ("wq", "wk", "wv"))
 
     def _attend(self, q, k, v, keep):
@@ -124,7 +206,7 @@ class TransformerBlock(ForwardBase):
         return out.reshape(b, s, -1)
 
     def _ffn(self, x, w8=False):
-        mm = self._w8_matmul if w8 else self.linear
+        mm = self._w8_matmul if w8 else self._proj
         h1 = mm(x, "ffn_w1")
         h1 = torch.relu(h1 + self.params["ffn_b1"]).to(self.dtype)
         y = mm(h1, "ffn_w2")
@@ -135,7 +217,7 @@ class TransformerBlock(ForwardBase):
         context ``o`` [b, s, d]; ``w8`` takes the int8 weight-only
         path (decode steps with ``int8_decode``)."""
         attn = (self._w8_matmul(o, "wo") if w8
-                else self.linear(o, "wo")).to(x.dtype)
+                else self._proj(o, "wo")).to(x.dtype)
         y = x + attn
         return y + self._ffn(_layer_norm(y, self.params["ln2_scale"],
                                          self.params["ln2_bias"]), w8=w8)

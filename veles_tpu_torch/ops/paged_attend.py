@@ -12,7 +12,12 @@ both read the post-scatter pool.
 split over a thread-block cluster, the partial softmaxes merged through
 distributed shared memory) for head rows of a multiple of 16 bytes on
 16-byte-aligned pools, and the column kernel (one CTA per row and head)
-for the rest; :func:`plan` picks one from the shape alone.
+for the rest; :func:`plan` picks one from the shape alone.  Each
+launch takes at most :data:`MAX_K1` queries per row; a wider run (a
+verify pass past 15 drafts, the quality gate's block-wide passes)
+launches once per chunk of :data:`MAX_K1` queries.  A row's queries are
+independent once the run's K/V is in the pool, so the chunks compute
+what one launch over all of them would.
 """
 
 import ctypes
@@ -27,7 +32,8 @@ from veles_tpu_torch.ops import (
 
 #: finite stand-in for -inf (the TPU kernel's convention)
 NEG_INF = -1e30
-#: queries per row the kernel takes (decode K1 = 1, verify K1 = k + 1)
+#: queries per row one launch takes (decode K1 = 1, verify K1 = k + 1);
+#: :func:`paged_attend` splits a wider run into chunks of this many
 MAX_K1 = 16
 #: shared memory a column CTA may take (it sets no opt-in attribute)
 _SMEM_LIMIT = 48 * 1024
@@ -150,8 +156,8 @@ def paged_attend(q, pool_k, pool_v, tables, qpos, heads, scale_k=None,
                  scale_v=None):
     """Paged attention (signature of :func:`paged_attend_plain`): the
     plain version for CPU tensors, the ``sm_90a`` kernel for CUDA
-    tensors.  Raises on anything the kernel does not take."""
-    global launches
+    tensors, one launch per chunk of up to :data:`MAX_K1` queries.
+    Raises on anything the kernel does not take."""
     if q.device.type == "cpu":
         return paged_attend_plain(q, pool_k, pool_v, tables, qpos, heads,
                                   scale_k=scale_k, scale_v=scale_v)
@@ -166,8 +172,7 @@ def paged_attend(q, pool_k, pool_v, tables, qpos, heads, scale_k=None,
             tuple(pool_k.shape), tuple(pool_v.shape), tuple(q.shape))
     require(d % heads == 0 and d // heads <= 1024,
             "paged_attend: d=%d over %d heads", d, heads)
-    require(1 <= k1 <= MAX_K1, "paged_attend: K1=%d outside [1, %d]", k1,
-            MAX_K1)
+    require(k1 >= 1, "paged_attend: K1=%d", k1)
     require(tuple(tables.shape) == (b, nt) and nt >= 1
             and tuple(qpos.shape) == (b, k1),
             "paged_attend: tables %s / qpos %s do not fit q %s",
@@ -193,6 +198,28 @@ def paged_attend(q, pool_k, pool_v, tables, qpos, heads, scale_k=None,
     check_cuda_inputs("paged_attend", q.device, q=q, pool_k=pool_k,
                       pool_v=pool_v, scale_k=scale_k, scale_v=scale_v,
                       tables=tables, qpos=qpos)
+    out = torch.empty((b, k1, d), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out
+    if k1 <= MAX_K1:
+        _launch(q, pool_k, pool_v, scale_k, scale_v, tables, qpos, heads,
+                out)
+        return out
+    for j in range(0, k1, MAX_K1):
+        part = torch.empty((b, min(MAX_K1, k1 - j), d),
+                           dtype=torch.float32, device=q.device)
+        _launch(q[:, j:j + MAX_K1].contiguous(), pool_k, pool_v, scale_k,
+                scale_v, tables, qpos[:, j:j + MAX_K1].contiguous(), heads,
+                part)
+        out[:, j:j + MAX_K1] = part
+    return out
+
+
+def _launch(q, pool_k, pool_v, scale_k, scale_v, tables, qpos, heads, out):
+    """One launch over ``q`` [b, k1 <= MAX_K1, d] into ``out``."""
+    global launches
+    b, k1, d = q.shape
+    bs, nt = pool_k.shape[1], tables.shape[1]
     how = plan(b, k1, d, heads, bs, nt, pool_k.dtype,
                pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0)
     if how["kernel"] == "column":
@@ -201,9 +228,6 @@ def paged_attend(q, pool_k, pool_v, tables, qpos, heads, scale_k=None,
         require(smem <= _SMEM_LIMIT,
                 "paged_attend: %d bytes of shared memory (K1=%d, bs=%d)",
                 smem, k1, bs)
-    out = torch.empty((b, k1, d), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return out
     rc = _lib().veles_paged_attend(
         ptr(q), DTYPE_CODES[q.dtype], ptr(pool_k), ptr(pool_v),
         DTYPE_CODES[pool_k.dtype], ptr(scale_k), ptr(scale_v), ptr(tables),
@@ -213,4 +237,3 @@ def paged_attend(q, pool_k, pool_v, tables, qpos, heads, scale_k=None,
     _build.check(rc, "paged_attend launch")
     launches += 1
     variant_launches[how["kernel"]] += 1
-    return out

@@ -13,7 +13,14 @@ serve (or ``serving=False``) take the serialized decode of
 :mod:`veles_tpu_torch.models.generate` on the handler thread.  The
 OpenAI facade (``/v1/completions``, ``/v1/models``, ``/v1/embeddings``,
 ``/v1/classify``; :mod:`veles_tpu_torch.serving.openai_api`) rides the
-same scheduler.  Operators read ``/healthz`` (the health monitor, the
+same scheduler.  Disaggregated serving speaks the KV handoff wire
+(:mod:`~veles_tpu_torch.serving.disagg`, b64 JSON or the VKV1 frame
+negotiated by ``Accept``/``Content-Type: application/x-veles-kv``):
+``POST /serving/prefill`` parks a prompt's KV under a handle, ``GET
+/serving/kv_export/<handle>`` serves it once, ``POST /serving/kv_import``
+decodes from it; ``POST /serving/prefix_export`` and
+``/serving/prefix_import`` move resident prefixes between replicas.
+Operators read ``/healthz`` (the health monitor, the
 drain), ``/serving/metrics``, ``/debug/requests``, ``/debug/state``
 (the flight recorder) and ``/metrics`` (the registry as Prometheus
 text), and drive ``/drain``, ``/shutdown`` and ``/serving/tune``, which
@@ -26,11 +33,8 @@ with ``Retry-After`` on a 503.  The fault point ``restful.generate``
 The reference's ``RESTfulAPI`` is a workflow unit; the port has no
 workflow runtime yet (ROADMAP item 9), so this class stands alone with
 the reference's constructor order and its ``initialize()``/``stop()``.
-Not served yet, each answering a structured 501 that names the item
-that brings it: ``POST /api`` (item 9), ``/serving/prefill``,
-``/serving/kv_import``, ``/serving/kv_export/<handle>``,
-``/serving/prefix_export`` and ``/serving/prefix_import`` (item 8).
-``GET /alerts`` and ``/metrics/history`` answer the reference's replies
+Not served yet: ``POST /api`` (item 9), answering a structured 501 that
+names the item.  ``GET /alerts`` and ``/metrics/history`` answer the reference's replies
 with its alert and history engines off (item 11), and no request is
 attributed to a tenant (item 11).
 """
@@ -52,7 +56,7 @@ from veles_tpu_torch.logger import events
 from veles_tpu_torch.models.generate import (
     generate, generate_beam, kv_cache_eligible)
 from veles_tpu_torch.prng import threefry
-from veles_tpu_torch.serving import openai_api
+from veles_tpu_torch.serving import disagg, openai_api
 from veles_tpu_torch.serving.prefill import serving_supported
 from veles_tpu_torch.serving.scheduler import (
     InferenceScheduler, SchedulerError, resolve_priority)
@@ -75,10 +79,6 @@ DEFAULT_MAX_STEPS, DEFAULT_MAX_BATCH = 2048, 64
 #: ROADMAP item that brings each
 NOT_PORTED = {
     "/api": "the workflow runtime (ROADMAP item 9)",
-    "/serving/prefill": "disaggregated prefill (ROADMAP item 8)",
-    "/serving/kv_import": "disaggregated prefill (ROADMAP item 8)",
-    "/serving/prefix_export": "the fleet prefix store (ROADMAP item 8)",
-    "/serving/prefix_import": "the fleet prefix store (ROADMAP item 8)",
 }
 
 
@@ -96,11 +96,12 @@ class RESTfulAPI:
 
     The parameters keep the reference's names and order.  ``workflow``
     and ``loader`` must be None (the workflow runtime is ROADMAP item
-    9).  ``serving_tp``, ``serving_role``, ``serving_kv_host_bytes`` and
-    ``serving_kv_export_bytes`` take only their feature-off values
-    (None, 0 or "both").  ``serving_warm_buckets`` has no effect: the
-    port compiles nothing.  The other ``serving_*`` knobs go to the
-    scheduler, None meaning its default (the reference's defaults).
+    9).  ``serving_tp`` takes only its feature-off values (None or 0:
+    item 10).  ``serving_warm_buckets`` has no effect: the port compiles
+    nothing.  The other ``serving_*`` knobs (``serving_role``,
+    ``serving_kv_host_bytes`` and ``serving_kv_export_bytes`` among
+    them) go to the scheduler, None meaning its default (the
+    reference's defaults).
     ``max_steps``/``max_batch`` cap ``/generate`` (None: 2048 / 64).
     ``admin_token`` lets a non-loopback peer call ``/drain``,
     ``/shutdown``, ``/serving/tune`` and ``resume_tokens`` with
@@ -127,15 +128,6 @@ class RESTfulAPI:
         if serving_tp not in (None, 0):
             raise ValueError("serving_tp must be None or 0: tensor-parallel "
                              "serving is ROADMAP item 10")
-        if serving_role not in (None, "both"):
-            raise ValueError("serving_role must be None or 'both': "
-                             "disaggregated roles are ROADMAP item 8")
-        for name, value in (("serving_kv_host_bytes", serving_kv_host_bytes),
-                            ("serving_kv_export_bytes",
-                             serving_kv_export_bytes)):
-            if value not in (None, 0):
-                raise ValueError("%s must be None or 0: the host KV tier "
-                                 "and KV exports are ROADMAP item 8" % name)
         self.device = resolve_device(device)
         if forwards is not None and any(u.device != self.device
                                         for u in forwards):
@@ -162,6 +154,9 @@ class RESTfulAPI:
         self.serving_spec = serving_spec
         self.serving_spec_k = serving_spec_k
         self.serving_prefix_cache = serving_prefix_cache
+        self.serving_role = serving_role
+        self.serving_kv_host_bytes = serving_kv_host_bytes
+        self.serving_kv_export_bytes = serving_kv_export_bytes
         self.max_steps = max_steps
         self.max_batch = max_batch
         self.admin_token = admin_token
@@ -267,7 +262,10 @@ class RESTfulAPI:
                     ("prefill_chunk", self.serving_prefill_chunk),
                     ("spec", self.serving_spec),
                     ("spec_k", self.serving_spec_k),
-                    ("prefix_cache", self.serving_prefix_cache))
+                    ("prefix_cache", self.serving_prefix_cache),
+                    ("role", self.serving_role),
+                    ("kv_host_bytes", self.serving_kv_host_bytes),
+                    ("kv_export_bytes", self.serving_kv_export_bytes))
                     if v is not None}
                 self.scheduler_ = InferenceScheduler(
                     self.forwards, max_slots=self.max_slots,
@@ -277,9 +275,9 @@ class RESTfulAPI:
                     **knobs).start()
                 sch = self.scheduler_
                 log.info("serving scheduler: %d slots, window %d, queue cap "
-                         "%d, kv=%s (block %d), prefill chunk %d",
+                         "%d, kv=%s (block %d), prefill chunk %d, role=%s",
                          sch.max_slots, sch.window, self.max_queue, sch.kv,
-                         sch.block_size, sch.prefill_chunk)
+                         sch.block_size, sch.prefill_chunk, sch.role)
             else:
                 log.info("chain not slot-servable; /generate stays on the "
                          "serialized decode path")
@@ -400,9 +398,35 @@ class _Handler(BaseHTTPRequestHandler):
             tokens_generated=getattr(e, "tokens_generated", None),
             draining=True if self.api._draining_ else None)
 
-    def _read_body(self):
+    def _read_raw(self):
         length = int(self.headers.get("Content-Length", 0))
-        return json.loads(self.rfile.read(length) or b"{}")
+        return self.rfile.read(length)
+
+    def _read_body(self):
+        return json.loads(self._read_raw() or b"{}")
+
+    def _reply_binary(self, blob, code=200):
+        """A KV wire frame as the body (``application/x-veles-kv``)."""
+        self.send_response(code)
+        self.send_header("Content-Type", disagg.WIRE_CONTENT_TYPE)
+        self._common_headers()
+        self.send_header("Content-Length", str(len(blob)))
+        self.end_headers()
+        self.wfile.write(blob)
+
+    def _wants_binary(self):
+        return disagg.WIRE_CONTENT_TYPE in (self.headers.get("Accept") or "")
+
+    def _sent_binary(self):
+        ctype = (self.headers.get("Content-Type") or "").split(";")[0]
+        return ctype.strip().lower() == disagg.WIRE_CONTENT_TYPE
+
+    def _reply_record(self, rec):
+        """An export record in the wire form the client asked for."""
+        if self._wants_binary():
+            self._reply_binary(disagg.encode_export_binary(rec))
+        else:
+            self._reply_json(disagg.encode_export(rec))
 
     # -- SSE -----------------------------------------------------------------
 
@@ -516,9 +540,7 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._reply_json(sch.metrics())
         elif route.startswith("/serving/kv_export/"):
-            self._reply_error(501, "GET /serving/kv_export/<handle> is not "
-                              "served yet: it needs disaggregated prefill "
-                              "(ROADMAP item 8)")
+            self._kv_export(route.rsplit("/", 1)[1])
         elif route == "/healthz":
             self._healthz()
         elif route == "/debug/state":
@@ -556,11 +578,12 @@ class _Handler(BaseHTTPRequestHandler):
         state = monitor.state()
         status = state["status"]
         sch = api.scheduler_
-        # the port serves one role on one device (as metrics() reports)
+        # the port serves on one device (as metrics() reports)
         reply = {"status": status, "pid": os.getpid(),
                  "replica": api.replica_id,
                  "draining": bool(api._draining_),
-                 "role": "both", "tp": 0, "health": state}
+                 "role": sch.role if sch is not None else "both",
+                 "tp": 0, "health": state}
         if api._draining_:
             status = reply["status"] = "draining"
             reply["in_flight"] = sch.in_flight if sch is not None else 0
@@ -578,6 +601,8 @@ class _Handler(BaseHTTPRequestHandler):
                               % (route, NOT_PORTED[route]))
             return
         client = {"/generate": self._generate,
+                  "/serving/prefill": self._serving_prefill,
+                  "/serving/kv_import": self._serving_kv_import,
                   "/v1/completions": self._v1_completions,
                   "/v1/embeddings": lambda: self._v1_batch("embed"),
                   "/v1/classify": lambda: self._v1_batch("score")}
@@ -591,12 +616,172 @@ class _Handler(BaseHTTPRequestHandler):
                 log.exception("%s failed", route)   # server
                 self.send_error(500, _status_text(e))
             return
+        # a prefix transfer is cache plumbing, not a client request: not
+        # behind restful.generate
+        plumbing = {"/serving/prefix_export": self._serving_prefix_export,
+                    "/serving/prefix_import": self._serving_prefix_import}
+        if route in plumbing:
+            try:
+                plumbing[route]()
+            except Exception as e:
+                log.exception("%s failed", route)
+                self.send_error(500, _status_text(e))
+            return
         admin = {"/serving/tune": self._tune, "/shutdown": self._shutdown,
                  "/drain": self._drain}
         if route in admin:
             admin[route]()
             return
         self.send_error(404)
+
+    # -- disaggregation and the prefix store -----------------------------------
+
+    def _kv_export(self, handle):
+        """GET /serving/kv_export/<handle>: serve one parked prefill
+        export, once (the fetch consumes it; the handle is the
+        capability).  A second fetch is a 409, an unknown or expired
+        handle a 404."""
+        sch = self.api.scheduler_
+        if sch is None:
+            self.send_error(404, "no serving scheduler")
+            return
+        rec = sch.kv_export(handle)
+        if rec is None:
+            if sch.kv_export_status(handle) == "fetched":
+                self._reply_error(409, "kv export handle already fetched "
+                                  "(one-shot)")
+            else:
+                self.send_error(404, "unknown or expired kv export handle")
+            return
+        self._reply_record(rec)
+
+    def _job_result(self, submit, what, **timeout_extra):
+        """Run a scheduler job for a handler: ``(True, result)``, or
+        ``(False, None)`` after replying the error (400 for a ValueError,
+        the scheduler's own status, 408 past the deadline with
+        ``timeout_extra`` in its body)."""
+        try:
+            return True, submit().result(self.api.request_timeout + 30.0)
+        except ValueError as e:
+            self.send_error(400, _status_text(e))
+        except SchedulerError as e:
+            self._reply_scheduler_error(e)
+        except concurrent.futures.TimeoutError:
+            self._reply_error(408, "%s timed out" % what, **timeout_extra)
+        return False, None
+
+    def _serving_prefill(self):
+        """POST /serving/prefill (roles "prefill"/"both"): prefill ONE
+        prompt row, park its raw KV blocks and first-token logits under
+        a handle, reply ``{"handle", "prompt_tokens", "blocks",
+        "trace_id"}``."""
+        api = self.api
+        if api.forwards is None or api.scheduler_ is None:
+            self.send_error(404, "no servable model chain")
+            return
+        try:
+            body = self._read_body()
+            prompt = body.get("prompt")
+            if not isinstance(prompt, list) or not prompt \
+                    or isinstance(prompt[0], list):
+                self.send_error(400, "prompt must be ONE flat token list "
+                                "(prefill export is per-request)")
+                return
+            rows = [[int(t) for t in prompt]]
+        except (TypeError, ValueError):
+            self.send_error(400, "prompt must be a flat list of token ids")
+            return
+        err = api._validate_rows(rows)
+        if err:
+            self.send_error(400, err)
+            return
+        ok, out = self._job_result(lambda: api.scheduler_.submit_prefill(
+            rows[0], seed=body.get("seed"), timeout=api.request_timeout,
+            priority=body.get("priority"), trace=self._trace()), "prefill")
+        if ok:
+            out["trace_id"] = self._trace()
+            self._reply_json(out)
+
+    def _serving_kv_import(self):
+        """POST /serving/kv_import (roles "decode"/"both"): adopt an
+        export record — the binary frame as the body with the sampler
+        settings in its header's ``extra``, or JSON ``{"export": ...,
+        "steps", ...}`` — decode, and reply ``{"tokens": [...]}``."""
+        api = self.api
+        if api.forwards is None or api.scheduler_ is None:
+            self.send_error(404, "no servable model chain")
+            return
+        try:
+            if self._sent_binary():
+                export, body = disagg.decode_export_binary(self._read_raw())
+            else:
+                body = self._read_body()
+                export = disagg.decode_export(body.get("export") or {})
+            steps = int(body.get("steps", 0))
+            temperature = float(body.get("temperature") or 0.0)
+            top_k = int(body.get("top_k") or 0)
+            stop = body.get("stop")
+            stop = int(stop) if stop is not None else None
+        except (TypeError, ValueError) as e:
+            self.send_error(400, _status_text(e))
+            return
+        if steps > api._cap("max_steps", DEFAULT_MAX_STEPS):
+            self.send_error(400, "steps %d exceeds max_steps" % steps)
+            return
+        ok, toks = self._job_result(lambda: api.scheduler_.submit_imported(
+            export, steps, temperature=temperature, top_k=top_k,
+            seed=body.get("seed"), stop_token=stop,
+            timeout=api.request_timeout, priority=body.get("priority"),
+            trace=self._trace()), "decode", tokens_generated=0)
+        if ok:
+            self._reply_json({"tokens": toks})
+
+    def _serving_prefix_export(self):
+        """POST /serving/prefix_export ``{"tokens": [...]}``: the raw
+        blocks of the longest resident prefix of the tokens across both
+        tiers, or 404 when none is resident.  Served while draining (a
+        drained replica's warm cache is what is worth rescuing)."""
+        api = self.api
+        if api.forwards is None or api.scheduler_ is None:
+            self.send_error(404, "no servable model chain")
+            return
+        try:
+            tokens = [int(t) for t in self._read_body().get("tokens") or ()]
+        except (TypeError, ValueError):
+            self.send_error(400, "tokens must be a flat list of token ids")
+            return
+        ok, rec = self._job_result(
+            lambda: api.scheduler_.submit_prefix_export(tokens),
+            "prefix export")
+        if not ok:
+            return
+        if rec is None:
+            self._reply_error(404, "no resident prefix for these tokens")
+            return
+        self._reply_record(rec)
+
+    def _serving_prefix_import(self):
+        """POST /serving/prefix_import: adopt a peer's prefix record (the
+        binary frame, or JSON ``{"record": ...}``); replies ``{"blocks":
+        adopted}``."""
+        api = self.api
+        if api.forwards is None or api.scheduler_ is None:
+            self.send_error(404, "no servable model chain")
+            return
+        try:
+            if self._sent_binary():
+                record, _ = disagg.decode_export_binary(self._read_raw())
+            else:
+                record = disagg.decode_export(
+                    self._read_body().get("record") or {})
+        except (TypeError, ValueError) as e:
+            self.send_error(400, _status_text(e))
+            return
+        ok, out = self._job_result(
+            lambda: api.scheduler_.submit_prefix_import(record),
+            "prefix import")
+        if ok:
+            self._reply_json(out)
 
     def _tune(self):
         """The control plane's knob: ``shed_block_factor``, floored at

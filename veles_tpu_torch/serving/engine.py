@@ -12,6 +12,12 @@ pending token and its drafts, scored in ONE model pass.
 every slot rides the batch, free ones as garbage rows, against the
 slot-major caches through ``apply_step_slots`` (plain ops, no kernel).
 
+The hidden-state lane: with ``want_hidden`` the paged decode and verify
+steps also return the f32 input of the chain's final unit (the target's
+last hidden state, ``[B, d]`` or ``[B, K1, d]``), which the model draft
+head (:mod:`~veles_tpu_torch.serving.draft`) reads.  It stays on the
+device: the lane adds no host sync.
+
 Sampling is row-wise.  Greedy rows (temperature 0) take the argmax —
 the same token the JAX package picks from the same logits.  Sampling
 rows draw token ``t`` of a request with seed ``s`` from the Threefry
@@ -83,6 +89,17 @@ def first_tokens(last_logits, temps, topks, seeds, counts=None):
                         list(counts)).cpu().numpy()
 
 
+def hidden_supported(forwards):
+    """True when the chain ends in a position-wise vocab head over a
+    [batch, seq, d] hidden stream: the ``want_hidden`` lane returns the
+    input of that final unit."""
+    if len(forwards) < 2:
+        return False
+    last = forwards[-1]
+    return getattr(last, "DECODE_POINTWISE", False) \
+        and not hasattr(last, "init_cache")
+
+
 def _ints(a, dtype, device):
     return torch.as_tensor(numpy.asarray(a, dtype), device=device)
 
@@ -120,18 +137,24 @@ def slot_decode_step(forwards, cache, toks, pos, temps, topks, seeds,
                         list(numpy.asarray(counts))).cpu().numpy()
 
 
-def paged_decode_logits(forwards, cache, toks, pos, tables):
+def paged_decode_logits(forwards, cache, toks, pos, tables,
+                        want_hidden=False):
     """The chain's forward of ONE decode step over a packed batch
     against ``cache`` (:class:`~veles_tpu_torch.serving.kv_slots.
     PagedKVCache`, whose pools update in place).  ``toks`` [B, 1],
     ``pos`` [B], ``tables`` [B, T] (T·block_size covers ``max(pos) +
     1``) — host arrays.  Returns the [B, vocab] f32 logits on the
-    cache's device."""
+    cache's device, and with ``want_hidden`` the [B, d] f32 input of
+    the final unit beside them."""
     device = cache.device
     h = _ints(toks, numpy.int64, device)
     pos_t = _ints(pos, numpy.int64, device)
     tables_t = _ints(tables, numpy.int32, device)
+    hid = None
+    last = len(forwards) - 1
     for i, u in enumerate(forwards):
+        if want_hidden and i == last:
+            hid = h[:, 0].to(torch.float32)
         if i in cache.pools:
             h, cache.pools[i] = u.apply_step_paged(h, pos_t, tables_t,
                                                    cache.pools[i])
@@ -139,24 +162,29 @@ def paged_decode_logits(forwards, cache, toks, pos, tables):
             h = u.apply_step_slots(h, pos_t)
         else:
             h = u.apply(h)
-    return h[:, 0].to(torch.float32)
+    logits = h[:, 0].to(torch.float32)
+    return (logits, hid) if want_hidden else logits
 
 
 def paged_decode_step(forwards, cache, toks, pos, tables, temps, topks,
-                      seeds, counts):
+                      seeds, counts, want_hidden=False):
     """Run ONE decode step (:func:`paged_decode_logits`) and sample
     each row with its settings ``temps``/``topks``/``seeds``/
     ``counts`` [B] (host arrays).  Returns the [B] next tokens as a
-    host numpy array."""
-    logits = paged_decode_logits(forwards, cache, toks, pos, tables)
-    return sample_slots(logits, list(numpy.asarray(temps)),
-                        list(numpy.asarray(topks)),
-                        list(numpy.asarray(seeds)),
-                        list(numpy.asarray(counts))).cpu().numpy()
+    host numpy array, and with ``want_hidden`` also the [B, d] f32
+    hidden states (on the device)."""
+    got = paged_decode_logits(forwards, cache, toks, pos, tables,
+                              want_hidden=want_hidden)
+    logits, hid = got if want_hidden else (got, None)
+    nxt = sample_slots(logits, list(numpy.asarray(temps)),
+                       list(numpy.asarray(topks)),
+                       list(numpy.asarray(seeds)),
+                       list(numpy.asarray(counts))).cpu().numpy()
+    return (nxt, hid) if want_hidden else nxt
 
 
 def verify_logits(forwards, cache, toks, pos, lens, tables,
-                  fused_verify=False):
+                  fused_verify=False, want_hidden=False):
     """The chain's forward of ONE verify pass over a packed batch
     against ``cache`` (pools updated in place): ``toks`` [B, K1] — row
     n's pending token then its drafts, padded past ``lens[n]``; ``pos``
@@ -164,13 +192,18 @@ def verify_logits(forwards, cache, toks, pos, lens, tables,
     row; ``tables`` [B, T] (T·block_size covers ``max(pos + lens)``) —
     host arrays.  ``fused_verify`` takes the single-pass verify over
     fp32 pools.  Returns the [B, K1, vocab] f32 logits on the cache's
-    device."""
+    device, and with ``want_hidden`` the [B, K1, d] f32 input of the
+    final unit beside them."""
     device = cache.device
     h = _ints(toks, numpy.int64, device)
     pos_t = _ints(pos, numpy.int64, device)
     lens_t = _ints(lens, numpy.int64, device)
     tables_t = _ints(tables, numpy.int32, device)
+    hid = None
+    last = len(forwards) - 1
     for i, u in enumerate(forwards):
+        if want_hidden and i == last:
+            hid = h.to(torch.float32)
         if i in cache.pools:
             h, cache.pools[i] = u.apply_verify_paged(
                 h, pos_t, lens_t, tables_t, cache.pools[i],
@@ -179,11 +212,13 @@ def verify_logits(forwards, cache, toks, pos, lens, tables,
             h = u.apply_verify_slots(h, pos_t)
         else:
             h = u.apply(h)
-    return h.to(torch.float32)
+    logits = h.to(torch.float32)
+    return (logits, hid) if want_hidden else logits
 
 
 def verify_step_paged(forwards, cache, toks, pos, lens, tables, temps,
-                      topks, seeds, counts, fused_verify=False):
+                      topks, seeds, counts, fused_verify=False,
+                      want_hidden=False):
     """Run ONE verify pass (:func:`verify_logits`) and sample every
     position: entry (n, j) is drawn as a sequential decode of row n's
     context extended by its first j drafts would draw it — greedy rows
@@ -191,9 +226,13 @@ def verify_step_paged(forwards, cache, toks, pos, lens, tables, temps,
     counts[n] + j)``.  ``counts`` [B] is the draw counter of each row's
     first sampled token.  Returns the [B, K1] tokens as a host numpy
     array; the caller accepts the matched prefix
-    (:func:`~veles_tpu_torch.serving.spec.accept_drafts`)."""
-    logits = verify_logits(forwards, cache, toks, pos, lens, tables,
-                           fused_verify=fused_verify)
+    (:func:`~veles_tpu_torch.serving.spec.accept_drafts`).  With
+    ``want_hidden`` also the [B, K1, d] f32 hidden states (on the
+    device): after accepting L tokens of row n, row n's position L - 1
+    is the hidden the draft head reads next."""
+    got = verify_logits(forwards, cache, toks, pos, lens, tables,
+                        fused_verify=fused_verify, want_hidden=want_hidden)
+    logits, hid = got if want_hidden else (got, None)
     b, k1, vocab = logits.shape
 
     def rows(a):
@@ -203,7 +242,8 @@ def verify_step_paged(forwards, cache, toks, pos, lens, tables, temps,
              + numpy.arange(k1)[None, :]).reshape(-1)
     nxt = sample_slots(logits.reshape(b * k1, vocab), rows(temps),
                        rows(topks), rows(seeds), list(draws))
-    return nxt.reshape(b, k1).cpu().numpy()
+    nxt = nxt.reshape(b, k1).cpu().numpy()
+    return (nxt, hid) if want_hidden else nxt
 
 
 def verify_supported(forwards):

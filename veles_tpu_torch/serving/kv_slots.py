@@ -13,6 +13,14 @@ backs the stale tail of every table (the causal mask hides it).
 beside them, indexed by the same physical block ids, so scales follow
 their blocks; inserts quantize.
 
+The block movers of the host tier and of disaggregation:
+:meth:`PagedKVCache.export_blocks` copies blocks RAW off the card into
+host numpy arrays (int8 stays int8, the scales ride along; a bfloat16
+pool widens exactly to float32, which numpy can hold),
+:meth:`PagedKVCache.import_blocks` scatters such a record back into
+blocks of this cache, and :meth:`PagedKVCache.take_free_blocks` claims
+blocks outside the slot machinery for them.
+
 Host bookkeeping (free lists, tables) is numpy; the buffers are tensors
 on the chain's device, updated in place.  One thread (the scheduler's
 loop) calls every method.
@@ -234,6 +242,62 @@ class PagedKVCache:
             if b in self._free_blocks:
                 raise ValueError("block %d double-freed" % b)
             self._free_blocks.append(b)
+
+    def take_free_blocks(self, n):
+        """Claim ``n`` blocks off the free list outside the slot
+        machinery (host-tier promotion, a peer's prefix import: the
+        caller fills them with :meth:`import_blocks` and hands them to
+        the prefix cache).  Returns the ids, or None when the free list
+        is short."""
+        n = int(n)
+        if n < 0 or n > len(self._free_blocks):
+            return None
+        return [self._free_blocks.pop() for _ in range(n)]
+
+    def export_blocks(self, ids):
+        """Copy blocks ``ids`` RAW out of every layer's pools: ``{layer:
+        {"k", "v"[, "k_scale", "v_scale"]}}`` host numpy arrays, K/V
+        ``[len(ids), block_size, d]`` in the pool's storage dtype (int8
+        stays int8 and its scales ride along, so an importer holds the
+        same bytes; a bfloat16 pool widens exactly to float32).  The
+        arrays are copies, never views of the pools."""
+        idx = torch.as_tensor(numpy.asarray(ids, numpy.int64),
+                              device=self.device)
+        out = {}
+        for i, layer in self.pools.items():
+            got = {}
+            for name, pool in layer.items():
+                rows = pool[idx]               # a gather: a new tensor
+                if rows.dtype == torch.bfloat16:
+                    rows = rows.float()
+                got[name] = rows.cpu().numpy()
+            out[i] = got
+        return out
+
+    def import_blocks(self, ids, layers):
+        """Scatter an :meth:`export_blocks` record (or a wire record of
+        either package) into this cache's blocks ``ids``: the contents
+        land unconverted, scales included, so the importing blocks hold
+        what the exporter's held."""
+        n = len(ids)
+        idx = torch.as_tensor(numpy.asarray(ids, numpy.int64),
+                              device=self.device)
+        for i, layer in self.pools.items():
+            src = layers[i]
+            ref = src["k"] if "k" in src else next(iter(src.values()))
+            if ref.shape[0] != n or ref.shape[1] != self.block_size:
+                raise ValueError(
+                    "imported layer %s blocks %s do not fit %d x "
+                    "block_size %d" % (i, tuple(ref.shape[:2]), n,
+                                       self.block_size))
+            if self.kv_dtype == "int8" and "k_scale" not in src:
+                raise ValueError("int8 import needs k_scale/v_scale riding "
+                                 "the exported blocks")
+            for name, pool in layer.items():
+                a = numpy.asarray(src[name])
+                if not a.flags.writeable:   # a zero-copy wire view
+                    a = a.copy()
+                pool[idx] = torch.from_numpy(a).to(self.device, pool.dtype)
 
     def check(self, resident=()):
         """Invariant sweep: every block is exactly one of {trash, free,

@@ -244,18 +244,42 @@ class RadixPrefixCache:
         """Free up to ``n_blocks`` blocks, LRU-first over refcount-0
         LEAVES (peeling a cold chain bottom-up); returns their ids for
         ``PagedKVCache.reclaim``."""
+        return [bid for bid, _ in self.evict_with_paths(n_blocks)]
+
+    def evict_with_paths(self, n_blocks):
+        """:meth:`evict`, each freed block paired with the full token
+        prefix it completed — ``[(block_id, path_tokens)]`` — so the
+        host tier can key its contents before the block is reclaimed.
+        Leaves are visited in the reference's order, so ties of the LRU
+        stamp fall to the same victim."""
         freed = []
         while len(freed) < int(n_blocks):
             victim = None
-            for node in self._nodes():
-                if not node.children and not node.refs \
-                        and (victim is None
-                             or node.stamp < victim.stamp):
-                    victim = node
+            stack = [(None, self._root)]
+            while stack:
+                _, level = stack.pop()
+                for node in level.values():
+                    if not node.children and not node.refs \
+                            and (victim is None
+                                 or node.stamp < victim.stamp):
+                        victim = node
+                    stack.append((node, node.children))
             if victim is None:
                 break
-            freed.append(self._evict_node(victim))
+            path = self._path_tokens(victim)
+            freed.append((self._evict_node(victim), path))
         return freed
+
+    def _path_tokens(self, node):
+        """The full token prefix a node's block completes."""
+        keys = []
+        while node is not None:
+            keys.append(node.key)
+            node = node.parent
+        out = []
+        for key in reversed(keys):
+            out.extend(key)
+        return tuple(out)
 
     def _evict_node(self, node):
         """Drop one node: a pinned or inner node is a programming

@@ -26,12 +26,19 @@ are served by ONE background loop that owns every tensor:
    bucket over the deepest request.  With ``spec`` on (the default, as
    in the reference) each slot first drafts up to its ``draft_k``
    tokens by n-gram prompt lookup (:mod:`~veles_tpu_torch.serving.
-   spec`); when any slot drafted, the step is ONE batched verify pass
-   (:func:`~veles_tpu_torch.serving.engine.verify_step_paged`) at the
-   fixed width ``spec_k + 1`` — slots without drafts ride it as
-   width-1 rows — and each slot keeps its longest matched prefix plus
-   the correction token, so one pass emits up to ``spec_k + 1`` tokens
-   and the stream stays the spec-off stream;
+   spec`), or, with ``drafter="model"`` and a trained ``draft_head``
+   (:mod:`~veles_tpu_torch.serving.draft`), from the Medusa heads over
+   the hidden state the last pass returned for it (the engine's
+   ``want_hidden`` lane; a slot with no hidden yet, or whose model
+   drafts accept worse than its n-gram ones, drafts by n-gram).  When
+   any slot drafted, the step is ONE batched verify pass
+   (:func:`~veles_tpu_torch.serving.engine.verify_step_paged`) — slots
+   without drafts ride it as width-1 rows — at the width ``spec_k + 1``,
+   or with a draft head attached at one more than the power-of-two
+   bucket of the widest drafting slot's ``draft_k`` (the verify width
+   ladder).  Each slot keeps its longest matched prefix plus the
+   correction token, so one pass emits up to ``spec_k + 1`` tokens and
+   the stream stays the spec-off stream;
 4. **retire** — a request that produced its stop token or its last
    step completes its future with prompt + generated tokens, donates
    the full blocks of its written positions to the prefix cache, and
@@ -93,10 +100,25 @@ slot_decode_step` over every slot, and int8 pools, speculative
 decoding, the prefix cache and the block budget and shed switch off
 where the reference switches them off.
 
-Not ported yet (the JAX scheduler has them): the Medusa draft heads
-and the hidden-state lane, the host-RAM KV tier, disaggregation and
-prefix export/import, tenants and tensor parallelism; ``metrics()``
-reports their keys as the reference does with them off.
+The KV tiers, as in the reference: with ``kv_host_bytes`` a prefix-cache
+eviction first copies the block off the card into the host-RAM tier
+(:mod:`~veles_tpu_torch.serving.kv_host`), and an admission whose
+prompt runs past its device-resident prefix promotes the host blocks
+back (``_promote_host``) before it matches.  Disaggregation (``role``):
+a ``"prefill"`` scheduler takes only :meth:`submit_prefill`, prefills,
+copies the finished blocks and the last-position logits into a record
+parked under a handle (:meth:`kv_export`, one-shot, bounded by
+``kv_export_bytes`` and a TTL); a ``"decode"`` scheduler adopts such a
+record through :meth:`submit_imported` — its blocks scatter into the
+slot's table, the first token samples from the exported logits — and
+the stream is the colocated one.  :meth:`submit_prefix_export` and
+:meth:`submit_prefix_import` move resident prefixes between replicas
+(one job per loop boundary, ``_prefix_tick``).  The wire forms are
+:mod:`~veles_tpu_torch.serving.disagg`'s.
+
+Not ported yet (the JAX scheduler has them): tenants and tensor
+parallelism; ``metrics()`` reports their keys as the reference does with
+them off.
 """
 
 import collections
@@ -112,10 +134,12 @@ import torch
 
 from veles_tpu_torch import faults
 from veles_tpu_torch.backends import resolve_device
-from veles_tpu_torch.ops.paged_attend import MAX_K1
+from veles_tpu_torch.serving.disagg import mint_handle, record_nbytes
+from veles_tpu_torch.serving.draft import draft_supported
 from veles_tpu_torch.serving.engine import (
     first_tokens, paged_decode_step, slot_decode_step, verify_step_paged,
     verify_supported)
+from veles_tpu_torch.serving.kv_host import HostKVTier
 from veles_tpu_torch.serving.kv_slots import (
     PagedKVCache, SlotKVCache, paged_supported)
 from veles_tpu_torch.serving.metrics import ServingMetrics
@@ -148,6 +172,10 @@ _RETRY_AFTER = (4, 2, 1)
 _SCHED_SEQ = itertools.count(1)
 #: most prefix digests ``metrics()`` advertises
 _DIGEST_MAX = 512
+#: how long an unclaimed KV export survives (seconds), and the parked
+#: exports' default byte budget (``kv_export_bytes``)
+EXPORT_TTL = 120.0
+EXPORT_BYTES = 256 << 20
 
 
 def resolve_priority(value):
@@ -201,6 +229,12 @@ class RequestCancelledError(SchedulerError):
     the next boundary."""
 
 
+class RoleMismatchError(SchedulerError):
+    """The request does not match this replica's disaggregation role (a
+    decode submit on a prefill replica or the reverse)."""
+    http_status = 409
+
+
 def _bucket(n, floor, cap):
     """Pad widths/counts to power-of-two buckets (the occupancy and
     depth ladders of the decode step)."""
@@ -216,7 +250,8 @@ class _Request(object):
                  "generated", "cancelled", "preempts", "t_submit",
                  "t_admit", "t_first", "pf_seq", "pf_caches", "pf_off",
                  "pf_width", "pf_chunk", "pf_matched", "prefix_handle",
-                 "draft_k", "accept_ema", "gram_ix", "sink", "trace")
+                 "export_only", "kv_import", "hid", "draft_k",
+                 "accept_ema", "gram_ix", "sink", "trace")
 
     def __init__(self, prompt, steps, temperature, top_k, stop_token,
                  seed, deadline, priority, sink=None, trace=None):
@@ -247,9 +282,15 @@ class _Request(object):
         self.pf_chunk = 0
         self.pf_matched = 0         # warm prefix blocks heading the slot
         self.prefix_handle = None   # pinned radix-cache match
-        # speculative drafting: the accept-rate-adaptive draft length
+        self.export_only = False    # prefill role: stop after the export
+        self.kv_import = None       # decode role: the adopted record
+        # speculative drafting: the hidden state (on the device) of the
+        # position behind the pending token, set by each model pass and
+        # None until the first one after an admission (the model drafter
+        # drafts by n-gram there); the accept-rate-adaptive draft length
         # (set at the first draft), the accept-rate EMA by drafter and
         # the memoized trailing-n-gram index
+        self.hid = None
         self.draft_k = 0
         self.accept_ema = {}
         self.gram_ix = None
@@ -280,7 +321,11 @@ class InferenceScheduler(object):
     ``kv_blocks`` / ``kv_dtype`` ("fp32" or "int8") — the paged cache;
     ``prefill_chunk`` — chunk width of chunked prefill (0 = always
     one-shot); ``spec`` / ``spec_k`` — speculative decoding with up to
-    ``spec_k`` n-gram drafts per slot and step; ``fused_verify`` —
+    ``spec_k`` drafts per slot and step; ``drafter`` ("ngram", the
+    default, or "model") / ``draft_head`` — the draft source, a trained
+    :class:`~veles_tpu_torch.serving.draft.MedusaDraftHead` for "model"
+    (without one, or on a chain with no hidden-state lane, n-gram);
+    ``fused_verify`` —
     score fp32 pools' verify runs single-pass; ``draft_k_min`` /
     ``draft_ema`` — the floor of a slot's adaptive draft length and the
     weight of its accept-rate EMA; ``request_timeout`` — the default
@@ -289,7 +334,11 @@ class InferenceScheduler(object):
     the queue's committed blocks exceed this many pools (by class);
     ``prefix_cache`` / ``prefix_evict`` — the radix prefix cache and
     its LRU eviction under pool pressure (each 0 or False disables;
-    the reference's defaults throughout); ``reqtrace`` — record each
+    the reference's defaults throughout); ``kv_host_bytes`` — the
+    host-RAM tier's byte budget (0, the default, disables; needs the
+    prefix cache); ``role`` — "both" (the default), "prefill" or
+    "decode" (disaggregation); ``kv_export_bytes`` — the parked
+    exports' byte budget (default 256 MiB); ``reqtrace`` — record each
     request's phase events (``req.*``) in the event sink (trace ids are
     minted either way); ``replica_id`` — the label of this scheduler's
     per-replica gauges.  ``device`` must be the
@@ -306,10 +355,12 @@ class InferenceScheduler(object):
                  *, queue_timeout=30.0, kv="paged", block_size=16,
                  kv_blocks=None,
                  kv_dtype="fp32", prefill_chunk=64, spec=True, spec_k=4,
-                 fused_verify=False, draft_k_min=1, draft_ema=0.5,
+                 fused_verify=False, drafter=None, draft_head=None,
+                 draft_k_min=1, draft_ema=0.5,
                  request_timeout=120.0, watchdog=300.0,
                  shed_block_factor=4.0, prefix_cache=True,
-                 prefix_evict=True, reqtrace=True, replica_id=None,
+                 prefix_evict=True, role=None, kv_host_bytes=None,
+                 kv_export_bytes=None, reqtrace=True, replica_id=None,
                  device=None):
         self.device = resolve_device(device)
         if any(u.device != self.device for u in forwards):
@@ -364,14 +415,33 @@ class InferenceScheduler(object):
                      "speculative decoding disabled")
             spec = False
         self.fused_verify = bool(fused_verify)
-        if spec and self.device.type == "cuda" \
-                and (kv_dtype == "int8" or self.fused_verify) \
-                and self.spec_k + 1 > MAX_K1:
-            raise ValueError("spec_k + 1 = %d exceeds the %d queries per "
-                             "row of the paged-attention kernel"
-                             % (self.spec_k + 1, MAX_K1))
         self.spec = spec
         self._proposer = NgramProposer(k=self.spec_k) if spec else None
+        # the draft source, arbitrated per slot at run time (the model
+        # head needs a hidden state; per-drafter accept-rate EMAs pick
+        # whichever source earns its drafts)
+        drafter_ = "ngram" if drafter is None else str(drafter)
+        if drafter_ not in ("ngram", "model"):
+            raise ValueError("drafter must be 'ngram' or 'model'")
+        if drafter_ == "model" and spec:
+            if draft_head is None:
+                log.info("drafter='model' needs a trained draft_head; "
+                         "falling back to n-gram")
+                drafter_ = "ngram"
+            elif not draft_supported(forwards):
+                log.info("chain has no hidden-state lane for the model "
+                         "drafter; falling back to n-gram")
+                drafter_ = "ngram"
+        self.drafter = drafter_ if spec else "ngram"
+        self._draft_head = draft_head \
+            if spec and self.drafter == "model" else None
+        if self._draft_head is not None:
+            d, v = forwards[-1].params["weights"].shape
+            if (self._draft_head.d_model, self._draft_head.vocab) != (d, v):
+                raise ValueError(
+                    "draft_head sized (d=%d, vocab=%d) but the chain serves "
+                    "(d=%d, vocab=%d)" % (self._draft_head.d_model,
+                                          self._draft_head.vocab, d, v))
         self.draft_k_min = max(1, min(int(draft_k_min), self.spec_k))
         self.draft_ema = float(draft_ema)
         if not 0.0 < self.draft_ema <= 1.0:
@@ -389,6 +459,24 @@ class InferenceScheduler(object):
             pfx = False
         self.prefix_cache = pfx
         self.prefix_evict = bool(prefix_evict)
+        #: the host-RAM tier's byte budget (0: off); it is keyed by the
+        #: prefix cache's token paths
+        hb = int(kv_host_bytes or 0)
+        if hb and not pfx:
+            log.info("kv_host_bytes needs the prefix cache; host tier "
+                     "disabled")
+            hb = 0
+        self.kv_host_bytes = hb
+        #: the parked exports' byte budget: the oldest unclaimed record
+        #: pays when a new one would overflow it (counted as expired)
+        self.kv_export_bytes = int(kv_export_bytes or EXPORT_BYTES)
+        role = str(role or "both").lower()
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError("role must be 'prefill', 'decode' or 'both'")
+        if role == "prefill" and self.kv != "paged":
+            raise ValueError("role='prefill' needs the paged cache (block "
+                             "export is block-granular)")
+        self.role = role
         #: model passes so far: plain decode steps and verify steps (one
         #: of them per loop iteration with active slots) — what kernel
         #: launch counts are read against — and the tokens both kinds
@@ -400,6 +488,9 @@ class InferenceScheduler(object):
         self.decode_seconds = 0.0
         #: the tokens the verify steps emitted (part of decode_tokens)
         self.verify_tokens = 0
+        #: verify passes by width K1 (the ladder's rungs with a draft
+        #: head; ``spec_k + 1`` alone without one)
+        self.verify_widths = {}
         #: (time to first token, request latency) in seconds, one pair
         #: per completed request, from submit
         self.completed = []
@@ -425,6 +516,12 @@ class InferenceScheduler(object):
         self._preempts_owed = []     # eviction demands: class bound per
         #                              entry (None = any victim)
         self._aux = collections.deque()  # embed/score jobs (loop-run)
+        self._prefix_jobs = collections.deque()  # prefix export/import
+        #                              jobs (loop-run, one per boundary)
+        self._exports = {}           # handle -> export record (lock)
+        self._exports_bytes = 0      # parked payload bytes (lock)
+        self._exports_claimed = {}   # handle -> fetch time (lock): tells
+        #                              a second fetch from a junk handle
         self._queued_blocks = 0      # block budget committed in-queue
         self._beat = None            # loop-iteration heartbeat stamp
         self._working = False        # loop mid-iteration (not parked)
@@ -434,6 +531,9 @@ class InferenceScheduler(object):
         self._ready = threading.Event()
         self.cache_ = None           # built by the loop thread
         self.prefix_ = None          # radix cache (loop thread too)
+        #: the host tier (only the loop thread changes its contents)
+        self.host_ = HostKVTier(self.kv_host_bytes, self.block_size) \
+            if self.kv_host_bytes > 0 else None
 
     # the lifecycle and spec counters, read from ``stats`` under the
     # reference's ``metrics()`` names: drafts proposed and kept; tokens
@@ -550,7 +650,12 @@ class InferenceScheduler(object):
         Raises ``ValueError`` on a malformed request,
         :class:`QueueFullError` when admission control rejects it (a
         full queue, block-pressure shed, :class:`DrainingError` once a
-        drain began) and :class:`SchedulerError` once closed."""
+        drain began), :class:`RoleMismatchError` on a prefill replica
+        and :class:`SchedulerError` once closed."""
+        if self.role == "prefill":
+            raise RoleMismatchError(
+                "prefill-role replica serves POST /serving/prefill only — "
+                "decode requests belong on the decode pool")
         prio = resolve_priority(priority)
         prompt = [int(t) for t in prompt]
         steps = int(steps)
@@ -640,6 +745,197 @@ class InferenceScheduler(object):
             self._queued_blocks += need
             self._wake.notify()
 
+    def submit_prefill(self, prompt, seed=None, timeout=None,
+                       priority=None, trace=None):
+        """Queue one prompt for prefill only (roles "prefill"/"both"): it
+        admits and prefills as any request does, then its finished
+        blocks (raw, scales included under int8) and its last-position
+        logits are parked under a handle for :meth:`kv_export`.  The
+        future resolves to ``{"handle", "prompt_tokens", "blocks"}``.
+        Sampling is the decode replica's: it draws from the exported
+        logits with its own settings."""
+        if self.role == "decode":
+            raise RoleMismatchError(
+                "decode-role replica imports KV (POST /serving/kv_import) "
+                "— prefill belongs on the prefill pool")
+        if self.kv != "paged":
+            raise ValueError("prefill export needs the paged cache")
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        if len(prompt) > self.window:
+            raise ValueError("prompt of %d tokens exceeds the serving "
+                             "window (%d)" % (len(prompt), self.window))
+        prio = resolve_priority(priority)
+        ttl = float(timeout or self.request_timeout
+                    or self.queue_timeout or 0)
+        trace = tracing.ensure_trace_id(trace)
+        if seed is None:
+            seed = int.from_bytes(os.urandom(4), "little")
+        req = _Request(prompt, 1, 0.0, 0, None, int(seed) & 0xFFFFFFFF,
+                       time.monotonic() + ttl if ttl > 0 else None, prio,
+                       trace=trace)
+        req.export_only = True
+        self._admission_enqueue(req)
+        return req.future
+
+    def kv_export(self, handle):
+        """Claim one parked export record (the fetch consumes it), or None
+        when the handle is unknown, expired or fetched already
+        (:meth:`kv_export_status` tells them apart).  The record holds
+        host numpy arrays; :mod:`~veles_tpu_torch.serving.disagg` puts it
+        on the wire."""
+        now = time.monotonic()
+        with self._lock:
+            self._sweep_exports_locked(now)
+            rec = self._exports.pop(str(handle), None)
+            if rec is not None:
+                self._exports_bytes -= rec.get("bytes", 0)
+                self._exports_claimed[str(handle)] = now
+                self.stats.record_kv_export_fetched()
+                self.stats.set_kv_exports_pending(len(self._exports))
+            return rec
+
+    def kv_export_status(self, handle):
+        """``"pending"`` (parked), ``"fetched"`` (claimed already: a second
+        fetch is a race, not a missing record) or ``"unknown"``."""
+        with self._lock:
+            if str(handle) in self._exports:
+                return "pending"
+            if str(handle) in self._exports_claimed:
+                return "fetched"
+            return "unknown"
+
+    def _sweep_exports_locked(self, now=None):
+        """Drop parked exports past :data:`EXPORT_TTL` and forget claimed
+        handles after twice that (caller holds the lock); returns how
+        many records expired."""
+        now = time.monotonic() if now is None else now
+        stale = [h for h, r in self._exports.items()
+                 if now - r["t"] > EXPORT_TTL]
+        for h in stale:
+            self._exports_bytes -= self._exports[h].get("bytes", 0)
+            del self._exports[h]
+        if stale:
+            self.stats.record_kv_export_expired(len(stale))
+            self.stats.set_kv_exports_pending(len(self._exports))
+        dead = [h for h, t in self._exports_claimed.items()
+                if now - t > 2 * EXPORT_TTL]
+        for h in dead:
+            del self._exports_claimed[h]
+        return len(stale)
+
+    def submit_imported(self, export, steps, temperature=0.0, top_k=0,
+                        seed=None, stop_token=None, timeout=None,
+                        priority=None, stream=False, trace=None):
+        """Adopt a prefill replica's export record (roles "decode"/"both")
+        and decode ``steps`` tokens: admission claims the prompt + steps
+        budget, the exported blocks scatter into the slot's table (no
+        prefill pass) and the first token samples from the exported
+        logits with these settings, so the stream is a colocated
+        ``submit``'s.  Raises ``ValueError`` on a record that does not
+        fit this replica's pools (kv_dtype, block_size, window)."""
+        if self.role == "prefill":
+            raise RoleMismatchError(
+                "prefill-role replica exports KV — imports belong on the "
+                "decode pool")
+        if self.kv != "paged":
+            raise ValueError("kv import needs the paged cache")
+        prompt = [int(t) for t in export.get("prompt", ())]
+        steps = int(steps)
+        if not prompt or int(export.get("length", -1)) != len(prompt):
+            raise ValueError("export record prompt/length mismatch")
+        if steps < 1:
+            raise ValueError("steps must be >= 1")
+        if str(export.get("kv_dtype")) != self.kv_dtype:
+            raise ValueError(
+                "export kv_dtype %r != this replica's %r — disaggregated "
+                "pools must share a storage dtype"
+                % (export.get("kv_dtype"), self.kv_dtype))
+        if int(export.get("block_size", 0)) != self.block_size:
+            raise ValueError("export block_size %s != this replica's %d"
+                             % (export.get("block_size"), self.block_size))
+        if len(prompt) + steps > self.window:
+            raise ValueError("prompt_len + steps = %d exceeds the serving "
+                             "window (%d)" % (len(prompt) + steps,
+                                              self.window))
+        need = -(-(len(prompt) + steps) // self.block_size)
+        if need > self.kv_blocks:
+            raise ValueError("request needs %d KV blocks > pool capacity "
+                             "%d (kv_blocks)" % (need, self.kv_blocks))
+        temperature = float(temperature or 0.0)
+        top_k = int(top_k or 0)
+        if top_k and not temperature:
+            raise ValueError("top_k only applies to sampling — set "
+                             "temperature > 0")
+        if seed is None:
+            seed = int.from_bytes(os.urandom(4), "little")
+        prio = resolve_priority(priority)
+        ttl = float(timeout or self.request_timeout
+                    or self.queue_timeout or 0)
+        trace = tracing.ensure_trace_id(trace)
+        ts = TokenStream(prompt) if stream else None
+        if ts is not None:
+            ts.trace = trace
+        req = _Request(prompt, steps, temperature, top_k,
+                       int(stop_token) if stop_token is not None else None,
+                       int(seed) & 0xFFFFFFFF,
+                       time.monotonic() + ttl if ttl > 0 else None, prio,
+                       sink=ts._push if ts is not None else None,
+                       trace=trace)
+        req.kv_import = export
+        self._admission_enqueue(req)
+        if ts is not None:
+            ts._bind(self, req.future)
+            return ts
+        return req.future
+
+    def _submit_prefix_job(self, kind, payload):
+        if self.kv != "paged" or not self.prefix_cache:
+            raise ValueError("prefix %s needs the paged cache with the "
+                             "prefix cache enabled" % kind)
+        fut = concurrent.futures.Future()
+        with self._wake:
+            if self._closed:
+                raise SchedulerError("scheduler is closed")
+            if len(self._prefix_jobs) >= self.max_queue:
+                raise QueueFullError("prefix-transfer queue full (%d "
+                                     "waiting)" % len(self._prefix_jobs))
+            self._prefix_jobs.append((kind, payload, fut))
+            self._wake.notify()
+        return fut
+
+    def submit_prefix_export(self, tokens):
+        """Queue a read of the longest resident prefix of ``tokens``
+        across both tiers (the trie, then its host-tier extension): the
+        future resolves to an export-shaped record (no logits, the
+        prompt cut to the covered prefix) or None.  Works while
+        draining."""
+        tokens = [int(t) for t in tokens]
+        if not tokens:
+            raise ValueError("tokens must be non-empty")
+        return self._submit_prefix_job("export", tokens)
+
+    def submit_prefix_import(self, record):
+        """Queue the adoption of a peer's prefix record: new chunks take
+        freshly claimed blocks and join the trie, so later prompts admit
+        warm here.  The future resolves to ``{"blocks": adopted}``.
+        Raises ``ValueError`` on a record that does not fit this
+        replica's pools."""
+        if str(record.get("kv_dtype")) != self.kv_dtype:
+            raise ValueError("prefix record kv_dtype %r != this replica's "
+                             "%r" % (record.get("kv_dtype"), self.kv_dtype))
+        if int(record.get("block_size", 0)) != self.block_size:
+            raise ValueError("prefix record block_size %s != this "
+                             "replica's %d" % (record.get("block_size"),
+                                               self.block_size))
+        prompt = [int(t) for t in record.get("prompt", ())]
+        if not prompt or int(record.get("length", -1)) != len(prompt):
+            raise ValueError("prefix record prompt/length mismatch")
+        if len(prompt) % self.block_size:
+            raise ValueError("prefix record must be block-aligned")
+        return self._submit_prefix_job("import", record)
+
     def _enqueue_locked(self, req, front=False):
         """Insert one request into the class-ordered queue (highest
         class first, FIFO within a class); ``front=True`` requeues a
@@ -677,11 +973,19 @@ class InferenceScheduler(object):
         victim.fail(err)
         return True
 
+    def _budget_tokens(self, req):
+        """The tokens a request's block budget covers: prompt + steps, or
+        the prompt alone for a prefill export (the decode replica claims
+        the steps' blocks)."""
+        if req.export_only:
+            return len(req.prompt)
+        return len(req.prompt) + req.steps
+
     def _blocks_for(self, req):
         """The paged block budget a request commits (0 when dense)."""
         if self.kv != "paged":
             return 0
-        return -(-(len(req.prompt) + req.steps) // self.block_size)
+        return -(-self._budget_tokens(req) // self.block_size)
 
     def cancel(self, future, reason="cancelled by client"):
         """Cancel the request behind ``future``: a queued request fails
@@ -803,6 +1107,97 @@ class InferenceScheduler(object):
         except concurrent.futures.InvalidStateError:
             pass
 
+    def _prefix_tick(self, cache):
+        """Run ONE queued prefix export/import job at this boundary (the
+        decode stall of one bounded job, like an aux pass)."""
+        with self._lock:
+            if not self._prefix_jobs:
+                return
+            kind, payload, fut = self._prefix_jobs.popleft()
+        if fut.done():   # the consumer gave up
+            return
+        try:
+            if kind == "export":
+                out = self._prefix_export_job(cache, payload)
+            else:
+                out = self._prefix_import_job(cache, payload)
+        except Exception as e:
+            out = e if isinstance(e, SchedulerError) \
+                else SchedulerError(repr(e))
+        try:
+            if isinstance(out, Exception):
+                fut.set_exception(out)
+            else:
+                fut.set_result(out)
+        except concurrent.futures.InvalidStateError:
+            pass
+
+    def _prefix_export_job(self, cache, tokens):
+        """The longest resident prefix of ``tokens`` — the trie walk, then
+        its host-tier extension — as an export-shaped record."""
+        if self.prefix_ is None:
+            return None
+        ids = self.prefix_.resident_prefix(tokens)
+        layers = cache.export_blocks(ids) if ids else None
+        if self.host_ is not None:
+            for e in self.host_.match(tokens, len(ids)):
+                if layers is None:
+                    layers = {i: {nm: a.copy() for nm, a in row.items()}
+                              for i, row in e.layers.items()}
+                    continue
+                if set(e.layers) != set(layers):
+                    break
+                layers = {i: {nm: numpy.concatenate(
+                    [layers[i][nm], e.layers[i][nm]]) for nm in layers[i]}
+                    for i in layers}
+        if layers is None:
+            return None
+        blocks = next(iter(next(iter(layers.values())).values())).shape[0]
+        covered = blocks * self.block_size
+        return {"handle": mint_handle(),
+                "prompt": [int(t) for t in tokens[:covered]],
+                "length": covered, "kv_dtype": self.kv_dtype,
+                "block_size": self.block_size, "layers": layers}
+
+    def _prefix_import_job(self, cache, record):
+        """Adopt a peer's prefix record: chunks already resident keep
+        their blocks; the new consecutive extension scatters into
+        freshly claimed blocks and joins the trie (the fault point
+        ``scheduler.kv.promote`` fires: an import is a promotion from a
+        remote source)."""
+        pfx = self.prefix_
+        if pfx is None:
+            raise SchedulerError("no prefix cache on this replica")
+        bs = self.block_size
+        tokens = record["prompt"]
+        total = int(record["length"]) // bs
+        dev = pfx.resident_prefix(tokens)
+        n_new = total - len(dev)
+        ids = None
+        while n_new > 0:
+            ids = cache.take_free_blocks(n_new)
+            if ids is not None:
+                break
+            n_new -= 1   # adopt the longest extension that fits
+        if not n_new or ids is None:
+            return {"blocks": 0}
+        try:
+            faults.fire("scheduler.kv.promote")
+            cache.import_blocks(ids, {
+                i: {nm: a[len(dev):len(dev) + n_new]
+                    for nm, a in layer.items()}
+                for i, layer in record["layers"].items()})
+        except Exception:
+            cache.reclaim(ids)
+            raise
+        covered = (len(dev) + n_new) * bs
+        _, rejected = pfx.insert([int(t) for t in tokens[:covered]],
+                                 dev + ids)
+        if rejected:
+            cache.reclaim(rejected)
+        self._sync_prefix_gauges()
+        return {"blocks": n_new}
+
     def drain(self, timeout=None):
         """Begin a graceful drain: submits raise :class:`DrainingError`,
         every queued and in-flight request runs to completion, then
@@ -849,9 +1244,9 @@ class InferenceScheduler(object):
                "prefill_chunk": self.prefill_chunk,
                "prefilling": len(self._prefilling),
                "tp": 0,
-               "role": "both",
+               "role": self.role,
                "replica": self.replica_id,
-               "kv_exports_pending": 0}
+               "kv_exports_pending": len(self._exports)}
         if self.kv == "paged":
             out.update({
                 "kv_dtype": self.kv_dtype,
@@ -865,7 +1260,7 @@ class InferenceScheduler(object):
                 else self.kv_blocks})
         out.update({"spec": self.spec,
                     "spec_k": self.spec_k if self.spec else 0,
-                    "drafter": "ngram" if self.spec else None,
+                    "drafter": self.drafter if self.spec else None,
                     "draft_k_min": self.draft_k_min if self.spec else 0})
         pfx = self.prefix_
         out["prefix_cache"] = pfx is not None
@@ -891,6 +1286,17 @@ class InferenceScheduler(object):
                     if attempt == 7:
                         raise
             out["prefix_cache_blocks_shared"] = shared
+            # a host-resident prefix is promotable, so it is advertised
+            # beside the trie's
+            host = self.host_
+            if host is not None:
+                digests.extend(host.digests()[:max(
+                    0, _DIGEST_MAX - len(digests))])
+                out["kv_host_blocks"] = host.blocks
+                out["kv_host_bytes"] = host.bytes
+                out["kv_host_promotions"] = host.promotions
+                out["kv_host_demotions"] = host.demotions
+                out["kv_host_evictions"] = host.evictions
             out["prefix_digests"] = digests
         return out
 
@@ -986,12 +1392,16 @@ class InferenceScheduler(object):
         with self._lock:
             pending = list(self._queue) + list(self._prefilling) \
                 + list(self._active.values()) + list(self._admitting)
-            aux = list(self._aux)
+            aux = list(self._aux) + list(self._prefix_jobs)
             self._queue.clear()
             self._prefilling = []
             self._active.clear()
             self._admitting = []
             self._aux.clear()
+            self._prefix_jobs.clear()
+            self._exports.clear()
+            self._exports_bytes = 0
+            self._exports_claimed.clear()
             self._queued_blocks = 0
         for _, _, fut in aux:
             if not fut.done():
@@ -1000,6 +1410,8 @@ class InferenceScheduler(object):
                 except concurrent.futures.InvalidStateError:
                     pass
         # the loop thread is joined: its cache and trie are ours now
+        if self.host_ is not None and loop_dead:
+            self.host_.clear()
         cache = self.cache_ if loop_dead else None
         for req in pending:
             if req.slot is not None and cache is not None:
@@ -1063,10 +1475,15 @@ class InferenceScheduler(object):
                 self._working = False
                 while not self._closed and not self._queue \
                         and not self._active and not self._prefilling \
-                        and not self._preempts_owed and not self._aux:
+                        and not self._preempts_owed and not self._aux \
+                        and not self._prefix_jobs:
                     if self._draining:
                         self._drained.set()
-                    self._wake.wait()
+                    # parked exports keep a 1 s tick alive so their TTL
+                    # holds on an idle prefill replica
+                    self._wake.wait(1.0 if self._exports else None)
+                    if self._exports:
+                        self._sweep_exports_locked()
                 if self._closed:
                     return
                 # the watchdog measures from here: one iteration = one
@@ -1074,6 +1491,8 @@ class InferenceScheduler(object):
                 self._working = True
                 self._beat = time.monotonic()
                 self._expire_locked()
+                if self._exports:
+                    self._sweep_exports_locked()
                 admits = []
                 while self._queue and self._can_admit(cache,
                                                       self._queue[0]):
@@ -1105,6 +1524,8 @@ class InferenceScheduler(object):
                     self._admitting.remove(req)
             if self._aux:
                 self._aux_tick()
+            if self._prefix_jobs:
+                self._prefix_tick(cache)
             if self._prefilling:
                 self._prefill_tick(cache)
             if self._active:
@@ -1115,16 +1536,18 @@ class InferenceScheduler(object):
         needs only its cold blocks, and refcount-0 residents count as
         headroom when they may be evicted.  A dense slot needs only
         itself."""
+        total = self._budget_tokens(req)
         if self.kv != "paged":
-            return cache.can_admit(len(req.prompt) + req.steps)
+            return cache.can_admit(total)
         if not cache.free_slots:
             return False
-        need = cache.blocks_needed(len(req.prompt) + req.steps)
+        need = cache.blocks_needed(total)
         head = cache.free_blocks
         if self.prefix_ is not None:
-            seq = list(req.prompt) + list(req.generated)
-            need -= self.prefix_.peek(
-                seq, max_blocks=(len(seq) - 1) // cache.block_size)
+            if req.kv_import is None:   # an import never matches warm
+                seq = list(req.prompt) + list(req.generated)
+                need -= self.prefix_.peek(
+                    seq, max_blocks=(len(seq) - 1) // cache.block_size)
             if self.prefix_evict:
                 head += self.prefix_.evictable_blocks()
         return need <= head
@@ -1135,13 +1558,19 @@ class InferenceScheduler(object):
         first-token logits come from a prefill pass), evict cold
         residents if the free list is short, then alloc with the
         matched blocks heading the table."""
-        total = len(req.prompt) + req.steps
+        total = self._budget_tokens(req)
         if self.kv != "paged":
             req.slot = cache.alloc(total)
             return req.slot is not None
         handle = None
-        if self.prefix_ is not None:
+        # an import scatters into its leading table blocks, so they must
+        # be its own: imports skip the warm match
+        if self.prefix_ is not None and req.kv_import is None:
             seq = list(req.prompt) + list(req.generated)
+            if self.host_ is not None:
+                # promote the host-tier extension first, so the match
+                # below pins (and counts) the whole warm prefix
+                self._promote_host(cache, seq)
             handle = self.prefix_.match(
                 seq, max_blocks=(len(seq) - 1) // cache.block_size)
             self.stats.record_prefix_lookup(len(handle), cache.block_size)
@@ -1151,7 +1580,7 @@ class InferenceScheduler(object):
         need_new = cache.blocks_needed(total) - matched
         if self.prefix_ is not None and self.prefix_evict \
                 and need_new > cache.free_blocks:
-            freed = self.prefix_.evict(need_new - cache.free_blocks)
+            freed = self._evict_prefix(cache, need_new - cache.free_blocks)
             if freed:
                 cache.reclaim(freed)
                 self.stats.record_prefix_evict(len(freed))
@@ -1198,14 +1627,90 @@ class InferenceScheduler(object):
                 _, rejected = self.prefix_.insert(seq, shared + donated)
                 if rejected:  # an identical twin donated first
                     cache.reclaim(rejected)
-            self.stats.set_prefix_blocks(self.prefix_.resident,
-                                         self.prefix_.shared_blocks())
+            self._sync_prefix_gauges()
         req.slot = None
         req.pf_matched = 0
+        # the hidden the draft head reads belongs to a position of this
+        # admission: a resume re-prefills and earns it again
+        req.hid = None
 
     def _sync_kv_gauges(self, cache):
         if self.kv == "paged":
             self.stats.set_kv_blocks(cache.used_blocks, cache.free_blocks)
+
+    def _sync_prefix_gauges(self):
+        if self.prefix_ is not None:
+            self.stats.set_prefix_blocks(self.prefix_.resident,
+                                         self.prefix_.shared_blocks())
+
+    def _sync_host_gauges(self):
+        if self.host_ is not None:
+            self.stats.set_kv_host(self.host_.blocks, self.host_.bytes)
+
+    def _evict_prefix(self, cache, n):
+        """Trie eviction with host-tier demotion: before the blocks return
+        to the free list their contents are copied off the card into the
+        host tier, keyed by the token path each completed.  A failed
+        demotion loses warmth, never the eviction."""
+        if self.host_ is None:
+            return self.prefix_.evict(n)
+        pairs = self.prefix_.evict_with_paths(n)
+        if not pairs:
+            return []
+        demoted = 0
+        try:
+            layers = cache.export_blocks([b for b, _ in pairs])
+            for j, (_, path) in enumerate(pairs):
+                one = {i: {nm: a[j:j + 1] for nm, a in layer.items()}
+                       for i, layer in layers.items()}
+                if self.host_.put(path, one):
+                    demoted += 1
+        except Exception as e:
+            log.info("host-tier demotion failed: %r", e)
+        if demoted:
+            self.stats.record_kv_host(demoted=demoted)
+        self._sync_host_gauges()
+        return [b for b, _ in pairs]
+
+    def _promote_host(self, cache, seq):
+        """Promote the host-tier extension of ``seq``'s device-resident
+        prefix into freshly claimed blocks and insert them into the trie
+        (the fault point ``scheduler.kv.promote`` fires first).  Returns
+        the blocks promoted; on a failure 0, and the request admits
+        colder."""
+        bs = self.block_size
+        limit = (len(seq) - 1) // bs   # >= 1 token stays cold
+        dev = self.prefix_.resident_prefix(seq, limit)
+        entries = self.host_.match(seq, len(dev),
+                                   max_blocks=limit - len(dev))
+        ids = None
+        while entries:
+            ids = cache.take_free_blocks(len(entries))
+            if ids is not None:
+                break
+            entries.pop()   # promote the longest extension that fits
+        if not entries:
+            return 0
+        try:
+            faults.fire("scheduler.kv.promote")
+            cache.import_blocks(ids, {
+                i: {nm: numpy.concatenate([e.layers[i][nm]
+                                           for e in entries])
+                    for nm in entries[0].layers[i]}
+                for i in entries[0].layers})
+        except Exception as e:
+            cache.reclaim(ids)
+            log.info("host-tier promotion failed: %r", e)
+            return 0
+        covered = (len(dev) + len(entries)) * bs
+        _, rejected = self.prefix_.insert(list(seq[:covered]), dev + ids)
+        if rejected:   # only on a digest collision
+            cache.reclaim(rejected)
+        self.host_.pop(entries)
+        self.stats.record_kv_host(promoted=len(entries))
+        self._sync_host_gauges()
+        self._sync_prefix_gauges()
+        return len(entries)
 
     def _reap(self, cache):
         """Boundary sweep over the in-flight set: release the slot and
@@ -1348,6 +1853,12 @@ class InferenceScheduler(object):
         request resumes here: its sequence is prompt + the kept
         generated prefix."""
         req.t_admit = time.monotonic()
+        if req.kv_import is not None and not req.preempts:
+            # a disaggregated handoff: the exported blocks are the
+            # prefill (a resumed import re-prefills below instead: its
+            # blocks were freed)
+            self._admit_import(req, cache)
+            return
         req.pf_seq = list(req.prompt) + list(req.generated)
         if req.preempts and req.generated:
             self.stats.record_resume(len(req.pf_seq))
@@ -1478,6 +1989,11 @@ class InferenceScheduler(object):
         except Exception as e:
             self._retire(req, cache, error=e)
             return
+        if req.export_only:
+            # the prefill role's end: copy the blocks and the logits out,
+            # park the record, hand the blocks back
+            self._retire_export(req, cache, last)
+            return
         req.pf_caches = None
         req.pf_seq = None
         self._activate(req, cache, last)
@@ -1502,6 +2018,91 @@ class InferenceScheduler(object):
         with self._lock:
             self._active[req.slot] = req
         self._maybe_finish(req, cache)
+
+    def _admit_import(self, req, cache):
+        """Adopt an export record: its blocks scatter raw into the slot's
+        leading table blocks (no prefill pass) and the first token
+        samples from the exported logits (draw 0 of the stream, as the
+        colocated path draws it)."""
+        imp = req.kv_import
+        try:
+            faults.fire("serving.scheduler.kv_import")
+            n = cache.blocks_needed(imp["length"])
+            ids = [int(b) for b in cache.tables[req.slot, :n]]
+            cache.import_blocks(ids, imp["layers"])
+        except Exception as e:
+            self._retire(req, cache, error=e)
+            return
+        if self._tron:
+            tracing.record(req.trace, "queue",
+                           duration=req.t_admit - req.t_submit,
+                           cls=CLASS_NAMES[req.priority], tenant=None,
+                           resume=False)
+            tracing.record(req.trace, "kv_import", slot=req.slot,
+                           tokens=int(imp["length"]), blocks=len(ids))
+        last = torch.tensor(numpy.asarray(imp["logits"], numpy.float32)
+                               .reshape(1, -1)).to(cache.device)
+        self._activate(req, cache, last)
+
+    def _retire_export(self, req, cache, last):
+        """Finish a prefill export: copy the slot's blocks (raw) and the
+        last-position logits into a handle-addressed record, release the
+        slot (its blocks donate to the prefix cache like any finished
+        request's) and park the record within ``kv_export_bytes``."""
+        p_len = len(req.pf_seq)
+        try:
+            faults.fire("serving.scheduler.kv_export")
+            n = cache.blocks_needed(p_len)
+            ids = [int(b) for b in cache.tables[req.slot, :n]]
+            handle = mint_handle()
+            record = {
+                "handle": handle,
+                "prompt": list(req.prompt),
+                "length": p_len,
+                "kv_dtype": self.kv_dtype,
+                "block_size": self.block_size,
+                "logits": torch.as_tensor(last, dtype=torch.float32)[0]
+                .cpu().numpy().copy(),
+                "layers": cache.export_blocks(ids),
+                "t": time.monotonic(),
+            }
+        except Exception as e:
+            self._retire(req, cache, error=e)
+            return
+        req.pf_caches = None
+        req.pf_seq = None
+        with self._lock:
+            self._active.pop(req.slot, None)
+        self._release_slot(req, cache, finished=True)
+        self._sync_kv_gauges(cache)
+        now = time.monotonic()
+        record["bytes"] = record_nbytes(record)
+        with self._lock:
+            self._sweep_exports_locked(now)
+            capped = 0
+            while self._exports and self._exports_bytes \
+                    + record["bytes"] > self.kv_export_bytes:
+                # the oldest unclaimed record pays for the budget
+                oldest = min(self._exports,
+                             key=lambda h: self._exports[h]["t"])
+                self._exports_bytes -= self._exports[oldest].get("bytes", 0)
+                del self._exports[oldest]
+                capped += 1
+            if capped:
+                self.stats.record_kv_export_expired(capped)
+            self._exports[handle] = record
+            self._exports_bytes += record["bytes"]
+            self.stats.set_kv_exports_pending(len(self._exports))
+        if self._tron:
+            tracing.record(req.trace, "kv_export", tokens=p_len, blocks=n,
+                           total_s=round(now - req.t_submit, 6))
+        if not req.future.done():
+            try:
+                req.future.set_result({"handle": handle,
+                                       "prompt_tokens": p_len,
+                                       "blocks": n})
+            except concurrent.futures.InvalidStateError:
+                pass
 
     def _emit(self, req, tok):
         """Accept one token: append it and push it to the request's
@@ -1564,9 +2165,9 @@ class InferenceScheduler(object):
         power-of-two block bucket of the deepest request.  With spec on
         and any slot drafting, the step is a verify pass instead."""
         if self.spec:
-            drafts = self._draft(active)
+            drafts, sources = self._draft(active)
             if drafts:
-                self._step_verify(cache, active, drafts)
+                self._step_verify(cache, active, drafts, sources)
                 return
         slots = sorted(active)
         n = len(slots)
@@ -1591,9 +2192,12 @@ class InferenceScheduler(object):
             seeds[j] = req.seed
             counts[j] = len(req.generated)
         tables[:n] = cache.table_rows(slots, t)
+        want_h = self._draft_head is not None
         t0 = time.perf_counter()
-        nxt = paged_decode_step(self.forwards, cache, toks, pos, tables,
-                                temps, topks, seeds, counts)
+        got = paged_decode_step(self.forwards, cache, toks, pos, tables,
+                                temps, topks, seeds, counts,
+                                want_hidden=want_h)
+        nxt, hid = got if want_h else (got, None)
         dt = time.perf_counter() - t0
         self.decode_seconds += dt
         self.decode_steps += 1
@@ -1602,6 +2206,10 @@ class InferenceScheduler(object):
         self.stats.record_step(n, b, tokens=n, duration_s=dt)
         for j, slot in enumerate(slots):
             req = active[slot]
+            if want_h:
+                # the hidden of the position just decoded: the heads
+                # read it at the next boundary
+                req.hid = hid[j]
             self._emit(req, int(nxt[j]))
             self._maybe_finish(req, cache)
         if self._tron:
@@ -1612,13 +2220,32 @@ class InferenceScheduler(object):
             tracing.record_step(emitted, duration=dt, mode="decode",
                                 slots=n, bucket=b)
 
+    def _pick_model(self, req):
+        """Per-slot drafter arbitration: the model head unless its
+        accept-rate EMA has fallen below the n-gram proposer's (an unseen
+        drafter scores 1.0, ties go to the model)."""
+        em = req.accept_ema.get("model")
+        en = req.accept_ema.get("ngram")
+        return (1.0 if em is None else em) >= (1.0 if en is None else en)
+
     def _draft(self, active):
         """Draft tokens per slot: up to its adaptive ``draft_k``, capped
         so accepting every draft and the correction token stays inside
-        the request's step budget (so every position written lies in
-        the blocks claimed at admission), by n-gram prompt lookup
-        through the request's index.  Returns {slot: tokens}."""
-        drafts = {}
+        the request's step budget (so every position written lies in the
+        blocks claimed at admission), from its arbitrated source — the
+        draft head, batched over every slot with a hidden state, or
+        n-gram prompt lookup through the request's index.  Returns
+        ``(drafts, sources)``: {slot: tokens} and {slot: "model" |
+        "ngram"}."""
+        drafts, sources = {}, {}
+        model_out = {}
+        if self._draft_head is not None:
+            rows = [s for s in sorted(active) if active[s].hid is not None]
+            if rows:
+                out = self._draft_head.propose(
+                    torch.stack([active[s].hid for s in rows]))
+                for j, slot in enumerate(rows):
+                    model_out[slot] = out[j]
         for slot, req in active.items():
             room = req.steps - len(req.generated) - 1
             if room < 1:
@@ -1626,45 +2253,60 @@ class InferenceScheduler(object):
             if req.draft_k < 1:
                 req.draft_k = self.spec_k  # start optimistic
             limit = min(req.draft_k, room)
-            if req.gram_ix is None:
-                req.gram_ix = NgramIndex(self._proposer.max_ngram,
-                                         self._proposer.min_ngram)
-            d = self._proposer.propose(
-                list(req.prompt) + list(req.generated), limit,
-                index=req.gram_ix)
+            d = None
+            if slot in model_out and self._pick_model(req):
+                d = [int(t) for t in model_out[slot][:limit]]
+                sources[slot] = "model"
+            if not d:
+                if req.gram_ix is None:
+                    req.gram_ix = NgramIndex(self._proposer.max_ngram,
+                                             self._proposer.min_ngram)
+                d = self._proposer.propose(
+                    list(req.prompt) + list(req.generated), limit,
+                    index=req.gram_ix)
+                sources[slot] = "ngram"
             if d:
-                drafts[slot] = d
-        return drafts
+                drafts[slot] = d[:limit]
+            else:
+                sources.pop(slot, None)
+        return drafts, sources
 
-    def _adapt_draft_k(self, req, drafted, accepted):
-        """Blend this verify's accept rate into the slot's EMA (weight
-        ``draft_ema``), then halve its draft length toward
-        ``draft_k_min`` below DRAFT_SHRINK or double it toward
-        ``spec_k`` above DRAFT_GROW; count the drafts."""
+    def _adapt_draft_k(self, req, drafted, accepted, drafter):
+        """Blend this verify's accept rate into the slot's EMA for
+        ``drafter`` (weight ``draft_ema``), then halve its draft length
+        toward ``draft_k_min`` below DRAFT_SHRINK or double it toward
+        ``spec_k`` above DRAFT_GROW; count the drafts by drafter."""
         rate = accepted / drafted
-        prev = req.accept_ema.get("ngram")
+        prev = req.accept_ema.get(drafter)
         ema = rate if prev is None \
             else (1.0 - self.draft_ema) * prev + self.draft_ema * rate
-        req.accept_ema["ngram"] = ema
+        req.accept_ema[drafter] = ema
         if ema < self.DRAFT_SHRINK:
             req.draft_k = max(self.draft_k_min, req.draft_k >> 1)
         elif ema > self.DRAFT_GROW:
             req.draft_k = min(self.spec_k, req.draft_k << 1)
-        self.stats.record_spec(drafted, accepted, drafter="ngram",
+        self.stats.record_spec(drafted, accepted, drafter=drafter,
                                draft_k=req.draft_k)
 
-    def _step_verify(self, cache, active, drafts):
-        """Speculative step: every active slot rides ONE verify pass of
-        width ``spec_k + 1`` — its pending token then its drafts
-        (padding past ``lens`` goes to the trash block; a slot without
-        drafts is a width-1 row).  The block bucket covers the deepest
-        request plus ``spec_k``.  Each slot emits its longest matched
-        prefix and the correction sample, stopping early at its stop
-        token or its step budget."""
+    def _step_verify(self, cache, active, drafts, sources):
+        """Speculative step: every active slot rides ONE verify pass — its
+        pending token then its drafts (padding past ``lens`` goes to the
+        trash block; a slot without drafts is a width-1 row).  The width
+        is ``k + 1``: ``k = spec_k`` without a draft head; with one, the
+        power-of-two bucket of the widest drafting slot's ``draft_k``
+        (the ladder: a batch whose drafts shrank stops paying for
+        ``spec_k``-wide passes).  The block bucket covers the deepest
+        request plus ``k``.  Each slot emits its longest matched prefix
+        and the correction sample, stopping early at its stop token or
+        its step budget."""
         slots = sorted(active)
         n = len(slots)
         b = _bucket(n, 1, self.max_slots)
-        k = self.spec_k
+        if self._draft_head is not None:
+            k = _bucket(max(active[s].draft_k for s in drafts), 1,
+                        self.spec_k)
+        else:
+            k = self.spec_k
         deepest = max(len(active[s].prompt) + len(active[s].generated)
                       for s in slots) + k
         t = _bucket(-(-deepest // cache.block_size), 1,
@@ -1679,7 +2321,7 @@ class InferenceScheduler(object):
         tables = numpy.zeros((b, t), numpy.int32)
         for j, slot in enumerate(slots):
             req = active[slot]
-            d = drafts.get(slot, [])
+            d = drafts.get(slot, [])[:k]
             toks[j, 0] = req.generated[-1]
             toks[j, 1:1 + len(d)] = d
             pos[j] = len(req.prompt) + len(req.generated) - 1
@@ -1689,17 +2331,21 @@ class InferenceScheduler(object):
             seeds[j] = req.seed
             counts[j] = len(req.generated)
         tables[:n] = cache.table_rows(slots, t)
+        want_h = self._draft_head is not None
         t0 = time.perf_counter()
-        nxt = verify_step_paged(self.forwards, cache, toks, pos, lens,
+        got = verify_step_paged(self.forwards, cache, toks, pos, lens,
                                 tables, temps, topks, seeds, counts,
-                                fused_verify=self.fused_verify)
+                                fused_verify=self.fused_verify,
+                                want_hidden=want_h)
+        nxt, hid = got if want_h else (got, None)
         dt = time.perf_counter() - t0
         self.decode_seconds += dt
         self.verify_steps += 1
+        self.verify_widths[k + 1] = self.verify_widths.get(k + 1, 0) + 1
         traced = {}
         for j, slot in enumerate(slots):
             req = active[slot]
-            d = drafts.get(slot, [])
+            d = list(drafts.get(slot, []))[:k]
             out = accept_drafts(d, nxt[j, :len(d) + 1])
             before = len(req.generated)
             for tok in out:
@@ -1711,8 +2357,14 @@ class InferenceScheduler(object):
             emitted = len(req.generated) - before
             self.decode_tokens += emitted
             self.verify_tokens += emitted
+            if want_h and emitted > 0:
+                # the hidden of the last position this pass scored and
+                # kept: row [j, emitted - 1] predicted the token now
+                # pending, so the heads read it next
+                req.hid = hid[j, emitted - 1]
             if d:
-                self._adapt_draft_k(req, len(d), len(out) - 1)
+                self._adapt_draft_k(req, len(d), len(out) - 1,
+                                    sources.get(slot, "ngram"))
             traced[req.trace] = traced.get(req.trace, 0) + emitted
             self._maybe_finish(req, cache)
         # recorded after acceptance: goodput counts what the pass emitted
