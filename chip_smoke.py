@@ -56,12 +56,19 @@ result line):
    surface on the same weights, card against CPU: greedy ``generate``
    with and without the kv cache (tokens equal), ``embed_pool``
    (within 1e-5) and ``slot_decode_step`` (tokens equal);
+3b. reference (moe) — phase 3's chain with MoE FFNs (4 experts, top-2,
+   dense dispatch): prefill, decode and verify logits card against CPU
+   and verify against sequential steps, each pass launching
+   ``int8_gemm`` once per layer (``wo``: the expert FFN stays off the
+   int8 path, as in the reference);
 4. train reference — a small float32 chain (d 256, 2 heads of 128, 2
    layers) takes 3 SGD-momentum steps from the same weights and
    minibatches on the card through the attention kernels, on the card
    through the dense core, and on the CPU through the plain versions:
    the kernel run must match the dense card run closely (losses, and
    each parameter relative to its update) and the CPU run loosely;
+4b. train reference (moe) — phase 4 with MoE FFNs (4 experts, top-2),
+   the same three runs and limits;
 5. learns — ``samples/lm.train_lm`` on the Markov corpus (d 256, 2
    heads of 128, 2 blocks, seq 128, vocab 64, Adam + cosine, bf16):
    the validation cross-entropy must fall below the corpus' unigram
@@ -183,6 +190,18 @@ result line):
    VKV1 wires and through two ``RESTfulAPI`` servers, each stream equal
    to the colocated one, first token against colocated, the wire's
    MB/s;
+6g. moe serve — the serve phase's chain with MoE FFNs (4 experts,
+   top-2, hidden 4096, bf16, seed 0, int8 KV and ``int8_decode``): one
+   warm-up request, then 8 concurrent 128-token random prompts x 32
+   greedy steps, spec and the prefix cache off, with the counts zeroed
+   just before and read just after — ``paged_attend`` once per layer
+   per pass (split kernel), ``int8_gemm`` once per layer per pass (only
+   ``wo``), the general matmul never; ``metrics()`` counting the run,
+   every block back, ``check_kv()`` clean; TTFT p50, decode tokens/s
+   and the device's idle share printed beside phase 6's; then a
+   float32 copy spec off and on over 8 rotations of the spec phase's
+   pattern prompt, the streams equal or parted at a near-tie
+   (``same_or_near_tie``);
 7. train — the LM trainer at ``bench.py``'s ``bench_lm`` configuration
    (d 2048, 8 layers, 16 heads of 128, seq 2048, batch 4, vocab 32768,
    bf16, SGD lr 0.01 momentum 0.9; random weights from seed 0 and
@@ -219,7 +238,22 @@ result line):
    seed 0): 2 warm-up steps, then 5 timed steps with the counts zeroed
    just before and read just after — ``lrn_fwd``, ``lrn_bwd`` and
    ``uniform_fill`` must each launch twice per step, the LRN kernels as
-   their row variants — then one step under ``torch.profiler``.
+   their row variants — then one step under ``torch.profiler``;
+10b. s2d and VGG-A — AlexNet at full width with the ``space_to_depth=4``
+   stem over the flat pre-blocked dataset and with the plain stem, from
+   the same seed (equal logical weights), batch 128: the stems' outputs
+   within S2D_TOL and the first step's losses within S2D_LOSS_TOL, each
+   build and step launching ``uniform_fill`` 3 times and each LRN
+   kernel twice; then VGG-A at full width (side 227, 1000 classes,
+   minibatch 64) for 3 SGD steps, finite losses, ``uniform_fill``
+   drawing the dataset and 2 masks per step, no LRN, the step times
+   printed;
+11. families — card against CPU in float32 at small widths: RNN, LSTM
+   with ``LastTimestep``, RNN with ``MeanPoolSeq``, a stride-2
+   ``Deconv`` and a conv autoencoder (conv, max pooling, ``Depooling``,
+   ``Deconv``) forward and gradients, the autoencoder's 3 SGD steps
+   under ``EvaluatorMSE``, 3 Kohonen steps and 3 RBM CD-1 steps (hidden
+   samples bit-equal: the uniform fill against the plain draw).
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -232,8 +266,12 @@ one), with the host-paced eager loops under ``eager_ms`` and
 and the spec, lifecycle, surface and REST phases' launches under
 ``spec_launches``, ``lifecycle_launches``, ``surface_launches``,
 ``rest_launches`` and ``tiers_launches`` (phase 6f's, with the
-FlashAttention kernels' there too), and ``paged_attend``'s graph times
-at K1 16, 17 and 32 under ``wide``
+FlashAttention kernels' there too), phase 6g's under ``moe_launches``,
+and ``paged_attend``'s graph times at K1 16, 17 and 32 under ``wide``;
+the FlashAttention kernels' phase 4b launches under
+``moe_train_launches``, the LRN and uniform kernels' phase 10b launches
+under ``s2d_vgg_launches`` and the uniform fill's phase 11 launches
+under ``families_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -447,6 +485,10 @@ DRAFT_TRAIN, DRAFT_STEPS, QUALITY_LEN, W8_STEPS = 300, 256, 256, 64
 NEAR_TIE = 0.05
 HOST_PROBES, HOST_PROMPT, HOST_STEPS, HOST_LONG, HOST_POOL = 6, 128, 4, 512, 64
 DISAGG_PROMPT, DISAGG_STEPS, DISAGG_REPS = 256, 16, 8
+#: the MoE phases (3b, 4b, 6g): the ``MoE`` unit's defaults, 4 experts
+#: and top-2 routing with dense dispatch; phase 6g's chain is the serve
+#: phase's with MoE FFNs (hidden 4 * DIM)
+MOE_EXPERTS, MOE_TOP_K = 4, 2
 
 #: the training model of the smoke (``bench.py``'s ``bench_lm``)
 T_VOCAB, T_DIM, T_LAYERS, T_HEADS, T_SEQ, T_BATCH = 32768, 2048, 8, 16, 2048, 4
@@ -517,6 +559,21 @@ W_SIDE, W_WIDTHS, W_CLASSES, W_TRAIN, W_BATCH = 67, (8, 16, 24, 24, 16,
 #: (relative) and weights (absolute).  Measured on an H100: 8.2e-8 and
 #: 3.0e-8 (f32 sums in another order; softplus has no kink to flip)
 WITNESS_LOSS, WITNESS_W = 1e-6, 1e-6
+#: phase 10b: AlexNet's space-to-depth stem against the plain stem at
+#: batch S2D_BATCH (cut from ``bench_alexnet``'s 1024 for the phase's
+#: time), and VGG-A at full width (side 227, 1000 classes) at minibatch
+#: V_BATCH (cut from the reference's 256 for the phase's time) for
+#: V_STEPS SGD steps.  The blocked stem sums its taps in another order
+#: than the strided one (both in f32, rounded once to bf16), so an
+#: output near a rounding edge lands a bf16 step apart: its stem output
+#: is held to S2D_TOL of the largest magnitude and its first step's
+#: loss to S2D_LOSS_TOL relative
+S2D_BATCH, V_BATCH, V_STEPS = 128, 64, 3
+S2D_TOL, S2D_LOSS_TOL = 1e-2, 1e-2
+#: phase 11: the layer families card against CPU in float32 (f32 sums in
+#: another order): outputs, gradients and parameters, relative and
+#: absolute
+FAMILY_TOL = 1e-4
 
 #: device-memory rate (bytes/s) by card name (NVIDIA data sheets)
 HBM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -1515,7 +1572,7 @@ def flash_times(torch, dev, rate, case, plain=False):
 
 # -- phase 3: small reference -------------------------------------------------
 
-def reference_check(torch, dev):
+def reference_check(torch, dev, moe=False):
     """A small float32 chain (d=256, 2 heads of 128, 2 layers, vocab
     512) with int8 pools and ``int8_decode``, on the card through the
     kernels and on the CPU through the plain versions, same weights
@@ -1526,14 +1583,20 @@ def reference_check(torch, dev):
     real positions (its pending token and 4 drafts) and a second prompt
     in the cache's second slot with 3 — whose logits must agree to
     1e-3 with the CPU's and, on the card, with 5 sequential decode
-    steps on a copy of the cache fed the same tokens."""
+    steps on a copy of the cache fed the same tokens.  ``moe`` (phase
+    3b) gives the blocks MoE FFNs (MOE_EXPERTS, top MOE_TOP_K): a pass
+    then launches ``int8_gemm`` once per layer (``wo``), not three
+    times, and the serving surface's checks are left to phase 3."""
     import copy
     from veles_tpu_torch.convert import init_params
     from veles_tpu_torch.serving import (
         PagedKVCache, paged_decode_logits, prefill, verify_logits)
+    what = "reference (moe)" if moe else "reference"
+    ffn = dict(n_experts=MOE_EXPERTS, top_k=MOE_TOP_K) if moe else {}
+    gemms = 1 if moe else 3
     spec = [{"type": "embedding", "vocab": 512, "dim": 256}]
-    spec += [{"type": "transformer_block", "heads": 2, "int8_decode": True}
-             for _ in range(2)]
+    spec += [dict({"type": "transformer_block", "heads": 2,
+                   "int8_decode": True}, **ffn) for _ in range(2)]
     spec += [{"type": "token_logits", "vocab": 512}]
     from veles_tpu_torch.ops import gemm, paged_attend as pa
     prompt = numpy.random.default_rng(2).integers(0, 512, (1, 40))
@@ -1576,19 +1639,19 @@ def reference_check(torch, dev):
         verify[str(d)] = verify_logits(chain, cache, vtoks, vpos, vlens,
                                        vtables).cpu()
         verified = (pa.launches - launches[0], gemm.launches - launches[1])
-    if decoded != (8, 24) or verified != (2, 6):
-        raise SystemExit("reference: the card's decode (%s launches) or "
-                         "verify (%s) did not run through the kernels"
-                         % (decoded, verified))
+    if decoded != (8, 8 * gemms) or verified != (2, 2 * gemms):
+        raise SystemExit("%s: the card's decode (%s launches) or verify "
+                         "(%s) did not run through the kernels"
+                         % (what, decoded, verified))
     err = float((runs["cpu"] - runs[str(dev)]).abs().max())
     scale = float(runs["cpu"].abs().max())
-    log("reference: prefill + 4 decode steps, logits max_abs_err=%.3g "
-        "(|logits| <= %.3g)" % (err, scale))
+    log("%s: prefill + 4 decode steps, logits max_abs_err=%.3g "
+        "(|logits| <= %.3g)" % (what, err, scale))
     if not torch.allclose(runs[str(dev)], runs["cpu"], rtol=1e-3,
                           atol=1e-3) or not torch.isfinite(
                               runs[str(dev)]).all():
-        raise SystemExit("reference: card and CPU logits disagree: %g"
-                         % err)
+        raise SystemExit("%s: card and CPU logits disagree: %g"
+                         % (what, err))
     # the same run as sequential decode steps on the card's copy
     steps = torch.zeros_like(verify[str(dev)])
     for j in range(5):
@@ -1601,15 +1664,16 @@ def reference_check(torch, dev):
                  for k in (str(dev), "cpu"))
     seq = torch.stack([steps[n, j] for n, j in valid])
     errs = (float((card - cpu).abs().max()), float((card - seq).abs().max()))
-    log("reference: verify pass at K1=5 (rows of 5 and 3 real positions), "
+    log("%s: verify pass at K1=5 (rows of 5 and 3 real positions), "
         "logits max_abs_err=%.3g against the CPU, %.3g against 5 "
-        "sequential decode steps on the card" % errs)
+        "sequential decode steps on the card" % ((what,) + errs))
     if not torch.isfinite(card).all() \
             or not torch.allclose(card, cpu, rtol=1e-3, atol=1e-3) \
             or not torch.allclose(card, seq, rtol=1e-3, atol=1e-3):
-        raise SystemExit("reference: the card's verify logits disagree: "
-                         "%g (CPU), %g (sequential)" % errs)
-    reference_surface(torch, dev, spec)
+        raise SystemExit("%s: the card's verify logits disagree: %g (CPU), "
+                         "%g (sequential)" % ((what,) + errs))
+    if not moe:
+        reference_surface(torch, dev, spec)
 
 
 def reference_surface(torch, dev, spec):
@@ -1682,7 +1746,7 @@ def _span_steps(torch, gd, loader, rows):
     return losses
 
 
-def train_reference(torch, dev):
+def train_reference(torch, dev, moe=False):
     """A small float32 LM chain (d 256, 2 heads of 128, 2 layers, vocab
     256, seq 64, minibatch 4) takes 3 SGD-momentum steps from the same
     weights and minibatches three times: on the card through the
@@ -1695,20 +1759,24 @@ def train_reference(torch, dev):
     the attention core differs).  The CPU run is a loose second
     witness: losses to 1e-4 relative, weights to 5e-4 (f32 sums in
     another order; a ReLU input that rounds to the other side of 0
-    moves its whole gradient)."""
+    moves its whole gradient).  ``moe`` (phase 4b) gives the blocks MoE
+    FFNs (MOE_EXPERTS, top MOE_TOP_K), dense dispatch; the limits stay.
+    Returns the FlashAttention kernels' launches of the kernel run."""
     from veles_tpu_torch.convert import init_params, params_to_numpy
     from veles_tpu_torch.loader import FullBatchLoader
     from veles_tpu_torch.models.evaluator import EvaluatorNextToken
     from veles_tpu_torch.models.gd import GradientDescent
     from veles_tpu_torch.ops import flash_attention as fa
     from veles_tpu_torch.samples.lm import lm_spec
+    what = "train reference (moe)" if moe else "train reference"
+    ffn = dict(n_experts=MOE_EXPERTS, top_k=MOE_TOP_K) if moe else {}
     toks = numpy.random.default_rng(4).integers(0, 256, (12, 64)).astype(
         numpy.int32)
     runs, launched = {}, {}
     for name, d, impl in (("kernels", dev, None), ("dense", dev, "dense"),
                           ("cpu", "cpu", "pallas")):
-        chain = init_params(lm_spec(256, 256, 2, 2, attn_impl=impl), 5, 64,
-                            device=d, dtype="float32")
+        chain = init_params(lm_spec(256, 256, 2, 2, attn_impl=impl, **ffn),
+                            5, 64, device=d, dtype="float32")
         start = params_to_numpy(chain)
         loader = FullBatchLoader(toks, None, [0, 0, 12], minibatch_size=4,
                                  seed=6, device=d)
@@ -1721,9 +1789,9 @@ def train_reference(torch, dev):
         runs[name] = (losses.cpu().double(), params_to_numpy(chain))
     if launched["kernels"] != dict.fromkeys(fa.launches, 6) or any(
             launched["dense"].values()):
-        raise SystemExit("train reference: launched %s (want 6 of each in "
-                         "the kernel run: 2 layers x 3 steps, none in the "
-                         "dense run)" % launched)
+        raise SystemExit("%s: launched %s (want 6 of each in the kernel "
+                         "run: 2 layers x 3 steps, none in the dense run)"
+                         % (what, launched))
     (k_loss, k_p), (d_loss, d_p), (c_loss, c_p) = (
         runs[n] for n in ("kernels", "dense", "cpu"))
     step = {}
@@ -1736,17 +1804,18 @@ def train_reference(torch, dev):
     loss_err = float(((k_loss - d_loss).abs() / d_loss.abs()).max())
     cpu_err = max(float(numpy.abs(k_p[i][n] - c_p[i][n]).max())
                   for i in c_p for n in c_p[i])
-    log("train reference: losses %s (kernels) vs %s (dense, card) vs %s "
-        "(CPU); kernels vs dense: losses %.3g relative, parameters <= %.3g "
-        "of their update (%s); kernels vs CPU weights max_abs_err=%.3g"
-        % (k_loss.tolist(), d_loss.tolist(), c_loss.tolist(), loss_err,
-           step[worst], worst, cpu_err))
+    log("%s: losses %s (kernels) vs %s (dense, card) vs %s (CPU); kernels "
+        "vs dense: losses %.3g relative, parameters <= %.3g of their update "
+        "(%s); kernels vs CPU weights max_abs_err=%.3g"
+        % (what, k_loss.tolist(), d_loss.tolist(), c_loss.tolist(),
+           loss_err, step[worst], worst, cpu_err))
     if not loss_err <= TRAIN_REF_LOSS or not step[worst] <= TRAIN_REF_STEP:
-        raise SystemExit("train reference: the kernel run and the dense "
-                         "run disagree")
+        raise SystemExit("%s: the kernel run and the dense run disagree"
+                         % what)
     if not torch.allclose(k_loss, c_loss, rtol=1e-4, atol=0) \
             or cpu_err > 5e-4:
-        raise SystemExit("train reference: card and CPU training disagree")
+        raise SystemExit("%s: card and CPU training disagree" % what)
+    return launched["kernels"]
 
 
 # -- phase 5: learns ----------------------------------------------------------
@@ -1885,7 +1954,10 @@ def serve_check(torch, dev):
     log(json.dumps({"profile": prof}))
     log(json.dumps({"tracing_cost": tracing_cost(torch, dev, chain,
                                                  prompts)}))
-    return {"launches": launches, "chain": chain}
+    numbers = {"ttft_ms_p50": snap["ttft_ms_p50"],
+               "decode_tokens_per_s": dtoks / dsecs,
+               "device_idle_share": prof["device_idle_share"]}
+    return {"launches": launches, "chain": chain, "numbers": numbers}
 
 
 #: a traced request's phase events, in order (``+``: one or more)
@@ -4045,6 +4117,146 @@ def tiers_check(torch, dev, rate, spec_chain_, pattern):
     return launches, wide
 
 
+# -- phase 6g: MoE serving at full width --------------------------------------
+
+def check_moe_launches(what, passes, launches):
+    """Fail unless every model pass (decode or verify) launched
+    ``paged_attend`` once per layer, all on its split kernel, and
+    ``int8_gemm`` once per layer: ``wo`` alone, since a MoE FFN stays on
+    the policy products (the reference's ``_ffn`` returns the MoE result
+    before it looks at the int8 path)."""
+    if passes < 1 or launches["paged_attend"] != LAYERS * passes \
+            or launches["int8_gemm"] != LAYERS * passes \
+            or launches["paged_attend_by_kernel"]["split"] \
+            != launches["paged_attend"]:
+        raise SystemExit("%s: %d model passes but launches %s (want %d of "
+                         "each per pass, all paged_attend on the split "
+                         "kernel)" % (what, passes, launches, LAYERS))
+
+
+def moe_arm(torch, dev, chain, prompts, spec, profile=False):
+    """One scheduler over the MoE chain (int8 KV pools, ``int8_decode``,
+    block 16, chunked prefill, spec_k SPEC_K, the prefix cache off): one
+    warm-up request, then ``prompts`` concurrently for STEPS greedy
+    tokens each with the kernels' counts zeroed just before and read
+    just after; the run's ``metrics()`` must count its requests and
+    tokens, every block must come back and ``check_kv()`` pass.
+    ``profile`` adds :func:`profile_window` after the measured run.
+    Returns the streams and the arm's numbers."""
+    from veles_tpu_torch.ops import gemm
+    from veles_tpu_torch.serving import InferenceScheduler
+    sch = InferenceScheduler(chain, max_slots=SLOTS, window=WINDOW,
+                             block_size=BLOCK, kv_dtype="int8",
+                             prefill_chunk=CHUNK, spec=spec, spec_k=SPEC_K,
+                             prefix_cache=False, device=dev).start()
+    try:
+        warm = sch.submit(prompts[0], STEPS).result(600)
+        if len(warm) != PROMPT + STEPS:
+            raise SystemExit("moe serve: warm-up returned %d tokens"
+                             % len(warm))
+        base = {n: getattr(sch, n) for n in SPEC_COUNTERS}
+        snap0, done0 = sch.metrics(), len(sch.completed)
+        torch.cuda.synchronize()
+        zero_serving_counts()
+        gemm.matmul_launches = 0
+        t0 = time.perf_counter()
+        futs = [sch.submit(p, STEPS) for p in prompts]
+        outs = [f.result(600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_serving_counts()
+        matmuls = gemm.matmul_launches
+        got = {n: getattr(sch, n) - base[n] for n in SPEC_COUNTERS}
+        snap, times = sch.metrics(), sch.completed[done0:]
+        prof = profile_window(torch, sch, prompts) if profile else None
+    finally:
+        sch.close()
+    sch.check_kv()
+    cache = sch.cache_
+    if cache.free_slots != SLOTS \
+            or cache.free_blocks != cache.capacity_blocks:
+        raise SystemExit("moe serve: slots or blocks leaked after close()")
+    for p, out in zip(prompts, outs):
+        if len(out) != PROMPT + STEPS or out[:PROMPT] != p \
+                or not all(0 <= t < VOCAB for t in out[PROMPT:]):
+            raise SystemExit("moe serve: a result is malformed")
+    passes = got["decode_steps"] + got["verify_steps"]
+    check_moe_launches("moe serve (spec %s)" % spec, passes, launches)
+    if matmuls:
+        raise SystemExit("moe serve: the general matmul launched %d times"
+                         % matmuls)
+    counted = {k: snap[k] - snap0[k]
+               for k in ("requests_completed", "tokens_generated")}
+    if counted != {"requests_completed": len(prompts),
+                   "tokens_generated": len(prompts) * STEPS}:
+        raise SystemExit("moe serve: metrics() counted %s for %d requests "
+                         "of %d tokens" % (counted, len(prompts), STEPS))
+    ttft = sorted(1e3 * t for t, _ in times)
+    arm = {"spec": spec, "requests": len(prompts),
+           "ttft_ms_p50": ttft[len(ttft) // 2],
+           "decode_tokens_per_s": got["decode_tokens"] / got["decode_seconds"],
+           "tokens_per_s": len(prompts) * STEPS / wall, "wall_s": wall,
+           "decode_steps": got["decode_steps"],
+           "verify_steps": got["verify_steps"],
+           "drafted_tokens": got["spec_drafted_tokens"],
+           "accepted_tokens": got["spec_accepted_tokens"],
+           "launches": launches, "metrics": counted}
+    if prof is not None:
+        arm["device_idle_share"] = prof["device_idle_share"]
+        arm["profile"] = prof
+    log(json.dumps({"moe_arm": arm}))
+    return outs, arm
+
+
+def moe_serve_check(torch, dev, dense):
+    """Phase 6g: the serve phase's chain (d 1024, 8 heads of 128, vocab
+    32768, window 1024, 8 layers, bf16, weights from seed 0) with MoE
+    FFNs of MOE_EXPERTS experts, top MOE_TOP_K, hidden 4 * DIM, int8 KV
+    pools and ``int8_decode``: 8 concurrent PROMPT-token random prompts
+    x STEPS greedy steps, spec off (its TTFT p50, decode tokens/s and the
+    device's idle share printed beside the dense serve phase's
+    ``dense``), then the spec phase's pattern prompt (8 rotations) spec
+    off and on, whose streams must be equal or part at a near-tie
+    (:func:`same_or_near_tie`).  The spec arms serve a float32 copy of
+    the chain, as phase 6f (a) does: in bfloat16 a verify pass and a
+    decode step round a position's hidden state apart, the gate's
+    bfloat16 logits can then route a token to another expert, and the
+    logits move by more than a near-tie (in this phase's first run on
+    the card the bf16 streams parted at position 130 with a token 0.061
+    nats below its row's largest logit).  Returns the kernels' launches
+    summed over the three measured runs."""
+    from veles_tpu_torch.convert import init_params
+    t_phase = time.perf_counter()
+    spec = [{"type": "embedding", "vocab": VOCAB, "dim": DIM}]
+    spec += [{"type": "transformer_block", "heads": HEADS,
+              "int8_decode": True, "n_experts": MOE_EXPERTS,
+              "top_k": MOE_TOP_K} for _ in range(LAYERS)]
+    spec += [{"type": "token_logits", "vocab": VOCAB}]
+    chain = init_params(spec, 0, WINDOW, device=dev, dtype="bfloat16")
+    n_params = sum(t.numel() for u in chain for t in u.params.values())
+    rng = numpy.random.default_rng(0)
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(SLOTS)]
+    _, arm = moe_arm(torch, dev, chain, prompts, False, profile=True)
+    pattern = (numpy.arange(12) * 17 % VOCAB).tolist()
+    rotated = [(pattern * (PROMPT // 12 + 2))[o:o + PROMPT]
+               for o in range(SLOTS)]
+    chain = _copy_chain(chain, dev, "float32", int8_decode=True,
+                        n_experts=MOE_EXPERTS, top_k=MOE_TOP_K)
+    off, arm_off = moe_arm(torch, dev, chain, rotated, False)
+    on, arm_on = moe_arm(torch, dev, chain, rotated, True)
+    streams = same_or_near_tie(torch, dev, chain, off, on, PROMPT,
+                               "moe serve")
+    total = {n: sum(a["launches"][n] for a in (arm, arm_off, arm_on))
+             for n in ("paged_attend", "int8_gemm")}
+    log(json.dumps({"moe_serve": {
+        "experts": MOE_EXPERTS, "top_k": MOE_TOP_K, "parameters": n_params,
+        "moe": {k: arm[k] for k in ("ttft_ms_p50", "decode_tokens_per_s",
+                                    "device_idle_share")},
+        "dense": dense, "spec_streams": streams,
+        "seconds": time.perf_counter() - t_phase}}))
+    return total
+
+
 # -- phase 7: train -----------------------------------------------------------
 
 def train_check(torch, dev):
@@ -4581,6 +4793,238 @@ def alexnet_check(torch, dev):
     return {"launches": launches}
 
 
+# -- phase 10b: the space-to-depth stem and VGG-A -----------------------------
+
+def _zero_conv_counts():
+    from veles_tpu_torch.ops import lrn as lrn_mod, random as rnd
+    for name in lrn_mod.launches:
+        lrn_mod.launches[name] = 0
+        lrn_mod.variant_launches[name] = {"rows": 0, "tile": 0}
+    rnd.launches = 0
+
+
+def _read_conv_counts():
+    from veles_tpu_torch.ops import lrn as lrn_mod, random as rnd
+    return dict(lrn_mod.launches, uniform_fill=rnd.launches)
+
+
+def s2d_vgg_check(torch, dev):
+    """Phase 10b.  (a) AlexNet at full width with the ``space_to_depth=4``
+    stem (the flat pre-blocked dataset drawn by ``uniform_fill``) and
+    with the plain stem, both built from seed 0 (the same draws: the
+    stem's logical weights must be equal), at batch S2D_BATCH: the
+    stems' outputs on the same first minibatch within S2D_TOL of the
+    largest magnitude, then one SGD step each from there (the same
+    dropout keys), the losses within S2D_LOSS_TOL; each build and step
+    launches the dataset's fill, ``lrn_fwd`` and ``lrn_bwd`` twice and
+    two dropout masks.  (b) VGG-A at full width (side 227, 1000
+    classes, minibatch V_BATCH): V_STEPS SGD steps, finite losses, the
+    dataset and the two dropout masks per step drawn by ``uniform_fill``
+    and no LRN launch; the step time printed.  Returns the launches of
+    both parts."""
+    from veles_tpu_torch.loader import TRAIN
+    from veles_tpu_torch.samples.alexnet import build_alexnet
+    t_phase = time.perf_counter()
+    kw = dict(minibatch_size=S2D_BATCH, side=A_SIDE, classes=A_CLASSES,
+              n_train=S2D_BATCH, device=dev, dtype="bfloat16")
+    runs = {}
+    want = {"lrn_fwd": 2, "lrn_bwd": 2, "uniform_fill": 3}
+    total = dict.fromkeys(want, 0)
+    for s2d in (0, 4):
+        torch.cuda.synchronize()
+        _zero_conv_counts()
+        net = build_alexnet(space_to_depth=s2d, **kw)
+        x = net.loader.dataset_dev[:S2D_BATCH]
+        labels = net.loader.labels_dev[:S2D_BATCH]
+        with torch.no_grad():
+            stem = net.chain[0].apply(x).float()
+        weights = {n: t.detach().clone()
+                   for n, t in net.chain[0].params.items()}
+        t0 = time.perf_counter()
+        loss, _, _ = net.trainer.run_minibatch(x, labels, S2D_BATCH, TRAIN)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        counts = _read_conv_counts()
+        if counts != want:
+            raise SystemExit("s2d: the %s stem's build and step launched %s "
+                             "(want %s)" % ("blocked" if s2d else "plain",
+                                            counts, want))
+        for n in total:
+            total[n] += counts[n]
+        runs[s2d] = (stem, weights, loss, step_ms, tuple(x.shape))
+        del net, x
+    (stem, weights, loss, ms, shape), (bstem, bweights, bloss, bms, bshape) \
+        = runs[0], runs[4]
+    same_w = all(torch.equal(weights[n], bweights[n]) for n in weights)
+    err = float((bstem - stem).abs().max()) / float(stem.abs().max())
+    loss_err = abs(bloss - loss) / abs(loss)
+    log(json.dumps({"s2d": {
+        "batch": S2D_BATCH, "input": shape, "blocked_input": bshape,
+        "stem_weights_equal": same_w, "stem_max_err_rel": err,
+        "losses": [loss, bloss], "loss_err_rel": loss_err,
+        "first_step_ms": [ms, bms]}}))
+    if not same_w or not torch.isfinite(bstem).all() or err > S2D_TOL \
+            or not loss_err <= S2D_LOSS_TOL:
+        raise SystemExit("s2d: the blocked stem disagrees with the plain one "
+                         "(weights equal %s, stem %.3g, loss %.3g)"
+                         % (same_w, err, loss_err))
+    torch.cuda.synchronize()
+    _zero_conv_counts()
+    t0 = time.perf_counter()
+    net = build_alexnet(model="vgg_a", minibatch_size=V_BATCH, side=A_SIDE,
+                        classes=A_CLASSES, n_train=V_BATCH * V_STEPS,
+                        device=dev, dtype="bfloat16")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for u in net.chain for t in u.params.values())
+    batches = _minibatches(torch, net.loader, dev)
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(V_STEPS):
+        x, labels, size = next(batches)
+        t0 = time.perf_counter()
+        loss, _, _ = net.trainer.run_minibatch(x, labels, size, TRAIN)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = _read_conv_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want_vgg = {"lrn_fwd": 0, "lrn_bwd": 0, "uniform_fill": 1 + 2 * V_STEPS}
+    log(json.dumps({"vgg_a": {
+        "side": A_SIDE, "classes": A_CLASSES, "batch": V_BATCH,
+        "parameters": n_params, "build_s": build_s, "losses": losses,
+        "step_ms": times, "launches": counts,
+        "max_memory_allocated_gb": peak / 1e9,
+        "seconds": time.perf_counter() - t_phase}}))
+    if not all(numpy.isfinite(losses)) or counts != want_vgg:
+        raise SystemExit("vgg_a: losses %s, launches %s (want %s)"
+                         % (losses, counts, want_vgg))
+    del net
+    return {n: total[n] + counts[n] for n in total}
+
+
+# -- phase 11: the layer families ---------------------------------------------
+
+def _close_all(torch, got, want):
+    return all(torch.allclose(g.detach().cpu(), w.detach().cpu(),
+                              rtol=FAMILY_TOL, atol=FAMILY_TOL)
+               for g, w in zip(got, want))
+
+
+def families_check(torch, dev):
+    """Phase 11: the layer families card against CPU in float32 at small
+    widths, from the same seeds: forward and parameter gradients of RNN,
+    LSTM + ``LastTimestep``, RNN + ``MeanPoolSeq``, a stride-2
+    ``Deconv`` and a conv autoencoder (conv, max pooling,
+    ``Depooling``, ``Deconv``); the autoencoder's 3 SGD steps under
+    ``EvaluatorMSE``; 3 Kohonen steps; 3 RBM CD-1 steps, whose hidden
+    samples (the uniform fill on the card, the plain draw on the CPU)
+    must be bit-equal.  Everything within FAMILY_TOL.  Returns the
+    uniform fill's launches."""
+    from veles_tpu_torch.convert import init_params, params_to_numpy
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.models.evaluator import EvaluatorMSE
+    from veles_tpu_torch.models.gd import GradientDescent
+    from veles_tpu_torch.models.kohonen import KohonenTrainer
+    from veles_tpu_torch.models.rbm import BernoulliRBM
+    from veles_tpu_torch.ops import random as rnd
+    t_phase = time.perf_counter()
+    rng = numpy.random.default_rng(11)
+    ae = [{"type": "conv_str", "n_kernels": 8, "kx": 3, "ky": 3},
+          {"type": "max_pooling", "kx": 2, "ky": 2},
+          {"type": "depooling", "kx": 2, "ky": 2},
+          {"type": "deconv", "n_kernels": 3, "kx": 3, "ky": 3,
+           "activation": "sigmoid"}]
+    seqs = rng.standard_normal((4, 12, 16)).astype(numpy.float32)
+    imgs = rng.random((8, 16, 16, 3)).astype(numpy.float32)
+    cases = [("rnn", [{"type": "rnn", "hidden": 32}], seqs),
+             ("lstm_last", [{"type": "lstm", "hidden": 32},
+                            {"type": "last_timestep"}], seqs),
+             ("rnn_meanpool", [{"type": "rnn", "hidden": 32},
+                               {"type": "mean_pool_seq"}], seqs),
+             ("deconv_s2", [{"type": "deconv", "n_kernels": 6, "kx": 4,
+                             "ky": 3, "sliding": (2, 2)}], imgs),
+             ("conv_ae", ae, imgs)]
+    report = {}
+    for name, spec, x in cases:
+        got = {}
+        for d in ("cpu", dev):
+            chain = init_params(spec, 7, device=d, dtype="float32",
+                                in_shape=x.shape[1:])
+            params = [t.requires_grad_(True) for u in chain
+                      for t in u.params.values()]
+            h = torch.as_tensor(x).to(d)
+            for u in chain:
+                h = u.apply(h)
+            g = torch.as_tensor(numpy.random.default_rng(1).standard_normal(
+                tuple(h.shape)).astype(numpy.float32)).to(d)
+            (h * g).sum().backward()
+            got[str(d)] = [h] + [p.grad for p in params]
+        ok = _close_all(torch, got[str(dev)], got["cpu"])
+        err = max(float((a.detach().cpu() - b.detach().cpu()).abs().max())
+                  for a, b in zip(got[str(dev)], got["cpu"]))
+        report[name] = err
+        if not ok or not torch.isfinite(got[str(dev)][0]).all():
+            raise SystemExit("families: %s disagrees card against CPU "
+                             "(max_abs_err %.3g)" % (name, err))
+    data = rng.random((24, 16, 16, 3)).astype(numpy.float32)
+    trained = {}
+    for d in ("cpu", dev):
+        chain = init_params(ae, 7, device=d, dtype="float32",
+                            in_shape=data.shape[1:])
+        loader = FullBatchLoader(data, None, [0, 0, 24], minibatch_size=8,
+                                 seed=3, device=d, targets=data)
+        gd = GradientDescent(chain, EvaluatorMSE(), solver="sgd",
+                             learning_rate=0.5, gradient_moment=0.9)
+        loader.serve_span()
+        gd.run_span(loader)
+        trained[str(d)] = (float(gd.loss), int(gd.global_step),
+                           params_to_numpy(chain))
+    (c_loss, c_steps, c_p), (k_loss, k_steps, k_p) = (
+        trained["cpu"], trained[str(dev)])
+    ae_err = max(float(numpy.abs(k_p[i][n] - c_p[i][n]).max())
+                 for i in c_p for n in c_p[i])
+    report["conv_ae_mse_steps"] = {"losses": [k_loss, c_loss],
+                                   "weights_max_abs_err": ae_err}
+    if k_steps != c_steps or c_steps != 3 or ae_err > FAMILY_TOL \
+            or abs(k_loss - c_loss) > FAMILY_TOL * max(abs(c_loss), 1.0):
+        raise SystemExit("families: the MSE autoencoder's steps disagree "
+                         "(%s)" % report["conv_ae_mse_steps"])
+    maps = [KohonenTrainer(48, shape=(4, 4), seed=3, device=d)
+            for d in ("cpu", dev)]
+    rbms = [BernoulliRBM(64, hidden=32, learning_rate=0.5, seed=5, device=d)
+            for d in ("cpu", dev)]
+    torch.cuda.synchronize()
+    rnd.launches = 0
+    samples_equal = True
+    for _ in range(3):
+        x = torch.as_tensor(rng.random((16, 48)).astype(numpy.float32))
+        v = torch.as_tensor((rng.random((16, 64)) < 0.4).astype(
+            numpy.float32))
+        q = [m.step(x.to(m.device)) for m in maps]
+        for r in rbms:
+            r.step(v.to(r.device))
+        samples_equal &= torch.equal(rbms[0].samples[0],
+                                     rbms[1].samples[0].cpu())
+        if not _close_all(torch, [q[1]], [q[0]]):
+            raise SystemExit("families: Kohonen quantization errors %s"
+                             % [float(t) for t in q])
+    launched = rnd.launches
+    som_err = float((maps[1].weights.cpu() - maps[0].weights).abs().max())
+    rbm_err = float((rbms[1].weights.cpu() - rbms[0].weights).abs().max())
+    report.update(kohonen_weights_err=som_err, rbm_weights_err=rbm_err,
+                  rbm_samples_equal=samples_equal,
+                  uniform_fill_launches=launched,
+                  seconds=time.perf_counter() - t_phase)
+    log(json.dumps({"families": report}))
+    if not samples_equal or launched != 3 or som_err > FAMILY_TOL \
+            or rbm_err > FAMILY_TOL:
+        raise SystemExit("families: Kohonen or RBM disagree card against "
+                         "CPU (%s)" % report)
+    return {"uniform_fill": launched}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4615,9 +5059,16 @@ def main():
     measured["matmul"]["max_abs_err"] = max(
         measured["matmul"]["max_abs_err"], mm_err)
     reference_check(torch, dev)
+    t0 = time.perf_counter()
+    reference_check(torch, dev, moe=True)
+    log("reference (moe): %.1f s" % (time.perf_counter() - t0))
     train_reference(torch, dev)
+    t0 = time.perf_counter()
+    moe_train_launches = train_reference(torch, dev, moe=True)
+    log("train reference (moe): %.1f s" % (time.perf_counter() - t0))
     learns(torch, dev)
     served = serve_check(torch, dev)
+    dense_numbers = served.pop("numbers")
     launches = dict(served["launches"], matmul=mm_launches)
     spec_launches, trained, pattern = spec_check(torch, dev)
     serve_chain = served.pop("chain")
@@ -4629,11 +5080,14 @@ def main():
     tier_launches, wide = tiers_check(torch, dev, rate, trained, pattern)
     measured["paged_attend"]["wide"] = wide
     del served, trained, serve_chain
+    moe_launches = moe_serve_check(torch, dev, dense_numbers)
     launches.update(train_check(torch, dev)["launches"])
     measured.update(check_lrn(torch, dev, rate))
     measured.update(check_uniform(torch, dev, rate))
     alexnet_witness(torch, dev)
     launches.update(alexnet_check(torch, dev)["launches"])
+    s2d_launches = s2d_vgg_check(torch, dev)
+    family_launches = families_check(torch, dev)
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -4662,6 +5116,12 @@ def main():
             k["rest_launches"] = rest_launches_[k["name"]]
         if k["name"] in tier_launches:
             k["tiers_launches"] = tier_launches[k["name"]]
+        for key, got in (("moe_launches", moe_launches),
+                         ("moe_train_launches", moe_train_launches),
+                         ("s2d_vgg_launches", s2d_launches),
+                         ("families_launches", family_launches)):
+            if k["name"] in got:
+                k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

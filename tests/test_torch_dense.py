@@ -258,10 +258,10 @@ def test_dense_knobs_fall_back_as_reference(f32, trained):
     assert "kv_blocks_total" not in snap and snap["kv_mode"] == "dense"
     assert (snap["spec"], snap["prefix_cache"]) == (False, False)
     assert sch.debug_requests() == []
-    for cls, fwd, kw in ((JaxScheduler, fw, dict(warm_buckets=False)),
+    for cls, fwd, kw in ((JaxScheduler, fw, {}),
                          (InferenceScheduler, chain, dict(device="cpu"))):
         with pytest.raises(ValueError, match="kv"):
-            cls(fwd, window=WINDOW, kv="sparse", **kw)
+            cls(fwd, window=WINDOW, kv="sparse", warm_buckets=False, **kw)
 
 
 def test_dense_lifecycle_and_streams(f32, trained):

@@ -203,9 +203,9 @@ def test_hidden_lane_matches_reference(f32, trained):
 def _run(pkg, chain, submits, start_first=False, **kw):
     """Serve ``submits`` (all queued before the loop starts, so both
     packages batch alike) and return (streams, scheduler)."""
+    kw.setdefault("warm_buckets", False)
     if pkg == "jax":
         from veles_tpu.serving import InferenceScheduler
-        kw.setdefault("warm_buckets", False)
     else:
         from veles_tpu_torch.serving import InferenceScheduler
         kw.setdefault("device", "cpu")
@@ -382,15 +382,14 @@ def test_drafter_fallbacks_and_refusals(f32, trained):
     assert got == want and sch.drafter == jsch.drafter == "ngram"
     assert "model" not in sch.metrics()["spec_accept_rate_by_drafter"]
     for cls, c in ((JaxScheduler, fw), (InferenceScheduler, chain)):
-        extra = {"warm_buckets": False} if cls is JaxScheduler \
-            else {"device": "cpu"}
+        extra = {} if cls is JaxScheduler else {"device": "cpu"}
         with pytest.raises(ValueError):
             cls(c, max_slots=2, window=WINDOW, spec=True, drafter="banana",
-                **extra)
+                warm_buckets=False, **extra)
     for cls, head_cls, c in ((JaxScheduler, JaxHead, fw),
                              (InferenceScheduler, MedusaDraftHead, chain)):
-        extra = {"warm_buckets": False} if cls is JaxScheduler \
-            else {"device": "cpu"}
+        extra = {} if cls is JaxScheduler else {"device": "cpu"}
         with pytest.raises(ValueError):
             cls(c, max_slots=2, window=WINDOW, spec=True, spec_k=4,
-                drafter="model", draft_head=head_cls(4, 8, 12), **extra)
+                drafter="model", draft_head=head_cls(4, 8, 12),
+                warm_buckets=False, **extra)

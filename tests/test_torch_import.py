@@ -145,7 +145,20 @@ def test_entry_points_default_to_the_card():
                                             "kv_quant_quality",
                                             "weight_quant_quality")),
     ("veles_tpu_torch.serving.scheduler", ("EXPORT_TTL", "EXPORT_BYTES",
-                                           "RoleMismatchError"))])
+                                           "RoleMismatchError")),
+    ("veles_tpu_torch.models.moe", ("MoE", "moe_apply", "top_k")),
+    ("veles_tpu_torch.models.transformer", ("MeanPoolSeq",)),
+    ("veles_tpu_torch.models.recurrent", ("SimpleRNN", "LSTM",
+                                          "LastTimestep")),
+    ("veles_tpu_torch.models.conv", ("Deconv", "space_to_depth",
+                                     "validate_space_to_depth")),
+    ("veles_tpu_torch.models.pooling", ("Depooling",)),
+    ("veles_tpu_torch.models.evaluator", ("EvaluatorMSE",)),
+    ("veles_tpu_torch.models.kohonen", ("KohonenForward", "KohonenTrainer",
+                                        "bmu")),
+    ("veles_tpu_torch.models.rbm", ("BernoulliRBM", "cd_step")),
+    ("veles_tpu_torch.samples.alexnet", ("alexnet_layers", "vgg_a_layers")),
+    ("veles_tpu_torch.prng.random_generator", ("RandomGenerator",))])
 def test_slice_surface_is_exported(module, names):
     """The names of the streams, aux, generate, dense, REST, drafter and
     KV-tier slices are importable where the reference exports them
@@ -157,3 +170,55 @@ def test_slice_surface_is_exported(module, names):
     mod = importlib.import_module(module)
     assert all(hasattr(mod, n) for n in names), \
         [n for n in names if not hasattr(mod, n)]
+
+
+#: the modules of the layer-type slice (MoE, recurrent units, Kohonen
+#: maps, RBMs) and the ones it extended
+LAYER_SLICE = ("veles_tpu_torch.models.moe",
+               "veles_tpu_torch.models.recurrent",
+               "veles_tpu_torch.models.kohonen",
+               "veles_tpu_torch.models.rbm")
+
+
+@pytest.mark.parametrize("module", LAYER_SLICE)
+def test_layer_slice_imports_alone_with_jax_blocked(module):
+    """Each new module imports first in a fresh interpreter with ``jax``
+    blocked, is listed in ``SUBMODULES``, and loads nothing of
+    ``veles_tpu``; its own imports are torch, numpy, the standard
+    library and the port."""
+    import veles_tpu_torch
+    assert module in veles_tpu_torch.SUBMODULES
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "importlib.import_module(%r)\n"
+            "assert not any(n == 'veles_tpu' or n.startswith('veles_tpu.')\n"
+            "               for n in sys.modules), 'veles_tpu was loaded'\n"
+            "print('ok')\n" % module)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert roots <= {"numpy", "torch", "veles_tpu_torch"} \
+        | set(sys.stdlib_module_names), roots
+
+
+def test_layer_slice_entry_points_default_to_the_card():
+    """The Kohonen trainer and the RBM take ``device=`` like every entry
+    point: without a card they raise unless asked for the CPU."""
+    from veles_tpu_torch.models.kohonen import KohonenTrainer
+    from veles_tpu_torch.models.rbm import BernoulliRBM
+    assert KohonenTrainer(4, device="cpu").weights.device.type == "cpu"
+    assert BernoulliRBM(4, device="cpu").weights.device.type == "cpu"
+    if torch.cuda.is_available():
+        return
+    for make in (lambda: KohonenTrainer(4), lambda: BernoulliRBM(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -21,7 +21,11 @@ wgmma forced across their crossover); ``generate``'s rescan form
 through the FlashAttention forward kernel, a streamed request through
 the serving kernels, and the REST server's ``/generate`` (batch and
 SSE) through them while its embeddings, beam search and serialized
-decode launch none.
+decode launch none; a MoE chain served through the serving kernels
+(one ``int8_gemm`` launch per layer per pass: the expert FFN stays off
+the int8 path) and its block's paged step against the CPU's, the RBM's
+hidden samples drawn by the uniform fill bit-equal to the CPU's, and
+the blocked AlexNet stem against the strided one.
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -1173,3 +1177,110 @@ def test_rest_generate_runs_the_serving_kernels(card):
         assert reply["tokens"] == want[:len(prompt) + 12]
     finally:
         legacy.stop()
+
+
+def test_moe_chain_serves_through_the_kernels(card):
+    """A MoE chain (d 256, 2 heads of 128, 4 experts, top-2; int8 KV and
+    ``int8_decode``, spec off) on the card: every decode step launches
+    ``paged_attend`` and ``int8_gemm`` once per layer (``wo`` only),
+    spec on streams as spec off, and the pool comes back clean."""
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.serving import InferenceScheduler
+    from veles_tpu_torch.samples.lm import lm_spec
+    chain = init_params(lm_spec(256, 256, 2, 2, int8_decode=True,
+                                n_experts=4, top_k=2), 0, 64, device=card,
+                        dtype="float32")
+    streams = {}
+    for spec in (False, True):
+        sch = InferenceScheduler(chain, max_slots=2, window=64,
+                                 block_size=BS, kv_dtype="int8", spec=spec,
+                                 prefix_cache=False, device=card).start()
+        try:
+            before = (pa.launches, gemm.launches)
+            prompt = list(range(3, 40))
+            streams[spec] = sch.submit(prompt, 12).result(120)
+            passes = sch.decode_steps + sch.verify_steps
+            launched = (pa.launches - before[0], gemm.launches - before[1])
+        finally:
+            sch.close()
+        sch.check_kv()
+        assert launched == (2 * passes, 2 * passes)
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.parametrize("w8", [False, True])
+def test_moe_block_paged_step_on_the_card(card, w8):
+    """One MoE block's paged decode step over an int8 pool on the card
+    (the kernels) against the same block on the CPU (plain versions),
+    float32: within 1e-4."""
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.ops.paged_attention import quantize_kv_rows
+    spec = [{"type": "transformer_block", "heads": 2, "n_experts": 4,
+             "top_k": 2, "int8_decode": w8}]
+    blocks = [init_params(spec, 3, device=dev, dtype="float32",
+                          in_shape=(16, 256))[0]
+              for dev in ("cpu", card)]
+    rng = numpy.random.default_rng(9)
+    nb = 8
+    (kq, ks), (vq, vs) = (quantize_kv_rows(torch.as_tensor(
+        rng.standard_normal((nb, BS, 256)), dtype=torch.float32))
+        for _ in range(2))
+    x = torch.as_tensor(rng.standard_normal((3, 1, 256)) * 0.5,
+                        dtype=torch.float32)
+    pos = torch.as_tensor([20, 3, 0], dtype=torch.int32)
+    tables = torch.as_tensor([[2, 4, 0, 0], [5, 0, 0, 0], [0, 0, 0, 0]],
+                             dtype=torch.int32)
+    out = []
+    for blk in blocks:
+        dev = blk.device
+        pool = {n: t.clone().to(dev) for n, t in
+                (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))}
+        y, _ = blk.apply_step_paged(x.to(dev), pos.to(dev), tables.to(dev),
+                                    pool)
+        out.append(y.cpu())
+    numpy.testing.assert_allclose(out[1][:2].numpy(), out[0][:2].numpy(),
+                                  rtol=1e-4, atol=1e-4)
+
+
+def test_rbm_samples_on_the_card_bit_equal(card):
+    """Three CD-1 steps of the RBM on the card, where the uniform fill
+    draws the hidden samples, against the CPU: samples bit-equal,
+    weights within 1e-5."""
+    from veles_tpu_torch.models.rbm import BernoulliRBM
+    from veles_tpu_torch.ops import random as ops_random
+    rbms = [BernoulliRBM(64, hidden=32, learning_rate=0.5, seed=5,
+                         device=dev) for dev in ("cpu", card)]
+    rng = numpy.random.default_rng(4)
+    for _ in range(3):
+        v = torch.as_tensor((rng.random((16, 64)) < 0.4).astype(
+            numpy.float32))
+        before = ops_random.launches
+        for r in rbms:
+            r.step(v.to(r.device))
+        assert ops_random.launches == before + 1
+        assert torch.equal(rbms[0].samples[0], rbms[1].samples[0].cpu())
+    numpy.testing.assert_allclose(rbms[1].weights.cpu().numpy(),
+                                  rbms[0].weights.numpy(), rtol=1e-5,
+                                  atol=1e-5)
+
+
+def test_s2d_stem_on_the_card(card):
+    """AlexNet's blocked 11×11/4 stem on the card (float32, its flat
+    pre-blocked input) against the strided stem: within 1e-4."""
+    from veles_tpu_torch.models.conv import Conv, space_to_depth
+    rng = numpy.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((4, 227, 227, 3)),
+                        dtype=torch.float32).to(card)
+    w = rng.standard_normal((11, 11, 3, 96)).astype(numpy.float32) * 0.05
+    b = rng.standard_normal(96).astype(numpy.float32)
+    conv = dict(n_kernels=96, kx=11, ky=11, sliding=(4, 4), padding="valid",
+                device=card, dtype="float32")
+    plain = Conv(**conv)
+    s2d = Conv(space_to_depth=4, space_to_depth_hw=(57, 57), **conv)
+    for u in (plain, s2d):
+        u.load_params({"weights": w, "bias": b})
+    y = plain.apply(x)
+    yb = s2d.apply(space_to_depth(x, 4).reshape(4, -1))
+    numpy.testing.assert_allclose(yb.cpu().numpy(), y.cpu().numpy(),
+                                  rtol=1e-4, atol=1e-4)

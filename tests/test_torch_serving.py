@@ -110,3 +110,41 @@ def test_greedy_streams_identical_int8_decode(f32, spec_trained_chain):
     got = _serve_port(port_chain(_spec(fw, int8_decode=True), fw),
                       prompts, "int8", 16)
     assert got == want
+
+
+@pytest.mark.parametrize("bucket", [16, 32])
+def test_prefill_bucket_matches_reference(f32, spec_trained_chain, bucket):
+    """Fault C7: the port's scheduler takes the reference's
+    ``prefill_bucket`` and ``warm_buckets``.  At ``prefill_bucket`` 16
+    and 32 (``warm_buckets=False`` on both sides) the staging widths equal
+    the reference's for every prompt length, one-shot and chunked, and
+    the greedy streams, the chunk counters of ``metrics()`` and a clean
+    ``check_kv()`` equal the reference's."""
+    from veles_tpu.serving import InferenceScheduler as JaxScheduler
+    from veles_tpu_torch.serving import InferenceScheduler
+    fw, pattern = spec_trained_chain
+    chain = port_chain(_spec(fw), fw)
+    kw = dict(max_slots=4, window=WINDOW, kv="paged", block_size=BLOCK,
+              prefill_chunk=16, spec=False, prefix_cache=False,
+              prefill_bucket=bucket, warm_buckets=False)
+    jsch = JaxScheduler(fw, **kw)
+    sch = InferenceScheduler(chain, device="cpu", **kw)
+    assert (sch.prefill_bucket, sch.warm_buckets) == (bucket, False)
+    for p_len in range(1, WINDOW):
+        for chunk in (0, 16):
+            assert sch._staging_width(p_len, chunk) \
+                == jsch._staging_width(p_len, chunk), (p_len, chunk)
+    prompts = _prompts(pattern)
+    out = {}
+    for name, s in (("jax", jsch), ("port", sch)):
+        s.start()
+        try:
+            futs = [s.submit(p, STEPS, seed=0) for p in prompts]
+            streams = [f.result(240) for f in futs]
+            m = s.metrics()
+        finally:
+            s.close()
+        s.check_kv()
+        out[name] = (streams, m["prefill_chunks"], m["prefill_chunk_tokens"])
+    assert out["port"] == out["jax"]
+    assert out["port"][2] > 0

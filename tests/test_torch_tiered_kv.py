@@ -51,10 +51,10 @@ def _sched(pkg, chain, **kw):
     """A scheduler of either package at the file's shapes (window 64,
     block 4, chunk 4, 2 slots); the caller starts and closes it."""
     kw = dict(dict(max_slots=2, window=WINDOW, kv="paged", block_size=4,
-                   prefill_chunk=4), **kw)
+                   prefill_chunk=4, warm_buckets=False), **kw)
     if pkg == "jax":
         from veles_tpu.serving import InferenceScheduler
-        return InferenceScheduler(chain, warm_buckets=False, **kw)
+        return InferenceScheduler(chain, **kw)
     from veles_tpu_torch.serving import InferenceScheduler
     return InferenceScheduler(chain, device="cpu", **kw)
 

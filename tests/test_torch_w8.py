@@ -151,9 +151,9 @@ def test_int8_checkpoint_loads(w8, f32):
 
 
 def _serve(pkg, chain, submits, **kw):
+    kw.setdefault("warm_buckets", False)
     if pkg == "jax":
         from veles_tpu.serving import InferenceScheduler
-        kw.setdefault("warm_buckets", False)
     else:
         from veles_tpu_torch.serving import InferenceScheduler
         kw.setdefault("device", "cpu")

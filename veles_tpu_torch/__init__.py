@@ -17,10 +17,15 @@ of it (``restful_api.py``: ``/generate`` with SSE, the OpenAI
 ``/metrics``, ``/debug/state`` over the flight recorder, ``/drain``),
 trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
-a device-resident ``FullBatchLoader``) and trains AlexNet
+a device-resident ``FullBatchLoader``) and trains AlexNet and VGG-A
 (``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
-and a softmax head over a synthetic ImageNet drawn on the card), with
-kernels written by hand for ``sm_90a`` under ``csrc/``:
+and a softmax head over a synthetic ImageNet drawn on the card).  Its
+chains take every layer type of the reference (``models/standard.py``):
+mixture-of-experts FFNs (served and trained like dense ones), recurrent
+units, transposed convolutions and depooling under the MSE evaluator;
+``models/kohonen.py`` and ``models/rbm.py`` train self-organizing maps
+and RBMs.  Its kernels are written by hand for ``sm_90a`` under
+``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
   int8 dequant fused, a row's blocks split over a thread-block cluster
@@ -85,7 +90,11 @@ SUBMODULES = (
     "veles_tpu_torch.models.all2all",
     "veles_tpu_torch.models.attention",
     "veles_tpu_torch.models.embedding",
+    "veles_tpu_torch.models.moe",
     "veles_tpu_torch.models.transformer",
+    "veles_tpu_torch.models.recurrent",
+    "veles_tpu_torch.models.kohonen",
+    "veles_tpu_torch.models.rbm",
     "veles_tpu_torch.models.standard",
     "veles_tpu_torch.models.evaluator",
     "veles_tpu_torch.models.solvers",

@@ -5,8 +5,11 @@ parameters, or fresh from a seed.
 array}}`` — exactly ``{i: {n: a.mem for n, a in
 u.param_arrays().items()}}`` of a JAX ``make_forwards`` chain — and
 returns the port's chain holding the same weights.  The layouts are the
-JAX package's (``[d_in, d_out]`` matrices, HWIO convolution kernels),
-so nothing is transposed.
+JAX package's (``[d_in, d_out]`` matrices, HWIO convolution kernels,
+HWOI transposed-convolution kernels, logical ``[ky, kx, C, O]`` kernels
+of space-to-depth stems, expert-major MoE tensors), so nothing is
+transposed.  Kohonen maps and RBMs are not chain units: their arrays
+go to ``KohonenTrainer(weights=)`` and ``BernoulliRBM.load_params``.
 :func:`params_to_numpy` reads a chain back in the same form, and
 :func:`set_trainer_state` gives the port's ``GradientDescent`` the
 solver slots and step count of a JAX trainer.

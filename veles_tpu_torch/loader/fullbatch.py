@@ -17,10 +17,12 @@ class FullBatchLoader(Loader):
     """``data`` [total, ...] (numpy, or a tensor taken as it lies) with
     ``labels`` (one int per sample, or None) in ``class_lengths`` =
     [test, validation, train] order.  Labels are served as class
-    indices through ``labels_mapping``."""
+    indices through ``labels_mapping``.  ``targets`` [total, ...] are
+    regression targets (``targets_dev``, read by ``EvaluatorMSE``'s
+    trainer), or None."""
 
     def __init__(self, data, labels=None, class_lengths=None,
-                 minibatch_size=100, seed=None, device=None):
+                 minibatch_size=100, seed=None, device=None, targets=None):
         if not torch.is_tensor(data):
             data = numpy.asarray(data)
         if class_lengths is None:
@@ -45,3 +47,5 @@ class FullBatchLoader(Loader):
                 labels = [self.labels_mapping.get(l, -1) for l in labels]
             labels = numpy.asarray(labels, numpy.int32)
         self.labels_dev = torch.as_tensor(labels).to(self.device)
+        self.targets_dev = None if targets is None \
+            else torch.as_tensor(targets).to(self.device)

@@ -1,9 +1,10 @@
 """Evaluators' losses and metrics — the port of
 ``veles_tpu/models/evaluator.py`` for the trainer: the masked softmax
-cross-entropy, the classifier head's loss and the per-token next-token
-objective.  (The JAX package's evaluators are also in-graph units that
-read the loader's minibatch size each run; the port's trainer passes
-the size itself, so only the pure functions are needed.)"""
+cross-entropy, the classifier head's loss, the per-token next-token
+objective and the regression's mean squared error.  (The JAX package's
+evaluators are also in-graph units that read the loader's minibatch
+size each run; the port's trainer passes the size itself, so only the
+pure functions are needed.)"""
 
 import torch
 
@@ -33,6 +34,27 @@ class EvaluatorSoftmax:
 
     def loss(self, y, labels, size):
         return self.loss_from_logits(y, labels, size)
+
+
+class EvaluatorMSE:
+    """Mean squared error against regression targets (an autoencoder's
+    targets are its inputs): the masked sum of squared differences in
+    f32 over the ``size`` valid rows, divided by ``size`` and by the
+    elements per sample.  The trainer reports no error count for it
+    (``n_err`` 0, as the reference's trainer does)."""
+
+    #: the trainer gathers the loader's ``targets_dev`` as the target
+    TARGETS = True
+
+    def loss(self, y, target, size):
+        diff = (y.to(torch.float32)
+                - target.to(torch.float32)).reshape(y.shape[0], -1)
+        mask = (torch.arange(y.shape[0], device=y.device) < size)[:, None]
+        return torch.where(mask, diff * diff, torch.zeros_like(diff)).sum() \
+            / max(int(size), 1) / diff.shape[1]
+
+    def train_metrics(self, y, target, size):
+        return torch.zeros((), dtype=torch.int32, device=y.device)
 
 
 class EvaluatorNextToken:

@@ -15,9 +15,12 @@ nonfinite, loss]``, the ``skip_step`` policy (a non-finite step keeps
 the parameters and slots it had) and the per-class ``[3, 3]`` epoch
 accumulator ``[n_err / units, loss · size, size]``, all on the device.
 Validation and test minibatches compute the loss and metrics without
-the update.  :meth:`GradientDescent.run_span` consumes a loader's class
-span: a host loop over its index schedule, gathering each minibatch
-from the device-resident dataset.
+the update.  An evaluator's ``train_metrics`` gives ``n_err`` (the
+argmax error count otherwise); ``EvaluatorMSE`` reports 0 there and its
+mse as the loss, and reads the loader's ``targets_dev`` as its target,
+as the JAX trainer does for it.  :meth:`GradientDescent.run_span`
+consumes a loader's class span: a host loop over its index schedule,
+gathering each minibatch from the device-resident dataset.
 
 Randomness is the JAX trainer's: a ``"trainer"`` generator (seed 42
 unless given) whose ``peek_key(global_step)`` keys a minibatch, folded
@@ -285,7 +288,9 @@ class GradientDescent:
         ``loader.dataset_dev`` (indices past the span clamp to row 0,
         as the JAX package's gather clips, and are masked by size); the
         k-th minibatch's key is ``fold_in(peek_key(global_step), k)``."""
-        ds, labels = loader.dataset_dev, loader.labels_dev
+        ds = loader.dataset_dev
+        labels = loader.targets_dev \
+            if getattr(self.evaluator, "TARGETS", False) else loader.labels_dev
         idx = torch.as_tensor(loader.span_indices_, device=ds.device).long()
         idx = idx.clamp(0, ds.shape[0] - 1)
         sizes = [int(n) for n in loader.span_sizes_]

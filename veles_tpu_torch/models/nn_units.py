@@ -37,6 +37,9 @@ class ForwardBase(nn.Module):
     how they are shaped and filled)."""
 
     PARAMS = ()
+    #: parameters filled as vectors are (zeros, ones for ``*_scale``)
+    #: whatever their rank: stacked per-expert biases
+    VECTORS = ()
 
     def __init__(self, device=None, dtype=None, **hyper):
         super().__init__()
@@ -78,7 +81,7 @@ class ForwardBase(nn.Module):
         fan_out))), unit scales and zero biases."""
         out = {}
         for name, shape in self.param_shapes(in_shape, window).items():
-            if len(shape) == 1:
+            if len(shape) == 1 or name in self.VECTORS:
                 fill = 1.0 if name.endswith("_scale") else 0.0
                 out[name] = numpy.full(shape, fill, numpy.float32)
             else:
@@ -119,12 +122,17 @@ class ForwardBase(nn.Module):
         return self.derived(("cast", name),
                             lambda: self.params[name].to(self.dtype))
 
+    def mm_weight(self, name):
+        """Parameter ``name`` rounded to the compute dtype, in f32: the
+        operand of a policy product (exact products, an f32 sum)."""
+        return self.derived(("mm", name), lambda: self.params[name].to(
+            self.dtype).to(torch.float32))
+
     def linear(self, x, name):
         """``x @ params[name]`` under the dtype policy: operands
         rounded to the compute dtype, an f32 sum and result."""
-        w = self.derived(("mm", name), lambda: self.params[name].to(
-            self.dtype).to(torch.float32))
-        return torch.matmul(x.to(self.dtype).to(torch.float32), w)
+        return torch.matmul(x.to(self.dtype).to(torch.float32),
+                            self.mm_weight(name))
 
     def forward(self, x):
         return self.apply(x)

@@ -1,9 +1,11 @@
 """Pooling layers — the port of ``veles_tpu/models/pooling.py``
-(``MaxPooling``, ``AvgPooling``; ``Depooling`` waits for a later
-slice).  VALID windows over NHWC, ``sliding`` as ``(sx, sy)``
-(default: the window), computed by the library's pooling on the
-channels-last view.  A max window's gradient goes to its first maximum
-in row-major order, as XLA's ``select_and_scatter`` routes it."""
+(``MaxPooling``, ``AvgPooling``, ``Depooling``).  VALID windows over
+NHWC, ``sliding`` as ``(sx, sy)`` (default: the window), computed by
+the library's pooling on the channels-last view.  A max window's
+gradient goes to its first maximum in row-major order, as XLA's
+``select_and_scatter`` routes it.  ``Depooling`` is the nearest-neighbour
+upsampling of the conv autoencoders' decoders: each value repeated
+``sy`` times down and ``sx`` times across."""
 
 import torch.nn.functional as F
 
@@ -45,3 +47,17 @@ class AvgPooling(PoolingBase):
     def apply(self, x):
         return self._pool(F.avg_pool2d, x, divisor_override=1) \
             / (self.kx * self.ky)
+
+
+class Depooling(PoolingBase):
+    """[N, H, W, C] → [N, H·sy, W·sx, C], each value repeated over its
+    ``sy`` × ``sx`` cell."""
+
+    def out_shape(self, in_shape):
+        h, w, c = in_shape
+        sx, sy = self.sliding
+        return (h * sy, w * sx, c)
+
+    def apply(self, x):
+        sx, sy = self.sliding
+        return x.repeat_interleave(sy, dim=1).repeat_interleave(sx, dim=2)

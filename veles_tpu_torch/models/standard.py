@@ -1,19 +1,25 @@
 """Chain builder — the port of ``veles_tpu/models/standard.make_forwards``
-for the LM chain's layer types, multi-head attention and the conv-net
-family (convolutions, pooling, LRN, dropout, fully-connected layers and
-the softmax head)."""
+with all of the reference's layer types: the LM chain's (embedding,
+transformer blocks with dense or MoE FFNs, the logits head), attention,
+the MoE layer, the sequence pools, the recurrent units and the conv-net
+family (convolutions, the transposed convolution, pooling and
+depooling, LRN, dropout, fully-connected layers and the softmax
+head)."""
 
 from veles_tpu_torch.models.all2all import (
     All2All, All2AllRELU, All2AllSigmoid, All2AllSoftmax, All2AllStrictRELU,
     All2AllTanh)
 from veles_tpu_torch.models.attention import MultiHeadAttention
 from veles_tpu_torch.models.conv import (
-    Conv, ConvRELU, ConvStrictRELU, ConvTanh)
+    Conv, ConvRELU, ConvStrictRELU, ConvTanh, Deconv)
 from veles_tpu_torch.models.dropout import DropoutForward
 from veles_tpu_torch.models.embedding import Embedding
 from veles_tpu_torch.models.lrn import LRNormalizerForward
-from veles_tpu_torch.models.pooling import AvgPooling, MaxPooling
-from veles_tpu_torch.models.transformer import TokenProjection, TransformerBlock
+from veles_tpu_torch.models.moe import MoE
+from veles_tpu_torch.models.pooling import AvgPooling, Depooling, MaxPooling
+from veles_tpu_torch.models.recurrent import LSTM, LastTimestep, SimpleRNN
+from veles_tpu_torch.models.transformer import (
+    MeanPoolSeq, TokenProjection, TransformerBlock)
 
 #: layer-type names (the JAX package's spec keys) → unit classes
 LAYER_TYPES = {
@@ -27,13 +33,20 @@ LAYER_TYPES = {
     "conv_tanh": ConvTanh,
     "conv_relu": ConvRELU,
     "conv_str": ConvStrictRELU,
+    "deconv": Deconv,
     "max_pooling": MaxPooling,
     "avg_pooling": AvgPooling,
+    "depooling": Depooling,
     "dropout": DropoutForward,
     "norm": LRNormalizerForward,
     "attention": MultiHeadAttention,
+    "moe": MoE,
     "embedding": Embedding,
     "transformer_block": TransformerBlock,
+    "mean_pool_seq": MeanPoolSeq,
+    "rnn": SimpleRNN,
+    "lstm": LSTM,
+    "last_timestep": LastTimestep,
     "token_logits": TokenProjection,
 }
 

@@ -1,5 +1,5 @@
-"""Pre-LN transformer block and the per-token logits head — the port
-of ``veles_tpu/models/transformer.py`` (dense FFN).
+"""Pre-LN transformer block, the sequence mean-pool and the per-token
+logits head — the port of ``veles_tpu/models/transformer.py``.
 
 :meth:`TransformerBlock.apply` is the training forward: its attention
 core is ``models/attention.attention_core`` with the JAX package's
@@ -17,11 +17,21 @@ the compute dtype, layer norm and the logits run in f32.  Caches and
 pools are updated in place (the JAX methods return new arrays; these
 return the same dicts they were given, written).
 
+``n_experts`` > 0 makes the FFN a top-k mixture of experts
+(``models/moe.moe_apply``, dense dispatch; ``gate`` and the
+expert-major ``expert_*`` tensors replace ``ffn_*``).  Every path goes
+through :meth:`TransformerBlock._attn_tail`, so a MoE block trains,
+prefills and decodes (dense and paged, decode and verify) through the
+same methods.
+
 ``int8_decode`` routes the paged decode and verify steps' output
 projection and both FFN matmuls through the weight-only int8 GEMM
 (``ops/gemm.int8_matmul``, the hand-written kernel on the card) — three
 launches per layer per step; prefill and the dense steps keep the
-policy matmul.
+policy matmul.  A MoE block's FFN stays on the policy products, as the
+reference's ``_ffn`` returns the MoE result before it looks at the
+int8 path: one launch per layer per step (``wo``).  Int8 weight
+checkpoints need the dense FFN and refuse a MoE block.
 
 Int8 weight checkpoints (:meth:`TransformerBlock.quantize_weights`, or
 ``load_params`` given int8 weights with their ``*_scale`` arrays) store
@@ -37,6 +47,8 @@ import numpy
 import torch
 
 from veles_tpu_torch.models.attention import attention_core
+from veles_tpu_torch.models.moe import (
+    MOE_BIASES, MOE_PARAMS, moe_apply, moe_fans, moe_shapes)
 from veles_tpu_torch.models.nn_units import ForwardBase
 from veles_tpu_torch.ops import softmax
 from veles_tpu_torch.ops.gemm import int8_matmul, int8_weight_quantize
@@ -63,22 +75,33 @@ _W8_REFUSED = (
     "path would re-quantize the stored int8 values and drop their "
     "*_scale arrays (the reference's logits then belong to another "
     "model); serve an int8 checkpoint with int8_decode=False")
+_MOE_INT8 = ("int8 weight checkpoints need the dense FFN (a MoE block's "
+             "expert weights are not quantized)")
 
 
 class TransformerBlock(ForwardBase):
     """x → x + MHA(LN(x)) → + FFN(LN(.)), x: [batch, seq, d]."""
 
-    PARAMS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
-              "ln2_scale", "ln2_bias", "ffn_w1", "ffn_b1", "ffn_w2",
-              "ffn_b2")
+    BASE_PARAMS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
+                   "ln2_scale", "ln2_bias")
+    DENSE_FFN = ("ffn_w1", "ffn_b1", "ffn_w2", "ffn_b2")
+    PARAMS = BASE_PARAMS + DENSE_FFN
+    VECTORS = MOE_BIASES
 
-    def __init__(self, heads=4, hidden=None, causal=True,
-                 attn_block_size=None, attn_impl=None, int8_decode=False,
-                 device=None, dtype=None, **hyper):
+    def __init__(self, heads=4, hidden=None, causal=True, n_experts=0,
+                 top_k=2, attn_block_size=None, attn_impl=None,
+                 int8_decode=False, device=None, dtype=None, **hyper):
         super().__init__(device=device, dtype=dtype, **hyper)
         self.heads = int(heads)
         self.hidden = hidden     # None → 4·d
         self.causal = bool(causal)
+        #: a top-k MoE FFN of this many experts (0: the dense FFN)
+        self.n_experts = int(n_experts)
+        self.top_k = int(top_k)
+        if self.n_experts and self.top_k > self.n_experts:
+            raise ValueError("top_k %d > n_experts %d"
+                             % (self.top_k, self.n_experts))
+        self.PARAMS = self._ffn_params()
         #: attention core of :meth:`apply` (models/attention.py)
         self.attn_block_size = attn_block_size
         self.attn_impl = attn_impl
@@ -106,17 +129,25 @@ class TransformerBlock(ForwardBase):
                              % (d, self.heads))
         h = int(self.hidden or 4 * d)
         shapes = {n: (d,) for n in ("ln1_scale", "ln1_bias", "ln2_scale",
-                                    "ln2_bias", "ffn_b2")}
+                                    "ln2_bias")}
         shapes.update({n: (d, d) for n in ("wq", "wk", "wv", "wo")})
-        shapes.update({"ffn_w1": (d, h), "ffn_b1": (h,),
-                       "ffn_w2": (h, d)})
+        if self.n_experts:
+            shapes.update(moe_shapes(d, self.n_experts, h))
+        else:
+            shapes.update({"ffn_w1": (d, h), "ffn_b1": (h,),
+                           "ffn_w2": (h, d), "ffn_b2": (d,)})
         return shapes
+
+    def fans(self, shape):
+        return moe_fans(shape)
 
     def load_params(self, arrays):
         """Load f32 weights, or an int8 checkpoint: the INT8_WEIGHTS as
         int8 arrays, each with its ``{name}_scale`` f32 vector."""
         int8 = any(n + "_scale" in arrays for n in INT8_WEIGHTS)
         if int8:
+            if self.n_experts:
+                raise ValueError(_MOE_INT8)
             if self.int8_decode:
                 raise ValueError(_W8_REFUSED)
             bad = [n for n in INT8_WEIGHTS
@@ -125,14 +156,21 @@ class TransformerBlock(ForwardBase):
             if bad:
                 raise ValueError("int8 checkpoint: %s must be int8 with "
                                  "*_scale arrays" % bad)
-        self.PARAMS = type(self).PARAMS + (
+        self.PARAMS = self._ffn_params() + (
             tuple(n + "_scale" for n in INT8_WEIGHTS) if int8 else ())
         super().load_params(arrays)
         if int8:
             for n in INT8_WEIGHTS:   # integers in [-127, 127]: exact
                 self.params[n] = self.params[n].to(torch.int8)
         self.weights_int8 = int8
-        self.hidden = int(self.params["ffn_w1"].shape[1])
+        self.hidden = int(self.params["expert_w1"].shape[2]
+                          if self.n_experts
+                          else self.params["ffn_w1"].shape[1])
+
+    def _ffn_params(self):
+        """The parameters of the block's FFN kind (no int8 scales)."""
+        return self.BASE_PARAMS + (MOE_PARAMS if self.n_experts
+                                   else self.DENSE_FFN)
 
     def quantize_weights(self):
         """Re-store the six matmul weights as an int8 checkpoint:
@@ -141,6 +179,8 @@ class TransformerBlock(ForwardBase):
         the f32 one and a ``{name}_scale`` f32 vector joining ``PARAMS``.
         Idempotent.  Refused while ``int8_decode`` is on (see the module
         docstring)."""
+        if self.n_experts:
+            raise ValueError(_MOE_INT8)
         if self.weights_int8:
             return
         if self.int8_decode:
@@ -149,7 +189,7 @@ class TransformerBlock(ForwardBase):
             wq, scale = int8_weight_quantize(self.params[name])
             self.params[name] = wq
             self.params[name + "_scale"] = scale.to(torch.float32)
-        self.PARAMS = type(self).PARAMS + tuple(
+        self.PARAMS = self._ffn_params() + tuple(
             n + "_scale" for n in INT8_WEIGHTS)
         self.weights_int8 = True
         self._derived = {}
@@ -206,6 +246,9 @@ class TransformerBlock(ForwardBase):
         return out.reshape(b, s, -1)
 
     def _ffn(self, x, w8=False):
+        if self.n_experts:   # before the int8 path, as the reference
+            return moe_apply(self.params, x, self.top_k, "strict_relu",
+                             self.dtype, self.mm_weight)
         mm = self._w8_matmul if w8 else self._proj
         h1 = mm(x, "ffn_w1")
         h1 = torch.relu(h1 + self.params["ffn_b1"]).to(self.dtype)
@@ -374,6 +417,16 @@ class TransformerBlock(ForwardBase):
             _, _, o = verify(q, k_new, v_new, pool["k"], pool["v"],
                              tables, pos, lens, self.heads, self.dtype)
         return self._attn_tail(x, o, w8=self.int8_decode), pool
+
+
+class MeanPoolSeq(ForwardBase):
+    """[batch, seq, d] → [batch, d], the mean over the sequence axis."""
+
+    def out_shape(self, in_shape):
+        return (in_shape[-1],)
+
+    def apply(self, x):
+        return x.mean(dim=1)
 
 
 class TokenProjection(ForwardBase):

@@ -35,6 +35,15 @@ class RandomGenerator:
         """Permute a numpy array in place."""
         self.np.shuffle(arr)
 
+    def fill(self, arr, vmin=-1.0, vmax=1.0):
+        """Fill a numpy array in place with uniform draws in [vmin,
+        vmax) (the reference's ``fill``, the same stream)."""
+        arr[...] = self.np.uniform(vmin, vmax, arr.shape).astype(arr.dtype)
+
+    def fill_normal(self, arr, mean=0.0, stddev=1.0):
+        """Fill a numpy array in place with normal draws."""
+        arr[...] = self.np.normal(mean, stddev, arr.shape).astype(arr.dtype)
+
     # -- device stream -------------------------------------------------------
 
     def key(self, device=None):

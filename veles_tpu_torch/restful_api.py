@@ -97,8 +97,8 @@ class RESTfulAPI:
     The parameters keep the reference's names and order.  ``workflow``
     and ``loader`` must be None (the workflow runtime is ROADMAP item
     9).  ``serving_tp`` takes only its feature-off values (None or 0:
-    item 10).  ``serving_warm_buckets`` has no effect: the port compiles
-    nothing.  The other ``serving_*`` knobs (``serving_role``,
+    item 10).  ``serving_warm_buckets`` goes to the scheduler, which
+    records it (the port compiles nothing).  The other ``serving_*`` knobs (``serving_role``,
     ``serving_kv_host_bytes`` and ``serving_kv_export_bytes`` among
     them) go to the scheduler, None meaning its default (the
     reference's defaults).
@@ -154,6 +154,7 @@ class RESTfulAPI:
         self.serving_spec = serving_spec
         self.serving_spec_k = serving_spec_k
         self.serving_prefix_cache = serving_prefix_cache
+        self.serving_warm_buckets = serving_warm_buckets
         self.serving_role = serving_role
         self.serving_kv_host_bytes = serving_kv_host_bytes
         self.serving_kv_export_bytes = serving_kv_export_bytes
@@ -263,6 +264,7 @@ class RESTfulAPI:
                     ("spec", self.serving_spec),
                     ("spec_k", self.serving_spec_k),
                     ("prefix_cache", self.serving_prefix_cache),
+                    ("warm_buckets", self.serving_warm_buckets),
                     ("role", self.serving_role),
                     ("kv_host_bytes", self.serving_kv_host_bytes),
                     ("kv_export_bytes", self.serving_kv_export_bytes))

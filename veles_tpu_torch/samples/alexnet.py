@@ -11,6 +11,12 @@ of the JAX sample, drawn on the device (``uniform(key(42), ...)`` plus
 ``numpy.random.default_rng(42)``.  On the card the draw runs through
 kernel 5 and the dataset never crosses from the host.
 
+``space_to_depth=4`` runs AlexNet's 11×11/4 stem in blocked form: the
+loader pre-blocks the dataset and stores it flat ``[N, hb·wb·48]``, and
+the stem reshapes it (``models/conv.py``).  ``model="vgg_a"`` builds
+VGG-A instead (:func:`vgg_a_layers`, the reference's other ImageNet
+configuration; its 3×3/1 stem has nothing to block).
+
     from veles_tpu_torch.samples.alexnet import build_alexnet, train_alexnet
     net = build_alexnet(side=67, widths=(8, 16, 24, 24, 16, 32),
                         classes=10, n_train=64, minibatch_size=16,
@@ -26,6 +32,7 @@ import torch
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.convert import init_params
 from veles_tpu_torch.loader import FullBatchLoader
+from veles_tpu_torch.models import conv
 from veles_tpu_torch.models.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.models.gd import GradientDescent
 from veles_tpu_torch.ops import random as ops_random
@@ -36,16 +43,21 @@ from veles_tpu_torch.samples.lm import train_lm
 ALEXNET_WIDTHS = (96, 256, 384, 384, 256, 4096)
 
 
-def alexnet_layers(classes=1000, dropout=0.5, widths=ALEXNET_WIDTHS):
+def alexnet_layers(classes=1000, dropout=0.5, widths=ALEXNET_WIDTHS,
+                   space_to_depth=0, side=227):
     """The AlexNet layer spec (Krizhevsky et al. 2012) of the JAX
-    sample with the plain strided stem (``space_to_depth=0``, as
-    ``bench_alexnet`` pins it); ``widths`` narrows it for tests."""
+    sample; ``widths`` narrows it for tests.  ``space_to_depth=n``
+    makes the stem the blocked one over a flat pre-blocked input of
+    ``side``-pixel images (``bench_alexnet`` pins 0, the plain strided
+    stem)."""
     c1, c2, c3, c4, c5, fc = widths
     norm = {"type": "norm", "n": 5, "alpha": 1e-4, "beta": 0.75, "k": 2.0}
     pool = {"type": "max_pooling", "kx": 3, "ky": 3, "sliding": (2, 2)}
+    s2d_hw = (-(-side // space_to_depth),) * 2 if space_to_depth else None
     return [
         {"type": "conv_relu", "n_kernels": c1, "kx": 11, "ky": 11,
-         "sliding": (4, 4), "padding": "valid"},
+         "sliding": (4, 4), "padding": "valid",
+         "space_to_depth": space_to_depth, "space_to_depth_hw": s2d_hw},
         dict(norm), dict(pool),
         {"type": "conv_relu", "n_kernels": c2, "kx": 5, "ky": 5,
          "padding": 2, "n_groups": 2},
@@ -65,22 +77,53 @@ def alexnet_layers(classes=1000, dropout=0.5, widths=ALEXNET_WIDTHS):
     ]
 
 
+def vgg_a_layers(classes=1000, dropout=0.5):
+    """VGG-A (Simonyan and Zisserman 2014, configuration A), the JAX
+    sample's ``vgg_a_layers``: eight 3×3 convolutions in five stages,
+    2×2 max pools, two 4096-wide FC layers with dropout."""
+    def conv3x3(k):
+        return {"type": "conv_relu", "n_kernels": k, "kx": 3, "ky": 3,
+                "padding": 1}
+
+    pool = {"type": "max_pooling", "kx": 2, "ky": 2}
+    return [
+        conv3x3(64), dict(pool),
+        conv3x3(128), dict(pool),
+        conv3x3(256), conv3x3(256), dict(pool),
+        conv3x3(512), conv3x3(512), dict(pool),
+        conv3x3(512), conv3x3(512), dict(pool),
+        {"type": "all2all_relu", "output_sample_shape": (4096,)},
+        {"type": "dropout", "dropout_ratio": dropout},
+        {"type": "all2all_relu", "output_sample_shape": (4096,)},
+        {"type": "dropout", "dropout_ratio": dropout},
+        {"type": "softmax", "output_sample_shape": (classes,)},
+    ]
+
+
 class ImagenetLoader(FullBatchLoader):
     """The JAX sample's synthetic ImageNet: ``n_valid`` validation then
     ``n_train`` train samples [side, side, 3], labels from
     ``default_rng(42)`` and data ``uniform(key(42)) + label / classes``
-    in f32, stored bf16 on ``device``."""
+    in f32, stored bf16 on ``device``; with ``space_to_depth=n``
+    pre-blocked (``models.conv.space_to_depth``) and stored flat, for
+    AlexNet's blocked stem (whose geometry it validates)."""
 
     def __init__(self, side=227, classes=1000, n_train=2048, n_valid=256,
-                 minibatch_size=256, seed=None, device=None):
+                 minibatch_size=256, seed=None, device=None,
+                 space_to_depth=0):
         dev = resolve_device(device)
+        if space_to_depth:
+            conv.validate_space_to_depth(side, side, 11, 11, space_to_depth)
         tot = n_train + n_valid
         labels = numpy.random.default_rng(42).integers(0, classes, tot)
         data = ops_random.uniform(threefry.key(42), (tot, side, side, 3),
                                   device=dev)
         lab = torch.as_tensor(labels, device=dev).to(torch.float32)
         data.add_((lab / classes)[:, None, None, None])
-        super().__init__(data.to(torch.bfloat16), labels,
+        data = data.to(torch.bfloat16)
+        if space_to_depth:
+            data = conv.space_to_depth(data, space_to_depth).reshape(tot, -1)
+        super().__init__(data, labels,
                          [0, n_valid, n_train],
                          minibatch_size=minibatch_size, seed=seed,
                          device=dev)
@@ -93,17 +136,33 @@ def build_alexnet(minibatch_size=1024, side=227, classes=1000, n_train=4096,
                   n_valid=0, dropout=0.5, widths=ALEXNET_WIDTHS,
                   learning_rate=0.01, gradient_moment=0.9,
                   weights_decay=0.0005, seed=0, loader=None, device=None,
-                  dtype="bfloat16", **trainer_kwargs):
+                  dtype="bfloat16", model="alexnet", space_to_depth=0,
+                  **trainer_kwargs):
     """AlexNet's pieces with ``bench_alexnet``'s defaults (batch 1024,
     side 227, 1000 classes, 4096 train samples, SGD lr 0.01 momentum
     0.9 weights decay 0.0005, dropout 0.5, bf16 compute): a chain with
     fresh weights from ``seed``, the softmax evaluator, the trainer and
-    ``loader`` (default: an :class:`ImagenetLoader`)."""
+    ``loader`` (default: an :class:`ImagenetLoader`).  ``model`` is
+    "alexnet" (``widths`` and ``space_to_depth`` apply) or "vgg_a"."""
+    if model == "vgg_a":
+        space_to_depth = 0
+        layers = vgg_a_layers(classes, dropout)
+    elif model == "alexnet":
+        layers = alexnet_layers(classes, dropout, widths, space_to_depth,
+                                side)
+    else:
+        raise ValueError("model must be 'alexnet' or 'vgg_a', not %r"
+                         % (model,))
     if loader is None:
         loader = ImagenetLoader(side, classes, n_train, n_valid,
-                                minibatch_size=minibatch_size, device=device)
-    chain = init_params(alexnet_layers(classes, dropout, widths), seed,
-                        device=device, dtype=dtype, in_shape=(side, side, 3))
+                                minibatch_size=minibatch_size, device=device,
+                                space_to_depth=space_to_depth)
+    in_shape = (side, side, 3)
+    if space_to_depth:
+        hb = -(-side // space_to_depth)
+        in_shape = (hb * hb * space_to_depth ** 2 * 3,)
+    chain = init_params(layers, seed, device=device, dtype=dtype,
+                        in_shape=in_shape)
     evaluator = EvaluatorSoftmax()
     trainer = GradientDescent(chain, evaluator, solver="sgd",
                               learning_rate=learning_rate,

@@ -156,8 +156,8 @@ from veles_tpu_torch.telemetry import reqtrace as tracing
 
 log = logging.getLogger(__name__)
 
-#: narrowest staging row a prompt prefills into (the JAX scheduler's
-#: default ``prefill_bucket``, so both pad prompts alike)
+#: narrowest staging row a prompt prefills into by default (the JAX
+#: scheduler's default ``prefill_bucket``, so both pad prompts alike)
 PREFILL_BUCKET = 8
 
 #: priority classes, lowest to highest; ints in [0, 2] also accepted
@@ -313,7 +313,12 @@ class InferenceScheduler(object):
     chain's positional table); ``max_queue`` — waiting-request cap
     (:class:`QueueFullError` above it); ``queue_timeout`` — the
     deadline in seconds of a request given no ``timeout`` while
-    ``request_timeout`` is 0; ``kv`` — the KV layout, "paged" (the
+    ``request_timeout`` is 0; ``prefill_bucket`` — the narrowest
+    staging row a prompt prefills into (prompts pad to a power of two
+    at least this wide); ``warm_buckets`` — accepted for the
+    reference's signature, where it pre-compiles the step's buckets:
+    the eager step has nothing to compile, so it only records the
+    value; ``kv`` — the KV layout, "paged" (the
     reference's default) or "dense" (:class:`~veles_tpu_torch.serving.
     kv_slots.SlotKVCache`: a window row per slot, no int8 pools,
     speculative decoding, prefix cache or block budget — each falls back
@@ -352,7 +357,8 @@ class InferenceScheduler(object):
     DRAFT_SHRINK, DRAFT_GROW = 0.5, 0.8
 
     def __init__(self, forwards, max_slots=4, window=None, max_queue=32,
-                 *, queue_timeout=30.0, kv="paged", block_size=16,
+                 *, queue_timeout=30.0, prefill_bucket=PREFILL_BUCKET,
+                 warm_buckets=None, kv="paged", block_size=16,
                  kv_blocks=None,
                  kv_dtype="fp32", prefill_chunk=64, spec=True, spec_k=4,
                  fused_verify=False, drafter=None, draft_head=None,
@@ -378,6 +384,9 @@ class InferenceScheduler(object):
         self.window = int(window)
         self.max_queue = int(max_queue)
         self.queue_timeout = float(queue_timeout or 0)
+        self.prefill_bucket = int(prefill_bucket)
+        self.warm_buckets = True if warm_buckets is None \
+            else bool(warm_buckets)
         if kv not in ("paged", "dense"):
             raise ValueError("kv must be 'paged' or 'dense'")
         if kv == "paged" and not paged_supported(forwards):
@@ -1838,7 +1847,7 @@ class InferenceScheduler(object):
         the power-of-two bucket of the prompt, floored so it tiles the
         chunk width and (paged) the block size."""
         bs = self.block_size if self.kv == "paged" else 1
-        floor = max(PREFILL_BUCKET, bs, chunk or 1)
+        floor = max(self.prefill_bucket, bs, chunk or 1)
         return _bucket(p_len, floor, 1 << 30)
 
     def _staging(self, width):
