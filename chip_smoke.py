@@ -253,7 +253,34 @@ result line):
    ``Deconv`` and a conv autoencoder (conv, max pooling, ``Depooling``,
    ``Deconv``) forward and gradients, the autoencoder's 3 SGD steps
    under ``EvaluatorMSE``, 3 Kohonen steps and 3 RBM CD-1 steps (hidden
-   samples bit-equal: the uniform fill against the plain draw).
+   samples bit-equal: the uniform fill against the plain draw);
+12. workflow — the workflow runtime (``StandardWorkflow``: repeater →
+   loader → trainer → ``DecisionGD`` → snapshotter, run by
+   ``Workflow.run()``): (a) ``AlexNetWorkflow`` at the sample's defaults
+   (227², 1000 classes, strided stem, minibatch 256, 2048 train and 256
+   validation samples, bf16, SGD lr 0.01 momentum 0.9 weights decay
+   0.0005, dropout 0.5) for 2 epochs beside ``build_alexnet`` +
+   ``train_alexnet`` run twice from the same seed and sizes: the
+   workflow's per-epoch losses and final weights within WF_RULE times
+   the two direct runs' own difference (bit-equal where they are),
+   ``lrn_fwd``, ``lrn_bwd`` and ``uniform_fill`` launching exactly as
+   often as on a direct run; an ungated ``SnapshotterToFile`` (codec
+   none) writes at the end of epoch 1, and ``import_file`` →
+   ``initialize(device="cuda")`` → ``run()`` ends with the weights of
+   the uninterrupted run under the same rule; per-epoch seconds, the
+   workflow's time against the direct loop's, the units' ``timers``,
+   peak memory and the snapshot's MB and seconds printed; (b)
+   ``LMWorkflow`` at ``bench_lm``'s width (random tokens, WF_LM_TRAIN
+   train sequences, one epoch, snapshotter off; the smoke's time is the
+   chains' builds, so its train set is cut to 16 sequences) against ``build_lm`` +
+   ``train_lm`` twice under the same rule, 8 launches of each
+   FlashAttention kernel per train step; (c) ``MnistWorkflow``,
+   ``CifarWorkflow`` (mean_disp), ``TransformerWorkflow`` at dim 512, 4
+   heads (head dim 128: the FlashAttention kernels in f32) and
+   ``KohonenWorkflow`` at small sizes for 2 epochs in float32 (CIFAR and
+   the transformer with SGD in place of Adam, the transformer at lr
+   1e-4), on the card against the
+   CPU: epoch metrics and weights within WF_SMALL_TOL.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -270,8 +297,10 @@ FlashAttention kernels' there too), phase 6g's under ``moe_launches``,
 and ``paged_attend``'s graph times at K1 16, 17 and 32 under ``wide``;
 the FlashAttention kernels' phase 4b launches under
 ``moe_train_launches``, the LRN and uniform kernels' phase 10b launches
-under ``s2d_vgg_launches`` and the uniform fill's phase 11 launches
-under ``families_launches``
+under ``s2d_vgg_launches``, the uniform fill's phase 11 launches
+under ``families_launches`` and the launches of phase 12's workflow runs
+(AlexNet's, the LM's and the transformer's) under
+``workflow_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -574,6 +603,19 @@ S2D_TOL, S2D_LOSS_TOL = 1e-2, 1e-2
 #: another order): outputs, gradients and parameters, relative and
 #: absolute
 FAMILY_TOL = 1e-4
+#: phase 12: AlexNetWorkflow at the sample's defaults (227², 1000
+#: classes, minibatch 256, 2048 train + 256 validation, bf16, 2 epochs);
+#: LMWorkflow at bench_lm's width over WF_LM_TRAIN random sequences for
+#: one epoch (16, not 32: the phase's time is the three chains' builds,
+#: and a step is 0.55 s); a workflow's number may differ from the direct run's by at
+#: most WF_RULE times the two direct runs' own difference (bit-equal
+#: where they are); the small samples card against CPU within WF_SMALL_TOL
+WF_BATCH, WF_TRAIN, WF_VALID, WF_EPOCHS = 256, 2048, 256, 2
+WF_SIDE, WF_CLASSES = 227, 1000
+WF_WIDTHS = (96, 256, 384, 384, 256, 4096)
+WF_LM_TRAIN = 16
+WF_RULE = 2.0
+WF_SMALL_TOL = 1e-3
 
 #: device-memory rate (bytes/s) by card name (NVIDIA data sheets)
 HBM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -5025,6 +5067,354 @@ def families_check(torch, dev):
     return {"uniform_fill": launched}
 
 
+# -- phase 12: the workflow runtime ---------------------------------------------
+
+def _zero_train_counts():
+    from veles_tpu_torch.ops import flash_attention as fa, lrn as lrn_mod
+    from veles_tpu_torch.ops import random as rnd
+    for mod in (fa, lrn_mod):
+        for name in mod.launches:
+            mod.launches[name] = 0
+    rnd.launches = 0
+
+
+def _read_train_counts():
+    from veles_tpu_torch.ops import flash_attention as fa, lrn as lrn_mod
+    from veles_tpu_torch.ops import random as rnd
+    return dict(fa.launches, **lrn_mod.launches, uniform_fill=rnd.launches)
+
+
+def _host_params(chain):
+    return [{n: t.detach().float().cpu() for n, t in u.params.items()}
+            for u in chain]
+
+
+def _max_diff(torch, a, b):
+    """Per tensor, max |a - b| (lists of name → tensor dicts)."""
+    return [{n: float((x[n] - y[n]).abs().max()) for n in x}
+            for x, y in zip(a, b)]
+
+
+def wf_rule(torch, what, got, refs, a, b):
+    """``got`` (params, losses) against the runs ``refs``, with the
+    direct runs ``a`` and ``b`` as the noise: each tensor and loss
+    bit-equal to the nearest ref where ``a`` and ``b`` are bit-equal,
+    else within WF_RULE times their difference of it.  Returns the
+    largest ratio seen."""
+    worst = 0.0
+    pa, la = a
+    pb, lb = b
+    pg, lg = got
+    noise = _max_diff(torch, pa, pb)
+    diffs = [_max_diff(torch, pg, ref[0]) for ref in refs]
+    rows = [(("param", i, n), noise[i][n], min(d[i][n] for d in diffs))
+            for i in range(len(pa)) for n in pa[i]]
+    rows += [(("loss", k), abs(la[k] - lb[k]),
+              min(abs(lg[k] - ref[1][k]) for ref in refs))
+             for k in range(len(la))]
+    if len(lg) != len(la):
+        raise SystemExit("%s: %d losses, the direct runs' %d"
+                         % (what, len(lg), len(la)))
+    for key, nz, d in rows:
+        if nz == 0.0:
+            if d != 0.0:
+                raise SystemExit("%s: %s differs by %g where the direct "
+                                 "runs are bit-equal" % (what, key, d))
+            continue
+        worst = max(worst, d / nz)
+        if d > WF_RULE * nz:
+            raise SystemExit("%s: %s differs by %g, more than %g x the "
+                             "direct runs' own %g" % (what, key, d,
+                                                      WF_RULE, nz))
+    return worst
+
+
+def _losses(history):
+    return [row[k] for row in history for k in sorted(row)
+            if k.endswith("_loss")]
+
+
+def _epoch_seconds(t0, runs_per_epoch):
+    """Seconds of each epoch since ``t0`` (``time.time()``), from the
+    decision's ``unit:DecisionGD`` end events: it runs once per class
+    span and reads the epoch accumulator back each time, so its end
+    follows the span's device work."""
+    from veles_tpu_torch.logger import events
+    ends = [e["time"] for e in events.ring
+            if e["name"] == "unit:DecisionGD" and e["kind"] == "end"
+            and e["time"] >= t0][runs_per_epoch - 1::runs_per_epoch]
+    return [b - a for a, b in zip([t0] + ends[:-1], ends)]
+
+
+def _snapshot_seconds():
+    from veles_tpu_torch.logger import events
+    begins = [e["time"] for e in events.ring
+              if e["name"] == "snapshot" and e["kind"] == "begin"]
+    ends = [e["time"] for e in events.ring
+            if e["name"] == "snapshot" and e["kind"] == "end"]
+    return [e - b for b, e in zip(begins, ends)]
+
+
+def workflow_alexnet(torch, dev, snapdir):
+    """Phase 12 (a); returns the workflow run's launches."""
+    import os
+    from veles_tpu_torch.samples.alexnet import (
+        AlexNetWorkflow, build_alexnet, train_alexnet)
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    direct = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        _zero_train_counts()
+        t0 = time.perf_counter()
+        net = build_alexnet(minibatch_size=WF_BATCH, side=WF_SIDE,
+                            classes=WF_CLASSES, n_train=WF_TRAIN,
+                            n_valid=WF_VALID, widths=WF_WIDTHS, device=dev,
+                            dtype="bfloat16")
+        history = train_alexnet(net, WF_EPOCHS)
+        torch.cuda.synchronize()
+        direct.append({"wall": time.perf_counter() - t0,
+                       "launches": _read_train_counts(),
+                       "run": (_host_params(net.chain), _losses(history)),
+                       "history": history})
+        del net
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    t_build = time.perf_counter()
+    wf = AlexNetWorkflow(side=WF_SIDE, classes=WF_CLASSES, widths=WF_WIDTHS,
+                         minibatch_size=WF_BATCH, synthetic_train=WF_TRAIN,
+                         synthetic_valid=WF_VALID, max_epochs=WF_EPOCHS,
+                         snapshot_compression=None,
+                         snapshot_time_interval=0.0,
+                         snapshotter_config={"directory": snapdir})
+    # ungated, every second decision run: the end of epoch 1 (the
+    # fourth run ends the workflow before the snapshotter runs again)
+    wf.snapshotter.decision = None
+    wf.snapshotter.interval = 2
+    wf.initialize(device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    t_wall = time.time()
+    wf.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    epoch_s = _epoch_seconds(t_wall, 2)
+    launches = _read_train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: direct[0]["launches"][n]
+            for n in ("lrn_fwd", "lrn_bwd", "uniform_fill")}
+    got_l = {n: launches[n] for n in want}
+    if got_l != want or direct[1]["launches"] != direct[0]["launches"]:
+        raise SystemExit("workflow (alexnet): launches %s, the direct runs' "
+                         "%s and %s" % (got_l, direct[0]["launches"],
+                                        direct[1]["launches"]))
+    run = (_host_params(wf.gd.forwards), _losses(wf.decision.history))
+    ratio = wf_rule(torch, "workflow (alexnet)", run,
+                    [direct[0]["run"], direct[1]["run"]], direct[0]["run"],
+                    direct[1]["run"])
+    path = wf.snapshotter.destination
+    size_mb = os.path.getsize(path) / 1e6
+    snap_s = _snapshot_seconds()
+    t0 = time.perf_counter()
+    resumed = SnapshotterToFile.import_file(path)
+    load_s = time.perf_counter() - t0
+    if resumed.gd.global_step != WF_TRAIN // WF_BATCH:
+        raise SystemExit("workflow (alexnet): the snapshot is at step %d, "
+                         "not the end of epoch 1" % resumed.gd.global_step)
+    resumed.snapshotter.directory = os.path.join(snapdir, "resumed")
+    resumed.initialize(device=dev)
+    resumed.run()
+    torch.cuda.synchronize()
+    back = (_host_params(resumed.gd.forwards),
+            _losses(resumed.decision.history))
+    r_ratio = wf_rule(torch, "workflow (alexnet resume)", back, [run],
+                      direct[0]["run"], direct[1]["run"])
+    resume_diff = max(v for d in _max_diff(torch, back[0], run[0])
+                      for v in d.values())
+    log(json.dumps({"workflow_alexnet": {
+        "epochs": WF_EPOCHS, "batch": WF_BATCH, "train": WF_TRAIN,
+        "valid": WF_VALID, "history": wf.decision.history,
+        "direct_history": direct[0]["history"],
+        "epoch_s": epoch_s,
+        "workflow_run_s": t_end - t_run,
+        "workflow_with_build_s": t_end - t_build,
+        "direct_s": [d["wall"] for d in direct],
+        "unit_timers": {u.name: dict(u.timers) for u in wf.units},
+        "max_memory_allocated_gb": peak / 1e9,
+        "snapshot_mb": size_mb, "snapshot_write_s": snap_s,
+        "snapshot_load_s": load_s, "launches": got_l,
+        "direct_launches": direct[0]["launches"],
+        "rule_ratio": ratio, "resume_rule_ratio": r_ratio,
+        "resume_max_abs_diff": resume_diff}}))
+    del wf, resumed
+    torch.cuda.empty_cache()
+    return got_l
+
+
+def workflow_lm(torch, dev):
+    """Phase 12 (b); returns the workflow run's launches."""
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.samples.lm import LMWorkflow, build_lm, train_lm
+    toks = numpy.random.default_rng(0).integers(
+        0, T_VOCAB, (WF_LM_TRAIN, T_SEQ)).astype(numpy.int32)
+    direct = []
+    steps = WF_LM_TRAIN // T_BATCH
+    for run in range(2):
+        torch.cuda.synchronize()
+        _zero_train_counts()
+        t0 = time.perf_counter()
+        loader = FullBatchLoader(toks, None, [0, 0, WF_LM_TRAIN],
+                                 minibatch_size=T_BATCH, device=dev)
+        lm = build_lm(vocab=T_VOCAB, dim=T_DIM, blocks=T_LAYERS,
+                      heads=T_HEADS, seq=T_SEQ, loader=loader, solver="sgd",
+                      learning_rate=0.01, gradient_moment=0.9,
+                      lr_schedule="constant", device=dev, dtype="bfloat16")
+        history = train_lm(lm, 1)
+        torch.cuda.synchronize()
+        direct.append({"wall": time.perf_counter() - t0,
+                       "launches": _read_train_counts(),
+                       "run": (_host_params(lm.chain), _losses(history))})
+        del lm, loader
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    t0 = time.perf_counter()
+    wf = LMWorkflow(corpus="random", vocab=T_VOCAB, dim=T_DIM,
+                    blocks=T_LAYERS, heads=T_HEADS, seq=T_SEQ,
+                    synthetic_train=WF_LM_TRAIN, synthetic_valid=0,
+                    minibatch_size=T_BATCH, solver="sgd",
+                    learning_rate=0.01, gradient_moment=0.9,
+                    lr_schedule="constant", max_epochs=1,
+                    dtype="bfloat16", snapshotter_config={"enabled": False})
+    wf.initialize(device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {n: v for n, v in _read_train_counts().items()
+                if n.startswith("flash_attn_")}
+    if launches != dict.fromkeys(launches, T_LAYERS * steps) or any(
+            {n: d["launches"][n] for n in launches} != launches
+            for d in direct):
+        raise SystemExit("workflow (lm): %d steps launched %s (want %d of "
+                         "each, as the direct runs' %s)"
+                         % (steps, launches, T_LAYERS * steps,
+                            [d["launches"] for d in direct]))
+    run = (_host_params(wf.gd.forwards), _losses(wf.decision.history))
+    ratio = wf_rule(torch, "workflow (lm)", run,
+                    [direct[0]["run"], direct[1]["run"]], direct[0]["run"],
+                    direct[1]["run"])
+    log(json.dumps({"workflow_lm": {
+        "steps": steps, "history": wf.decision.history,
+        "workflow_run_s": t_end - t_run,
+        "workflow_with_build_s": t_end - t0,
+        "direct_s": [d["wall"] for d in direct],
+        "unit_timers": {u.name: dict(u.timers) for u in wf.units},
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "rule_ratio": ratio}}))
+    del wf
+    torch.cuda.empty_cache()
+    return launches
+
+
+def workflow_small(torch, dev, snapdir):
+    """Phase 12 (c); returns the transformer's card-run launches."""
+    from veles_tpu_torch.samples.cifar import CifarWorkflow
+    from veles_tpu_torch.samples.kohonen import KohonenWorkflow
+    from veles_tpu_torch.samples.mnist import MnistWorkflow
+    from veles_tpu_torch.samples.transformer import TransformerWorkflow
+    snap = {"enabled": False}
+    # SGD in place of the CIFAR and transformer samples' Adam: Adam
+    # divides a near-zero gradient by its own running RMS, so a rounding-
+    # level difference between card and CPU can flip that coordinate's
+    # step by 2 lr; SGD's steps differ as the gradients do (the
+    # transformer at lr 1e-4: at 0.01 this width diverges on the CPU too)
+    sgd = {"solver": "sgd", "learning_rate": 0.01, "gradient_moment": 0.9}
+    samples = {
+        "mnist": lambda: MnistWorkflow(
+            synthetic_train=512, synthetic_valid=128, minibatch_size=128,
+            max_epochs=2, dtype="float32", snapshotter_config=snap),
+        "cifar": lambda: CifarWorkflow(
+            synthetic_train=256, synthetic_valid=128, minibatch_size=128,
+            max_epochs=2, dtype="float32", snapshotter_config=snap, **sgd),
+        "transformer": lambda: TransformerWorkflow(
+            dim=512, heads=4, blocks=2, vocab=16, seq=64,
+            synthetic_train=128, synthetic_valid=64, minibatch_size=64,
+            max_epochs=2, dtype="float32", snapshotter_config=snap,
+            **dict(sgd, learning_rate=1e-4)),
+        "kohonen": lambda: KohonenWorkflow(samples=1024, max_epochs=2),
+    }
+    out, launches = {}, {}
+    for name, make in samples.items():
+        runs = {}
+        for where in ("card", "cpu"):
+            wf = make()
+            wf.initialize(device=dev if where == "card" else "cpu")
+            _zero_train_counts()
+            t0 = time.perf_counter()
+            wf.run()
+            if where == "card":
+                torch.cuda.synchronize()
+                if name == "transformer":
+                    launches = {n: v for n, v in _read_train_counts().items()
+                                if n.startswith("flash_attn_")}
+            wall = time.perf_counter() - t0
+            if name == "kohonen":
+                metrics = list(wf.decision.epoch_qerror)
+                params = [{"weights": wf.trainer.weights.detach().cpu()}]
+            else:
+                metrics = _losses(wf.decision.history)
+                params = _host_params(wf.gd.forwards)
+            runs[where] = (metrics, params, wall)
+        (mc, pc, wc), (mh, ph, wh) = runs["card"], runs["cpu"]
+        if len(mc) != len(mh) or not mc or not numpy.allclose(
+                mc, mh, rtol=WF_SMALL_TOL, atol=WF_SMALL_TOL):
+            raise SystemExit("workflow (%s): card metrics %s, CPU %s"
+                             % (name, mc, mh))
+        worst = max(v for d in _max_diff(torch, pc, ph) for v in d.values())
+        scale = max(float(t.abs().max()) for d in ph for t in d.values())
+        if worst > WF_SMALL_TOL * max(scale, 1.0):
+            raise SystemExit("workflow (%s): weights differ by %g card vs "
+                             "CPU (limit %g)" % (name, worst,
+                                                 WF_SMALL_TOL * scale))
+        out[name] = {"metrics": mc, "max_abs_weight_diff": worst,
+                     "card_s": wc, "cpu_s": wh}
+    # 2 blocks, 2 epochs: the forward on every minibatch, the backward
+    # on the train ones (128 / 64 train and 64 / 64 validation per epoch)
+    want = {"flash_attn_fwd": 2 * 2 * (2 + 1), "flash_attn_dq": 2 * 2 * 2,
+            "flash_attn_dkv": 2 * 2 * 2}
+    if launches != want:
+        raise SystemExit("workflow (transformer): FlashAttention launches "
+                         "%s, want %s" % (launches, want))
+    log(json.dumps({"workflow_small": dict(out, transformer_launches=
+                                           launches)}))
+    return launches
+
+
+def workflow_check(torch, dev):
+    """Phase 12: (a) AlexNet, (b) the LM, (c) the small samples; returns
+    the workflow runs' launches by kernel."""
+    import os
+    import shutil
+    snapdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_workflow_snapshots")
+    t_phase = time.perf_counter()
+    try:
+        got = {}
+        for part in (workflow_alexnet(torch, dev, snapdir),
+                     workflow_lm(torch, dev),
+                     workflow_small(torch, dev, snapdir)):
+            for n, v in part.items():
+                got[n] = got.get(n, 0) + v
+    finally:
+        shutil.rmtree(snapdir, ignore_errors=True)
+    log("workflow: %.1f s" % (time.perf_counter() - t_phase))
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5088,6 +5478,7 @@ def main():
     launches.update(alexnet_check(torch, dev)["launches"])
     s2d_launches = s2d_vgg_check(torch, dev)
     family_launches = families_check(torch, dev)
+    wf_launches = workflow_check(torch, dev)
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -5119,7 +5510,8 @@ def main():
         for key, got in (("moe_launches", moe_launches),
                          ("moe_train_launches", moe_train_launches),
                          ("s2d_vgg_launches", s2d_launches),
-                         ("families_launches", family_launches)):
+                         ("families_launches", family_launches),
+                         ("workflow_launches", wf_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))

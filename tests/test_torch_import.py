@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import numpy
 import pytest
 import torch
 
@@ -220,5 +221,116 @@ def test_layer_slice_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         return
     for make in (lambda: KohonenTrainer(4), lambda: BernoulliRBM(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+#: the modules of the workflow-runtime slice and the ones it extended
+WORKFLOW_SLICE = ("veles_tpu_torch.mutable",
+                  "veles_tpu_torch.logger",
+                  "veles_tpu_torch.distributable",
+                  "veles_tpu_torch.unit_registry",
+                  "veles_tpu_torch.result_provider",
+                  "veles_tpu_torch.units",
+                  "veles_tpu_torch.plumbing",
+                  "veles_tpu_torch.workflow",
+                  "veles_tpu_torch.memory",
+                  "veles_tpu_torch.accelerated_units",
+                  "veles_tpu_torch.loader.base",
+                  "veles_tpu_torch.loader.fullbatch",
+                  "veles_tpu_torch.normalization",
+                  "veles_tpu_torch.ops.normalize",
+                  "veles_tpu_torch.models.gd",
+                  "veles_tpu_torch.models.decision",
+                  "veles_tpu_torch.snapshotter",
+                  "veles_tpu_torch.pickle_debug",
+                  "veles_tpu_torch.models.standard",
+                  "veles_tpu_torch.models.kohonen",
+                  "veles_tpu_torch.samples.alexnet",
+                  "veles_tpu_torch.samples.lm",
+                  "veles_tpu_torch.samples.mnist",
+                  "veles_tpu_torch.samples.cifar",
+                  "veles_tpu_torch.samples.transformer",
+                  "veles_tpu_torch.samples.kohonen")
+
+
+@pytest.mark.parametrize("module", WORKFLOW_SLICE)
+def test_workflow_slice_imports_alone_with_jax_blocked(module):
+    """Each module of the workflow slice imports first in a fresh
+    interpreter with ``jax`` blocked, is listed in ``SUBMODULES``, loads
+    nothing of ``veles_tpu`` and imports only torch, numpy, the standard
+    library and the port."""
+    test_layer_slice_imports_alone_with_jax_blocked(module)
+
+
+@pytest.mark.parametrize("module,names", [
+    ("veles_tpu_torch.mutable", ("Bool", "LinkableAttribute", "unshadow")),
+    ("veles_tpu_torch.logger", ("Logger", "EventSink", "events")),
+    ("veles_tpu_torch.distributable", ("Pickleable", "IDistributable",
+                                       "Distributable",
+                                       "TriviallyDistributable")),
+    ("veles_tpu_torch.unit_registry", ("UnitRegistry", "MappedUnitRegistry",
+                                       "RegisteredDistributable")),
+    ("veles_tpu_torch.result_provider", ("IResultProvider",)),
+    ("veles_tpu_torch.units", ("Unit", "MissingDemand")),
+    ("veles_tpu_torch.plumbing", ("StartPoint", "EndPoint", "Repeater")),
+    ("veles_tpu_torch.workflow", ("Workflow", "NoMoreJobs")),
+    ("veles_tpu_torch.memory", ("Array", "Watcher", "roundup")),
+    ("veles_tpu_torch.accelerated_units", ("AcceleratedUnit",
+                                           "AcceleratedWorkflow",
+                                           "FusedSegment",
+                                           "DeviceBenchmark")),
+    ("veles_tpu_torch.loader.fullbatch", ("FullBatchLoader",
+                                          "FullBatchLoaderMSE")),
+    ("veles_tpu_torch.normalization", ("get_normalizer", "NormalizerBase",
+                                       "MeanDispNormalizer")),
+    ("veles_tpu_torch.ops.normalize", ("mean_disp_normalize",
+                                       "MeanDispNormalizer")),
+    ("veles_tpu_torch.models.decision", ("DecisionGD", "Rollback")),
+    ("veles_tpu_torch.snapshotter", ("SnapshotterBase", "SnapshotterToFile",
+                                     "SnapshotterToDB", "Snapshotter")),
+    ("veles_tpu_torch.pickle_debug", ("find_unpicklable",
+                                      "explain_pickle_failure")),
+    ("veles_tpu_torch.models.standard", ("StandardWorkflow",)),
+    ("veles_tpu_torch.models.kohonen", ("KohonenDecision",)),
+    ("veles_tpu_torch.convert", ("load_workflow_params",)),
+    ("veles_tpu_torch.telemetry", ("enabled", "set_enabled",
+                                   "next_span_id")),
+    ("veles_tpu_torch.samples.alexnet", ("AlexNetWorkflow",)),
+    ("veles_tpu_torch.samples.lm", ("LMWorkflow",)),
+    ("veles_tpu_torch.samples.mnist", ("MnistWorkflow",)),
+    ("veles_tpu_torch.samples.cifar", ("CifarWorkflow",)),
+    ("veles_tpu_torch.samples.transformer", ("TransformerWorkflow",)),
+    ("veles_tpu_torch.samples.kohonen", ("KohonenWorkflow",))])
+def test_workflow_surface_is_exported(module, names):
+    """The workflow runtime's names, where the reference exports them."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert all(hasattr(mod, n) for n in names), \
+        [n for n in names if not hasattr(mod, n)]
+
+
+def test_workflow_entry_points_default_to_the_card():
+    """``Workflow.initialize()`` (an accelerated or a sample one), a
+    loader's and an ``Array``'s upload go to ``cuda`` through
+    ``resolve_device``: without a card they raise, asked for the CPU
+    they run there."""
+    from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.samples.kohonen import KohonenWorkflow
+    from veles_tpu_torch.samples.mnist import MnistWorkflow
+    wf = KohonenWorkflow(samples=64, minibatch_size=32, max_epochs=1)
+    wf.initialize(device="cpu")
+    wf.run()
+    assert wf.trainer.weights.device.type == "cpu"
+    if torch.cuda.is_available():
+        return
+    from veles_tpu_torch.loader import FullBatchLoader
+    for make in (lambda: AcceleratedWorkflow().initialize(),
+                 lambda: MnistWorkflow(synthetic_train=32,
+                                       synthetic_valid=32).initialize(),
+                 lambda: KohonenWorkflow(samples=64).initialize(),
+                 lambda: FullBatchLoader(numpy.zeros((4, 2))),
+                 lambda: Array(numpy.zeros(3)).devmem):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

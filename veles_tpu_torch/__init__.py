@@ -24,7 +24,12 @@ chains take every layer type of the reference (``models/standard.py``):
 mixture-of-experts FFNs (served and trained like dense ones), recurrent
 units, transposed convolutions and depooling under the MSE evaluator;
 ``models/kohonen.py`` and ``models/rbm.py`` train self-organizing maps
-and RBMs.  Its kernels are written by hand for ``sm_90a`` under
+and RBMs.  Training runs through the reference's workflow runtime too
+(``units``, ``workflow``, ``accelerated_units``, ``memory``,
+``snapshotter``, ``models/standard.StandardWorkflow`` with
+``models/decision.DecisionGD``): the samples ``mnist``, ``cifar``,
+``alexnet``, ``lm``, ``transformer`` and ``kohonen`` are workflows run
+by ``Workflow.run()``.  Its kernels are written by hand for ``sm_90a`` under
 ``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
@@ -61,6 +66,18 @@ SUBMODULES = (
     "veles_tpu_torch.dtypes",
     "veles_tpu_torch.faults",
     "veles_tpu_torch.logger",
+    "veles_tpu_torch.mutable",
+    "veles_tpu_torch.distributable",
+    "veles_tpu_torch.unit_registry",
+    "veles_tpu_torch.result_provider",
+    "veles_tpu_torch.units",
+    "veles_tpu_torch.plumbing",
+    "veles_tpu_torch.workflow",
+    "veles_tpu_torch.memory",
+    "veles_tpu_torch.accelerated_units",
+    "veles_tpu_torch.normalization",
+    "veles_tpu_torch.snapshotter",
+    "veles_tpu_torch.pickle_debug",
     "veles_tpu_torch.telemetry",
     "veles_tpu_torch.telemetry.registry",
     "veles_tpu_torch.telemetry.reqtrace",
@@ -77,6 +94,7 @@ SUBMODULES = (
     "veles_tpu_torch.ops.flash",
     "veles_tpu_torch.ops.lrn",
     "veles_tpu_torch.ops.random",
+    "veles_tpu_torch.ops.normalize",
     "veles_tpu_torch.prng",
     "veles_tpu_torch.prng.threefry",
     "veles_tpu_torch.prng.random_generator",
@@ -100,6 +118,7 @@ SUBMODULES = (
     "veles_tpu_torch.models.solvers",
     "veles_tpu_torch.models.lr_adjust",
     "veles_tpu_torch.models.gd",
+    "veles_tpu_torch.models.decision",
     "veles_tpu_torch.models.generate",
     "veles_tpu_torch.loader",
     "veles_tpu_torch.loader.base",
@@ -107,6 +126,10 @@ SUBMODULES = (
     "veles_tpu_torch.samples",
     "veles_tpu_torch.samples.lm",
     "veles_tpu_torch.samples.alexnet",
+    "veles_tpu_torch.samples.mnist",
+    "veles_tpu_torch.samples.cifar",
+    "veles_tpu_torch.samples.transformer",
+    "veles_tpu_torch.samples.kohonen",
     "veles_tpu_torch.serving",
     "veles_tpu_torch.serving.kv_slots",
     "veles_tpu_torch.serving.prefill",

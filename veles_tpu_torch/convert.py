@@ -10,9 +10,11 @@ HWOI transposed-convolution kernels, logical ``[ky, kx, C, O]`` kernels
 of space-to-depth stems, expert-major MoE tensors), so nothing is
 transposed.  Kohonen maps and RBMs are not chain units: their arrays
 go to ``KohonenTrainer(weights=)`` and ``BernoulliRBM.load_params``.
-:func:`params_to_numpy` reads a chain back in the same form, and
+:func:`params_to_numpy` reads a chain back in the same form,
 :func:`set_trainer_state` gives the port's ``GradientDescent`` the
-solver slots and step count of a JAX trainer.
+solver slots and step count of a JAX trainer, and
+:func:`load_workflow_params` carries a JAX workflow's parameters into
+an initialized port workflow.
 """
 
 import numpy
@@ -70,3 +72,30 @@ def set_trainer_state(trainer, opt_state, global_step):
                 t.copy_(torch.as_tensor(numpy.array(
                     opt_state[i][name][slot], numpy.float32)))
     trainer.global_step = int(global_step)
+
+
+def load_workflow_params(workflow, params):
+    """Load ``params`` — ``{chain index: {name: numpy array}}``, a JAX
+    workflow's forward units' parameters (``{i: {n: u.<n>.mem}}``) —
+    into an initialized port workflow's chain (``workflow.gd.forwards``,
+    or ``workflow.forwards``) in place, and zero its trainer's solver
+    slots, as a fresh JAX trainer's are."""
+    trainer = getattr(workflow, "gd", None)
+    chain = trainer.forwards if trainer is not None else workflow.forwards
+    if len(params) != len(chain):
+        raise ValueError("params hold %d units, the chain %d"
+                         % (len(params), len(chain)))
+    with torch.no_grad():
+        for i, unit in enumerate(chain):
+            if sorted(params[i]) != sorted(unit.params):
+                raise ValueError("unit %d: params %s, the chain's %s"
+                                 % (i, sorted(params[i]),
+                                    sorted(unit.params)))
+            for name, t in unit.params.items():
+                t.copy_(torch.as_tensor(numpy.asarray(
+                    params[i][name], numpy.float32)))
+        if trainer is not None:
+            for slots in trainer.opt_state.values():
+                for t in slots.values():
+                    t.zero_()
+    return chain

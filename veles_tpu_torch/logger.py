@@ -1,5 +1,8 @@
-"""The event sink — the port of ``veles_tpu/logger.py::EventSink`` and
-its process-wide :data:`events`.
+"""The event sink and the logging mixin — the port of
+``veles_tpu/logger.py``: :class:`EventSink` and its process-wide
+:data:`events`, and :class:`Logger`, which every workflow object mixes
+in for ``self.info/debug/...`` under a class-named logger and for
+``event()``/``timed_event()`` spans into :data:`events`.
 
 Events go to a bounded in-memory ring and, when a path is opened, to a
 JSONL file, one object per line with the JAX package's keys (``name``,
@@ -80,3 +83,55 @@ class EventSink:
 
 #: the process-wide sink
 events = EventSink()
+
+
+class Logger:
+    """Mixin granting named logging and event spans to any class."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+
+    @property
+    def logger(self):
+        lg = getattr(self, "_logger_", None)
+        if lg is None:
+            lg = logging.getLogger(type(self).__name__)
+            self._logger_ = lg
+        return lg
+
+    def debug(self, msg, *args):
+        self.logger.debug(msg, *args)
+
+    def info(self, msg, *args):
+        self.logger.info(msg, *args)
+
+    def warning(self, msg, *args):
+        self.logger.warning(msg, *args)
+
+    def error(self, msg, *args):
+        self.logger.error(msg, *args)
+
+    def exception(self, msg="", *args):
+        self.logger.exception(msg, *args)
+
+    def event(self, name, kind="single", **attrs):
+        """Record an event: ``kind`` is "begin", "end" or "single"."""
+        return events.record(name, kind, cls=type(self).__name__, **attrs)
+
+    def timed_event(self, name):
+        """Context manager emitting begin/end events around a block."""
+        return _TimedEvent(self, name)
+
+
+class _TimedEvent:
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+
+    def __enter__(self):
+        self.owner.event(self.name, "begin")
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.event(self.name, "end")
+        return False
+

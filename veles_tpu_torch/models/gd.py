@@ -39,15 +39,32 @@ policy ("warn", "skip_step" or "halt") and ``enabled`` are the knobs of
 trainer reads ``root.common.health``: the policy the trainer acts on is
 the one the monitor reports.  ``health=False`` turns it off for this
 trainer; a ``health_policy`` given to the constructor configures the
-process-wide policy.  Not ported: meshes (dp/tp/pp/sp), the DCN
-master/worker exchange and augmentation.
+process-wide policy.  Not ported: meshes (dp/tp/pp/sp; ROADMAP item
+10), the DCN master/worker exchange (item 10) and augmentation (the
+rest of item 9).
+
+The trainer is also a workflow unit (the reference's face):
+``GradientDescent(workflow, forwards=..., evaluator=..., loader=...,
+**hyper)``.  Its ``initialize(device=)`` fills the chain's parameters
+from ``numpy.random.default_rng(weights_seed)`` (``convert.init_params``'s
+draw, each unit sized from the loader's sample shape) unless they exist,
+else moves them (and the solver slots, after a snapshot's load) to the
+device; its ``run()`` takes the loader's fresh span
+(:meth:`GradientDescent.run_span`) or one minibatch
+(:meth:`GradientDescent.run_minibatch`), the same arithmetic in the same
+order as a plain trainer's, and leaves ``loss``, ``n_err``,
+``epoch_acc``, ``global_step`` and ``lr_multiplier`` for the decision
+to read.  The plain form, ``GradientDescent(forwards, evaluator,
+...)``, is ready at once.
 """
 
 import logging
 
+import numpy
 import torch
 
-from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.accelerated_units import AcceleratedUnit
+from veles_tpu_torch.loader.base import TRAIN, unit_form
 from veles_tpu_torch.models.all2all import All2AllSoftmax
 from veles_tpu_torch.models.dropout import DropoutForward
 from veles_tpu_torch.models.lr_adjust import get_schedule
@@ -66,20 +83,37 @@ def _sq_norm(tensors):
     return total
 
 
-class GradientDescent:
+class GradientDescent(AcceleratedUnit):
     """The trainer of a forward chain ``forwards`` under ``evaluator``."""
 
-    def __init__(self, forwards, evaluator, solver="sgd", learning_rate=0.01,
-                 learning_rate_bias=None, weights_decay=0.0,
-                 weights_decay_bias=None, l1_vs_l2=0.0, gradient_moment=0.0,
-                 gradient_moment_bias=None, lr_schedule="constant",
-                 lr_schedule_params=None, health=True, health_policy=None,
-                 seed=None):
+    VIEW_GROUP = "TRAINER"
+    FUSABLE = False  # launches its own steps
+
+    def __init__(self, workflow=None, evaluator=None, solver="sgd",
+                 learning_rate=0.01, learning_rate_bias=None,
+                 weights_decay=0.0, weights_decay_bias=None, l1_vs_l2=0.0,
+                 gradient_moment=0.0, gradient_moment_bias=None,
+                 lr_schedule="constant", lr_schedule_params=None,
+                 health=True, health_policy=None, seed=None, forwards=None,
+                 loader=None, weights_seed=0, mesh=None, augment=None,
+                 **kwargs):
+        plain = not unit_form(workflow)
+        if plain:
+            forwards, workflow = workflow, None
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes are not ported yet (ROADMAP item 10)")
+        if augment is not None:
+            raise NotImplementedError(
+                "in-graph augmentation (ops/augment.py) is not ported yet "
+                "(ROADMAP item 9)")
+        super(GradientDescent, self).__init__(workflow, **kwargs)
         if health_policy is not None:
             health_lib.configure(policy=health_policy)
-        self.forwards = list(forwards)
+        self.forwards = list(forwards) if forwards else []
         self.evaluator = evaluator
-        self.device = self.forwards[0].device
+        self.loader = loader
+        self.solver_name = solver
         self.solver = get_solver(solver)
         self.learning_rate = learning_rate
         self.learning_rate_bias = learning_rate \
@@ -95,8 +129,31 @@ class GradientDescent:
                                      **(lr_schedule_params or {}))
         self.health = bool(health)
         self.global_step = 0
+        #: Rollback scales the learning rate through this
+        self.lr_multiplier = 1.0
+        #: the seed of the chain's first parameters (unit form)
+        self.weights_seed = weights_seed
         #: the trainer's key stream (the JAX trainer's prng_key="trainer")
         self.prng = RandomGenerator("trainer", seed)
+        self.opt_state = {}
+        self.epoch_acc = None
+        self.loss = self.n_err = None
+        #: non-finite train steps seen, and how many were skipped
+        self.nonfinite_steps = 0
+        self.skipped_steps = 0
+        #: set by the "halt" policy at the first non-finite step
+        self.halted = False
+        self._health_ticks = 0
+        self.demand("forwards", "evaluator", "loader")
+        if plain:
+            self._setup()
+
+    def _setup(self):
+        """Bind the trainer to its chain's parameters on their device:
+        the parameter order, the per-layer hyper-parameters, fresh solver
+        slots (kept, moved to the device, when restored) and the epoch
+        accumulator."""
+        self.device = self.forwards[0].device
         #: (chain index, name) of every parameter, in the order the JAX
         #: package's pytrees flatten them (sorted keys)
         self._names = [(i, n) for i in range(len(self.forwards))
@@ -106,17 +163,75 @@ class GradientDescent:
         for i, n in self._names:
             self.forwards[i].params[n].requires_grad_(True)
         with torch.no_grad():
-            self.opt_state = {(i, n): self.solver.init(self._param(i, n))
-                              for i, n in self._names}
+            if not self.opt_state:
+                self.opt_state = {(i, n): self.solver.init(self._param(i, n))
+                                  for i, n in self._names}
+            else:
+                self.opt_state = {k: {s: t.to(self.device)
+                                      for s, t in slots.items()}
+                                  for k, slots in self.opt_state.items()}
         self.epoch_acc = torch.zeros((3, 3), dtype=torch.float32,
-                                     device=self.device)
-        self.loss = self.n_err = None
-        #: non-finite train steps seen, and how many were skipped
-        self.nonfinite_steps = 0
-        self.skipped_steps = 0
-        #: set by the "halt" policy at the first non-finite step
-        self.halted = False
-        self._health_ticks = 0
+                                     device=self.device) \
+            if self.epoch_acc is None else self.epoch_acc.to(self.device)
+
+    # -- the unit face --------------------------------------------------------
+
+    def initialize(self, device=None, **kwargs):
+        from veles_tpu_torch.units import MissingDemand
+        if not self.forwards or self.evaluator is None \
+                or self.loader is None:
+            raise MissingDemand(self, {"forwards", "evaluator", "loader"})
+        if not self.loader.is_initialized:
+            raise MissingDemand(self, {"loader (initialized)"})
+        super(GradientDescent, self).initialize(device=device, **kwargs)
+        if self.device is None:
+            from veles_tpu_torch.backends import resolve_device
+            self.device = resolve_device()
+        if any(set(u.PARAMS) - set(u.params) for u in self.forwards):
+            self._fill_forwards()
+        else:
+            for u in self.forwards:
+                u.to_device(self.device)
+        self._setup()
+        # span serving: auto-enable only (None); a builder's explicit
+        # False stands (ref: gd.py initialize)
+        if getattr(self.loader, "supports_span", False) \
+                and self.loader.span_serving is None:
+            self.loader.span_serving = True
+
+    def _fill_forwards(self):
+        """The chain's first parameters: ``convert.init_params``'s draw
+        from ``default_rng(weights_seed)``, each unit sized from the
+        sample shape its input has (a 1-D token sequence's length is the
+        positional table's window)."""
+        rng = numpy.random.default_rng(self.weights_seed)
+        shape = tuple(self.loader.sample_shape)
+        window = shape[0] if len(shape) == 1 else None
+        for unit in self.forwards:
+            unit.in_shape = shape
+            shape = tuple(unit.out_shape(shape))
+            unit.to_device(self.device)
+            unit.load_params(unit.fill_arrays(rng, unit.in_shape, window))
+
+    def run(self):
+        """One wave: the loader's fresh span, else its minibatch."""
+        l = self.loader
+        if l.span_fresh_:
+            l.span_fresh_ = False
+            self.run_span(l)
+        else:
+            target = l.minibatch_targets \
+                if getattr(self.evaluator, "TARGETS", False) \
+                else l.minibatch_labels
+            self.run_minibatch(l.minibatch_data.devmem, target.devmem,
+                               l.minibatch_size, l.minibatch_class)
+        if self.halted and self._workflow is not None:
+            self.error("health policy 'halt': non-finite training step - "
+                       "stopping the workflow")
+            self._workflow.on_workflow_finished()
+
+    def step(self, **tensors):
+        raise RuntimeError("GradientDescent launches its own steps")
 
     @property
     def health_policy(self):
@@ -159,7 +274,7 @@ class GradientDescent:
             "l1_vs_l2": self.l1_vs_l2,
         }
 
-    # -- one minibatch ---------------------------------------------------------
+    # -- one minibatch --------------------------------------------------------
 
     def forward(self, x, key=None, train=False):
         """The chain's output (logits for a softmax head); on a train
@@ -196,9 +311,10 @@ class GradientDescent:
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         # the float32 multiplier the JAX package traces
-        scale = torch.as_tensor(self.schedule(
-            torch.tensor(float(step), dtype=torch.float32)),
-            dtype=torch.float32)
+        scale = torch.tensor(self.lr_multiplier, dtype=torch.float32) \
+            * torch.as_tensor(self.schedule(
+                torch.tensor(float(step), dtype=torch.float32)),
+                dtype=torch.float32)
         health_on = self.health_on
         skip = health_on and self.health_policy == "skip_step"
         with torch.no_grad():
@@ -334,10 +450,12 @@ class GradientDescent:
                       "stopping (see GET /healthz)")
             self.halted = True
 
-    def read_epoch_acc(self, reset_classes=()):
-        """{class: (n_err, loss_sum, samples)}; resets the requested
-        class rows."""
+    def read_epoch_acc(self, reset_classes=(), as_array=False):
+        """{class: (n_err, loss_sum, samples)} (or the [3, 3] array);
+        resets the requested class rows."""
         acc = self.epoch_acc.cpu().numpy().copy()
         if len(reset_classes):
             self.epoch_acc[list(reset_classes)] = 0
+        if as_array:
+            return acc
         return {c: tuple(float(x) for x in acc[c]) for c in range(3)}

@@ -16,6 +16,10 @@ how serving uses them.  Training changes that in two ways, and
 autograd records (it holds a graph back to a trainable parameter) is
 never cached, and a cached one is dropped once any parameter has been
 written in place (the solver's update), so no stale copy is served.
+
+A unit pickles with its tensors as host copies and without its module
+hooks or derived caches (a workflow snapshot); :meth:`ForwardBase.to_device`
+puts it back on a device.
 """
 
 import numpy
@@ -24,6 +28,7 @@ from torch import nn
 
 from veles_tpu_torch import dtypes
 from veles_tpu_torch.backends import resolve_device
+from veles_tpu_torch.distributable import host_state
 
 #: per-layer hyper-parameters a trainer consults; None = inherit the
 #: trainer's global value (the JAX package's names)
@@ -103,6 +108,25 @@ class ForwardBase(nn.Module):
             n: torch.as_tensor(numpy.array(arrays[n], numpy.float32))
             .to(self.device) for n in self.PARAMS}
         self._derived = {}
+
+    def to_device(self, device):
+        """Move the parameters to ``device`` (resolved as every entry
+        point resolves it) and drop the derived caches."""
+        self.device = resolve_device(device)
+        self.params = {n: t.detach().to(self.device)
+                       for n, t in self.params.items()}
+        self._derived = {}
+        return self
+
+    def __getstate__(self):
+        state = {k: v for k, v in self.__dict__.items() if "hooks" not in k}
+        state["_derived"] = {}
+        return host_state(state)
+
+    def __setstate__(self, state):
+        for k, v in nn.Module().__dict__.items():
+            state.setdefault(k, v)
+        self.__dict__.update(state)
 
     def derived(self, key, make):
         """``make()``, cached while no parameter changes.  While autograd

@@ -4,8 +4,10 @@ transformer blocks with dense or MoE FFNs, the logits head), attention,
 the MoE layer, the sequence pools, the recurrent units and the conv-net
 family (convolutions, the transposed convolution, pooling and
 depooling, LRN, dropout, fully-connected layers and the softmax
-head)."""
+head) — and :class:`StandardWorkflow`, the config-driven training graph
+the samples build (the port of ``veles_tpu/models/standard.py:120``)."""
 
+from veles_tpu_torch.accelerated_units import AcceleratedWorkflow
 from veles_tpu_torch.models.all2all import (
     All2All, All2AllRELU, All2AllSigmoid, All2AllSoftmax, All2AllStrictRELU,
     All2AllTanh)
@@ -76,3 +78,101 @@ def make_forwards(layers, device=None, dtype=None, in_shape=None):
             shape = tuple(unit.out_shape(shape))
         units.append(unit)
     return units
+
+
+class StandardWorkflow(AcceleratedWorkflow):
+    """The config-driven training graph (znicz StandardWorkflow role):
+
+        start → repeater → loader → trainer → decision ─┬→ repeater
+                                                        ├→ snapshotter
+                                                        └→ end
+
+    with ``loader.gate_block = decision.complete`` and the end point
+    gated on ``~decision.complete`` (ref: standard.py:154-220).
+
+    - ``loader_factory(workflow, **loader_config)`` builds the loader
+      (or pass a ready ``loader`` instance);
+    - ``layers`` — the forward-chain spec (see :func:`make_forwards`),
+      whose units are sized from the loader's sample shape and filled
+      from ``default_rng(weights_seed)`` by the trainer's
+      ``initialize``, in compute dtype ``dtype``;
+    - ``loss`` — "softmax" | "mse" | "next_token" selects the evaluator
+      (the head's f32 logits feed "softmax");
+    - ``decision_config`` / ``snapshotter_config`` (``enabled`` False
+      builds none) / the trainer's keyword arguments;
+    - ``trace_run``, ``timings``: the reference's ``root.common`` keys
+      (see :mod:`veles_tpu_torch.units`).
+
+    Not yet: ``mesh`` other than None raises (ROADMAP item 10), and
+    ``plotters=True`` builds no plotter (``wf.plotters == []``; the
+    plotting units are item 11).
+    """
+
+    def __init__(self, workflow=None, loader_factory=None, loader=None,
+                 loader_config=None, layers=(), loss="softmax",
+                 decision_config=None, snapshotter_config=None, mesh=None,
+                 name="StandardWorkflow", plotters=True, dtype=None,
+                 weights_seed=0, trace_run=False, timings=False,
+                 **trainer_kwargs):
+        from veles_tpu_torch.models.decision import DecisionGD
+        from veles_tpu_torch.models.evaluator import (
+            EvaluatorMSE, EvaluatorNextToken, EvaluatorSoftmax)
+        from veles_tpu_torch.models.gd import GradientDescent
+        from veles_tpu_torch.plumbing import Repeater
+        from veles_tpu_torch.snapshotter import Snapshotter
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes are not ported yet (ROADMAP item 10)")
+        super(StandardWorkflow, self).__init__(
+            workflow, name=name, trace_run=trace_run, timings=timings)
+        self.repeater = Repeater(self)
+        self.repeater.link_from(self.start_point)
+
+        if loader is None:
+            loader = loader_factory(self, **(loader_config or {}))
+        self.loader = loader
+        self.loader.link_from(self.repeater)
+
+        self.layers = [dict(s) for s in layers]
+        # units without parameters yet: the trainer fills them on the
+        # workflow's device at initialize
+        self.forwards = make_forwards(self.layers, device="cpu",
+                                      dtype=dtype)
+
+        if loss == "mse":
+            self.evaluator = EvaluatorMSE()
+        elif loss == "next_token":
+            self.evaluator = EvaluatorNextToken()
+        elif loss == "softmax":
+            self.evaluator = EvaluatorSoftmax()
+        else:
+            raise ValueError("loss must be softmax, mse or next_token, "
+                             "not %r" % (loss,))
+
+        self.gd = GradientDescent(
+            self, forwards=self.forwards, evaluator=self.evaluator,
+            loader=self.loader, weights_seed=weights_seed,
+            **trainer_kwargs)
+        self.gd.link_from(self.loader)
+
+        self.decision = DecisionGD(self, **(decision_config or {}))
+        self.decision.loader = self.loader
+        self.decision.trainer = self.gd
+        self.decision.link_from(self.gd)
+
+        snapshotter_config = dict(snapshotter_config or {})
+        if snapshotter_config.pop("enabled", True):
+            self.snapshotter = Snapshotter(self, **snapshotter_config)
+            self.snapshotter.decision = self.decision
+            self.snapshotter.link_from(self.decision)
+        else:
+            self.snapshotter = None
+
+        # the reference's live plots wait for plotting_units.py (item 11)
+        self.plotters = []
+
+        self.repeater.link_from(self.decision)
+        self.loader.gate_block = self.decision.complete
+        self.end_point.link_from(self.decision)
+        self.end_point.gate_block = ~self.decision.complete

@@ -22,6 +22,17 @@ configuration; its 3×3/1 stem has nothing to block).
                         classes=10, n_train=64, minibatch_size=16,
                         device="cpu", dtype="float32")
     history = train_alexnet(net, epochs=1)
+
+:class:`AlexNetWorkflow` is the same training as a ``StandardWorkflow``
+(the reference sample's face, ``samples/alexnet.py:153``; its
+``root.alexnet_tpu`` keys are keyword arguments of the same names and
+defaults, ``widths`` a port knob for narrow tests):
+
+    wf = AlexNetWorkflow(side=67, widths=(8, 16, 24, 24, 16, 32),
+                         classes=10, synthetic_train=64,
+                         synthetic_valid=16, minibatch_size=16,
+                         max_epochs=2, dtype="float32")
+    wf.initialize(device="cpu"); wf.run()
 """
 
 import collections
@@ -29,12 +40,13 @@ import collections
 import numpy
 import torch
 
-from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.convert import init_params
 from veles_tpu_torch.loader import FullBatchLoader
+from veles_tpu_torch.loader.base import unit_form
 from veles_tpu_torch.models import conv
 from veles_tpu_torch.models.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.models.gd import GradientDescent
+from veles_tpu_torch.models.standard import StandardWorkflow
 from veles_tpu_torch.ops import random as ops_random
 from veles_tpu_torch.prng import threefry
 from veles_tpu_torch.samples.lm import train_lm
@@ -104,29 +116,57 @@ class ImagenetLoader(FullBatchLoader):
     """The JAX sample's synthetic ImageNet: ``n_valid`` validation then
     ``n_train`` train samples [side, side, 3], labels from
     ``default_rng(42)`` and data ``uniform(key(42)) + label / classes``
-    in f32, stored bf16 on ``device``; with ``space_to_depth=n``
+    in f32, stored bf16 on the loader's device; with ``space_to_depth=n``
     pre-blocked (``models.conv.space_to_depth``) and stored flat, for
-    AlexNet's blocked stem (whose geometry it validates)."""
+    AlexNet's blocked stem (whose geometry it validates).
 
-    def __init__(self, side=227, classes=1000, n_train=2048, n_valid=256,
-                 minibatch_size=256, seed=None, device=None,
-                 space_to_depth=0):
-        dev = resolve_device(device)
-        if space_to_depth:
-            conv.validate_space_to_depth(side, side, 11, 11, space_to_depth)
-        tot = n_train + n_valid
-        labels = numpy.random.default_rng(42).integers(0, classes, tot)
+    ``ImagenetLoader(side=227, classes=1000, n_train=2048, n_valid=256,
+    minibatch_size=256, seed=None, device=None, space_to_depth=0)`` is
+    ready at once; ``ImagenetLoader(workflow, side=..., classes=...,
+    synthetic_train=..., synthetic_valid=..., space_to_depth=...,
+    **loader_kwargs)`` is the unit, drawing the dataset at
+    ``initialize``."""
+
+    def __init__(self, *args, **kwargs):
+        if args and unit_form(args[0]):
+            self._init_unit(*args, **kwargs)
+        else:
+            self._init_plain(*args, **kwargs)
+
+    def _init_unit(self, workflow, side=227, classes=1000,
+                   synthetic_train=2048, synthetic_valid=256,
+                   space_to_depth=0, **kwargs):
+        FullBatchLoader.__init__(self, workflow, **kwargs)
+        self.side, self.classes = int(side), int(classes)
+        self.n_train, self.n_valid = int(synthetic_train), \
+            int(synthetic_valid)
+        self.space_to_depth = int(space_to_depth)
+        if self.space_to_depth:
+            conv.validate_space_to_depth(self.side, self.side, 11, 11,
+                                         self.space_to_depth)
+
+    def _init_plain(self, side=227, classes=1000, n_train=2048, n_valid=256,
+                    minibatch_size=256, seed=None, device=None,
+                    space_to_depth=0):
+        self._init_unit(None, side, classes, n_train, n_valid,
+                        space_to_depth, minibatch_size=minibatch_size,
+                        seed=seed)
+        self.initialize(device=device)
+
+    def load_data(self):
+        dev, side, s2d = self.device, self.side, self.space_to_depth
+        tot = self.n_train + self.n_valid
+        labels = numpy.random.default_rng(42).integers(0, self.classes, tot)
         data = ops_random.uniform(threefry.key(42), (tot, side, side, 3),
                                   device=dev)
         lab = torch.as_tensor(labels, device=dev).to(torch.float32)
-        data.add_((lab / classes)[:, None, None, None])
+        data.add_((lab / self.classes)[:, None, None, None])
         data = data.to(torch.bfloat16)
-        if space_to_depth:
-            data = conv.space_to_depth(data, space_to_depth).reshape(tot, -1)
-        super().__init__(data, labels,
-                         [0, n_valid, n_train],
-                         minibatch_size=minibatch_size, seed=seed,
-                         device=dev)
+        if s2d:
+            data = conv.space_to_depth(data, s2d).reshape(tot, -1)
+        self.class_lengths[:] = [0, self.n_valid, self.n_train]
+        self.original_data = data
+        self.original_labels = labels.tolist()
 
 
 AlexNet = collections.namedtuple("AlexNet", "chain evaluator trainer loader")
@@ -176,3 +216,55 @@ def train_alexnet(net, epochs):
     loop); returns one dict per epoch with the validation and train
     losses and error percentages."""
     return train_lm(net, epochs)
+
+
+class AlexNetWorkflow(StandardWorkflow):
+    """BASELINE config 3 (the reference's ``samples/alexnet.py:153``):
+    AlexNet (``model="alexnet"``, either stem) or VGG-A
+    (``model="vgg_a"``) over the synthetic ImageNet, its keyword
+    arguments the reference's ``root.alexnet_tpu`` keys with their
+    defaults; ``decision_config`` and ``snapshotter_config`` entries
+    override the sample's, other keyword arguments go to
+    ``StandardWorkflow`` and the trainer."""
+
+    def __init__(self, workflow=None, model="alexnet", classes=1000,
+                 dropout=0.5, space_to_depth=0, side=227,
+                 minibatch_size=256, solver="sgd", learning_rate=0.01,
+                 gradient_moment=0.9, weights_decay=0.0005,
+                 fail_iterations=10, max_epochs=None,
+                 snapshot_prefix="alexnet", snapshot_compression="gz",
+                 snapshot_time_interval=60.0, synthetic_train=2048,
+                 synthetic_valid=256, widths=ALEXNET_WIDTHS,
+                 dtype="bfloat16", decision_config=None,
+                 snapshotter_config=None, **kwargs):
+        if model == "vgg_a":
+            s2d = 0                        # 3×3/1 stem — nothing to block
+            layers = vgg_a_layers(int(classes), float(dropout))
+        elif model == "alexnet":
+            s2d = int(space_to_depth)
+            layers = alexnet_layers(int(classes), float(dropout), widths,
+                                    s2d, int(side))
+        else:
+            raise ValueError("model must be 'alexnet' or 'vgg_a', not %r"
+                             % (model,))
+        super(AlexNetWorkflow, self).__init__(
+            workflow, name="AlexNet", loader_factory=ImagenetLoader,
+            loader_config={
+                "side": side, "classes": classes,
+                "synthetic_train": synthetic_train,
+                "synthetic_valid": synthetic_valid,
+                "space_to_depth": s2d,
+                "minibatch_size": int(minibatch_size)},
+            layers=layers, dtype=dtype, solver=solver,
+            learning_rate=float(learning_rate),
+            gradient_moment=float(gradient_moment),
+            weights_decay=float(weights_decay),
+            decision_config=dict({
+                "fail_iterations": int(fail_iterations),
+                "max_epochs": max_epochs}, **(decision_config or {})),
+            snapshotter_config=dict({
+                "prefix": snapshot_prefix,
+                "compression": snapshot_compression,
+                "time_interval": float(snapshot_time_interval)},
+                **(snapshotter_config or {})),
+            **kwargs)

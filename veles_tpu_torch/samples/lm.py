@@ -14,6 +14,19 @@ per-epoch validation and train metrics.
     from veles_tpu_torch.samples.lm import build_lm, train_lm
     lm = build_lm(dim=256, heads=2, blocks=2, device="cpu")
     history = train_lm(lm, epochs=4)
+
+:class:`LMWorkflow` is the same training as a ``StandardWorkflow`` (the
+reference sample's face; its ``root.lm_tpu`` keys are keyword arguments
+of the same names and defaults):
+
+    wf = LMWorkflow(dim=256, heads=2, blocks=2, max_epochs=4)
+    wf.initialize(device="cpu"); wf.run()
+    wf.decision.history        # one row per epoch, train_lm's keys
+
+Its ``corpus="random"`` trains on uniform random tokens (a port knob:
+the Markov corpus's transition tensor is vocab³ floats, beyond a card
+at ``bench_lm``'s vocabulary of 32768); the reference's BPE text path
+(``text_path``) waits for ``loader/text.py`` (ROADMAP item 9).
 """
 
 import collections
@@ -22,8 +35,11 @@ import numpy
 
 from veles_tpu_torch.convert import init_params
 from veles_tpu_torch.loader import TRAIN, VALID, FullBatchLoader
+from veles_tpu_torch.loader.base import unit_form
 from veles_tpu_torch.models.evaluator import EvaluatorNextToken
 from veles_tpu_torch.models.gd import GradientDescent
+from veles_tpu_torch.models.standard import StandardWorkflow
+from veles_tpu_torch.result_provider import IResultProvider
 
 
 def markov_corpus(n_seq, seq, vocab, seed=0, temp=1.5):
@@ -61,19 +77,64 @@ def markov_corpus(n_seq, seq, vocab, seed=0, temp=1.5):
     return toks, float(h_uni), float(h_big)
 
 
-class MarkovLoader(FullBatchLoader):
+class MarkovLoader(FullBatchLoader, IResultProvider):
     """Token sequences with planted Markov structure: ``n_valid``
     validation then ``n_train`` train sequences (labels unused — the
-    next-token evaluator scores against the input)."""
+    next-token evaluator scores against the input).
 
-    def __init__(self, seq=128, vocab=64, n_train=8192, n_valid=512,
-                 minibatch_size=128, device=None):
-        toks, h_uni, h_big = markov_corpus(n_train + n_valid, seq, vocab)
-        super().__init__(toks, None, [0, n_valid, n_train],
-                         minibatch_size=minibatch_size, device=device)
+    ``MarkovLoader(seq=128, vocab=64, n_train=8192, n_valid=512,
+    minibatch_size=128, device=None)`` is ready at once;
+    ``MarkovLoader(workflow, seq=..., vocab=..., synthetic_train=...,
+    synthetic_valid=..., corpus_seed=0, **loader_kwargs)`` is the unit,
+    loading at ``initialize``."""
+
+    def __init__(self, *args, **kwargs):
+        if args and unit_form(args[0]):
+            self._init_unit(*args, **kwargs)
+        else:
+            self._init_plain(*args, **kwargs)
+
+    def _init_unit(self, workflow, seq=128, vocab=64, synthetic_train=8192,
+                   synthetic_valid=512, corpus_seed=0, **kwargs):
+        FullBatchLoader.__init__(self, workflow, **kwargs)
+        self.seq, self.vocab = int(seq), int(vocab)
+        self.n_train, self.n_valid = int(synthetic_train), \
+            int(synthetic_valid)
+        self.corpus_seed = int(corpus_seed)
+
+    def _init_plain(self, seq=128, vocab=64, n_train=8192, n_valid=512,
+                    minibatch_size=128, device=None):
+        self._init_unit(None, seq, vocab, n_train, n_valid,
+                        minibatch_size=minibatch_size)
+        self.initialize(device=device)
+
+    def load_data(self):
+        toks, h_uni, h_big = self.corpus()
+        self.class_lengths[:] = [0, self.n_valid, self.n_train]
+        self.original_data = toks
+        self.original_labels = [0] * len(toks)
         #: a trained model's per-token CE should land between these
         self.h_unigram_ = h_uni
         self.h_bigram_ = h_big
+
+    def corpus(self):
+        """(tokens, h_unigram, h_bigram) of this loader's corpus."""
+        return markov_corpus(self.n_train + self.n_valid, self.seq,
+                             self.vocab, seed=self.corpus_seed)
+
+    def get_metric_values(self):
+        return {"h_unigram_nats": self.h_unigram_,
+                "h_bigram_nats": self.h_bigram_}
+
+
+class RandomTokenLoader(MarkovLoader):
+    """Uniform random tokens ``default_rng(corpus_seed).integers(0,
+    vocab, (n_valid + n_train, seq))`` (no anchors: both are NaN)."""
+
+    def corpus(self):
+        toks = numpy.random.default_rng(self.corpus_seed).integers(
+            0, self.vocab, (self.n_valid + self.n_train, self.seq))
+        return toks.astype(numpy.int32), float("nan"), float("nan")
 
 
 def lm_spec(vocab, dim, blocks, heads, **block):
@@ -140,3 +201,47 @@ def train_lm(lm, epochs):
         if trainer.halted:
             break
     return history
+
+
+class LMWorkflow(StandardWorkflow):
+    """Next-token LM on the planted-Markov corpus (the reference's
+    ``samples/lm.py:105``), its keyword arguments the reference's
+    ``root.lm_tpu`` keys with their defaults; ``decision_config`` and
+    ``snapshotter_config`` entries override the sample's, other keyword
+    arguments go to ``StandardWorkflow`` and the trainer."""
+
+    def __init__(self, workflow=None, dim=128, blocks=2, heads=4, vocab=64,
+                 seq=128, synthetic_train=8192, synthetic_valid=512, seed=0,
+                 minibatch_size=128, solver="adam", learning_rate=1e-3,
+                 lr_schedule="cosine", lr_schedule_params=None,
+                 fail_iterations=60, max_epochs=None, snapshot_prefix="lm",
+                 snapshot_time_interval=60.0, text_path=None,
+                 corpus="markov", decision_config=None,
+                 snapshotter_config=None, **kwargs):
+        if text_path:
+            raise NotImplementedError(
+                "the BPE text path waits for loader/text.py "
+                "(ROADMAP item 9)")
+        factory = {"markov": MarkovLoader,
+                   "random": RandomTokenLoader}[corpus]
+        super(LMWorkflow, self).__init__(
+            workflow, name="LM", loader_factory=factory,
+            loader_config={
+                "seq": seq, "vocab": vocab,
+                "synthetic_train": synthetic_train,
+                "synthetic_valid": synthetic_valid, "corpus_seed": seed,
+                "minibatch_size": int(minibatch_size),
+                "normalization_type": "none"},
+            layers=lm_spec(int(vocab), int(dim), int(blocks), int(heads)),
+            loss="next_token", solver=solver,
+            learning_rate=float(learning_rate), lr_schedule=lr_schedule,
+            lr_schedule_params=lr_schedule_params or {
+                "total_steps": 3800, "floor": 0.05, "warmup": 150},
+            decision_config=dict({
+                "fail_iterations": int(fail_iterations),
+                "max_epochs": max_epochs}, **(decision_config or {})),
+            snapshotter_config=dict({
+                "prefix": snapshot_prefix,
+                "time_interval": float(snapshot_time_interval)},
+                **(snapshotter_config or {})),
+            **kwargs)

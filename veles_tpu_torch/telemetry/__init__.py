@@ -5,7 +5,11 @@
 (:mod:`~veles_tpu_torch.telemetry.health`) and the crash flight recorder
 (:mod:`~veles_tpu_torch.telemetry.flight_recorder`) — the port's own
 copies of the JAX package's ``telemetry`` pieces that the serving path
-and ``/healthz``/``/debug/state`` read."""
+and ``/healthz``/``/debug/state`` read, and the workflow runtime's
+switch :func:`enabled` with :func:`next_span_id`."""
+
+import itertools
+import os
 
 from veles_tpu_torch.telemetry.registry import (  # noqa: F401
     Counter, DEFAULT_BUCKETS, Gauge, Histogram, MS_BUCKETS,
@@ -22,3 +26,25 @@ from veles_tpu_torch.telemetry.health import (  # noqa: E402,F401
     HealthMonitor, configure, health_config, monitor)
 from veles_tpu_torch.telemetry.reqtrace import (  # noqa: E402,F401
     TRACE_HEADER, clean_trace_id, ensure_trace_id, new_trace_id)
+
+
+#: the reference's ``root.common.telemetry.enabled`` (default True)
+_ENABLED = [True]
+_span_ids = itertools.count(1)
+
+
+def enabled():
+    """Whether the workflow runtime's per-unit events and histograms are
+    recorded (the metrics registry itself is always live)."""
+    return _ENABLED[0]
+
+
+def set_enabled(flag):
+    """Turn the per-unit instrumentation on or off, process-wide."""
+    _ENABLED[0] = bool(flag)
+
+
+def next_span_id():
+    """Process-unique span id, pid-qualified as the reference's."""
+    return "%d-%d" % (os.getpid(), next(_span_ids))
+
