@@ -280,7 +280,35 @@ result line):
    ``KohonenWorkflow`` at small sizes for 2 epochs in float32 (CIFAR and
    the transformer with SGD in place of Adam, the transformer at lr
    1e-4), on the card against the
-   CPU: epoch metrics and weights within WF_SMALL_TOL.
+   CPU: epoch metrics and weights within WF_SMALL_TOL;
+13. input — the input pipeline: (a) a tree of IN_TRAIN + IN_VALID
+   uint8 ``.npy`` images at 227² in IN_CLASSES class directories,
+   drawn from a seed, trained on by AlexNet at its full widths
+   (IN_CLASSES outputs, bf16) through ``StandardWorkflow`` over
+   ``FileImageLoader`` per minibatch at IN_BATCH for IN_EPOCHS epochs
+   with IN_AUGMENT in the step, once at prefetch IN_DEPTH and once at
+   0: the two arms bit-equal (losses, every parameter, the decision's
+   gate Bools wave by wave), each launching ``lrn_fwd`` twice per wave,
+   ``lrn_bwd`` twice per train step and ``uniform_fill`` three times
+   per train step (two dropout masks and the flip); the mean input wait
+   per wave by mode, the host decode per minibatch, the wall per train
+   step, the prefetch occupancy at each pop and the peak memory
+   printed; a small copy (two classes at 32², two convolutions, LRN,
+   dropout) card against CPU within IN_SMALL_TOL; (b) a BPE vocabulary
+   of IN_VOCAB ids trained on the first IN_CORPUS_CHARS characters of
+   the port's own Python sources (IN_CORPUS, by sorted path) in a
+   child process during phase 12, its encode/decode round trip exact,
+   and ``LMWorkflow(text_path=...)`` at ``bench_lm``'s trunk widths for
+   IN_LM_STEPS train steps (the window stride chosen for that many
+   minibatches), 8 launches of each FlashAttention kernel per train
+   step and of the forward per validation step; the same text at d 64,
+   2 blocks card against CPU; (c) card against CPU: ``MnistWorkflow``
+   on ``"glyphs"`` with a flat augment, ``CifarWorkflow`` on
+   ``"scenes"`` with pad 4 (one flip draw per train step each), a
+   ``SoundLoader`` MLP on a ``tones.generate`` tree, a ``PicklesLoader``
+   MLP on pickles a ``Downloader`` unpacked from a local ``.tar.gz``
+   (the archive kept), a ``MinibatchesSaver`` stream written from a
+   prefetching loader and read back, and an ``InputJoiner``.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -298,9 +326,10 @@ and ``paged_attend``'s graph times at K1 16, 17 and 32 under ``wide``;
 the FlashAttention kernels' phase 4b launches under
 ``moe_train_launches``, the LRN and uniform kernels' phase 10b launches
 under ``s2d_vgg_launches``, the uniform fill's phase 11 launches
-under ``families_launches`` and the launches of phase 12's workflow runs
+under ``families_launches``, the launches of phase 12's workflow runs
 (AlexNet's, the LM's and the transformer's) under
-``workflow_launches``
+``workflow_launches`` and phase 13's card runs under
+``input_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -315,7 +344,9 @@ are eager loops timed by CUDA events.
 """
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -5415,6 +5446,602 @@ def workflow_check(torch, dev):
     return got
 
 
+# -- phase 13: the input pipeline ---------------------------------------------
+
+#: (a): AlexNet at full width from a tree of .npy images
+IN_SIDE, IN_CLASSES, IN_TRAIN, IN_VALID, IN_BATCH = 227, 8, 1024, 256, 256
+IN_EPOCHS, IN_DEPTH = 2, 2
+IN_AUGMENT = {"kind": "image", "flip": True, "pad": 4, "cutout": 16}
+#: (b): the LM on a BPE vocabulary of the port's own sources, which any
+#: checkout that can run this script holds (its Markdown may be absent)
+IN_VOCAB, IN_LM_STEPS = 4096, 4
+IN_CORPUS, IN_CORPUS_CHARS = "veles_tpu_torch", 184000
+#: card against CPU in float32 (the small copies), as WF_SMALL_TOL
+IN_SMALL_TOL = 1e-3
+IN_DIR = "_input_data"
+#: (c): the sound loader's feature tree (a cut of the GTZAN one)
+IN_SOUND_XML = """<features><transform name="Mix" condition="channels==2">
+<transform name="Window" parameters="type=hamming,length=512,step=256">
+<transform name="ZeroCrossings"><transform name="Merge">
+<transform name="Stats" parameters="interval=100">
+<feature name="ZeroCrossings"/></transform></transform></transform>
+<transform name="Energy"><transform name="Merge">
+<transform name="Stats" parameters="interval=100">
+<feature name="Energy"/></transform></transform></transform>
+<transform name="RDFT"><transform name="ComplexMagnitude">
+<transform name="Centroid"><transform name="Merge">
+<transform name="Stats" parameters="interval=100">
+<feature name="Centroid"/></transform></transform></transform>
+<transform name="Rolloff"><transform name="Merge">
+<transform name="Stats" parameters="interval=100">
+<feature name="Rolloff"/></transform></transform></transform>
+</transform></transform></transform></transform></features>"""
+
+
+def _input_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), IN_DIR)
+
+
+def start_vocab():
+    """Phase 13 (b)'s corpus (the first IN_CORPUS_CHARS characters of
+    the ``.py`` files under IN_CORPUS, by sorted path) and its BPE
+    vocabulary, trained in a child process while phase 12 runs.
+    Returns (process, corpus path, vocabulary path)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = _input_dir()
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    paths = []
+    for root, dirs, files in os.walk(os.path.join(here, IN_CORPUS)):
+        dirs[:] = [n for n in dirs if not n.startswith((".", "_"))]
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    parts, size = [], 0
+    for path in sorted(os.path.relpath(p, here) for p in paths):
+        with open(os.path.join(here, path), encoding="utf-8") as f:
+            parts.append(f.read())
+        size += len(parts[-1])
+        if size >= IN_CORPUS_CHARS:
+            break
+    text = "".join(parts)[:IN_CORPUS_CHARS]
+    if len(text) < IN_CORPUS_CHARS:
+        raise SystemExit("input (b): the port's sources hold %d characters,"
+                         " fewer than %d" % (len(text), IN_CORPUS_CHARS))
+    corpus = os.path.join(d, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as out:
+        out.write(text)
+    vocab = os.path.join(d, "vocab.json")
+    code = ("import sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "from veles_tpu_torch.loader.text import BytePairVocab\n"
+            "with open(sys.argv[1], encoding='utf-8') as f:\n"
+            "    text = f.read()\n"
+            "BytePairVocab.train(text, int(sys.argv[3]),\n"
+            "                    specials=('<eos>',)).save(sys.argv[2])\n"
+            "print(time.perf_counter() - t0)\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, corpus, vocab, str(IN_VOCAB)],
+        cwd=here, stdout=subprocess.PIPE, text=True)
+    return proc, corpus, vocab
+
+
+def _write_images(d, n_train, n_valid, classes, side, seed):
+    """A class tree ``d/{train,valid}/class<k>/<i>.npy`` of uint8
+    images drawn from ``default_rng(seed)``; returns (bytes, seconds)."""
+    rng = numpy.random.default_rng(seed)
+    t0 = time.perf_counter()
+    nbytes = 0
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        for i in range(n):
+            sub = os.path.join(d, split, "class%d" % (i % classes))
+            os.makedirs(sub, exist_ok=True)
+            img = rng.integers(0, 256, (side, side, 3), dtype=numpy.uint8)
+            numpy.save(os.path.join(sub, "%05d.npy" % i), img)
+            nbytes += img.nbytes
+    return nbytes, time.perf_counter() - t0
+
+
+def _image_workflow(d, prefetch, layers, batch, dtype, epochs, name):
+    from veles_tpu_torch.loader.image import FileImageLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    return StandardWorkflow(
+        name=name, loader_factory=FileImageLoader,
+        loader_config={"train_paths": [os.path.join(d, "train")],
+                       "validation_paths": [os.path.join(d, "valid")],
+                       "minibatch_size": batch, "prefetch": prefetch,
+                       "name": "%s-prefetch-%d" % (name, prefetch)},
+        layers=layers, dtype=dtype, solver="sgd", learning_rate=0.01,
+        gradient_moment=0.9, weights_decay=0.0005,
+        augment=dict(IN_AUGMENT), decision_config={"max_epochs": epochs},
+        snapshotter_config={"enabled": False})
+
+
+def _record_waves(wf, occupancy=None):
+    """Wrap the decision's run: each wave's gate Bools (and the
+    prefetch occupancy the pop read) as the decision sees them."""
+    loader, run = wf.loader, wf.decision.run
+    waves, occ, stamps = [], [], []
+
+    def record():
+        stamps.append(time.perf_counter())
+        waves.append((loader.minibatch_class, loader.minibatch_size,
+                      bool(loader.last_minibatch), bool(loader.epoch_ended),
+                      bool(loader.train_ended)))
+        if occupancy is not None:
+            occ.append(occupancy.value)
+        run()
+    wf.decision.run = record
+    return waves, occ, stamps
+
+
+def _input_arm(torch, dev, d, prefetch):
+    """One arm of phase 13 (a): AlexNet at full width from the files at
+    ``prefetch`` depth; returns its results and timings."""
+    from veles_tpu_torch import telemetry
+    from veles_tpu_torch.samples.alexnet import alexnet_layers
+    wf = _image_workflow(d, prefetch, alexnet_layers(IN_CLASSES, 0.5,
+                                                     side=IN_SIDE),
+                         IN_BATCH, "bfloat16", IN_EPOCHS, "files")
+    wf.initialize(device=dev)
+    loader = wf.loader
+    metrics = telemetry.metrics
+    occupancy = metrics.gauge("veles_prefetch_occupancy",
+                              labelnames=("loader",)).labels(loader.name)
+    waves, occ, stamps = _record_waves(wf,
+                                       occupancy if prefetch else None)
+    wait = metrics.histogram(
+        "veles_input_wait_seconds", labelnames=("loader", "mode")).labels(
+        loader.name, "prefetch" if prefetch else "sync")
+    w0, c0 = wait.sum, wait.count
+    # the decode where it runs (the main thread, or the fill thread)
+    from veles_tpu_torch.loader.image import FileImageLoader
+    fill, fills = FileImageLoader.fill_minibatch, []
+
+    def timed_fill(self):
+        t = time.perf_counter()
+        fill(self)
+        fills.append(time.perf_counter() - t)
+    FileImageLoader.fill_minibatch = timed_fill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    t0 = time.perf_counter()
+    try:
+        wf.run()
+        torch.cuda.synchronize()
+    finally:
+        FileImageLoader.fill_minibatch = fill
+    wall = time.perf_counter() - t0
+    launches = {n: v for n, v in _read_train_counts().items()
+                if not n.startswith("flash_attn_")}
+    peak = torch.cuda.max_memory_allocated()
+    pipeline = loader.prefetch_
+    wf.stop()
+    if prefetch and (pipeline in (None, False) or pipeline.alive):
+        raise SystemExit("input (a): prefetch %d did not run through a "
+                         "pipeline that stop() closed" % prefetch)
+    if not prefetch and pipeline is not False:
+        raise SystemExit("input (a): prefetch 0 made a pipeline")
+    keys = loader._all_keys[:IN_BATCH]
+    t1 = time.perf_counter()
+    for k in keys:
+        loader.pipeline(loader.pipeline.decode(k))
+    decode_ms = 1e3 * (time.perf_counter() - t1)
+    steps = wf.gd.global_step
+    out = {"prefetch": prefetch, "waves": len(waves), "train_steps": steps,
+           "wall_s": wall, "wall_ms_per_train_step": 1e3 * wall / steps,
+           # the steady wave: the median gap between the decision's
+           # runs past the first epoch (cuDNN's first plans excluded)
+           "wave_ms_median": 1e3 * float(numpy.median(numpy.diff(
+               stamps[len(stamps) // IN_EPOCHS - 1:]))),
+           "input_wait_ms_per_wave": 1e3 * (wait.sum - w0)
+           / max(wait.count - c0, 1),
+           "input_waits": wait.count - c0,
+           "decode_ms_per_minibatch": decode_ms,
+           "fill_ms_median": 1e3 * float(numpy.median(fills)),
+           "unit_ms_per_wave": {u.name: 1e3 * u.timers["run"]
+                                / max(u.timers["runs"], 1)
+                                for u in (loader, wf.gd)},
+           "max_memory_allocated_gb": peak / 1e9,
+           "history": wf.decision.history, "launches": launches}
+    if prefetch:
+        out["occupancy_mean"] = float(numpy.mean(occ))
+        out["occupancy"] = occ
+    run = {"params": _host_params(wf.gd.forwards),
+           "losses": _losses(wf.decision.history), "waves": waves}
+    del wf, loader
+    torch.cuda.empty_cache()
+    return out, run
+
+
+def _small_image_layers():
+    return [{"type": "conv_str", "n_kernels": 8, "kx": 3, "ky": 3,
+             "padding": 1},
+            {"type": "norm", "n": 5, "alpha": 1e-4, "beta": 0.75, "k": 2.0},
+            {"type": "max_pooling", "kx": 2, "ky": 2, "sliding": (2, 2)},
+            {"type": "conv_str", "n_kernels": 16, "kx": 3, "ky": 3,
+             "padding": 1},
+            {"type": "max_pooling", "kx": 2, "ky": 2, "sliding": (2, 2)},
+            {"type": "all2all_tanh", "output_sample_shape": (32,)},
+            {"type": "dropout", "dropout_ratio": 0.5},
+            {"type": "softmax", "output_sample_shape": (2,)}]
+
+
+def _card_vs_cpu(torch, what, make, dev, extra=None):
+    """``make()`` built and run on the card and on the CPU (float32):
+    epoch metrics and weights within IN_SMALL_TOL; returns the card
+    run's launches and a summary."""
+    runs, launches = {}, None
+    for where in ("card", "cpu"):
+        wf = make()
+        wf.initialize(device=dev if where == "card" else "cpu")
+        _zero_train_counts()
+        t0 = time.perf_counter()
+        wf.run()
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = _read_train_counts()
+        wall = time.perf_counter() - t0
+        wf.stop()
+        runs[where] = (_losses(wf.decision.history),
+                       _host_params(wf.gd.forwards), wall,
+                       wf.gd.global_step,
+                       extra(wf) if extra is not None else None)
+    (mc, pc, wc, sc, xc), (mh, ph, wh, sh, xh) = runs["card"], runs["cpu"]
+    if sc != sh or len(mc) != len(mh) or not mc or not numpy.allclose(
+            mc, mh, rtol=IN_SMALL_TOL, atol=IN_SMALL_TOL):
+        raise SystemExit("input (%s): card losses %s after %d steps, CPU "
+                         "%s after %d" % (what, mc, sc, mh, sh))
+    worst = max(v for d in _max_diff(torch, pc, ph) for v in d.values())
+    scale = max(float(t.abs().max()) for d in ph for t in d.values())
+    if worst > IN_SMALL_TOL * max(scale, 1.0):
+        raise SystemExit("input (%s): weights differ by %g card vs CPU "
+                         "(limit %g)" % (what, worst,
+                                         IN_SMALL_TOL * max(scale, 1.0)))
+    if xc != xh:
+        raise SystemExit("input (%s): card %s, CPU %s" % (what, xc, xh))
+    return launches, {"losses": mc, "max_abs_weight_diff": worst,
+                      "train_steps": sc, "card_s": wc, "cpu_s": wh}
+
+
+def input_images(torch, dev):
+    """Phase 13 (a); returns the launches of both arms."""
+    d = os.path.join(_input_dir(), "images")
+    nbytes, write_s = _write_images(d, IN_TRAIN, IN_VALID, IN_CLASSES,
+                                    IN_SIDE, 13)
+    arms = {}
+    for prefetch in (IN_DEPTH, 0):
+        arms[prefetch] = _input_arm(torch, dev, d, prefetch)
+    (on, ron), (off, roff) = arms[IN_DEPTH], arms[0]
+    if ron["waves"] != roff["waves"] or ron["losses"] != roff["losses"]:
+        raise SystemExit("input (a): prefetch %d and 0 differ: waves %s / "
+                         "%s, losses %s / %s" % (IN_DEPTH, ron["waves"],
+                                                 roff["waves"],
+                                                 ron["losses"],
+                                                 roff["losses"]))
+    for i, (a, b) in enumerate(zip(ron["params"], roff["params"])):
+        for n in a:
+            if not torch.equal(a[n], b[n]):
+                raise SystemExit(
+                    "input (a): layer %d %s differs by %g between prefetch "
+                    "%d and 0" % (i, n, float((a[n] - b[n]).abs().max()),
+                                  IN_DEPTH))
+    waves, steps = on["waves"], on["train_steps"]
+    # two LRN layers on every forward, their backward on train steps;
+    # two dropout masks and one flip draw per train step
+    want = {"lrn_fwd": 2 * waves, "lrn_bwd": 2 * steps,
+            "uniform_fill": 3 * steps}
+    for arm in (on, off):
+        if arm["launches"] != want:
+            raise SystemExit("input (a): prefetch %d launched %s over %d "
+                             "waves / %d train steps (want %s)"
+                             % (arm["prefetch"], arm["launches"], waves,
+                                steps, want))
+    want_waves = IN_EPOCHS * (-(-IN_TRAIN // IN_BATCH)
+                              + -(-IN_VALID // IN_BATCH))
+    if waves != want_waves or not all(numpy.isfinite(ron["losses"])):
+        raise SystemExit("input (a): %d waves (want %d), losses %s"
+                         % (waves, want_waves, ron["losses"]))
+    small = os.path.join(_input_dir(), "small_images")
+    _write_images(small, 64, 32, 2, 32, 14)
+    small_launches, small_out = _card_vs_cpu(
+        torch, "small images", lambda: _image_workflow(
+            small, IN_DEPTH, _small_image_layers(), 32, "float32", 2,
+            "small"), dev)
+    for k in ("history",):
+        on.pop(k)
+        off.pop(k)
+    log(json.dumps({"input_images": {
+        "dataset_mb": nbytes / 1e6, "write_s": write_s,
+        "prefetch": on, "sync": off, "bit_equal": True,
+        "small_card_vs_cpu": small_out}}))
+    total = {n: on["launches"][n] + off["launches"][n] for n in want}
+    for n, v in small_launches.items():
+        total[n] = total.get(n, 0) + v
+    return total
+
+
+def _lm_stride(bpe, text, valid_fraction=0.1):
+    """The window stride that makes FullBatchTextLM cut exactly
+    IN_LM_STEPS minibatches of T_BATCH train windows of T_SEQ tokens
+    (the loader validates on the stream's last max(seq, round(n/10))
+    tokens and windows the rest)."""
+    n = len(bpe.encode(text))
+    n_train = n - max(T_SEQ, int(round(n * valid_fraction)))
+    stride = (n_train - T_SEQ) // (IN_LM_STEPS * T_BATCH - 1)
+    if stride < 16:
+        raise SystemExit("input (b): a %d-token corpus is too short for "
+                         "%d windows of %d" % (n, IN_LM_STEPS * T_BATCH,
+                                               T_SEQ))
+    return stride, n
+
+
+def input_lm(torch, dev, vocab_job):
+    """Phase 13 (b); returns the card runs' launches."""
+    from veles_tpu_torch.loader.text import BytePairVocab
+    from veles_tpu_torch.samples.lm import LMWorkflow
+    proc, corpus, vocab_path = vocab_job
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode:
+        raise SystemExit("input (b): the vocabulary's training exited %d"
+                         % proc.returncode)
+    train_s = float(out.strip().splitlines()[-1])
+    bpe = BytePairVocab.load(vocab_path)
+    with open(corpus, encoding="utf-8") as f:
+        text = f.read()
+    t0 = time.perf_counter()
+    ids = bpe.encode(text)
+    encode_s = time.perf_counter() - t0
+    if bpe.decode(ids) != text or max(ids) >= bpe.size:
+        raise SystemExit("input (b): the vocabulary's round trip is not "
+                         "exact")
+    stride, n_tokens = _lm_stride(bpe, text)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wf = LMWorkflow(text_path=corpus, vocab_path=vocab_path, dim=T_DIM,
+                    blocks=T_LAYERS, heads=T_HEADS, seq=T_SEQ,
+                    stride=stride, minibatch_size=T_BATCH, solver="sgd",
+                    learning_rate=0.01, gradient_moment=0.9,
+                    lr_schedule="constant", max_epochs=1,
+                    dtype="bfloat16", snapshotter_config={"enabled": False})
+    wf.initialize(device=dev)
+    lengths = list(wf.loader.class_lengths)
+    if lengths[2] != IN_LM_STEPS * T_BATCH \
+            or wf.forwards[0].vocab != bpe.size:
+        raise SystemExit("input (b): windows %s, embedding %d wide (vocab "
+                         "%d)" % (lengths, wf.forwards[0].vocab, bpe.size))
+    valid_steps = -(-lengths[1] // T_BATCH)
+    torch.cuda.synchronize()
+    _zero_train_counts()
+    t_run = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {n: v for n, v in _read_train_counts().items()
+                if n.startswith("flash_attn_")}
+    want = {"flash_attn_fwd": T_LAYERS * (IN_LM_STEPS + valid_steps),
+            "flash_attn_dq": T_LAYERS * IN_LM_STEPS,
+            "flash_attn_dkv": T_LAYERS * IN_LM_STEPS}
+    losses = _losses(wf.decision.history)
+    if launches != want or wf.gd.global_step != IN_LM_STEPS \
+            or not losses or not all(numpy.isfinite(losses)):
+        raise SystemExit("input (b): %d steps launched %s (want %s), "
+                         "losses %s" % (wf.gd.global_step, launches, want,
+                                        losses))
+    peak = torch.cuda.max_memory_allocated()
+    wf.stop()
+    del wf
+    torch.cuda.empty_cache()
+    small_launches, small = _card_vs_cpu(
+        torch, "small lm", lambda: LMWorkflow(
+            text_path=corpus, vocab_path=vocab_path, dim=64, blocks=2,
+            heads=2, seq=128, stride=512, minibatch_size=32, solver="sgd",
+            learning_rate=0.01, gradient_moment=0.9,
+            lr_schedule="constant", max_epochs=1, dtype="float32",
+            snapshotter_config={"enabled": False}), dev)
+    log(json.dumps({"input_lm": {
+        "vocab": bpe.size, "merges": len(bpe.merges),
+        "corpus_chars": len(text), "tokens": n_tokens,
+        "vocab_train_s": train_s, "encode_s": encode_s, "stride": stride,
+        "windows": lengths, "steps": IN_LM_STEPS, "losses": losses,
+        "launches": launches, "with_build_s": t_end - t0,
+        "run_s": t_end - t_run,
+        "max_memory_allocated_gb": peak / 1e9,
+        "small_card_vs_cpu": small}}))
+    for n, v in small_launches.items():
+        if n.startswith("flash_attn_"):
+            launches[n] += v
+    return launches
+
+
+def _tar_pickles(d):
+    """Pickled train/validation sets packed into a .tar.gz; returns the
+    archive's path."""
+    import pickle
+    import tarfile
+    rng = numpy.random.default_rng(15)
+    src = os.path.join(d, "pickles_src")
+    os.makedirs(src, exist_ok=True)
+    for name, n in (("train", 192), ("valid", 64)):
+        x = rng.normal(size=(n, 24)).astype(numpy.float32)
+        y = (x[:, :4].argmax(axis=1)).tolist()
+        with open(os.path.join(src, name + ".pickle"), "wb") as f:
+            pickle.dump((x, y), f)
+    archive = os.path.join(d, "pickles.tar.gz")
+    with tarfile.open(archive, "w:gz") as t:
+        for name in ("train", "valid"):
+            t.add(os.path.join(src, name + ".pickle"),
+                  arcname=name + ".pickle")
+    return archive
+
+
+def _mlp(classes):
+    return [{"type": "all2all_tanh", "output_sample_shape": (32,)},
+            {"type": "softmax", "output_sample_shape": (classes,)}]
+
+
+def input_small(torch, dev):
+    """Phase 13 (c); returns the card runs' launches."""
+    from veles_tpu_torch.datasets import tones
+    from veles_tpu_torch.downloader import Downloader
+    from veles_tpu_torch.loader.pickles import PicklesLoader
+    from veles_tpu_torch.loader.sound import SoundLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.samples.cifar import CifarWorkflow
+    from veles_tpu_torch.samples.mnist import MnistWorkflow
+    d = os.path.join(_input_dir(), "small")
+    os.makedirs(d, exist_ok=True)
+    snap = {"enabled": False}
+    sgd = {"solver": "sgd", "learning_rate": 0.01, "gradient_moment": 0.9}
+    out, total = {}, {}
+
+    def add(launches):
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+
+    launches, out["mnist_glyphs"] = _card_vs_cpu(
+        torch, "mnist glyphs", lambda: MnistWorkflow(
+            synthetic_kind="glyphs", synthetic_train=512,
+            synthetic_valid=128, minibatch_size=128, max_epochs=2,
+            dtype="float32", snapshotter_config=snap,
+            augment={"kind": "image", "pad": 2, "cutout": 8,
+                     "shape": (28, 28, 1)}), dev)
+    if launches["uniform_fill"] != out["mnist_glyphs"]["train_steps"]:
+        raise SystemExit("input (mnist glyphs): %d flip draws over %d "
+                         "train steps" % (launches["uniform_fill"],
+                                          out["mnist_glyphs"]["train_steps"]))
+    add(launches)
+    launches, out["cifar_scenes"] = _card_vs_cpu(
+        torch, "cifar scenes", lambda: CifarWorkflow(
+            synthetic_kind="scenes", synthetic_train=256,
+            synthetic_valid=128, minibatch_size=128, max_epochs=2,
+            dtype="float32", snapshotter_config=snap,
+            augment={"kind": "image", "pad": 4}, **sgd), dev)
+    if launches["uniform_fill"] != out["cifar_scenes"]["train_steps"]:
+        raise SystemExit("input (cifar scenes): %d flip draws over %d "
+                         "train steps" % (launches["uniform_fill"],
+                                          out["cifar_scenes"]["train_steps"]))
+    add(launches)
+
+    t0 = time.perf_counter()
+    tree = tones.generate(os.path.join(d, "tones"), tracks_per_genre=2,
+                          seconds=3.0, rate=8000, seed=4242)
+    tones_s = time.perf_counter() - t0
+    launches, out["sound"] = _card_vs_cpu(
+        torch, "sound", lambda: StandardWorkflow(
+            loader_factory=SoundLoader, loader_config={
+                "features_xml": IN_SOUND_XML, "train_paths": [tree],
+                "minibatch_size": 8},
+            layers=_mlp(len(tones.GENRES)), decision_config={
+                "max_epochs": 2}, snapshotter_config=snap,
+            dtype="float32", **sgd), dev,
+        extra=lambda wf: (list(wf.loader.class_lengths),
+                          tuple(wf.loader.original_data.shape)))
+    out["sound"]["tones_s"] = tones_s
+    add(launches)
+
+    archive = _tar_pickles(d)
+    dest = os.path.join(d, "pickles")
+    Downloader(url="file://" + archive, directory=dest,
+               files=["train.pickle", "valid.pickle"]).initialize()
+    if not os.path.isfile(archive):
+        raise SystemExit("input (downloader): the local archive is gone")
+    launches, out["pickles"] = _card_vs_cpu(
+        torch, "pickles", lambda: StandardWorkflow(
+            loader_factory=PicklesLoader, loader_config={
+                "train_path": os.path.join(dest, "train.pickle"),
+                "validation_path": os.path.join(dest, "valid.pickle"),
+                "minibatch_size": 32},
+            layers=_mlp(4), decision_config={"max_epochs": 2},
+            snapshotter_config=snap, dtype="float32", **sgd), dev)
+    add(launches)
+    out["saver"] = _saver_check(torch, dev, dest, d)
+    out["joiner"] = _joiner_check(torch, dev)
+    log(json.dumps({"input_small": out}))
+    return total
+
+
+def _saver_check(torch, dev, src, d):
+    """A PicklesLoader's per-minibatch stream (prefetching on the card)
+    saved by MinibatchesSaver and read back by MinibatchesLoader, on the
+    card and on the CPU: the same minibatches."""
+    from veles_tpu_torch.loader.pickles import PicklesLoader
+    from veles_tpu_torch.loader.saver import (
+        MinibatchesLoader, MinibatchesSaver)
+    replays = {}
+    for where in ("card", "cpu"):
+        device = dev if where == "card" else "cpu"
+        loader = PicklesLoader(
+            None, train_path=os.path.join(src, "train.pickle"),
+            validation_path=os.path.join(src, "valid.pickle"),
+            minibatch_size=48)
+        loader.initialize(device=device)
+        path = os.path.join(d, "stream-%s.pickle.gz" % where)
+        saver = MinibatchesSaver(None, path=path)
+        saver.loader = loader
+        saver.initialize()
+        served = []
+        for _ in range(6):
+            loader.run()
+            saver.run()
+            served.append(loader.minibatch_data.map_read().mem[
+                :loader.minibatch_size].copy())
+        if where == "card" and loader.prefetch_ in (None, False):
+            raise SystemExit("input (saver): the card's loader did not "
+                             "prefetch")
+        saver.stop()
+        loader.stop()
+        replay = MinibatchesLoader(None, path=path, shuffle_limit=0)
+        replay.initialize(device=device)
+        # served valid first, then train: the replay's class order
+        rows = numpy.concatenate(served)
+        if replay.total_samples != len(rows) \
+                or not numpy.array_equal(replay._data, rows):
+            raise SystemExit("input (saver): the %s stream did not read "
+                             "back" % where)
+        replays[where] = (replay._data, replay._labels)
+    if not all(numpy.array_equal(a, b) for a, b in zip(replays["card"],
+                                                       replays["cpu"])):
+        raise SystemExit("input (saver): card and CPU streams differ")
+    return {"rows": int(len(replays["card"][0]))}
+
+
+def _joiner_check(torch, dev):
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.ops.join import InputJoiner
+    rng = numpy.random.default_rng(16)
+    parts = [rng.normal(size=s).astype(numpy.float32)
+             for s in ((256, 3), (256, 2, 5), (256, 4, 4, 3))]
+    got = {}
+    for where in ("card", "cpu"):
+        j = InputJoiner(None, inputs=[Array(p) for p in parts])
+        j.initialize(device=dev if where == "card" else "cpu")
+        j.run()
+        got[where] = j.output.map_read().mem.copy()
+    want = numpy.concatenate([p.reshape(256, -1) for p in parts], axis=1)
+    if not (numpy.array_equal(got["card"], want)
+            and numpy.array_equal(got["cpu"], want)):
+        raise SystemExit("input (joiner): the joined rows differ")
+    return {"shape": list(want.shape)}
+
+
+def input_check(torch, dev, vocab_job):
+    """Phase 13: (a) AlexNet from image files, (b) the LM from BPE text,
+    (c) the small parts; returns the phase's card launches by kernel."""
+    t_phase = time.perf_counter()
+    try:
+        got = {}
+        for part in (input_images(torch, dev),
+                     input_lm(torch, dev, vocab_job),
+                     input_small(torch, dev)):
+            for n, v in part.items():
+                got[n] = got.get(n, 0) + v
+    finally:
+        shutil.rmtree(_input_dir(), ignore_errors=True)
+    log("input: %.1f s" % (time.perf_counter() - t_phase))
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5478,7 +6105,14 @@ def main():
     launches.update(alexnet_check(torch, dev)["launches"])
     s2d_launches = s2d_vgg_check(torch, dev)
     family_launches = families_check(torch, dev)
-    wf_launches = workflow_check(torch, dev)
+    vocab_job = start_vocab()
+    try:
+        wf_launches = workflow_check(torch, dev)
+        input_launches = input_check(torch, dev, vocab_job)
+    finally:
+        if vocab_job[0].poll() is None:
+            vocab_job[0].kill()
+            vocab_job[0].wait()
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -5511,7 +6145,8 @@ def main():
                          ("moe_train_launches", moe_train_launches),
                          ("s2d_vgg_launches", s2d_launches),
                          ("families_launches", family_launches),
-                         ("workflow_launches", wf_launches)):
+                         ("workflow_launches", wf_launches),
+                         ("input_launches", input_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))

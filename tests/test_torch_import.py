@@ -334,3 +334,100 @@ def test_workflow_entry_points_default_to_the_card():
                  lambda: Array(numpy.zeros(3)).devmem):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+#: the modules of the input-pipeline slice and the ones it extended
+INPUT_SLICE = ("veles_tpu_torch.prng.threefry",
+               "veles_tpu_torch.prng.random_generator",
+               "veles_tpu_torch.ops.augment",
+               "veles_tpu_torch.ops.join",
+               "veles_tpu_torch.loader",
+               "veles_tpu_torch.loader.base",
+               "veles_tpu_torch.loader.prefetch",
+               "veles_tpu_torch.loader.image",
+               "veles_tpu_torch.loader.pickles",
+               "veles_tpu_torch.loader.hdf5_loader",
+               "veles_tpu_torch.loader.text",
+               "veles_tpu_torch.loader.sound",
+               "veles_tpu_torch.loader.interactive",
+               "veles_tpu_torch.loader.saver",
+               "veles_tpu_torch.snd_features",
+               "veles_tpu_torch.datasets",
+               "veles_tpu_torch.datasets.glyphs",
+               "veles_tpu_torch.datasets.scenes",
+               "veles_tpu_torch.datasets.tones",
+               "veles_tpu_torch.downloader",
+               "veles_tpu_torch.models.gd",
+               "veles_tpu_torch.samples.mnist",
+               "veles_tpu_torch.samples.cifar",
+               "veles_tpu_torch.samples.lm")
+
+
+@pytest.mark.parametrize("module", INPUT_SLICE)
+def test_input_slice_imports_alone_with_jax_blocked(module):
+    """Each module of the input-pipeline slice imports first in a fresh
+    interpreter with ``jax`` blocked, is listed in ``SUBMODULES``, loads
+    nothing of ``veles_tpu`` and imports only torch, numpy, the standard
+    library and the port; PIL, h5py and scipy are imported inside the
+    functions that use them, so importing the module loads none of
+    them."""
+    import veles_tpu_torch
+    assert module in veles_tpu_torch.SUBMODULES
+    optional = ("PIL", "h5py", "scipy")
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "importlib.import_module(%r)\n"
+            "assert not any(n == 'veles_tpu' or n.startswith('veles_tpu.')\n"
+            "               for n in sys.modules), 'veles_tpu was loaded'\n"
+            "assert not [n for n in %r if n in sys.modules]\n"
+            "print('ok')\n" % (module, optional))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    path = os.path.join(ROOT, *module.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) \
+        else path + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert roots <= {"numpy", "torch", "veles_tpu_torch"} \
+        | set(optional) | set(sys.stdlib_module_names), roots
+
+
+@pytest.mark.parametrize("module,names", [
+    ("veles_tpu_torch.prng.threefry", ("randint",)),
+    ("veles_tpu_torch.ops.augment", ("image_augment", "make_augment")),
+    ("veles_tpu_torch.ops.join", ("InputJoiner",)),
+    ("veles_tpu_torch.loader", ("CLASS_NAME", "TEST", "VALID", "TRAIN",
+                                "ILoader", "Loader", "FullBatchLoader",
+                                "FullBatchLoaderMSE")),
+    ("veles_tpu_torch.loader.base", ("PREFETCH_DEPTH",)),
+    ("veles_tpu_torch.loader.prefetch", ("PrefetchPipeline",)),
+    ("veles_tpu_torch.loader.image", (
+        "IMAGE_EXTENSIONS", "ImagePipeline", "FileImageLoaderBase",
+        "FileImageLoader", "FullBatchImageLoader",
+        "FullBatchFileImageLoader", "FullBatchImageLoaderMSE")),
+    ("veles_tpu_torch.loader.pickles", ("PicklesLoader",)),
+    ("veles_tpu_torch.loader.hdf5_loader", ("FullBatchHDF5Loader",
+                                            "HDF5Loader")),
+    ("veles_tpu_torch.loader.text", ("BytePairVocab", "FullBatchTextLM")),
+    ("veles_tpu_torch.loader.sound", ("SOUND_EXTENSIONS", "decode_sound",
+                                      "SoundLoader")),
+    ("veles_tpu_torch.loader.interactive", ("InteractiveLoader",)),
+    ("veles_tpu_torch.loader.saver", ("MinibatchesSaver",
+                                      "MinibatchesLoader")),
+    ("veles_tpu_torch.snd_features", ("parse_features_xml",
+                                      "FeatureExtractor",
+                                      "extract_features")),
+    ("veles_tpu_torch.datasets", ("render_digits", "render_scenes")),
+    ("veles_tpu_torch.datasets.tones", ("GENRES", "synth_track",
+                                        "default_cache_dir", "generate")),
+    ("veles_tpu_torch.downloader", ("Downloader",))])
+def test_input_surface_is_exported(module, names):
+    """The input pipeline's names, where the reference exports them."""
+    test_workflow_surface_is_exported(module, names)

@@ -24,8 +24,11 @@ SSE) through them while its embeddings, beam search and serialized
 decode launch none; a MoE chain served through the serving kernels
 (one ``int8_gemm`` launch per layer per pass: the expert FFN stays off
 the int8 path) and its block's paged step against the CPU's, the RBM's
-hidden samples drawn by the uniform fill bit-equal to the CPU's, and
-the blocked AlexNet stem against the strided one.
+hidden samples drawn by the uniform fill bit-equal to the CPU's, the
+blocked AlexNet stem against the strided one, and the prefetch pipeline
+on CUDA tensors (pinned staging, its upload stream and events: batches
+a slow step reads equal the synchronous arm's; a narrow AlexNet trained
+from ``.npy`` files bit-equal at prefetch 2 and 0).
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -1284,3 +1287,128 @@ def test_s2d_stem_on_the_card(card):
     yb = s2d.apply(space_to_depth(x, 4).reshape(4, -1))
     numpy.testing.assert_allclose(yb.cpu().numpy(), y.cpu().numpy(),
                                   rtol=1e-4, atol=1e-4)
+
+
+def _card_stream_loader(card, prefetch, decode_s=0.0):
+    """A streaming loader on the card: every minibatch decoded on the
+    host (``fill_minibatch``), optionally slowly."""
+    import time as _time
+    from veles_tpu_torch.loader.base import Loader
+
+    class Stream(Loader):
+        def load_data(self):
+            self.class_lengths[:] = [0, 64, 448]
+            rng = numpy.random.default_rng(0)
+            self._base = rng.normal(size=(512, 256, 64)).astype(
+                numpy.float32)
+            self._lab = (numpy.arange(512) % 5).astype(numpy.int32)
+
+        def create_minibatch_data(self):
+            self.minibatch_data.reset(numpy.zeros(
+                (self.max_minibatch_size, 256, 64), numpy.float32))
+
+        def fill_minibatch(self):
+            if decode_s:
+                _time.sleep(decode_s)
+            idx = self.minibatch_indices.mem[:self.minibatch_size]
+            self.minibatch_data.mem[:self.minibatch_size] = self._base[idx]
+            self.minibatch_labels.mem[:self.minibatch_size] = \
+                self._lab[idx]
+
+    loader = Stream(None, minibatch_size=64, prefetch=prefetch, seed=3)
+    loader.initialize(device=card)
+    return loader
+
+
+def test_prefetch_on_the_card_pinned_stream_and_events(card):
+    """The pipeline on the card: pinned staging buffers, copies on its
+    own upload stream, and each popped batch on the compute stream's
+    side of an event — every batch a slow step reads (a long kernel
+    queued before the next pop) equals the synchronous arm's."""
+    from veles_tpu_torch.loader.prefetch import PrefetchPipeline
+    sync = _card_stream_loader(card, 0)
+    pf = _card_stream_loader(card, 3)
+    weight = torch.randn(64, 64, device=card)
+    outs = {}
+    for name, loader in (("sync", sync), ("prefetch", pf)):
+        acc = []
+        for _ in range(20):
+            loader.run()
+            x = loader.minibatch_data.devmem
+            assert x.device.type == "cuda"
+            # a step long enough that the next copies land while it runs
+            y = x
+            for _ in range(8):
+                y = torch.tanh(y @ weight)
+            acc.append((y.sum(dim=(1, 2)).cpu(),
+                        loader.minibatch_labels.devmem.cpu(),
+                        loader.minibatch_class, loader.minibatch_size))
+        outs[name] = acc
+        loader.stop()
+    pipe = pf.prefetch_
+    assert pipe is None  # closed by stop()
+    for (a, la, ca, sa), (b, lb, cb, sb) in zip(outs["sync"],
+                                                outs["prefetch"]):
+        assert (ca, sa) == (cb, sb)
+        assert torch.equal(a, b) and torch.equal(la, lb)
+    probe = _card_stream_loader(card, 2)
+    probe.run()
+    pipe = probe.prefetch_
+    assert isinstance(pipe, PrefetchPipeline)
+    assert pipe.stream is not None
+    assert pipe.stream != torch.cuda.current_stream(card)
+    bufs = pipe._installed.bufs
+    assert all(p.is_pinned() for p in bufs.pins)
+    assert bufs.data.mem.ctypes.data == bufs.pins[0].data_ptr()
+    probe.stop()
+
+
+def _files_run(card, base, prefetch):
+    """2 epochs of a narrow AlexNet (augment and dropout on) over the
+    ``.npy`` tree ``base``; returns (parameters, history)."""
+    import os
+    from veles_tpu_torch.loader.image import FileImageLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.samples.alexnet import alexnet_layers
+    wf = StandardWorkflow(
+        loader_factory=FileImageLoader, loader_config=dict(
+            train_paths=[os.path.join(base, "train")],
+            validation_paths=[os.path.join(base, "valid")],
+            minibatch_size=32, prefetch=prefetch),
+        layers=alexnet_layers(4, 0.5, (8, 16, 24, 24, 16, 32), side=67),
+        solver="sgd", learning_rate=0.01, gradient_moment=0.9,
+        augment={"kind": "image", "flip": True, "pad": 4, "cutout": 16},
+        decision_config={"max_epochs": 2},
+        snapshotter_config={"enabled": False}, dtype="float32")
+    wf.initialize(device=card)
+    wf.run()
+    torch.cuda.synchronize()
+    wf.stop()
+    return ([p.detach().cpu() for u in wf.gd.forwards
+             for p in u.params.values()], wf.decision.history)
+
+
+def test_prefetch_trains_bit_equal_on_the_card(card, tmp_path):
+    """A small conv chain with augment and dropout trained through
+    ``StandardWorkflow`` from ``.npy`` files on the card: prefetch 2
+    bit-equal to prefetch 0 (weights and epoch metrics).  cuDNN runs
+    deterministically here: its f32 backward may sum in another order
+    from run to run, and the pipeline, not the convolutions, is under
+    test."""
+    rng = numpy.random.default_rng(1)
+    for split, n in (("train", 96), ("valid", 32)):
+        for i in range(n):
+            d = tmp_path / split / ("c%d" % (i % 4))
+            d.mkdir(parents=True, exist_ok=True)
+            numpy.save(d / ("%03d.npy" % i),
+                       rng.integers(0, 256, (67, 67, 3)).astype(
+                           numpy.uint8))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (wa, ha), (wb, hb) = (_files_run(card, str(tmp_path), prefetch)
+                              for prefetch in (2, 0))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert ha == hb
+    assert all(torch.equal(a, b) for a, b in zip(wa, wb))

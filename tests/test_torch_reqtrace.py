@@ -189,10 +189,13 @@ def test_trace_export_reads_the_port_log(f32, spec_trained_chain,
         want_out = jsch.submit(prompt, 6, trace="exp-1").result(120)
         got_out = tsch.submit(prompt, 6, trace="exp-1").result(120)
     finally:
-        jevents.close()
-        events.close()
+        # a loop records a step's req.step event after the step has
+        # resolved its requests: stop the loops before the logs close,
+        # or the last step's event can miss the file
         jsch.close()
         tsch.close()
+        jevents.close()
+        events.close()
     assert got_out == want_out
     with open(tpath) as f:
         lines = [json.loads(line) for line in f]
@@ -255,6 +258,16 @@ def test_debug_requests_consistent_with_check_kv(f32, spec_trained_chain):
             if len(decoding) >= 2:
                 break
             time.sleep(0.01)
+        assert len(decoding) >= 2
+        # hold the loop inside one step (a one-off hang, as the
+        # preemption test does) so every read below sees one state
+        hang = faults.inject("serving.scheduler.step", "hang", arg=2.0,
+                             times=1)
+        while not hang.fired:
+            assert time.monotonic() < deadline
+            time.sleep(0.002)
+        rows = sch.debug_requests()
+        decoding = [r for r in rows if r["phase"] == "decode"]
         assert len(decoding) >= 2
         assert {r["phase"] for r in rows} <= {"queued", "admitting",
                                                "prefill", "decode"}

@@ -684,11 +684,12 @@ def test_metrics_drain_shutdown_and_stop(fresh):
     assert got[1]["Retry-After"] == want[1]["Retry-After"] == "5"
     got, want = fresh.both("/shutdown", {})
     _same(got, want)
-    # both reply before they fire the callback
+    # both reply before they fire the callback, each from its own
+    # thread, so the two may fire in either order
     deadline = time.monotonic() + 10
     while len(fired) < 2 and time.monotonic() < deadline:
         time.sleep(0.01)
-    assert fired == list(fresh.apis)
+    assert sorted(map(id, fired)) == sorted(map(id, fresh.apis))
     fresh.port.stop()
     with pytest.raises(urllib.error.URLError) as e:
         urllib.request.urlopen("http://127.0.0.1:%d/healthz"

@@ -755,21 +755,20 @@ def test_gather_results_and_metric_values(tmp_path):
 
 
 def test_feature_off_values():
-    """Each waits for the item named: meshes (10), augmentation,
-    prefetch, the glyphs stand-in and the BPE text path (9), plotters
-    (11: none built)."""
+    """Each waits for the item named: meshes (10), plotters (11: none
+    built).  Augmentation, prefetch, the glyphs stand-in and the BPE
+    text path (item 9) are on since the input-pipeline slice."""
     from veles_tpu_torch.loader.fullbatch import FullBatchLoader
     from veles_tpu_torch.samples.mnist import MnistWorkflow
     with pytest.raises(NotImplementedError, match="item 10"):
         MnistWorkflow(mesh={"dp": 2})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MnistWorkflow(augment={"kind": "image"})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FullBatchLoader(None, prefetch=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MnistWorkflow(synthetic_kind="glyphs")
+    aug = {"kind": "image", "shape": (28, 28, 1)}
+    assert MnistWorkflow(augment=aug).gd.augment == aug
+    assert FullBatchLoader(None, prefetch=2).prefetch == 2
+    assert MnistWorkflow(synthetic_kind="glyphs").loader.synthetic_kind \
+        == "glyphs"
     from veles_tpu_torch.samples.lm import LMWorkflow
-    with pytest.raises(NotImplementedError, match="item 9"):
-        LMWorkflow(text_path="corpus.txt")
+    with pytest.raises(FileNotFoundError):
+        LMWorkflow(text_path="no-such-corpus.txt")
     wf = MnistWorkflow(plotters=True)
     assert wf.plotters == []

@@ -19,7 +19,8 @@ trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
 a device-resident ``FullBatchLoader``) and trains AlexNet and VGG-A
 (``samples/alexnet.py``: convolutions, LRN, pooling, dropout, FC layers
-and a softmax head over a synthetic ImageNet drawn on the card).  Its
+and a softmax head over a synthetic ImageNet drawn on the card, or
+from image files).  Its
 chains take every layer type of the reference (``models/standard.py``):
 mixture-of-experts FFNs (served and trained like dense ones), recurrent
 units, transposed convolutions and depooling under the MSE evaluator;
@@ -29,7 +30,12 @@ and RBMs.  Training runs through the reference's workflow runtime too
 ``snapshotter``, ``models/standard.StandardWorkflow`` with
 ``models/decision.DecisionGD``): the samples ``mnist``, ``cifar``,
 ``alexnet``, ``lm``, ``transformer`` and ``kohonen`` are workflows run
-by ``Workflow.run()``.  Its kernels are written by hand for ``sm_90a`` under
+by ``Workflow.run()``.  Their input pipeline is the reference's:
+streaming loaders (``loader/{image, text, pickles, hdf5_loader, sound,
+interactive, saver}``) whose decode the prefetch pipeline
+(``loader/prefetch.py``) overlaps with the step, in-step augmentation
+(``ops/augment.py``), the stand-in datasets (``datasets``) and a local
+``downloader``.  Its kernels are written by hand for ``sm_90a`` under
 ``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
@@ -78,6 +84,12 @@ SUBMODULES = (
     "veles_tpu_torch.normalization",
     "veles_tpu_torch.snapshotter",
     "veles_tpu_torch.pickle_debug",
+    "veles_tpu_torch.downloader",
+    "veles_tpu_torch.snd_features",
+    "veles_tpu_torch.datasets",
+    "veles_tpu_torch.datasets.glyphs",
+    "veles_tpu_torch.datasets.scenes",
+    "veles_tpu_torch.datasets.tones",
     "veles_tpu_torch.telemetry",
     "veles_tpu_torch.telemetry.registry",
     "veles_tpu_torch.telemetry.reqtrace",
@@ -95,6 +107,8 @@ SUBMODULES = (
     "veles_tpu_torch.ops.lrn",
     "veles_tpu_torch.ops.random",
     "veles_tpu_torch.ops.normalize",
+    "veles_tpu_torch.ops.augment",
+    "veles_tpu_torch.ops.join",
     "veles_tpu_torch.prng",
     "veles_tpu_torch.prng.threefry",
     "veles_tpu_torch.prng.random_generator",
@@ -123,6 +137,14 @@ SUBMODULES = (
     "veles_tpu_torch.loader",
     "veles_tpu_torch.loader.base",
     "veles_tpu_torch.loader.fullbatch",
+    "veles_tpu_torch.loader.prefetch",
+    "veles_tpu_torch.loader.image",
+    "veles_tpu_torch.loader.pickles",
+    "veles_tpu_torch.loader.hdf5_loader",
+    "veles_tpu_torch.loader.text",
+    "veles_tpu_torch.loader.sound",
+    "veles_tpu_torch.loader.interactive",
+    "veles_tpu_torch.loader.saver",
     "veles_tpu_torch.samples",
     "veles_tpu_torch.samples.lm",
     "veles_tpu_torch.samples.alexnet",

@@ -1,5 +1,16 @@
-"""Minibatch loaders (the port of ``veles_tpu/loader`` for training on a
-device-resident dataset)."""
+"""Minibatch loaders (the port of ``veles_tpu/loader``).
 
-from veles_tpu_torch.loader.base import TEST, TRAIN, VALID  # noqa: F401
-from veles_tpu_torch.loader.fullbatch import FullBatchLoader  # noqa: F401
+- :mod:`.base` — Loader: minibatch serving, class split, shuffling,
+  epoch flags, failed-minibatch requeue;
+- :mod:`.fullbatch` — the device-resident dataset;
+- :mod:`.prefetch` — the asynchronous input pipeline;
+- :mod:`.image`, :mod:`.pickles`, :mod:`.hdf5_loader`, :mod:`.text`,
+  :mod:`.sound` — datasets from files;
+- :mod:`.saver` — minibatch stream save and replay;
+- :mod:`.interactive` — minibatches fed from code.
+"""
+
+from veles_tpu_torch.loader.base import (  # noqa: F401
+    CLASS_NAME, TEST, TRAIN, VALID, ILoader, Loader)
+from veles_tpu_torch.loader.fullbatch import (  # noqa: F401
+    FullBatchLoader, FullBatchLoaderMSE)

@@ -20,15 +20,21 @@ Either way the gates read the ``last_minibatch``, ``epoch_ended`` and
 ``train_ended`` Bools, set as the reference sets them (a span's wave
 flags what the per-minibatch path's last wave of that span flags).
 
+The per-minibatch path runs through the asynchronous input pipeline
+(:mod:`veles_tpu_torch.loader.prefetch`) when the loader's ``prefetch``
+depth is above 0: ``prefetch=None`` is :data:`PREFETCH_DEPTH` (the
+default of the reference's ``root.common.loader.prefetch``), 0/False
+pins the synchronous path, an int is the depth.  The pipeline replays
+the synchronous path's values exactly and falls back to it under the
+reference's conditions (:meth:`Loader._ensure_prefetch`); span serving
+bypasses it.
+
 Two constructors: the unit's, ``Loader(workflow, minibatch_size=...,
 ...)`` with the data discovered by :meth:`Loader.load_data` at
 ``initialize()``, and the span server's, ``Loader(class_lengths,
 minibatch_size=100, seed=None)``, ready at once and never in a workflow.
-The reference's prefetch pipeline (``loader/prefetch.py``) is not
-ported yet (ROADMAP item 9): ``prefetch`` must be None, 0 or False, and
-the per-minibatch path is the reference's synchronous one, whose values
-the prefetch pipeline replays exactly.  The reference's
-``root.common.ensemble_train_ratio`` waits for the ensembles (item 11).
+The reference's ``root.common.ensemble_train_ratio`` waits for the
+ensembles (item 11).
 """
 
 import time
@@ -44,6 +50,10 @@ from veles_tpu_torch.result_provider import IResultProvider
 from veles_tpu_torch.units import Unit
 
 TEST, VALID, TRAIN = 0, 1, 2
+
+#: the prefetch depth of a loader given ``prefetch=None`` (the
+#: reference's ``root.common.loader.prefetch`` default)
+PREFETCH_DEPTH = 2
 CLASS_NAME = ("test", "validation", "train")
 
 INDEX_DTYPE = numpy.int32
@@ -81,6 +91,11 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
     VIEW_GROUP = "LOADER"
     negotiates_on_connect = True
 
+    #: loaders whose serving cannot be produced ahead of the waves
+    #: (queue-fed interactive streams) opt out of the asynchronous
+    #: input pipeline here
+    prefetchable = True
+
     def __init__(self, workflow=None, minibatch_size=100, shuffle_limit=None,
                  train_ratio=1.0, normalization_type="none",
                  normalization_parameters=None, seed=None, prefetch=None,
@@ -94,12 +109,10 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
             workflow = None
         else:
             lengths = None
-        if prefetch:
-            raise NotImplementedError(
-                "the prefetch pipeline is not ported yet (ROADMAP item 9); "
-                "pass prefetch=None, 0 or False")
         super(Loader, self).__init__(workflow, **kwargs)
         self.max_minibatch_size = int(minibatch_size)
+        #: the prefetch depth: None is :data:`PREFETCH_DEPTH`, 0/False
+        #: pins the synchronous path
         self.prefetch = prefetch
         #: how many times shuffle() may still permute the train span
         #: (None = unlimited; 0 = deterministic order, ref base.py)
@@ -147,6 +160,10 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
         self.span_sizes_ = None
         self.span_class_ = None
         self.span_fresh_ = False
+        #: the asynchronous input pipeline: None = undecided (created
+        #: on the first per-minibatch run()), False = decided off, else
+        #: the live PrefetchPipeline
+        self.prefetch_ = None
         self._input_wait_ = None
 
     # -- derived quantities ---------------------------------------------------
@@ -283,15 +300,64 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
         if self.span_capable:
             self.serve_span()
             return
+        pipeline = self._ensure_prefetch()
         t0 = time.perf_counter()
-        self.serve_next_minibatch(None)
-        self._on_successful_serve()
-        self._observe_input_wait(time.perf_counter() - t0, "sync")
+        if pipeline is not None:
+            pipeline.pop_into(self)
+            mode = "prefetch"
+        else:
+            self.serve_next_minibatch(None)
+            self._on_successful_serve()
+            mode = "sync"
+        self._observe_input_wait(time.perf_counter() - t0, mode)
+
+    # -- the asynchronous input pipeline (loader/prefetch.py) ---------------
+
+    def _prefetch_depth(self):
+        """This loader's prefetch depth; <= 0 means the synchronous
+        path."""
+        return PREFETCH_DEPTH if self.prefetch is None \
+            else int(self.prefetch)
+
+    def _ensure_prefetch(self):
+        """Decide (once) and create the prefetch pipeline; None means
+        the synchronous path.  It falls back under the reference's
+        conditions: depth <= 0, a loader that opted out, distributed
+        master/worker serving, refiled minibatches, or more than one
+        process (``torch.distributed`` initialized with a world size
+        above 1)."""
+        if self.prefetch_ is False:
+            return None
+        if self.prefetch_ is not None:
+            return self.prefetch_
+        depth = self._prefetch_depth()
+        enabled = (depth > 0 and self.prefetchable
+                   and self.is_standalone
+                   and not self.failed_minibatches)
+        if enabled:
+            import torch.distributed as dist
+            enabled = not (dist.is_available() and dist.is_initialized()
+                           and dist.get_world_size() > 1)
+        if not enabled:
+            self.prefetch_ = False
+            return None
+        from veles_tpu_torch.loader.prefetch import PrefetchPipeline
+        self.prefetch_ = PrefetchPipeline(self, depth)
+        self.debug("asynchronous input pipeline on (depth %d)", depth)
+        return self.prefetch_
+
+    def stop(self):
+        pipeline = self.prefetch_
+        if pipeline not in (None, False):
+            pipeline.close()
+            self.prefetch_ = None
+        super(Loader, self).stop()
 
     def _observe_input_wait(self, dt, mode):
         """veles_input_wait_seconds: how long this wave blocked on input
-        before the trainer could start (the synchronous path's gather,
-        normalization and upload)."""
+        before the trainer could start — the decode, normalization and
+        upload on the synchronous path, the ready-queue wait on the
+        prefetch path."""
         import veles_tpu_torch.telemetry as telemetry
         if not telemetry.enabled():
             return

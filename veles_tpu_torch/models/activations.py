@@ -25,7 +25,9 @@ def relu(x):
 
 
 def strict_relu(x):
-    return torch.clamp(x, min=0)
+    # jnp.maximum's gradient at a tie is 0.5 to each side; clamp would
+    # pass 1 at x == 0 (an input exactly 0: a conv over a cutout box)
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def sigmoid(x):

@@ -39,9 +39,14 @@ policy ("warn", "skip_step" or "halt") and ``enabled`` are the knobs of
 trainer reads ``root.common.health``: the policy the trainer acts on is
 the one the monitor reports.  ``health=False`` turns it off for this
 trainer; a ``health_policy`` given to the constructor configures the
-process-wide policy.  Not ported: meshes (dp/tp/pp/sp; ROADMAP item
-10), the DCN master/worker exchange (item 10) and augmentation (the
-rest of item 9).
+process-wide policy.  ``augment`` (a callable ``fn(x, key)`` or an
+``ops.augment.make_augment`` spec such as ``{"kind": "image", "pad":
+4}``) transforms train minibatches on the device inside the step: as
+in the JAX trainer, the minibatch key is split first (``key, sub =
+split(key)``), ``sub`` keys the augment and ``key`` the dropout masks,
+so the masks change when augment is on.  Not ported: meshes
+(dp/tp/pp/sp; ROADMAP item 10) and the DCN master/worker exchange
+(item 10).
 
 The trainer is also a workflow unit (the reference's face):
 ``GradientDescent(workflow, forwards=..., evaluator=..., loader=...,
@@ -103,16 +108,15 @@ class GradientDescent(AcceleratedUnit):
         if mesh is not None:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP item 10)")
-        if augment is not None:
-            raise NotImplementedError(
-                "in-graph augmentation (ops/augment.py) is not ported yet "
-                "(ROADMAP item 9)")
         super(GradientDescent, self).__init__(workflow, **kwargs)
         if health_policy is not None:
             health_lib.configure(policy=health_policy)
         self.forwards = list(forwards) if forwards else []
         self.evaluator = evaluator
         self.loader = loader
+        #: train-time augmentation: a spec dict (survives snapshots)
+        #: or a callable
+        self.augment = augment
         self.solver_name = solver
         self.solver = get_solver(solver)
         self.learning_rate = learning_rate
@@ -147,6 +151,22 @@ class GradientDescent(AcceleratedUnit):
         self.demand("forwards", "evaluator", "loader")
         if plain:
             self._setup()
+
+    def init_unpickled(self):
+        super(GradientDescent, self).init_unpickled()
+        self._augment_fn_ = None
+
+    @property
+    def augment_fn(self):
+        """The augment as ``fn(x, key)`` (None when off)."""
+        if self.augment is None:
+            return None
+        if callable(self.augment):
+            return self.augment
+        if self._augment_fn_ is None:
+            from veles_tpu_torch.ops.augment import make_augment
+            self._augment_fn_ = make_augment(**dict(self.augment))
+        return self._augment_fn_
 
     def _setup(self):
         """Bind the trainer to its chain's parameters on their device:
@@ -293,6 +313,10 @@ class GradientDescent(AcceleratedUnit):
         return h
 
     def _loss_and_metrics(self, x, target, size, key, train):
+        augment = self.augment_fn
+        if train and augment is not None:
+            key, sub = threefry.split(key)
+            x = augment(x, sub)
         if getattr(self.evaluator, "TARGET_IS_INPUT", False):
             target = x
         y = self.forward(x, key, train)

@@ -35,6 +35,18 @@ class RandomGenerator:
         """Permute a numpy array in place."""
         self.np.shuffle(arr)
 
+    def permutation(self, n):
+        return self.np.permutation(n)
+
+    def randint(self, low, high=None, size=None):
+        return self.np.integers(low, high, size=size)
+
+    def rand(self, *shape):
+        return self.np.random(shape)
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        return self.np.normal(loc, scale, size)
+
     def fill(self, arr, vmin=-1.0, vmax=1.0):
         """Fill a numpy array in place with uniform draws in [vmin,
         vmax) (the reference's ``fill``, the same stream)."""

@@ -16,6 +16,10 @@ on (the default since jax 0.5):
 - ``uniform`` puts the top 23 bits in a float's mantissa in [1, 2)
   and subtracts 1; ``bernoulli(key, p, shape)`` is
   ``uniform(key, shape) < float32(p)``;
+- ``randint(key, shape, minval, maxval)`` (int32) splits the key,
+  draws a higher and a lower 32-bit word per element and reduces the
+  pair modulo ``span = maxval - minval`` through the multiplier
+  ``(2**16 % span)**2 % span``, in uint32 arithmetic;
 - ``categorical`` is the Gumbel-argmax draw, with
   ``-log(-log(uniform(tiny, 1)))``.
 
@@ -117,6 +121,45 @@ def uniform(k, shape, minval=0.0, maxval=1.0, offset=0):
 def bernoulli(k, p, shape):
     """``jax.random.bernoulli(k, p, shape)``: ``uniform < float32(p)``."""
     return uniform(k, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def randint(k, shape, minval, maxval):
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32): an
+    int32 tensor of ``shape`` on ``k``'s device; ``minval``/``maxval``
+    ints or integer tensors broadcasting against ``shape``."""
+    shape = tuple(int(n) for n in shape)
+    dev = k.device
+    lo = torch.as_tensor(minval, device=dev).to(torch.int64)
+    hi = torch.as_tensor(maxval, device=dev).to(torch.int64)
+    # a maxval past the type's top widens the span by one (JAX's
+    # randint(..., 0, 256, uint8) rule), after both are clipped
+    hi_out = hi > I32_MAX
+    lo = lo.clamp(I32_MIN, I32_MAX).expand(shape)
+    hi = hi.clamp(I32_MIN, I32_MAX).expand(shape)
+    hi_out = hi_out.expand(shape)
+    keys = split(k)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    span = (hi - lo) & MASK
+    span = torch.where(hi <= lo, torch.ones_like(span), span)
+    span = torch.where(hi_out & (hi > lo), (span + 1) & MASK, span)
+    # a span that wrapped to 0 leaves the words as they are (XLA's
+    # unsigned remainder by zero)
+    safe = torch.where(span == 0, torch.ones_like(span), span)
+
+    def rem(x):
+        return torch.where(span == 0, x, x % safe)
+
+    mult = rem(torch.full_like(span, 2 ** 16))
+    mult = rem((mult * mult) & MASK)
+    off = (rem(higher) * mult) & MASK
+    off = rem((off + rem(lower)) & MASK)
+    # uint32 -> int32 and the int32 add wrap as XLA's do
+    out = (lo + off) & MASK
+    return torch.where(out > I32_MAX, out - 2 ** 32, out).to(torch.int32)
 
 
 def gumbel(k, shape):

@@ -9,9 +9,11 @@ defaults.
                        max_epochs=2, dtype="float32")
     wf.initialize(device="cpu"); wf.run()
 
-The data is the reference's deterministic synthetic stand-in ("blobs").
-Reading CIFAR-10's python-pickle batches and the "scenes" stand-in
-wait for the loaders and ``datasets/scenes.py`` (ROADMAP item 9).
+The data is one of the reference's deterministic synthetic stand-ins:
+``synthetic_kind="blobs"`` (class-dependent colour blobs) or
+``"scenes"`` (rendered shape classes, ``datasets/scenes.py``, at
+``synthetic_size`` pixels a side).  ``augment`` (e.g. ``{"kind":
+"image", "pad": 4}``) goes to the trainer.
 """
 
 import numpy
@@ -21,28 +23,38 @@ from veles_tpu_torch.models.standard import StandardWorkflow
 
 
 class CifarLoader(FullBatchLoader):
-    """Class-dependent colour blobs from ``default_rng(1234)``."""
+    """The synthetic stand-ins: "blobs", class-dependent colour blobs
+    from ``default_rng(1234)``, or "scenes", ``render_scenes(n,
+    seed=1234, size=synthetic_size)`` (the reference's quality
+    stand-in)."""
 
     def __init__(self, workflow, synthetic_train=4096, synthetic_valid=512,
-                 synthetic_kind="blobs", **kwargs):
-        if synthetic_kind != "blobs":
-            raise NotImplementedError(
-                "the %r stand-in waits for datasets/scenes.py (ROADMAP "
-                "item 9)" % (synthetic_kind,))
+                 synthetic_kind="blobs", synthetic_size=32, **kwargs):
+        if synthetic_kind not in ("blobs", "scenes"):
+            raise ValueError("synthetic_kind must be 'blobs' or 'scenes', "
+                             "not %r" % (synthetic_kind,))
         super(CifarLoader, self).__init__(workflow, **kwargs)
         self.synthetic_train = int(synthetic_train)
         self.synthetic_valid = int(synthetic_valid)
+        self.synthetic_kind = synthetic_kind
+        self.synthetic_size = int(synthetic_size)
 
     def load_data(self):
         n_train, n_valid = self.synthetic_train, self.synthetic_valid
         tot = n_train + n_valid
-        rng = numpy.random.default_rng(1234)
-        labels = rng.integers(0, 10, tot)
-        centers = rng.normal(scale=0.6, size=(10, 1, 1, 3))
-        data = numpy.clip(
-            centers[labels]
-            + rng.normal(scale=0.25, size=(tot, 32, 32, 3)) + 0.5,
-            0, 1) * 255
+        if self.synthetic_kind == "scenes":
+            from veles_tpu_torch.datasets import render_scenes
+            data, labels = render_scenes(tot, seed=1234,
+                                         size=self.synthetic_size)
+            data = data * 255.0
+        else:
+            rng = numpy.random.default_rng(1234)
+            labels = rng.integers(0, 10, tot)
+            centers = rng.normal(scale=0.6, size=(10, 1, 1, 3))
+            data = numpy.clip(
+                centers[labels]
+                + rng.normal(scale=0.25, size=(tot, 32, 32, 3)) + 0.5,
+                0, 1) * 255
         valid, train = data[:n_valid], data[n_valid:]
         valid_l, train_l = (labels[:n_valid].tolist(),
                             labels[n_valid:].tolist())
@@ -83,7 +95,8 @@ class CifarWorkflow(StandardWorkflow):
                  max_epochs=None, snapshot_prefix="cifar",
                  snapshot_compression="gz", snapshot_time_interval=10.0,
                  synthetic_train=4096, synthetic_valid=512,
-                 synthetic_kind="blobs", decision_config=None,
+                 synthetic_kind="blobs", synthetic_size=32, augment=None,
+                 decision_config=None,
                  snapshotter_config=None, **kwargs):
         super(CifarWorkflow, self).__init__(
             workflow, name="CIFAR-10", loader_factory=CifarLoader,
@@ -92,11 +105,13 @@ class CifarWorkflow(StandardWorkflow):
                 "normalization_type": normalization,
                 "synthetic_train": synthetic_train,
                 "synthetic_valid": synthetic_valid,
-                "synthetic_kind": synthetic_kind},
+                "synthetic_kind": synthetic_kind,
+                "synthetic_size": synthetic_size},
             layers=layers or cifar_layers(conv_type, fc_type),
             solver=solver, learning_rate=float(learning_rate),
             gradient_moment=float(gradient_moment),
-            weights_decay=float(weights_decay), lr_schedule=lr_schedule,
+            weights_decay=float(weights_decay), augment=augment,
+            lr_schedule=lr_schedule,
             lr_schedule_params=lr_schedule_params or {},
             decision_config=dict({
                 "fail_iterations": int(fail_iterations),

@@ -25,11 +25,17 @@ of the same names and defaults):
 
 Its ``corpus="random"`` trains on uniform random tokens (a port knob:
 the Markov corpus's transition tensor is vocab³ floats, beyond a card
-at ``bench_lm``'s vocabulary of 32768); the reference's BPE text path
-(``text_path``) waits for ``loader/text.py`` (ROADMAP item 9).
+at ``bench_lm``'s vocabulary of 32768).  ``text_path`` trains on a
+text file instead, through a byte-level BPE vocabulary
+(``loader/text.py``): loaded from ``vocab_path`` when that file
+exists, else trained on the file to ``vocab_size`` ids (and saved to
+``vocab_path`` when one is given); the embedding and logits width is
+the vocabulary's true size, and ``seq``/``stride``/``valid_fraction``
+shape the windows.
 """
 
 import collections
+import os
 
 import numpy
 
@@ -216,22 +222,41 @@ class LMWorkflow(StandardWorkflow):
                  lr_schedule="cosine", lr_schedule_params=None,
                  fail_iterations=60, max_epochs=None, snapshot_prefix="lm",
                  snapshot_time_interval=60.0, text_path=None,
-                 corpus="markov", decision_config=None,
+                 vocab_path=None, vocab_size=512, stride=None,
+                 valid_fraction=0.1, corpus="markov", decision_config=None,
                  snapshotter_config=None, **kwargs):
         if text_path:
-            raise NotImplementedError(
-                "the BPE text path waits for loader/text.py "
-                "(ROADMAP item 9)")
-        factory = {"markov": MarkovLoader,
-                   "random": RandomTokenLoader}[corpus]
-        super(LMWorkflow, self).__init__(
-            workflow, name="LM", loader_factory=factory,
-            loader_config={
+            from veles_tpu_torch.loader.text import (
+                BytePairVocab, FullBatchTextLM)
+            # the vocabulary is resolved here so the embedding and
+            # logits width is its true size (a stale vocab_path file or
+            # an early min_freq stop never leaves the model another
+            # width than the ids the loader emits)
+            if vocab_path and os.path.exists(vocab_path):
+                bpe = BytePairVocab.load(vocab_path)
+            else:
+                with open(text_path, encoding="utf-8") as f:
+                    bpe = BytePairVocab.train(f.read(), int(vocab_size),
+                                              specials=("<eos>",))
+                if vocab_path:
+                    bpe.save(vocab_path)
+            vocab = bpe.size
+            factory = FullBatchTextLM
+            loader_config = {"path": text_path, "vocab": bpe,
+                             "seq_len": int(seq), "stride": stride,
+                             "valid_fraction": float(valid_fraction)}
+        else:
+            factory = {"markov": MarkovLoader,
+                       "random": RandomTokenLoader}[corpus]
+            loader_config = {
                 "seq": seq, "vocab": vocab,
                 "synthetic_train": synthetic_train,
-                "synthetic_valid": synthetic_valid, "corpus_seed": seed,
-                "minibatch_size": int(minibatch_size),
-                "normalization_type": "none"},
+                "synthetic_valid": synthetic_valid, "corpus_seed": seed}
+        loader_config.update({"minibatch_size": int(minibatch_size),
+                              "normalization_type": "none"})
+        super(LMWorkflow, self).__init__(
+            workflow, name="LM", loader_factory=factory,
+            loader_config=loader_config,
             layers=lm_spec(int(vocab), int(dim), int(blocks), int(heads)),
             loss="next_token", solver=solver,
             learning_rate=float(learning_rate), lr_schedule=lr_schedule,

@@ -2153,6 +2153,7 @@ class InferenceScheduler(object):
         nxt = slot_decode_step(self.forwards, cache, toks, pos, temps,
                                topks, seeds, counts)
         dt = time.perf_counter() - t0
+        stamp = time.time()
         n = len(active)
         self.decode_seconds += dt
         self.decode_steps += 1
@@ -2166,7 +2167,7 @@ class InferenceScheduler(object):
             for r in active.values():
                 emitted[r.trace] = emitted.get(r.trace, 0) + 1
             tracing.record_step(emitted, duration=dt, mode="decode",
-                                slots=n, bucket=s)
+                                slots=n, bucket=s, time=stamp)
 
     def _step_paged(self, cache, active):
         """Packed step: only the active slots ride the batch, padded to
@@ -2208,6 +2209,7 @@ class InferenceScheduler(object):
                                 want_hidden=want_h)
         nxt, hid = got if want_h else (got, None)
         dt = time.perf_counter() - t0
+        stamp = time.time()
         self.decode_seconds += dt
         self.decode_steps += 1
         self.decode_tokens += n
@@ -2227,7 +2229,7 @@ class InferenceScheduler(object):
                 tr = active[slot].trace
                 emitted[tr] = emitted.get(tr, 0) + 1
             tracing.record_step(emitted, duration=dt, mode="decode",
-                                slots=n, bucket=b)
+                                slots=n, bucket=b, time=stamp)
 
     def _pick_model(self, req):
         """Per-slot drafter arbitration: the model head unless its
@@ -2348,6 +2350,7 @@ class InferenceScheduler(object):
                                 want_hidden=want_h)
         nxt, hid = got if want_h else (got, None)
         dt = time.perf_counter() - t0
+        stamp = time.time()
         self.decode_seconds += dt
         self.verify_steps += 1
         self.verify_widths[k + 1] = self.verify_widths.get(k + 1, 0) + 1
@@ -2381,7 +2384,7 @@ class InferenceScheduler(object):
                                duration_s=dt)
         if self._tron:
             tracing.record_step(traced, duration=dt, mode="verify",
-                                slots=n, bucket=b, k=k)
+                                slots=n, bucket=b, k=k, time=stamp)
 
     def _maybe_finish(self, req, cache):
         if len(req.generated) >= req.steps \

@@ -70,7 +70,11 @@ def record(trace, phase, sink=None, **attrs):
 def record_step(traces, sink=None, **attrs):
     """One batched decode or verify boundary: ``traces`` maps each
     participating request's trace id to the tokens it emitted there (0
-    for a slot whose drafts were all rejected)."""
+    for a slot whose drafts were all rejected).  The scheduler passes
+    ``time``, the step's end: the event is recorded after the step has
+    retired its finished requests, and a trace reader puts an ``X``
+    event at ``time - duration``, so stamping it at recording could
+    place the step after its own request's retire."""
     if not traces:
         return None
     return (sink or events).record("req.step", "single",
