@@ -3253,10 +3253,9 @@ def rest_check(torch, dev, chain, pattern):
     connections.  Kernels 1 and 2 must run 8 and 24 times per model pass
     on (a), (b) and (f), all split, and none of kernels 1-3 on (c) and
     (d).  Returns (a), (b) and (f)'s launches."""
+    import http.client
     import socket
     import struct
-    import urllib.error
-    import urllib.request
     from veles_tpu_torch.models.generate import generate, generate_beam
     from veles_tpu_torch.restful_api import RESTfulAPI
     from veles_tpu_torch.serving import openai_api
@@ -3564,13 +3563,25 @@ def rest_check(torch, dev, chain, pattern):
                              % (code, hcode, health.get("status"), gcode))
     finally:
         api.stop()
+    # The probe comes from 127.0.0.2, an address no client of the phase
+    # used: the server's closed connections sit in TIME_WAIT keyed by
+    # the clients' 127.0.0.1 source ports, and where the kernel picks
+    # source ports at random and keeps TIME_WAIT against RSTs
+    # (tcp_rfc1337), a probe from a reused port gets neither a RST nor
+    # a SYN-ACK and times out although nothing listens.
+    probe = http.client.HTTPConnection(
+        "127.0.0.1", out["port"], timeout=5,
+        source_address=("127.0.0.2", 0))
     try:
-        urllib.request.urlopen("http://127.0.0.1:%d/healthz" % out["port"],
-                               timeout=5)
+        probe.request("GET", "/healthz")
+        probe.getresponse()
         raise SystemExit("rest (g): the stopped server still answers")
-    except urllib.error.URLError as e:
-        if not isinstance(e.reason, ConnectionRefusedError):
-            raise SystemExit("rest (g): after stop() %r" % (e.reason,))
+    except ConnectionRefusedError:
+        pass
+    except OSError as e:
+        raise SystemExit("rest (g): after stop() %r" % (e,))
+    finally:
+        probe.close()
     out["g"] = {"drained": reply.get("drained"), "refused_after_stop": True}
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
@@ -6042,6 +6053,497 @@ def input_check(torch, dev, vocab_job):
     return got
 
 
+# -- phase 14: the command line -------------------------------------------------
+
+#: (a) AlexNet through ``samples/alexnet.py`` + its config at full width
+#: (227², 1000 classes, minibatch 256), cut to 1 epoch of a small stand-in
+CLI_A_TRAIN, CLI_A_VALID = 512, 256
+CLI_A_SIDE, CLI_A_CLASSES, CLI_A_BATCH, CLI_A_WIDTHS = 227, 1000, 256, None
+#: (b) the LM sample at bench_lm's width (d 2048, 16 heads of 128, seq
+#: 2048, vocab 32768; the random corpus), cut to 2 blocks and 3 epochs
+#: of 2 steps; SGD, an uncompressed snapshot
+CLI_LM_BLOCKS, CLI_LM_TRAIN, CLI_LM_VALID, CLI_LM_EPOCHS = 2, 8, 4, 3
+CLI_GEN_PROMPT, CLI_GEN_STEPS = 16, 16
+#: (c)/(d) the small runs, card against CPU
+CLI_SMALL_TOL = 1e-3
+CLI_DIR = "_cli_runs"
+CLI_F32 = "root.common.precision.compute_dtype = 'float32'"
+
+
+def _cli_dir():
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), CLI_DIR)
+
+
+def _sample(name):
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "veles_tpu_torch", "samples", name)
+
+
+def _tree_vars(node, out):
+    from veles_tpu_torch.config import Config
+    out.append((node, dict(vars(node))))
+    for v in list(vars(node).values()):
+        if isinstance(v, Config):
+            _tree_vars(v, out)
+    return out
+
+
+class _CliRun:
+    """``veles_tpu_torch.__main__.Main(argv)``, in process (so the launch
+    counts can be read), with the config tree restored after it; on a
+    thread when ``thread`` (a server: :meth:`wait` joins it)."""
+
+    def __init__(self, argv, thread=False):
+        import threading
+        from veles_tpu_torch.__main__ import Main
+        self.argv = list(argv)
+        self.main = Main(self.argv)
+        self.rc = self.error = None
+        self.t0 = time.perf_counter()
+        if thread:
+            self.thread = threading.Thread(target=self._run, daemon=True)
+            self.thread.start()
+        else:
+            self.thread = None
+            self._run()
+            self._check()
+
+    def _run(self):
+        from veles_tpu_torch.config import root
+        saved = _tree_vars(root, [])
+        try:
+            self.rc = self.main.run()
+        except BaseException as e:  # reported by _check
+            self.error = e
+        finally:
+            for node, d in saved:
+                vars(node).clear()
+                vars(node).update(d)
+            self.wall = time.perf_counter() - self.t0
+
+    def _check(self):
+        if self.error is not None:
+            raise self.error
+        if self.rc != 0:
+            raise SystemExit("cli: %s returned %r" % (self.argv, self.rc))
+
+    def wait_for_api(self, limit=300.0):
+        t_end = time.time() + limit
+        while time.time() < t_end:
+            wf = self.main.workflow
+            api = getattr(wf, "api", None) if wf is not None else None
+            if api is not None and api._server_ is not None:
+                return api.port
+            if not self.thread.is_alive():
+                self._check()
+                raise SystemExit("cli: the server run ended before serving")
+            time.sleep(0.05)
+        raise SystemExit("cli: the server did not come up in %.0f s" % limit)
+
+    def wait(self, limit=300.0):
+        self.thread.join(limit)
+        if self.thread.is_alive():
+            raise SystemExit("cli: the server run did not end after "
+                             "/shutdown")
+        self._check()
+
+    @property
+    def workflow(self):
+        return self.main.workflow
+
+
+def _results(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _same_results(what, got, want, tol):
+    skip = ("elapsed_sec", "Snapshot")
+    keys = sorted(k for k in want if k not in skip)
+    if sorted(k for k in got if k not in skip) != keys:
+        raise SystemExit("%s: results keys %s, want %s"
+                         % (what, sorted(got), keys))
+    for k in keys:
+        a, b = got[k], want[k]
+        if isinstance(b, float):
+            if not abs(a - b) <= tol * max(1.0, abs(b)):
+                raise SystemExit("%s: %s %r, want %r" % (what, k, a, b))
+        elif a != b:
+            raise SystemExit("%s: %s %r, want %r" % (what, k, a, b))
+
+
+def cli_alexnet(torch, dev, d):
+    """Phase 14 (a); returns the CLI run's launches."""
+    import os
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples.alexnet import AlexNetWorkflow
+    from veles_tpu_torch.telemetry import trace_export
+    widths = {"widths": CLI_A_WIDTHS} if CLI_A_WIDTHS else {}
+    direct = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        _zero_train_counts()
+        prng.get().seed(42)
+        t0 = time.perf_counter()
+        wf = AlexNetWorkflow(side=CLI_A_SIDE, classes=CLI_A_CLASSES,
+                             minibatch_size=CLI_A_BATCH,
+                             synthetic_train=CLI_A_TRAIN,
+                             synthetic_valid=CLI_A_VALID, max_epochs=1,
+                             solver="sgd", learning_rate=0.01,
+                             gradient_moment=0.9, weights_decay=0.0005,
+                             fail_iterations=10, dtype="bfloat16",
+                             weights_seed=None,
+                             snapshotter_config={"enabled": False},
+                             **widths)
+        wf.initialize(device=dev)
+        wf.run()
+        torch.cuda.synchronize()
+        direct.append({"wall": time.perf_counter() - t0,
+                       "launches": _read_train_counts(),
+                       "run": (_host_params(wf.gd.forwards),
+                               _losses(wf.decision.history))})
+        wf.stop()
+        del wf
+        torch.cuda.empty_cache()
+    events_log = os.path.join(d, "alexnet.jsonl")
+    profile = os.path.join(d, "profile")
+    result = os.path.join(d, "alexnet.json")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    run = _CliRun([
+        _sample("alexnet.py"), _sample("alexnet_config.py"),
+        "-c", "root.alexnet_tpu.update(%r)" % dict(
+            synthetic_train=CLI_A_TRAIN, synthetic_valid=CLI_A_VALID,
+            max_epochs=1, side=CLI_A_SIDE, classes=CLI_A_CLASSES,
+            minibatch_size=CLI_A_BATCH, **widths),
+        "-c", "root.common.dirs.snapshots = %r" % os.path.join(d, "snaps"),
+        "--events-log", events_log, "--profile", profile,
+        "--result-file", result])
+    torch.cuda.synchronize()
+    launches = _read_train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    wf = run.workflow
+    want = {n: direct[0]["launches"][n]
+            for n in ("lrn_fwd", "lrn_bwd", "uniform_fill")}
+    got = {n: launches[n] for n in want}
+    if got != want or not all(got.values()):
+        raise SystemExit("cli (alexnet): launches %s, the direct run's %s"
+                         % (got, want))
+    mine = (_host_params(wf.gd.forwards), _losses(wf.decision.history))
+    ratio = wf_rule(torch, "cli (alexnet)", mine,
+                    [direct[0]["run"], direct[1]["run"]], direct[0]["run"],
+                    direct[1]["run"])
+    bit_equal = max(v for dd in _max_diff(torch, mine[0], direct[0]["run"][0])
+                    for v in dd.values()) == 0.0
+    # the profiler's Chrome trace names the kernels
+    with open(run.main.launcher.profile_path) as f:
+        trace = json.load(f)
+    kernels = {e.get("name", "") for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"}
+    named = {n: sum(n in k for k in kernels)
+             for n in ("lrn_fwd", "lrn_bwd", "uniform_fill")}
+    if dev.type == "cuda" and not all(named.values()):
+        raise SystemExit("cli (alexnet): the profiler's trace names %s of "
+                         "the kernels (%d kernel events)"
+                         % (named, len(kernels)))
+    units = {e["name"] for e in trace.get("traceEvents", [])
+             if str(e.get("name", "")).startswith("unit:")}
+    # the exporter turns the events log into a Chrome trace with a span
+    # for every unit of the graph
+    exported = os.path.join(d, "alexnet-trace.json")
+    n_events = trace_export.export(events_log, exported)
+    with open(exported) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "B"}
+    # every unit of the graph ran (the end point aside: the decision
+    # that completes the run stops the wave before it) and has its span
+    idle = [u.name for u in wf.units
+            if not u.timers["runs"] and u is not wf.end_point]
+    missing = ["unit:%s" % u.name for u in wf.units if u.timers["runs"]
+               and "unit:%s" % u.name not in spans]
+    if idle or missing or "workflow run" not in spans:
+        raise SystemExit("cli (alexnet): units %s never ran; the exported "
+                         "trace lacks %s" % (idle, missing))
+    res = _results(result)
+    metrics = wf.decision.get_metric_values()
+    if not metrics or any(res.get(k) != v for k, v in metrics.items()):
+        raise SystemExit("cli (alexnet): the results file %s lacks the "
+                         "decision's metrics %s" % (res, metrics))
+    log(json.dumps({"cli_alexnet": {
+        "train": CLI_A_TRAIN, "valid": CLI_A_VALID, "batch": CLI_A_BATCH,
+        "cli_wall_s": run.wall, "direct_wall_s": [r["wall"] for r in direct],
+        "max_memory_allocated_gb": peak / 1e9, "launches": got,
+        "rule_ratio": ratio, "bit_equal_to_direct": bit_equal,
+        "profile_kernel_events": len(kernels),
+        "profile_unit_ranges": len(units), "profile_named": named,
+        "exported_events": n_events, "results": res}}))
+    wf.stop()
+    del wf, run
+    torch.cuda.empty_cache()
+    return got
+
+
+def _lm_argv(d, epochs, extra=()):
+    import os
+    keys = ("root.lm_tpu.update({'dim': %d, 'heads': %d, 'seq': %d, "
+            "'vocab': %d, 'blocks': %d, 'corpus': 'random', "
+            "'synthetic_train': %d, 'synthetic_valid': %d, "
+            "'minibatch_size': %d, 'solver': 'sgd', 'learning_rate': 0.01, "
+            "'lr_schedule': 'constant', 'max_epochs': %d, "
+            "'fail_iterations': 100, 'snapshot_time_interval': 0.0, "
+            "'snapshotter_config': {'compression': None}})"
+            % (T_DIM, T_HEADS, T_SEQ, T_VOCAB, CLI_LM_BLOCKS, CLI_LM_TRAIN,
+               CLI_LM_VALID, T_BATCH, epochs))
+    return [_sample("lm.py"), "-c", keys,
+            "-c", "root.common.dirs.snapshots = %r" % os.path.join(d, "lm")
+            ] + list(extra)
+
+
+def cli_lm(torch, dev, d):
+    """Phase 14 (b): the LM through the CLI, interrupted and resumed from
+    its ``_current`` snapshot against an uninterrupted run; returns (the
+    launches of the interrupted and resumed runs, the snapshot)."""
+    import os
+    import shutil
+    from veles_tpu_torch.ops import flash_attention as fa
+    torch.cuda.synchronize()
+    _zero_train_counts()
+    whole = _CliRun(_lm_argv(d, CLI_LM_EPOCHS))
+    torch.cuda.synchronize()
+    whole_launches = dict(fa.launches)
+    want = (_host_params(whole.workflow.gd.forwards),
+            list(whole.workflow.decision.history))
+    whole.workflow.stop()
+    del whole
+    shutil.rmtree(os.path.join(d, "lm"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    first = _CliRun(_lm_argv(d, CLI_LM_EPOCHS - 1))
+    first.workflow.stop()
+    snap = os.path.join(d, "lm", "lm_current.pickle")
+    step = first.workflow.gd.global_step
+    del first
+    torch.cuda.empty_cache()
+    resumed = _CliRun(_lm_argv(d, CLI_LM_EPOCHS - 1, [
+        "-s", snap, "--decision", "max_epochs=%d" % CLI_LM_EPOCHS]))
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    got = (_host_params(resumed.workflow.gd.forwards),
+           list(resumed.workflow.decision.history))
+    if not resumed.main.restored:
+        raise SystemExit("cli (lm): -s did not resume")
+    diff = max(v for dd in _max_diff(torch, got[0], want[0])
+               for v in dd.values())
+    if diff != 0.0 or got[1] != want[1]:
+        raise SystemExit("cli (lm): the resumed run differs from the "
+                         "uninterrupted one by %g (histories equal: %s)"
+                         % (diff, got[1] == want[1]))
+    if not all(launches[n] for n in ("flash_attn_fwd", "flash_attn_dq",
+                                     "flash_attn_dkv")):
+        raise SystemExit("cli (lm): FlashAttention launches %s" % launches)
+    log(json.dumps({"cli_lm": {
+        "dim": T_DIM, "heads": T_HEADS, "seq": T_SEQ, "vocab": T_VOCAB,
+        "blocks": CLI_LM_BLOCKS, "epochs": CLI_LM_EPOCHS,
+        "snapshot_step": step, "snapshot_mb": os.path.getsize(snap) / 1e6,
+        "resumed_wall_s": resumed.wall,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches, "uninterrupted_launches": whole_launches,
+        "history": got[1]}}))
+    resumed.workflow.stop()
+    del resumed
+    torch.cuda.empty_cache()
+    return launches, snap
+
+
+def _post(port, path, body):
+    import urllib.request
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d%s" % (port, path),
+        data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.loads(r.read() or b"{}")
+
+
+def cli_serve(torch, dev, d, lm_snap):
+    """Phase 14 (c): MNIST trained through the CLI, ``mnist_forward`` on
+    its snapshot and ``serve.py`` on it (``/api``), then the LM snapshot
+    of (b) served with int8 KV (``/generate``); returns the serving
+    runs' launches."""
+    import contextlib
+    import io
+    import os
+    from veles_tpu_torch.models.generate import generate
+    from veles_tpu_torch.samples import mnist_forward
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    snaps = os.path.join(d, "mnist")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train = _CliRun([
+        _sample("mnist.py"), _sample("mnist_config.py"),
+        "-c", "root.mnist_tpu.update({'synthetic_train': 1024, "
+        "'synthetic_valid': 256, 'max_epochs': 2, 'layers': [100, 10], "
+        "'snapshot_time_interval': 0.0})", "-c", CLI_F32,
+        "-c", "root.common.dirs.snapshots = %r" % snaps])
+    train.workflow.stop()
+    snap = os.path.join(snaps, "mnist_current.pickle.gz")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mnist_forward.main([snap, "8", "--device", str(dev)])
+    lines = [l for l in out.getvalue().splitlines() if l.startswith("sample")]
+    if rc != 0 or len(lines) != 8:
+        raise SystemExit("cli (c): mnist_forward printed %r" % out.getvalue())
+    # the chain's own forward on the card
+    chain = SnapshotterToFile.import_file(snap).gd.forwards
+    rng = numpy.random.default_rng(5)
+    xs = rng.random((6, 784)).astype(numpy.float32)
+    with torch.no_grad():
+        h = torch.as_tensor(xs, device=dev)
+        for u in chain:
+            u.to_device(dev)
+            h = u.apply(h)
+    want = h.float().cpu().numpy()
+    server = _CliRun([_sample("serve.py"),
+                      "-c", "root.serve.update({'snapshot': %r, "
+                      "'max_wait': 0.05})" % snap, "-c", CLI_F32],
+                     thread=True)
+    port = server.wait_for_api()
+    try:
+        t0 = time.perf_counter()
+        got = [_post(port, "/api", {"input": x.tolist()}) for x in xs]
+        api_ms = (time.perf_counter() - t0) * 1e3 / len(xs)
+    finally:
+        _post(port, "/shutdown", {})
+        server.wait()
+    err = max(float(numpy.abs(numpy.asarray(r["result"]) - w).max())
+              for (c, r), w in zip(got, want))
+    if any(c != 200 for c, _ in got) or err > 1e-5:
+        raise SystemExit("cli (c): /api replies differ from the chain's "
+                         "forward by %g" % err)
+    # the LM snapshot of (b), int8 KV pools
+    zero_serving_counts()
+    server = _CliRun([_sample("serve.py"),
+                      "-c", "root.serve.update({'snapshot': %r, "
+                      "'max_wait': 0.05})" % lm_snap,
+                      "-c", "root.common.serving.kv_dtype = 'int8'"],
+                     thread=True)
+    port = server.wait_for_api()
+    prompt = [int(t) for t in numpy.random.default_rng(6).integers(
+        0, T_VOCAB, CLI_GEN_PROMPT)]
+    try:
+        t0 = time.perf_counter()
+        code, reply = _post(port, "/generate",
+                            {"prompt": prompt, "steps": CLI_GEN_STEPS})
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        lm_chain = server.workflow.forwards
+        sch = server.workflow.api.scheduler_
+        kv_dtype = sch.kv_dtype if sch is not None else None
+    finally:
+        _post(port, "/shutdown", {})
+        server.wait()
+    torch.cuda.synchronize()
+    launches = read_serving_counts()
+    if code != 200 or kv_dtype != "int8" or not launches["paged_attend"]:
+        raise SystemExit("cli (c): /generate %d on kv %s with %s launches"
+                         % (code, kv_dtype, launches))
+    direct = generate(lm_chain, [prompt], CLI_GEN_STEPS,
+                      kv_cache=True)[0].cpu().tolist()
+    tie = same_or_near_tie(torch, dev, lm_chain, [direct], [reply["tokens"]],
+                           len(prompt), "cli (c) /generate")
+    log(json.dumps({"cli_serve": {
+        "api_ms_per_request": api_ms, "api_max_abs_err": err,
+        "generate_ms": gen_ms, "generate_vs_direct": tie,
+        "mnist_train_wall_s": train.wall,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}}))
+    del lm_chain, server
+    torch.cuda.empty_cache()
+    return {"paged_attend": launches["paged_attend"]}
+
+
+def cli_small(torch, dev, d):
+    """Phase 14 (d): ``mnist_ae`` (FC, conv) and ``gtzan`` card against
+    CPU through the CLI, and one ``python -m veles_tpu_torch``
+    subprocess."""
+    import os
+    from veles_tpu_torch.cli_exec import run_cli_collect_results
+    from veles_tpu_torch.datasets import tones
+    tree = tones.generate(os.path.join(d, "tones"), tracks_per_genre=2,
+                          seconds=1.0, rate=8000)
+    sgd = "'solver': 'sgd', 'learning_rate': 0.01"
+    runs = {
+        "mnist_ae_fc": [_sample("mnist_ae.py"), "-c",
+                        "root.mnist_tpu.update({'synthetic_train': 512, "
+                        "'synthetic_valid': 128})", "-c",
+                        "root.mnist_ae_tpu.update({'max_epochs': 2, "
+                        "'conv': False, %s})" % sgd],
+        "mnist_ae_conv": [_sample("mnist_ae.py"), "-c",
+                          "root.mnist_tpu.update({'synthetic_train': 256, "
+                          "'synthetic_valid': 64})", "-c",
+                          "root.mnist_ae_tpu.update({'max_epochs': 2, "
+                          "'conv': True, 'minibatch_size': 64, %s})" % sgd],
+        "gtzan": [_sample("gtzan.py"), "-c",
+                  "root.gtzan_tpu.update({'dataset_dir': %r, "
+                  "'max_seconds': 1.0, 'max_epochs': 3, "
+                  "'minibatch_size': 8, %s})" % (tree, sgd)],
+    }
+    out = {}
+    for name, argv in runs.items():
+        res = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for where in ("card", "cpu"):
+            path = os.path.join(d, "%s-%s.json" % (name, where))
+            run = _CliRun(argv + [
+                "-c", CLI_F32, "-c", "root.common.dirs.snapshots = %r"
+                % os.path.join(d, "small"), "--result-file", path]
+                + (["-a", "cpu"] if where == "cpu" else []))
+            run.workflow.stop()
+            res[where] = (_results(path), run.wall)
+        _same_results("cli (d) %s" % name, res["card"][0], res["cpu"][0],
+                      CLI_SMALL_TOL)
+        out[name] = {"card_s": res["card"][1], "cpu_s": res["cpu"][1],
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "results": res["card"][0]}
+    t0 = time.perf_counter()
+    sub = run_cli_collect_results(
+        [_sample("mnist.py"), "-c", "root.mnist_tpu.update({"
+         "'synthetic_train': 256, 'synthetic_valid': 64, "
+         "'max_epochs': 1})", "-c", "root.common.dirs.snapshots = %r"
+         % os.path.join(d, "sub")], timeout=300)
+    if sub is None or sub.get("Total epochs") != 1:
+        raise SystemExit("cli (d): python -m veles_tpu_torch gave %r"
+                         % (sub,))
+    out["subprocess"] = {"wall_s": time.perf_counter() - t0, "results": sub}
+    log(json.dumps({"cli_small": out}))
+
+
+def cli_check(torch, dev):
+    """Phase 14: the command line — (a) AlexNet, (b) the LM and its
+    resume, (c) serving, (d) the small samples and the module entry;
+    returns the phase's card launches by kernel."""
+    import os
+    import shutil
+    d = _cli_dir()
+    os.makedirs(d, exist_ok=True)
+    t_phase = time.perf_counter()
+    try:
+        got = dict(cli_alexnet(torch, dev, d))
+        lm_launches, lm_snap = cli_lm(torch, dev, d)
+        got.update(lm_launches)
+        got.update(cli_serve(torch, dev, d, lm_snap))
+        cli_small(torch, dev, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log("cli: %.1f s" % (time.perf_counter() - t_phase))
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6113,6 +6615,7 @@ def main():
         if vocab_job[0].poll() is None:
             vocab_job[0].kill()
             vocab_job[0].wait()
+    cli_launches = cli_check(torch, dev)
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -6146,7 +6649,8 @@ def main():
                          ("s2d_vgg_launches", s2d_launches),
                          ("families_launches", family_launches),
                          ("workflow_launches", wf_launches),
-                         ("input_launches", input_launches)):
+                         ("input_launches", input_launches),
+                         ("cli_launches", cli_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -431,3 +431,99 @@ def test_input_slice_imports_alone_with_jax_blocked(module):
 def test_input_surface_is_exported(module, names):
     """The input pipeline's names, where the reference exports them."""
     test_workflow_surface_is_exported(module, names)
+
+
+#: the modules of the command-line slice
+CLI_SLICE = ("veles_tpu_torch.__main__", "veles_tpu_torch.config",
+             "veles_tpu_torch.import_file", "veles_tpu_torch.cmdline",
+             "veles_tpu_torch.cli_exec", "veles_tpu_torch.launcher",
+             "veles_tpu_torch.safe_pickle", "veles_tpu_torch.jax_snapshot",
+             "veles_tpu_torch.telemetry.spans",
+             "veles_tpu_torch.telemetry.trace_export",
+             "veles_tpu_torch.restful_api",
+             "veles_tpu_torch.samples.mnist_ae",
+             "veles_tpu_torch.samples.mnist_forward",
+             "veles_tpu_torch.samples.gtzan",
+             "veles_tpu_torch.samples.serve",
+             "veles_tpu_torch.samples.mnist_config",
+             "veles_tpu_torch.samples.cifar_config",
+             "veles_tpu_torch.samples.alexnet_config")
+
+
+def test_cli_slice_imports_with_jax_blocked():
+    """The command-line slice's modules import in one fresh interpreter
+    with ``jax`` blocked and load nothing of ``veles_tpu``, nor ``PIL``,
+    ``h5py`` or ``scipy``."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "for m in %r:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(n == 'veles_tpu' or n.startswith('veles_tpu.')\n"
+            "               for n in sys.modules), 'veles_tpu was loaded'\n"
+            "assert not [n for n in ('PIL', 'h5py', 'scipy')\n"
+            "            if n in sys.modules]\n"
+            "print('ok')\n" % (CLI_SLICE,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("module", CLI_SLICE)
+def test_cli_slice_imports_only_the_port(module):
+    """Each module of the command-line slice is listed in
+    ``SUBMODULES`` and imports only torch, numpy, the standard library
+    and the port."""
+    import veles_tpu_torch
+    assert module in veles_tpu_torch.SUBMODULES
+    path = os.path.join(ROOT, *module.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) \
+        else path + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert roots <= {"numpy", "torch", "veles_tpu_torch"} \
+        | set(sys.stdlib_module_names), roots
+
+
+@pytest.mark.parametrize("module,names", [
+    ("veles_tpu_torch.config", ("Config", "root", "apply_config_file",
+                                "apply_override", "load_site_configs",
+                                "get", "Range", "Choice", "fix_config")),
+    ("veles_tpu_torch.import_file", ("import_file_as_module",)),
+    ("veles_tpu_torch.cmdline", ("build_parser", "filter_argv",
+                                 "refuse_unported", "backend_device")),
+    ("veles_tpu_torch.cli_exec", ("run_cli_collect_results",)),
+    ("veles_tpu_torch.launcher", ("Launcher",)),
+    ("veles_tpu_torch.__main__", ("Main", "main")),
+    ("veles_tpu_torch.safe_pickle", ("RestrictedUnpickler", "safe_loads",
+                                     "warn_if_public")),
+    ("veles_tpu_torch.telemetry", ("span", "iter_spans", "next_span_id")),
+    ("veles_tpu_torch.telemetry.spans", ("span", "iter_spans",
+                                         "next_span_id")),
+    ("veles_tpu_torch.telemetry.trace_export", (
+        "spans_to_chrome", "export", "export_request", "main")),
+    ("veles_tpu_torch.restful_api", ("RESTfulAPI", "RestfulLoader")),
+    ("veles_tpu_torch.prng", ("get",)),
+    ("veles_tpu_torch.samples.mnist_ae", ("MnistAEWorkflow",
+                                          "MnistAELoader", "run")),
+    ("veles_tpu_torch.samples.mnist_forward", ("forward_from_snapshot",
+                                               "forward_from_package",
+                                               "main")),
+    ("veles_tpu_torch.samples.gtzan", ("GtzanWorkflow", "GtzanLoader",
+                                       "FEATURES_XML", "run")),
+    ("veles_tpu_torch.samples.serve", ("ServeWorkflow", "_ServingLoader",
+                                       "run")),
+    ("veles_tpu_torch.samples.mnist", ("run",)),
+    ("veles_tpu_torch.samples.cifar", ("run",)),
+    ("veles_tpu_torch.samples.alexnet", ("run",)),
+    ("veles_tpu_torch.samples.lm", ("run",)),
+    ("veles_tpu_torch.samples.kohonen", ("run",)),
+    ("veles_tpu_torch.samples.transformer", ("run",))])
+def test_cli_surface_is_exported(module, names):
+    """The command line's names, where the reference exports them."""
+    test_workflow_surface_is_exported(module, names)

@@ -28,7 +28,9 @@ hidden samples drawn by the uniform fill bit-equal to the CPU's, the
 blocked AlexNet stem against the strided one, and the prefetch pipeline
 on CUDA tensors (pinned staging, its upload stream and events: batches
 a slow step reads equal the synchronous arm's; a narrow AlexNet trained
-from ``.npy`` files bit-equal at prefetch 2 and 0).
+from ``.npy`` files bit-equal at prefetch 2 and 0); the command line's
+AlexNet run bit-equal to the workflow built directly, and the serving
+workflow's loop answering ``POST /api`` on CUDA tensors.
 The kernels have no CPU mode, so without a CUDA device every test here
 skips.  This file imports no jax (the card's machine has none): run it
 there with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -1412,3 +1414,150 @@ def test_prefetch_trains_bit_equal_on_the_card(card, tmp_path):
         torch.backends.cudnn.deterministic = saved
     assert ha == hb
     assert all(torch.equal(a, b) for a, b in zip(wa, wb))
+
+
+# -- the command line on the card ---------------------------------------------
+
+def _port_cli(argv, thread=False):
+    """``veles_tpu_torch.__main__.Main(argv)`` in process, the port's
+    config tree and process-wide generator restored after it (on a
+    thread when ``thread``: returns (main, thread, outcome))."""
+    import threading
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.config import Config, root
+
+    def nodes(node, out):
+        out.append((node, dict(vars(node))))
+        for v in list(vars(node).values()):
+            if isinstance(v, Config):
+                nodes(v, out)
+        return out
+    saved = nodes(root, [])
+    gen = prng.get()
+    state = (gen._seed, gen._counter, gen.np.bit_generator.state)
+    main, outcome = Main(list(argv)), {}
+
+    def run():
+        try:
+            outcome["rc"] = main.run()
+        finally:
+            for node, d in saved:
+                vars(node).clear()
+                vars(node).update(d)
+            gen.seed(state[0])
+            gen._counter = state[1]
+            gen.np.bit_generator.state = state[2]
+    if not thread:
+        run()
+        assert outcome["rc"] == 0
+        return main
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return main, t, outcome
+
+
+def _sample_path(name):
+    import os
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "veles_tpu_torch", "samples", name)
+
+
+def test_cli_alexnet_on_the_card(card, tmp_path):
+    """A narrow AlexNet through ``python -m veles_tpu_torch``'s ``Main``
+    on the card is bit-equal to ``AlexNetWorkflow`` built directly with
+    the same keys and seed, launching the LRN kernels and the uniform
+    fill as often."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import lrn, random as rnd
+    from veles_tpu_torch.samples.alexnet import AlexNetWorkflow
+    keys = dict(side=67, classes=10, widths=(8, 16, 24, 24, 16, 32),
+                minibatch_size=16, synthetic_train=64, synthetic_valid=16,
+                max_epochs=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts = []
+        for how in ("direct", "cli"):
+            lrn.launches.update(lrn_fwd=0, lrn_bwd=0)
+            rnd.launches = 0
+            if how == "direct":
+                prng.get().seed(42)
+                wf = AlexNetWorkflow(dtype="float32", weights_seed=None,
+                                     snapshotter_config={"enabled": False},
+                                     **keys)
+                wf.initialize(device=card)
+                wf.run()
+                want = [{n: t.detach().cpu() for n, t in u.params.items()}
+                        for u in wf.gd.forwards]
+            else:
+                m = _port_cli([
+                    _sample_path("alexnet.py"),
+                    _sample_path("alexnet_config.py"),
+                    "-c", "root.alexnet_tpu.update(%r)" % keys,
+                    "-c", "root.common.precision.compute_dtype = "
+                    "'float32'", "-c", "root.common.dirs.snapshots = %r"
+                    % str(tmp_path)])
+                wf = m.workflow
+            torch.cuda.synchronize()
+            counts.append((dict(lrn.launches), rnd.launches))
+        got = [{n: t.detach().cpu() for n, t in u.params.items()}
+               for u in wf.gd.forwards]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert counts[0] == counts[1] and all(counts[1][0].values()) \
+        and counts[1][1]
+    for g, w in zip(got, want):
+        for n in w:
+            assert torch.equal(g[n], w[n]), n
+
+
+def test_serve_loop_on_the_card(card, tmp_path):
+    """MNIST trained through the command line on the card, then
+    ``samples/serve.py`` serving its snapshot: ``POST /api`` replies
+    equal the chain's own forward on CUDA tensors, and ``/shutdown``
+    ends the run with 0."""
+    import json
+    import os
+    import time
+    import urllib.request
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    f32 = "root.common.precision.compute_dtype = 'float32'"
+    _port_cli([_sample_path("mnist.py"), _sample_path("mnist_config.py"),
+               "-c", "root.mnist_tpu.update({'synthetic_train': 256, "
+               "'synthetic_valid': 64, 'max_epochs': 1, "
+               "'snapshot_time_interval': 0.0})", "-c", f32,
+               "-c", "root.common.dirs.snapshots = %r" % str(tmp_path)])
+    snap = os.path.join(str(tmp_path), "mnist_current.pickle.gz")
+    chain = SnapshotterToFile.import_file(snap).gd.forwards
+    xs = numpy.random.default_rng(3).random((4, 784)).astype(numpy.float32)
+    with torch.no_grad():
+        h = torch.as_tensor(xs, device=card)
+        for u in chain:
+            u.to_device(card)
+            h = u.apply(h)
+    want = h.cpu().numpy()
+    main, thread, outcome = _port_cli(
+        [_sample_path("serve.py"), "-c", "root.serve.update({'snapshot': "
+         "%r, 'max_wait': 0.05})" % snap, "-c", f32], thread=True)
+    t_end = time.time() + 120
+    while time.time() < t_end and (main.workflow is None or getattr(
+            main.workflow, "api", None) is None
+            or main.workflow.api._server_ is None):
+        time.sleep(0.05)
+    port = main.workflow.api.port
+
+    def post(path, body):
+        req = urllib.request.Request("http://127.0.0.1:%d%s" % (port, path),
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+    try:
+        got = [post("/api", {"input": x.tolist()})["result"] for x in xs]
+    finally:
+        post("/shutdown", {})
+        thread.join(60)
+    assert outcome.get("rc") == 0
+    assert main.workflow.chain.device.type == "cuda"
+    numpy.testing.assert_allclose(numpy.asarray(got), want, rtol=1e-5,
+                                  atol=1e-5)

@@ -582,17 +582,18 @@ def test_queue_full_and_queue_deadline(pair):
 
 def test_alerts_history_and_unported_routes(pair):
     """``/alerts`` and ``/metrics/history`` answer the reference's
-    feature-off replies, ``POST /api`` a 501 naming its item; the KV
-    routes are served (their error replies are the reference's)."""
+    feature-off replies; ``POST /api`` on a server outside a serving
+    workflow (no RestfulLoader) is the reference's 500, structured; the
+    KV routes are served (their error replies are the reference's)."""
     got, want = pair.both("/alerts")
     _same(got, want)
     assert got[2] == {"enabled": False}
     got, want = pair.both("/metrics/history")
     _same(got, want)
     assert got[0] == 503
-    code, _, body = call(pair.port, "/api", {"prompt": [1]})
-    assert code == 501 and body["error"]["code"] == 501
-    assert "ROADMAP item 9" in body["error"]["message"]
+    code, _, body = call(pair.port, "/api", {"input": [1]})
+    assert code == 500 and body["error"]["code"] == 500
+    assert "RestfulLoader" in body["error"]["message"]
     for path, body in (("/serving/prefill", {"prompt": [[1], [2]]}),
                        ("/serving/kv_import", {"export": {}, "steps": 2}),
                        ("/serving/prefix_import", {"record": {}}),
@@ -727,14 +728,20 @@ def test_tune_and_admin_guard(pair):
 
 
 def test_constructor_refuses_features_not_ported():
-    """The workflow and loader (item 9) and tensor parallelism (item 10)
-    are refused; the KV knobs reach the scheduler."""
-    from veles_tpu_torch.restful_api import RESTfulAPI
-    for kw, item in ((dict(workflow=object()), "item 9"),
-                     (dict(loader=object()), "item 9"),
-                     (dict(serving_tp=2), "item 10")):
-        with pytest.raises(ValueError, match=item):
-            RESTfulAPI(device="cpu", **kw)
+    """Tensor parallelism (item 10) is refused; a workflow and a loader
+    are taken (the unit form demands both ``loader`` and ``output``);
+    the KV knobs reach the scheduler."""
+    from veles_tpu_torch.restful_api import RESTfulAPI, RestfulLoader
+    from veles_tpu_torch.units import MissingDemand
+    from veles_tpu_torch.workflow import Workflow
+    with pytest.raises(ValueError, match="item 10"):
+        RESTfulAPI(device="cpu", serving_tp=2)
+    wf = Workflow(None, name="rest-unit")
+    loader = RestfulLoader(wf, sample_shape=(3,), minibatch_size=2)
+    unit = RESTfulAPI(wf, loader=loader)
+    assert unit.device is None and unit in wf.units
+    with pytest.raises(MissingDemand, match="output"):
+        unit.initialize(device="cpu")
     RESTfulAPI(device="cpu", serving_tp=0, serving_role="both",
                serving_kv_host_bytes=0, serving_kv_export_bytes=None,
                serving_warm_buckets=True)

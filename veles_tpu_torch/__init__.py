@@ -68,7 +68,15 @@ from veles_tpu_torch import dtypes  # noqa: F401 (sets the TF32 policy)
 from veles_tpu_torch.backends import resolve_device  # noqa: F401
 
 SUBMODULES = (
+    "veles_tpu_torch.__main__",
     "veles_tpu_torch.backends",
+    "veles_tpu_torch.config",
+    "veles_tpu_torch.import_file",
+    "veles_tpu_torch.cmdline",
+    "veles_tpu_torch.cli_exec",
+    "veles_tpu_torch.launcher",
+    "veles_tpu_torch.safe_pickle",
+    "veles_tpu_torch.jax_snapshot",
     "veles_tpu_torch.dtypes",
     "veles_tpu_torch.faults",
     "veles_tpu_torch.logger",
@@ -95,6 +103,8 @@ SUBMODULES = (
     "veles_tpu_torch.telemetry.reqtrace",
     "veles_tpu_torch.telemetry.health",
     "veles_tpu_torch.telemetry.flight_recorder",
+    "veles_tpu_torch.telemetry.spans",
+    "veles_tpu_torch.telemetry.trace_export",
     "veles_tpu_torch._build",
     "veles_tpu_torch.convert",
     "veles_tpu_torch.ops",
@@ -152,6 +162,13 @@ SUBMODULES = (
     "veles_tpu_torch.samples.cifar",
     "veles_tpu_torch.samples.transformer",
     "veles_tpu_torch.samples.kohonen",
+    "veles_tpu_torch.samples.mnist_ae",
+    "veles_tpu_torch.samples.mnist_forward",
+    "veles_tpu_torch.samples.gtzan",
+    "veles_tpu_torch.samples.serve",
+    "veles_tpu_torch.samples.mnist_config",
+    "veles_tpu_torch.samples.cifar_config",
+    "veles_tpu_torch.samples.alexnet_config",
     "veles_tpu_torch.serving",
     "veles_tpu_torch.serving.kv_slots",
     "veles_tpu_torch.serving.prefill",

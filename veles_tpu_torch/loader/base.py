@@ -22,8 +22,9 @@ flags what the per-minibatch path's last wave of that span flags).
 
 The per-minibatch path runs through the asynchronous input pipeline
 (:mod:`veles_tpu_torch.loader.prefetch`) when the loader's ``prefetch``
-depth is above 0: ``prefetch=None`` is :data:`PREFETCH_DEPTH` (the
-default of the reference's ``root.common.loader.prefetch``), 0/False
+depth is above 0: ``prefetch=None`` is ``root.common.loader.prefetch``
+(:mod:`veles_tpu_torch.config`; depth :data:`PREFETCH_DEPTH` by default,
+as the reference's; the command line's ``--prefetch`` sets it), 0/False
 pins the synchronous path, an int is the depth.  The pipeline replays
 the synchronous path's values exactly and falls back to it under the
 reference's conditions (:meth:`Loader._ensure_prefetch`); span serving
@@ -111,8 +112,8 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
             lengths = None
         super(Loader, self).__init__(workflow, **kwargs)
         self.max_minibatch_size = int(minibatch_size)
-        #: the prefetch depth: None is :data:`PREFETCH_DEPTH`, 0/False
-        #: pins the synchronous path
+        #: the prefetch depth: None is ``root.common.loader.prefetch``,
+        #: 0/False pins the synchronous path
         self.prefetch = prefetch
         #: how many times shuffle() may still permute the train span
         #: (None = unlimited; 0 = deterministic order, ref base.py)
@@ -316,8 +317,12 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
     def _prefetch_depth(self):
         """This loader's prefetch depth; <= 0 means the synchronous
         path."""
-        return PREFETCH_DEPTH if self.prefetch is None \
-            else int(self.prefetch)
+        if self.prefetch is None:
+            from veles_tpu_torch.config import root
+            cfg = root.common.loader.prefetch
+            return int(cfg.get("depth", PREFETCH_DEPTH)) \
+                if cfg.get("enabled", True) else 0
+        return int(self.prefetch)
 
     def _ensure_prefetch(self):
         """Decide (once) and create the prefetch pipeline; None means

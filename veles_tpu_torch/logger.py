@@ -1,8 +1,9 @@
 """The event sink and the logging mixin — the port of
-``veles_tpu/logger.py``: :class:`EventSink` and its process-wide
-:data:`events`, and :class:`Logger`, which every workflow object mixes
-in for ``self.info/debug/...`` under a class-named logger and for
-``event()``/``timed_event()`` spans into :data:`events`.
+``veles_tpu/logger.py``: :func:`setup_logging`, :class:`EventSink` and
+its process-wide :data:`events`, and :class:`Logger`, which every
+workflow object mixes in for ``self.info/debug/...`` under a
+class-named logger and for ``event()``/``timed_event()`` spans into
+:data:`events`.
 
 Events go to a bounded in-memory ring and, when a path is opened, to a
 JSONL file, one object per line with the JAX package's keys (``name``,
@@ -17,6 +18,22 @@ import os
 import threading
 import time
 from collections import deque
+
+
+_setup_done = [False]
+
+
+def setup_logging(level=logging.INFO):
+    """Install one stderr handler on the root logger (once) and set its
+    level — the command line's ``-v`` count picks the level."""
+    if not _setup_done[0]:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname).1s %(name)s: %(message)s",
+            "%H:%M:%S"))
+        logging.getLogger().addHandler(handler)
+        _setup_done[0] = True
+    logging.getLogger().setLevel(level)
 
 
 class EventSink:

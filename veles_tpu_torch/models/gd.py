@@ -223,15 +223,23 @@ class GradientDescent(AcceleratedUnit):
         """The chain's first parameters: ``convert.init_params``'s draw
         from ``default_rng(weights_seed)``, each unit sized from the
         sample shape its input has (a 1-D token sequence's length is the
-        positional table's window)."""
-        rng = numpy.random.default_rng(self.weights_seed)
+        positional table's window).  ``weights_seed=None`` draws from
+        the process-wide generator ``prng.get()`` in the JAX workflow
+        units' order instead (``ForwardBase.fill_reference``), as the
+        command line's runs do."""
+        from veles_tpu_torch import prng
+        gen = prng.get() if self.weights_seed is None else None
+        rng = numpy.random.default_rng(self.weights_seed) \
+            if gen is None else None
         shape = tuple(self.loader.sample_shape)
         window = shape[0] if len(shape) == 1 else None
         for unit in self.forwards:
             unit.in_shape = shape
             shape = tuple(unit.out_shape(shape))
             unit.to_device(self.device)
-            unit.load_params(unit.fill_arrays(rng, unit.in_shape, window))
+            unit.load_params(
+                unit.fill_arrays(rng, unit.in_shape, window) if gen is None
+                else unit.fill_reference(gen, unit.in_shape, window))
 
     def run(self):
         """One wave: the loader's fresh span, else its minibatch."""

@@ -96,6 +96,28 @@ class ForwardBase(nn.Module):
                     numpy.float32)
         return out
 
+    def fill_reference(self, gen, in_shape, window):
+        """Fresh numpy parameters drawn from the process-wide generator
+        ``gen`` (a :class:`~veles_tpu_torch.prng.RandomGenerator`) in the
+        order the JAX package's workflow units draw them from
+        ``prng.get()``: each weight Glorot-uniform by ``gen.fill``; a
+        ``bias`` filled uniform in ±0, which draws its length from the
+        stream and leaves zeros; other vectors are zeros (ones for
+        ``*_scale``) and draw nothing."""
+        out = {}
+        for name, shape in self.param_shapes(in_shape, window).items():
+            arr = numpy.zeros(shape, numpy.float32)
+            if name == "bias":
+                gen.fill(arr, -0.0, 0.0)
+            elif len(shape) == 1 or name in self.VECTORS:
+                arr[...] = 1.0 if name.endswith("_scale") else 0.0
+            else:
+                fan_in, fan_out = self.fans(shape)
+                lim = numpy.sqrt(6.0 / (fan_in + fan_out))
+                gen.fill(arr, -lim, lim)
+            out[name] = arr
+        return out
+
     def load_params(self, arrays):
         """Take parameters (name → numpy array) onto the unit's device
         as float32 masters (copies: training updates them in place);

@@ -176,3 +176,23 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.loader.gate_block = self.decision.complete
         self.end_point.link_from(self.decision)
         self.end_point.gate_block = ~self.decision.complete
+
+    # -- resuming a snapshot of the JAX package -------------------------------
+
+    @classmethod
+    def jax_kwargs(cls, rec):
+        """The constructor's keyword arguments a sample reads from a JAX
+        workflow record beyond :func:`~veles_tpu_torch.jax_snapshot.
+        standard_kwargs`'s (its layer widths; samples override)."""
+        return {}
+
+    @classmethod
+    def from_jax(cls, rec):
+        """This workflow built from the record of a JAX package
+        snapshot (:mod:`veles_tpu_torch.jax_snapshot`): constructed with
+        the record's keyword arguments, then given the record's
+        training state unit by unit."""
+        from veles_tpu_torch import jax_snapshot
+        kw = dict(jax_snapshot.standard_kwargs(rec), **cls.jax_kwargs(rec))
+        wf = cls(None, **jax_snapshot.filter_kwargs(cls, kw))
+        return jax_snapshot.take_state(wf, rec)

@@ -2,4 +2,5 @@
 Threefry-2x32 draws equal to ``jax.random``'s (:mod:`.threefry`) and
 the named host/device generator (:mod:`.random_generator`)."""
 
-from veles_tpu_torch.prng.random_generator import RandomGenerator  # noqa: F401
+from veles_tpu_torch.prng.random_generator import (  # noqa: F401
+    RandomGenerator, get)

@@ -23,7 +23,17 @@ class RandomGenerator:
         self.seed(42 if seed is None else seed)
 
     def seed(self, seed):
-        """(Re)seed both streams."""
+        """(Re)seed both streams.  Bytes, strings and numpy arrays (an
+        entropy file's contents) are hashed to a 63-bit seed, as the
+        JAX package hashes them."""
+        if isinstance(seed, str):
+            seed = seed.encode()
+        if isinstance(seed, numpy.ndarray):
+            seed = seed.tobytes()
+        if isinstance(seed, bytes):
+            import hashlib
+            seed = int.from_bytes(
+                hashlib.sha256(seed).digest()[:8], "little") % (1 << 63)
         self._seed = int(seed)
         self._counter = 0
         self.np = numpy.random.Generator(numpy.random.PCG64(self._seed))
@@ -69,3 +79,17 @@ class RandomGenerator:
         return, without advancing."""
         return threefry.fold_in(threefry.key(self._seed, device),
                                 self._counter + 1 + offset)
+
+
+_generators = {}
+
+
+def get(key="default"):
+    """The process-wide generator named ``key`` (the JAX package's
+    ``prng.get``): the command line seeds ``get()``, and a workflow
+    built with ``weights_seed=None`` fills its first parameters from
+    it."""
+    gen = _generators.get(key)
+    if gen is None:
+        gen = _generators[key] = RandomGenerator(name=key)
+    return gen

@@ -30,13 +30,23 @@ structured ``{"error": {"code", "message", "trace_id", ...}}`` body,
 with ``Retry-After`` on a 503.  The fault point ``restful.generate``
 (:mod:`veles_tpu_torch.faults`) fires on every client request route.
 
-The reference's ``RESTfulAPI`` is a workflow unit; the port has no
-workflow runtime yet (ROADMAP item 9), so this class stands alone with
-the reference's constructor order and its ``initialize()``/``stop()``.
-Not served yet: ``POST /api`` (item 9), answering a structured 501 that
-names the item.  ``GET /alerts`` and ``/metrics/history`` answer the reference's replies
-with its alert and history engines off (item 11), and no request is
-attributed to a tenant (item 11).
+:class:`RESTfulAPI` is a workflow unit, as the reference's is: in a
+serving workflow (``samples/serve.py``) :class:`RestfulLoader` queues
+``POST /api`` payloads as minibatches, the forward chain runs on them
+and :meth:`RESTfulAPI.run` answers each request with its row of the
+chain's ``output``::
+
+    start → repeater → restful_loader → [forwards] → api ─→ repeater
+                                         (loop until the feed closes)
+
+Built with ``workflow=None`` it stands alone, as every LM server does:
+``initialize()`` starts the scheduler and the server, ``stop()`` ends
+them.  Its ``serving_*`` knobs and ``/generate`` caps left None read
+``root.common.serving`` and ``root.common.api``
+(:mod:`veles_tpu_torch.config`) when it initializes.  ``GET /alerts``
+and ``/metrics/history`` answer the reference's replies with its alert
+and history engines off (ROADMAP item 11), and no request is attributed
+to a tenant (item 11).
 """
 
 import concurrent.futures
@@ -52,7 +62,9 @@ import numpy
 
 from veles_tpu_torch import faults
 from veles_tpu_torch.backends import resolve_device
+from veles_tpu_torch.loader.interactive import InteractiveLoader
 from veles_tpu_torch.logger import events
+from veles_tpu_torch.memory import Array
 from veles_tpu_torch.models.generate import (
     generate, generate_beam, kv_cache_eligible)
 from veles_tpu_torch.prng import threefry
@@ -66,6 +78,7 @@ from veles_tpu_torch.telemetry import metrics as registry
 from veles_tpu_torch.telemetry import reqtrace
 from veles_tpu_torch.telemetry.flight_recorder import recorder
 from veles_tpu_torch.telemetry.health import monitor
+from veles_tpu_torch.units import Unit
 
 log = logging.getLogger(__name__)
 
@@ -74,12 +87,6 @@ LOOPBACK = ("127.0.0.1", "::1", "localhost")
 
 #: the reference's ``root.common.api`` caps of ``/generate``
 DEFAULT_MAX_STEPS, DEFAULT_MAX_BATCH = 2048, 64
-
-#: the POST routes of features the port does not have yet, and the
-#: ROADMAP item that brings each
-NOT_PORTED = {
-    "/api": "the workflow runtime (ROADMAP item 9)",
-}
 
 
 def _status_text(e):
@@ -90,24 +97,62 @@ def _status_text(e):
     return line.encode("latin-1", "replace").decode("latin-1")
 
 
-class RESTfulAPI:
-    """HTTP endpoint over an LM ``forwards`` chain (see the module
-    docstring).
+class RestfulLoader(InteractiveLoader):
+    """An interactive loader whose samples carry reply futures: each
+    ``POST /api`` body becomes one queued sample, and :meth:`run` hands
+    the futures of exactly the rows it served to ``pending_futures_``,
+    in row order, for :meth:`RESTfulAPI.run` to answer."""
 
-    The parameters keep the reference's names and order.  ``workflow``
-    and ``loader`` must be None (the workflow runtime is ROADMAP item
-    9).  ``serving_tp`` takes only its feature-off values (None or 0:
-    item 10).  ``serving_warm_buckets`` goes to the scheduler, which
-    records it (the port compiles nothing).  The other ``serving_*`` knobs (``serving_role``,
-    ``serving_kv_host_bytes`` and ``serving_kv_export_bytes`` among
-    them) go to the scheduler, None meaning its default (the
-    reference's defaults).
-    ``max_steps``/``max_batch`` cap ``/generate`` (None: 2048 / 64).
-    ``admin_token`` lets a non-loopback peer call ``/drain``,
-    ``/shutdown``, ``/serving/tune`` and ``resume_tokens`` with
-    ``Authorization: Bearer <token>``; ``model_id`` names the model on
-    ``/v1/*``; ``device`` (default ``cuda``) is the chain's device,
-    where the scheduler and the decode outside it run."""
+    def init_unpickled(self):
+        super(RestfulLoader, self).init_unpickled()
+        self._fifo_ = []
+        self._feed_lock_ = threading.Lock()
+        self.pending_futures_ = []
+
+    def feed_request(self, sample):
+        """Queue ``sample`` and return the future of its reply.  The
+        sample is checked before its future is registered, and both
+        happen under one lock, so concurrent handler threads keep the
+        futures aligned with the queue."""
+        sample = numpy.asarray(sample, numpy.float32)
+        if sample.shape != self.sample_shape:
+            raise ValueError("sample shape %s != %s"
+                             % (sample.shape, self.sample_shape))
+        future = concurrent.futures.Future()
+        with self._feed_lock_:
+            self._fifo_.append(future)
+            self.feed(sample)
+        return future
+
+    def run(self):
+        super(RestfulLoader, self).run()
+        self.pending_futures_ = self._fifo_[:self.minibatch_size]
+        del self._fifo_[:self.minibatch_size]
+
+
+class RESTfulAPI(Unit):
+    """HTTP endpoint unit (see the module docstring): ``POST /api
+    {"input": [...]}`` → ``{"result": [...]}`` through its ``loader``
+    (a :class:`RestfulLoader`) and the chain's ``output`` in a serving
+    workflow; ``/generate`` and the rest over an LM ``forwards`` chain.
+
+    The parameters keep the reference's names and order.  Built with a
+    ``workflow`` it demands ``loader`` and ``output`` and takes its
+    device at ``initialize(device=)``; with ``workflow=None`` it stands
+    alone and its ``device`` (default ``cuda``) is resolved at once.
+    ``serving_tp`` takes only its feature-off values (None or 0: ROADMAP
+    item 10).  The ``serving_*`` knobs go to the scheduler, None meaning
+    ``root.common.serving``'s value (the reference's defaults);
+    ``serving_warm_buckets`` is recorded there (the port compiles
+    nothing).  ``max_steps``/``max_batch`` cap ``/generate`` (None:
+    ``root.common.api``'s, 2048 / 64 by default).  ``admin_token``
+    (None: ``root.common.api.admin_token``) lets a non-loopback peer
+    call ``/drain``, ``/shutdown``, ``/serving/tune`` and
+    ``resume_tokens`` with ``Authorization: Bearer <token>``;
+    ``model_id`` names the model on ``/v1/*``; ``device`` is the chain's
+    device, where the scheduler and the decode outside it run."""
+
+    VIEW_GROUP = "SERVICE"
 
     def __init__(self, workflow=None, loader=None, port=0, host="127.0.0.1",
                  request_timeout=30.0, forwards=None, serving=True,
@@ -120,19 +165,17 @@ class RESTfulAPI:
                  serving_tp=None, serving_role=None,
                  serving_kv_host_bytes=None, serving_kv_export_bytes=None,
                  replica_id=None, *, admin_token=None, model_id="veles-lm",
-                 device=None):
-        if workflow is not None or loader is not None:
-            raise ValueError(
-                "workflow and loader must be None: POST /api and the "
-                "RestfulLoader need the workflow runtime (ROADMAP item 9)")
+                 device=None, **kwargs):
         if serving_tp not in (None, 0):
             raise ValueError("serving_tp must be None or 0: tensor-parallel "
                              "serving is ROADMAP item 10")
-        self.device = resolve_device(device)
-        if forwards is not None and any(u.device != self.device
-                                        for u in forwards):
-            raise ValueError("the chain lies on %s, the server was given %s"
-                             % (forwards[0].device, self.device))
+        super(RESTfulAPI, self).__init__(workflow, **kwargs)
+        self.loader = loader
+        #: the chain's output, linked from the head forward unit
+        self.output = None
+        self.device = None
+        if workflow is None or device is not None:
+            self._bind_device(device, forwards)
         #: fleet identity, sent as X-Veles-Replica (pid:port once bound)
         self.replica_id = replica_id
         self.port = port
@@ -162,6 +205,11 @@ class RESTfulAPI:
         self.max_batch = max_batch
         self.admin_token = admin_token
         self.model_id = openai_api.model_id(model_id)
+        if workflow is not None:
+            self.demand("loader", "output")
+
+    def init_unpickled(self):
+        super(RESTfulAPI, self).init_unpickled()
         self.scheduler_ = None
         #: the handler class the server instantiates per request
         self.handler_class_ = None
@@ -172,11 +220,22 @@ class RESTfulAPI:
         #: scheduler stops admitting
         self._draining_ = False
 
+    def _bind_device(self, device, forwards):
+        self.device = resolve_device(device)
+        if forwards is not None and any(u.device != self.device
+                                        for u in forwards):
+            raise ValueError("the chain lies on %s, the server was given %s"
+                             % (forwards[0].device, self.device))
+
     def _cap(self, name, default):
-        """A /generate resource cap: the constructor's, else the
-        reference's default."""
+        """A /generate resource cap: the constructor's, else
+        ``root.common.api.<name>``, else the reference's default — read
+        per request, so the tree's changes apply live."""
         value = getattr(self, name)
-        return int(default if value is None else value)
+        if value is None:
+            from veles_tpu_torch.config import root
+            value = root.common.api.get(name, default)
+        return int(value)
 
     def _validate_prompt(self, prompt):
         """Reject malformed /generate prompts with a client error."""
@@ -248,27 +307,43 @@ class RESTfulAPI:
                     self.scheduler_.cancel(f)
             raise
 
-    def initialize(self):
-        """Build and start the scheduler (when ``serving`` and the chain
-        is slot-servable), then bind the server on a daemon thread and
-        set :attr:`port` and :attr:`replica_id`."""
+    #: scheduler knob -> this unit's attribute; None reads
+    #: ``root.common.serving.<knob>``
+    SERVING_KNOBS = ("kv", "block_size", "kv_blocks", "kv_dtype",
+                     "prefill_chunk", "spec", "spec_k", "prefix_cache",
+                     "warm_buckets", "role", "kv_host_bytes",
+                     "kv_export_bytes")
+
+    def serving_knobs(self):
+        """The scheduler's knobs: each ``serving_<knob>`` given, else
+        ``root.common.serving.<knob>`` (None there too: the scheduler's
+        default)."""
+        from veles_tpu_torch.config import root
+        knobs = {}
+        for k in self.SERVING_KNOBS:
+            v = getattr(self, "serving_" + k)
+            if v is None:
+                v = root.common.serving.get(k)
+            if v is not None:
+                knobs[k] = v
+        return knobs
+
+    def initialize(self, device=None, **kwargs):
+        """Validate the unit's demands; build and start the scheduler
+        (when ``serving`` and the chain is slot-servable), then bind the
+        server on a daemon thread and set :attr:`port` and
+        :attr:`replica_id`.  In a workflow, ``device`` is the workflow's
+        (the chain's)."""
+        super(RESTfulAPI, self).initialize(**kwargs)
+        if device is not None or self.device is None:
+            self._bind_device(device, self.forwards)
+        if self.admin_token is None:
+            from veles_tpu_torch.config import root
+            self.admin_token = root.common.api.get("admin_token")
         if self.forwards is not None and self.serving \
                 and self.scheduler_ is None:
             if serving_supported(self.forwards):
-                knobs = {k: v for k, v in (
-                    ("kv", self.serving_kv),
-                    ("block_size", self.serving_block_size),
-                    ("kv_blocks", self.serving_kv_blocks),
-                    ("kv_dtype", self.serving_kv_dtype),
-                    ("prefill_chunk", self.serving_prefill_chunk),
-                    ("spec", self.serving_spec),
-                    ("spec_k", self.serving_spec_k),
-                    ("prefix_cache", self.serving_prefix_cache),
-                    ("warm_buckets", self.serving_warm_buckets),
-                    ("role", self.serving_role),
-                    ("kv_host_bytes", self.serving_kv_host_bytes),
-                    ("kv_export_bytes", self.serving_kv_export_bytes))
-                    if v is not None}
+                knobs = self.serving_knobs()
                 self.scheduler_ = InferenceScheduler(
                     self.forwards, max_slots=self.max_slots,
                     window=self.serving_window, max_queue=self.max_queue,
@@ -295,7 +370,25 @@ class RESTfulAPI:
             target=self._server_.serve_forever, daemon=True,
             name="restful-api")
         self._thread_.start()
-        log.info("REST API on http://%s:%d/generate", self.host, self.port)
+        log.info("REST API on http://%s:%d/%s", self.host, self.port,
+                 "api" if self.loader is not None else "generate")
+
+    def run(self):
+        """Answer the requests of the rows the loader served with their
+        rows of the chain's ``output`` (an :class:`~veles_tpu_torch.
+        memory.Array` or a tensor)."""
+        futures = getattr(self.loader, "pending_futures_", None) or []
+        if not futures:
+            return
+        out = self.output
+        if isinstance(out, Array):
+            out = out.mem
+        elif hasattr(out, "detach"):
+            out = out.detach().float().cpu().numpy()
+        for i, future in enumerate(futures):
+            if not future.done():
+                future.set_result(numpy.asarray(out[i]).tolist())
+        self.loader.pending_futures_ = []
 
     def stop(self):
         """Close the scheduler, shut the server down and close the
@@ -598,9 +691,8 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         self._trace_ = None
         route = self.path.split("?")[0].rstrip("/")
-        if route in NOT_PORTED:
-            self._reply_error(501, "POST %s is not served yet: it needs %s"
-                              % (route, NOT_PORTED[route]))
+        if route == "/api":
+            self._api()
             return
         client = {"/generate": self._generate,
                   "/serving/prefill": self._serving_prefill,
@@ -635,6 +727,25 @@ class _Handler(BaseHTTPRequestHandler):
             admin[route]()
             return
         self.send_error(404)
+
+    def _api(self):
+        """POST /api ``{"input": [...]}`` → ``{"result": [...]}``: the
+        sample goes through the serving workflow's RestfulLoader and
+        forward chain; any failure (a malformed body, a sample of the
+        wrong shape, a server without a loader, a timeout) is a 500, as
+        the reference answers it."""
+        api = self.api
+        try:
+            if api.loader is None:
+                raise RuntimeError("POST /api needs a RestfulLoader: this "
+                                   "server runs outside a serving workflow")
+            body = self._read_body()
+            sample = numpy.asarray(body["input"], numpy.float32)
+            future = api.loader.feed_request(sample)
+            result = future.result(api.request_timeout)
+            self._reply_json({"result": result})
+        except Exception as e:  # one bad request must not kill the server
+            self.send_error(500, _status_text(e))
 
     # -- disaggregation and the prefix store -----------------------------------
 

@@ -268,3 +268,34 @@ class AlexNetWorkflow(StandardWorkflow):
                 "time_interval": float(snapshot_time_interval)},
                 **(snapshotter_config or {})),
             **kwargs)
+
+    @classmethod
+    def jax_kwargs(cls, rec):
+        """The net of a JAX AlexNet record: the model (VGG-A's stem is a
+        3×3 convolution), the classes, the dropout ratio, the widths and
+        the stem's blocking, and the image side from ``root.alexnet_tpu``
+        (as the JAX loader read it)."""
+        from veles_tpu_torch.config import root
+        fwd = rec.get("forwards")
+        convs = [u for u in fwd if u.get("n_kernels") is not None]
+        fcs = [u for u in fwd if u.jax_name.endswith(".All2AllRELU")]
+        drops = [u for u in fwd if u.get("dropout_ratio") is not None]
+        kw = {"classes": int(numpy.prod(fwd[-1].get("output_sample_shape"))),
+              "side": int(root.alexnet_tpu.get("side", 227))}
+        if drops:
+            kw["dropout"] = float(drops[0].get("dropout_ratio"))
+        if convs and int(convs[0].get("kx")) == 3:
+            kw["model"] = "vgg_a"
+        elif len(convs) == 5 and fcs:
+            kw["widths"] = tuple(int(u.get("n_kernels")) for u in convs) + (
+                int(numpy.prod(fcs[0].get("output_sample_shape"))),)
+            kw["space_to_depth"] = int(convs[0].get("space_to_depth") or 0)
+        return kw
+
+
+def run(load, main):
+    """The command line's entry: the workflow from ``root.alexnet_tpu``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import config_kwargs
+    load(AlexNetWorkflow, **config_kwargs(AlexNetWorkflow, root.alexnet_tpu))
+    main()

@@ -122,3 +122,11 @@ class CifarWorkflow(StandardWorkflow):
                 "time_interval": float(snapshot_time_interval)},
                 **(snapshotter_config or {})),
             **kwargs)
+
+
+def run(load, main):
+    """The command line's entry: the workflow from ``root.cifar_tpu``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import config_kwargs
+    load(CifarWorkflow, **config_kwargs(CifarWorkflow, root.cifar_tpu))
+    main()

@@ -74,3 +74,11 @@ class KohonenWorkflow(AcceleratedWorkflow):
         self.loader.gate_block = self.decision.complete
         self.end_point.link_from(self.decision)
         self.end_point.gate_block = ~self.decision.complete
+
+
+def run(load, main):
+    """The command line's entry: the workflow from ``root.kohonen_tpu``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import config_kwargs
+    load(KohonenWorkflow, **config_kwargs(KohonenWorkflow, root.kohonen_tpu))
+    main()

@@ -270,3 +270,29 @@ class LMWorkflow(StandardWorkflow):
                 "time_interval": float(snapshot_time_interval)},
                 **(snapshotter_config or {})),
             **kwargs)
+
+    @classmethod
+    def jax_kwargs(cls, rec):
+        """The chain's widths of a JAX LM record (the embedding's vocab,
+        dim and positions, the blocks' count and heads) and the corpus
+        seed from ``root.lm_tpu`` (as the JAX loader read it)."""
+        from veles_tpu_torch.config import root
+        fwd = rec.get("forwards")
+        blocks = [u for u in fwd if u.jax_name.endswith(".TransformerBlock")]
+        emb = fwd[0]
+        kw = {"vocab": int(emb.get("vocab")), "dim": int(emb.get("dim")),
+              "blocks": len(blocks), "seed": int(root.lm_tpu.get("seed", 0))}
+        if blocks:
+            kw["heads"] = int(blocks[0].get("heads"))
+        pos = emb.get("positions")
+        if pos is not None and pos.get("_mem") is not None:
+            kw["seq"] = int(pos.get("_mem").shape[0])
+        return kw
+
+
+def run(load, main):
+    """The command line's entry: the workflow from ``root.lm_tpu``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import config_kwargs
+    load(LMWorkflow, **config_kwargs(LMWorkflow, root.lm_tpu))
+    main()

@@ -1,7 +1,12 @@
 """MNIST fully-connected workflow — the port of
 ``veles_tpu/samples/mnist.py`` (BASELINE config 1: the znicz
-MnistWorkflow 784→100→10, SGD).  Its keyword arguments are the
-reference's ``root.mnist_tpu`` keys with their defaults.
+MnistWorkflow 784→100→10, SGD).  The command line runs it through
+:func:`run` from ``root.mnist_tpu`` (``mnist_config.py`` is the
+reference's config file); built directly, its keyword arguments are the
+same keys with the reference's defaults.
+
+    python -m veles_tpu_torch veles_tpu_torch/samples/mnist.py \
+        veles_tpu_torch/samples/mnist_config.py
 
     wf = MnistWorkflow(synthetic_train=512, synthetic_valid=128,
                        max_epochs=2, dtype="float32")
@@ -98,3 +103,22 @@ class MnistWorkflow(StandardWorkflow):
                 "time_interval": float(snapshot_time_interval)},
                 **(snapshotter_config or {})),
             **kwargs)
+
+    @classmethod
+    def jax_kwargs(cls, rec):
+        """The layer widths of a JAX MNIST record's chain, and the
+        stand-in's kind from ``root.mnist_tpu`` (as the JAX loader read
+        it)."""
+        from veles_tpu_torch.config import root
+        return {"layers": [int(numpy.prod(u.get("output_sample_shape")))
+                           for u in rec.get("forwards")],
+                "synthetic_kind": root.mnist_tpu.get("synthetic_kind",
+                                                     "blobs")}
+
+
+def run(load, main):
+    """The command line's entry: the workflow from ``root.mnist_tpu``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import config_kwargs
+    load(MnistWorkflow, **config_kwargs(MnistWorkflow, root.mnist_tpu))
+    main()

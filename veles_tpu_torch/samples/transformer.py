@@ -90,3 +90,35 @@ class TransformerWorkflow(StandardWorkflow):
                 "time_interval": float(snapshot_time_interval)},
                 **(snapshotter_config or {})),
             **kwargs)
+
+    @classmethod
+    def jax_kwargs(cls, rec):
+        """The chain's shape of a JAX transformer record (the
+        embedding's vocab and dim, the blocks' count and settings, the
+        sequence length) and the data seed from ``root.transformer_tpu``
+        (as the JAX loader read it)."""
+        from veles_tpu_torch.config import root
+        fwd = rec.get("forwards")
+        blocks = [u for u in fwd if u.jax_name.endswith(".TransformerBlock")]
+        kw = {"vocab": int(fwd[0].get("vocab")),
+              "dim": int(fwd[0].get("dim")), "blocks": len(blocks),
+              "seed": int(root.transformer_tpu.get("seed", 99))}
+        if blocks:
+            b = blocks[0]
+            kw.update(heads=int(b.get("heads")), causal=bool(b.get("causal")),
+                      n_experts=int(b.get("n_experts") or 0),
+                      top_k=int(b.get("top_k") or 2),
+                      attn_impl=b.get("attn_impl"),
+                      attn_block_size=b.get("attn_block_size"))
+        inp = fwd[0].get("input")
+        if inp is not None and inp.get("_mem") is not None:
+            kw["seq"] = int(inp.get("_mem").shape[1])
+        return kw
+
+
+def run(load, main):
+    """The command line's entry: the workflow from ``root.transformer_tpu``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import config_kwargs
+    load(TransformerWorkflow, **config_kwargs(TransformerWorkflow, root.transformer_tpu))
+    main()

@@ -14,12 +14,16 @@ Codecs: none / gz / bz2 / xz.  The database backend is
 ODBC DSNs through pyodbc are not ported: the port depends on no ODBC
 driver).  The reference's ``root.common.dirs.snapshots``
 and ``root.common.snapshot_suffix`` are the ``directory`` (default
-``"snapshots"``) and ``suffix`` arguments.  Reading a snapshot file of
-the JAX package waits for ROADMAP item 9's remainder.
+``"snapshots"``) and ``suffix`` arguments.  A snapshot file of the JAX
+package resumes too: :meth:`SnapshotterToFile.import_file` and
+:meth:`SnapshotterToDB.import_db` read it through the restricted
+unpickler of :mod:`veles_tpu_torch.jax_snapshot`, which never imports
+``jax``.
 """
 
 import bz2
 import gzip
+import io
 import lzma
 import os
 import pickle
@@ -48,6 +52,30 @@ def _forward_units(wf):
         if all(unit is not s for s in seen):
             seen.append(unit)
     return seen
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """The port's own snapshots: a class of a workflow file the command
+    line ran (``mnist.MnistWorkflow``) resolves to the port's sample of
+    that name when no module of that name is loaded."""
+
+    def find_class(self, module, name):
+        try:
+            return super(_PortUnpickler, self).find_class(module, name)
+        except ModuleNotFoundError:
+            if "." in module:
+                raise
+            return super(_PortUnpickler, self).find_class(
+                "veles_tpu_torch.samples." + module, name)
+
+
+def _loads(blob):
+    """A workflow from snapshot bytes: the JAX package's through
+    :mod:`veles_tpu_torch.jax_snapshot`, the port's own as pickled."""
+    from veles_tpu_torch import jax_snapshot
+    if jax_snapshot.names_jax_package(blob):
+        return jax_snapshot.load(blob)
+    return _PortUnpickler(io.BytesIO(blob)).load()
 
 
 class SnapshotterBase(Unit):
@@ -154,7 +182,7 @@ class SnapshotterToFile(SnapshotterBase):
         else:
             opener = CODECS[None]
         with opener(path, "r") as f:
-            obj = pickle.load(f)
+            obj = _loads(f.read())
         obj._restored_from_snapshot_ = True
         if weights_dtype == "int8":
             for unit in _forward_units(obj):
@@ -254,7 +282,7 @@ class SnapshotterToDB(SnapshotterBase):
             blob = bz2.decompress(blob)
         elif blob[:6] == b"\xfd7zXZ\x00":
             blob = lzma.decompress(blob)
-        obj = pickle.loads(blob)
+        obj = _loads(blob)
         try:
             obj._restored_from_snapshot_ = True
         except AttributeError:  # plain payloads (no attr dict)

@@ -16,11 +16,12 @@ Policy (:func:`configure` ``policy=``):
 - ``halt`` — the monitor latches ``halted`` and the trainer stops
   (``GET /healthz`` then answers 503; the process stays up).
 
-The reference reads these knobs from ``root.common.health``; the port
-has no config tree, so they live in this module (the reference's
-defaults) and change through :func:`configure`, which checks them.  The
-trainer reads the same :func:`health_config` per step, so the policy it
-acts on is the one :meth:`HealthMonitor.state` reports.
+The reference reads these knobs from ``root.common.health`` per step;
+the port keeps them in this module (the reference's defaults), where
+:func:`configure` changes them after checking them — the command line
+hands it ``root.common.health`` (``--health-policy`` among it) before a
+run.  The trainer reads the same :func:`health_config` per step, so
+the policy it acts on is the one :meth:`HealthMonitor.state` reports.
 
 Loss-history divergence (EMA + patience) is fed through
 :meth:`HealthMonitor.observe_loss`.

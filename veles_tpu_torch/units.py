@@ -121,7 +121,7 @@ class Unit(RegisteredDistributable):
         """The top-level workflow's setting ``key`` (the reference's
         ``root.common.<key>``)."""
         w = self
-        while getattr(w, "_workflow", None) is not None:
+        while isinstance(getattr(w, "_workflow", None), Unit):
             w = w._workflow
         return getattr(w, key, default)
 

@@ -7,12 +7,14 @@ demands), and runs the graph to completion with a deterministic worklist
 scheduler (see :mod:`veles_tpu_torch.units`).
 
 A Workflow is itself a Unit, so workflows nest (ref: workflow.py:87).
-The reference's top-level workflow takes its mode (standalone /
-coordinator / worker) from a launcher; the port has no launcher yet
-(ROADMAP item 11), so a workflow is standalone.  The reference's
-``root.common`` keys become keyword arguments of the top-level workflow
-under the reference's names: ``trace_run`` and ``timings`` (see
-:mod:`veles_tpu_torch.units`).
+The top-level workflow takes its mode (standalone / coordinator /
+worker) from its parent :class:`~veles_tpu_torch.launcher.Launcher`
+when the command line runs it (only the standalone mode is ported: the
+master/worker exchange is ROADMAP item 10), and is standalone without
+one.  The reference's ``root.common`` keys the units read become
+keyword arguments of the top-level workflow under the reference's
+names: ``trace_run`` and ``timings`` (see :mod:`veles_tpu_torch.units`;
+the command line fills them from ``root.common``).
 """
 
 import hashlib
