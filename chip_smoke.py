@@ -343,6 +343,7 @@ every other kernel's ``ms`` and ``library_ms``, and every ``plain_ms``,
 are eager loops timed by CUDA events.
 """
 
+import gc
 import json
 import os
 import re
@@ -6544,6 +6545,406 @@ def cli_check(torch, dev):
     return got
 
 
+# -- phase 15: meshes in one process --------------------------------------------
+
+#: phase 15 (``parallel_check``): tensor-parallel serving at the serve
+#: phase's width (tp P_TP over P_TP positions sharing the card, int8 KV
+#: pools with ``int8_decode`` off, spec off and on at P_SPEC_K, then fp32
+#: pools with spec on); the trainer over P_MESHES and the MoE
+#: trunk over P_MOE_MESH at ``bench_lm``'s widths cut to P_LAYERS layers
+#: and P_STEPS steps per mesh; AlexNet over {"dp": 2} at P_A_BATCH.
+#: Each mesh run is held against the same model unsharded on the card
+#: in f32 compute: every loss within P_LOSS_TOL relative and every
+#: parameter within P_W_TOL absolute (both runs sum the same products
+#: in another order, and the dp groups' matmuls run at another batch).
+#: (b) prints each run's peak device memory above what was allocated
+#: before it; the positions share the card, so a mesh's peak is that of
+#: all its positions together
+P_TP, P_SPEC_K = 2, 4
+P_LAYERS, P_STEPS = 4, 2
+P_MESHES = ({"dp": 2}, {"dp": 2, "tp": 2}, {"fsdp": 2}, {"pp": 2, "dp": 2},
+            {"sp": 2})
+P_MOE_MESH = {"ep": 2, "dp": 2}
+P_A_BATCH = 256
+P_LOSS_TOL, P_W_TOL = 1e-5, 1e-5
+#: Megatron's layout, which (a) holds each block's placement to: the
+#: column-parallel weights (and the up-projection's bias) cut on their
+#: last axis, the row-parallel ones on their first; every other
+#: parameter (LN, output-side biases) whole on every position
+P_TP_COLUMNS = ("wq", "wk", "wv", "ffn_w1", "ffn_b1")
+P_TP_ROWS = ("wo", "ffn_w2")
+
+
+def _positions(n):
+    """Let the card offer ``n`` mesh positions; returns the old
+    setting."""
+    from veles_tpu_torch.parallel.mesh import set_positions_per_device
+    return set_positions_per_device(n)
+
+
+def tp_arm(torch, dev, chain, prompts, tp, kv_dtype, spec):
+    """The serve phase's requests through ``InferenceScheduler(tp=)``:
+    streams, per-pass launches, bytes and rates."""
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.serving import InferenceScheduler, per_chip_bytes
+    from veles_tpu_torch.serving.tp import chain_params
+    sch = InferenceScheduler(chain, max_slots=SLOTS, window=WINDOW,
+                             block_size=BLOCK, kv_dtype=kv_dtype,
+                             prefill_chunk=CHUNK, spec=spec, spec_k=P_SPEC_K,
+                             prefix_cache=False, tp=tp, device=dev).start()
+    try:
+        if sch.tp != tp:
+            raise SystemExit("parallel (a): the scheduler serves tp=%d, "
+                             "asked for %d" % (sch.tp, tp))
+        sch.submit(prompts[0], 4).result(600)
+        passes0 = _passes(sch)
+        toks0, secs0 = sch.decode_tokens, sch.decode_seconds
+        torch.cuda.synchronize()
+        pa.launches = 0
+        pa.variant_launches.update(split=0, column=0)
+        gemm.launches = 0
+        futs = [sch.submit(p, STEPS) for p in prompts]
+        outs = [list(f.result(600)) for f in futs]
+        torch.cuda.synchronize()
+        got = {"passes": _passes(sch) - passes0,
+               "paged_attend": pa.launches, "split": pa.variant_launches[
+                   "split"], "int8_gemm": gemm.launches,
+               "decode_tokens": sch.decode_tokens - toks0,
+               "decode_seconds": sch.decode_seconds - secs0}
+        snap = sch.metrics()
+        got["kv_bytes_per_token"] = snap["kv_bytes_per_token"]
+        got["bytes"] = per_chip_bytes({"params": chain_params(chain, sch.tp_),
+                                       "pools": sch.cache_.pools})
+        got["tp"] = snap["tp"]
+        if sch.tp_ is not None:
+            _megatron_check(torch, chain, sch.tp_.device_params(chain), tp)
+    finally:
+        sch.close()
+    sch.check_kv()
+    return outs, got
+
+
+def _megatron_check(torch, chain, placed, tp):
+    """Every block's per-position tensors are its whole parameters cut
+    by P_TP_COLUMNS / P_TP_ROWS (position ``p`` holding the ``p``-th
+    slice), or whole."""
+    for i, u in enumerate(chain):
+        if not hasattr(u, "init_cache"):
+            continue
+        for name, whole in u.params.items():
+            for p in range(tp):
+                if name in P_TP_COLUMNS:
+                    want = torch.chunk(whole, tp, dim=-1)[p]
+                elif name in P_TP_ROWS:
+                    want = torch.chunk(whole, tp, dim=0)[p]
+                else:
+                    want = whole
+                got = placed[p][i][name]
+                if got.shape != want.shape or not torch.equal(
+                        got, want.to(got.device)):
+                    raise SystemExit(
+                        "parallel (a): unit %d %s on position %d is %s, "
+                        "not Megatron's %s" % (i, name, p, tuple(got.shape),
+                                               tuple(want.shape)))
+
+
+def _tp_bytes_want(chain, cache_blocks, kv_dtype, tp):
+    """The bytes one position holds at ``tp``: the blocks' Megatron
+    shards (P_TP_COLUMNS and P_TP_ROWS cut by tp, the rest whole), the
+    embedding and the head whole (they declare no layout), and each
+    pool's K/V cut by tp beside its whole row scales."""
+    total = 0
+    for u in chain:
+        block = hasattr(u, "init_cache")
+        for name, t in u.params.items():
+            cut = tp if tp and block and name in P_TP_COLUMNS + P_TP_ROWS \
+                else 1
+            total += t.numel() * t.element_size() // cut
+        if block:
+            d = u.d_model
+            item = 1 if kv_dtype == "int8" else u.dtype.itemsize
+            rows = cache_blocks * BLOCK
+            total += 2 * rows * d * item // max(tp, 1)
+            if kv_dtype == "int8":
+                total += 2 * rows * 4
+    return total
+
+
+def tp_serve_part(torch, dev):
+    """(a): the serving chain (int8_decode off) at tp 0 and tp P_TP."""
+    from veles_tpu_torch.convert import init_params
+    spec = [{"type": "embedding", "vocab": VOCAB, "dim": DIM}]
+    spec += [{"type": "transformer_block", "heads": HEADS}
+             for _ in range(LAYERS)]
+    spec += [{"type": "token_logits", "vocab": VOCAB}]
+    chain = init_params(spec, 0, WINDOW, device=dev, dtype="bfloat16")
+    rng = numpy.random.default_rng(0)
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(SLOTS)]
+    blocks = SLOTS * -(-WINDOW // BLOCK) + 1
+    report, launches = {}, 0
+    for kv_dtype, spec_on in (("int8", False), ("int8", True),
+                              ("fp32", True)):
+        what = "parallel (a) %s spec %s" % (kv_dtype, spec_on)
+        base, g0 = tp_arm(torch, dev, chain, prompts, 0, kv_dtype, spec_on)
+        outs, g2 = tp_arm(torch, dev, chain, prompts, P_TP, kv_dtype,
+                          spec_on)
+        ties = same_or_near_tie(torch, dev, chain, base, outs, PROMPT, what)
+        per_layer = P_TP if kv_dtype == "int8" else 0
+        if g2["paged_attend"] != per_layer * LAYERS * g2["passes"] \
+                or g2["split"] != g2["paged_attend"] or g2["int8_gemm"] \
+                or g0["paged_attend"] != (per_layer // P_TP) * LAYERS \
+                * g0["passes"]:
+            raise SystemExit("%s: launches tp 0 %s, tp %d %s (want %d "
+                             "paged_attend per pass at tp %d, all split, "
+                             "no int8_gemm)" % (what, g0, P_TP, g2,
+                                                per_layer * LAYERS, P_TP))
+        item = 1 if kv_dtype == "int8" else 2
+        scale = 4 if kv_dtype == "int8" else 0
+        want_bpt = (LAYERS * 2 * (DIM * item + scale),
+                    LAYERS * 2 * (DIM * item // P_TP + scale))
+        want_bytes = (_tp_bytes_want(chain, blocks, kv_dtype, 0),
+                      _tp_bytes_want(chain, blocks, kv_dtype, P_TP))
+        if (g0["kv_bytes_per_token"], g2["kv_bytes_per_token"]) != want_bpt \
+                or (g0["bytes"], g2["bytes"]) != want_bytes \
+                or (g0["tp"], g2["tp"]) != (0, P_TP):
+            raise SystemExit("%s: kv_bytes_per_token %s, per-position bytes "
+                             "%s, tp %s (want %s, %s, (0, %d))"
+                             % (what, (g0["kv_bytes_per_token"],
+                                       g2["kv_bytes_per_token"]),
+                                (g0["bytes"], g2["bytes"]),
+                                (g0["tp"], g2["tp"]), want_bpt, want_bytes,
+                                P_TP))
+        launches += g2["paged_attend"]
+        report["%s spec %s" % (kv_dtype, "on" if spec_on else "off")] = {
+            "equal": ties, "passes": (g0["passes"], g2["passes"]),
+            "paged_attend_tp": g2["paged_attend"],
+            "kv_bytes_per_token": want_bpt, "position_bytes": want_bytes,
+            "decode_tokens_per_s": [g["decode_tokens"] / g["decode_seconds"]
+                                    for g in (g0, g2)],
+            "step_ms": [1e3 * g["decode_seconds"] / g["passes"]
+                        for g in (g0, g2)]}
+    log(json.dumps({"parallel_serve": report}))
+    return {"paged_attend": launches}
+
+
+def _mesh_lm(torch, dev, spec, params, mesh):
+    """A trainer over ``params`` (host arrays) on ``mesh`` (None: one
+    device), f32 compute, ``bench_lm``'s solver."""
+    from veles_tpu_torch.convert import params_from_numpy
+    from veles_tpu_torch.models.evaluator import EvaluatorNextToken
+    from veles_tpu_torch.models.gd import GradientDescent
+    chain = params_from_numpy(spec, params, device=dev, dtype="float32")
+    shape = (T_SEQ,)
+    for u in chain:
+        u.in_shape = shape
+        shape = tuple(u.out_shape(shape))
+    return chain, GradientDescent(chain, EvaluatorNextToken(), solver="sgd",
+                                  learning_rate=0.01, gradient_moment=0.9,
+                                  mesh=mesh)
+
+
+def _mesh_steps(torch, gd, batches):
+    from veles_tpu_torch.loader import TRAIN
+    return [float(gd.run_minibatch(x, x, x.shape[0], TRAIN)[0])
+            for x in batches]
+
+
+def _max_param_err(torch, chain, ref):
+    return max(float((u.params[n] - r.params[n]).detach().abs().max())
+               for u, r in zip(chain, ref) for n in r.params)
+
+
+def _peak_from(torch):
+    """Starts a peak reading: returns the bytes allocated now, which
+    the reading's ``max_memory_allocated`` is taken above.  A mesh
+    trainer and its units refer to each other, so the last run's
+    tensors go only with a collection."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _losses_err(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def mesh_lm_part(torch, dev):
+    """(b): the LM (and the MoE trunk) over each mesh against the
+    unsharded run on the card."""
+    import math
+    from veles_tpu_torch.convert import init_params, params_to_numpy
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.samples.lm import lm_spec
+    toks = numpy.random.default_rng(0).integers(
+        0, T_VOCAB, (T_BATCH * P_STEPS, T_SEQ))
+    batches = [torch.as_tensor(toks[k * T_BATCH:(k + 1) * T_BATCH],
+                               device=dev) for k in range(P_STEPS)]
+    report, total = {}, dict.fromkeys(fa.launches, 0)
+    for moe in (False, True):
+        block = {"n_experts": MOE_EXPERTS, "top_k": MOE_TOP_K} if moe else {}
+        spec = lm_spec(T_VOCAB, T_DIM, P_LAYERS, T_HEADS, **block)
+        params = params_to_numpy(init_params(spec, 0, window=T_SEQ,
+                                             device="cpu", dtype="float32"))
+        ref, gd = _mesh_lm(torch, dev, spec, params, None)
+        _mesh_steps(torch, gd, batches[:1])     # warm-up, then the state
+        del ref, gd
+        base = _peak_from(torch)
+        ref, gd = _mesh_lm(torch, dev, spec, params, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = _mesh_steps(torch, gd, batches)
+        torch.cuda.synchronize()
+        report["unsharded%s" % (" moe" if moe else "")] = {
+            "losses": want, "step_ms": 1e3 * (time.perf_counter() - t0)
+            / P_STEPS,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        del gd
+        for axes in ((P_MOE_MESH,) if moe else P_MESHES):
+            n = math.prod(axes.values())
+            old = _positions(n)
+            try:
+                base = _peak_from(torch)
+                chain, gd = _mesh_lm(torch, dev, spec, params, dict(axes))
+                torch.cuda.synchronize()
+                for name in fa.launches:
+                    fa.launches[name] = 0
+                t0 = time.perf_counter()
+                losses = _mesh_steps(torch, gd, batches)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                got = dict(fa.launches)
+            finally:
+                _positions(old)
+            what = "parallel (b) %s%s" % (axes, " moe" if moe else "")
+            groups = axes.get("dp", 1) * axes.get("fsdp", 1)
+            per = 0 if axes.get("sp", 1) > 1 else P_LAYERS * groups * (
+                axes.get("pp", 1) if "pp" in axes else 1)
+            if got != dict.fromkeys(got, per * P_STEPS):
+                raise SystemExit("%s: %d steps launched %s (want %d of each)"
+                                 % (what, P_STEPS, got, per * P_STEPS))
+            l_err = _losses_err(losses, want)
+            w_err = _max_param_err(torch, chain, ref)
+            if not (numpy.isfinite(losses).all() and l_err <= P_LOSS_TOL
+                    and w_err <= P_W_TOL):
+                raise SystemExit("%s: losses %s vs %s (%.3g relative), "
+                                 "parameters %.3g apart (want %g and %g)"
+                                 % (what, losses, want, l_err, w_err,
+                                    P_LOSS_TOL, P_W_TOL))
+            pos = gd.plan_.position_bytes()
+            report[what] = {"losses": losses, "loss_rel_err": l_err,
+                            "param_max_abs_err": w_err,
+                            "step_ms": 1e3 * wall / P_STEPS,
+                            "launches": got,
+                            "position_bytes_max": max(pos),
+                            "peak_bytes_all_positions": peak,
+                            "unsharded_bytes": sum(
+                                a.nbytes for layer in params.values()
+                                for a in layer.values()) * 2}
+            for name in total:
+                total[name] += got[name]
+            del chain, gd
+        del ref
+        torch.cuda.empty_cache()
+    log(json.dumps({"parallel_train": report}))
+    return total
+
+
+def mesh_alexnet_part(torch, dev):
+    """(c): AlexNet over {"dp": 2} against the unsharded run, f32, from
+    one loader's minibatches; the dropout masks must be equal."""
+    from veles_tpu_torch.loader import TRAIN
+    from veles_tpu_torch.models.dropout import DropoutForward
+    from veles_tpu_torch.ops import lrn as lrn_mod, random as rnd
+    from veles_tpu_torch.samples.alexnet import ImagenetLoader, build_alexnet
+    loader = ImagenetLoader(A_SIDE, A_CLASSES, P_A_BATCH * P_STEPS, 0,
+                            minibatch_size=P_A_BATCH, device=dev)
+    batches = _minibatches(torch, loader, dev)
+    data = [next(batches) for _ in range(P_STEPS)]
+    # a throwaway step first: the process's first convolutions pay
+    # cuDNN's set-up, which would land on whichever run is timed first
+    warm = build_alexnet(minibatch_size=P_A_BATCH, side=A_SIDE,
+                         classes=A_CLASSES, n_train=P_A_BATCH * P_STEPS,
+                         loader=loader, device=dev, dtype="float32")
+    warm.trainer.run_minibatch(*data[0], TRAIN)
+    del warm
+    runs = {}
+    for axes in (None, {"dp": 2}):
+        old = _positions(2)
+        try:
+            net = build_alexnet(minibatch_size=P_A_BATCH, side=A_SIDE,
+                                classes=A_CLASSES, n_train=P_A_BATCH
+                                * P_STEPS, loader=loader, device=dev,
+                                dtype="float32", mesh=axes)
+            masks = []
+            for u in net.chain:
+                if isinstance(u, DropoutForward):
+                    draw = u.mask_of
+
+                    def mask_of(shape, key, device, draw=draw):
+                        m = draw(shape, key, device)
+                        masks.append(m.cpu())
+                        return m
+                    u.mask_of = mask_of
+            torch.cuda.synchronize()
+            for name in lrn_mod.launches:
+                lrn_mod.launches[name] = 0
+            rnd.launches = 0
+            t0 = time.perf_counter()
+            losses = [float(net.trainer.run_minibatch(x, y, s, TRAIN)[0])
+                      for x, y, s in data]
+            torch.cuda.synchronize()
+            runs[str(axes)] = dict(
+                net=net, losses=losses, masks=masks,
+                step_ms=1e3 * (time.perf_counter() - t0) / P_STEPS,
+                launches=dict(lrn_mod.launches, uniform_fill=rnd.launches))
+        finally:
+            _positions(old)
+    ref, got = runs["None"], runs[str({"dp": 2})]
+    want = {"lrn_fwd": 2 * 2 * P_STEPS, "lrn_bwd": 2 * 2 * P_STEPS,
+            "uniform_fill": ref["launches"]["uniform_fill"]}
+    if got["launches"] != want or want["uniform_fill"] != 2 * P_STEPS:
+        raise SystemExit("parallel (c): launched %s (want %s)"
+                         % (got["launches"], want))
+    if len(got["masks"]) != len(ref["masks"]) or not all(
+            torch.equal(a, b) for a, b in zip(got["masks"], ref["masks"])):
+        raise SystemExit("parallel (c): the dropout masks differ")
+    l_err = _losses_err(got["losses"], ref["losses"])
+    w_err = _max_param_err(torch, got["net"].chain, ref["net"].chain)
+    log(json.dumps({"parallel_alexnet": {
+        "losses": got["losses"], "unsharded": ref["losses"],
+        "loss_rel_err": l_err, "param_max_abs_err": w_err,
+        "step_ms": got["step_ms"], "unsharded_step_ms": ref["step_ms"],
+        "masks_equal": len(got["masks"]), "launches": got["launches"]}}))
+    if not l_err <= P_LOSS_TOL or not w_err <= P_W_TOL:
+        raise SystemExit("parallel (c): losses %.3g relative, parameters "
+                         "%.3g apart (want %g and %g)"
+                         % (l_err, w_err, P_LOSS_TOL, P_W_TOL))
+    return got["launches"]
+
+
+def parallel_check(torch, dev):
+    """Phase 15: (a) tensor-parallel serving, (b) the trainer over
+    meshes, (c) AlexNet over dp, each at full width on positions that
+    share the card; returns the kernels' launch counts of the mesh
+    runs."""
+    t0 = time.perf_counter()
+    old = _positions(P_TP)
+    try:
+        launches = tp_serve_part(torch, dev)
+    finally:
+        _positions(old)
+    log("parallel (a): %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    launches.update(mesh_lm_part(torch, dev))
+    log("parallel (b): %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    launches.update(mesh_alexnet_part(torch, dev))
+    log("parallel (c): %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6616,6 +7017,7 @@ def main():
             vocab_job[0].kill()
             vocab_job[0].wait()
     cli_launches = cli_check(torch, dev)
+    parallel_launches = parallel_check(torch, dev)
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -6650,7 +7052,8 @@ def main():
                          ("families_launches", family_launches),
                          ("workflow_launches", wf_launches),
                          ("input_launches", input_launches),
-                         ("cli_launches", cli_launches)):
+                         ("cli_launches", cli_launches),
+                         ("parallel_launches", parallel_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))

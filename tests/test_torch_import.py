@@ -39,6 +39,28 @@ def test_imports_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+PARALLEL = ("veles_tpu_torch.parallel.mesh",
+            "veles_tpu_torch.parallel.sharding",
+            "veles_tpu_torch.parallel.collectives",
+            "veles_tpu_torch.parallel.pipeline", "veles_tpu_torch.parallel",
+            "veles_tpu_torch.models.gd_mesh", "veles_tpu_torch.serving.tp")
+
+
+def test_parallel_modules_import_with_jax_blocked():
+    """The modules of the in-process parallel layer import one after
+    another with ``jax`` blocked, and none loads ``veles_tpu``."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "for m in %r:\n"
+            "    importlib.import_module(m)\n"
+            "    assert not any(n == 'veles_tpu' or n.startswith(\n"
+            "        'veles_tpu.') for n in sys.modules), m\n"
+            "print('ok')\n" % (PARALLEL,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_submodule_list_is_complete():
     import veles_tpu_torch
     found = set()

@@ -96,6 +96,42 @@ def test_paged_attend_kernel_matches_plain(card, pool, k1):
     torch.testing.assert_close(got, want, **_tol(qdt))
 
 
+@pytest.mark.parametrize("k1", [1, 5])
+def test_paged_attend_tp_shard(card, k1):
+    """Kernel 1 at a tp=2 shard of the serving chain: 4 heads of 128 over
+    a 512-column int8 pool whose row scales are those of the WHOLE
+    1024-column rows (the tp pools' replicated scales): the split
+    kernel, against its plain version, bit-equal twice."""
+    from veles_tpu_torch.ops import paged_attend as mod
+    from veles_tpu_torch.ops.paged_attention import quantize_kv_rows
+    rng = numpy.random.default_rng(21 + k1)
+    nb, b, t, half = 40, 4, 8, D // 2
+    q = torch.as_tensor(rng.standard_normal((b, k1, half)),
+                        dtype=torch.bfloat16).to(card)
+    tables = numpy.zeros((b, t), numpy.int32)
+    tables[:3, :4] = rng.permutation(numpy.arange(1, nb))[:12].reshape(3, 4)
+    qpos = (numpy.asarray([58, 33, 7, 0])[:, None]
+            + numpy.arange(k1)[None, :]).astype(numpy.int32)
+    qpos[3] = 0
+    whole = [torch.as_tensor(rng.standard_normal((nb, BS, D)),
+                             dtype=torch.float32) for _ in range(2)]
+    (kq, ks), (vq, vs) = (quantize_kv_rows(x) for x in whole)
+    shard = [x[..., half:].contiguous().to(card) for x in (kq, vq)]
+    args = (q, shard[0], shard[1], torch.as_tensor(tables).to(card),
+            torch.as_tensor(qpos).to(card), HEADS // 2)
+    scales = dict(scale_k=ks.to(card), scale_v=vs.to(card))
+    how = mod.plan(b, k1, half, HEADS // 2, BS, t, torch.int8)
+    assert how["kernel"] == "split"
+    before = dict(mod.variant_launches)
+    got = mod.paged_attend(*args, **scales)
+    again = mod.paged_attend(*args, **scales)
+    want = mod.paged_attend_plain(*args, **scales)
+    torch.cuda.synchronize()
+    assert mod.variant_launches["split"] == before["split"] + 2
+    assert torch.equal(got, again) and got.shape == (b, k1, half)
+    torch.testing.assert_close(got, want, **_tol(torch.bfloat16))
+
+
 def _paged_inputs(card, pool, k1, hd, nt, first, seed, nb=None):
     """q [B, k1, D] at positions ``first[r] + i`` (a negative first
     position puts every query of the row before the table; 0 is a

@@ -728,14 +728,15 @@ def test_tune_and_admin_guard(pair):
 
 
 def test_constructor_refuses_features_not_ported():
-    """Tensor parallelism (item 10) is refused; a workflow and a loader
-    are taken (the unit form demands both ``loader`` and ``output``);
-    the KV knobs reach the scheduler."""
+    """Tensor parallelism is taken (``serving_tp`` reaches the
+    scheduler's knobs; its serving is ``tests/test_torch_tp.py``'s); a
+    workflow and a loader are taken (the unit form demands both
+    ``loader`` and ``output``); the KV knobs reach the scheduler."""
     from veles_tpu_torch.restful_api import RESTfulAPI, RestfulLoader
     from veles_tpu_torch.units import MissingDemand
     from veles_tpu_torch.workflow import Workflow
-    with pytest.raises(ValueError, match="item 10"):
-        RESTfulAPI(device="cpu", serving_tp=2)
+    tp = RESTfulAPI(device="cpu", serving_tp=2)
+    assert tp.serving_tp == 2 and tp.serving_knobs()["tp"] == 2
     wf = Workflow(None, name="rest-unit")
     loader = RestfulLoader(wf, sample_shape=(3,), minibatch_size=2)
     unit = RESTfulAPI(wf, loader=loader)

@@ -513,11 +513,17 @@ def test_kohonen_workflow_matches_reference(tmp_path):
         jwf = J(None)
         jwf.initialize(device=_jax_device())
         w0 = numpy.array(jwf.trainer.weights.map_read().mem)
-        jwf.run()
+        try:
+            jwf.run()
+        finally:
+            jwf.loader.stop()
     pwf = P(**keys)
     pwf.initialize(device="cpu")
     pwf.trainer.weights = torch.as_tensor(w0)
-    pwf.run()
+    try:
+        pwf.run()
+    finally:
+        pwf.stop()     # joins the per-minibatch loader's prefetch threads
     assert len(pwf.decision.epoch_qerror) == 2
     _close(pwf.decision.epoch_qerror, jwf.decision.epoch_qerror)
     _close(pwf.trainer.weights, jwf.trainer.weights.map_read().mem)
@@ -755,13 +761,13 @@ def test_gather_results_and_metric_values(tmp_path):
 
 
 def test_feature_off_values():
-    """Each waits for the item named: meshes (10), plotters (11: none
-    built).  Augmentation, prefetch, the glyphs stand-in and the BPE
-    text path (item 9) are on since the input-pipeline slice."""
+    """Each waits for the item named: plotters (11: none built).
+    Meshes (item 10's in-process half) reach the trainer; augmentation,
+    prefetch, the glyphs stand-in and the BPE text path (item 9) are on
+    since the input-pipeline slice."""
     from veles_tpu_torch.loader.fullbatch import FullBatchLoader
     from veles_tpu_torch.samples.mnist import MnistWorkflow
-    with pytest.raises(NotImplementedError, match="item 10"):
-        MnistWorkflow(mesh={"dp": 2})
+    assert MnistWorkflow(mesh={"dp": 2}).gd.mesh == {"dp": 2}
     aug = {"kind": "image", "shape": (28, 28, 1)}
     assert MnistWorkflow(augment=aug).gd.augment == aug
     assert FullBatchLoader(None, prefetch=2).prefetch == 2

@@ -142,6 +142,7 @@ SUBMODULES = (
     "veles_tpu_torch.models.solvers",
     "veles_tpu_torch.models.lr_adjust",
     "veles_tpu_torch.models.gd",
+    "veles_tpu_torch.models.gd_mesh",
     "veles_tpu_torch.models.decision",
     "veles_tpu_torch.models.generate",
     "veles_tpu_torch.loader",
@@ -169,6 +170,11 @@ SUBMODULES = (
     "veles_tpu_torch.samples.mnist_config",
     "veles_tpu_torch.samples.cifar_config",
     "veles_tpu_torch.samples.alexnet_config",
+    "veles_tpu_torch.parallel",
+    "veles_tpu_torch.parallel.mesh",
+    "veles_tpu_torch.parallel.sharding",
+    "veles_tpu_torch.parallel.collectives",
+    "veles_tpu_torch.parallel.pipeline",
     "veles_tpu_torch.serving",
     "veles_tpu_torch.serving.kv_slots",
     "veles_tpu_torch.serving.prefill",

@@ -66,11 +66,11 @@ def set_trainer_state(trainer, opt_state, global_step):
     """Set ``trainer``'s solver slots from ``opt_state`` — ``{chain
     index: {name: {slot: numpy array}}}``, the JAX trainer's
     ``opt_state`` read to numpy — and its ``global_step``."""
-    with torch.no_grad():
-        for (i, name), slots in trainer.opt_state.items():
-            for slot, t in slots.items():
-                t.copy_(torch.as_tensor(numpy.array(
-                    opt_state[i][name][slot], numpy.float32)))
+    _, slots = trainer.state_tensors()
+    trainer.write_state(opt_state={
+        (i, name): {s: numpy.array(opt_state[i][name][s], numpy.float32)
+                    for s in got}
+        for (i, name), got in slots.items()})
     trainer.global_step = int(global_step)
 
 
@@ -85,17 +85,20 @@ def load_workflow_params(workflow, params):
     if len(params) != len(chain):
         raise ValueError("params hold %d units, the chain %d"
                          % (len(params), len(chain)))
-    with torch.no_grad():
-        for i, unit in enumerate(chain):
-            if sorted(params[i]) != sorted(unit.params):
-                raise ValueError("unit %d: params %s, the chain's %s"
-                                 % (i, sorted(params[i]),
-                                    sorted(unit.params)))
-            for name, t in unit.params.items():
-                t.copy_(torch.as_tensor(numpy.asarray(
-                    params[i][name], numpy.float32)))
-        if trainer is not None:
-            for slots in trainer.opt_state.values():
-                for t in slots.values():
-                    t.zero_()
+    for i, unit in enumerate(chain):
+        if sorted(params[i]) != sorted(unit.params):
+            raise ValueError("unit %d: params %s, the chain's %s"
+                             % (i, sorted(params[i]), sorted(unit.params)))
+    whole = {i: {n: numpy.asarray(params[i][n], numpy.float32)
+                 for n in unit.params} for i, unit in enumerate(chain)}
+    if trainer is None:
+        with torch.no_grad():
+            for i, unit in enumerate(chain):
+                for name, t in unit.params.items():
+                    t.copy_(torch.as_tensor(whole[i][name]))
+        return chain
+    _, slots = trainer.state_tensors()
+    trainer.write_state(whole, {k: {s: torch.zeros_like(t)
+                                    for s, t in got.items()}
+                                for k, got in slots.items()})
     return chain

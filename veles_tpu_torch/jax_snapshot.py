@@ -338,6 +338,11 @@ def take_trainer(gd, rec):
     acc = array_of(rec.get("epoch_acc"))
     if acc is not None and acc.shape == (3, 3):
         gd.epoch_acc = torch.as_tensor(numpy.array(acc, numpy.float32))
+    mesh = rec.get("mesh")
+    if isinstance(mesh, dict):
+        # the JAX trainer pickles its mesh as {"__mesh_axes__": {...}}:
+        # the port rebuilds it over its own positions at initialize
+        gd.mesh = {"__mesh_axes__": dict(mesh.get("__mesh_axes__", mesh))}
 
 
 def take_state(wf, rec):

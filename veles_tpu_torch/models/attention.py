@@ -1,5 +1,10 @@
-"""Multi-head attention — the port of ``veles_tpu/models/attention.py``
-(single device: no ``sp`` ring).
+"""Multi-head attention — the port of ``veles_tpu/models/attention.py``.
+
+Under a mesh with an ``sp`` axis the trainer hands each unit the mesh
+(``sp_mesh_``) and the ring devices of the minibatch slice it runs
+(``sp_ring_``); the attention core is then the ring
+(:func:`_ring_mha`), which overrides every other core, the
+FlashAttention kernels included, as in the reference.
 
 :func:`attention_core` selects the core by :func:`select_core`, the
 JAX package's rule (``mha_apply``): an explicit ``attn_impl`` wins; by
@@ -12,6 +17,8 @@ the head dims its kernels are built for (:data:`KERNEL_HEAD_DIMS`).
 for both, and an explicit one raises on the card for a head dim they
 are not built for.
 """
+
+import torch
 
 from veles_tpu_torch.models.nn_units import ForwardBase
 from veles_tpu_torch.ops.attention import attention, blockwise_attention
@@ -45,22 +52,54 @@ def attention_core(q, k, v, causal, block_size=None, attn_impl=None):
     raise ValueError("unknown attn_impl %r" % (attn_impl,))
 
 
+def _ring_mha(mesh, q, k, v, causal, devices=None):
+    """The sp-sharded attention core: q/k/v [batch, seq, heads, hd]
+    cut along seq into one slice per ring position (``devices``,
+    default the ``sp`` positions at the mesh's origin); K/V rotate
+    around the ring (``ops.attention.ring_attention``) and the slices
+    come back together on q's device."""
+    from veles_tpu_torch.ops.attention import ring_attention
+    if devices is None:
+        devices = [mesh.device(p) for p in mesh.along(0, "sp")]
+    n = len(devices)
+
+    def split(t):
+        return [c.to(dev) for c, dev in zip(torch.chunk(t, n, dim=1),
+                                             devices)]
+
+    out = ring_attention(split(q), split(k), split(v), causal=causal)
+    return torch.cat([o.to(q.device) for o in out], dim=1)
+
+
+def sp_core(unit, q, k, v, causal, block_size=None, attn_impl=None):
+    """The attention core of ``unit``: the ring when the trainer handed
+    it an ``sp`` mesh wider than 1, else :func:`attention_core`."""
+    mesh = getattr(unit, "sp_mesh_", None)
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
+        return _ring_mha(mesh, q, k, v, causal,
+                         getattr(unit, "sp_ring_", None))
+    return attention_core(q, k, v, causal, block_size, attn_impl)
+
+
 def mha_apply(unit, x, heads, causal, block_size=None, attn_impl=None):
     """Multi-head attention over x [b, s, d] with the ``wq``/``wk``/
     ``wv``/``wo`` parameters of ``unit`` (projections through
     :meth:`ForwardBase.linear`: compute-dtype operands, f32 sums);
-    returns [b, s, d] in x's dtype."""
+    returns [b, s, d] in x's dtype.  The core is :func:`sp_core`'s."""
     b, s, d = x.shape
     hd = d // heads
     q, k, v = (unit.linear(x, n).to(unit.dtype).reshape(b, s, heads, hd)
                for n in ("wq", "wk", "wv"))
-    o = attention_core(q, k, v, causal, block_size, attn_impl)
+    o = sp_core(unit, q, k, v, causal, block_size, attn_impl)
     return unit.linear(o.reshape(b, s, d), "wo").to(x.dtype)
 
 
 class MultiHeadAttention(ForwardBase):
     """y = (softmax(QKᵀ/sqrt(hd)) V) Wo with Q/K/V = x·Wq/Wk/Wv, x
     [batch, seq, model_dim]."""
+
+    #: dim 1 of the input is a sequence (a mesh shards it over ``sp``)
+    SEQ_DIM1_INPUT = True
 
     PARAMS = ("wq", "wk", "wv", "wo")
 

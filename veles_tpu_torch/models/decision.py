@@ -275,22 +275,16 @@ class Rollback(Unit):
         """Host copies of the chain's parameters and the solver slots
         (they belong to the trajectory: restoring weights under a stale
         velocity would push them straight back)."""
-        t = self.trainer
+        params, opt_state = self.trainer.state_tensors()
         self.saved_params = {
-            i: {n: p.detach().cpu().clone() for n, p in u.params.items()}
-            for i, u in enumerate(t.forwards)}
+            i: {n: p.detach().cpu().clone() for n, p in layer.items()}
+            for i, layer in params.items()}
         self.saved_opt_state = {
             key: {s: v.detach().cpu().clone() for s, v in slots.items()}
-            for key, slots in t.opt_state.items()}
+            for key, slots in opt_state.items()}
 
     def restore(self):
         self.info("rolling back to best params; lr *= %s", self.lr_plus)
         t = self.trainer
-        with torch.no_grad():
-            for i, u in enumerate(t.forwards):
-                for n, p in u.params.items():
-                    p.copy_(self.saved_params[i][n])
-            for key, slots in t.opt_state.items():
-                for s, v in slots.items():
-                    v.copy_(self.saved_opt_state[key][s])
+        t.write_state(self.saved_params, self.saved_opt_state)
         t.lr_multiplier *= self.lr_plus

@@ -25,13 +25,21 @@ class DropoutForward(ForwardBase):
 
     def mask(self, x, key):
         """The keep mask of ``x``'s shape for ``key`` (bool)."""
-        keep = torch.tensor(1.0 - self.dropout_ratio, dtype=torch.float32)
-        return ops_random.uniform(key, x.shape, device=x.device) < keep
+        return self.mask_of(x.shape, key, x.device)
 
-    def apply_train(self, x, key):
+    def mask_of(self, shape, key, device):
+        """The keep mask of ``shape`` for ``key`` (bool), on ``device``
+        (a mesh trainer draws the whole minibatch's once and gives each
+        data-parallel group its rows)."""
+        keep = torch.tensor(1.0 - self.dropout_ratio, dtype=torch.float32)
+        return ops_random.uniform(key, tuple(shape), device=device) < keep
+
+    def apply_train(self, x, key, mask=None):
         keep = 1.0 - self.dropout_ratio
+        if mask is None:
+            mask = self.mask(x, key)
         # JAX divides a bf16 x by keep rounded to bf16 (a weak-typed
         # Python scalar), not by keep in f32
         div = torch.tensor(keep, dtype=x.dtype, device=x.device)
-        return torch.where(self.mask(x, key), x / div,
+        return torch.where(mask, x / div,
                            torch.zeros((), dtype=x.dtype, device=x.device))

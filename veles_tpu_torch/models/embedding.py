@@ -12,6 +12,9 @@ class Embedding(ForwardBase):
     """[batch, seq] int tokens → [batch, seq, dim] in the compute
     dtype, plus a learned positional row per position."""
 
+    #: dim 1 of the input is a sequence (a mesh shards it over ``sp``)
+    SEQ_DIM1_INPUT = True
+
     def __init__(self, vocab=None, dim=None, learned_positions=True,
                  device=None, dtype=None, **hyper):
         super().__init__(device=device, dtype=dtype, **hyper)

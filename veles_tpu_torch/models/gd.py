@@ -1,5 +1,5 @@
-"""GradientDescent — the trainer (the port of ``veles_tpu/models/gd.py``
-on one device).
+"""GradientDescent — the trainer (the port of ``veles_tpu/models/gd.py``,
+on one device or over a mesh).
 
 One minibatch step (:meth:`GradientDescent.run_minibatch`) is the JAX
 package's fused step written eagerly:
@@ -44,9 +44,16 @@ process-wide policy.  ``augment`` (a callable ``fn(x, key)`` or an
 4}``) transforms train minibatches on the device inside the step: as
 in the JAX trainer, the minibatch key is split first (``key, sub =
 split(key)``), ``sub`` keys the augment and ``key`` the dropout masks,
-so the masks change when augment is on.  Not ported: meshes
-(dp/tp/pp/sp; ROADMAP item 10) and the DCN master/worker exchange
-(item 10).
+so the masks change when augment is on.
+
+``mesh`` (a :class:`~veles_tpu_torch.parallel.mesh.Mesh`, an axis dict
+such as ``{"dp": 2, "tp": 2}``, or a snapshot's ``{"__mesh_axes__":
+...}``, made concrete on the trainer's device type) shards the step
+over ``dp``, ``fsdp``, ``tp``, ``ep``, ``pp`` and ``sp``
+(:mod:`~veles_tpu_torch.models.gd_mesh`); ``pp_microbatches`` (default
+the ``pp`` extent) sets the pipeline's microbatches.  A mesh pickles as
+its axis spec and is rebuilt at resume.  Not ported: the DCN
+master/worker exchange (ROADMAP item 10's remainder).
 
 The trainer is also a workflow unit (the reference's face):
 ``GradientDescent(workflow, forwards=..., evaluator=..., loader=...,
@@ -101,14 +108,15 @@ class GradientDescent(AcceleratedUnit):
                  lr_schedule="constant", lr_schedule_params=None,
                  health=True, health_policy=None, seed=None, forwards=None,
                  loader=None, weights_seed=0, mesh=None, augment=None,
-                 **kwargs):
+                 pp_microbatches=None, **kwargs):
         plain = not unit_form(workflow)
         if plain:
             forwards, workflow = workflow, None
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP item 10)")
         super(GradientDescent, self).__init__(workflow, **kwargs)
+        #: the mesh the step shards over (None: one device)
+        self.mesh = mesh
+        #: microbatches per pipeline step on a ``pp`` mesh (None: pp)
+        self.pp_microbatches = pp_microbatches
         if health_policy is not None:
             health_lib.configure(policy=health_policy)
         self.forwards = list(forwards) if forwards else []
@@ -155,6 +163,47 @@ class GradientDescent(AcceleratedUnit):
     def init_unpickled(self):
         super(GradientDescent, self).init_unpickled()
         self._augment_fn_ = None
+        #: the mesh path's sharded state (models/gd_mesh.MeshPlan)
+        self.plan_ = None
+
+    def __getstate__(self):
+        from veles_tpu_torch.distributable import host_state
+        from veles_tpu_torch.parallel.mesh import Mesh
+        state = super(GradientDescent, self).__getstate__()
+        if isinstance(self.mesh, Mesh):
+            # positions hold devices: persist the axis spec, rebuilt
+            # over the resuming process's positions at initialize
+            state["mesh"] = {"__mesh_axes__": dict(self.mesh.shape)}
+        if self.plan_ is not None:
+            state["opt_state"] = host_state(self.plan_.gathered_slots())
+        return state
+
+    def state_tensors(self):
+        """``(params, opt_state)``: ``{i: {name: tensor}}`` of the
+        chain's parameters and ``{(i, name): {slot: tensor}}`` of the
+        solver slots, whole (gathered under a mesh)."""
+        params = {i: dict(u.params.items())
+                  for i, u in enumerate(self.forwards)}
+        if self.plan_ is not None:
+            return params, self.plan_.gathered_slots()
+        return params, self.opt_state
+
+    def write_state(self, params=None, opt_state=None):
+        """Write whole parameters and/or slots (the forms
+        :meth:`state_tensors` returns) in place, re-placed onto the
+        positions under a mesh."""
+        if self.plan_ is not None:
+            self.plan_.write(params, opt_state)
+            return
+        with torch.no_grad():
+            for i, u in enumerate(self.forwards):
+                for n, p in u.params.items():
+                    if params is not None:
+                        p.copy_(torch.as_tensor(params[i][n]))
+            for key, slots in self.opt_state.items():
+                for s, v in slots.items():
+                    if opt_state is not None:
+                        v.copy_(torch.as_tensor(opt_state[key][s]))
 
     @property
     def augment_fn(self):
@@ -173,6 +222,11 @@ class GradientDescent(AcceleratedUnit):
         the parameter order, the per-layer hyper-parameters, fresh solver
         slots (kept, moved to the device, when restored) and the epoch
         accumulator."""
+        if self.plan_ is not None:   # set up again: take the shards back
+            params, self.opt_state = self.state_tensors()
+            for i, u in enumerate(self.forwards):
+                u.params = params[i]
+            self.plan_ = None
         self.device = self.forwards[0].device
         #: (chain index, name) of every parameter, in the order the JAX
         #: package's pytrees flatten them (sorted keys)
@@ -193,6 +247,12 @@ class GradientDescent(AcceleratedUnit):
         self.epoch_acc = torch.zeros((3, 3), dtype=torch.float32,
                                      device=self.device) \
             if self.epoch_acc is None else self.epoch_acc.to(self.device)
+        if self.mesh is not None:
+            from veles_tpu_torch.models.gd_mesh import MeshPlan, resolve_mesh
+            self.mesh = resolve_mesh(self.mesh, self.device)
+            self.plan_ = MeshPlan(self, self.mesh)
+            # the slots live on the positions now
+            self.opt_state = {}
 
     # -- the unit face --------------------------------------------------------
 
@@ -308,6 +368,8 @@ class GradientDescent(AcceleratedUnit):
         """The chain's output (logits for a softmax head); on a train
         step each dropout layer draws its mask from a key split off
         ``key``."""
+        if self.plan_ is not None:
+            return self.plan_.forward(x, key, train)[0]
         h = x
         last = len(self.forwards) - 1
         for i, u in enumerate(self.forwards):
@@ -327,7 +389,12 @@ class GradientDescent(AcceleratedUnit):
             x = augment(x, sub)
         if getattr(self.evaluator, "TARGET_IS_INPUT", False):
             target = x
-        y = self.forward(x, key, train)
+        if self.plan_ is not None:
+            self.plan_.check_batch(x, target)
+            y, leaves = self.plan_.forward(x, key, train)
+            self._step_leaves_ = leaves if train else None
+        else:
+            y = self.forward(x, key, train)
         loss = self.evaluator.loss(y, target, size)
         if hasattr(self.evaluator, "train_metrics"):
             n_err = self.evaluator.train_metrics(y, target, size)
@@ -337,16 +404,67 @@ class GradientDescent(AcceleratedUnit):
             n_err = ((pred != target.long()) & mask).sum().to(torch.int32)
         return loss, n_err
 
-    def _train(self, x, target, size, step, key):
-        params = [self._param(i, n) for i, n in self._names]
-        loss, n_err = self._loss_and_metrics(x, target, size, key, True)
-        grads = torch.autograd.grad(loss, params)
-        loss = loss.detach()
+    def _scaled_hps(self, step):
         # the float32 multiplier the JAX package traces
         scale = torch.tensor(self.lr_multiplier, dtype=torch.float32) \
             * torch.as_tensor(self.schedule(
                 torch.tensor(float(step), dtype=torch.float32)),
                 dtype=torch.float32)
+        out = {}
+        for key in self._names:
+            hp = dict(self._hps[key])
+            hp["lr"] = float(torch.tensor(hp["lr"], dtype=torch.float32)
+                             * scale)
+            out[key] = hp
+        return out
+
+    def _train_mesh(self, x, target, size, step, key):
+        """The mesh step (models/gd_mesh): the groups' leaves' gradients
+        reduce-scattered in group order, every position updating its
+        slices."""
+        plan = self.plan_
+        loss, n_err = self._loss_and_metrics(x, target, size, key, True)
+        leaves = []
+        for got, ep in self._step_leaves_:
+            leaves += list(got.values())
+            for shards in ep.values():
+                for _, d in shards:
+                    leaves += list(d.values())
+        grads = torch.autograd.grad(loss, leaves)
+        sliced = plan.reduce_grads(self._step_leaves_, {
+            id(leaf): g for leaf, g in zip(leaves, grads)})
+        self._step_leaves_ = None
+        loss = loss.detach()
+        health_on = self.health_on
+        skip = health_on and self.health_policy == "skip_step"
+        keep_old = None
+        with torch.no_grad():
+            if health_on:
+                grad_sq = plan.grad_sq(sliced)
+                bad = torch.where(
+                    torch.isfinite(loss) & torch.isfinite(grad_sq),
+                    0.0, 1.0).to(torch.float32)
+                if skip:
+                    keep_old = bad > 0
+            weight_sq, update_sq = plan.apply_update(
+                sliced, self._scaled_hps(step), self.solver, keep_old)
+            if not health_on:
+                return loss, n_err, torch.zeros(5, device=self.device)
+            w_norm = torch.sqrt(weight_sq)
+            health = torch.stack([
+                torch.sqrt(grad_sq), w_norm,
+                torch.sqrt(update_sq) / (w_norm + 1e-12), bad,
+                loss.to(torch.float32)])
+        return loss, n_err, health
+
+    def _train(self, x, target, size, step, key):
+        if self.plan_ is not None:
+            return self._train_mesh(x, target, size, step, key)
+        params = [self._param(i, n) for i, n in self._names]
+        loss, n_err = self._loss_and_metrics(x, target, size, key, True)
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        hps = self._scaled_hps(step)
         health_on = self.health_on
         skip = health_on and self.health_policy == "skip_step"
         with torch.no_grad():
@@ -358,11 +476,8 @@ class GradientDescent(AcceleratedUnit):
                 keep_old = bad > 0
                 weight_sq = update_sq = None
             for key, p, g in zip(self._names, params, grads):
-                hp = dict(self._hps[key])
-                hp["lr"] = float(torch.tensor(hp["lr"], dtype=torch.float32)
-                                 * scale)
                 state = self.opt_state[key]
-                new_p, new_s = self.solver.update(p, g, state, hp)
+                new_p, new_s = self.solver.update(p, g, state, hps[key])
                 if skip:
                     new_p = torch.where(keep_old, p, new_p)
                     new_s = {s: torch.where(keep_old, state[s], v)

@@ -16,6 +16,12 @@ the two packages choose the same experts in bfloat16 too:
 - the softmax over the k chosen logits runs in the compute dtype, its
   combine weights are cast to f32 for the final contraction;
 - the hidden activation is applied in the compute dtype.
+
+Over an ``ep`` mesh axis (``ep_shards``: the trainer hands each MoE
+unit its experts' slices, one per ``ep`` position) every position runs
+its experts' share of the dense dispatch on its own device, and the
+combine is an explicit sum of the positions' partial outputs in
+position order.
 """
 
 import torch
@@ -50,31 +56,56 @@ def moe_fans(shape):
     return (shape[1], shape[2]) if len(shape) == 3 else (shape[0], shape[1])
 
 
-def moe_apply(params, x, k, activation, dtype, weight=None):
+def _experts(xw, c, w1, b1, w2, b2, act, dtype):
+    """The dense dispatch of experts ``w1``.. [e, ...] over tokens
+    ``xw`` [b, d] (f32 of the compute dtype) with combine weights ``c``
+    [b, e] (f32): [b, d] f32."""
+    f32 = torch.float32
+    h1 = torch.matmul(xw[None], w1)                            # [e, b, h]
+    h1 = act((h1 + b1.to(f32)[:, None, :]).to(dtype))
+    y = torch.matmul(h1.to(f32), w2)                           # [e, b, d]
+    y = y + b2.to(f32)[:, None, :]
+    return torch.einsum("be,ebd->bd", c, y)
+
+
+def moe_apply(params, x, k, activation, dtype, weight=None,
+              ep_shards=None):
     """The MoE forward over the last axis of ``x`` (leading axes are
     batch-like), each token through its ``k`` chosen experts.
     ``params`` holds ``gate`` [d, E] and the expert-major ``expert_*``
     tensors; ``dtype`` is the compute dtype; ``weight(name)`` gives a
-    weight rounded to it, in f32 (default: rounded here)."""
+    weight rounded to it, in f32 (default: rounded here).
+    ``ep_shards`` — ``[(device, {expert_*: slice})]`` in ``ep`` order —
+    runs each position's experts on its device and sums the partial
+    outputs (``params`` then needs only ``gate``)."""
+    f32 = torch.float32
     if weight is None:
         def weight(name):
-            return params[name].to(dtype).to(torch.float32)
-    f32 = torch.float32
+            return params[name].to(dtype).to(f32)
     d = x.shape[-1]
-    n_experts = params["expert_w1"].shape[0]
     xf = x.reshape(-1, d).to(dtype)
     xw = xf.to(f32)
     logits = torch.matmul(xw, weight("gate")).to(dtype)
+    n_experts = logits.shape[-1]
     vals, idx = top_k(logits, k)
     probs = softmax(vals)
     c = torch.zeros((xf.shape[0], n_experts), dtype=dtype, device=x.device)
-    c = c.scatter(1, idx, probs)
+    c = c.scatter(1, idx, probs).to(f32)
     act = get_activation(activation)
-    h1 = torch.matmul(xw[None], weight("expert_w1"))           # [e, b, h]
-    h1 = act((h1 + params["expert_b1"].to(f32)[:, None, :]).to(dtype))
-    y = torch.matmul(h1.to(f32), weight("expert_w2"))          # [e, b, d]
-    y = y + params["expert_b2"].to(f32)[:, None, :]
-    out = torch.einsum("be,ebd->bd", c.to(f32), y)
+    if ep_shards is None:
+        out = _experts(xw, c, weight("expert_w1"), params["expert_b1"],
+                       weight("expert_w2"), params["expert_b2"], act,
+                       dtype)
+        return out.to(x.dtype).reshape(x.shape)
+    out, lo = None, 0
+    for dev, p in ep_shards:
+        e = p["expert_w1"].shape[0]
+        part = _experts(xw.to(dev), c[:, lo:lo + e].to(dev),
+                        p["expert_w1"].to(dtype).to(f32), p["expert_b1"],
+                        p["expert_w2"].to(dtype).to(f32), p["expert_b2"],
+                        act, dtype).to(x.device)
+        out = part if out is None else out + part
+        lo += e
     return out.to(x.dtype).reshape(x.shape)
 
 
@@ -110,4 +141,5 @@ class MoE(ForwardBase):
 
     def apply(self, x):
         return moe_apply(self.params, x, self.top_k, self.activation,
-                         self.dtype, self.mm_weight)
+                         self.dtype, self.mm_weight,
+                         getattr(self, "ep_shards_", None))

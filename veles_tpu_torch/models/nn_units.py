@@ -140,9 +140,15 @@ class ForwardBase(nn.Module):
         self._derived = {}
         return self
 
+    #: volatile attributes a mesh trainer hands the unit per step
+    MESH_VOLATILE = ("sp_mesh_", "sp_ring_", "ep_shards_")
+
     def __getstate__(self):
-        state = {k: v for k, v in self.__dict__.items() if "hooks" not in k}
+        state = {k: v for k, v in self.__dict__.items()
+                 if "hooks" not in k and k not in self.MESH_VOLATILE}
         state["_derived"] = {}
+        # a mesh trainer's units read their shards gathered whole
+        state["params"] = dict(self.params.items())
         return host_state(state)
 
     def __setstate__(self, state):

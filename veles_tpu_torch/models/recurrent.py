@@ -15,6 +15,8 @@ from veles_tpu_torch.models.nn_units import ForwardBase
 
 
 class _Recurrent(ForwardBase):
+    #: dim 1 of the input is a sequence (a mesh shards it over ``sp``)
+    SEQ_DIM1_INPUT = True
 
     def __init__(self, hidden=None, device=None, dtype=None, **hyper):
         super().__init__(device=device, dtype=dtype, **hyper)

@@ -80,6 +80,32 @@ def make_forwards(layers, device=None, dtype=None, in_shape=None):
     return units
 
 
+def build_mlp_classifier(device, loader, hidden=(100,), classes=10,
+                         mesh=None, workflow=None, name="mlp",
+                         hidden_type="all2all_tanh", dtype=None,
+                         **gd_kwargs):
+    """loader (constructed, not yet initialized) → ``hidden_type``
+    hidden layers → softmax head → evaluator → trainer, each unit of
+    ``workflow`` (a new one named ``name`` by default), the trainer on
+    ``mesh`` when given.  Returns (workflow, layers, evaluator,
+    trainer)."""
+    from veles_tpu_torch.models.evaluator import EvaluatorSoftmax
+    from veles_tpu_torch.models.gd import GradientDescent
+    wf = workflow or AcceleratedWorkflow(None, name=name)
+    loader.initialize(device=device)
+    spec = [{"type": hidden_type, "output_sample_shape": (w,)}
+            for w in hidden]
+    spec.append({"type": "softmax", "output_sample_shape": (classes,)})
+    layers = make_forwards(spec, device="cpu", dtype=dtype)
+    ev = EvaluatorSoftmax()
+    gd_kwargs.setdefault("solver", "sgd")
+    gd_kwargs.setdefault("learning_rate", 0.05)
+    gd = GradientDescent(wf, forwards=layers, evaluator=ev, loader=loader,
+                         mesh=mesh, name="gd", **gd_kwargs)
+    gd.initialize(device=device)
+    return wf, layers, ev, gd
+
+
 class StandardWorkflow(AcceleratedWorkflow):
     """The config-driven training graph (znicz StandardWorkflow role):
 
@@ -103,7 +129,8 @@ class StandardWorkflow(AcceleratedWorkflow):
     - ``trace_run``, ``timings``: the reference's ``root.common`` keys
       (see :mod:`veles_tpu_torch.units`).
 
-    Not yet: ``mesh`` other than None raises (ROADMAP item 10), and
+    ``mesh`` (a Mesh or an axis dict) shards the trainer's step
+    (:mod:`~veles_tpu_torch.models.gd_mesh`).  Not yet:
     ``plotters=True`` builds no plotter (``wf.plotters == []``; the
     plotting units are item 11).
     """
@@ -121,9 +148,6 @@ class StandardWorkflow(AcceleratedWorkflow):
         from veles_tpu_torch.plumbing import Repeater
         from veles_tpu_torch.snapshotter import Snapshotter
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP item 10)")
         super(StandardWorkflow, self).__init__(
             workflow, name=name, trace_run=trace_run, timings=timings)
         self.repeater = Repeater(self)
@@ -152,7 +176,7 @@ class StandardWorkflow(AcceleratedWorkflow):
 
         self.gd = GradientDescent(
             self, forwards=self.forwards, evaluator=self.evaluator,
-            loader=self.loader, weights_seed=weights_seed,
+            loader=self.loader, weights_seed=weights_seed, mesh=mesh,
             **trainer_kwargs)
         self.gd.link_from(self.loader)
 

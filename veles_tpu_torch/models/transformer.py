@@ -46,7 +46,7 @@ its logits are those of a different model.
 import numpy
 import torch
 
-from veles_tpu_torch.models.attention import attention_core
+from veles_tpu_torch.models.attention import sp_core
 from veles_tpu_torch.models.moe import (
     MOE_BIASES, MOE_PARAMS, moe_apply, moe_fans, moe_shapes)
 from veles_tpu_torch.models.nn_units import ForwardBase
@@ -248,7 +248,8 @@ class TransformerBlock(ForwardBase):
     def _ffn(self, x, w8=False):
         if self.n_experts:   # before the int8 path, as the reference
             return moe_apply(self.params, x, self.top_k, "strict_relu",
-                             self.dtype, self.mm_weight)
+                             self.dtype, self.mm_weight,
+                             getattr(self, "ep_shards_", None))
         mm = self._w8_matmul if w8 else self._proj
         h1 = mm(x, "ffn_w1")
         h1 = torch.relu(h1 + self.params["ffn_b1"]).to(self.dtype)
@@ -277,8 +278,8 @@ class TransformerBlock(ForwardBase):
         b, s, d = x.shape
         q, k, v = (t.reshape(b, s, self.heads, d // self.heads)
                    for t in self._qkv(x))
-        o = attention_core(q, k, v, self.causal, self.attn_block_size,
-                           self.attn_impl)
+        o = sp_core(self, q, k, v, self.causal, self.attn_block_size,
+                    self.attn_impl)
         return self._attn_tail(x, o.reshape(b, s, d))
 
     # -- serving ---------------------------------------------------------------
@@ -417,6 +418,143 @@ class TransformerBlock(ForwardBase):
             _, _, o = verify(q, k_new, v_new, pool["k"], pool["v"],
                              tables, pos, lens, self.heads, self.dtype)
         return self._attn_tail(x, o, w8=self.int8_decode), pool
+
+
+    # -- tensor-parallel serving (serving/tp.py) -------------------------------
+
+    def tp_shardable(self, tp):
+        """True when this block's Megatron layout divides over ``tp``
+        positions: heads, model dim and FFN hidden all divisible.  MoE
+        blocks and ``int8_decode`` ones opt out, as in the reference (the
+        weight-only decode's per-column quantization does not commute
+        with the row-parallel partial sums)."""
+        tp = int(tp)
+        if tp < 2 or self.n_experts or self.int8_decode:
+            return False
+        d = self.d_model
+        return self.heads % tp == 0 and d % tp == 0 \
+            and int(self.hidden or 4 * d) % tp == 0
+
+    def tp_param_spec(self, name, tp):
+        """The Megatron spec of parameter ``name`` under ``tp`` positions,
+        or None (replicated): wq/wk/wv and the FFN up-projection (and
+        its bias, and an int8 checkpoint's scales of those) split by
+        columns, wo and the FFN down-projection by rows; LN parameters,
+        output-side biases and the row-parallel weights' scales
+        replicate."""
+        from veles_tpu_torch.parallel.sharding import P
+        if not self.tp_shardable(tp):
+            return None
+        if name in ("wq", "wk", "wv", "ffn_w1"):
+            return P(None, "tp")
+        if name in ("wo", "ffn_w2"):
+            return P("tp", None)
+        if name in ("ffn_b1", "wq_scale", "wk_scale", "wv_scale",
+                    "ffn_w1_scale"):
+            return P("tp")
+        return None
+
+    @staticmethod
+    def _tp_tail(views, xs, os):
+        """The per-position tail of a tensor-parallel block: each
+        position's row-parallel ``wo`` partial over its heads' context
+        ``os[p]``, reduced across positions; residual; the FFN's
+        column-parallel up-projection and row-parallel down-projection,
+        reduced.  Per position the unsharded :meth:`_attn_tail`'s
+        arithmetic."""
+        from veles_tpu_torch.parallel.collectives import psum
+        attn = psum([v._proj(o, "wo") for v, o in zip(views, os)])
+        ys = [x + a.to(x.dtype) for x, a in zip(xs, attn)]
+        parts = []
+        for v, y in zip(views, ys):
+            ln = _layer_norm(y, v.params["ln2_scale"], v.params["ln2_bias"])
+            h1 = torch.relu(v._proj(ln, "ffn_w1")
+                            + v.params["ffn_b1"]).to(v.dtype)
+            parts.append(v._proj(h1, "ffn_w2"))
+        ffn = psum(parts)
+        return [y + (f + v.params["ffn_b2"]).to(y.dtype)
+                for v, y, f in zip(views, ys, ffn)]
+
+    @staticmethod
+    def _tp_qkv(views, xs, int8):
+        """Each position's q/k/v over its heads, and for int8 pools the
+        new rows' whole-row amaxes (the max over positions)."""
+        from veles_tpu_torch.parallel.collectives import pmax
+        from veles_tpu_torch.ops.paged_attention import row_amax
+        qkv = [v._qkv(x) for v, x in zip(views, xs)]
+        if not int8:
+            return qkv, [None] * len(xs), [None] * len(xs)
+        return qkv, pmax([row_amax(k) for _, k, _ in qkv]), \
+            pmax([row_amax(vv) for _, _, vv in qkv])
+
+    def apply_step_paged_tp(self, views, xs, pos, tables, pools):
+        """:meth:`apply_step_paged` over ``tp`` positions: ``views`` the
+        block's per-position shards, ``xs`` each position's copy of x,
+        ``pos``/``tables`` per position, ``pools`` each position's pool
+        dict (its ``d/tp`` columns).  Returns per-position outputs."""
+        int8 = "k_scale" in pools[0]
+        qkv, ak, av = self._tp_qkv(views, xs, int8)
+        os = []
+        for j, v in enumerate(views):
+            q, k, vv = qkv[j]
+            pool = pools[j]
+            if int8:
+                o = paged_decode_attention_q8(
+                    q, k, vv, pool["k"], pool["v"], pool["k_scale"],
+                    pool["v_scale"], tables[j], pos[j], v.heads,
+                    amax_k=ak[j][:, 0], amax_v=av[j][:, 0])[-1]
+            else:
+                o = paged_decode_attention(
+                    q, k, vv, pool["k"], pool["v"], tables[j], pos[j],
+                    v.heads, v.dtype)[-1]
+            os.append(o)
+        return self._tp_tail(views, xs, os)
+
+    def apply_verify_paged_tp(self, views, xs, pos, lens, tables, pools,
+                              fused_verify=False):
+        """:meth:`apply_verify_paged` over ``tp`` positions (the
+        arguments per position, as :meth:`apply_step_paged_tp`)."""
+        int8 = "k_scale" in pools[0]
+        qkv, ak, av = self._tp_qkv(views, xs, int8)
+        os = []
+        for j, v in enumerate(views):
+            q, k, vv = qkv[j]
+            pool = pools[j]
+            if int8:
+                o = paged_verify_attention_q8(
+                    q, k, vv, pool["k"], pool["v"], pool["k_scale"],
+                    pool["v_scale"], tables[j], pos[j], lens[j], v.heads,
+                    amax_k=ak[j], amax_v=av[j])[-1]
+            else:
+                verify = paged_verify_attention_fused if fused_verify \
+                    else paged_verify_attention
+                o = verify(q, k, vv, pool["k"], pool["v"], tables[j],
+                           pos[j], lens[j], v.heads, v.dtype)[-1]
+            os.append(o)
+        return self._tp_tail(views, xs, os)
+
+    def apply_prefill_chunk_tp(self, views, xs, cache, offset,
+                               chunk_lens=None, key_width=None):
+        """:meth:`apply_prefill_chunk` (and, at offset 0 over the whole
+        prompt, :meth:`apply_prefill`) over ``tp`` positions: position
+        ``j`` writes its heads' K/V columns of the whole-width staging
+        ``cache`` (on the chain's device) and attends over them."""
+        c = xs[0].shape[1]
+        offset = int(offset)
+        kw = int(key_width or cache["k"].shape[1])
+        os = []
+        for j, (v, x) in enumerate(zip(views, xs)):
+            q, k, vv = v._qkv(x)
+            cols = slice(j * k.shape[-1], (j + 1) * k.shape[-1])
+            part = {n: cache[n][:, :, cols] for n in ("k", "v")}
+            lens = None if chunk_lens is None else chunk_lens.to(x.device)
+            self._write_rows(part, k, vv, offset, lens)
+            dev = x.device
+            keep = (torch.arange(kw, device=dev)[None, :]
+                    <= (offset + torch.arange(c, device=dev))[:, None])
+            os.append(v._attend(q, part["k"][:, :kw].to(dev),
+                                part["v"][:, :kw].to(dev), keep))
+        return self._tp_tail(views, xs, os), cache
 
 
 class MeanPoolSeq(ForwardBase):

@@ -2,8 +2,10 @@
 attention.py``: :func:`attention` (dense, the plain core ``mha_apply``
 takes off the kernel rule and the tests' dense reference) and
 :func:`blockwise_attention` (K/V streamed in blocks through an online
-softmax, never the full score matrix).  The ring schedule over the
-``sp`` mesh axis is not ported."""
+softmax, never the full score matrix) and the ring over the ``sp``
+mesh axis (:func:`ring_attention`, :func:`ring_attention_sharded`): Q
+stays on its position while K/V rotate, merged by the same online
+softmax with f32 accumulators."""
 
 import torch
 
@@ -90,3 +92,60 @@ def blockwise_attention(q, k, v, block_size=512, causal=False, scale=None):
     _, s, o = acc
     denom = torch.clamp(s, min=1e-30).transpose(-2, -1)[..., None]
     return (o / denom).to(q.dtype)
+
+
+def ring_attention(qs, ks, vs, causal=False, scale=None):
+    """Attention with the sequence split over a ring of positions:
+    ``qs``/``ks``/``vs`` hold each position's contiguous slice
+    [..., seq_shard, h, d] on its device, in sequence order.  K/V
+    rotate around the ring (position i sends to i + 1) while each Q
+    stays put; the online-softmax accumulator makes the result exact.
+    ``causal`` masks by GLOBAL sequence position.  Returns each
+    position's output slice, on its device."""
+    from veles_tpu_torch.parallel.collectives import ring_shift
+    n = len(qs)
+    if scale is None:
+        scale = attend_scale(qs[0].shape[-1])
+    seq_q, seq_k = qs[0].shape[-3], ks[0].shape[-3]
+    accs = []
+    for q, v in zip(qs, vs):
+        lead, heads = q.shape[:-3], q.shape[-2]
+        accs.append((
+            torch.full(lead + (heads, seq_q), float("-inf"),
+                       device=q.device),
+            torch.zeros(lead + (heads, seq_q), device=q.device),
+            torch.zeros(q.shape[:-1] + (v.shape[-1],), device=q.device)))
+    idx = list(range(n))
+    for _ in range(n):
+        for i in range(n):
+            mask = None
+            if causal:
+                dev = qs[i].device
+                q_pos = i * seq_q + torch.arange(seq_q, device=dev)
+                k_pos = idx[i] * seq_k + torch.arange(seq_k, device=dev)
+                mask = (k_pos[None, :] <= q_pos[:, None])[None]
+            contrib = _block_contrib(qs[i], ks[i], vs[i], scale, mask)
+            accs[i] = _online_merge(accs[i],
+                                    tuple(t.float() for t in contrib))
+        ks, vs = ring_shift(ks), ring_shift(vs)
+        idx = idx[-1:] + idx[:-1]
+    out = []
+    for q, (_, s, o) in zip(qs, accs):
+        denom = torch.clamp(s, min=1e-30).transpose(-2, -1)[..., None]
+        out.append((o / denom).to(q.dtype))
+    return out
+
+
+def ring_attention_sharded(mesh, q, k, v, axis="sp", causal=False):
+    """Split q/k/v [seq, heads, dim] over ``mesh``'s ``axis`` positions
+    (the others at index 0), run :func:`ring_attention` and put the
+    outputs back together on q's device."""
+    positions = mesh.along(0, axis)
+    devs = [mesh.device(p) for p in positions]
+    n = len(devs)
+
+    def split(t):
+        return [c.to(d) for c, d in zip(torch.chunk(t, n, dim=-3), devs)]
+
+    out = ring_attention(split(q), split(k), split(v), causal=causal)
+    return torch.cat([o.to(q.device) for o in out], dim=-3)

@@ -29,13 +29,23 @@ from veles_tpu_torch.ops.paged_attend import attend_scale, paged_attend
 INT8_QMAX = 127.0
 
 
-def quantize_kv_rows(x):
+def row_amax(x):
+    """The f32 amax of each row of ``x`` [..., d] (what a row's int8
+    scale is taken from)."""
+    return x.to(torch.float32).abs().amax(dim=-1)
+
+
+def quantize_kv_rows(x, amax=None):
     """Per-row symmetric int8 quantization of K/V rows ``x`` [..., d]:
     ``(q int8 [..., d], scale f32 [...])`` with ``q * scale ~= x``; an
     all-zero row gets scale 0 and dequantizes to exact zeros.
-    Bit-equal to the JAX function."""
+    Bit-equal to the JAX function.  ``amax`` [...] gives the rows'
+    amax when ``x`` holds only some of each row's columns (a
+    tensor-parallel shard: the max over every shard's
+    :func:`row_amax`)."""
     xf = x.to(torch.float32)
-    amax = xf.abs().amax(dim=-1)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1)
     scale = amax / INT8_QMAX
     q = torch.where(scale[..., None] > 0.0,
                     xf / torch.clamp(scale[..., None], min=1e-30),
@@ -181,17 +191,19 @@ def _q8_ctx(q, pk, pv, sk, sv, tables, qpos, heads):
 
 
 def paged_decode_attention_q8(q, k_new, v_new, pool_k, pool_v, scale_k,
-                              scale_v, tables, pos, heads):
+                              scale_v, tables, pos, heads, amax_k=None,
+                              amax_v=None):
     """:func:`paged_decode_attention` over INT8 pools: the new rows
     quantize on the scatter (their scales written at the same
     ``[block, row]``), the attention dequantizes inside the kernel.
-    ``scale_k``/``scale_v`` [num_blocks, block_size] f32.  Returns
-    ``(pool_k, pool_v, scale_k, scale_v, context)`` — the pools
-    updated in place."""
+    ``scale_k``/``scale_v`` [num_blocks, block_size] f32.  ``amax_k``/
+    ``amax_v`` [B] are the new rows' whole-row amaxes when the pools
+    hold a tensor-parallel shard's columns.  Returns ``(pool_k, pool_v,
+    scale_k, scale_v, context)`` — the pools updated in place."""
     bs = pool_k.shape[1]
     blk, off = _scatter_rows(tables, pos, bs)
-    qk, sk_new = quantize_kv_rows(k_new[:, 0])
-    qv, sv_new = quantize_kv_rows(v_new[:, 0])
+    qk, sk_new = quantize_kv_rows(k_new[:, 0], amax_k)
+    qv, sv_new = quantize_kv_rows(v_new[:, 0], amax_v)
     pool_k[blk, off] = qk
     pool_v[blk, off] = qv
     scale_k[blk, off] = sk_new
@@ -202,17 +214,20 @@ def paged_decode_attention_q8(q, k_new, v_new, pool_k, pool_v, scale_k,
 
 
 def paged_verify_attention_q8(q, k_new, v_new, pool_k, pool_v, scale_k,
-                              scale_v, tables, pos, lens, heads):
+                              scale_v, tables, pos, lens, heads, amax_k=None,
+                              amax_v=None):
     """:func:`paged_verify_attention` over INT8 pools: ONE quantizing
     scatter of the width-K1 run (padding past ``lens`` lands in the
     trash block, scale included), then ONE gather→dequant→attend pass
     (:func:`_q8_ctx`, the kernel on the card).  In-pass keys read back
-    quantized: the cache state later decode steps read.  Returns
-    ``(pool_k, pool_v, scale_k, scale_v, context)``, updated in place."""
+    quantized: the cache state later decode steps read.  ``amax_k``/
+    ``amax_v`` [B, K1]: whole-row amaxes of a tensor-parallel shard's
+    rows.  Returns ``(pool_k, pool_v, scale_k, scale_v, context)``,
+    updated in place."""
     k1 = q.shape[1]
     qpos, blk, off = _verify_rows(tables, pos, lens, k1, pool_k.shape[1])
-    qk, sk_new = quantize_kv_rows(k_new)
-    qv, sv_new = quantize_kv_rows(v_new)
+    qk, sk_new = quantize_kv_rows(k_new, amax_k)
+    qv, sv_new = quantize_kv_rows(v_new, amax_v)
     pool_k[blk, off] = qk
     pool_v[blk, off] = qv
     scale_k[blk, off] = sk_new

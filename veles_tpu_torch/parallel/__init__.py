@@ -1,0 +1,31 @@
+"""Parallelism inside one process — the port of ``veles_tpu/parallel/``'s
+in-process half: meshes, sharding conventions, collectives, the GPipe
+pipeline.
+
+A JAX mesh is one program run SPMD over the devices of a process, with
+XLA inserting the collectives.  Here a :class:`~veles_tpu_torch.parallel.
+mesh.Mesh` is a grid of **positions**, each bound to a ``torch.device``,
+and one Python controller drives every position in turn; the
+collectives (:mod:`~veles_tpu_torch.parallel.collectives`) are explicit
+and sum in fixed position order, so every position gets the identical
+result and a run repeats bit for bit.  Positions may share a device
+(:func:`~veles_tpu_torch.parallel.mesh.set_positions_per_device`): the
+tests build 8-position meshes on the CPU, as the JAX tests build them on
+8 virtual CPU devices.
+
+Modules:
+
+- :mod:`veles_tpu_torch.parallel.mesh` — positions, axis conventions;
+- :mod:`veles_tpu_torch.parallel.sharding` — specs for dp/fsdp/tp/ep/sp
+  and the placement of a tensor onto positions by a spec;
+- :mod:`veles_tpu_torch.parallel.collectives` — psum, all-gather,
+  reduce-scatter, ppermute, pmax over per-position tensors;
+- :mod:`veles_tpu_torch.parallel.pipeline` — the GPipe schedule.
+
+The cross-process half (a process gang, the elastic coordinator) is not
+ported (ROADMAP item 10).
+"""
+
+from veles_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ORDER, Mesh, MeshConfig, build_mesh, positions_per_device,
+    set_positions_per_device, single_device_mesh)

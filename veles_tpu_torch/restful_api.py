@@ -140,8 +140,9 @@ class RESTfulAPI(Unit):
     ``workflow`` it demands ``loader`` and ``output`` and takes its
     device at ``initialize(device=)``; with ``workflow=None`` it stands
     alone and its ``device`` (default ``cuda``) is resolved at once.
-    ``serving_tp`` takes only its feature-off values (None or 0: ROADMAP
-    item 10).  The ``serving_*`` knobs go to the scheduler, None meaning
+    ``serving_tp`` (N > 1) serves tensor-parallel over N positions
+    (``serving/tp.py``; the scheduler's gates may serve unsharded and
+    report ``tp`` 0).  The ``serving_*`` knobs go to the scheduler, None meaning
     ``root.common.serving``'s value (the reference's defaults);
     ``serving_warm_buckets`` is recorded there (the port compiles
     nothing).  ``max_steps``/``max_batch`` cap ``/generate`` (None:
@@ -166,9 +167,6 @@ class RESTfulAPI(Unit):
                  serving_kv_host_bytes=None, serving_kv_export_bytes=None,
                  replica_id=None, *, admin_token=None, model_id="veles-lm",
                  device=None, **kwargs):
-        if serving_tp not in (None, 0):
-            raise ValueError("serving_tp must be None or 0: tensor-parallel "
-                             "serving is ROADMAP item 10")
         super(RESTfulAPI, self).__init__(workflow, **kwargs)
         self.loader = loader
         #: the chain's output, linked from the head forward unit
@@ -199,6 +197,7 @@ class RESTfulAPI(Unit):
         self.serving_prefix_cache = serving_prefix_cache
         self.serving_warm_buckets = serving_warm_buckets
         self.serving_role = serving_role
+        self.serving_tp = serving_tp
         self.serving_kv_host_bytes = serving_kv_host_bytes
         self.serving_kv_export_bytes = serving_kv_export_bytes
         self.max_steps = max_steps
@@ -312,7 +311,7 @@ class RESTfulAPI(Unit):
     SERVING_KNOBS = ("kv", "block_size", "kv_blocks", "kv_dtype",
                      "prefill_chunk", "spec", "spec_k", "prefix_cache",
                      "warm_buckets", "role", "kv_host_bytes",
-                     "kv_export_bytes")
+                     "kv_export_bytes", "tp")
 
     def serving_knobs(self):
         """The scheduler's knobs: each ``serving_<knob>`` given, else
@@ -673,12 +672,11 @@ class _Handler(BaseHTTPRequestHandler):
         state = monitor.state()
         status = state["status"]
         sch = api.scheduler_
-        # the port serves on one device (as metrics() reports)
         reply = {"status": status, "pid": os.getpid(),
                  "replica": api.replica_id,
                  "draining": bool(api._draining_),
                  "role": sch.role if sch is not None else "both",
-                 "tp": 0, "health": state}
+                 "tp": sch.tp if sch is not None else 0, "health": state}
         if api._draining_:
             status = reply["status"] = "draining"
             reply["in_flight"] = sch.in_flight if sch is not None else 0

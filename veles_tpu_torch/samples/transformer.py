@@ -3,7 +3,9 @@
 → mean-pool → softmax head) on the induction task: every sequence holds
 exactly one MARKER token, and the label is the token right after it.
 Its keyword arguments are the reference's ``root.transformer_tpu`` keys
-with their defaults; ``mesh`` other than None raises (ROADMAP item 10).
+with their defaults.  ``mesh`` — an axis dict such as ``{"dp": 2, "sp":
+4}`` (dp splits the batch, sp sequence-shards attention through the
+ring) or a Mesh — shards the trainer's step.
 
     wf = TransformerWorkflow(synthetic_train=256, synthetic_valid=64,
                              max_epochs=2, dtype="float32")
@@ -60,8 +62,12 @@ class TransformerWorkflow(StandardWorkflow):
                  weights_decay=0.0, fail_iterations=15, max_epochs=None,
                  snapshot_prefix="transformer",
                  snapshot_time_interval=1e9, decision_config=None,
-                 snapshotter_config=None, **kwargs):
+                 snapshotter_config=None, mesh=None, **kwargs):
         vocab = int(vocab)
+        if hasattr(mesh, "__content__"):    # a config subtree
+            mesh = dict(mesh.__content__())
+        if isinstance(mesh, dict) and not mesh:
+            mesh = None
         spec = [{"type": "embedding", "vocab": vocab, "dim": int(dim)}]
         spec += [{"type": "transformer_block", "heads": int(heads),
                   "causal": bool(causal), "n_experts": int(n_experts),
@@ -89,6 +95,7 @@ class TransformerWorkflow(StandardWorkflow):
                 "prefix": snapshot_prefix,
                 "time_interval": float(snapshot_time_interval)},
                 **(snapshotter_config or {})),
+            mesh=dict(mesh) if isinstance(mesh, dict) else mesh,
             **kwargs)
 
     @classmethod

@@ -24,6 +24,15 @@ rows draw token ``t`` of a request with seed ``s`` from the Threefry
 key ``fold_in(key(s), t)`` by the Gumbel-argmax draw
 (``prng/threefry.py``): the JAX package's stream, whatever slot or
 batch the request rides.
+
+Tensor-parallel serving: a cache built with a ``tp`` context
+(``cache.tp_``, :mod:`~veles_tpu_torch.serving.tp`) runs both steps
+over its positions — each block's shards and head-wise pools on every
+position, the row-parallel reductions explicit.  The reference has two
+forms of that decode step (the GSPMD one and, under ``tp_overlap`` over
+fp32 pools, the explicit per-shard one); the port has only the
+per-shard body, so ``root.common.serving.tp_overlap`` chooses nothing
+here.
 """
 
 import numpy
@@ -137,6 +146,20 @@ def slot_decode_step(forwards, cache, toks, pos, temps, topks, seeds,
                         list(numpy.asarray(counts))).cpu().numpy()
 
 
+def _per_position(ctx, *arrays):
+    """Each host array as one tensor per tp position (on its device)."""
+    return [[torch.as_tensor(a, device=d) for d in ctx.devices]
+            for a in arrays]
+
+
+def _other_step(i, u, h, pos_t, verify):
+    if verify and hasattr(u, "apply_verify_slots"):
+        return u.apply_verify_slots(h, pos_t)
+    if not verify and hasattr(u, "apply_step_slots"):
+        return u.apply_step_slots(h, pos_t)
+    return u.apply(h)
+
+
 def paged_decode_logits(forwards, cache, toks, pos, tables,
                         want_hidden=False):
     """The chain's forward of ONE decode step over a packed batch
@@ -150,6 +173,18 @@ def paged_decode_logits(forwards, cache, toks, pos, tables,
     h = _ints(toks, numpy.int64, device)
     pos_t = _ints(pos, numpy.int64, device)
     tables_t = _ints(tables, numpy.int32, device)
+    ctx = getattr(cache, "tp_", None)
+    if ctx is not None:
+        pos_p, tab_p = _per_position(ctx, numpy.asarray(pos, numpy.int64),
+                                     numpy.asarray(tables, numpy.int32))
+        h, hid = ctx.run_chain(
+            forwards, h,
+            lambda i, u, views, xs: u.apply_step_paged_tp(
+                views, xs, pos_p, tab_p, cache.pools[i]),
+            lambda i, u, x: _other_step(i, u, x, pos_t, False),
+            want_hidden)
+        logits = h[:, 0].to(torch.float32)
+        return (logits, hid[:, 0]) if want_hidden else logits
     hid = None
     last = len(forwards) - 1
     for i, u in enumerate(forwards):
@@ -199,6 +234,21 @@ def verify_logits(forwards, cache, toks, pos, lens, tables,
     pos_t = _ints(pos, numpy.int64, device)
     lens_t = _ints(lens, numpy.int64, device)
     tables_t = _ints(tables, numpy.int32, device)
+    ctx = getattr(cache, "tp_", None)
+    if ctx is not None:
+        pos_p, lens_p, tab_p = _per_position(
+            ctx, numpy.asarray(pos, numpy.int64),
+            numpy.asarray(lens, numpy.int64),
+            numpy.asarray(tables, numpy.int32))
+        h, hid = ctx.run_chain(
+            forwards, h,
+            lambda i, u, views, xs: u.apply_verify_paged_tp(
+                views, xs, pos_p, lens_p, tab_p, cache.pools[i],
+                fused_verify=fused_verify),
+            lambda i, u, x: _other_step(i, u, x, pos_t, True),
+            want_hidden)
+        logits = h.to(torch.float32)
+        return (logits, hid) if want_hidden else logits
     hid = None
     last = len(forwards) - 1
     for i, u in enumerate(forwards):

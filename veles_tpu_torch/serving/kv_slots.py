@@ -21,6 +21,14 @@ pool widens exactly to float32, which numpy can hold),
 blocks of this cache, and :meth:`PagedKVCache.take_free_blocks` claims
 blocks outside the slot machinery for them.
 
+Under tensor-parallel serving (``tp``, a :class:`~veles_tpu_torch.
+serving.tp.ServingTP`) each layer's pools are a per-position list: each
+position holds its own ``[num_blocks, block_size, d/tp]`` K/V tensors
+and a replicated copy of the scales.  The block movers read and write
+whole rows — a read puts the positions' columns back together, a write
+splits them — so staging rows, exports and imports keep the unsharded
+layout, and an int8 insert quantizes whole rows before it splits them.
+
 Host bookkeeping (free lists, tables) is numpy; the buffers are tensors
 on the chain's device, updated in place.  One thread (the scheduler's
 loop) calls every method.
@@ -101,7 +109,7 @@ class PagedKVCache:
     is the per-request length bound."""
 
     def __init__(self, forwards, max_slots, window, block_size=16,
-                 kv_blocks=None, kv_dtype="fp32"):
+                 kv_blocks=None, kv_dtype="fp32", tp=None):
         self.max_slots = int(max_slots)
         self.window = int(window)
         self.block_size = int(block_size)
@@ -125,6 +133,10 @@ class PagedKVCache:
         if not self.pools:
             raise ValueError("chain has no cacheable blocks")
         self.device = next(iter(self.pools.values()))["k"].device
+        #: tensor-parallel context (serving/tp.py): pools per position
+        self.tp_ = tp
+        if tp is not None:
+            self.pools = tp.shard_pools(self.pools)
         self._free_slots = list(range(self.max_slots - 1, -1, -1))
         self._free_blocks = list(range(num - 1, 0, -1))
         #: host tables [max_slots, blocks_per_slot]; entries past a
@@ -154,14 +166,43 @@ class PagedKVCache:
     def used_blocks(self):
         return self.capacity_blocks - len(self._free_blocks)
 
+    def _part(self, layer, p=0):
+        """Position ``p``'s pool dict of ``layer`` (the dict itself when
+        unsharded)."""
+        return layer if self.tp_ is None else layer[p]
+
+    def _read(self, layer, name, idx):
+        """Whole rows ``idx`` of pool ``name`` (a gather: a new tensor on
+        the cache's device); a tp pool's positions' columns are put back
+        together, its replicated scales read from position 0."""
+        if self.tp_ is None:
+            return layer[name][idx]
+        if name.endswith("_scale"):
+            return layer[0][name][idx.to(layer[0][name].device)]
+        return torch.cat([d[name][idx.to(d[name].device)].to(self.device)
+                          for d in layer], dim=-1)
+
+    def _write(self, layer, name, idx, rows):
+        """Write whole rows into pool ``name`` at ``idx``: split by
+        columns over a tp pool's positions, its scales copied to each."""
+        if self.tp_ is None:
+            layer[name][idx] = rows.to(layer[name].device, layer[name].dtype)
+            return
+        parts = [rows] * len(layer) if name.endswith("_scale") \
+            else torch.chunk(rows, len(layer), dim=-1)
+        for d, part in zip(layer, parts):
+            d[name][idx.to(d[name].device)] = part.to(d[name].device,
+                                                      d[name].dtype)
+
     def bytes_per_token(self):
-        """Device bytes ONE cached token costs across every layer's
-        pools: ``d`` elements of K and of V per layer, plus one f32
-        scale each under int8 (the ``kv_bytes_per_token`` gauge).  The
-        port serves on one card, so no pool is sharded."""
+        """Device bytes ONE cached token costs one position across every
+        layer's pools: ``d`` elements of K and of V per layer (``d/tp``
+        under tensor-parallel serving, each position storing its
+        columns of every row), plus one f32 scale each under int8,
+        replicated (the ``kv_bytes_per_token`` gauge)."""
         total = 0
         for layer in self.pools.values():
-            for name, arr in layer.items():
+            for name, arr in self._part(layer).items():
                 if name.endswith("_scale"):   # one scale per row
                     total += arr.element_size()
                 else:
@@ -266,8 +307,8 @@ class PagedKVCache:
         out = {}
         for i, layer in self.pools.items():
             got = {}
-            for name, pool in layer.items():
-                rows = pool[idx]               # a gather: a new tensor
+            for name in self._part(layer):
+                rows = self._read(layer, name, idx)   # a new tensor
                 if rows.dtype == torch.bfloat16:
                     rows = rows.float()
                 got[name] = rows.cpu().numpy()
@@ -293,11 +334,11 @@ class PagedKVCache:
             if self.kv_dtype == "int8" and "k_scale" not in src:
                 raise ValueError("int8 import needs k_scale/v_scale riding "
                                  "the exported blocks")
-            for name, pool in layer.items():
+            for name in self._part(layer):
                 a = numpy.asarray(src[name])
                 if not a.flags.writeable:   # a zero-copy wire view
                     a = a.copy()
-                pool[idx] = torch.from_numpy(a).to(self.device, pool.dtype)
+                self._write(layer, name, idx, torch.from_numpy(a))
 
     def check(self, resident=()):
         """Invariant sweep: every block is exactly one of {trash, free,
@@ -325,13 +366,15 @@ class PagedKVCache:
         assert len(set(self._free_slots)) == len(self._free_slots), \
             "slot double-freed"
         if self.kv_dtype == "int8":
-            for i, layer in self.pools.items():
-                assert {"k", "v", "k_scale", "v_scale"} <= set(layer), \
-                    "layer %s lost its scale arrays" % (i,)
-                for name in ("k", "v"):
-                    assert layer[name + "_scale"].shape \
-                        == layer[name].shape[:2], \
-                        "layer %s %s_scale shape drifted" % (i, name)
+            for i, layers in self.pools.items():
+                for layer in (layers if self.tp_ is not None
+                              else [layers]):
+                    assert {"k", "v", "k_scale", "v_scale"} <= set(layer), \
+                        "layer %s lost its scale arrays" % (i,)
+                    for name in ("k", "v"):
+                        assert layer[name + "_scale"].shape \
+                            == layer[name].shape[:2], \
+                            "layer %s %s_scale shape drifted" % (i, name)
 
     def table_rows(self, slots, width):
         """The packed [len(slots), width] block-table batch."""
@@ -368,10 +411,10 @@ class PagedKVCache:
                     need - f, bs, -1)
                 if self.kv_dtype == "int8":
                     q, scale = quantize_kv_rows(rows)
-                    layer[name][ids] = q
-                    layer[name + "_scale"][ids] = scale
+                    self._write(layer, name, ids, q)
+                    self._write(layer, name + "_scale", ids, scale)
                 else:
-                    layer[name][ids] = rows.to(layer[name].dtype)
+                    self._write(layer, name, ids, rows)
 
     def load_staging(self, row_caches, ids):
         """Copy resident blocks ``ids`` (a matched prompt prefix) into
@@ -391,10 +434,11 @@ class PagedKVCache:
             dst = row_caches[i]
             for name in ("k", "v"):
                 if self.kv_dtype == "int8":
-                    rows = dequantize_kv(layer[name][ids],
-                                         layer[name + "_scale"][ids],
-                                         dst[name].dtype)
+                    rows = dequantize_kv(
+                        self._read(layer, name, ids),
+                        self._read(layer, name + "_scale", ids),
+                        dst[name].dtype)
                 else:
-                    rows = layer[name][ids].to(dst[name].dtype)
+                    rows = self._read(layer, name, ids).to(dst[name].dtype)
                 dst[name][0, :n] = rows.reshape(n, -1)
         return row_caches

@@ -7,6 +7,9 @@ chunk of a prompt into existing staging caches (Sarathi-style chunked
 prefill).  Both return the f32 logits at each row's last prompt
 position.  PyTorch runs eagerly, so there is no executable cache to
 key: the JAX package's per-shape compile caches have no counterpart.
+``tp`` (a :class:`~veles_tpu_torch.serving.tp.ServingTP`) runs the pass
+over the tensor-parallel positions: each block's shards write their
+heads' columns of the whole-width staging caches.
 """
 
 import numpy
@@ -81,7 +84,7 @@ def _last(h, lens):
     return torch.gather(h, 1, idx)[:, 0].to(torch.float32)
 
 
-def prefill(forwards, prompt, prompt_lens=None, window=None):
+def prefill(forwards, prompt, prompt_lens=None, window=None, tp=None):
     """Prefill ``prompt`` [batch, P] (front-aligned rows) in one pass.
 
     Returns ``(caches, last_logits)``: ``caches`` maps the chain index
@@ -108,6 +111,16 @@ def prefill(forwards, prompt, prompt_lens=None, window=None):
         if prompt_lens is None \
         else _lens(prompt_lens, b, p, "prompt_lens", device)
     caches = {}
+    if tp is not None:
+        for i, u in enumerate(forwards):
+            if hasattr(u, "init_cache"):
+                caches[i] = u.init_cache(b, window, u.dtype)
+        h, _ = tp.run_chain(
+            forwards, prompt,
+            lambda i, u, views, xs: u.apply_prefill_chunk_tp(
+                views, xs, caches[i], 0, lens, key_width=p)[0],
+            lambda i, u, x: u.apply(x))
+        return caches, _last(h, lens)
     h = prompt
     for i, u in enumerate(forwards):
         if hasattr(u, "init_cache"):
@@ -119,7 +132,7 @@ def prefill(forwards, prompt, prompt_lens=None, window=None):
 
 
 def prefill_chunk(forwards, chunk, offset, chunk_lens, caches,
-                  key_width=None):
+                  key_width=None, tp=None):
     """Prefill ONE chunk — ``chunk`` [batch, C] tokens at positions
     [offset, offset+C) — into staging ``caches`` ({index: {"k", "v"}
     [batch, W, d]}, W a multiple of C, zero past every written row).
@@ -148,6 +161,15 @@ def prefill_chunk(forwards, chunk, offset, chunk_lens, caches,
                          % (kw, offset + c, w))
     lens = _lens(chunk_lens, b, c, "chunk_lens", device)
     out = dict(caches)
+    if tp is not None:
+        h, _ = tp.run_chain(
+            forwards, chunk,
+            lambda i, u, views, xs: u.apply_prefill_chunk_tp(
+                views, xs, caches[i], offset, chunk_lens=lens,
+                key_width=kw)[0],
+            lambda i, u, x: u.apply_chunk(x, offset)
+            if hasattr(u, "apply_chunk") else u.apply(x))
+        return out, _last(h, lens)
     h = chunk
     for i, u in enumerate(forwards):
         if hasattr(u, "init_cache"):

@@ -367,7 +367,7 @@ class InferenceScheduler(object):
                  shed_block_factor=4.0, prefix_cache=True,
                  prefix_evict=True, role=None, kv_host_bytes=None,
                  kv_export_bytes=None, reqtrace=True, replica_id=None,
-                 device=None):
+                 tp=None, device=None):
         self.device = resolve_device(device)
         if any(u.device != self.device for u in forwards):
             raise ValueError("the chain lies on %s, the scheduler was "
@@ -479,6 +479,34 @@ class InferenceScheduler(object):
         #: the parked exports' byte budget: the oldest unclaimed record
         #: pays when a new one would overflow it (counted as expired)
         self.kv_export_bytes = int(kv_export_bytes or EXPORT_BYTES)
+        #: tensor-parallel positions (0 = off): Megatron weight splits
+        #: and head-wise paged pools over a {"tp": N} mesh
+        #: (serving/tp.py).  Needs the paged cache, N positions and a
+        #: chain whose blocks declare tp layouts; otherwise the chain
+        #: serves unsharded and ``tp`` reads 0, as in the reference.
+        tp = int(tp or 0)
+        if tp == 1:
+            tp = 0
+        self.tp_ = None
+        if tp:
+            from veles_tpu_torch.parallel.mesh import default_positions
+            from veles_tpu_torch.serving.tp import ServingTP, tp_supported
+            positions = default_positions(self.device)
+            if self.kv != "paged":
+                log.info("tp needs the paged cache; serving unsharded")
+                tp = 0
+            elif len(positions) < tp:
+                log.info("tp=%d needs %d positions, found %d; serving "
+                         "unsharded", tp, tp, len(positions))
+                tp = 0
+            elif not tp_supported(forwards, tp):
+                log.info("chain does not divide over tp=%d (heads/d_model/"
+                         "hidden divisibility, or a MoE/int8_decode "
+                         "block); serving unsharded", tp)
+                tp = 0
+            else:
+                self.tp_ = ServingTP(tp, positions)
+        self.tp = tp
         role = str(role or "both").lower()
         if role not in ("both", "prefill", "decode"):
             raise ValueError("role must be 'prefill', 'decode' or 'both'")
@@ -1252,7 +1280,7 @@ class InferenceScheduler(object):
         out = {"kv_mode": self.kv,
                "prefill_chunk": self.prefill_chunk,
                "prefilling": len(self._prefilling),
-               "tp": 0,
+               "tp": self.tp,
                "role": self.role,
                "replica": self.replica_id,
                "kv_exports_pending": len(self._exports)}
@@ -1472,10 +1500,14 @@ class InferenceScheduler(object):
 
     def _make_cache(self):
         if self.kv == "paged":
-            return PagedKVCache(
+            cache = PagedKVCache(
                 self.forwards, self.max_slots, self.window,
                 block_size=self.block_size, kv_blocks=self.kv_blocks,
-                kv_dtype=self.kv_dtype)
+                kv_dtype=self.kv_dtype, tp=self.tp_)
+            if self.tp_ is not None:
+                log.info("tensor-parallel serving over %d positions",
+                         self.tp)
+            return cache
         return SlotKVCache(self.forwards, self.max_slots, self.window)
 
     def _serve(self, cache):
@@ -1938,7 +1970,8 @@ class InferenceScheduler(object):
         try:
             faults.fire("serving.scheduler.prefill")
             row_caches, last = prefill(self.forwards, padded,
-                                       prompt_lens=[p_len], window=width)
+                                       prompt_lens=[p_len], window=width,
+                                       tp=self.tp_)
         except Exception as e:
             self._retire(req, cache, error=e)
             return
@@ -1966,7 +1999,7 @@ class InferenceScheduler(object):
             faults.fire("serving.scheduler.prefill")
             req.pf_caches, last = prefill_chunk(
                 self.forwards, padded, off, [clen], req.pf_caches,
-                key_width=kw)
+                key_width=kw, tp=self.tp_)
         except Exception as e:
             with self._lock:
                 if req in self._prefilling:
