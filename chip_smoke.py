@@ -309,6 +309,22 @@ result line):
    MLP on pickles a ``Downloader`` unpacked from a local ``.tar.gz``
    (the archive kept), a ``MinibatchesSaver`` stream written from a
    prefetching loader and read back, and an ``InputJoiner``.
+16. distributed — across processes (``distributed_check``): (a) fault
+   C9: the serve phase's chain served by a scheduler built from
+   ``root.common.serving`` alone (int8 KV, spec on, spec_k 4, block 16)
+   and by one given those knobs, equal streams and launches of kernels
+   1 and 2; (b) AlexNet at the config's width through the command
+   line's master (in this process) with ``-w 2`` spawned workers
+   sharing the card: every sample counted once by the master, kernels 4
+   and 5 launched in each worker (its ``veles-worker-report`` line),
+   the job frames' bytes and times; a ``-w 1`` run against the
+   standalone run of the same weights and minibatches; (c) a gang of
+   two processes of this script (``python3 chip_smoke.py --gang-worker
+   ADDR N RANK``, gloo over the shared card), each one position of
+   ``{"dp": 2}``, training ``bench_lm``'s widths cut to 4 layers:
+   losses bit-equal across the processes, within phase 15's agreement
+   of the unsharded run, kernel 3 launched per layer per step in each,
+   and the pickled trainer resuming over the gang.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -328,8 +344,9 @@ the FlashAttention kernels' phase 4b launches under
 under ``s2d_vgg_launches``, the uniform fill's phase 11 launches
 under ``families_launches``, the launches of phase 12's workflow runs
 (AlexNet's, the LM's and the transformer's) under
-``workflow_launches`` and phase 13's card runs under
-``input_launches``
+``workflow_launches``, phase 13's card runs under ``input_launches``,
+and phase 16's (its workers' and gang processes' included) under
+``distributed_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -6559,11 +6576,15 @@ def cli_check(torch, dev):
 #: in another order, and the dp groups' matmuls run at another batch).
 #: (b) prints each run's peak device memory above what was allocated
 #: before it; the positions share the card, so a mesh's peak is that of
-#: all its positions together
+#: all its positions together.  Under fsdp and dp x tp the trainer
+#: gathers a unit's parameters only while it runs (the per-unit
+#: gather), so the fsdp peak must stay within the unsharded step's and
+#: the dp x tp peak within dp's, each plus twice the largest unit's
+#: parameter and gradient bytes
 P_TP, P_SPEC_K = 2, 4
 P_LAYERS, P_STEPS = 4, 2
-P_MESHES = ({"dp": 2}, {"dp": 2, "tp": 2}, {"fsdp": 2}, {"pp": 2, "dp": 2},
-            {"sp": 2})
+P_DP, P_DP_TP, P_FSDP = {"dp": 2}, {"dp": 2, "tp": 2}, {"fsdp": 2}
+P_MESHES = (P_DP, P_DP_TP, P_FSDP, {"pp": 2, "dp": 2}, {"sp": 2})
 P_MOE_MESH = {"ep": 2, "dp": 2}
 P_A_BATCH = 256
 P_LOSS_TOL, P_W_TOL = 1e-5, 1e-5
@@ -6786,6 +6807,10 @@ def mesh_lm_part(torch, dev):
         spec = lm_spec(T_VOCAB, T_DIM, P_LAYERS, T_HEADS, **block)
         params = params_to_numpy(init_params(spec, 0, window=T_SEQ,
                                              device="cpu", dtype="float32"))
+        if not moe:
+            # the largest unit's parameter bytes (f32)
+            unit = max(sum(a.nbytes for a in layer.values())
+                       for layer in params.values())
         ref, gd = _mesh_lm(torch, dev, spec, params, None)
         _mesh_steps(torch, gd, batches[:1])     # warm-up, then the state
         del ref, gd
@@ -6842,12 +6867,30 @@ def mesh_lm_part(torch, dev):
                             "unsharded_bytes": sum(
                                 a.nbytes for layer in params.values()
                                 for a in layer.values()) * 2}
+            report[what]["gather_peak_bytes"] = gd.plan_.gather_peak_bytes
             for name in total:
                 total[name] += got[name]
             del chain, gd
         del ref
         torch.cuda.empty_cache()
     log(json.dumps({"parallel_train": report}))
+    # the per-unit gather: under fsdp and tp a group holds one unit's
+    # gathered parameters at a time and each slice's gradient is folded
+    # as the groups' parts come in, so the step's peak stays within the
+    # unsharded step's (dp's for dp x tp) plus twice the largest unit's
+    # parameter and gradient bytes
+    slack = 2 * 2 * unit
+    for axes, over in ((P_FSDP, "unsharded"), (P_DP_TP, str(P_DP))):
+        peak = report["parallel (b) %s" % (axes,)][
+            "peak_bytes_all_positions"]
+        base = report[over]["peak_bytes"] if over == "unsharded" else \
+            report["parallel (b) %s" % over]["peak_bytes_all_positions"]
+        log("parallel (b) %s: peak %.3f GB, bound %.3f GB (%s's %.3f + %.3f)"
+            % (axes, peak / 1e9, (base + slack) / 1e9, over, base / 1e9,
+               slack / 1e9))
+        if peak > base + slack:
+            raise SystemExit("parallel (b) %s: peak %d bytes above %s's %d "
+                             "+ %d" % (axes, peak, over, base, slack))
     return total
 
 
@@ -6945,6 +6988,432 @@ def parallel_check(torch, dev):
     return launches
 
 
+# -- phase 16: across processes ---------------------------------------------------
+
+#: phase 16 (``distributed_check``): (a) fault C9 — the serve phase's
+#: chain served by a scheduler built from ``root.common.serving`` alone
+#: and by one given the same knobs, D_PROMPTS prompts of PROMPT tokens x
+#: D_STEPS greedy steps each; (b) AlexNet through the command line's
+#: master with D_A_WORKERS spawned workers sharing the card (``-d 0``), at
+#: the config's full width, cut to 1 epoch of D_A_TRAIN + D_A_VALID
+#: synthetic samples (a job ships the whole model both ways, gzip'd, as
+#: the reference's does: ~25 s a job on the card's host, so the epoch is
+#: cut to 3 jobs, and the ``-w 1`` run to 2), and a ``-w 1`` run of
+#: D_A1_TRAIN + D_A_VALID held against the standalone run
+#: of the same weights and minibatches (per minibatch): parameters within
+#: D_A_W_TOL absolute, the epoch's validation and train losses within
+#: D_A_LOSS_TOL relative.
+#: The master adds each worker's delta (new - old, in f32 on the host) to
+#: its own parameters: where new and old are within a factor 2 of each
+#: other the difference and the sum are exact, elsewhere the sum is one
+#: f32 rounding off; and a weight one f32 step away lies across a bf16
+#: rounding boundary for about 2^-15 of the weights, moving its bf16 cast
+#: by one bf16 step in the next job's products.  D_A_W_TOL bounds that at
+#: ~100x an f32 step of AlexNet's largest weights.  (c) a gang of
+#: D_GANG processes sharing the card (gloo, staged through the host),
+#: each one position of {"dp": D_GANG}, trains ``bench_lm``'s widths cut
+#: to P_LAYERS layers for P_STEPS steps in f32 compute, then resumes its
+#: pickled trainer over the gang for one more step; process 0 then trains
+#: the unsharded model on the same weights and batches
+D_PROMPTS, D_STEPS = 4, 16
+D_A_WORKERS, D_A_TRAIN, D_A_VALID, D_A_BATCH = 2, 512, 256, 256
+#: the ``-w 1`` agreement run's train samples: one train job after the
+#: validation job, whose delta the master adds on the host
+D_A1_TRAIN = 256
+D_A_W_TOL, D_A_LOSS_TOL = 1e-5, 1e-4
+#: more ``root.alexnet_tpu`` keys of (b)'s runs (none: the config's
+#: width; a rehearsal on the CPU narrows the model here)
+D_A_EXTRA = {}
+D_GANG = 2
+D_DIR = "_dist_runs"
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def c9_part(torch, dev):
+    """(a): two schedulers, one from the tree alone; equal streams and
+    launches of kernels 1 and 2."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.ops import gemm, paged_attend as pa
+    from veles_tpu_torch.serving import InferenceScheduler
+    spec = [{"type": "embedding", "vocab": VOCAB, "dim": DIM}]
+    spec += [{"type": "transformer_block", "heads": HEADS,
+              "int8_decode": True} for _ in range(LAYERS)]
+    spec += [{"type": "token_logits", "vocab": VOCAB}]
+    chain = init_params(spec, 0, WINDOW, device=dev, dtype="bfloat16")
+    knobs = {"kv_dtype": "int8", "spec": True, "spec_k": 4, "block_size": 16}
+    keys = ("kv", "block_size", "kv_blocks", "kv_dtype", "prefill_chunk",
+            "warm_buckets", "request_timeout", "watchdog",
+            "shed_block_factor", "spec", "spec_k", "drafter", "draft_k_min",
+            "draft_ema", "draft_shrink", "draft_grow", "prefix_cache",
+            "prefix_evict", "role", "kv_host_bytes", "kv_export_bytes", "tp")
+    rng = numpy.random.default_rng(0)
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist()
+               for _ in range(D_PROMPTS)]
+    tree = root.common.serving
+    saved = dict(vars(tree))
+    runs = {}
+    try:
+        tree.update(knobs)
+        for name, kw in (("tree", {}), ("explicit", knobs)):
+            sch = InferenceScheduler(chain, max_slots=D_PROMPTS,
+                                     window=WINDOW, device=dev, **kw)
+            read = {k: getattr(sch, k) for k in keys}
+            sch.start()
+            try:
+                sch.submit(prompts[0][:16], 2).result(600)    # warm-up
+                torch.cuda.synchronize()
+                pa.launches = gemm.launches = 0
+                t0 = time.perf_counter()
+                futs = [sch.submit(p, D_STEPS) for p in prompts]
+                outs = [f.result(600) for f in futs]
+                torch.cuda.synchronize()
+                runs[name] = dict(read=read, outs=outs,
+                                  wall=time.perf_counter() - t0,
+                                  launches={"paged_attend": pa.launches,
+                                            "int8_gemm": gemm.launches})
+            finally:
+                sch.close()
+            sch.check_kv()
+    finally:
+        vars(tree).clear()
+        vars(tree).update(saved)
+    a, b = runs["tree"], runs["explicit"]
+    log(json.dumps({"dist_c9": {
+        name: {"read": r["read"], "launches": r["launches"],
+               "wall_s": r["wall"]} for name, r in runs.items()}}))
+    wrong = {k: a["read"][k] for k in knobs if a["read"][k] != knobs[k]}
+    if wrong or a["read"] != b["read"]:
+        raise SystemExit("dist (a): the tree's scheduler read %s (want %s; "
+                         "the explicit one read %s)"
+                         % (a["read"], knobs, b["read"]))
+    if a["outs"] != b["outs"] or any(
+            len(o) != PROMPT + D_STEPS for o in a["outs"]):
+        raise SystemExit("dist (a): the streams differ")
+    if a["launches"] != b["launches"] or not all(a["launches"].values()):
+        raise SystemExit("dist (a): launches %s vs %s"
+                         % (a["launches"], b["launches"]))
+    del chain
+    torch.cuda.empty_cache()
+    return a["launches"]
+
+
+def _alexnet_keys(train):
+    return "root.alexnet_tpu.update(%r)" % dict(
+        synthetic_train=train, synthetic_valid=D_A_VALID, max_epochs=1,
+        minibatch_size=D_A_BATCH, snapshot_time_interval=1e9, **D_A_EXTRA)
+
+
+def _master_run(torch, dev, d, workers, train):
+    """The command line's master (in process) with ``workers`` spawned
+    workers; returns (the run, its results, the epoch rows the master's
+    decision closed)."""
+    import os
+    from veles_tpu_torch.models.gd import GradientDescent
+    closed = []
+    read = GradientDescent.read_epoch_acc
+
+    def recording(self, reset_classes=(), as_array=False):
+        got = read(self, reset_classes, as_array)
+        if self.is_master and len(reset_classes):
+            rows = got if as_array else numpy.array(
+                [got[c] for c in range(3)])
+            closed.append({int(c): float(rows[c][2])
+                           for c in reset_classes})
+        return got
+
+    result = os.path.join(d, "master%d.json" % workers)
+    argv = [_sample("alexnet.py"), _sample("alexnet_config.py"),
+            "-c", _alexnet_keys(train),
+            "-c", "root.common.dirs.snapshots = %r"
+            % os.path.join(d, "snaps%d" % workers),
+            "-l", "127.0.0.1:%d" % _free_port(), "-w", str(workers),
+            "--result-file", result]
+    if dev.type == "cpu":
+        argv += ["-a", "cpu"]
+    GradientDescent.read_epoch_acc = recording
+    try:
+        run = _CliRun(argv)
+    finally:
+        GradientDescent.read_epoch_acc = read
+    return run, _results(result), closed
+
+
+def master_worker_part(torch, dev):
+    """(b): AlexNet through the master and its workers."""
+    import os
+    import shutil
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples.alexnet import AlexNetWorkflow
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), D_DIR)
+    os.makedirs(d, exist_ok=True)
+    try:
+        # the standalone run, per minibatch as a worker runs its jobs
+        torch.cuda.synchronize()
+        prng.get().seed(42)
+        t0 = time.perf_counter()
+        wf = AlexNetWorkflow(synthetic_train=D_A1_TRAIN,
+                             synthetic_valid=D_A_VALID, max_epochs=1,
+                             minibatch_size=D_A_BATCH, weights_seed=None,
+                             snapshotter_config={"enabled": False},
+                             **D_A_EXTRA)
+        wf.loader.span_serving = False
+        wf.initialize(device=dev)
+        wf.run()
+        torch.cuda.synchronize()
+        alone = {"wall": time.perf_counter() - t0,
+                 "params": _host_params(wf.gd.forwards),
+                 "history": list(wf.decision.history)}
+        wf.stop()
+        del wf
+        torch.cuda.empty_cache()
+        runs = {}
+        for workers, train in ((1, D_A1_TRAIN), (D_A_WORKERS, D_A_TRAIN)):
+            torch.cuda.synchronize()
+            run, res, closed = _master_run(torch, dev, d, workers, train)
+            runs[workers] = dict(
+                wall=run.wall, res=res, closed=closed, train=train,
+                params=_host_params(run.workflow.gd.forwards),
+                history=list(run.workflow.decision.history))
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    report = {"standalone_wall_s": alone["wall"]}
+    for workers, r in runs.items():
+        res = r["res"]
+        counted = {c: sum(row.get(c, 0.0) for row in r["closed"])
+                   for c in (1, 2)}
+        reports = res.get("Workers", [])
+        report["w%d" % workers] = {
+            "wall_s": r["wall"], "coordinator": res.get("Coordinator"),
+            "workers": reports, "samples_counted": counted,
+            "closed": r["closed"],
+            "history": r["history"]}
+        # the epoch's closes: its validation, then its train span (an
+        # idle worker may take the next epoch's first jobs meanwhile,
+        # as in the reference: their closes come after, and are shown)
+        evals = [row[1] for row in r["closed"] if 1 in row]
+        trains = [row[2] for row in r["closed"] if 2 in row]
+        if not evals or not trains or evals[0] != D_A_VALID \
+                or trains[0] != r["train"]:
+            raise SystemExit("dist (b) -w %d: the master closed %s (want "
+                             "each of the %d samples once)"
+                             % (workers, r["closed"], r["train"] + D_A_VALID))
+        stats = res["Coordinator"]
+        if stats["updates"] < (r["train"] + D_A_VALID) // D_A_BATCH:
+            raise SystemExit("dist (b) -w %d: %s" % (workers, stats))
+    one = runs[1]
+    w_err = max(v for dd in _max_diff(torch, one["params"], alone["params"])
+                for v in dd.values())
+    keys = ("validation_loss", "train_loss")
+    want = [h[k] for h in alone["history"] for k in keys]
+    got = [h[k] for h in one["history"] for k in keys]
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(got, want)) \
+        if len(got) == len(want) and want else float("inf")
+    report["w1_vs_standalone"] = {"param_max_abs_err": w_err,
+                                  "loss_rel_err": l_err,
+                                  "losses": [got, want]}
+    log(json.dumps({"dist_master_worker": report}))
+    if not (w_err <= D_A_W_TOL and l_err <= D_A_LOSS_TOL):
+        raise SystemExit("dist (b): -w 1 parameters %.3g from the "
+                         "standalone run, losses %.3g relative "
+                         "(want %g and %g)" % (w_err, l_err, D_A_W_TOL,
+                                               D_A_LOSS_TOL))
+    for workers, r in runs.items():
+        reports = r["res"]["Workers"]
+        if len(reports) != workers or any(
+                w["rc"] != 0 or not all(w["launches"][k] for k in (
+                    "lrn_fwd", "lrn_bwd", "uniform_fill"))
+                for w in reports):
+            raise SystemExit("dist (b) -w %d: the workers reported %s"
+                             % (workers, reports))
+    launches = {}
+    for name in ("lrn_fwd", "lrn_bwd", "uniform_fill"):
+        launches[name] = sum(w["launches"][name]
+                             for r in runs.values()
+                             for w in r["res"]["Workers"])
+    return launches
+
+
+def _gang_sizes():
+    return {"vocab": T_VOCAB, "dim": T_DIM, "heads": T_HEADS,
+            "seq": T_SEQ, "batch": T_BATCH, "layers": P_LAYERS,
+            "steps": P_STEPS}
+
+
+def gang_worker(address, nproc, rank, sizes):
+    """One process of (c) at ``sizes`` (the parent's widths, as JSON);
+    prints a ``GANG {json}`` line."""
+    import pickle
+    import torch
+    from veles_tpu_torch.convert import init_params, params_to_numpy
+    from veles_tpu_torch.loader import TRAIN
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.parallel import multihost
+    from veles_tpu_torch.samples.lm import lm_spec
+    global T_VOCAB, T_DIM, T_HEADS, T_SEQ, T_BATCH, P_LAYERS, P_STEPS
+    z = json.loads(sizes)
+    T_VOCAB, T_DIM, T_HEADS, T_SEQ, T_BATCH = (
+        z["vocab"], z["dim"], z["heads"], z["seq"], z["batch"])
+    P_LAYERS, P_STEPS = z["layers"], z["steps"]
+    nproc, rank = int(nproc), int(rank)
+    dev = torch.device("cuda") if torch.cuda.is_available() \
+        else torch.device("cpu")
+    gang = multihost.initialize(address, nproc, rank, device=dev)
+    out = {"rank": rank, "transport": gang.transport}
+    try:
+        spec = lm_spec(T_VOCAB, T_DIM, P_LAYERS, T_HEADS)
+        params = params_to_numpy(init_params(spec, 0, window=T_SEQ,
+                                             device="cpu", dtype="float32"))
+        toks = numpy.random.default_rng(0).integers(
+            0, T_VOCAB, (T_BATCH * (P_STEPS + 1), T_SEQ))
+        batches = [torch.as_tensor(toks[k * T_BATCH:(k + 1) * T_BATCH],
+                                   device=dev) for k in range(P_STEPS + 1)]
+        chain, gd = _mesh_lm(torch, dev, spec, params, {"dp": nproc})
+        if not gd.plan_.gang:
+            raise SystemExit("the trainer's mesh spans one process")
+        _sync(torch, dev)
+        for name in fa.launches:
+            fa.launches[name] = 0
+        before = dict(multihost.STATS)
+        t0 = time.perf_counter()
+        losses = []
+        for x in batches[:P_STEPS]:
+            losses.append(float(gd.run_minibatch(x, x, x.shape[0],
+                                                 TRAIN)[0]))
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        out.update(losses=[v.hex() for v in losses],
+                   step_ms=1e3 * wall / P_STEPS,
+                   collectives_ms=1e3 * (multihost.STATS["seconds"]
+                                         - before["seconds"]) / P_STEPS,
+                   exchanged_bytes_per_step=(multihost.STATS["bytes"]
+                                             - before["bytes"]) / P_STEPS,
+                   launches=dict(fa.launches))
+        # the pickled trainer resumes over the gang
+        gathered = [{n: t.detach().cpu() for n, t in u.params.items()}
+                    for u in chain]
+        gd2 = pickle.loads(pickle.dumps(gd))
+        if gd2.mesh != {"__mesh_axes__": {"dp": nproc}}:
+            raise SystemExit("the mesh pickled as %r" % (gd2.mesh,))
+        for u in gd2.forwards:
+            u.to_device(dev)
+        gd2._setup()
+        if not gd2.mesh.spans_processes:
+            raise SystemExit("the resumed mesh spans one process")
+        if any(not torch.equal(u.params[n].cpu(), g[n])
+               for u, g in zip(gd2.forwards, gathered) for n in g):
+            raise SystemExit("the resumed parameters differ")
+        x = batches[P_STEPS]
+        out["resumed_loss"] = float(gd2.run_minibatch(
+            x, x, x.shape[0], TRAIN)[0]).hex()
+        multihost.sync_global_devices("trained")
+        if rank == 0:
+            # the unsharded run on the same weights and batches
+            del gd2
+            ref, rgd = _mesh_lm(torch, dev, spec, params, None)
+            want = [float(rgd.run_minibatch(x, x, x.shape[0], TRAIN)[0])
+                    for x in batches[:P_STEPS]]
+            out.update(unsharded=want,
+                       loss_rel_err=_losses_err(losses, want),
+                       param_max_abs_err=max(
+                           float((g[n] - r.params[n].detach().cpu())
+                                 .abs().max())
+                           for g, r in zip(gathered, ref)
+                           for n in r.params))
+        multihost.sync_global_devices("done")
+    finally:
+        multihost.shutdown()
+    print("GANG " + json.dumps(out), flush=True)
+    return 0
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def gang_part(torch, dev):
+    """(c): D_GANG processes of this script; returns their kernel 3
+    launches."""
+    import os
+    address = "127.0.0.1:%d" % _free_port()
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--gang-worker", address, str(D_GANG),
+         str(r), json.dumps(_gang_sizes())], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=os.path.dirname(here)) for r in range(D_GANG)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = [l for l in text.splitlines() if l.startswith("GANG ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise SystemExit("dist (c): process %d rc=%s:\n%s"
+                             % (r, p.returncode, text[-3000:]))
+        got.append(json.loads(lines[0][5:]))
+    log(json.dumps({"dist_gang": got}))
+    first = got[0]
+    if any(g["losses"] != first["losses"]
+           or g["resumed_loss"] != first["resumed_loss"] for g in got):
+        raise SystemExit("dist (c): the processes' losses differ")
+    # the processes share one card: NCCL refuses that, so gloo
+    if first["transport"] != "gloo":
+        raise SystemExit("dist (c): transport %s" % first["transport"])
+    if not (first["loss_rel_err"] <= P_LOSS_TOL
+            and first["param_max_abs_err"] <= D_GANG_W_TOL):
+        raise SystemExit("dist (c): %.3g relative on the losses, "
+                         "parameters %.3g apart (want %g and %g)"
+                         % (first["loss_rel_err"],
+                            first["param_max_abs_err"], P_LOSS_TOL,
+                            D_GANG_W_TOL))
+    per = P_LAYERS * P_STEPS     # one group per process
+    for g in got:
+        if g["launches"] != dict.fromkeys(g["launches"], per):
+            raise SystemExit("dist (c): process %d launched %s (want %d "
+                             "of each)" % (g["rank"], g["launches"], per))
+    total = {}
+    for g in got:
+        for k, v in g["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+#: (c)'s agreement with the unsharded run: phase 15's
+D_GANG_W_TOL = 1e-6
+
+
+def distributed_check(torch, dev):
+    """Phase 16: (a) fault C9, (b) the master and its workers, (c) the
+    gang; returns the kernels' launch counts of its runs."""
+    t0 = time.perf_counter()
+    launches = c9_part(torch, dev)
+    log("dist (a): %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    launches.update(master_worker_part(torch, dev))
+    log("dist (b): %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    launches.update(gang_part(torch, dev))
+    log("dist (c): %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7018,6 +7487,7 @@ def main():
             vocab_job[0].wait()
     cli_launches = cli_check(torch, dev)
     parallel_launches = parallel_check(torch, dev)
+    dist_launches = distributed_check(torch, dev)
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -7053,7 +7523,8 @@ def main():
                          ("workflow_launches", wf_launches),
                          ("input_launches", input_launches),
                          ("cli_launches", cli_launches),
-                         ("parallel_launches", parallel_launches)):
+                         ("parallel_launches", parallel_launches),
+                         ("distributed_launches", dist_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))
@@ -7065,4 +7536,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gang-worker"]:
+        sys.exit(gang_worker(*sys.argv[2:6]))
     sys.exit(main())

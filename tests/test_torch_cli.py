@@ -3,7 +3,8 @@ the JAX package's (``python -m veles_tpu``) on the CPU: the cases of
 ``tests/test_cli.py::TestCLI``, each run by both ``Main`` classes on the
 same argv (``-a numpy``, float32 compute), the results files agreeing
 and the weights within 2e-5; the flags the port does not have yet
-exiting non-zero and naming their ROADMAP item; ``-a``'s mapping;
+exiting non-zero and naming their ROADMAP item; the master and worker
+modes (``-l``, ``-m``, ``-w``), in process and as spawned workers; ``-a``'s mapping;
 ``--seed``, ``--events-log`` and the other flags into ``root.common``;
 ``-s sqlite:``; the Kohonen sample through both command lines; and one
 ``python -m veles_tpu_torch`` subprocess through ``cli_exec``.
@@ -320,9 +321,6 @@ class TestCLI:
 # -- flags the port does not have yet ------------------------------------------
 
 REFUSED = [
-    (["-l", ":5050"], "item 10"),
-    (["-m", "host:5050"], "item 10"),
-    (["-w", "2"], "item 10"),
     (["--optimize", "4:2"], "item 11"),
     (["--ensemble-train", "3"], "item 11"),
     (["--ensemble-test", "summary.json"], "item 11"),
@@ -345,13 +343,174 @@ def test_unported_flag_exits_naming_its_item(flags, item, cli_env, capsys):
 
 
 def test_launcher_refuses_distributed_modes():
+    """The launcher takes the reference's three modes and refuses what
+    the reference refuses: an OS-assigned master port with spawned
+    workers (they need a dialable address before it binds)."""
     from veles_tpu_torch.launcher import Launcher
-    for kw in ({"listen": ":5050"}, {"master_address": "h:1"}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            Launcher(**kw)
-    launcher = Launcher()
-    assert launcher.is_standalone and not launcher.is_master \
-        and not launcher.is_slave and launcher.mode == "standalone"
+    modes = {"standalone": {}, "master": {"listen": ":5050"},
+             "slave": {"master_address": "h:1"}}
+    for mode, kw in modes.items():
+        launcher = Launcher(**kw)
+        assert launcher.mode == mode
+        assert (launcher.is_standalone, launcher.is_master,
+                launcher.is_slave) == tuple(
+                    mode == m for m in ("standalone", "master", "slave"))
+    with pytest.raises(ValueError, match="-l :0"):
+        Launcher(listen=":0", workers=2)._spawn_workers()
+
+
+# -- the master/worker modes: -l, -m, -w -------------------------------------
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+MNIST_RUN = dict(synthetic_train=512, synthetic_valid=256, max_epochs=2,
+                 minibatch_size=64, layers=(32, 10), dtype="float32",
+                 snapshotter_config={"enabled": False})
+TRAIN_JOBS = 2 * 512 // 64
+
+
+class _Mode:
+    def __init__(self, mode):
+        self.mode = mode
+
+    def add_ref(self, unit):
+        pass
+
+    def del_ref(self, unit):
+        pass
+
+
+def _mnist_in_mode(mode):
+    from veles_tpu_torch.samples.mnist import MnistWorkflow
+    wf = MnistWorkflow(_Mode(mode), **MNIST_RUN)
+    wf.initialize(device="cpu")
+    return wf
+
+
+def _in_thread(fn):
+    import threading
+    out = {}
+
+    def body():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # reported by the caller
+            out["error"] = e
+    t = threading.Thread(target=body, daemon=True)
+    t.start()
+    return t, out
+
+
+MODES = ["-l", "-m", "-w"]
+
+
+@pytest.mark.parametrize("flag", MODES)
+def test_distributed_flag_runs_its_mode(flag, cli_env, capsys):
+    """``-l``: the command line's master serves a worker (a port worker
+    in a thread) to the end of its epochs and writes its coordinator's
+    stats; ``-m``: the command line's worker takes every job of a
+    master (a port coordinator in a thread) and stops at its terminate;
+    ``-w`` without ``-l`` exits 2 with the reference's message."""
+    import asyncio
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.parallel.coordinator import (
+        Coordinator, WorkerClient)
+    if flag == "-w":
+        from veles_tpu.__main__ import Main as JaxMain
+        for main in (Main, JaxMain):
+            with pytest.raises(SystemExit) as e:
+                main(mnist_argv("port") + ["-w", "2"] + SMALL).run()
+            assert e.value.code == 2
+            assert "-w/--workers requires -l/--listen" in \
+                capsys.readouterr().err
+        return
+    addr = "127.0.0.1:%d" % _free_port()
+    if flag == "-l":
+        worker = _mnist_in_mode("slave")
+        client = WorkerClient(worker, addr, reconnect_delay=0.05,
+                              max_reconnects=100)
+        t, out = _in_thread(lambda: asyncio.run(client.run()))
+        res = cli_env / "master.json"
+        try:
+            m = run_port(mnist_argv("port") + SMALL + [
+                "-l", addr, "--result-file", str(res)])
+        finally:
+            t.join(60)
+            worker.stop()
+        assert "error" not in out, out.get("error")
+        assert m.launcher.is_master and m.workflow.is_master
+        assert worker.gd.global_step == TRAIN_JOBS
+        results = json.loads(res.read_text())
+        assert results["Total epochs"] == 2
+        assert "validation_error_pct" in results
+        stats = results["Coordinator"]
+        assert stats["jobs"] == stats["updates"] == (512 + 256) * 2 // 64
+        assert stats["job_frame_bytes"] > 0 < stats["update_frame_bytes"]
+        assert results["Workers"] == []
+        return
+    master = _mnist_in_mode("master")
+    host, port = addr.split(":")
+
+    async def serve():
+        coord = Coordinator(master, host, int(port))
+        await coord.start()
+        await coord.wait_finished()
+        await coord.stop()
+        return coord
+
+    t, out = _in_thread(lambda: asyncio.run(serve()))
+    try:
+        m = run_port(mnist_argv("port") + SMALL + ["-m", addr])
+    finally:
+        t.join(60)
+        master.stop()
+    assert "error" not in out, out.get("error")
+    assert m.launcher.is_slave and m.workflow.is_slave
+    assert m.workflow.gd.global_step == TRAIN_JOBS
+    assert master.all_jobs_done() and master.decision._master_epoch == 2
+    report = [l for l in capsys.readouterr().out.splitlines()
+              if l.startswith("veles-worker-report ")]
+    assert len(report) == 1
+    assert json.loads(report[0].split(" ", 1)[1])["steps"] == TRAIN_JOBS
+
+
+def test_master_spawns_workers_end_to_end(cli_env):
+    """``-l`` + ``-w 2``: the master spawns two worker processes that
+    join its coordinator and run the whole training from one command
+    (``tests/test_cli.py``'s case, on the port): its results file counts
+    the epoch, every job and the workers' reports."""
+    import subprocess
+    port = _free_port()
+    out = cli_env / "dist.json"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch"] + mnist_argv("port")
+        + ["-l", "127.0.0.1:%d" % port, "-w", "2",
+           "-c", "root.mnist_tpu.update({'max_epochs': 1, "
+           "'synthetic_train': 512, 'synthetic_valid': 128, "
+           "'minibatch_size': 128, 'snapshot_time_interval': 1e9})",
+           "-c", F32, "-a", "numpy", "--result-file", str(out)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr[-800:]
+    results = json.loads(out.read_text())
+    assert results["Total epochs"] >= 1
+    assert "validation_error_pct" in results
+    workers = results["Workers"]
+    assert [w["rc"] for w in workers] == [0, 0]
+    # an idle worker may take the next epoch's first jobs before the
+    # last update of this one lands, as in the reference: at least the
+    # epoch's 4 train steps and 5 updates
+    assert sum(w["steps"] for w in workers) >= 512 // 128
+    assert all("lrn_fwd" in w["launches"] for w in workers)
+    assert results["Coordinator"]["updates"] >= (512 + 128) // 128
 
 
 def test_backend_mapping(cli_env, capsys):

@@ -549,3 +549,50 @@ def test_cli_slice_imports_only_the_port(module):
 def test_cli_surface_is_exported(module, names):
     """The command line's names, where the reference exports them."""
     test_workflow_surface_is_exported(module, names)
+
+
+#: item 10's cross-process half: the gang, the coordinator and the
+#: modules that now drive them
+GANG_SLICE = ("veles_tpu_torch.parallel.multihost",
+              "veles_tpu_torch.parallel.coordinator",
+              "veles_tpu_torch.parallel.collectives",
+              "veles_tpu_torch.parallel.sharding",
+              "veles_tpu_torch.models.gd_mesh",
+              "veles_tpu_torch.launcher", "veles_tpu_torch.__main__")
+
+
+def test_gang_slice_imports_with_jax_blocked():
+    """The gang's and the master/worker exchange's modules import one
+    after another with ``jax`` blocked, load nothing of ``veles_tpu``,
+    and importing them joins no gang."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "for m in %r:\n"
+            "    importlib.import_module(m)\n"
+            "    assert not any(n == 'veles_tpu' or n.startswith(\n"
+            "        'veles_tpu.') for n in sys.modules), m\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "print('ok')\n" % (GANG_SLICE,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("module", GANG_SLICE[:2])
+def test_gang_slice_imports_only_the_port(module):
+    """The gang and the coordinator are listed in ``SUBMODULES`` and
+    import only torch, numpy, the standard library and the port."""
+    test_cli_slice_imports_only_the_port(module)
+
+
+@pytest.mark.parametrize("module,names", [
+    ("veles_tpu_torch.parallel.multihost", (
+        "initialize", "global_mesh", "global_put", "process_allgather",
+        "sync_global_devices", "exchange", "shutdown", "Gang")),
+    ("veles_tpu_torch.parallel.coordinator", (
+        "Coordinator", "WorkerClient", "send_frame", "recv_frame",
+        "serve_master", "serve_worker", "RejectedError"))])
+def test_gang_surface_is_exported(module, names):
+    """The reference's names of the gang and the coordinator."""
+    test_workflow_surface_is_exported(module, names)

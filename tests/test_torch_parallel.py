@@ -412,3 +412,93 @@ def test_build_mlp_classifier_on_a_mesh(f32, positions):
     for i in runs[0]:
         for n in runs[0][i]:
             _close(runs[1][i][n], runs[0][i][n])
+
+
+@pytest.mark.parametrize("axes", [{"fsdp": 4}, {"dp": 2, "tp": 2}])
+def test_eval_after_train_reads_the_updated_parameters(positions, axes):
+    """A validation step, two train steps, a validation step: the second
+    validation loss equals the unsharded trainer's.  (A unit's cached
+    casts are keyed by its parameters' versions, which each step's
+    freshly gathered leaves restart; the mesh trainer drops them at
+    every install, or the second validation would read the first one's
+    weights.)"""
+    from veles_tpu_torch.convert import params_from_numpy
+    from veles_tpu_torch.models.evaluator import EvaluatorSoftmax
+    from veles_tpu_torch.models.gd import GradientDescent
+    rng = numpy.random.default_rng(5)
+    init = {0: {"weights": rng.standard_normal((8, 16)).astype(
+        numpy.float32), "bias": rng.standard_normal(16).astype(
+            numpy.float32)},
+            1: {"weights": rng.standard_normal((16, 4)).astype(
+                numpy.float32), "bias": rng.standard_normal(4).astype(
+                    numpy.float32)}}
+    batches = [(rng.standard_normal((32, 8)).astype(numpy.float32),
+                rng.integers(0, 4, 32), 32, cls) for cls in (1, 2, 2, 1)]
+    losses = []
+    for mesh in (None, _port_mesh(axes)):
+        chain = params_from_numpy(MLP, init, device="cpu", dtype="float32")
+        gd = GradientDescent(chain, EvaluatorSoftmax(), mesh=mesh,
+                             learning_rate=0.5)
+        losses.append([float(gd.run_minibatch(
+            torch.as_tensor(x), torch.as_tensor(y), s, c)[0])
+            for x, y, s, c in batches])
+    assert losses[0][0] != losses[0][3]
+    numpy.testing.assert_allclose(losses[1], losses[0], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("axes", [{"fsdp": 4}, {"dp": 2, "tp": 2},
+                                  {"fsdp": 2, "tp": 2}])
+def test_per_unit_gather_holds_one_unit(positions, axes):
+    """Under fsdp and tp a group gathers a unit's parameters only while
+    the unit runs (and again in the backward, where autograd reads
+    them): the most gathered bytes alive at once, counted at every
+    gather, are the largest unit's, and no group's gradient part waits
+    for another's.  The step is bit-equal to the whole-step gather (a
+    gather is an exact copy, the slices' gradients fold in group order)
+    and within phase 15's 1e-5 of the unsharded trainer."""
+    from veles_tpu_torch.convert import (
+        init_params, params_from_numpy, params_to_numpy)
+    from veles_tpu_torch.loader import TRAIN, VALID
+    from veles_tpu_torch.models.evaluator import EvaluatorNextToken
+    from veles_tpu_torch.models.gd import GradientDescent
+    from veles_tpu_torch.samples.lm import lm_spec
+    spec = lm_spec(64, 32, 2, 2)
+    params = params_to_numpy(init_params(spec, 0, window=16, device="cpu",
+                                         dtype="float32"))
+    toks = numpy.random.default_rng(0).integers(0, 64, (16, 16))
+
+    def run(mesh, per_unit=True):
+        chain = params_from_numpy(spec, params, device="cpu",
+                                  dtype="float32")
+        shape = (16,)
+        for u in chain:
+            u.in_shape = shape
+            shape = tuple(u.out_shape(shape))
+        gd = GradientDescent(chain, EvaluatorNextToken(), solver="sgd",
+                             learning_rate=0.1, gradient_moment=0.9,
+                             mesh=mesh)
+        if mesh is not None:
+            assert gd.plan_.unit_gather
+            gd.plan_.unit_gather = per_unit
+        losses = []
+        for k, cls in enumerate((TRAIN, TRAIN, VALID, TRAIN)):
+            x = torch.as_tensor(toks[4 * k:4 * k + 4])
+            losses.append(float(gd.run_minibatch(x, x, 4, cls)[0]))
+        return gd, losses, params_to_numpy(chain)
+
+    plain, want, ref = run(None)
+    gd, losses, got = run(_port_mesh(axes))
+    _, whole_losses, whole = run(_port_mesh(axes), per_unit=False)
+    plan = gd.plan_
+    unit = max(sum(math.prod(plan.shapes[k]) * 4   # f32
+                   for k in plan.sharded if k[0] == i)
+               for i in range(len(spec)))
+    assert plan.gather_peak_bytes == unit
+    assert plan.grad_wait_peak_bytes == 0
+    assert losses == whole_losses
+    for i in ref:
+        for n in ref[i]:
+            assert numpy.array_equal(got[i][n], whole[i][n])
+            numpy.testing.assert_allclose(got[i][n], ref[i][n], rtol=1e-5,
+                                          atol=1e-5)
+    numpy.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-5)

@@ -175,6 +175,8 @@ SUBMODULES = (
     "veles_tpu_torch.parallel.sharding",
     "veles_tpu_torch.parallel.collectives",
     "veles_tpu_torch.parallel.pipeline",
+    "veles_tpu_torch.parallel.multihost",
+    "veles_tpu_torch.parallel.coordinator",
     "veles_tpu_torch.serving",
     "veles_tpu_torch.serving.kv_slots",
     "veles_tpu_torch.serving.prefill",

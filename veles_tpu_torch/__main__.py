@@ -1,5 +1,5 @@
 """The command line: ``python -m veles_tpu_torch <workflow.py>
-[config.py]`` (the port of ``veles_tpu/__main__.py``, standalone).
+[config.py]`` (the port of ``veles_tpu/__main__.py``).
 
 The workflow file implements the reference's ``run(load, main)``
 contract::
@@ -15,8 +15,12 @@ workflow on its device and runs it to completion.
 
 The run's settings go through the config tree
 (:mod:`veles_tpu_torch.config`): the config file, then the ``-c``
-snippets, then the flags.  The flags of the fleet and the
-master/worker modes raise and name the ROADMAP item that brings them
+snippets, then the flags.  ``-l host:port`` runs the master of the
+master/worker exchange, ``-m host:port`` a worker of one, and ``-w N``
+(or ``-w host[/D],...``, with ``-l``) spawns the master's workers, each
+running this command line's workflow, config, ``-c`` snippets and
+shared flags (:meth:`Main._worker_tail`) with ``-d D -m host:port``.
+The flags of the fleet raise and name the ROADMAP item that brings them
 (:func:`veles_tpu_torch.cmdline.refuse_unported`).
 """
 
@@ -28,7 +32,7 @@ import numpy
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.cmdline import (
-    backend_device, build_parser, refuse_unported)
+    backend_device, build_parser, filter_argv, refuse_unported)
 from veles_tpu_torch.config import (
     apply_config_file, apply_override, fix_config, load_site_configs, root)
 from veles_tpu_torch.import_file import import_file_as_module
@@ -202,6 +206,23 @@ class Main:
             if opened:
                 events.close()
 
+    #: flags a spawned worker shares with its master
+    CHILD_FLAGS = ("-a", "--backend", "--decision", "--seed",
+                   "--health-policy")
+
+    def _worker_tail(self):
+        """The command tail a spawned worker runs: the workflow file,
+        the config file, every ``-c`` snippet and the shared flags
+        (:data:`CHILD_FLAGS`, ``-v``); the spawner appends ``-d`` and
+        ``-m``."""
+        tail = [self.args.workflow]
+        if self.args.config:
+            tail.append(self.args.config)
+        for snippet in self.args.config_override:
+            tail += ["-c", snippet]
+        tail += filter_argv(self.argv, *self.CHILD_FLAGS)
+        return tail + ["-v"] * self.args.verbose
+
     def _run(self, parser):
         self._apply_flags()
         if self.args.dump_config:
@@ -219,9 +240,18 @@ class Main:
         # config written for --optimize runs standalone
         fix_config(root)
         self._seed_random()
+        workers = self.args.workers
+        if workers and not self.args.listen:
+            parser.error("-w/--workers requires -l/--listen "
+                         "(the coordinator spawns the workers)")
+        if workers and workers.isdigit():
+            workers = int(workers)
         self.launcher = Launcher(
             backend=self.args.backend, device_index=self.args.device,
-            profile_dir=self.args.profile)
+            listen=self.args.listen,
+            master_address=self.args.master_address,
+            profile_dir=self.args.profile, workers=workers,
+            worker_cmd_tail=self._worker_tail())
         module = import_file_as_module(self.args.workflow)
         if not hasattr(module, "run"):
             print("workflow file must define run(load, main)",

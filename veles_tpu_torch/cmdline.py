@@ -1,8 +1,10 @@
 """The command line surface (the port of ``veles_tpu/cmdline.py``):
 ``python -m veles_tpu_torch <workflow.py> [config.py] ...``.
 
-:func:`build_parser` takes every flag of the reference.  The flags whose
-machinery the port does not have yet are refused by
+:func:`build_parser` takes every flag of the reference: ``-l`` runs the
+master, ``-m`` a worker of a master, and ``-w`` (with ``-l``) spawns
+the master's workers.  The flags whose
+machinery the port does not have yet (ROADMAP item 11) are refused by
 :func:`refuse_unported` with a ``parser.error`` that names the ROADMAP
 item bringing them; none is silently ignored.  :func:`backend_device`
 maps ``-a``/``-d`` onto a torch device.
@@ -147,10 +149,6 @@ def filter_argv(argv, *allowed):
 
 #: flag (as the parser stores it) -> (spelling, ROADMAP item bringing it)
 UNPORTED = (
-    ("listen", "-l/--listen", "item 10 (the master/worker exchange)"),
-    ("master_address", "-m/--master-address",
-     "item 10 (the master/worker exchange)"),
-    ("workers", "-w/--workers", "item 10 (the master/worker exchange)"),
     ("optimize", "--optimize", "item 11 (the genetic optimizer)"),
     ("ensemble_train", "--ensemble-train", "item 11 (ensembles)"),
     ("ensemble_test", "--ensemble-test", "item 11 (ensembles)"),

@@ -8,8 +8,9 @@
   ``init_unpickled()`` after load.
 - :class:`IDistributable` (ref: veles/distributable.py:222-281) — the
   5-method contract units implement to take part in master–slave style
-  data exchange.  No master or worker drives it in the port yet
-  (ROADMAP item 10); the workflow aggregates it over its units.
+  data exchange; the workflow aggregates it over its units, and the
+  elastic coordinator (:mod:`veles_tpu_torch.parallel.coordinator`)
+  drives it in the launcher's master and worker modes.
 - :class:`TriviallyDistributable` — no-op defaults.
 
 Tensors in a pickled state are host copies (:func:`host_state`): a

@@ -529,8 +529,8 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
         if jobs and (self.minibatch_offset, self.minibatch_size) in jobs:
             jobs.remove((self.minibatch_offset, self.minibatch_size))
 
-    # -- distributed contract (ref: base.py:628-687); no master or worker
-    #    drives it until ROADMAP item 10 --------------------------------------
+    # -- distributed contract (ref: base.py:628-687), driven by the
+    #    coordinator in the master and worker modes ---------------------------
 
     def generate_data_for_slave(self, slave=None):
         self.serve_next_minibatch(slave)

@@ -4,12 +4,21 @@ cross-entropy, the classifier head's loss, the per-token next-token
 objective and the regression's mean squared error.  (The JAX package's
 evaluators are also in-graph units that read the loader's minibatch
 size each run; the port's trainer passes the size itself, so only the
-pure functions are needed.)"""
+pure functions are needed.)  ``offset`` is the minibatch row the given
+rows start at: a process of a gang scores its own rows under the whole
+minibatch's mask and divisor, and the parts sum to the whole's loss."""
 
 import torch
 
 
-def masked_ce_from_logits(logits, labels, size, per_row_positions=1):
+def _valid(rows, size, offset, device):
+    """Which of ``rows`` rows starting at minibatch row ``offset`` are
+    below ``size``."""
+    return torch.arange(offset, offset + rows, device=device) < size
+
+
+def masked_ce_from_logits(logits, labels, size, per_row_positions=1,
+                          offset=0):
     """Masked mean softmax cross-entropy: ``logits`` [rows, ..., V]
     (f32-cast here), ``labels`` [rows, ...] int, rows >= ``size``
     masked away; the mean divides by size · per_row_positions."""
@@ -18,7 +27,7 @@ def masked_ce_from_logits(logits, labels, size, per_row_positions=1):
     logp = z - torch.log(torch.exp(z).sum(dim=-1, keepdim=True))
     picked = torch.gather(logp, -1,
                           labels.clamp(min=0).long()[..., None])[..., 0]
-    mask = torch.arange(logits.shape[0], device=logits.device) < size
+    mask = _valid(logits.shape[0], size, offset, logits.device)
     mask = mask.reshape((-1,) + (1,) * (picked.dim() - 1))
     return -torch.where(mask, picked, torch.zeros_like(picked)).sum() \
         / max(int(size), 1) / per_row_positions
@@ -28,12 +37,12 @@ class EvaluatorSoftmax:
     """Cross-entropy of a classifier head's logits."""
 
     @staticmethod
-    def loss_from_logits(logits, labels, size):
+    def loss_from_logits(logits, labels, size, offset=0):
         """Masked mean softmax cross-entropy over valid rows (in f32)."""
-        return masked_ce_from_logits(logits, labels, size)
+        return masked_ce_from_logits(logits, labels, size, offset=offset)
 
-    def loss(self, y, labels, size):
-        return self.loss_from_logits(y, labels, size)
+    def loss(self, y, labels, size, offset=0):
+        return self.loss_from_logits(y, labels, size, offset)
 
 
 class EvaluatorMSE:
@@ -46,14 +55,14 @@ class EvaluatorMSE:
     #: the trainer gathers the loader's ``targets_dev`` as the target
     TARGETS = True
 
-    def loss(self, y, target, size):
+    def loss(self, y, target, size, offset=0):
         diff = (y.to(torch.float32)
                 - target.to(torch.float32)).reshape(y.shape[0], -1)
-        mask = (torch.arange(y.shape[0], device=y.device) < size)[:, None]
+        mask = _valid(y.shape[0], size, offset, y.device)[:, None]
         return torch.where(mask, diff * diff, torch.zeros_like(diff)).sum() \
             / max(int(size), 1) / diff.shape[1]
 
-    def train_metrics(self, y, target, size):
+    def train_metrics(self, y, target, size, offset=0):
         return torch.zeros((), dtype=torch.int32, device=y.device)
 
 
@@ -70,20 +79,21 @@ class EvaluatorNextToken:
     def _shifted(logits, tokens):
         return logits[:, :-1].to(torch.float32), tokens[:, 1:].long()
 
-    def loss(self, y, tokens, size):
+    def loss(self, y, tokens, size, offset=0):
         """Mean CE per token over valid positions (rows < size)."""
         z, tgt = self._shifted(y, tokens)
         return masked_ce_from_logits(z, tgt, size,
-                                     per_row_positions=tgt.shape[1])
+                                     per_row_positions=tgt.shape[1],
+                                     offset=offset)
 
     def metric_units(self, x):
         """Tokens scored per sample (the epoch accounting divides the
         wrong-token count by it)."""
         return x.shape[1] - 1
 
-    def train_metrics(self, y, tokens, size):
+    def train_metrics(self, y, tokens, size, offset=0):
         """Wrong next-token count over valid positions."""
         z, tgt = self._shifted(y, tokens)
         pred = torch.argmax(z, dim=-1)
-        mask = (torch.arange(y.shape[0], device=y.device) < size)[:, None]
+        mask = _valid(y.shape[0], size, offset, y.device)[:, None]
         return ((pred != tgt) & mask).sum().to(torch.int32)

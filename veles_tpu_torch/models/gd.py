@@ -52,8 +52,16 @@ such as ``{"dp": 2, "tp": 2}``, or a snapshot's ``{"__mesh_axes__":
 over ``dp``, ``fsdp``, ``tp``, ``ep``, ``pp`` and ``sp``
 (:mod:`~veles_tpu_torch.models.gd_mesh`); ``pp_microbatches`` (default
 the ``pp`` extent) sets the pipeline's microbatches.  A mesh pickles as
-its axis spec and is rebuilt at resume.  Not ported: the DCN
-master/worker exchange (ROADMAP item 10's remainder).
+its axis spec and is rebuilt at resume.
+
+The master/worker exchange (the reference's parameter-server face,
+``IDistributable``): a job carries the master's parameters to a worker
+as numpy (one crossing to the host per job on the card); the worker
+installs them, runs its minibatch, and returns the delta its step made
+against them (computed on the host in f32) with the epoch accumulator
+it gathered; the master adds the delta to its parameters on the host
+in f32 and folds the accumulator into a float64 host accumulator,
+which :meth:`GradientDescent.read_epoch_acc` reads on a master.
 
 The trainer is also a workflow unit (the reference's face):
 ``GradientDescent(workflow, forwards=..., evaluator=..., loader=...,
@@ -162,6 +170,10 @@ class GradientDescent(AcceleratedUnit):
 
     def init_unpickled(self):
         super(GradientDescent, self).init_unpickled()
+        #: a master's epoch accounting, fed by its workers' updates
+        self._master_acc_ = numpy.zeros((3, 3), numpy.float64)
+        #: a worker's parameters as its current job delivered them
+        self._job_params_ = None
         self._augment_fn_ = None
         #: the mesh path's sharded state (models/gd_mesh.MeshPlan)
         self.plan_ = None
@@ -369,7 +381,7 @@ class GradientDescent(AcceleratedUnit):
         step each dropout layer draws its mask from a key split off
         ``key``."""
         if self.plan_ is not None:
-            return self.plan_.forward(x, key, train)[0]
+            return self.plan_.whole(self.plan_.forward(x, key, train)[0])
         h = x
         last = len(self.forwards) - 1
         for i, u in enumerate(self.forwards):
@@ -389,20 +401,36 @@ class GradientDescent(AcceleratedUnit):
             x = augment(x, sub)
         if getattr(self.evaluator, "TARGET_IS_INPUT", False):
             target = x
+        lo = 0
         if self.plan_ is not None:
             self.plan_.check_batch(x, target)
             y, leaves = self.plan_.forward(x, key, train)
             self._step_leaves_ = leaves if train else None
+            if self.plan_.gang:
+                # this process's rows: its part of the loss and count
+                lo, hi = self.plan_.rows(x.shape[0])
+                target = target[lo:hi]
         else:
             y = self.forward(x, key, train)
-        loss = self.evaluator.loss(y, target, size)
+        kw = {"offset": lo} if lo else {}
+        loss = self.evaluator.loss(y, target, size, **kw)
         if hasattr(self.evaluator, "train_metrics"):
-            n_err = self.evaluator.train_metrics(y, target, size)
+            n_err = self.evaluator.train_metrics(y, target, size, **kw)
         else:
             pred = torch.argmax(y, dim=-1)
-            mask = torch.arange(y.shape[0], device=y.device) < size
+            mask = torch.arange(lo, lo + y.shape[0], device=y.device) < size
             n_err = ((pred != target.long()) & mask).sum().to(torch.int32)
         return loss, n_err
+
+    def _gang_total(self, loss, n_err):
+        """The step's loss and error count over a gang's processes (each
+        computed its rows' part), summed in process order: every process
+        gets the same values.  As they are outside a gang."""
+        if self.plan_ is None or not self.plan_.gang:
+            return loss, n_err
+        both = self.plan_.total(torch.stack(
+            [loss.detach().to(torch.float32), n_err.to(torch.float32)]))
+        return both[0], both[1].to(torch.int32)
 
     def _scaled_hps(self, step):
         # the float32 multiplier the JAX package traces
@@ -424,17 +452,9 @@ class GradientDescent(AcceleratedUnit):
         slices."""
         plan = self.plan_
         loss, n_err = self._loss_and_metrics(x, target, size, key, True)
-        leaves = []
-        for got, ep in self._step_leaves_:
-            leaves += list(got.values())
-            for shards in ep.values():
-                for _, d in shards:
-                    leaves += list(d.values())
-        grads = torch.autograd.grad(loss, leaves)
-        sliced = plan.reduce_grads(self._step_leaves_, {
-            id(leaf): g for leaf, g in zip(leaves, grads)})
+        sliced = plan.backward(loss, self._step_leaves_)
         self._step_leaves_ = None
-        loss = loss.detach()
+        loss, n_err = self._gang_total(loss.detach(), n_err)
         health_on = self.health_on
         skip = health_on and self.health_policy == "skip_step"
         keep_old = None
@@ -501,8 +521,8 @@ class GradientDescent(AcceleratedUnit):
 
     def _eval(self, x, target, size):
         with torch.no_grad():
-            loss, n_err = self._loss_and_metrics(x, target, size, None,
-                                                 False)
+            loss, n_err = self._gang_total(*self._loss_and_metrics(
+                x, target, size, None, False))
             zero = torch.zeros((), device=self.device)
             bad = (~torch.isfinite(loss)).to(torch.float32) \
                 if self.health_on else zero
@@ -597,12 +617,63 @@ class GradientDescent(AcceleratedUnit):
                       "stopping (see GET /healthz)")
             self.halted = True
 
+    # -- the master/worker exchange (ref: gd.py:839-887) ----------------------
+
+    negotiates_on_connect = True
+
+    def _params_numpy(self):
+        return {i: {n: t.detach().cpu().numpy().copy()
+                    for n, t in u.params.items()}
+                for i, u in enumerate(self.forwards)}
+
+    def generate_data_for_slave(self, slave=None):
+        """Master → worker: the job carries the current parameters."""
+        return {"params": self._params_numpy()}
+
+    def apply_data_from_master(self, data):
+        """Worker: install the master's parameters and keep them as this
+        job's delta baseline."""
+        params = data["params"]
+        self.write_state(params=params)
+        self._job_params_ = params
+
+    def generate_data_for_master(self):
+        """Worker → master: the parameters' delta since the job's
+        baseline (host f32) and the epoch accounting gathered since the
+        last send."""
+        now = self._params_numpy()
+        base = self._job_params_ or now
+        delta = {i: {n: now[i][n] - base[i][n] for n in now[i]}
+                 for i in now}
+        acc = self.read_epoch_acc(reset_classes=(0, 1, 2), as_array=True)
+        return {"delta": delta, "acc": acc}
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Master: add the worker's delta to the parameters on the host
+        in f32 and fold its epoch accounting into the float64 master
+        accumulator."""
+        params = self._params_numpy()
+        for i, ps in params.items():
+            for n in ps:
+                ps[n] += data["delta"][i][n]
+        self.write_state(params=params)
+        self._master_acc_ += numpy.asarray(data["acc"], numpy.float64)
+
+    def drop_slave(self, slave=None):
+        pass  # a dead worker's in-flight delta is lost
+
     def read_epoch_acc(self, reset_classes=(), as_array=False):
         """{class: (n_err, loss_sum, samples)} (or the [3, 3] array);
-        resets the requested class rows."""
-        acc = self.epoch_acc.cpu().numpy().copy()
-        if len(reset_classes):
-            self.epoch_acc[list(reset_classes)] = 0
+        resets the requested class rows.  A master reads the float64
+        accumulator its workers' updates fed (its graph never runs)."""
+        if self.is_master:
+            acc = numpy.array(self._master_acc_)
+            for c in reset_classes:
+                self._master_acc_[c] = 0
+        else:
+            acc = self.epoch_acc.cpu().numpy().copy()
+            if len(reset_classes):
+                self.epoch_acc[list(reset_classes)] = 0
         if as_array:
             return acc
         return {c: tuple(float(x) for x in acc[c]) for c in range(3)}

@@ -45,3 +45,16 @@ def check_cuda_inputs(what, device, **tensors):
         require(t.device == device, "%s: %s lies on %s, not %s", what,
                 name, t.device, device)
         require(t.is_contiguous(), "%s: %s must be contiguous", what, name)
+
+
+def kernel_launches():
+    """Every kernel wrapper's launch count in this process, by kernel
+    name (what a worker reports when it stops)."""
+    from veles_tpu_torch.ops import (
+        flash_attention, gemm, lrn, paged_attend, random)
+    out = {"paged_attend": paged_attend.launches,
+           "int8_gemm": gemm.launches, "matmul": gemm.matmul_launches,
+           "uniform_fill": random.launches}
+    out.update(flash_attention.launches)
+    out.update(lrn.launches)
+    return out

@@ -1,6 +1,6 @@
-"""Parallelism inside one process — the port of ``veles_tpu/parallel/``'s
-in-process half: meshes, sharding conventions, collectives, the GPipe
-pipeline.
+"""Parallelism — the port of ``veles_tpu/parallel/``: meshes, sharding
+conventions, collectives, the GPipe pipeline, process gangs and the
+elastic coordinator.
 
 A JAX mesh is one program run SPMD over the devices of a process, with
 XLA inserting the collectives.  Here a :class:`~veles_tpu_torch.parallel.
@@ -20,10 +20,13 @@ Modules:
   and the placement of a tensor onto positions by a spec;
 - :mod:`veles_tpu_torch.parallel.collectives` — psum, all-gather,
   reduce-scatter, ppermute, pmax over per-position tensors;
-- :mod:`veles_tpu_torch.parallel.pipeline` — the GPipe schedule.
-
-The cross-process half (a process gang, the elastic coordinator) is not
-ported (ROADMAP item 10).
+- :mod:`veles_tpu_torch.parallel.pipeline` — the GPipe schedule;
+- :mod:`veles_tpu_torch.parallel.multihost` — a gang of processes over
+  ``torch.distributed``, whose global mesh spans every process's
+  positions (each process runs its own; the collectives exchange the
+  others' tensors);
+- :mod:`veles_tpu_torch.parallel.coordinator` — the elastic
+  master/worker job queue of the launcher's master and worker modes.
 """
 
 from veles_tpu_torch.parallel.mesh import (  # noqa: F401

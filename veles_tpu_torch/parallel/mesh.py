@@ -84,9 +84,13 @@ class MeshConfig:
 
 class Mesh:
     """A grid of positions over named axes; position ``p`` (row-major in
-    :attr:`axis_names` order) runs on ``devices[p]``."""
+    :attr:`axis_names` order) runs on ``devices[p]`` of process
+    ``processes[p]`` (a gang's global mesh,
+    :func:`~veles_tpu_torch.parallel.multihost.global_mesh`); by default
+    every position is this process's.  This process runs the positions
+    that are its own (:meth:`is_local`)."""
 
-    def __init__(self, sizes, devices):
+    def __init__(self, sizes, devices, processes=None, process_index=0):
         self.shape = dict(sizes)
         self.axis_names = tuple(self.shape)
         self._devices = [torch.device(d) for d in devices]
@@ -95,6 +99,24 @@ class Mesh:
                              % (self.shape, len(self._devices)))
         self.ids = numpy.arange(len(self._devices)).reshape(
             tuple(self.shape.values()))
+        #: the process of every position, in position order
+        self.processes = [int(process_index)] * len(self._devices) \
+            if processes is None else [int(q) for q in processes]
+        #: this process's index in the gang
+        self.process_index = int(process_index)
+
+    @property
+    def spans_processes(self):
+        """Whether the positions belong to more than one process."""
+        return len(set(self.processes)) > 1
+
+    def is_local(self, p):
+        """Whether position ``p`` is this process's."""
+        return self.processes[int(p)] == self.process_index
+
+    def process(self, p):
+        """The process position ``p`` belongs to."""
+        return self.processes[int(p)]
 
     @property
     def size(self):
@@ -128,6 +150,9 @@ class Mesh:
                 for i in range(self.shape[axis])]
 
     def __repr__(self):
+        if self.spans_processes:
+            return "Mesh(%s over %d processes, this one %d)" % (
+                self.shape, len(set(self.processes)), self.process_index)
         return "Mesh(%s over %s)" % (self.shape, sorted(
             set(map(str, self._devices))))
 

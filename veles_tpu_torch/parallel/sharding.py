@@ -16,6 +16,11 @@ a spec does not name replicate.  The default policy is the reference's:
   the largest remaining axis that divides, ``ep`` on the expert axis of
   the expert-major ``expert_*`` tensors;
 - solver state: the layout of its parameter (scalars replicated).
+
+On a gang's global mesh a process places and holds only its own
+positions' slices (the others' entries are None), and :func:`gather`
+reads each slice from a position of its own where one holds it, else
+all-gathers it across the gang.
 """
 
 import torch
@@ -123,10 +128,12 @@ def shard_slices(mesh, spec, shape, p):
 
 def put(value, mesh, spec):
     """``value`` placed on ``mesh`` by ``spec``: a list holding each
-    position's slice, a copy on the position's device."""
+    position's slice, a copy on the position's device (None for the
+    positions of another process)."""
     value = torch.as_tensor(value)
     return [value[shard_slices(mesh, spec, value.shape, p)]
             .to(mesh.device(p), copy=True).contiguous()
+            if mesh.is_local(p) else None
             for p in range(mesh.size)]
 
 
@@ -139,12 +146,47 @@ def owners(mesh, spec):
                    if a not in named)]
 
 
+def _holder(mesh, spec, p, process):
+    """A position of ``process`` holding the slice position ``p`` holds
+    under ``spec`` (equal coordinates on the axes ``spec`` names), or
+    None."""
+    named = {a for e in spec for a in _axes(e)}
+    want = {a: c for a, c in mesh.coords(p).items() if a in named}
+    for q in range(mesh.size):
+        if mesh.process(q) == process and all(
+                mesh.coords(q)[a] == c for a, c in want.items()):
+            return q
+    return None
+
+
+def local_owners(mesh, spec):
+    """The owners' slices as positions of this process can read them:
+    each owner replaced by a local position holding its slice; None
+    when some process lacks one for some slice (then reading the whole
+    tensor takes an all-gather across the gang, the same decision in
+    every process)."""
+    own = owners(mesh, spec)
+    if not mesh.spans_processes:
+        return own
+    for q in sorted(set(mesh.processes)):
+        if any(_holder(mesh, spec, p, q) is None for p in own):
+            return None
+    return [_holder(mesh, spec, p, mesh.process_index) for p in own]
+
+
 def gather(mesh, shards, spec, shape, device):
     """The whole tensor of ``shape`` from per-position ``shards``
     (placed by :func:`put` with ``spec``), on ``device``: the owners'
-    slices all-gathered."""
+    slices all-gathered (across the gang only when this process, or
+    another, holds no copy of some slice)."""
     own = owners(mesh, spec)
+    index = [shard_slices(mesh, spec, shape, p) for p in own]
+    readable = local_owners(mesh, spec)
+    if readable is not None:
+        return collectives.all_gather(
+            [shards[p] for p in readable], index=index, shape=shape,
+            to=[device])[0]
     return collectives.all_gather(
-        [shards[p] for p in own],
-        index=[shard_slices(mesh, spec, shape, p) for p in own],
-        shape=shape, to=[device])[0]
+        [shards[p] for p in own], index=index, shape=shape, to=[device],
+        procs=[mesh.process(p) for p in own],
+        to_procs=[mesh.process_index])[0]

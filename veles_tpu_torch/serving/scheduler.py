@@ -235,6 +235,14 @@ class RoleMismatchError(SchedulerError):
     http_status = 409
 
 
+def _serving_conf(name, default):
+    """``root.common.serving.<name>`` of the port's config tree, or
+    ``default`` where the tree lacks the key: the value an argument
+    left None takes."""
+    from veles_tpu_torch.config import root
+    return root.common.serving.get(name, default)
+
+
 def _bucket(n, floor, cap):
     """Pad widths/counts to power-of-two buckets (the occupancy and
     depth ladders of the decode step)."""
@@ -347,25 +355,30 @@ class InferenceScheduler(object):
     request's phase events (``req.*``) in the event sink (trace ids are
     minted either way); ``replica_id`` — the label of this scheduler's
     per-replica gauges.  ``device`` must be the
-    chain's device (default ``cuda``).  The parameters after
+    chain's device (default ``cuda``).  Every knob the reference reads
+    from the config tree (``kv`` … ``tp``, ``draft_shrink`` and
+    ``draft_grow`` included) falls back to the port's
+    ``root.common.serving`` when left None, with the reference's
+    default where the tree lacks the key; an explicit value wins
+    (``tp=0`` is off).  The parameters after
     ``max_queue`` are keyword-only, so no positional call binds the
     reference's order (``queue_timeout`` is its fifth) to other
     knobs."""
 
-    #: a slot's draft length halves below this accept-rate EMA and
-    #: doubles above ``DRAFT_GROW`` (the reference's thresholds)
+    #: the defaults of ``draft_shrink`` / ``draft_grow``: a slot's draft
+    #: length halves below the first accept-rate EMA and doubles above
+    #: the second (the reference's thresholds)
     DRAFT_SHRINK, DRAFT_GROW = 0.5, 0.8
 
     def __init__(self, forwards, max_slots=4, window=None, max_queue=32,
                  *, queue_timeout=30.0, prefill_bucket=PREFILL_BUCKET,
-                 warm_buckets=None, kv="paged", block_size=16,
-                 kv_blocks=None,
-                 kv_dtype="fp32", prefill_chunk=64, spec=True, spec_k=4,
-                 fused_verify=False, drafter=None, draft_head=None,
-                 draft_k_min=1, draft_ema=0.5,
-                 request_timeout=120.0, watchdog=300.0,
-                 shed_block_factor=4.0, prefix_cache=True,
-                 prefix_evict=True, role=None, kv_host_bytes=None,
+                 warm_buckets=None, kv=None, block_size=None,
+                 kv_blocks=None, kv_dtype=None, prefill_chunk=None,
+                 spec=None, spec_k=None, fused_verify=False, drafter=None,
+                 draft_head=None, draft_k_min=None, draft_ema=None,
+                 request_timeout=None, watchdog=None,
+                 shed_block_factor=None, prefix_cache=None,
+                 prefix_evict=None, role=None, kv_host_bytes=None,
                  kv_export_bytes=None, reqtrace=True, replica_id=None,
                  tp=None, device=None):
         self.device = resolve_device(device)
@@ -385,8 +398,9 @@ class InferenceScheduler(object):
         self.max_queue = int(max_queue)
         self.queue_timeout = float(queue_timeout or 0)
         self.prefill_bucket = int(prefill_bucket)
-        self.warm_buckets = True if warm_buckets is None \
-            else bool(warm_buckets)
+        self.warm_buckets = bool(_serving_conf("warm_buckets", True)
+                                 if warm_buckets is None else warm_buckets)
+        kv = kv or _serving_conf("kv", "paged")
         if kv not in ("paged", "dense"):
             raise ValueError("kv must be 'paged' or 'dense'")
         if kv == "paged" and not paged_supported(forwards):
@@ -394,13 +408,16 @@ class InferenceScheduler(object):
                      "dense slot cache")
             kv = "dense"
         self.kv = kv
-        self.block_size = int(block_size)
+        self.block_size = int(block_size or _serving_conf("block_size", 16))
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
         self.blocks_per_slot = -(-self.window // self.block_size)
+        if kv_blocks is None:
+            kv_blocks = _serving_conf("kv_blocks", None)
         self.kv_blocks = int(kv_blocks
                              or self.max_slots * self.blocks_per_slot) \
             if self.kv == "paged" else 0
+        kv_dtype = kv_dtype or _serving_conf("kv_dtype", "fp32")
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError("kv_dtype must be 'fp32' or 'int8'")
         if kv_dtype == "int8" and self.kv != "paged":
@@ -408,15 +425,20 @@ class InferenceScheduler(object):
                      "to fp32")
             kv_dtype = "fp32"
         self.kv_dtype = kv_dtype
-        chunk = int(prefill_chunk or 0)
+        chunk = prefill_chunk if prefill_chunk is not None \
+            else _serving_conf("prefill_chunk", 64)
+        chunk = int(chunk or 0)
         if chunk and not chunked_supported(forwards):
             log.info("chain cannot prefill in chunks; long prompts will "
                      "prefill one-shot")
             chunk = 0
         #: chunk widths are powers of two
         self.prefill_chunk = _bucket(chunk, 1, 1 << 30) if chunk else 0
-        spec = bool(spec)
-        self.spec_k = int(spec_k)
+        # the reference's fallbacks where the tree lacks a key: spec
+        # and prefix_cache read False there, while the tree holds True
+        spec = bool(_serving_conf("spec", False) if spec is None else spec)
+        self.spec_k = int(_serving_conf("spec_k", 4)
+                          if spec_k is None else spec_k)
         if spec and self.spec_k < 1:
             raise ValueError("spec_k must be >= 1")
         if spec and (self.kv != "paged" or not verify_supported(forwards)):
@@ -429,7 +451,8 @@ class InferenceScheduler(object):
         # the draft source, arbitrated per slot at run time (the model
         # head needs a hidden state; per-drafter accept-rate EMAs pick
         # whichever source earns its drafts)
-        drafter_ = "ngram" if drafter is None else str(drafter)
+        drafter_ = str(_serving_conf("drafter", "ngram")
+                       if drafter is None else drafter)
         if drafter_ not in ("ngram", "model"):
             raise ValueError("drafter must be 'ngram' or 'model'")
         if drafter_ == "model" and spec:
@@ -451,26 +474,43 @@ class InferenceScheduler(object):
                     "draft_head sized (d=%d, vocab=%d) but the chain serves "
                     "(d=%d, vocab=%d)" % (self._draft_head.d_model,
                                           self._draft_head.vocab, d, v))
-        self.draft_k_min = max(1, min(int(draft_k_min), self.spec_k))
-        self.draft_ema = float(draft_ema)
+        self.draft_k_min = int(_serving_conf("draft_k_min", 1)
+                               if draft_k_min is None else draft_k_min)
+        self.draft_k_min = max(1, min(self.draft_k_min, self.spec_k))
+        self.draft_ema = float(_serving_conf("draft_ema", 0.5)
+                               if draft_ema is None else draft_ema)
         if not 0.0 < self.draft_ema <= 1.0:
             raise ValueError("draft_ema must be in (0, 1]")
-        self.request_timeout = float(request_timeout or 0)
-        self.watchdog = float(watchdog or 0)
-        self.shed_block_factor = float(shed_block_factor or 0)
+        #: a slot's draft length halves below this accept-rate EMA and
+        #: doubles above ``draft_grow``
+        self.draft_shrink = float(_serving_conf("draft_shrink",
+                                                self.DRAFT_SHRINK))
+        self.draft_grow = float(_serving_conf("draft_grow",
+                                              self.DRAFT_GROW))
+        self.request_timeout = float(
+            _serving_conf("request_timeout", 120.0)
+            if request_timeout is None else request_timeout or 0)
+        self.watchdog = float(_serving_conf("watchdog", 300.0)
+                              if watchdog is None else watchdog or 0)
+        self.shed_block_factor = float(
+            _serving_conf("shed_block_factor", 4.0)
+            if shed_block_factor is None else shed_block_factor or 0)
         #: the warm cold-tail prefill needs chunked prefill, and the
         #: staging and chunk tilings a power-of-two block size
-        pfx = bool(prefix_cache)
+        pfx = bool(_serving_conf("prefix_cache", False)
+                   if prefix_cache is None else prefix_cache)
         if pfx and (self.kv != "paged" or not self.prefill_chunk
                     or self.block_size & (self.block_size - 1)):
             log.info("prefix cache needs kv='paged', chunked prefill and a "
                      "power-of-two block size; disabled")
             pfx = False
         self.prefix_cache = pfx
-        self.prefix_evict = bool(prefix_evict)
+        self.prefix_evict = bool(_serving_conf("prefix_evict", True)
+                                 if prefix_evict is None else prefix_evict)
         #: the host-RAM tier's byte budget (0: off); it is keyed by the
         #: prefix cache's token paths
-        hb = int(kv_host_bytes or 0)
+        hb = int(_serving_conf("kv_host_bytes", 0)
+                 if kv_host_bytes is None else kv_host_bytes or 0)
         if hb and not pfx:
             log.info("kv_host_bytes needs the prefix cache; host tier "
                      "disabled")
@@ -478,13 +518,16 @@ class InferenceScheduler(object):
         self.kv_host_bytes = hb
         #: the parked exports' byte budget: the oldest unclaimed record
         #: pays when a new one would overflow it (counted as expired)
-        self.kv_export_bytes = int(kv_export_bytes or EXPORT_BYTES)
+        self.kv_export_bytes = int(
+            _serving_conf("kv_export_bytes", EXPORT_BYTES)
+            if kv_export_bytes is None else kv_export_bytes
+            or EXPORT_BYTES)
         #: tensor-parallel positions (0 = off): Megatron weight splits
         #: and head-wise paged pools over a {"tp": N} mesh
         #: (serving/tp.py).  Needs the paged cache, N positions and a
         #: chain whose blocks declare tp layouts; otherwise the chain
         #: serves unsharded and ``tp`` reads 0, as in the reference.
-        tp = int(tp or 0)
+        tp = int(_serving_conf("tp", 0) if tp is None else tp or 0)
         if tp == 1:
             tp = 0
         self.tp_ = None
@@ -507,7 +550,7 @@ class InferenceScheduler(object):
             else:
                 self.tp_ = ServingTP(tp, positions)
         self.tp = tp
-        role = str(role or "both").lower()
+        role = str(role or _serving_conf("role", "both")).lower()
         if role not in ("both", "prefill", "decode"):
             raise ValueError("role must be 'prefill', 'decode' or 'both'")
         if role == "prefill" and self.kv != "paged":
@@ -2318,16 +2361,16 @@ class InferenceScheduler(object):
     def _adapt_draft_k(self, req, drafted, accepted, drafter):
         """Blend this verify's accept rate into the slot's EMA for
         ``drafter`` (weight ``draft_ema``), then halve its draft length
-        toward ``draft_k_min`` below DRAFT_SHRINK or double it toward
-        ``spec_k`` above DRAFT_GROW; count the drafts by drafter."""
+        toward ``draft_k_min`` below ``draft_shrink`` or double it toward
+        ``spec_k`` above ``draft_grow``; count the drafts by drafter."""
         rate = accepted / drafted
         prev = req.accept_ema.get(drafter)
         ema = rate if prev is None \
             else (1.0 - self.draft_ema) * prev + self.draft_ema * rate
         req.accept_ema[drafter] = ema
-        if ema < self.DRAFT_SHRINK:
+        if ema < self.draft_shrink:
             req.draft_k = max(self.draft_k_min, req.draft_k >> 1)
-        elif ema > self.DRAFT_GROW:
+        elif ema > self.draft_grow:
             req.draft_k = min(self.spec_k, req.draft_k << 1)
         self.stats.record_spec(drafted, accepted, drafter=drafter,
                                draft_k=req.draft_k)

@@ -9,9 +9,7 @@ scheduler (see :mod:`veles_tpu_torch.units`).
 A Workflow is itself a Unit, so workflows nest (ref: workflow.py:87).
 The top-level workflow takes its mode (standalone / coordinator /
 worker) from its parent :class:`~veles_tpu_torch.launcher.Launcher`
-when the command line runs it (only the standalone mode is ported: the
-master/worker exchange is ROADMAP item 10), and is standalone without
-one.  The reference's ``root.common`` keys the units read become
+when the command line runs it, and is standalone without one.  The reference's ``root.common`` keys the units read become
 keyword arguments of the top-level workflow under the reference's
 names: ``trace_run`` and ``timings`` (see :mod:`veles_tpu_torch.units`;
 the command line fills them from ``root.common``).
@@ -170,8 +168,9 @@ class Workflow(Unit):
             u.stop()
 
     # -- master–worker aggregation (IDistributable over all units,
-    #    ref: workflow.py:478-558); no master or worker drives these in
-    #    the port until ROADMAP item 10 -------------------------------------
+    #    ref: workflow.py:478-558), driven by the elastic coordinator
+    #    (parallel/coordinator.py) in the launcher's master and worker
+    #    modes -----------------------------------------------------------
 
     def _unit_keys(self):
         # unique payload keys: units may share a default name, and
