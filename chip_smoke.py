@@ -325,6 +325,33 @@ result line):
    losses bit-equal across the processes, within phase 15's agreement
    of the unsharded run, kernel 3 launched per layer per step in each,
    and the pickled trainer resuming over the gang.
+17. fleet — the serving fleet and its observability (``fleet_check``,
+   run after phase 6f while the spec phase's trained chain lives):
+   (a) a ``Router`` over a ``Fleet`` of ``LocalReplica``s (each a
+   ``RESTfulAPI`` at the REST defaults, int8 KV, 4 slots, over its own
+   copy of one numpy draw of the serve phase's chain) under
+   ``bench_router``'s load at 1 and 2 replicas: no failed request,
+   every reply FLEET_STEPS new tokens, kernels 1 and 2 at 8 and 24
+   launches per model pass over the load and in each replica alone;
+   aggregate tokens/s and the TTFT p95 of one-step probes, the 2-replica
+   figures marked as one card and one interpreter shared; (b) 2 replicas
+   of the trained chain: routed greedy replies equal to the direct
+   scheduler's, a stream killed by ``router.stream.replica_death``
+   spliced from the peer equal to the uninterrupted one (the
+   kill-to-next-frame gap printed), a rolling restart under 8 clients
+   with no failed request, kill/respawn cycles, every pool clean, and
+   ``memory_allocated`` back to its value before the fleet within 1 %;
+   (c) ``replica_unreachable`` firing after its hold-down with the
+   respawn pinned failing (``fleet.replica.spawn``) and resolving,
+   ``/metrics/fleet`` equal to the hand-summed replica scrapes,
+   ``/metrics/history`` on the router and a replica, ``/dashboard``, a
+   flight-recorder bundle's ``alerts`` and ``history``, the alert tick
+   over the live registry, and one replica's decode rate with its store
+   and engine on and off (3 runs each, printed, not gated); (d) an armed
+   ``FleetController`` (1 to 2 replicas) growing under a burst and
+   draining back when quiet with no failed request, a flooding tenant's
+   429s with ``Retry-After`` while another tenant is served, and
+   ``/tenants/usage`` equal to the clients' counts.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -345,8 +372,9 @@ under ``s2d_vgg_launches``, the uniform fill's phase 11 launches
 under ``families_launches``, the launches of phase 12's workflow runs
 (AlexNet's, the LM's and the transformer's) under
 ``workflow_launches``, phase 13's card runs under ``input_launches``,
-and phase 16's (its workers' and gang processes' included) under
-``distributed_launches``
+phase 16's (its workers' and gang processes' included) under
+``distributed_launches``, and phase 17's (a) and (b) under
+``fleet_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -1948,12 +1976,9 @@ def serve_check(torch, dev):
     from veles_tpu_torch.convert import init_params
     from veles_tpu_torch.ops import gemm, paged_attend as pa
     from veles_tpu_torch.serving import InferenceScheduler
-    spec = [{"type": "embedding", "vocab": VOCAB, "dim": DIM}]
-    spec += [{"type": "transformer_block", "heads": HEADS,
-              "int8_decode": True} for _ in range(LAYERS)]
-    spec += [{"type": "token_logits", "vocab": VOCAB}]
     t0 = time.perf_counter()
-    chain = init_params(spec, 0, WINDOW, device=dev, dtype="bfloat16")
+    chain = init_params(serve_spec(), 0, WINDOW, device=dev,
+                        dtype="bfloat16")
     sch = InferenceScheduler(chain, max_slots=SLOTS, window=WINDOW,
                              block_size=BLOCK, kv_dtype="int8",
                              prefill_chunk=CHUNK, spec=False,
@@ -7414,6 +7439,812 @@ def distributed_check(torch, dev):
     return launches
 
 
+# -- phase 17: the serving fleet and its observability -------------------------
+
+#: the fleet phase (``bench.py``'s ``bench_router``): FLEET_PROMPT-token
+#: prompts x FLEET_STEPS greedy steps from 2·n·FLEET_SLOTS clients of
+#: FLEET_REQUESTS requests each, at n in FLEET_COUNTS replicas of
+#: FLEET_SLOTS slots; FLEET_PROBES one-step TTFT probes; (b)'s
+#: FLEET_ROUTED prompts and FLEET_KILLS kill/respawn cycles; (c)'s
+#: FLEET_RATE_RUNS on/off runs of FLEET_RATE_REQUESTS requests of
+#: FLEET_RATE_STEPS steps and FLEET_TICKS timed alert ticks; (d)'s burst
+#: of FLEET_BURST clients
+FLEET_PROMPT, FLEET_STEPS, FLEET_SLOTS, FLEET_REQUESTS = 128, 64, 4, 4
+FLEET_COUNTS, FLEET_PROBES = (1, 2), 12
+FLEET_ROUTED, FLEET_KILLS = 8, 3
+FLEET_RATE_RUNS, FLEET_RATE_REQUESTS, FLEET_RATE_STEPS = 3, 4, 256
+#: the on-arm's store and engine tick at 4 Hz, four times the shipped
+#: 1 s cadence, so each sub-second run holds several ticks
+FLEET_RATE_INTERVAL = 0.25
+FLEET_TICKS, FLEET_BURST = 200, 16
+#: memory after the fleet stops, against before it started
+FLEET_MEMORY_TOL = 0.01
+#: a shared card and one interpreter: what every fleet rate measures
+FLEET_SHARED = ("replicas share one card and one interpreter: each pass's "
+                "host sync waits on the other replicas' work and the "
+                "scheduler threads contend for the GIL, so rates measure "
+                "shared host and card, not fleet scaling")
+
+
+def serve_spec():
+    """The serve phase's layer spec (``int8_decode`` on)."""
+    spec = [{"type": "embedding", "vocab": VOCAB, "dim": DIM}]
+    spec += [{"type": "transformer_block", "heads": HEADS,
+              "int8_decode": True} for _ in range(LAYERS)]
+    spec += [{"type": "token_logits", "vocab": VOCAB}]
+    return spec
+
+
+def _fleet_chain(dev, spec, params):
+    """A replica's own copy of one numpy draw of the weights (the port's
+    weight carry-across), bf16, ``int8_decode`` on every block."""
+    from veles_tpu_torch.convert import params_from_numpy
+    chain = params_from_numpy(spec, params, device=dev, dtype="bfloat16")
+    for u in chain:
+        if hasattr(u, "int8_decode"):
+            u.int8_decode = True
+    return chain
+
+
+def _fleet_spawner(dev, spec, params, made):
+    """``Fleet``'s spawn: a ``LocalReplica`` around a ``RESTfulAPI`` at
+    the REST defaults (int8 KV, block 16, spec and the prefix cache as
+    ``root.common.serving`` has them) over its own copy of the
+    weights."""
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    from veles_tpu_torch.serving import LocalReplica
+
+    def spawn(index, role=None):
+        api = RESTfulAPI(forwards=_fleet_chain(dev, spec, params),
+                         max_slots=FLEET_SLOTS, max_queue=256,
+                         request_timeout=600.0, serving_kv_dtype="int8",
+                         serving_block_size=BLOCK, device=dev)
+        api.initialize()
+        made.append(api.replica_id)
+        return LocalReplica(api)
+    return spawn
+
+
+def _url_call(url, path, body=None, headers=None, timeout=600):
+    """One request through the router: (status, headers, JSON body);
+    error statuses are returned."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url + path, data=None if body is None else json.dumps(body).encode(),
+        headers=dict({"Content-Type": "application/json"}, **(headers or {})))
+    try:
+        resp = urllib.request.urlopen(req, timeout=timeout)
+    except urllib.error.HTTPError as e:
+        resp = e
+    raw = resp.read()
+    code = resp.status if hasattr(resp, "status") else resp.code
+    try:
+        return code, resp.headers, json.loads(raw)
+    except ValueError:
+        return code, resp.headers, raw
+
+
+def _router_sse(url, body):
+    """An SSE ``/generate`` through the router: each frame's payload and
+    arrival stamp, and the X-Veles-Replica it was pinned to."""
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/generate", data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    resp = urllib.request.urlopen(req, timeout=600)
+    frames = []
+    try:
+        pinned = resp.headers["X-Veles-Replica"]
+        for line in resp:
+            if line.strip() == b"data: [DONE]":
+                break
+            if line.startswith(b"data: "):
+                frames.append((time.perf_counter(), json.loads(line[6:])))
+    finally:
+        resp.close()
+    return frames, pinned
+
+
+def _fleet_wait(what, cond, limit=120.0):
+    deadline = time.monotonic() + limit
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SystemExit("fleet: timed out waiting for " + what)
+        time.sleep(0.05)
+
+
+def _fleet_live(router):
+    return [r for r in router.replica_state()["replicas"] if r["healthy"]]
+
+
+def _replica_launches(torch, handle, body):
+    """One request sent to the replica itself with the serving kernels'
+    counts zeroed just before and read just after (every other replica
+    idle): its launches and its scheduler's model passes."""
+    sch = handle.api.scheduler_
+    torch.cuda.synchronize()
+    passes0 = _passes(sch)
+    zero_serving_counts()
+    code, _, reply = _http(handle.port, "/generate", body)
+    torch.cuda.synchronize()
+    got = read_serving_counts()
+    if code != 200:
+        raise SystemExit("fleet (a): replica %s answered %d"
+                         % (handle.replica_id, code))
+    return got, _passes(sch) - passes0
+
+
+def fleet_load(torch, dev, spec, params, n, prompt):
+    """Part (a) at ``n`` replicas: a Router over a Fleet of LocalReplicas,
+    FLEET_PROBES one-step probes (TTFT through the router), then 2·n·
+    FLEET_SLOTS clients of FLEET_REQUESTS requests with the serving
+    kernels' counts zeroed just before and read just after: no failed
+    request, every reply FLEET_STEPS new tokens, the launches 8 and 24
+    per model pass of the fleet; then each replica alone, its launches
+    above 0 and 8/24 per its own passes.  Returns the numbers and the
+    launches."""
+    from veles_tpu_torch.serving import Fleet, Router
+    made = []
+    router = Router(health_interval=0.5, request_timeout=600.0).start()
+    fleet = Fleet(_fleet_spawner(dev, spec, params, made), n,
+                  router=router).start()
+    try:
+        _fleet_wait("%d healthy replicas" % n,
+                    lambda: len(_fleet_live(router)) >= n)
+        url = router.url
+        body = {"prompt": prompt, "steps": FLEET_STEPS}
+        for h in fleet.handles().values():   # warm each replica
+            if _http(h.port, "/generate", body)[0] != 200:
+                raise SystemExit("fleet (a): a warm-up request failed")
+        probes = []
+        for _ in range(FLEET_PROBES):
+            t0 = time.perf_counter()
+            code, _, _ = _url_call(url, "/generate",
+                                   {"prompt": prompt, "steps": 1})
+            probes.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise SystemExit("fleet (a): a probe answered %d" % code)
+        clients = 2 * n * FLEET_SLOTS
+        replies, fails = [], []
+
+        def client(c):
+            for k in range(FLEET_REQUESTS):
+                code, _, out = _url_call(url, "/generate",
+                                         dict(body, seed=k))
+                if code != 200:
+                    fails.append(code)
+                else:
+                    replies.append(out["tokens"])
+
+        handles = fleet.handles()
+        passes0 = {i: _passes(h.api.scheduler_) for i, h in handles.items()}
+        torch.cuda.synchronize()
+        zero_serving_counts()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_serving_counts()
+        passes = {i: _passes(h.api.scheduler_) - passes0[i]
+                  for i, h in handles.items()}
+        if fails or len(replies) != clients * FLEET_REQUESTS \
+                or any(len(r) != FLEET_PROMPT + FLEET_STEPS
+                       or r[:FLEET_PROMPT] != prompt for r in replies):
+            raise SystemExit("fleet (a): %d failed requests (%s), %d "
+                             "replies of %d" % (len(fails), fails[:5],
+                                                len(replies),
+                                                clients * FLEET_REQUESTS))
+        check_pass_launches("fleet (a) n=%d" % n, sum(passes.values()), got)
+        per = {}
+        for i, h in sorted(handles.items()):
+            own, own_passes = _replica_launches(torch, h, body)
+            check_pass_launches("fleet (a) replica %d alone" % i,
+                                own_passes, own)
+            per[h.replica_id] = {"paged_attend": own["paged_attend"],
+                                 "int8_gemm": own["int8_gemm"],
+                                 "passes": own_passes,
+                                 "load_passes": passes[i]}
+        state = router.replica_state()["router"]
+    finally:
+        fleet.stop()
+        router.stop()
+    probes.sort()
+    numbers = {
+        "replicas": n, "clients": clients, "requests": len(replies),
+        "failed": len(fails),
+        "aggregate_tokens_per_s": len(replies) * FLEET_STEPS / wall,
+        "wall_s": wall,
+        "ttft_p95_ms": probes[int(0.95 * (len(probes) - 1))],
+        "ttft_p50_ms": probes[len(probes) // 2],
+        "passes": sum(passes.values()),
+        "launches": {k: got[k] for k in ("paged_attend", "int8_gemm")},
+        "per_replica_alone": per,
+        "router_request_ms_p95": state.get("request_ms_p95")}
+    if n > 1:
+        numbers["note"] = FLEET_SHARED
+    return numbers, {k: got[k] for k in ("paged_attend", "int8_gemm")}
+
+
+def fleet_failover(torch, dev, trained, pattern, launches):
+    """Part (b) and (c), on the spec phase's trained chain with 2
+    replicas (each its own copy of one numpy draw): FLEET_ROUTED greedy
+    prompts through the router, concurrently, equal to the direct
+    scheduler's; a 64-token greedy stream killed mid-stream by
+    ``router.stream.replica_death`` and spliced from the peer, equal to
+    the uninterrupted one with no error frame; ``rolling_restart``
+    under 8 clients with no failed request; FLEET_KILLS kill/respawn
+    cycles; each survivor's pool clean; then (c) the observability
+    checks; after the fleet stops, ``memory_allocated`` back within
+    FLEET_MEMORY_TOL of its value before."""
+    import gc
+    from veles_tpu_torch import faults
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.convert import params_to_numpy
+    from veles_tpu_torch.samples.lm import lm_spec
+    from veles_tpu_torch.serving import Fleet, InferenceScheduler, Router
+    out = {}
+    spec = lm_spec(VOCAB, DIM, LAYERS, HEADS)
+    params = params_to_numpy(trained)
+    prompts = [(pattern * 12)[i:i + SPEC_PROMPT]
+               for i in range(FLEET_ROUTED)]
+    steps = FLEET_STEPS
+    sch = InferenceScheduler(trained, max_slots=FLEET_SLOTS, window=WINDOW,
+                             block_size=BLOCK, kv_dtype="int8",
+                             device=dev).start()
+    try:
+        direct = [f.result(600) for f in
+                  [sch.submit(p, steps) for p in prompts]]
+    finally:
+        sch.close()
+    del sch
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    threads0 = {t.ident for t in threading.enumerate()}
+    saved = {"interval": root.common.alerts.get("interval", 1.0)}
+    root.common.alerts.interval = 0.1
+    made = []
+    router = Router(health_interval=0.1, health_timeout=5.0,
+                    request_timeout=600.0, retries=4, retry_delay=0.02,
+                    retry_cap=0.2).start()
+    fleet = Fleet(_fleet_spawner(dev, spec, params, made), 2,
+                  router=router, monitor_interval=0.25, spawn_retries=2,
+                  spawn_delay=0.05).start()
+    url = router.url
+    try:
+        _fleet_wait("2 healthy replicas", lambda: len(_fleet_live(router)) == 2)
+        mem = out["memory_allocated_by_step"] = [
+            ("2 replicas up", torch.cuda.memory_allocated())]
+        passes0 = sum(_passes(h.api.scheduler_)
+                      for h in fleet.handles().values())
+        torch.cuda.synchronize()
+        zero_serving_counts()
+        results = [None] * len(prompts)
+
+        def routed(i):
+            results[i] = _url_call(url, "/generate",
+                                   {"prompt": prompts[i], "steps": steps})
+
+        threads = [threading.Thread(target=routed, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        got = read_serving_counts()
+        check_pass_launches("fleet (b)", sum(
+            _passes(h.api.scheduler_) for h in fleet.handles().values())
+            - passes0, got)
+        for k in launches:
+            launches[k] += got[k]
+        if any(r is None or r[0] != 200 or r[2]["tokens"] != d
+               for r, d in zip(results, direct)):
+            raise SystemExit("fleet (b): a routed greedy reply differs from "
+                             "the direct scheduler's: %s"
+                             % [r and (r[0], r[2].get("tokens") == d)
+                                for r, d in zip(results, direct)])
+        out["routed_equal_direct"] = len(prompts)
+        # the replayable stream killed mid-way and spliced from the peer
+        faults.inject("router.stream.replica_death", "drop", after=2,
+                      times=1)
+        frames, pinned = _router_sse(url, {"prompt": prompts[0],
+                                           "steps": steps})
+        faults.clear("router.stream.replica_death")
+        toks = [f["token"] for _, f in frames if "token" in f]
+        final = frames[-1][1] if frames else {}
+        errors = [f for _, f in frames if "error" in f]
+        resumed = router.stats.snapshot()["stream_failovers"].get(
+            "resumed", 0)
+        if errors or prompts[0] + toks != direct[0] \
+                or final.get("tokens") != direct[0] or resumed != 1:
+            raise SystemExit("fleet (b): the failed-over stream differs "
+                             "(errors %s, resumed %d)" % (errors, resumed))
+        stamps = [t for t, f in frames if "token" in f]
+        gaps = token_gaps([stamps])
+        out["failover_stream_resume_ms"] = (stamps[2] - stamps[1]) * 1e3
+        out["stream_gap_ms_median"] = sorted(gaps)[len(gaps) // 2]
+        # a rolling restart under 8 clients
+        stop, fails, served = threading.Event(), [], [0]
+
+        def client(i):
+            k = 0
+            while not stop.is_set():
+                code, _, r = _url_call(url, "/generate", {
+                    "prompt": prompts[(i + k) % len(prompts)],
+                    "steps": 16})
+                if code != 200:
+                    fails.append(code)
+                else:
+                    served[0] += 1
+                k += 1
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        report = fleet.rolling_restart(drain_timeout=120)
+        out["rolling_restart_s"] = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(600)
+        if fails or len(report) != 2:
+            raise SystemExit("fleet (b): the rolling restart failed %d "
+                             "requests (%s)" % (len(fails), fails[:5]))
+        out["rolling_restart_served"] = served[0]
+        gc.collect()
+        mem.append(("rolling restart", torch.cuda.memory_allocated()))
+        # kill/respawn cycles
+        t_respawn = []
+        for c in range(FLEET_KILLS):
+            idx = c % 2
+            old = fleet.replica_id(idx)
+            t0 = time.perf_counter()
+            fleet.handles()[idx].stop()
+            _fleet_wait("the respawn of replica %d" % idx, lambda: (
+                fleet.replica_id(idx) != old
+                and fleet.handles().get(idx) is not None
+                and fleet.handles()[idx].alive()
+                and len(_fleet_live(router)) == 2))
+            t_respawn.append(time.perf_counter() - t0)
+            gc.collect()
+            mem.append(("kill %d" % c, torch.cuda.memory_allocated()))
+        out["respawn_s"] = t_respawn
+        _fleet_pools_clean(fleet)
+        code, _, r = _url_call(url, "/generate", {"prompt": prompts[1],
+                                                  "steps": steps})
+        if code != 200 or r["tokens"] != direct[1]:
+            raise SystemExit("fleet (b): a respawned fleet's reply differs")
+        out["c"] = fleet_observability(torch, router, fleet)
+    finally:
+        faults.clear()
+        fleet.stop()
+        router.stop()
+        root.common.alerts.interval = saved["interval"]
+    del fleet, router
+    _fleet_wait("the replicas' threads to end", lambda: not [
+        t for t in threading.enumerate() if t.ident not in threads0
+        and t.name.startswith(("serving-scheduler", "serving-watchdog",
+                               "restful-api", "tsdb-", "alerts-"))],
+        limit=60)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    out["memory_allocated_before_after"] = [mem0, mem1]
+    out["replicas_made"] = len(made)
+    if abs(mem1 - mem0) > FLEET_MEMORY_TOL * mem0:
+        raise SystemExit("fleet (b): memory_allocated %d after the fleet "
+                         "stopped, %d before it started (%d replicas "
+                         "made); still alive: %s"
+                         % (mem1, mem0, len(made), _fleet_survivors()))
+    return out
+
+
+def _fleet_survivors():
+    """What keeps a stopped replica's objects alive: each live
+    RESTfulAPI and InferenceScheduler with its referrers' types, and
+    the live threads' names."""
+    import gc
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    from veles_tpu_torch.serving import InferenceScheduler
+    gc.collect()
+    rows = []
+    for obj in gc.get_objects():
+        if isinstance(obj, (RESTfulAPI, InferenceScheduler)):
+            refs = []
+            for r in gc.get_referrers(obj):
+                if isinstance(r, dict):
+                    owners = [type(o).__name__ for o in gc.get_referrers(r)
+                              if not isinstance(o, list)][:3]
+                    refs.append("dict(%s) of %s" % (sorted(r)[:4], owners))
+                else:
+                    refs.append(type(r).__name__)
+            rows.append((type(obj).__name__, refs[:6]))
+    return {"objects": rows[:12],
+            "threads": sorted(t.name for t in threading.enumerate())}
+
+
+def _fleet_pools_clean(fleet):
+    """Every live replica's KV pool swept clean: no block held beyond the
+    prefix cache's residents (a function of its own, so no local keeps
+    a replica alive past the fleet's stop)."""
+    for handle in fleet.handles().values():
+        sch = handle.api.scheduler_
+        sch.check_kv()
+        if sch.cache_.used_blocks != sch.prefix_cache_blocks_resident:
+            raise SystemExit("fleet (b): replica %s's pool leaked blocks"
+                             % handle.replica_id)
+
+
+def _hand_summed(texts):
+    """The fleet view of in-process replicas' scrapes, summed by hand:
+    every unlabeled ``veles_serving_*_total`` counter's value summed
+    over the scrapes."""
+    total = {}
+    for text in texts:
+        kinds = {}
+        for line in text.splitlines():
+            if line.startswith("# TYPE "):
+                _, _, name, kind = line.split()
+                kinds[name] = kind
+            elif line and not line.startswith("#") and "{" not in line:
+                name, value = line.rsplit(" ", 1)
+                if name.startswith("veles_serving_") \
+                        and kinds.get(name) == "counter":
+                    total[name] = total.get(name, 0.0) + float(value)
+    return total
+
+
+def fleet_observability(torch, router, fleet):
+    """Part (c) on (b)'s fleet: one replica killed with its respawn
+    pinned failing (``fleet.replica.spawn``) and the supervisor's
+    monitor slowed past the rule's hold-down: the router's
+    ``replica_unreachable`` fires after its hold-down and resolves, and
+    the replica comes back; ``/metrics/fleet`` equal to the hand-summed
+    replica scrapes; ``/metrics/history`` on the router and a replica;
+    ``/dashboard``; a flight-recorder bundle's ``alerts`` and
+    ``history``; the alert engine's tick over the live registry."""
+    from veles_tpu_torch import faults
+    from veles_tpu_torch.telemetry.alerts import AlertEngine, default_rules
+    from veles_tpu_torch.telemetry.flight_recorder import recorder
+    url, out = router.url, {}
+    rule = next(r for r in default_rules() if r.name == "replica_unreachable")
+    idx = 0
+    victim = fleet.replica_id(idx)
+    # the supervisor's next look comes after the rule's hold-down
+    fleet.monitor_interval = 4.0
+    time.sleep(0.5)
+    faults.inject("fleet.replica.spawn", "exception", times=2, key=str(idx))
+    t_kill = time.perf_counter()
+    fleet.handles()[idx].stop()
+
+    def alert_rows(kind):
+        return [a for a in _url_call(url, "/alerts")[2][kind]
+                if a["rule"] == "replica_unreachable"
+                and a["labels"].get("replica") == victim]
+
+    _fleet_wait("replica_unreachable to fire", lambda: alert_rows("firing"),
+                limit=30)
+    t_fire = time.perf_counter() - t_kill
+    _fleet_wait("replica_unreachable to resolve",
+                lambda: alert_rows("recent_resolved"), limit=60)
+    t_resolve = time.perf_counter() - t_kill
+    fleet.monitor_interval = 0.25
+    _fleet_wait("the pinned respawn", lambda: (
+        fleet.replica_id(idx) not in (None, victim)
+        and fleet.handles().get(idx) is not None
+        and len(_fleet_live(router)) == 2), limit=120)
+    t_up = time.perf_counter() - t_kill
+    faults.clear("fleet.replica.spawn")
+    if t_fire < rule.for_seconds:
+        raise SystemExit("fleet (c): replica_unreachable fired %.2f s after "
+                         "the kill, inside its %.1f s hold-down"
+                         % (t_fire, rule.for_seconds))
+    out["alert"] = {"hold_down_s": rule.for_seconds, "fired_s": t_fire,
+                    "resolved_s": t_resolve, "respawned_s": t_up,
+                    "resolved_by": "deregistration of the dead replica "
+                                   "(its series is forgotten)"}
+    # federation: quiesced, two health polls past the last request
+    time.sleep(0.5)
+    handles = list(fleet.handles().values())
+    texts = [_http(h.port, "/metrics")[2].decode() for h in handles]
+    code, _, fleet_text = _url_call(url, "/metrics/fleet")
+    fleet_text = fleet_text.decode()
+    want = _hand_summed(texts)
+    got = _hand_summed([fleet_text])
+    if code != 200 or not want or got != want:
+        raise SystemExit("fleet (c): /metrics/fleet differs from the "
+                         "hand-summed scrapes: %s"
+                         % {k: (got.get(k), v) for k, v in want.items()
+                            if got.get(k) != v})
+    out["fleet_counters_equal"] = len(want)
+    # the replica the kill spared: its store has sampled for a while
+    spared = fleet.handles()[1]
+    _fleet_wait("the spared replica's history", lambda: (
+        spared.api.tsdb_ is not None and spared.api.tsdb_.samples >= 2),
+        limit=30)
+    for where, base in (("router", url),
+                        ("replica", "http://127.0.0.1:%d" % spared.port)):
+        code, _, cat = _url_call(base, "/metrics/history")
+        series = "veles_serving_tokens_generated_total"
+        c2, _, ans = _url_call(base, "/metrics/history?series=%s&window=60"
+                               "&agg=rate" % series)
+        if code != 200 or c2 != 200 or not cat.get("samples") \
+                or ans.get("value") is None:
+            raise SystemExit("fleet (c): /metrics/history on the %s answered "
+                             "%d %s / %d %s" % (where, code, cat, c2, ans))
+        out["history_%s" % where] = {"samples": cat["samples"],
+                                     "tokens_per_s_60s": ans["value"]}
+    code, _, page = _url_call(url, "/dashboard")
+    if code != 200 or not all(h.replica_id.encode() in page
+                              for h in handles):
+        raise SystemExit("fleet (c): /dashboard did not render the fleet")
+    bundle = recorder.bundle("fleet phase")
+    if not isinstance(bundle.get("alerts"), list) \
+            or "router" not in bundle.get("history", {}):
+        raise SystemExit("fleet (c): the bundle lacks alerts or history: %s"
+                         % {k: type(bundle.get(k)).__name__
+                            for k in ("alerts", "history")})
+    out["bundle"] = {"alerts": len(bundle["alerts"]),
+                     "history_stores": sorted(bundle["history"])}
+    engine = AlertEngine(name="fleet-tick", interval=3600)
+    engine.tick()
+    t0 = time.perf_counter()
+    for _ in range(FLEET_TICKS):
+        engine.tick()
+    out["alert_eval_overhead_us"] = \
+        (time.perf_counter() - t0) / FLEET_TICKS * 1e6
+    out["alert_eval_rules"] = len(engine.rules)
+    return out
+
+
+def fleet_rates(torch, dev, trained, pattern):
+    """Part (c): one replica's REST decode rate with its history store
+    and alert engine running (ticking every FLEET_RATE_INTERVAL s) and
+    without them, FLEET_RATE_RUNS runs each, alternated:
+    FLEET_RATE_REQUESTS concurrent requests of FLEET_RATE_STEPS greedy
+    steps; median and range, and the ticks and samples of each on-run
+    (the reference's < 5 % contract, printed, not gated)."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    from veles_tpu_torch.telemetry.alerts import AlertEngine
+    from veles_tpu_torch.telemetry.tsdb import TimeSeriesStore
+    saved = (root.common.tsdb.get("enabled", True),
+             root.common.alerts.get("enabled", True))
+    root.common.tsdb.enabled = root.common.alerts.enabled = False
+    try:
+        api = RESTfulAPI(forwards=trained, max_slots=FLEET_SLOTS,
+                         serving_kv_dtype="int8", serving_block_size=BLOCK,
+                         serving_prefix_cache=False, device=dev)
+        api.initialize()
+    finally:
+        root.common.tsdb.enabled, root.common.alerts.enabled = saved
+    prompts = [(pattern * 12)[i:i + SPEC_PROMPT]
+               for i in range(FLEET_RATE_REQUESTS)]
+    rates, ticks = {"on": [], "off": []}, []
+    try:
+        sch = api.scheduler_
+        _http(api.port, "/generate", {"prompt": prompts[0], "steps": 8})
+        for run in range(2 * FLEET_RATE_RUNS):
+            arm = "on" if run % 2 == 0 else "off"
+            if arm == "on":
+                api.tsdb_ = TimeSeriesStore(
+                    name=api.replica_id, interval=FLEET_RATE_INTERVAL,
+                    tiers=((FLEET_RATE_INTERVAL, 600.0),)).start()
+                api.alerts_ = AlertEngine(name=api.replica_id,
+                                          interval=FLEET_RATE_INTERVAL,
+                                          tsdb=api.tsdb_).start()
+            toks0, secs0 = sch.decode_tokens, sch.decode_seconds
+            results = [None] * len(prompts)
+
+            def client(i):
+                results[i] = _http(api.port, "/generate", {
+                    "prompt": prompts[i], "steps": FLEET_RATE_STEPS})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            if any(r is None or r[0] != 200 for r in results):
+                raise SystemExit("fleet (c): a rate request failed")
+            rates[arm].append((sch.decode_tokens - toks0)
+                              / (sch.decode_seconds - secs0))
+            if arm == "on":
+                api.alerts_.stop()
+                api.tsdb_.stop()
+                ticks.append((api.alerts_.ticks, api.tsdb_.samples))
+                api.alerts_ = api.tsdb_ = None
+    finally:
+        api.stop()
+    out = {}
+    for arm, xs in rates.items():
+        xs.sort()
+        out[arm] = {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1]}
+    out["on_over_off"] = out["on"]["median"] / out["off"]["median"]
+    out["on_runs_ticks_samples"] = ticks
+    if not all(t > 0 and n > 0 for t, n in ticks):
+        raise SystemExit("fleet (c): an on-run's engines did not tick: %s"
+                         % ticks)
+    return out
+
+
+def fleet_control(torch, dev, trained, pattern):
+    """Part (d): an armed ``FleetController`` (min 1, max 2) over a fleet
+    of one replica of the trained chain grows it to 2 under a burst of
+    FLEET_BURST clients and drains it back to 1 when quiet, no request
+    failing; then, tenant admission on: a flooding tenant
+    (``X-Veles-Tenant``) gets 429s with ``Retry-After`` while another
+    tenant is served, and ``/tenants/usage`` counts the served tokens
+    exactly (one replica: its scrape is the process registry), its
+    KV-block-seconds above 0."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.convert import params_to_numpy
+    from veles_tpu_torch.samples.lm import lm_spec
+    from veles_tpu_torch.serving import Fleet, Router
+    from veles_tpu_torch.serving.controller import FleetController
+    spec = lm_spec(VOCAB, DIM, LAYERS, HEADS)
+    params = params_to_numpy(trained)
+    saved = {s: getattr(root.common, s).__content__()
+             for s in ("controller", "tenant")}
+    root.common.controller.update({
+        "enabled": True, "interval": 0.5, "min_replicas": 1,
+        "max_replicas": 2, "queue_high": 2.0, "occupancy_low": 0.3,
+        "quiet_ticks": 3, "scale_up_cooldown": 0.0,
+        "scale_down_cooldown": 0.0})
+    made, out = [], {}
+    router = Router(health_interval=0.2, health_timeout=5.0,
+                    request_timeout=600.0, retries=4, retry_delay=0.02,
+                    retry_cap=0.2).start()
+    fleet = Fleet(_fleet_spawner(dev, spec, params, made), 1,
+                  router=router, monitor_interval=0.25).start()
+    ctl = FleetController(router, fleet)
+    url = router.url
+    prompts = [(pattern * 12)[i:i + SPEC_PROMPT] for i in range(8)]
+    try:
+        _fleet_wait("1 healthy replica", lambda: len(_fleet_live(router)) == 1)
+        if not FleetController.enabled() or ctl.start()._thread is None:
+            raise SystemExit("fleet (d): the controller did not arm")
+        fails, done, sizes = [], [0], []
+        stop = threading.Event()
+
+        def client(i):
+            k = 0
+            while not stop.is_set():
+                code, _, _ = _url_call(url, "/generate", {
+                    "prompt": prompts[(i + k) % len(prompts)],
+                    "steps": FLEET_STEPS})
+                if code != 200:
+                    fails.append(code)
+                else:
+                    done[0] += 1
+                k += 1
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(FLEET_BURST)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        _fleet_wait("the scale-up", lambda: len(fleet.handles()) == 2
+                    and len(_fleet_live(router)) == 2, limit=120)
+        out["scaled_up_s"] = time.perf_counter() - t0
+        time.sleep(2.0)   # the grown replica takes traffic
+        stop.set()
+        for t in threads:
+            t.join(600)
+        t1 = time.perf_counter()
+        _fleet_wait("the drain back to 1", lambda: len(fleet.handles()) == 1
+                    and any(d["action"] == "scale_down"
+                            for d in ctl.audit()), limit=120)
+        out["scaled_down_s"] = time.perf_counter() - t1
+        if fails:
+            raise SystemExit("fleet (d): %d requests failed during the "
+                             "controller's scaling (%s)"
+                             % (len(fails), fails[:5]))
+        out["burst_requests"] = done[0]
+        out["decisions"] = [{k: d.get(k) for k in (
+            "action", "reason", "replica", "index", "replicas")}
+            for d in ctl.audit()]
+        ctl.stop()
+        actions = [d["action"] for d in out["decisions"]]
+        if "scale_up" not in actions or "scale_down" not in actions:
+            raise SystemExit("fleet (d): decisions %s" % actions)
+        # tenants
+        root.common.tenant.update({"enabled": True, "rate": 0.5,
+                                   "burst": 2.0, "max_concurrent": 0})
+        flood, calm = "p17-flood", "p17-calm"
+        codes, retry_after = [], []
+        sent = {flood: [0, 0], calm: [0, 0]}
+        body = {"prompt": prompts[0], "steps": 8}
+        for k in range(8):
+            code, hdr, _ = _url_call(url, "/generate", body,
+                                     headers={"X-Veles-Tenant": flood})
+            codes.append(code)
+            if code == 429:
+                retry_after.append(float(hdr["Retry-After"]))
+            elif code == 200:
+                sent[flood][0] += len(body["prompt"])
+                sent[flood][1] += body["steps"]
+            if k % 4 == 0:
+                code, _, _ = _url_call(url, "/generate", body,
+                                       headers={"X-Veles-Tenant": calm})
+                if code != 200:
+                    raise SystemExit("fleet (d): the calm tenant got %d"
+                                     % code)
+                sent[calm][0] += len(body["prompt"])
+                sent[calm][1] += body["steps"]
+        if codes.count(429) < 1 or not all(r > 0 for r in retry_after):
+            raise SystemExit("fleet (d): the flood was not throttled: %s"
+                             % codes)
+        time.sleep(0.6)   # past the next health poll's scrape
+
+        def usage():
+            return _url_call(url, "/tenants/usage")[2]["tenants"]
+
+        _fleet_wait("the usage rollup", lambda: all(
+            usage().get(t, {}).get("generated_tokens") == g
+            for t, (_, g) in sent.items()), limit=30)
+        rows = usage()
+        for t, (p, g) in sent.items():
+            if rows[t]["prompt_tokens"] != p \
+                    or rows[t]["generated_tokens"] != g \
+                    or not rows[t]["kv_block_seconds"] > 0:
+                raise SystemExit("fleet (d): /tenants/usage %s for %s, the "
+                                 "clients counted %d prompt and %d "
+                                 "generated tokens" % (rows[t], t, p, g))
+        out["tenants"] = {"flood_codes": codes, "retry_after_s": retry_after,
+                          "usage": {t: rows[t] for t in sent}}
+    finally:
+        ctl.stop()
+        fleet.stop()
+        router.stop()
+        for s, content in saved.items():
+            getattr(root.common, s).update(content)
+    out["replicas_made"] = len(made)
+    return out
+
+
+def fleet_check(torch, dev, serve_chain, trained, pattern):
+    """Phase 17: the serving fleet and its observability (see the module
+    docstring).  Returns kernels 1 and 2's launches over (a) and (b)."""
+    from veles_tpu_torch.convert import params_to_numpy
+    t_phase = time.perf_counter()
+    spec = serve_spec()
+    params = params_to_numpy(serve_chain)
+    prompt = numpy.random.default_rng(0).integers(
+        0, VOCAB, FLEET_PROMPT).tolist()
+    launches = {"paged_attend": 0, "int8_gemm": 0}
+    out = {"a": {}}
+    for n in FLEET_COUNTS:
+        numbers, got = fleet_load(torch, dev, spec, params, n, prompt)
+        out["a"][str(n)] = numbers
+        log(json.dumps({"fleet (a)": numbers}))
+        for k in launches:
+            launches[k] += got[k]
+    del params
+    t0 = time.perf_counter()
+    out["b"] = fleet_failover(torch, dev, trained, pattern, launches)
+    out["c"] = out["b"].pop("c")
+    out["c"]["decode_rate_tsdb_alerts"] = fleet_rates(torch, dev, trained,
+                                                      pattern)
+    out["bc_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = fleet_control(torch, dev, trained, pattern)
+    out["d_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    log(json.dumps({"fleet": out}))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7468,6 +8299,7 @@ def main():
     rest_launches_ = rest_check(torch, dev, trained, pattern)
     tier_launches, wide = tiers_check(torch, dev, rate, trained, pattern)
     measured["paged_attend"]["wide"] = wide
+    fleet_launches = fleet_check(torch, dev, serve_chain, trained, pattern)
     del served, trained, serve_chain
     moe_launches = moe_serve_check(torch, dev, dense_numbers)
     launches.update(train_check(torch, dev)["launches"])
@@ -7524,7 +8356,8 @@ def main():
                          ("input_launches", input_launches),
                          ("cli_launches", cli_launches),
                          ("parallel_launches", parallel_launches),
-                         ("distributed_launches", dist_launches)):
+                         ("distributed_launches", dist_launches),
+                         ("fleet_launches", fleet_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))

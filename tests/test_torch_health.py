@@ -250,7 +250,10 @@ def _check_bundle(path, reason_prefix):
                 "requests"):
         assert key in bundle, "bundle missing %r" % key
     assert "health" in bundle and "status" in bundle["health"]
-    assert bundle["alerts"] == bundle["history"] == {"enabled": False}
+    # the live engines' sections: firing rows of every engine, tier-0
+    # tails of every store (empty with none running)
+    assert isinstance(bundle["alerts"], list)
+    assert isinstance(bundle["history"], dict)
     assert bundle["config"]["health"]["policy"] in health.POLICIES
     assert "jax" not in bundle
     return bundle

@@ -61,6 +61,32 @@ def test_parallel_modules_import_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+#: the modules of the serving fleet and its observability
+FLEET = ("veles_tpu_torch.tenant", "veles_tpu_torch.tenant.admission",
+         "veles_tpu_torch.telemetry.federation",
+         "veles_tpu_torch.telemetry.tsdb",
+         "veles_tpu_torch.telemetry.alerts",
+         "veles_tpu_torch.telemetry.dashboard",
+         "veles_tpu_torch.serving.fleet", "veles_tpu_torch.serving.router",
+         "veles_tpu_torch.serving.controller")
+
+
+def test_fleet_modules_import_with_jax_blocked():
+    """The tenant package, the store, alerts, federation and dashboard,
+    and the fleet, router and controller import one after another with
+    ``jax`` blocked, and none loads ``veles_tpu``."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "for m in %r:\n"
+            "    importlib.import_module(m)\n"
+            "    assert not any(n == 'veles_tpu' or n.startswith(\n"
+            "        'veles_tpu.') for n in sys.modules), m\n"
+            "print('ok')\n" % (FLEET,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_submodule_list_is_complete():
     import veles_tpu_torch
     found = set()
@@ -152,6 +178,18 @@ def test_entry_points_default_to_the_card():
     ("veles_tpu_torch.telemetry.flight_recorder", ("FlightRecorder",
                                                    "recorder", "_LogTail")),
     ("veles_tpu_torch.restful_api", ("RESTfulAPI", "_status_text")),
+    ("veles_tpu_torch.telemetry", ("AlertEngine", "AlertRule",
+                                   "default_rules", "firing_table",
+                                   "fleet_families", "merge_scrapes",
+                                   "parse_prometheus", "DEFAULT_TIERS",
+                                   "TimeSeriesStore", "bundle_history",
+                                   "history_query")),
+    ("veles_tpu_torch.tenant", ("TenantAdmission", "resolve_tenant")),
+    ("veles_tpu_torch.serving", ("Router", "Fleet", "LocalReplica",
+                                 "SubprocessReplica", "free_port",
+                                 "RouterMetrics")),
+    ("veles_tpu_torch.serving.metrics", ("RouterMetrics",
+                                         "forget_serving_replica")),
     ("veles_tpu_torch.serving", ("MedusaDraftHead", "draft_supported",
                                  "hidden_supported", "kv_quant_quality",
                                  "weight_quant_quality", "per_chip_bytes",

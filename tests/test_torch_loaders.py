@@ -644,3 +644,86 @@ def test_loader_exports_match_reference():
     for n in names:
         assert hasattr(pl, n) and hasattr(jl, n), n
     assert pl.CLASS_NAME == jl.CLASS_NAME
+
+
+# -- FullBatchLoader's host gather ---------------------------------------------
+
+def _synthetic(cls, wf, **kw):
+    """The oracle's ``SyntheticLoader`` (``tests/test_loader.py``) over
+    either package's ``FullBatchLoader``: 10/20/70 rows of 8 features,
+    the first feature the row index, labels ``lbl<i % 3>``."""
+
+    def load(self):
+        rng = numpy.random.default_rng(0)
+        data = rng.normal(size=(100, 8)).astype(numpy.float32)
+        data[:, 0] = numpy.arange(100)
+        self.class_lengths[:] = [10, 20, 70]
+        self.original_data = data
+        self.original_labels = ["lbl%d" % (i % 3) for i in range(100)]
+
+    loader = type("Synthetic", (cls,), {"load_data": load})(
+        wf, minibatch_size=16, **kw)
+    loader.span_serving = False
+    return loader
+
+
+@pytest.mark.parametrize("mode", ["force_numpy", "over_budget"])
+def test_fullbatch_host_gather_matches_device_and_jax(mode, monkeypatch):
+    """``force_numpy=True`` (oracle ``tests/test_loader.py::
+    TestDeviceGather::test_force_numpy_fallback``), and a dataset over
+    0.8 of a budget patched small, keep the dataset on the host: no
+    device copy, no span path, and every minibatch bit-equal to the
+    device-resident loader's and to the JAX package's under
+    ``force_numpy``."""
+    from veles_tpu.loader.fullbatch import FullBatchLoader as JFB
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+
+    def waves(loader, dev):
+        loader.initialize(device=dev)
+        out = _served(loader, 9)
+        loader.stop()
+        return loader, out
+
+    _, resident = waves(_synthetic(FullBatchLoader, None), "cpu")
+    if mode == "force_numpy":
+        kw = {"force_numpy": True}
+    else:
+        kw = {}
+        # 100 x 8 f32 rows are 3200 bytes: over 0.8 of 3000
+        monkeypatch.setattr(FullBatchLoader, "device_budget",
+                            lambda self: 3000)
+    host, got = waves(_synthetic(FullBatchLoader, None, **kw), "cpu")
+    assert host.dataset_dev is None and host.labels_dev is None
+    assert not host.span_capable
+    assert host.force_numpy == (mode == "force_numpy")
+    _assert_same_waves(got, resident)
+    with jax_state():
+        jl, want = waves(_synthetic(JFB, None, force_numpy=True), _jdev())
+        assert jl._dataset_dev_ is None
+    _assert_same_waves(got, want)
+
+
+def test_fullbatch_host_gather_targets(monkeypatch):
+    """Regression targets stay on the host with the dataset and are
+    gathered per minibatch, equal to the device-resident loader's."""
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+    rng = numpy.random.default_rng(3)
+    data = rng.normal(size=(40, 6)).astype(numpy.float32)
+    targets = rng.normal(size=(40, 2)).astype(numpy.float32)
+    out = []
+    for force in (False, True):
+        ld = FullBatchLoader(data, targets=targets, class_lengths=[0, 8, 32],
+                             minibatch_size=12, seed=5, device="cpu",
+                             force_numpy=force)
+        ld.span_serving = False
+        rows = []
+        for _ in range(6):
+            ld.run()
+            rows.append((ld.minibatch_data.mem.copy(),
+                         ld.minibatch_targets.mem.copy()))
+        ld.stop()
+        assert (ld.targets_dev is None) == force
+        out.append(rows)
+    for (d0, t0), (d1, t1) in zip(*out):
+        numpy.testing.assert_array_equal(d0, d1)
+        numpy.testing.assert_array_equal(t0, t1)

@@ -189,13 +189,10 @@ def fresh_tenant_labels():
     distinct tenants keep theirs); start both from none."""
     import veles_tpu.serving.metrics as jm
     import veles_tpu_torch.serving.metrics as tm
-    saved_j, saved_t = jm._tenant_bounder, dict(tm._tenant_labels)
-    jm._tenant_bounder = None
-    tm._tenant_labels.clear()
+    saved_j, saved_t = jm._tenant_bounder, tm._tenant_bounder
+    jm._tenant_bounder = tm._tenant_bounder = None
     yield
-    jm._tenant_bounder = saved_j
-    tm._tenant_labels.clear()
-    tm._tenant_labels.update(saved_t)
+    jm._tenant_bounder, tm._tenant_bounder = saved_j, saved_t
 
 
 def _drive_serving_metrics(sm, seed):

@@ -142,23 +142,27 @@ def sse_events(raw):
 
 @pytest.fixture(scope="module")
 def pair():
+    from veles_tpu_torch.config import root as port_root
     saved = {"compute_dtype": root.common.precision.get(
-        "compute_dtype", "bfloat16"),
-        "alerts": root.common.alerts.get("enabled", True),
-        "tsdb": root.common.tsdb.get("enabled", True)}
+        "compute_dtype", "bfloat16")}
+    for tree in (root, port_root):
+        saved[tree] = (tree.common.alerts.get("enabled", True),
+                       tree.common.tsdb.get("enabled", True))
+        # both servers with their alert and history engines off: a
+        # live engine's replies carry clocks (test_torch_alerts and
+        # test_torch_tsdb compare the live engines)
+        tree.common.alerts.enabled = False
+        tree.common.tsdb.enabled = False
     root.common.precision.compute_dtype = "float32"
-    # the reference's replies with its alert and history engines off,
-    # which the port gives until it has them
-    root.common.alerts.enabled = False
-    root.common.tsdb.enabled = False
     p = Pair()
     try:
         yield p
     finally:
         p.stop()
         root.common.precision.compute_dtype = saved["compute_dtype"]
-        root.common.alerts.enabled = saved["alerts"]
-        root.common.tsdb.enabled = saved["tsdb"]
+        for tree in (root, port_root):
+            (tree.common.alerts.enabled,
+             tree.common.tsdb.enabled) = saved[tree]
 
 
 @pytest.fixture(autouse=True)
@@ -582,7 +586,7 @@ def test_queue_full_and_queue_deadline(pair):
 
 def test_alerts_history_and_unported_routes(pair):
     """``/alerts`` and ``/metrics/history`` answer the reference's
-    feature-off replies; ``POST /api`` on a server outside a serving
+    replies with both engines off; ``POST /api`` on a server outside a serving
     workflow (no RestfulLoader) is the reference's 500, structured; the
     KV routes are served (their error replies are the reference's)."""
     got, want = pair.both("/alerts")

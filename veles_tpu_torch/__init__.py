@@ -14,7 +14,14 @@ on an aux lane, serves the dense slot-major KV layout on request
 greedy, sampled and beam search), answers HTTP clients in front of all
 of it (``restful_api.py``: ``/generate`` with SSE, the OpenAI
 ``/v1/*`` routes, ``/healthz`` over the training-health monitor,
-``/metrics``, ``/debug/state`` over the flight recorder, ``/drain``),
+``/metrics``, ``/debug/state`` over the flight recorder, ``/drain``,
+``/alerts`` and ``/metrics/history`` over the alert engine and the
+time-series store, tenants metered per step), fronts several such
+servers with a health-aware router (``serving/router.py``: breakers,
+retries, hedging, shedding, mid-stream failover, prefix shipping,
+tenant admission, fleet federation and a dashboard) over a supervised
+replica fleet (``serving/fleet.py``) and its control plane
+(``serving/controller.py``),
 trains
 it (``samples/lm.py``: ``GradientDescent`` with the next-token loss over
 a device-resident ``FullBatchLoader``) and trains AlexNet and VGG-A
@@ -105,6 +112,12 @@ SUBMODULES = (
     "veles_tpu_torch.telemetry.flight_recorder",
     "veles_tpu_torch.telemetry.spans",
     "veles_tpu_torch.telemetry.trace_export",
+    "veles_tpu_torch.telemetry.federation",
+    "veles_tpu_torch.telemetry.tsdb",
+    "veles_tpu_torch.telemetry.alerts",
+    "veles_tpu_torch.telemetry.dashboard",
+    "veles_tpu_torch.tenant",
+    "veles_tpu_torch.tenant.admission",
     "veles_tpu_torch._build",
     "veles_tpu_torch.convert",
     "veles_tpu_torch.ops",
@@ -192,5 +205,8 @@ SUBMODULES = (
     "veles_tpu_torch.serving.kv_host",
     "veles_tpu_torch.serving.disagg",
     "veles_tpu_torch.serving.tp",
+    "veles_tpu_torch.serving.fleet",
+    "veles_tpu_torch.serving.router",
+    "veles_tpu_torch.serving.controller",
     "veles_tpu_torch.restful_api",
 )

@@ -17,10 +17,16 @@ whose subclass's :meth:`load_data` fills ``original_data`` (numpy
 None), ``class_lengths`` and, for :class:`FullBatchLoaderMSE`,
 ``original_targets``; and the span server's, ``FullBatchLoader(data,
 labels=None, class_lengths=None, minibatch_size=100, seed=None,
-device=None, targets=None)``, initialized at once on ``device``.  A
-snapshot leaves the dataset out (ref: fullbatch.py): ``initialize()``
-loads it again.  The reference's host-gather fallback for a dataset
-larger than the device's budget (``force_numpy``) is not ported.
+device=None, targets=None, force_numpy=False)``, initialized at once
+on ``device``.  A snapshot leaves the dataset out (ref: fullbatch.py):
+``initialize()`` loads it again.
+
+With ``force_numpy``, or with a dataset over
+:attr:`FullBatchLoader.DEVICE_MEMORY_FRACTION` of the card's memory, the
+dataset stays on the host (ref: fullbatch.py:131-140): each minibatch is
+gathered there and only the minibatch is uploaded, bit-equal to the
+device gather, and the span path is off (the trainer steps per
+minibatch).
 """
 
 import numpy
@@ -43,9 +49,13 @@ class FullBatchLoader(Loader):
     hide_from_registry = True
     supports_span = True
 
+    #: the share of the card's memory the dataset may take before it
+    #: stays on the host (ref: fullbatch.py:33)
+    DEVICE_MEMORY_FRACTION = 0.8
+
     def __init__(self, workflow=None, labels=None, class_lengths=None,
                  minibatch_size=100, seed=None, device=None, targets=None,
-                 **kwargs):
+                 force_numpy=False, **kwargs):
         given = None
         if not unit_form(workflow):
             data = workflow
@@ -64,6 +74,8 @@ class FullBatchLoader(Loader):
         self.original_data = None
         self.original_labels = None
         self.original_targets = None
+        #: keep the dataset on the host and gather minibatches there
+        self.force_numpy = bool(force_numpy)
         self.device = None
         self.minibatch_targets = Array()
         if given is not None:
@@ -77,6 +89,10 @@ class FullBatchLoader(Loader):
         self._labels_dev_ = None
         self._targets_dev_ = None
         self._numeric_labels_ = None
+        #: the host-resident dataset (and targets) the minibatches are
+        #: gathered from when the dataset is not on the device
+        self._host_data_ = None
+        self._host_targets_ = None
 
     @property
     def span_capable(self):
@@ -172,9 +188,38 @@ class FullBatchLoader(Loader):
             else:
                 self._numeric_labels_ = numpy.asarray(
                     self.original_labels, LABEL_DTYPE)
-        self._upload()
+        self._maybe_upload()
 
-    def _upload(self):
+    def device_budget(self):
+        """The card's total memory in bytes (``torch.cuda.mem_get_info``),
+        or None on the CPU, which has no budget to keep to."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.mem_get_info(self.device)[1]
+
+    def _maybe_upload(self):
+        """Upload the dataset, unless ``force_numpy`` is set or it would
+        take more than DEVICE_MEMORY_FRACTION of the card's memory: then
+        it stays on the host and :meth:`fill_minibatch` gathers there."""
+        self._dataset_dev_ = self._labels_dev_ = self._targets_dev_ = None
+        self._host_data_ = self._host_targets_ = None
+        data = self.original_data
+        host = self.force_numpy
+        if not host:
+            nbytes = data.numel() * data.element_size() \
+                if torch.is_tensor(data) else numpy.asarray(data).nbytes
+            budget = self.device_budget()
+            if budget and nbytes > self.DEVICE_MEMORY_FRACTION * budget:
+                self.warning(
+                    "dataset (%.1f MiB) exceeds device budget — host "
+                    "gather", nbytes / 2**20)
+                host = True
+        if host:
+            self._host_data_ = torch.as_tensor(data).cpu()
+            if self.original_targets is not None:
+                self._host_targets_ = torch.as_tensor(
+                    self.original_targets).cpu()
+            return
         self._dataset_dev_ = torch.as_tensor(self.original_data).to(
             self.device)
         if self._numeric_labels_ is not None:
@@ -201,13 +246,21 @@ class FullBatchLoader(Loader):
     def fill_minibatch(self):
         size = self.minibatch_size
         idx = self.minibatch_indices.mem[:size]
-        self.minibatch_data.devmem = self._gather(self._dataset_dev_, idx,
-                                                  size)
+        if self._dataset_dev_ is not None:
+            self.minibatch_data.devmem = self._gather(self._dataset_dev_,
+                                                      idx, size)
+        else:
+            # host gather: only the minibatch crosses to the device
+            self.minibatch_data.devmem = self._gather(
+                self._host_data_, idx, size).to(self.device)
         if self._numeric_labels_ is not None:
             self.minibatch_labels.mem[:size] = self._numeric_labels_[idx]
         if self._targets_dev_ is not None:
             self.minibatch_targets.devmem = self._gather(
                 self._targets_dev_, idx, size)
+        elif self._host_targets_ is not None:
+            self.minibatch_targets.devmem = self._gather(
+                self._host_targets_, idx, size).to(self.device)
 
     def _normalize_minibatch(self):
         pass  # already normalized at load

@@ -43,10 +43,16 @@ Built with ``workflow=None`` it stands alone, as every LM server does:
 ``initialize()`` starts the scheduler and the server, ``stop()`` ends
 them.  Its ``serving_*`` knobs and ``/generate`` caps left None read
 ``root.common.serving`` and ``root.common.api``
-(:mod:`veles_tpu_torch.config`) when it initializes.  ``GET /alerts``
-and ``/metrics/history`` answer the reference's replies with its alert
-and history engines off (ROADMAP item 11), and no request is attributed
-to a tenant (item 11).
+(:mod:`veles_tpu_torch.config`) when it initializes.  With
+``root.common.tsdb.enabled`` and ``root.common.alerts.enabled`` (both on
+by default) ``initialize()`` also starts the replica's history store
+(:class:`~veles_tpu_torch.telemetry.tsdb.TimeSeriesStore`, read at ``GET
+/metrics/history``) and alert engine
+(:class:`~veles_tpu_torch.telemetry.alerts.AlertEngine`, ``GET
+/alerts``); ``stop()`` joins both threads.  Every request is attributed
+to a tenant (:func:`~veles_tpu_torch.tenant.resolve_tenant`: a loopback
+peer's ``X-Veles-Tenant``, which the router forwards, else the bearer
+token's hash), which the scheduler meters.
 """
 
 import concurrent.futures
@@ -78,6 +84,9 @@ from veles_tpu_torch.telemetry import metrics as registry
 from veles_tpu_torch.telemetry import reqtrace
 from veles_tpu_torch.telemetry.flight_recorder import recorder
 from veles_tpu_torch.telemetry.health import monitor
+from veles_tpu_torch.telemetry.alerts import AlertEngine
+from veles_tpu_torch.telemetry.tsdb import TimeSeriesStore, history_query
+from veles_tpu_torch.tenant import resolve_tenant
 from veles_tpu_torch.units import Unit
 
 log = logging.getLogger(__name__)
@@ -218,6 +227,13 @@ class RESTfulAPI(Unit):
         #: POST /drain latched: /healthz answers 503 "draining" and the
         #: scheduler stops admitting
         self._draining_ = False
+        #: the replica's alert engine (telemetry/alerts.py), created at
+        #: initialize() when root.common.alerts.enabled
+        self.alerts_ = None
+        #: the replica's history store (telemetry/tsdb.py), created at
+        #: initialize() when root.common.tsdb.enabled: it samples the
+        #: process registry; GET /metrics/history queries it
+        self.tsdb_ = None
 
     def _bind_device(self, device, forwards):
         self.device = resolve_device(device)
@@ -282,7 +298,7 @@ class RESTfulAPI(Unit):
 
     def _generate_scheduled(self, rows, steps, temperature, top_k, seed,
                             stop, priority=None, trace=None,
-                            resume_tokens=None):
+                            resume_tokens=None, tenant=None):
         """Decode a /generate body through the scheduler, each row its
         own request (row i draws from seed + i when the seed is
         pinned).  Any failure cancels the batch's unfinished futures, so
@@ -296,7 +312,7 @@ class RESTfulAPI(Unit):
                     seed=None if seed is None else int(seed) + i,
                     stop_token=stop, timeout=self.request_timeout,
                     priority=priority, trace=trace,
-                    resume_tokens=resume_tokens))
+                    resume_tokens=resume_tokens, tenant=tenant))
             # the scheduler enforces the deadline itself; this wait is a
             # backstop against a wedged loop with the watchdog off
             return [f.result(self.request_timeout + 30.0) for f in futures]
@@ -369,6 +385,13 @@ class RESTfulAPI(Unit):
             target=self._server_.serve_forever, daemon=True,
             name="restful-api")
         self._thread_.start()
+        from veles_tpu_torch.config import root
+        if self.tsdb_ is None and root.common.tsdb.get("enabled", True):
+            self.tsdb_ = TimeSeriesStore(name=self.replica_id).start()
+        if self.alerts_ is None \
+                and root.common.alerts.get("enabled", True):
+            self.alerts_ = AlertEngine(name=self.replica_id,
+                                       tsdb=self.tsdb_).start()
         log.info("REST API on http://%s:%d/%s", self.host, self.port,
                  "api" if self.loader is not None else "generate")
 
@@ -390,8 +413,15 @@ class RESTfulAPI(Unit):
         self.loader.pending_futures_ = []
 
     def stop(self):
-        """Close the scheduler, shut the server down and close the
-        listening socket (a stopped replica refuses connections)."""
+        """Stop the alert engine and the history store, close the
+        scheduler, shut the server down and close the listening socket
+        (a stopped replica refuses connections)."""
+        alerts, self.alerts_ = self.alerts_, None
+        if alerts is not None:
+            alerts.stop()
+        tsdb, self.tsdb_ = self.tsdb_, None
+        if tsdb is not None:
+            tsdb.stop()
         if self.scheduler_ is not None:
             self.scheduler_.close()
             self.scheduler_ = None
@@ -437,6 +467,20 @@ class _Handler(BaseHTTPRequestHandler):
                 headers.get(reqtrace.TRACE_HEADER)
                 if headers is not None else None)
         return tid
+
+    def _tenant(self):
+        """The request's tenant id, cached like the trace id: a loopback
+        peer's ``X-Veles-Tenant`` is trusted (the router forwards its
+        bounded tenant label that way), a remote caller resolves from
+        its own bearer token."""
+        ten = getattr(self, "_tenant_", None)
+        if ten is None:
+            headers = getattr(self, "headers", None)
+            ten = self._tenant_ = resolve_tenant(
+                {k.lower(): v for k, v in headers.items()}
+                if headers is not None else {},
+                loopback=self.client_address[0] in LOOPBACK)
+        return ten
 
     # -- replies -------------------------------------------------------------
 
@@ -590,7 +634,8 @@ class _Handler(BaseHTTPRequestHandler):
                 row, steps, temperature=temperature, top_k=top_k,
                 seed=None if seed is None else int(seed), stop_token=stop,
                 timeout=api.request_timeout, priority=priority, stream=True,
-                trace=self._trace(), resume_tokens=resume)
+                trace=self._trace(), resume_tokens=resume,
+                tenant=self._tenant())
         except ValueError as e:
             self.send_error(400, _status_text(e))
             return
@@ -619,6 +664,7 @@ class _Handler(BaseHTTPRequestHandler):
         # drop the query string before trimming the trailing slash:
         # load balancers probe /healthz?probe=1
         self._trace_ = None
+        self._tenant_ = None
         api = self.api
         route = self.path.split("?")[0].rstrip("/")
         sch = api.scheduler_
@@ -647,11 +693,21 @@ class _Handler(BaseHTTPRequestHandler):
         elif route == "/v1/models":
             self._reply_json(openai_api.models_reply(api.model_id))
         elif route == "/alerts":
-            # the reference's reply with its alert engine off
-            self._reply_json({"enabled": False})
+            # the replica's alert engine: firing and pending instances
+            # and the loaded rule set
+            if api.alerts_ is None:
+                self._reply_json({"enabled": False})
+            else:
+                self._reply_json(api.alerts_.snapshot())
         elif route == "/metrics/history":
-            # ... and with its history store off
-            self._reply_json({"enabled": False}, code=503)
+            # windowed queries over the replica's history store
+            # (?series=...&window=...&agg=...&label.<k>=<v>&tier=N; no
+            # series = the catalog)
+            if api.tsdb_ is None:
+                self._reply_json({"enabled": False}, code=503)
+            else:
+                self._reply_json(history_query(
+                    api.tsdb_, self.path.partition("?")[2]))
         elif route == "/metrics":
             blob = registry.render_prometheus().encode()
             self.send_response(200)
@@ -688,6 +744,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         self._trace_ = None
+        self._tenant_ = None
         route = self.path.split("?")[0].rstrip("/")
         if route == "/api":
             self._api()
@@ -1103,7 +1160,7 @@ class _Handler(BaseHTTPRequestHandler):
                 outs = api._generate_scheduled(
                     rows, steps, temperature, top_k, body.get("seed"), stop,
                     priority=priority, trace=self._trace(),
-                    resume_tokens=resume)
+                    resume_tokens=resume, tenant=self._tenant())
             except ValueError as e:
                 self.send_error(400, _status_text(e))
                 return
@@ -1178,7 +1235,7 @@ class _Handler(BaseHTTPRequestHandler):
                     top_k=params["top_k"], seed=params["seed"],
                     stop_token=params["stop"], timeout=api.request_timeout,
                     priority=params["priority"], stream=True,
-                    trace=self._trace())
+                    trace=self._trace(), tenant=self._tenant())
             except ValueError as e:
                 self.send_error(400, _status_text(e))
                 return
@@ -1208,7 +1265,8 @@ class _Handler(BaseHTTPRequestHandler):
             outs = api._generate_scheduled(
                 rows, params["steps"], params["temperature"],
                 params["top_k"], params["seed"], params["stop"],
-                priority=params["priority"], trace=self._trace())
+                priority=params["priority"], trace=self._trace(),
+                tenant=self._tenant())
         except ValueError as e:
             self.send_error(400, _status_text(e))
             return

@@ -34,12 +34,13 @@ class MnistAELoader(FullBatchLoaderMSE, MnistLoader):
         self.original_targets = self.original_data
         self.original_labels = None  # regression: no classes
 
-    def _upload(self):
+    def _maybe_upload(self):
         # the target IS the (normalized) input: one device copy serves
         # both, as the reference shares its dataset buffer
         self.original_targets = self.original_data
-        FullBatchLoader._upload(self)
-        self._targets_dev_ = self._dataset_dev_
+        FullBatchLoader._maybe_upload(self)
+        if self._dataset_dev_ is not None:
+            self._targets_dev_ = self._dataset_dev_
 
 
 def ae_layers(conv=False, hidden=100, normalization="none"):

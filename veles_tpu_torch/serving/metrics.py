@@ -13,7 +13,7 @@ series names.  Lifecycle events (``serving.request``,
 ``serving.preempt``, …) go to the event sink
 (:data:`veles_tpu_torch.logger.events`).
 
-The fleet's router metrics wait for the port of the router.
+:class:`RouterMetrics` is the fleet router's (``veles_router_*``).
 """
 
 import itertools
@@ -31,12 +31,19 @@ from veles_tpu_torch.telemetry import MS_BUCKETS, Histogram, metrics
 #: the scheduler imports this module)
 _SLO_CLASSES = ("low", "normal", "high")
 
-#: the JAX package's SLO defaults (``root.common.slo``): latency
-#: objectives in ms by class, for TTFT and whole-request (e2e) time,
-#: and the burn-rate windows in seconds
+#: the JAX package's SLO defaults where ``root.common.slo`` lacks a
+#: key: latency objectives in ms by class, for TTFT and whole-request
+#: (e2e) time, and the burn-rate windows in seconds
 SLO_TTFT_MS = {"low": 5000.0, "normal": 2000.0, "high": 500.0}
 SLO_E2E_MS = {"low": 120000.0, "normal": 60000.0, "high": 30000.0}
 SLO_WINDOWS = (60.0, 300.0, 3600.0)
+
+
+def _slo_conf(name, default):
+    from veles_tpu_torch.config import root
+    if name in ("ttft_ms", "e2e_ms"):
+        return root.common.slo.get_dict(name, default)
+    return root.common.slo.get(name, default)
 
 
 def _slo_series():
@@ -73,10 +80,11 @@ class SLOTracker:
     success ratio whose complement is the error budget), ``windows``
     (trailing burn-rate horizons, seconds) and the per-class objectives
     ``ttft_ms`` / ``e2e_ms`` (dicts by class name over the defaults; a
-    class given None has no objective) are what the JAX package reads
-    from ``root.common.slo``, with its defaults.
-    ``scope`` labels the exported series ("serving" for the
-    scheduler's TTFT and e2e).  Thread-safe; one observation is a lock,
+    class given None has no objective): each left None reads
+    ``root.common.slo``, with the JAX package's defaults where the key
+    is absent.  ``scope`` labels the exported series ("serving" for the
+    scheduler's TTFT and e2e, "router" for the fleet-tail e2e clients
+    see).  Thread-safe; one observation is a lock,
     a deque append and two counter bumps."""
 
     #: per-(cls, kind) observation window cap — at the largest
@@ -84,12 +92,20 @@ class SLOTracker:
     #: still yields a correct burn rate over the events it holds
     _RING = 4096
 
-    def __init__(self, scope, enabled=True, target=0.99,
-                 windows=SLO_WINDOWS, ttft_ms=None, e2e_ms=None):
+    def __init__(self, scope, enabled=None, target=None, windows=None,
+                 ttft_ms=None, e2e_ms=None):
         self.scope = str(scope)
-        self.enabled = bool(enabled)
-        self.target = float(target)
-        self.windows = tuple(float(w) for w in windows)
+        self.enabled = bool(_slo_conf("enabled", True)
+                            if enabled is None else enabled)
+        self.target = float(_slo_conf("target", 0.99)
+                            if target is None else target)
+        self.windows = tuple(float(w) for w in (
+            _slo_conf("windows", SLO_WINDOWS)
+            if windows is None else windows))
+        if ttft_ms is None:
+            ttft_ms = _slo_conf("ttft_ms", None)
+        if e2e_ms is None:
+            e2e_ms = _slo_conf("e2e_ms", None)
         self.objectives = {
             kind: {c: dict(default, **(given or {})).get(c)
                    for c in _SLO_CLASSES}
@@ -444,28 +460,295 @@ def _registry_series():
 
 # -- tenant label bounding ----------------------------------------------------
 
-#: distinct tenants that keep their own label (the JAX package's
-#: ``root.common.tenant.label_cardinality`` default); the rest read
-#: "other"
-TENANT_LABELS = 8
-
-_tenant_labels = {}
-_tenant_lock = threading.Lock()
+_tenant_bounder = None
+_tenant_bounder_lock = threading.Lock()
 
 
 def _tenant_label(tenant):
-    """Bound a raw tenant id to its metrics label: the first
-    TENANT_LABELS distinct tenants of the process keep their own, the
-    rest share "other", so a flood of tenants cannot grow the series
-    without bound.  A raw id never becomes a label value otherwise."""
-    tenant = str(tenant or "anon")
-    with _tenant_lock:
-        lbl = _tenant_labels.get(tenant)
-        if lbl is None:
-            lbl = tenant if len(_tenant_labels) < TENANT_LABELS \
-                else "other"
-            _tenant_labels[tenant] = lbl
-        return lbl
+    """Bound a raw tenant id to its metrics-safe label value through
+    the admission cardinality bounder (first-N distinct tenants keep
+    their own label, the rest read "other") — a raw id NEVER becomes
+    a label value, so a tenant flood cannot leak unbounded series
+    into the registry.  One shared bounder per
+    process, so every metrics instance agrees on which N tenants won
+    their own label."""
+    global _tenant_bounder
+    if _tenant_bounder is None:
+        from veles_tpu_torch.tenant.admission import TenantAdmission
+        with _tenant_bounder_lock:
+            if _tenant_bounder is None:
+                _tenant_bounder = TenantAdmission()
+    return _tenant_bounder.label(str(tenant or "anon"))
+
+
+_BREAKER_STATES = {"closed": 0, "half_open": 1, "open": 2}
+
+
+def _router_series():
+    return {
+        "requests": metrics.counter(
+            "veles_router_requests_total",
+            "forward attempts, by replica, outcome (ok/error) and "
+            "bounded tenant label (first-N distinct tenants keep "
+            "their own, the rest share \"other\")",
+            labelnames=("replica", "outcome", "tenant")),
+        "retries": metrics.counter(
+            "veles_router_retries_total",
+            "forward attempts retried on another replica after a "
+            "failure/timeout/5xx"),
+        "hedges": metrics.counter(
+            "veles_router_hedges_total",
+            "hedge requests launched against a straggler replica "
+            "(idempotent requests only)"),
+        "hedge_wins": metrics.counter(
+            "veles_router_hedge_wins_total",
+            "hedge requests that answered before the primary"),
+        "shed": metrics.counter(
+            "veles_router_shed_total",
+            "requests shed at the router (503 + Retry-After: no "
+            "eligible replica)"),
+        "disagg": metrics.counter(
+            "veles_router_disagg_handoffs_total",
+            "/generate requests served disaggregated: prefill on a "
+            "prefill-specialist, KV export handed to a decode "
+            "replica"),
+        "prefix_fetches": metrics.counter(
+            "veles_router_prefix_peer_fetches_total",
+            "prefix blocks shipped replica-to-replica ahead of a "
+            "request (fleet-wide prefix store: export from the "
+            "holder, import on the target)"),
+        "prefix_fetch_fails": metrics.counter(
+            "veles_router_prefix_peer_fetch_fails_total",
+            "peer prefix transfers that failed or were dropped — "
+            "the request still runs, just cold"),
+        "breaker_state": metrics.gauge(
+            "veles_router_breaker_state",
+            "per-replica circuit breaker: 0 closed, 1 half-open, "
+            "2 open", labelnames=("replica",)),
+        "replica_up": metrics.gauge(
+            "veles_router_replica_up",
+            "1 while the router's health poll reaches the replica, "
+            "0 once it is unreachable/out of rotation — the "
+            "replica_unreachable alert rule watches this",
+            labelnames=("replica",)),
+        "breaker_transitions": metrics.counter(
+            "veles_router_breaker_transitions_total",
+            "circuit-breaker state entries, by replica and new state",
+            labelnames=("replica", "to")),
+        "request_ms": metrics.histogram(
+            "veles_router_request_ms",
+            "router-side whole-request latency (all attempts + "
+            "backoff; the fleet tail clients actually see)",
+            buckets=MS_BUCKETS),
+        "restarts": metrics.counter(
+            "veles_router_replica_restarts_total",
+            "replica respawns (supervisor recovery or rolling "
+            "restart)", labelnames=("replica",)),
+        "drains": metrics.counter(
+            "veles_router_replica_drains_total",
+            "replica drains initiated through the router",
+            labelnames=("replica",)),
+        "streams": metrics.counter(
+            "veles_router_streams_total",
+            "streaming (SSE) requests PINNED to a replica — counted "
+            "once per client stream (a mid-stream failover's resumed "
+            "leg does NOT re-count)", labelnames=("replica",)),
+        "stream_failovers": metrics.counter(
+            "veles_router_stream_failovers_total",
+            "mid-stream failover attempts after a pinned replica "
+            "died or stalled, by outcome (resumed: the continuation "
+            "spliced into the open SSE connection; failed: no "
+            "eligible replica or the resume itself errored; "
+            "abandoned: the client disconnected during the resume)",
+            labelnames=("outcome",)),
+    }
+
+
+def forget_serving_replica(replica):
+    """Drop every replica-labeled ``veles_serving_*`` child for one
+    replica id (goodput, padding efficiency, KV pressure, export
+    lifecycle, ...).  Walks the live registry rather than a fixed
+    family list, so ad-hoc serving gauges a replica mirrored in sweep
+    too; the label position is looked up per family, so multi-label
+    families (e.g. ``{dtype, replica}``) clean up as well.
+    Idempotent: families with no child for the id are untouched."""
+    replica = str(replica)
+    for name, fam in metrics.collect():
+        if not name.startswith("veles_serving_"):
+            continue
+        names = getattr(fam, "labelnames", ())
+        if "replica" not in names:
+            continue
+        idx = names.index("replica")
+        for key in list(fam.children()):
+            if key[idx] == replica:
+                fam.remove(*key)
+
+
+class RouterMetrics:
+    """Thread-safe router counters, mirrored into the process-wide
+    registry as the ``veles_router_*`` Prometheus families (same
+    instance-plus-global split as :class:`ServingMetrics`)."""
+
+    def __init__(self, recent=256):
+        self._lock = threading.Lock()
+        self.requests_ok = 0
+        self.requests_error = 0
+        self.retries = 0
+        self.hedges = 0
+        self.hedge_wins = 0
+        self.shed = 0
+        self.disagg_handoffs = 0
+        self.prefix_fetches = 0
+        self.prefix_fetch_fails = 0
+        self.restarts = 0
+        self.drains = 0
+        self.streams = 0
+        self.stream_failovers = {}   # outcome -> count
+        self._request_ms = Histogram("router_request_ms",
+                                     buckets=MS_BUCKETS,
+                                     reservoir=recent)
+        self._global = _router_series()
+        #: fleet-tail SLO: whole-request (all attempts + backoff)
+        #: latency vs the per-class e2e objective — what the CLIENT
+        #: experiences, as opposed to the replica-side view
+        self.slo = SLOTracker("router")
+
+    def record_forward(self, replica, ok, tenant=None):
+        outcome = "ok" if ok else "error"
+        with self._lock:
+            if ok:
+                self.requests_ok += 1
+            else:
+                self.requests_error += 1
+        self._global["requests"].labels(
+            replica=str(replica), outcome=outcome,
+            tenant=str(tenant or "anon")).inc()
+
+    def record_retry(self):
+        with self._lock:
+            self.retries += 1
+        self._global["retries"].inc()
+
+    def record_hedge(self):
+        with self._lock:
+            self.hedges += 1
+        self._global["hedges"].inc()
+
+    def record_hedge_win(self):
+        with self._lock:
+            self.hedge_wins += 1
+        self._global["hedge_wins"].inc()
+
+    def record_shed(self):
+        with self._lock:
+            self.shed += 1
+        self._global["shed"].inc()
+        events.record("router.shed", "single", cls="Router")
+
+    def record_disagg(self):
+        with self._lock:
+            self.disagg_handoffs += 1
+        self._global["disagg"].inc()
+
+    def record_prefix_fetch(self, blocks=1):
+        with self._lock:
+            self.prefix_fetches += 1
+        self._global["prefix_fetches"].inc(int(blocks))
+
+    def record_prefix_fetch_fail(self):
+        with self._lock:
+            self.prefix_fetch_fails += 1
+        self._global["prefix_fetch_fails"].inc()
+
+    def record_breaker(self, replica, state):
+        self._global["breaker_state"].labels(
+            replica=str(replica)).set(_BREAKER_STATES[state])
+        self._global["breaker_transitions"].labels(
+            replica=str(replica), to=state).inc()
+        events.record("router.breaker", "single", cls="Router",
+                      replica=str(replica), to=state)
+
+    def record_replica_up(self, replica, up):
+        """Health-poll outcome: 1 reachable, 0 unreachable (the
+        alert engine's replica_unreachable series)."""
+        self._global["replica_up"].labels(
+            replica=str(replica)).set(1 if up else 0)
+
+    def forget_replica(self, replica):
+        """Drop a deregistered replica's labeled series so a removed
+        replica neither exports stale state forever nor keeps a
+        resolved unreachable-alert series alive.  Router families
+        first, then every ``veles_serving_*{replica=...}`` child the
+        replica's own process mirrored into this registry (the
+        in-process LocalReplica shape) — a retired replica must not
+        leave frozen goodput/KV gauges on the exposition forever."""
+        for name in ("replica_up", "breaker_state"):
+            self._global[name].remove(str(replica))
+        forget_serving_replica(replica)
+
+    def record_stream(self, replica):
+        with self._lock:
+            self.streams += 1
+        self._global["streams"].labels(replica=str(replica)).inc()
+
+    def record_stream_failover(self, outcome):
+        """One mid-stream failover attempt: ``resumed`` (the
+        continuation spliced into the open SSE connection),
+        ``failed`` (no eligible replica / resume errored — the
+        client sees a terminal error frame) or ``abandoned`` (the
+        client disconnected while the resume was in flight).  The
+        resumed leg is deliberately NOT a second
+        ``veles_router_streams_total`` pin — one client stream, one
+        count."""
+        with self._lock:
+            self.stream_failovers[outcome] = \
+                self.stream_failovers.get(outcome, 0) + 1
+        self._global["stream_failovers"].labels(
+            outcome=str(outcome)).inc()
+        events.record("router.stream_failover", "single",
+                      cls="Router", outcome=str(outcome))
+
+    def record_request(self, ms, cls="normal"):
+        self._request_ms.observe(ms)
+        self._global["request_ms"].observe(ms)
+        self.slo.record(cls, "e2e", ms)
+
+    def record_restart(self, replica):
+        with self._lock:
+            self.restarts += 1
+        self._global["restarts"].labels(replica=str(replica)).inc()
+        events.record("router.replica_restart", "single",
+                      cls="Router", replica=str(replica))
+
+    def record_drain(self, replica):
+        with self._lock:
+            self.drains += 1
+        self._global["drains"].labels(replica=str(replica)).inc()
+        events.record("router.replica_drain", "single", cls="Router",
+                      replica=str(replica))
+
+    def snapshot(self):
+        with self._lock:
+            out = {
+                "requests_ok": self.requests_ok,
+                "requests_error": self.requests_error,
+                "retries": self.retries,
+                "hedges": self.hedges,
+                "hedge_wins": self.hedge_wins,
+                "shed": self.shed,
+                "streams_pinned": self.streams,
+                "stream_failovers": dict(self.stream_failovers),
+                "prefix_peer_fetches": self.prefix_fetches,
+                "prefix_peer_fetch_fails": self.prefix_fetch_fails,
+                "replica_restarts": self.restarts,
+                "replica_drains": self.drains,
+            }
+        out["request_ms_p50"] = self._request_ms.percentile(0.50)
+        out["request_ms_p95"] = self._request_ms.percentile(0.95)
+        out["request_ms_p99"] = self._request_ms.percentile(0.99)
+        out["slo"] = self.slo.snapshot()
+        return out
 
 
 class ServingMetrics:

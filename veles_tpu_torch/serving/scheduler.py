@@ -116,9 +116,14 @@ the stream is the colocated one.  :meth:`submit_prefix_export` and
 (one job per loop boundary, ``_prefix_tick``).  The wire forms are
 :mod:`~veles_tpu_torch.serving.disagg`'s.
 
-Not ported yet (the JAX scheduler has them): tenants and tensor
-parallelism; ``metrics()`` reports their keys as the reference does with
-them off.
+Each request carries its tenant (``submit(tenant=)``, the bounded label
+the router forwards as ``X-Veles-Tenant``) into its trace events and
+:meth:`debug_requests`; with ``root.common.tsdb.metering`` on, every
+decode and verify boundary charges each active request's tenant its KV
+blocks held × the step's wall time and an even share of the step as
+compute seconds, and retire attributes its prompt and generated tokens
+(``metrics()["tenants"]``, the ``veles_tenant_usage_*`` series).
+Metering is host work on the loop: no launch and no device sync.
 """
 
 import collections
@@ -235,6 +240,14 @@ class RoleMismatchError(SchedulerError):
     http_status = 409
 
 
+def _metering_enabled():
+    """``root.common.tsdb.metering`` — gates the per-tenant usage
+    attribution (token counts at retire, KV-block-seconds and
+    compute-seconds at step boundaries)."""
+    from veles_tpu_torch.config import root
+    return bool(root.common.tsdb.get("metering", True))
+
+
 def _serving_conf(name, default):
     """``root.common.serving.<name>`` of the port's config tree, or
     ``default`` where the tree lacks the key: the value an argument
@@ -259,10 +272,11 @@ class _Request(object):
                  "t_admit", "t_first", "pf_seq", "pf_caches", "pf_off",
                  "pf_width", "pf_chunk", "pf_matched", "prefix_handle",
                  "export_only", "kv_import", "hid", "draft_k",
-                 "accept_ema", "gram_ix", "sink", "trace")
+                 "accept_ema", "gram_ix", "sink", "trace", "tenant")
 
     def __init__(self, prompt, steps, temperature, top_k, stop_token,
-                 seed, deadline, priority, sink=None, trace=None):
+                 seed, deadline, priority, sink=None, trace=None,
+                 tenant=None):
         self.prompt = prompt
         self.steps = steps
         self.temperature = temperature
@@ -273,6 +287,7 @@ class _Request(object):
         self.priority = int(priority)   # 0 low / 1 normal / 2 high
         self.sink = sink                # TokenStream._push (or None)
         self.trace = trace              # request trace id
+        self.tenant = tenant            # bounded tenant label (or None)
         self.future = concurrent.futures.Future()
         self.slot = None
         self.generated = []
@@ -582,6 +597,9 @@ class InferenceScheduler(object):
         self.stats = ServingMetrics(replica=self.replica_id)
         #: request tracing: phase events on (trace ids minted either way)
         self._tron = bool(reqtrace)
+        #: per-tenant metering gate (root.common.tsdb.metering), read
+        #: once: the step boundary is the hot path
+        self._metering = _metering_enabled()
         self.error = None            # what killed the loop, if anything
         self._queue = collections.deque()
         self._active = {}            # slot -> _Request (decoding)
@@ -704,7 +722,7 @@ class InferenceScheduler(object):
 
     def submit(self, prompt, steps, temperature=0.0, top_k=0, seed=None,
                stop_token=None, timeout=None, priority=None, stream=False,
-               *, trace=None, resume_tokens=None):
+               *, trace=None, resume_tokens=None, tenant=None):
         """Queue one sequence; returns a Future whose result is the
         prompt followed by the generated tokens (ending at the first
         generated stop token, if one fired).  ``stream=True`` returns a
@@ -719,7 +737,9 @@ class InferenceScheduler(object):
         the request's class: admission order, shed threshold and
         Retry-After, and preemption victimhood.  ``trace`` attaches a
         request trace id (sanitized; None mints one): every phase event
-        of the request carries it.  ``resume_tokens``
+        of the request carries it.  ``tenant`` names the request's
+        tenant (the bounded label; None is "anon" in the usage rollup).
+        ``resume_tokens``
         adopts an already-generated prefix: the request admits with it
         as its generated tokens, re-prefills prompt + prefix and draws
         its next token at counter ``len(resume_tokens)``, so the stream
@@ -777,7 +797,8 @@ class InferenceScheduler(object):
                        int(seed) & 0xFFFFFFFF,
                        time.monotonic() + ttl if ttl > 0 else None, prio,
                        sink=ts._push if ts is not None else None,
-                       trace=trace)
+                       trace=trace,
+                       tenant=str(tenant) if tenant is not None else None)
         # a resumed prefix is the request's, not the stream's: the sink
         # sees only the tokens drawn here
         req.generated = resume
@@ -1425,7 +1446,7 @@ class InferenceScheduler(object):
                 "trace": req.trace,
                 "phase": phase,
                 "cls": CLASS_NAMES[req.priority],
-                "tenant": None,
+                "tenant": req.tenant,
                 "age_s": round(now - req.t_submit, 3),
                 "prompt_tokens": len(req.prompt),
                 "tokens": len(req.generated),
@@ -1951,7 +1972,8 @@ class InferenceScheduler(object):
             # blocks matched and cold blocks claimed
             tracing.record(req.trace, "queue",
                            duration=req.t_admit - req.t_submit,
-                           cls=CLASS_NAMES[req.priority], tenant=None,
+                           cls=CLASS_NAMES[req.priority],
+                           tenant=req.tenant,
                            resume=bool(req.preempts))
             tracing.record(req.trace, "admit", slot=req.slot,
                            tokens=len(req.pf_seq),
@@ -2121,7 +2143,8 @@ class InferenceScheduler(object):
         if self._tron:
             tracing.record(req.trace, "queue",
                            duration=req.t_admit - req.t_submit,
-                           cls=CLASS_NAMES[req.priority], tenant=None,
+                           cls=CLASS_NAMES[req.priority],
+                           tenant=req.tenant,
                            resume=False)
             tracing.record(req.trace, "kv_import", slot=req.slot,
                            tokens=int(imp["length"]), blocks=len(ids))
@@ -2235,6 +2258,7 @@ class InferenceScheduler(object):
         self.decode_steps += 1
         self.decode_tokens += n
         self.stats.record_step(n, s, tokens=n, duration_s=dt)
+        self._meter_step(active, cache, dt)
         for slot, req in active.items():
             self._emit(req, int(nxt[slot]))
             self._maybe_finish(req, cache)
@@ -2291,6 +2315,7 @@ class InferenceScheduler(object):
         self.decode_tokens += n
         # plain decode: every active slot emits exactly one token
         self.stats.record_step(n, b, tokens=n, duration_s=dt)
+        self._meter_step(active, cache, dt)
         for j, slot in enumerate(slots):
             req = active[slot]
             if want_h:
@@ -2430,6 +2455,9 @@ class InferenceScheduler(object):
         self.decode_seconds += dt
         self.verify_steps += 1
         self.verify_widths[k + 1] = self.verify_widths.get(k + 1, 0) + 1
+        # metered before acceptance retires finished slots: the pass's
+        # residency belongs to every row that rode it
+        self._meter_step(active, cache, dt)
         traced = {}
         for j, slot in enumerate(slots):
             req = active[slot]
@@ -2462,6 +2490,27 @@ class InferenceScheduler(object):
             tracing.record_step(traced, duration=dt, mode="verify",
                                 slots=n, bucket=b, k=k, time=stamp)
 
+    def _meter_step(self, active, cache, dt):
+        """Step-boundary usage attribution: each active request charges
+        its tenant KV blocks held × the step's wall time, plus an even
+        1/n share of the step as compute seconds.  Sampled here, not at
+        retire, so a long stream's residency accrues while it runs and
+        a preempted request stops being charged once its blocks go."""
+        if not self._metering or not active or dt <= 0:
+            return
+        share = dt / len(active)
+        usage = {}
+        for slot, req in active.items():
+            if self.kv == "paged":
+                blocks = int(cache.n_blocks[slot])
+            else:
+                blocks = -(-(len(req.prompt) + len(req.generated))
+                           // self.block_size)
+            rec = usage.setdefault(req.tenant or "anon", [0.0, 0.0])
+            rec[0] += blocks * dt
+            rec[1] += share
+        self.stats.record_tenant_step(usage)
+
     def _maybe_finish(self, req, cache):
         if len(req.generated) >= req.steps \
                 or (req.stop_token is not None
@@ -2477,6 +2526,12 @@ class InferenceScheduler(object):
             self._active.pop(req.slot, None)
         self._release_slot(req, cache, finished=error is None)
         self._sync_kv_gauges(cache)
+        if self._metering:
+            # failures attribute too: the prefill and decode compute
+            # was spent either way
+            self.stats.record_tenant_tokens(
+                req.tenant, prompt=len(req.prompt),
+                generated=len(req.generated))
         if self._tron:
             # an instant at the retire boundary; total_s is the whole
             # submit-to-retire time

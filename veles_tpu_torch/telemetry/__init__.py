@@ -5,20 +5,23 @@
 :mod:`~veles_tpu_torch.telemetry.trace_export`) over the event sink
 :data:`veles_tpu_torch.logger.events`, the training-health monitor
 (:mod:`~veles_tpu_torch.telemetry.health`) and the crash flight recorder
-(:mod:`~veles_tpu_torch.telemetry.flight_recorder`) — the port's own
-copies of the JAX package's ``telemetry`` pieces that the serving path
+(:mod:`~veles_tpu_torch.telemetry.flight_recorder`), the embedded
+time-series store (:mod:`~veles_tpu_torch.telemetry.tsdb`), the alert
+engine (:mod:`~veles_tpu_torch.telemetry.alerts`), the fleet metrics
+federation (:mod:`~veles_tpu_torch.telemetry.federation`) and the
+serving dashboard (:mod:`~veles_tpu_torch.telemetry.dashboard`) — the
+port's own copies of the JAX package's ``telemetry`` pieces that the serving path
 and ``/healthz``/``/debug/state`` read, and the workflow runtime's
 switch :func:`enabled`."""
 
 from veles_tpu_torch.telemetry.registry import (  # noqa: F401
     Counter, DEFAULT_BUCKETS, Gauge, Histogram, MS_BUCKETS,
-    MetricsRegistry, nearest_rank, render_families_text)
+    MetricsRegistry, metrics, nearest_rank, render_families_text)
 
-#: the process-wide registry: every scheduler's ``veles_serving_*``
-#: series and the ``veles_health_*`` ones, rendered by
-#: ``metrics.render_prometheus()``
-metrics = MetricsRegistry()
-
+from veles_tpu_torch.telemetry.alerts import (  # noqa: E402,F401
+    AlertEngine, AlertRule, default_rules, firing_table)
+from veles_tpu_torch.telemetry.federation import (  # noqa: E402,F401
+    fleet_families, merge_scrapes, parse_prometheus)
 from veles_tpu_torch.telemetry.flight_recorder import (  # noqa: E402,F401
     FlightRecorder, recorder)
 from veles_tpu_torch.telemetry.health import (  # noqa: E402,F401
@@ -27,6 +30,8 @@ from veles_tpu_torch.telemetry.reqtrace import (  # noqa: E402,F401
     TRACE_HEADER, clean_trace_id, ensure_trace_id, new_trace_id)
 from veles_tpu_torch.telemetry.spans import (  # noqa: E402,F401
     iter_spans, next_span_id, span)
+from veles_tpu_torch.telemetry.tsdb import (  # noqa: E402,F401
+    DEFAULT_TIERS, TimeSeriesStore, bundle_history, history_query)
 
 
 #: the reference's ``root.common.telemetry.enabled`` (default True)

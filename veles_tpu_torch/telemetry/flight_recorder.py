@@ -16,13 +16,15 @@ ready to dump at the moment of death:
   install`'s, else the working directory): the recent events, the
   registry's snapshot, the port's configuration (the health knobs), the
   platform and torch, every thread's stack, the
-  health monitor's state, the log tail and the live in-flight request
-  table of every registered scheduler.
+  health monitor's state, the log tail, the live in-flight request
+  table of every registered scheduler and router, the firing alerts of
+  every live :class:`~veles_tpu_torch.telemetry.alerts.AlertEngine`
+  (``alerts``) and the recent history of the key serving series from
+  every live :class:`~veles_tpu_torch.telemetry.tsdb.TimeSeriesStore`
+  (``history``).
 
 ``GET /debug/state`` (:mod:`veles_tpu_torch.restful_api`) serves the
-same ingredients from the live process.  The reference's bundle also
-carries firing alerts and tsdb history; the port has neither engine
-yet, so its bundle says they are off.  It has no ``atexit`` dump (the
+same ingredients from the live process.  It has no ``atexit`` dump (the
 reference's is off by default, ``root.common.flightrec.dump_on_exit``).
 """
 
@@ -39,8 +41,6 @@ from collections import deque
 
 log = logging.getLogger("flightrec")
 
-#: the bundle's sections for engines the port does not have
-_OFF = {"enabled": False}
 
 
 class _LogTail(logging.Handler):
@@ -198,8 +198,20 @@ class FlightRecorder:
             info["requests"] = reqtrace.inflight_table()
         except Exception:
             pass
-        info["alerts"] = dict(_OFF)
-        info["history"] = dict(_OFF)
+        try:
+            # firing alerts from every live engine: the bundle says
+            # what was already wrong before the crash or hang
+            from veles_tpu_torch.telemetry import alerts
+            info["alerts"] = alerts.firing_table()
+        except Exception:
+            pass
+        try:
+            # the last minutes of tier-0 history of the key serving
+            # series from every live store: the lead-up to the hang
+            from veles_tpu_torch.telemetry import tsdb
+            info["history"] = tsdb.bundle_history()
+        except Exception:
+            pass
         try:
             from veles_tpu_torch.logger import events
             info["events"] = list(events.ring)[-self.max_events:]

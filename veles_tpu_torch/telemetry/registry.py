@@ -442,3 +442,10 @@ def render_families_text(families):
                 lines.append("%s%s%s %s" % (name, suffix, label_str,
                                             _format_value(value)))
     return "\n".join(lines) + "\n"
+
+
+#: the process-wide registry (re-exported as
+#: :data:`veles_tpu_torch.telemetry.metrics`): every scheduler's
+#: ``veles_serving_*`` series, the router's ``veles_router_*``, the
+#: ``veles_health_*`` and ``veles_alerts_*`` ones
+metrics = MetricsRegistry()

@@ -17,9 +17,9 @@ A process-wide in-flight registry (:func:`register` /
 :func:`inflight_table`) enumerates the live requests of every
 registered scheduler (trace id, phase, age, blocks held).
 
-Whether a scheduler records events is its own ``reqtrace`` argument
-(the JAX package reads ``root.common.reqtrace.enabled``); trace ids are
-minted either way.
+Whether a scheduler records events is its own ``reqtrace`` argument;
+the router reads :func:`enabled` (``root.common.reqtrace.enabled``).
+Trace ids are minted either way.
 """
 
 import os
@@ -55,6 +55,14 @@ def clean_trace_id(raw):
 def ensure_trace_id(raw=None):
     """The sanitized client id when one was sent, else a fresh one."""
     return clean_trace_id(raw) or new_trace_id()
+
+
+def enabled():
+    """Whether request tracing emits span events
+    (``root.common.reqtrace.enabled``, default True).  Trace ids are
+    minted and echoed regardless — only the event emission is gated."""
+    from veles_tpu_torch.config import root
+    return bool(root.common.reqtrace.get("enabled", True))
 
 
 def record(trace, phase, sink=None, **attrs):
