@@ -352,6 +352,32 @@ result line):
    draining back when quiet with no failed request, a flooding tenant's
    429s with ``Retry-After`` while another tenant is served, and
    ``/tenants/usage`` equal to the clients' counts.
+18. cli modes — the command line's fleet modes (``cli_modes_check``):
+   (a) AlexNet at the config's width through the command line with
+   ``--export-package``: the archive's manifest the reference's keys and
+   class ids with no program, ``load_package(...).run`` on 8 validation
+   samples equal to the workflow's forward on the same padded batch
+   (CM_PKG_TOL) with 2 ``lrn_fwd`` launches a run; a transformer package
+   (d 512, 4 heads of 128, 2 blocks) launching ``flash_attn_fwd`` once
+   per block and equal to its workflow's forward; ``runtime/`` built from
+   a temporary copy and its runner on an MNIST and a mini-AlexNet
+   package of the port within ``tests/test_package_export.py``'s
+   tolerances of "python" mode; (b) ``--ensemble-train 2 --train-ratio
+   0.75`` of the AlexNet cut, members on the card one after another
+   (seeds 4242, 4243, distinct snapshots and validation results, kernels
+   4 and 5 in each member's profiler trace), then ``--ensemble-test``
+   (each tester launching kernel 4); (c) ``--optimize`` on the TINY
+   MNIST with a ``Range`` learning rate, individuals on the card,
+   generation 0's genes equal to the port's ``Population`` drawn in
+   process; (d) the AlexNet cut with ``-g`` and ``--web-status`` to an
+   in-process ``WebStatusServer`` with a graphics subscriber: the status
+   posts with the graph and the events, ``/``, ``/graph/<id>``,
+   ``/alerts`` and ``/dashboard`` answering, the error curve equal to
+   the decision's history, every payload received, and the run's
+   weights and launches bit-equal to the run without them; (e) a form
+   POSTed to ``--frontend`` composing an MNIST run whose results file
+   equals the direct command line's.  (c) runs ``--optimize 2:2``
+   (CM_POP, CM_GENS), cut from 4:2 for the run's time.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -373,8 +399,9 @@ under ``families_launches``, the launches of phase 12's workflow runs
 (AlexNet's, the LM's and the transformer's) under
 ``workflow_launches``, phase 13's card runs under ``input_launches``,
 phase 16's (its workers' and gang processes' included) under
-``distributed_launches``, and phase 17's (a) and (b) under
-``fleet_launches``
+``distributed_launches``, phase 17's (a) and (b) under
+``fleet_launches``, and phase 18's (this process's and the kernel events
+of the ensemble's members and testers) under ``cli_modes_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -576,13 +603,15 @@ GEN_LENS = (64, 48, 33, 17, 64, 5, 40, 64)
 #: as many sequential round trips; beam search and the serialized decode
 #: over REST_BEAM_STEPS steps
 REST_CLIENTS, REST_BEAM_STEPS = 8, 32
-#: the drafter and KV-tier phase: the draft head's training steps and the
-#: held-out arms' greedy steps (``bench_spec``'s 512 cut to 256); the
+#: the drafter and KV-tier phase: the draft head's training steps (300
+#: cut to 150) and the held-out arms' greedy steps (``bench_spec``'s 512
+#: cut to 256, then to 128: the smoke's whole run must stay inside its
+#: time limit with phase 18 added); the
 #: quality gates' sequence length; the quantized chain's served steps;
 #: the host tier's probes (HOST_PROBES pattern prompts of HOST_PROMPT
 #: tokens, HOST_STEPS steps, demoted by two HOST_LONG-token prompts in a
 #: pool of HOST_POOL blocks); the handoff's prompt, steps and repeats
-DRAFT_TRAIN, DRAFT_STEPS, QUALITY_LEN, W8_STEPS = 300, 256, 256, 64
+DRAFT_TRAIN, DRAFT_STEPS, QUALITY_LEN, W8_STEPS = 150, 128, 256, 64
 #: how far below its row's largest logit (nats) a token of a spec-on
 #: stream that parted from spec off at a near-tie may lie on the decode
 #: path: int8 KV rows quantized by a verify pass and by a decode step
@@ -615,6 +644,9 @@ FLASH_TOL = {"bfloat16": (2e-2, 1e-4), "float32": (1e-4, 1e-5)}
 TRAIN_REF_LOSS, TRAIN_REF_STEP = 1e-6, 1e-4
 #: a planted fault must exceed its limit this many times over
 FLASH_FAULT_MIN = 5.0
+#: phase 18 (a)'s transformer package: the transformer sample at d 512,
+#: 4 heads of 128, 2 blocks
+CM_T_DIM, CM_T_HEADS, CM_T_BLOCKS, CM_T_SEQ, CM_T_BATCH = 512, 4, 2, 64, 64
 #: (b, sq, sk, h, d, dtype, causal): the training shapes; small odd f32
 #: ones (the SIMT kernels); bf16 off the tensor-core tiles (64-row CTA
 #: tiles, key tiles of 64 at hd 128 and 32/16 at hd 256, dk/dv query
@@ -634,7 +666,10 @@ FLASH_CASES = [(T_BATCH, T_SEQ, T_SEQ, T_HEADS, T_DIM // T_HEADS,
                (1, 129, 1, 2, 128, "bfloat16", True),
                (2, T_SEQ, T_SEQ, 8, 256, "bfloat16", True),
                (1, 17, 90, 2, 256, "bfloat16", False),
-               (1, 70, 33, 2, 256, "bfloat16", True)]
+               (1, 70, 33, 2, 256, "bfloat16", True),
+               # phase 18 (a)'s transformer package: bf16, non-causal
+               (CM_T_BATCH, CM_T_SEQ, CM_T_SEQ, CM_T_HEADS,
+                CM_T_DIM // CM_T_HEADS, "bfloat16", False)]
 
 #: AlexNet at ``bench.py``'s ``bench_alexnet`` configuration
 A_BATCH, A_SIDE, A_CLASSES, A_TRAIN, A_FC = 1024, 227, 1000, 4096, 4096
@@ -8245,6 +8280,626 @@ def fleet_check(torch, dev, serve_chain, trained, pattern):
     return launches
 
 
+# -- phase 18: the command line's fleet modes ---------------------------------
+
+#: (a), (b), (d) AlexNet through ``samples/alexnet.py`` + its config at
+#: full width (227², 1000 classes, minibatch 256, bf16, dropout 0.5), cut
+#: as phase 14 (a) cuts it: 1 epoch over 512 + 256 synthetic samples
+CM_A_TRAIN, CM_A_VALID = 512, 256
+CM_A_SIDE, CM_A_CLASSES, CM_A_BATCH, CM_A_WIDTHS = 227, 1000, 256, None
+#: (a) the package's outputs against the workflow's forward on the same
+#: padded batch: bit-equal is expected (the same kernels on the same
+#: shapes); this is the bound the phase holds them to
+CM_PKG_TOL = 0.0
+CM_PKG_SAMPLES = 8
+#: (a) the transformer package: CM_T_* (with FLASH_CASES, which holds
+#: kernel 3's forward at its shape)
+#: (a) the C++ runner against "python" mode (f32 on the card), at
+#: ``tests/test_package_export.py``'s tolerances for these chains
+CM_RUNNER_TOL = {"mnist": 5e-3, "alexnet_mini": 2e-2}
+#: the JAX package's class ids (``veles_tpu.<module>.<Class>.__id__``),
+#: held against the ids the port's archives carry
+CM_REFERENCE_IDS = {
+    "ConvRELU": "50aa724b-71c2-5576-984f-2e11b4908c84",
+    "LRNormalizerForward": "acb1cba8-6030-5968-962f-6d40313a58b0",
+    "MaxPooling": "4f20b0e8-2bf5-5b64-9036-b8e1080de8eb",
+    "DropoutForward": "7d3c8efe-0612-5753-b32b-d15d029fdb2c",
+    "All2AllRELU": "0dc80ff5-7f62-542d-b78e-c56541be21ee",
+    "All2AllSoftmax": "2ecfc194-18e0-5211-89d2-846953565b72",
+    "All2AllTanh": "90409ed5-bdea-5294-b142-5fb2b66a9200",
+    "Embedding": "c1b7bb9f-cc10-5598-a7ca-247524286738",
+    "TransformerBlock": "18530faf-1608-534c-8c0d-40bdf81f43c2",
+    "MeanPoolSeq": "e05b78c7-813a-59d8-91f8-ba5a2b160b61",
+}
+CM_MANIFEST_KEYS = ["checksum", "format", "format_version", "input",
+                    "stablehlo", "units", "workflow"]
+#: (b) ensemble members; (c) the optimizer's population and generations
+#: over ``tests/test_genetics_ensemble.py:123``'s TINY MNIST (a population
+#: of 2, cut from 4: each individual is a child process on the card,
+#: 10-15 s of start-up for 0.1 s of training, and the smoke's whole run
+#: must stay inside its time limit)
+CM_MEMBERS, CM_RATIO = 2, 0.75
+CM_POP, CM_GENS = 2, 2
+CM_TINY = ("root.mnist_tpu.update({'max_epochs':1,'synthetic_train':512,"
+           "'synthetic_valid':128,'snapshot_time_interval':0.0,"
+           "'minibatch_size':128})")
+CM_RANGE = "root.mnist_tpu.learning_rate = Range(0.02, 0.001, 0.5)"
+CM_DIR = "_cli_modes"
+CM_TIMEOUT = 300
+
+
+def _cm_flags(dev):
+    """The device flags every command line of the phase takes (its
+    children get them too): the card, or ``-a cpu`` in a rehearsal."""
+    return ["-a", "cpu"] if dev.type == "cpu" else ["-d", "0"]
+
+
+def _cm_alexnet_argv(d, dev, extra=()):
+    """The AlexNet cut's command line, a snapshot after each validation
+    span into ``d``, uncompressed (a member's 0.5 GB of weights and
+    momenta)."""
+    import os
+    widths = {"widths": CM_A_WIDTHS} if CM_A_WIDTHS else {}
+    return [_sample("alexnet.py"), _sample("alexnet_config.py"),
+            "-c", "root.alexnet_tpu.update(%r)" % dict(
+                synthetic_train=CM_A_TRAIN, synthetic_valid=CM_A_VALID,
+                max_epochs=1, side=CM_A_SIDE, classes=CM_A_CLASSES,
+                minibatch_size=CM_A_BATCH, snapshot_compression=None,
+                snapshot_time_interval=0.0, **widths),
+            "-c", "root.common.dirs.snapshots = %r"
+            % os.path.join(d, "snaps")] + _cm_flags(dev) + list(extra)
+
+
+def _forward_padded(torch, chain, x, batch):
+    """The chain's output for ``x`` padded with zero rows to ``batch``
+    (the package's baked batch), the padding cut."""
+    pad = torch.zeros((batch - x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    with torch.no_grad():
+        h = torch.cat([x, pad])
+        for u in chain:
+            h = u.apply(h)
+    return h[:x.shape[0]].float().cpu().numpy()
+
+
+def _archive_manifest(path):
+    import tarfile
+    with tarfile.open(path, "r:gz") as tar:
+        return json.loads(tar.extractfile("contents.json").read())
+
+
+def _check_manifest(what, path, want_units):
+    """The reference's keys, the reference's class ids, no program."""
+    man = _archive_manifest(path)
+    if sorted(man) != CM_MANIFEST_KEYS or man["stablehlo"] is not None \
+            or man["format"] != "veles_tpu":
+        raise SystemExit("cli modes (%s): manifest %s" % (what, sorted(man)))
+    classes = [u["class"] for u in man["units"]]
+    bad = [(u["class"], u["uuid"]) for u in man["units"]
+           if u["uuid"] != CM_REFERENCE_IDS.get(u["class"])
+           or sorted(u) != ["class", "config", "name", "params", "uuid"]]
+    if bad or classes != want_units:
+        raise SystemExit("cli modes (%s): units %s (want %s); ids off the "
+                         "reference's: %s" % (what, classes, want_units, bad))
+    return man
+
+
+def _build_runner(d):
+    """``runtime/`` built from a copy in ``d`` (nothing is written under
+    the checkout); the build failing fails the phase."""
+    import os
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runtime")
+    dst = os.path.join(d, "runtime")
+    os.makedirs(dst)
+    for f in os.listdir(src):
+        if f.endswith((".cc", ".h")) or f == "Makefile":
+            shutil.copy(os.path.join(src, f), dst)
+    t0 = time.perf_counter()
+    r = subprocess.run(["make", "-j8", "-C", dst], capture_output=True,
+                       text=True, timeout=CM_TIMEOUT)
+    binary = os.path.join(dst, "veles_runner")
+    if r.returncode != 0 or not os.path.exists(binary):
+        raise SystemExit("cli modes: the C++ runner did not build: %s"
+                         % r.stderr[-800:])
+    return binary, time.perf_counter() - t0
+
+
+def _run_runner(binary, path, x, d):
+    import os
+    inp, out = os.path.join(d, "in.npy"), os.path.join(d, "out.npy")
+    numpy.save(inp, x)
+    r = subprocess.run([binary, path, inp, out], capture_output=True,
+                       text=True, timeout=CM_TIMEOUT)
+    if r.returncode != 0:
+        raise SystemExit("cli modes: the runner failed on %s: %s"
+                         % (path, r.stderr[-800:]))
+    return json.loads(r.stdout), numpy.load(out)
+
+
+def cm_package(torch, dev, d):
+    """Phase 18 (a): package export at full width and its consumers;
+    returns the part's launches."""
+    import os
+    from veles_tpu_torch import package_export
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.samples.alexnet import alexnet_layers
+    from veles_tpu_torch.samples.mnist import MnistWorkflow
+    from veles_tpu_torch.samples.transformer import TransformerWorkflow
+    out, launches = {}, {}
+    # the CLI run with --export-package, its export timed in place
+    path = os.path.join(d, "alexnet.tar.gz")
+    timed = {}
+    orig = package_export.export_package
+
+    def export_timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            timed["export_s"] = time.perf_counter() - t0
+    package_export.export_package = export_timed
+    torch.cuda.synchronize()
+    _zero_train_counts()
+    try:
+        run = _CliRun(_cm_alexnet_argv(d, dev, ["--export-package", path]))
+    finally:
+        package_export.export_package = orig
+    torch.cuda.synchronize()
+    launches["run"] = _read_train_counts()
+    wf = run.workflow
+    want_units = [type(u).__name__ for u in wf.forwards]
+    man = _check_manifest("alexnet", path, want_units)
+    shape = [CM_A_BATCH, CM_A_SIDE, CM_A_SIDE, 3]
+    if man["input"] != {"shape": shape, "dtype": "float32"} \
+            or man["workflow"] != "AlexNetWorkflow":
+        raise SystemExit("cli modes (a): input %s" % (man["input"],))
+    t0 = time.perf_counter()
+    pkg = package_export.load_package(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    # validation samples: the walk is [test | validation | train], no test
+    x = torch.as_tensor(wf.loader.original_data[:CM_PKG_SAMPLES]).to(
+        dev, torch.float32).reshape([CM_PKG_SAMPLES] + shape[1:])
+    want = _forward_padded(torch, wf.forwards, x, CM_A_BATCH)
+    _zero_train_counts()
+    got = pkg.run(x.cpu().numpy())
+    torch.cuda.synchronize()
+    launches["package"] = _read_train_counts()
+    err = float(numpy.abs(got - want).max())
+    if err > CM_PKG_TOL or got.shape != (CM_PKG_SAMPLES, CM_A_CLASSES):
+        raise SystemExit("cli modes (a): the package's outputs %s differ "
+                         "from the workflow's by %g (bound %g)"
+                         % (got.shape, err, CM_PKG_TOL))
+    pl = launches["package"]
+    if pl["lrn_fwd"] != 2 or pl["lrn_bwd"] or pl["uniform_fill"]:
+        raise SystemExit("cli modes (a): a package run launched %s, want "
+                         "lrn_fwd 2 only" % pl)
+    if not all(launches["run"][n] for n in
+               ("lrn_fwd", "lrn_bwd", "uniform_fill")):
+        raise SystemExit("cli modes (a): the CLI run launched %s"
+                         % launches["run"])
+    out["alexnet"] = {"archive_mb": os.path.getsize(path) / 2 ** 20,
+                      "export_s": timed.get("export_s"), "load_s": load_s,
+                      "cli_wall_s": run.wall, "max_abs_err": err,
+                      "units": len(man["units"]),
+                      "run_launches": launches["run"],
+                      "package_launches": pl}
+    wf.stop()
+    del wf, run, pkg
+    torch.cuda.empty_cache()
+    # the transformer package: kernel 3's forward once per block
+    twf = TransformerWorkflow(dim=CM_T_DIM, heads=CM_T_HEADS,
+                              blocks=CM_T_BLOCKS, vocab=16, seq=CM_T_SEQ,
+                              synthetic_train=128, synthetic_valid=64,
+                              minibatch_size=CM_T_BATCH, max_epochs=1,
+                              dtype="bfloat16",
+                              snapshotter_config={"enabled": False})
+    twf.initialize(device=dev)
+    tpath = twf.package_export(os.path.join(d, "transformer.tar.gz"))
+    _check_manifest("transformer", tpath,
+                    ["Embedding"] + ["TransformerBlock"] * CM_T_BLOCKS
+                    + ["MeanPoolSeq", "All2AllSoftmax"])
+    tokens = numpy.asarray(twf.loader.original_data[:CM_T_BATCH])
+    tx = torch.as_tensor(tokens, device=dev)
+    twant = _forward_padded(torch, twf.forwards, tx, CM_T_BATCH)
+    # each package's units are built in the compute dtype of the config
+    # tree, as the JAX package's load_package builds them
+    precision = root.common.precision
+    saved_dtype = precision.get("compute_dtype", "bfloat16")
+    precision.compute_dtype = "bfloat16"
+    tpkg = package_export.load_package(tpath, device=dev)
+    _zero_train_counts()
+    tgot = tpkg.run(tokens.astype(numpy.float32))
+    torch.cuda.synchronize()
+    launches["transformer"] = _read_train_counts()
+    terr = float(numpy.abs(tgot - twant).max())
+    if terr > CM_PKG_TOL or launches["transformer"]["flash_attn_fwd"] \
+            != CM_T_BLOCKS:
+        raise SystemExit("cli modes (a): the transformer package differs "
+                         "by %g; launches %s (want %d flash_attn_fwd)"
+                         % (terr, launches["transformer"], CM_T_BLOCKS))
+    out["transformer"] = {"max_abs_err": terr,
+                          "launches": launches["transformer"]}
+    twf.stop()
+    del twf, tpkg
+    # the C++ runner on an MNIST and a mini-AlexNet package of the port
+    binary, build_s = _build_runner(d)
+    mwf = MnistWorkflow(synthetic_train=256, synthetic_valid=64,
+                        minibatch_size=64,
+                        snapshotter_config={"enabled": False})
+    mwf.initialize(device=dev)
+    mpath = mwf.package_export(os.path.join(d, "mnist.tar.gz"), batch=8)
+    _check_manifest("mnist", mpath, ["All2AllTanh", "All2AllSoftmax"])
+    mx = numpy.asarray(mwf.loader.original_data[:8], numpy.float32)
+    mwf.stop()
+    spec = alexnet_layers(classes=7, space_to_depth=0)
+    chain = init_params(spec, 9, in_shape=(67, 67, 3), device=dev)
+    apath = package_export.export_package(
+        chain, os.path.join(d, "axmini.tar.gz"), (2, 67, 67, 3),
+        name="axmini")
+    ax = numpy.random.default_rng(9).random((2, 67, 67, 3)).astype(
+        numpy.float32)
+    runner = {"build_s": build_s}
+    precision.compute_dtype = "float32"
+    for name, p, x in (("mnist", mpath, mx), ("alexnet_mini", apath, ax)):
+        status, y = _run_runner(binary, p, x, d)
+        py = package_export.load_package(p, device=dev).run(x)
+        rerr = float(numpy.abs(y - py).max())
+        if y.shape != py.shape or rerr > CM_RUNNER_TOL[name]:
+            raise SystemExit("cli modes (a): the runner on %s: %s vs %s, "
+                             "off by %g (tolerance %g)" % (
+                                 name, y.shape, py.shape, rerr,
+                                 CM_RUNNER_TOL[name]))
+        runner[name] = {"max_abs_err": rerr, "units": status["units"],
+                        "tolerance": CM_RUNNER_TOL[name]}
+    out["runner"] = runner
+    precision.compute_dtype = saved_dtype
+    del chain
+    torch.cuda.empty_cache()
+    log(json.dumps({"cli_modes_package": out}))
+    return list(launches.values())
+
+
+def _trace_kernels(directory):
+    """Per Chrome trace the profiler wrote into ``directory`` (one per
+    child process): the kernel events of kernels 3–5, counted under
+    their wrappers' names by their ``__global__`` functions' names."""
+    import glob
+    globals_of = {"lrn_fwd": "lrn_fwd_", "lrn_bwd": "lrn_bwd_",
+                  "uniform_fill": "uniform_fill_kernel",
+                  "flash_attn_fwd": "flash_fwd_"}
+    out = []
+    for path in sorted(glob.glob(os.path.join(directory, "trace-*.json"))):
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
+        out.append({n: sum(g in k for k in names)
+                    for n, g in globals_of.items()})
+    return out
+
+
+def cm_ensemble(torch, dev, d):
+    """Phase 18 (b): ``--ensemble-train`` of the AlexNet cut with its
+    members on the card, then ``--ensemble-test``; returns the members'
+    and testers' kernel events."""
+    import os
+    prof = os.path.join(d, "ens-prof")
+    test_prof = os.path.join(d, "ens-test-prof")
+    summary = os.path.join(d, "ensemble.json")
+    argv = _cm_alexnet_argv(d, dev, [
+        "-c", "root.common.trace.profiler_dir = %r" % prof,
+        "--ensemble-train", str(CM_MEMBERS), "--train-ratio",
+        str(CM_RATIO), "-d", "0", "--result-file", summary])
+    run = _CliRun(argv)
+    s = _results(summary)
+    inst = s["instances"]
+    seeds = [i["seed"] for i in inst]
+    snaps = [i["snapshot"] for i in inst]
+    # a member's validation error and loss: 1,000 classes of random
+    # pixels leave the error near 100 % after two steps, so the members
+    # must differ in the pair (their losses, at least)
+    errs = [tuple((i["results"] or {}).get(k) for k in (
+        "validation_error_pct", "validation_loss")) for i in inst]
+    members = _trace_kernels(prof)
+    if s["succeeded"] != CM_MEMBERS or seeds != [4242, 4243] \
+            or len(set(snaps)) != CM_MEMBERS \
+            or not all(os.path.isfile(p) for p in snaps) \
+            or len(set(errs)) != CM_MEMBERS \
+            or None in sum(errs, ()):
+        raise SystemExit("cli modes (b): summary %s" % json.dumps(s)[:2000])
+    if len(members) != CM_MEMBERS or not all(
+            m["lrn_fwd"] and m["lrn_bwd"] and m["uniform_fill"]
+            for m in members):
+        raise SystemExit("cli modes (b): the members' kernel events %s"
+                         % members)
+    # the tester runs each snapshot again, profiled into its own dir
+    s["base_overrides"] = [
+        ov.replace(repr(prof), repr(test_prof)) for ov in
+        s["base_overrides"]]
+    with open(summary, "w") as f:
+        json.dump(s, f)
+    tested = os.path.join(d, "ensemble-test.json")
+    t0 = time.perf_counter()
+    _CliRun(["--ensemble-test", summary, "--result-file", tested]
+            + _cm_flags(dev))
+    test_wall = time.perf_counter() - t0
+    t = _results(tested)
+    testers = _trace_kernels(test_prof)
+    if len(t["tests"]) != CM_MEMBERS or not all(
+            x.get("results") for x in t["tests"]) \
+            or len(testers) != CM_MEMBERS \
+            or not all(m["lrn_fwd"] for m in testers):
+        raise SystemExit("cli modes (b): the tester gave %s, kernel "
+                         "events %s" % (json.dumps(t)[:2000], testers))
+    log(json.dumps({"cli_modes_ensemble": {
+        "members": CM_MEMBERS, "train_ratio": CM_RATIO, "seeds": seeds,
+        "validation_error_pct_and_loss": errs,
+        "member_elapsed_s": [i["results"]["elapsed_sec"] for i in inst],
+        "train_wall_s": run.wall, "s_per_member": run.wall / CM_MEMBERS,
+        "test_wall_s": test_wall, "member_kernel_events": members,
+        "tester_kernel_events": testers,
+        "snapshot_mb": [os.path.getsize(p) / 2 ** 20 for p in snaps]}}))
+    return members + testers
+
+
+def cm_optimize(torch, dev, d):
+    """Phase 18 (c): ``--optimize`` on the TINY MNIST, individuals on the
+    card; generation 0 against the port's ``Population`` in process."""
+    import os
+    from veles_tpu_torch.config import Config, Range
+    from veles_tpu_torch.genetics import (
+        Population, SubprocessEvaluator, collect_tuneables)
+    calls = []
+    orig = SubprocessEvaluator.__call__
+
+    def timed(self, overrides, seed):
+        t0 = time.perf_counter()
+        fit = orig(self, overrides, seed)
+        calls.append({"overrides": list(overrides), "seed": seed,
+                      "fitness": fit, "s": time.perf_counter() - t0})
+        return fit
+    SubprocessEvaluator.__call__ = timed
+    outcome = os.path.join(d, "optimize.json")
+    try:
+        run = _CliRun([
+            _sample("mnist.py"), _sample("mnist_config.py"), "-c",
+            CM_RANGE, "-c", CM_TINY, "-c", "root.common.dirs.snapshots = "
+            "%r" % os.path.join(d, "opt-snaps"), "--optimize",
+            "%d:%d" % (CM_POP, CM_GENS), "--result-file", outcome]
+            + _cm_flags(dev))
+    finally:
+        SubprocessEvaluator.__call__ = orig
+    o = _results(outcome)
+    cfg = Config("t")
+    cfg.mnist_tpu.learning_rate = Range(0.02, 0.001, 0.5)
+    pop = Population(collect_tuneables(cfg), size=CM_POP, seed=42)
+    want = [["root.mnist_tpu.learning_rate = %r" % c.genes[0]]
+            for c in pop.individuals]
+    gen0 = [c["overrides"] for c in calls[:CM_POP]]
+    if gen0 != want or len(calls) != CM_POP * CM_GENS \
+            or None in [c["fitness"] for c in calls] \
+            or o.get("best_fitness") is None \
+            or list(o.get("best_genes", {})) != \
+            ["root.mnist_tpu.learning_rate"]:
+        raise SystemExit("cli modes (c): generation 0 %s, the population's "
+                         "%s; outcome %s; %d evaluations"
+                         % (gen0, want, o, len(calls)))
+    log(json.dumps({"cli_modes_optimize": {
+        "population": CM_POP, "generations": CM_GENS,
+        "best_fitness": o["best_fitness"], "best_genes": o["best_genes"],
+        "history": o["history"], "generation0_match": True,
+        "s_per_evaluation": [c["s"] for c in calls],
+        "wall_s": run.wall}}))
+    return []
+
+
+def _status_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def cm_services(torch, dev, d):
+    """Phase 18 (d): the AlexNet cut with ``-g`` and ``--web-status``
+    against the same run without them; returns the observed run's
+    launches."""
+    import urllib.parse
+    from veles_tpu_torch.graphics_server import HAS_ZMQ
+    from veles_tpu_torch.web_status import WebStatusServer
+    server = WebStatusServer(port=0, host="127.0.0.1")
+    server.start()
+    gport = _free_port()
+    got, stop = [], threading.Event()
+    sub = listener = None
+    if HAS_ZMQ:
+        import gzip
+        import zmq
+        from veles_tpu_torch.safe_pickle import safe_loads
+        sub = zmq.Context.instance().socket(zmq.SUB)
+        sub.setsockopt(zmq.SUBSCRIBE, b"")
+        sub.setsockopt(zmq.LINGER, 0)
+        # the run's server binds later: retry every 10 ms (not zmq's
+        # 100 ms), so the subscription is up before the first payload
+        sub.setsockopt(zmq.RECONNECT_IVL, 10)
+        sub.connect("tcp://127.0.0.1:%d" % gport)
+
+        def listen():
+            while not stop.is_set():
+                if sub.poll(100):
+                    got.append(safe_loads(gzip.decompress(sub.recv())))
+        listener = threading.Thread(target=listen, daemon=True)
+        listener.start()
+    else:
+        log("cli modes (d): pyzmq is not installed here, so the graphics "
+            "transport is absent; the plotters' payloads are checked "
+            "through payload() on the card")
+    observed = ["--web-status", "http://127.0.0.1:%d" % server.port]
+    if HAS_ZMQ:
+        observed += ["-g", "-c", "root.common.graphics.port = %d" % gport]
+    runs = {}
+    try:
+        for arm, extra in (("observed", observed), ("plain", [])):
+            torch.cuda.synchronize()
+            _zero_train_counts()
+            run = _CliRun(_cm_alexnet_argv(d, dev, extra))
+            torch.cuda.synchronize()
+            wf = run.workflow
+            runs[arm] = {"launches": _read_train_counts(),
+                         "params": _host_params(wf.gd.forwards),
+                         "history": list(wf.decision.history),
+                         "wall": run.wall}
+            if arm == "observed":
+                launcher = run.main.launcher
+                plots = {p.name: p for p in wf.plotters}
+                if not HAS_ZMQ:     # one payload each, read on the card
+                    for p in wf.plotters:
+                        p.collect = True
+                        p.run()
+            wf.stop()
+            del wf, run
+    finally:
+        stop.set()
+        if listener is not None:
+            listener.join(5)
+            sub.close(0)
+    hist = runs["observed"]["history"]
+    curve = plots["error_curve"].last_payload["series"]["validation error"]
+    want = [h["validation_error_pct"] for h in hist]
+    if not hist or curve != (want if HAS_ZMQ else want[-1:]):
+        raise SystemExit("cli modes (d): the error curve %s, the history "
+                         "%s" % (curve, hist))
+    losses = plots["loss_curve"].last_payload["series"]["train loss"]
+    if HAS_ZMQ and not all(h["validation_loss"] in losses for h in hist):
+        raise SystemExit("cli modes (d): the loss curve %s lacks the "
+                         "history's %s" % (losses, hist))
+    if HAS_ZMQ:
+        last = {p["name"]: p for p in got}
+        for name, p in plots.items():
+            if name not in last or last[name]["series"] != \
+                    p.last_payload["series"]:
+                raise SystemExit("cli modes (d): the subscriber's last %s "
+                                 "was %s" % (name, last.get(name)))
+        if launcher.graphics_server.sent != len(got):
+            raise SystemExit("cli modes (d): %d payloads published, %d "
+                             "received" % (launcher.graphics_server.sent,
+                                           len(got)))
+    try:
+        rid, status = next(iter(server.runs.items()))
+        names = [n["label"] for n in status.get("graph", {}).get(
+            "nodes", [])]
+        if len(server.runs) != 1 or not status.get("events") \
+                or "error_curve" not in names \
+                or launcher.status_notifier.posted < 1 \
+                or status["metrics"].get("Total epochs") != 1:
+            raise SystemExit("cli modes (d): status %s"
+                             % json.dumps(status)[:1500])
+        pages = {}
+        for path in ("/", "/graph/" + urllib.parse.quote(rid), "/alerts",
+                     "/dashboard"):
+            code, body = _status_get(server.port, path)
+            if code != 200 or not body:
+                raise SystemExit("cli modes (d): %s answered %d"
+                                 % (path, code))
+            pages[path] = len(body)
+    finally:
+        server.stop()
+    a, b = runs["observed"], runs["plain"]
+    diff = max(v for dd in _max_diff(torch, a["params"], b["params"])
+               for v in dd.values())
+    if diff != 0.0 or a["launches"] != b["launches"]:
+        raise SystemExit("cli modes (d): the observed run differs from the "
+                         "plain one by %g; launches %s vs %s"
+                         % (diff, a["launches"], b["launches"]))
+    log(json.dumps({"cli_modes_services": {
+        "zmq": HAS_ZMQ, "payloads_received": len(got),
+        "status_posts": launcher.status_notifier.posted,
+        "pages_bytes": pages, "graph_units": len(names),
+        "events": len(status["events"]), "error_curve": curve,
+        "observed_wall_s": a["wall"], "plain_wall_s": b["wall"],
+        "launches": a["launches"], "max_abs_weight_diff": diff}}))
+    return [a["launches"]]
+
+
+def cm_frontend(torch, dev, d):
+    """Phase 18 (e): a form POSTed to ``--frontend`` composes an MNIST
+    run, which runs; its results file equals the direct command line's
+    with the same argv."""
+    import os
+    import urllib.parse
+    import urllib.request
+    from veles_tpu_torch.cmdline import build_parser
+    from veles_tpu_torch.frontend import compose_argv
+    port = _free_port()
+    keys = ("root.mnist_tpu.update({'synthetic_train': 512, "
+            "'synthetic_valid': 128, 'max_epochs': 2})")
+    form = {"workflow": _sample("mnist.py"),
+            "config": _sample("mnist_config.py"),
+            "config_override": "%s;;root.common.dirs.snapshots = %r"
+            % (keys, os.path.join(d, "fe-snaps")),
+            "result_file": os.path.join(d, "frontend.json")}
+    if dev.type == "cpu":
+        form["backend"] = "cpu"
+    run = _CliRun(["--frontend", "--frontend-port", str(port)],
+                  thread=True)
+    body = urllib.parse.urlencode(form).encode()
+    t_end = time.time() + 60
+    while True:
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    "http://127.0.0.1:%d/compose" % port, data=body),
+                    timeout=30) as r:
+                argv = json.loads(r.read())["argv"]
+            break
+        except OSError:
+            if time.time() > t_end or not run.thread.is_alive():
+                raise SystemExit("cli modes (e): the frontend never "
+                                 "answered")
+            time.sleep(0.1)
+    run.wait(CM_TIMEOUT)
+    if argv != compose_argv(build_parser(), form):
+        raise SystemExit("cli modes (e): composed %s" % argv)
+    fe = _results(form["result_file"])
+    direct = list(argv)
+    direct[direct.index("--result-file") + 1] = os.path.join(d, "direct.json")
+    _CliRun(direct + _cm_flags(dev)).workflow.stop()
+    _same_results("cli modes (e)", fe, _results(os.path.join(
+        d, "direct.json")), 0.0)
+    log(json.dumps({"cli_modes_frontend": {
+        "argv": argv, "frontend_wall_s": run.wall, "results": fe}}))
+    return []
+
+
+def cli_modes_check(torch, dev):
+    """Phase 18: the command line's fleet modes — (a) package export and
+    its consumers, (b) ensembles, (c) the genetic optimizer, (d) plots
+    and status, (e) the frontend; returns the phase's launches by kernel
+    (this process's, plus the kernel events of the ensemble's child
+    processes)."""
+    import os
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), CM_DIR)
+    os.makedirs(d, exist_ok=True)
+    t_phase = time.perf_counter()
+    totals, parts = {}, {}
+    try:
+        for name, fn in (("package", cm_package), ("ensemble", cm_ensemble),
+                         ("optimize", cm_optimize),
+                         ("services", cm_services),
+                         ("frontend", cm_frontend)):
+            t0 = time.perf_counter()
+            for counts in fn(torch, dev, d):
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+            parts[name] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log("cli modes: %.1f s (%s)" % (time.perf_counter() - t_phase, ", ".join(
+        "%s %.1f" % kv for kv in parts.items())))
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8320,6 +8975,7 @@ def main():
     cli_launches = cli_check(torch, dev)
     parallel_launches = parallel_check(torch, dev)
     dist_launches = distributed_check(torch, dev)
+    cli_modes_launches = cli_modes_check(torch, dev)
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -8357,7 +9013,8 @@ def main():
                          ("cli_launches", cli_launches),
                          ("parallel_launches", parallel_launches),
                          ("distributed_launches", dist_launches),
-                         ("fleet_launches", fleet_launches)):
+                         ("fleet_launches", fleet_launches),
+                         ("cli_modes_launches", cli_modes_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -318,28 +318,178 @@ class TestCLI:
             ["-a", "numpy", "--listen", ":5050"]
 
 
-# -- flags the port does not have yet ------------------------------------------
+# -- the fleet modes and the services of a run ----------------------------------
 
-REFUSED = [
-    (["--optimize", "4:2"], "item 11"),
-    (["--ensemble-train", "3"], "item 11"),
-    (["--ensemble-test", "summary.json"], "item 11"),
-    (["--frontend"], "item 11"),
-    (["-g"], "item 11"),
-    (["--web-status", "http://localhost:8090"], "item 11"),
-    (["--export-package", "m.tar.gz"], "item 11"),
-]
+RANGE = "root.mnist_tpu.learning_rate = Range(0.02, 0.001, 0.5)"
 
 
-@pytest.mark.parametrize("flags,item", REFUSED,
-                         ids=[f[0][0] for f in REFUSED])
-def test_unported_flag_exits_naming_its_item(flags, item, cli_env, capsys):
+def _mode_optimize(tmp, argv):
+    out = tmp / "opt.json"
+    assert run_port(argv + ["--optimize", "2:1", "-c", RANGE,
+                            "--result-file", str(out)])
+    got = json.loads(out.read_text())
+    assert sorted(got) == ["best_fitness", "best_genes", "generations",
+                           "history"]
+    assert list(got["best_genes"]) == ["root.mnist_tpu.learning_rate"]
+    assert got["best_fitness"] < 0 and len(got["history"]) == 1
+
+
+def _ensemble(tmp, argv):
+    out = tmp / "ens.json"
+    m = run_port(argv + ["--ensemble-train", "2", "--train-ratio", "0.75",
+                         "--result-file", str(out)])
+    return m, json.loads(out.read_text())
+
+
+def _mode_ensemble_train(tmp, argv):
+    m, summary = _ensemble(tmp, argv)
+    assert summary["succeeded"] == 2
+    assert [i["seed"] for i in summary["instances"]] == [4242, 4243]
+    snaps = [i["snapshot"] for i in summary["instances"]]
+    assert len(set(snaps)) == 2 and all(os.path.isfile(p) for p in snaps)
+    assert all(i["results"]["Total epochs"] == 2
+               for i in summary["instances"])
+
+
+def _mode_ensemble_test(tmp, argv):
+    # one instance's snapshot from a direct run, as a summary
+    m = run_port(argv + ["--result-file", str(tmp / "r.json")])
+    snap = json.loads((tmp / "r.json").read_text())["Snapshot"]
+    summary = {"size": 1, "instances": [{"index": 0, "snapshot": snap}],
+               "workflow_file": argv[0], "config_file": argv[1],
+               "base_overrides": [MNIST_KEYS, F32]}
+    (tmp / "ens.json").write_text(json.dumps(summary))
+    out = tmp / "test.json"
+    assert run_port(["--ensemble-test", str(tmp / "ens.json"), "-a",
+                     "numpy", "--result-file", str(out)])
+    tested = json.loads(out.read_text())
+    assert tested["summary"] == str(tmp / "ens.json")
+    assert len(tested["tests"]) == 1
+    assert tested["tests"][0]["results"]["Total epochs"] == 2
+    assert m.workflow is not None
+
+
+def _mode_frontend(tmp, argv):
+    """A form POSTed to ``--frontend`` composes the run, which this
+    process then runs: its results file equals the direct run's."""
+    import threading
+    import urllib.parse
+    import urllib.request
+    port = _free_port()
+    form = {"workflow": argv[0], "config": argv[1],
+            "config_override": MNIST_KEYS + ";;" + F32,
+            "backend": "numpy", "result_file": str(tmp / "f.json")}
+    out = {}
+    t = threading.Thread(target=lambda: out.update(main=run_port(
+        ["--frontend", "--frontend-port", str(port)])))
+    t.start()
+    body = urllib.parse.urlencode(form).encode()
+    for _ in range(100):
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                "http://127.0.0.1:%d/compose" % port, data=body),
+                timeout=5).read()
+            break
+        except OSError:
+            t.join(0.1)
+    t.join(120)
+    assert not t.is_alive() and "main" in out
+    run_port(argv + ["--result-file", str(tmp / "d.json")])
+    assert_results_close(json.loads((tmp / "f.json").read_text()),
+                         json.loads((tmp / "d.json").read_text()), 0)
+
+
+def _mode_graphics(tmp, argv):
+    """``-g``: the launcher's graphics server published the plotters'
+    payloads, and closed."""
+    pytest.importorskip("zmq")
+    m = run_port(argv + ["-g"])
+    server = m.launcher.graphics_server
+    assert server is not None and server.sent > 0
+    assert server._sock.closed
+    names = {p.name: p.last_payload for p in m.workflow.plotters}
+    assert names["error_curve"]["series"]["validation error"] == [
+        h["validation_error_pct"] for h in m.workflow.decision.history]
+
+
+def _mode_web_status(tmp, argv):
+    from veles_tpu_torch.web_status import WebStatusServer
+    server = WebStatusServer(port=0, host="127.0.0.1")
+    server.start()
+    try:
+        m = run_port(argv + ["--web-status",
+                             "http://127.0.0.1:%d" % server.port])
+        assert m.launcher.status_notifier.posted >= 1
+        run = next(iter(server.runs.values()))
+        assert run["workflow"] == m.workflow.name
+        assert run["metrics"]["Total epochs"] == 2
+        assert [n["label"] for n in run["graph"]["nodes"]] == [
+            u.name for u in m.workflow.units]
+        assert run["events"]
+    finally:
+        server.stop()
+
+
+def _mode_export_package(tmp, argv):
+    from veles_tpu_torch.package_export import load_package
+    path = str(tmp / "m.tar.gz")
+    m = run_port(argv + ["--export-package", path])
+    pkg = load_package(path, device="cpu")
+    loader = m.workflow.loader
+    x = numpy.asarray(loader.original_data[:64], numpy.float32)
+    import torch
+    with torch.no_grad():
+        h = torch.as_tensor(x)
+        for u in m.workflow.forwards:
+            h = u.apply(h)
+        want = h.numpy()
+    numpy.testing.assert_array_equal(pkg.run(x), want)
+    assert pkg.input_shape == (64, 784)
+
+
+FLEET_MODES = {"--optimize": _mode_optimize,
+               "--ensemble-train": _mode_ensemble_train,
+               "--ensemble-test": _mode_ensemble_test,
+               "--frontend": _mode_frontend, "-g": _mode_graphics,
+               "--web-status": _mode_web_status,
+               "--export-package": _mode_export_package}
+
+
+@pytest.mark.parametrize("flag", sorted(FLEET_MODES))
+def test_fleet_flag_runs_its_mode(flag, cli_env):
+    """Each flag the port once refused runs its mode through ``Main`` on
+    the CPU (MNIST at ``SMALL``; children of the fleet modes run
+    ``python -m veles_tpu_torch``)."""
+    FLEET_MODES[flag](cli_env, mnist_argv("port") + SMALL)
+
+
+def test_child_argv_matches_reference(cli_env):
+    """The flags an individual or an instance runs with are the JAX
+    package's: ``-a``, ``-d``, ``--decision`` and ``-v``."""
+    from veles_tpu.__main__ import Main as JaxMain
+    from veles_tpu.cmdline import build_parser as jax_parser
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.cmdline import build_parser
+    argv = mnist_argv("port") + ["-a", "numpy", "-d", "1", "--decision",
+                                 "max_epochs=3", "-vv"]
+    jm, pm = JaxMain(argv), Main(argv)
+    jm.args, pm.args = jax_parser().parse_args(argv), \
+        build_parser().parse_args(argv)
+    assert pm._child_argv() == jm._child_argv() == [
+        "-a", "numpy", "-d", "1", "--decision", "max_epochs=3", "-v", "-v"]
+
+
+@pytest.mark.parametrize("mode", [["--optimize", "2:1"],
+                                  ["--ensemble-train", "2"],
+                                  ["--ensemble-test", "s.json"]])
+def test_export_package_refused_with_fleet_modes(mode, cli_env, capsys):
     from veles_tpu_torch.__main__ import Main
     with pytest.raises(SystemExit) as e:
-        Main(mnist_argv("port") + flags + SMALL).run()
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "ROADMAP " + item in err and flags[0].lstrip("-") in err
+        Main(mnist_argv("port") + mode + ["--export-package", "m.tar.gz"]
+             + SMALL).run()
+    assert e.value.code == 2
+    assert "--export-package applies to a single training run" \
+        in capsys.readouterr().err
 
 
 def test_launcher_refuses_distributed_modes():

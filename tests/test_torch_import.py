@@ -556,7 +556,7 @@ def test_cli_slice_imports_only_the_port(module):
                                 "get", "Range", "Choice", "fix_config")),
     ("veles_tpu_torch.import_file", ("import_file_as_module",)),
     ("veles_tpu_torch.cmdline", ("build_parser", "filter_argv",
-                                 "refuse_unported", "backend_device")),
+                                 "backend_device")),
     ("veles_tpu_torch.cli_exec", ("run_cli_collect_results",)),
     ("veles_tpu_torch.launcher", ("Launcher",)),
     ("veles_tpu_torch.__main__", ("Main", "main")),
@@ -634,3 +634,97 @@ def test_gang_slice_imports_only_the_port(module):
 def test_gang_surface_is_exported(module, names):
     """The reference's names of the gang and the coordinator."""
     test_workflow_surface_is_exported(module, names)
+
+
+#: item 11.2: the command line's fleet modes and the services that
+#: accompany a run
+CLI_MODES = ("veles_tpu_torch.package_export", "veles_tpu_torch.ensemble",
+             "veles_tpu_torch.loader.ensemble", "veles_tpu_torch.genetics",
+             "veles_tpu_torch.genetics.core",
+             "veles_tpu_torch.genetics.optimizer",
+             "veles_tpu_torch.genetics.fleet", "veles_tpu_torch.plotter",
+             "veles_tpu_torch.plotting_units",
+             "veles_tpu_torch.graphics_server",
+             "veles_tpu_torch.graphics_client",
+             "veles_tpu_torch.web_status", "veles_tpu_torch.frontend",
+             "veles_tpu_torch.interaction")
+
+#: optional third-party modules a service imports where it runs
+OPTIONAL = {"veles_tpu_torch.graphics_server": {"zmq"},
+            "veles_tpu_torch.graphics_client": {"zmq", "matplotlib"},
+            "veles_tpu_torch.interaction": {"IPython"}}
+
+
+@pytest.mark.parametrize("module", CLI_MODES)
+def test_cli_modes_import_alone_with_jax_blocked(module):
+    """Each module of the fleet modes imports first in a fresh
+    interpreter with ``jax`` blocked, loads nothing of ``veles_tpu``,
+    and neither matplotlib nor tornado."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "importlib.import_module(%r)\n"
+            "bad = [n for n in sys.modules if n.split('.')[0] in\n"
+            "       ('veles_tpu', 'matplotlib', 'tornado')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % module)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("module", CLI_MODES)
+def test_cli_modes_import_only_the_port(module):
+    """Each is listed in ``SUBMODULES`` and imports only torch, numpy,
+    the standard library and the port (and the graphics transport's
+    ``zmq``, the client's matplotlib, the shell's IPython)."""
+    import veles_tpu_torch
+    assert module in veles_tpu_torch.SUBMODULES
+    path = os.path.join(ROOT, *module.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) \
+        else path + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert roots <= {"numpy", "torch", "veles_tpu_torch"} \
+        | set(sys.stdlib_module_names) | OPTIONAL.get(module, set()), roots
+
+
+@pytest.mark.parametrize("module,names", [
+    ("veles_tpu_torch.package_export", (
+        "export_package", "load_package", "PackagedWorkflow",
+        "FORMAT_VERSION", "V2_KEYS")),
+    ("veles_tpu_torch.ensemble", ("EnsembleTrainer", "EnsembleTester")),
+    ("veles_tpu_torch.loader.ensemble", ("EnsembleLoader",)),
+    ("veles_tpu_torch.genetics", (
+        "Choice", "Chromosome", "Population", "Range", "Tuneable",
+        "collect_tuneables", "fix_config", "GeneticsOptimizer",
+        "SubprocessEvaluator", "fitness_from_results")),
+    ("veles_tpu_torch.genetics.fleet", (
+        "FleetJobSource", "CoordinatorEvaluator", "serve_fleet_worker")),
+    ("veles_tpu_torch.plotter", ("Plotter",)),
+    ("veles_tpu_torch.plotting_units", (
+        "AccumulatingPlotter", "MatrixPlotter", "ImagePlotter",
+        "Histogram", "MultiHistogram", "TableMaxMin", "SlaveStats")),
+    ("veles_tpu_torch.graphics_server", ("GraphicsServer", "HAS_ZMQ")),
+    ("veles_tpu_torch.graphics_client", ("render_payload", "main")),
+    ("veles_tpu_torch.web_status", (
+        "WebStatusServer", "StatusNotifier", "render_graph_svg", "main")),
+    ("veles_tpu_torch.frontend", ("Frontend", "compose_argv")),
+    ("veles_tpu_torch.interaction", ("Shell",))])
+def test_cli_modes_surface_is_exported(module, names):
+    """The reference's names of each module of the fleet modes."""
+    test_workflow_surface_is_exported(module, names)
+
+
+def test_genetics_reexports_the_config_markers():
+    """``Range``, ``Choice`` and ``fix_config`` are the config tree's
+    own, not second copies."""
+    from veles_tpu_torch import config, genetics
+    assert genetics.Range is config.Range
+    assert genetics.Choice is config.Choice
+    assert genetics.fix_config is config.fix_config

@@ -424,21 +424,19 @@ def _moe_lm_spec():
             {"type": "token_logits", "vocab": T_VOCAB}]
 
 
-def test_moe_trainer_three_steps_match_reference(f32):
-    """A validation span and 3 SGD-momentum steps of the MoE LM on both
-    trainers from the same weights and minibatches: losses, ``n_err``,
-    the epoch accumulator and every parameter within 2e-5."""
+def _moe_trainer_child(out):
+    """The JAX half of :func:`test_moe_trainer_three_steps_match_reference`,
+    run by ``run_jax_child``: the initial weights, each round's loss,
+    the step count, ``n_err``, the epoch accumulator and the final
+    weights."""
+    from tests.test_torch_workflow import child_jax_setup, pack_params
     from veles_tpu.accelerated_units import AcceleratedWorkflow
     from veles_tpu.models.evaluator import EvaluatorNextToken as JNext
     from veles_tpu.models.gd import GradientDescent as JGD
     from veles_tpu.models.standard import make_forwards as jax_make
-    from veles_tpu_torch.convert import params_from_numpy, params_to_numpy
-    from veles_tpu_torch.loader import FullBatchLoader
-    from veles_tpu_torch.models.evaluator import EvaluatorNextToken
-    from veles_tpu_torch.models.gd import GradientDescent
-    tokens = numpy.random.default_rng(8).integers(
-        0, T_VOCAB, (16, T_SEQ)).astype(numpy.int32)
-    kw = dict(solver="sgd", learning_rate=0.05, gradient_moment=0.9)
+    child_jax_setup()
+    _compute("float32")
+    tokens = _moe_tokens()
     with jax_prng.get().preserve_state(), \
             jax_prng.get("loader").preserve_state():
         wf = AcceleratedWorkflow(None, name="torch-moe-train")
@@ -452,29 +450,60 @@ def test_moe_trainer_three_steps_match_reference(f32):
         ev.tokens = jl.minibatch_data
         ev.loader = jl
         ev.initialize(device=dev)
-        jgd = JGD(wf, forwards=jfw, evaluator=ev, loader=jl, **kw)
+        jgd = JGD(wf, forwards=jfw, evaluator=ev, loader=jl, **MOE_KW)
         jgd.initialize(device=dev)
     jgd._observe_health = lambda health, force=False: None
-    chain = params_from_numpy(_moe_lm_spec(), jax_params(jfw), device="cpu",
-                              dtype="float32")
-    pl = FullBatchLoader(tokens, None, [0, 4, 12], minibatch_size=T_MB,
-                         seed=5, device="cpu")
-    pgd = GradientDescent(chain, EvaluatorNextToken(), **kw)
+    arrays = pack_params("init", jax_params(jfw))
     losses = []
     for _ in range(2):                  # the validation span, then train
         jl.run()
         jgd.run()
+        losses.append(float(jgd.loss.map_read().mem))
+    arrays.update(pack_params("final", jax_params(jfw)))
+    numpy.savez(out, losses=numpy.array(losses),
+                global_step=numpy.array(jgd.global_step),
+                n_err=numpy.array(jgd.n_err.map_read().mem),
+                epoch_acc=numpy.array(jgd.epoch_acc.map_read().mem),
+                **arrays)
+
+
+MOE_KW = dict(solver="sgd", learning_rate=0.05, gradient_moment=0.9)
+
+
+def _moe_tokens():
+    return numpy.random.default_rng(8).integers(
+        0, T_VOCAB, (16, T_SEQ)).astype(numpy.int32)
+
+
+def test_moe_trainer_three_steps_match_reference(f32, tmp_path):
+    """A validation span and 3 SGD-momentum steps of the MoE LM on both
+    trainers from the same weights and minibatches: losses, ``n_err``,
+    the epoch accumulator and every parameter within 2e-5.  The JAX
+    side runs in a child process of fixed environment
+    (``tests.test_torch_workflow.run_jax_child``)."""
+    from tests.test_torch_workflow import run_jax_child, unpack_params
+    from veles_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.models.evaluator import EvaluatorNextToken
+    from veles_tpu_torch.models.gd import GradientDescent
+    rec = run_jax_child(_moe_trainer_child, tmp_path / "jax.npz")
+    chain = params_from_numpy(_moe_lm_spec(), unpack_params(rec, "init"),
+                              device="cpu", dtype="float32")
+    pl = FullBatchLoader(_moe_tokens(), None, [0, 4, 12],
+                         minibatch_size=T_MB, seed=5, device="cpu")
+    pgd = GradientDescent(chain, EvaluatorNextToken(), **MOE_KW)
+    losses = []
+    for jloss in rec["losses"]:         # the validation span, then train
         pl.serve_span()
         pgd.run_span(pl)
-        losses.append((float(pgd.loss), float(jgd.loss.map_read().mem)))
-    assert pgd.global_step == jgd.global_step == 3
+        losses.append((float(pgd.loss), float(jloss)))
+    assert pgd.global_step == int(rec["global_step"]) == 3
     for got, want in losses:
         assert got == pytest.approx(want, rel=2e-5, abs=2e-5)
-    assert int(pgd.n_err) == int(jgd.n_err.map_read().mem)
-    numpy.testing.assert_allclose(pgd.epoch_acc.numpy(),
-                                  jgd.epoch_acc.map_read().mem,
+    assert int(pgd.n_err) == int(rec["n_err"])
+    numpy.testing.assert_allclose(pgd.epoch_acc.numpy(), rec["epoch_acc"],
                                   rtol=2e-5, atol=2e-5)
-    got, want = params_to_numpy(chain), jax_params(jfw)
+    got, want = params_to_numpy(chain), unpack_params(rec, "final")
     for i in want:
         for n in want[i]:
             numpy.testing.assert_allclose(got[i][n], want[i][n], rtol=2e-5,

@@ -4,8 +4,7 @@ CPU, each through both command lines on the same argv (float32).
 Oracles: ``tests/test_model_families.py::test_mnist_ae_trains`` and
 ``test_conv_ae_mechanics`` (the autoencoders), ``tests/
 test_loader_breadth.py::test_mnist_forward_example`` (the inference
-example; the port reads snapshots, its package source names ROADMAP
-item 11) and ``test_sound_loader_separates_genres`` (the GTZAN loader
+example, on snapshots and on exported packages) and ``test_sound_loader_separates_genres`` (the GTZAN loader
 through ``gtzan_features.xml``, on a tree ``datasets.tones`` writes)."""
 
 import json
@@ -64,13 +63,14 @@ def _digits(out):
 
 def test_mnist_forward_example(cli_env, capsys):
     """The inference example on a JAX snapshot prints the JAX example's
-    digits and confidences; on the port's own snapshot, its chain's; an
-    exported package raises, naming ROADMAP item 11."""
+    digits and confidences; on the port's own snapshot, its chain's; on
+    an exported package — the JAX run's and the port's — the JAX
+    example's lines for the same archive."""
     keys = ["-c", "root.mnist_tpu.update({'synthetic_train': 256, "
             "'synthetic_valid': 128, 'max_epochs': 2, "
             "'minibatch_size': 64, 'layers': [16, 10], "
             "'snapshot_time_interval': 0.0})", "-c", F32, "-a", "numpy"]
-    run_jax([jax_sample("mnist.py")] + keys)
+    jm = run_jax([jax_sample("mnist.py")] + keys)
     from veles_tpu.config import root as jroot
     from veles_tpu.samples.mnist_forward import main as jax_fwd
     from veles_tpu_torch.samples import mnist_forward
@@ -88,7 +88,7 @@ def test_mnist_forward_example(cli_env, capsys):
     assert len(got) == 6 and got == want
     probs = mnist_forward.forward_from_snapshot(snap, 6, "cpu")
     numpy.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-5)
-    run_port([port_sample("mnist.py")] + keys)
+    pm = run_port([port_sample("mnist.py")] + keys)
     psnap = os.path.join(root.common.dirs.get("snapshots"),
                          "mnist_current.pickle.gz")
     # the snapshot names the workflow file's module ("mnist"); without
@@ -97,8 +97,14 @@ def test_mnist_forward_example(cli_env, capsys):
     sys.modules.pop("mnist", None)
     assert mnist_forward.main([psnap, "4", "--device", "cpu"]) == 0
     assert len(_digits(capsys.readouterr().out)) == 4
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mnist_forward.main(["model.tar.gz"])
+    for m, name in ((jm, "jax.tar.gz"), (pm, "port.tar.gz")):
+        pkg = str(cli_env / name)
+        m.workflow.package_export(pkg, batch=8)
+        assert jax_fwd([pkg, "5"]) == 0
+        want = _digits(capsys.readouterr().out)
+        assert mnist_forward.main([pkg, "5", "--device", "cpu"]) == 0
+        got = _digits(capsys.readouterr().out)
+        assert len(got) == 5 and got == want
     assert mnist_forward.main([]) == 2
 
 

@@ -350,31 +350,61 @@ def test_trainer_adam_cosine_from_carried_state(f32):
     _compare(jgd, jfw, healths, pgd, pchain, health)
 
 
-def test_trainer_skip_step_on_a_nonfinite_minibatch(f32):
+SKIP_KW = dict(solver="sgd", learning_rate=0.01, gradient_moment=0.9)
+
+
+def _skip_step_child(out):
+    """The JAX half of :func:`test_trainer_skip_step_on_a_nonfinite_
+    minibatch`, run by ``tests.test_torch_workflow.run_jax_child``: the
+    poisoned first weights, then the loss, ``n_err``, the epoch
+    accumulator, the last health vector, the step count and the weights
+    after the validation span and the train span."""
+    from tests.test_torch_workflow import child_jax_setup, pack_params
+    child_jax_setup()
+    root.common.precision.compute_dtype = "float32"
+    root.common.health.policy = "skip_step"
+    jl, jfw, jgd, healths = _jax_trainer(_tokens(9, poison=7), 3, **SKIP_KW)
+    emb = jfw[0].weights
+    emb.map_write()
+    emb.mem[0] = numpy.nan
+    emb.unmap()
+    arrays = pack_params("init", jax_params(jfw))
+    for _ in range(2):
+        _jax_span(jl, jgd)
+    arrays.update(pack_params("final", jax_params(jfw)))
+    numpy.savez(out, loss=numpy.array(jgd.loss.map_read().mem),
+                n_err=numpy.array(jgd.n_err.map_read().mem),
+                epoch_acc=numpy.array(jgd.epoch_acc.map_read().mem),
+                health=numpy.asarray(healths[-1]),
+                global_step=numpy.array(jgd.global_step), **arrays)
+
+
+def test_trainer_skip_step_on_a_nonfinite_minibatch(f32, tmp_path):
     """Embedding row 0 is NaN and token 0 appears in one train sequence:
     that minibatch's loss is NaN, so ``skip_step`` keeps the weights and
-    slots it had and books only its size; the other two steps train."""
-    kw = dict(solver="sgd", learning_rate=0.01, gradient_moment=0.9)
-    tokens = _tokens(9, poison=7)
-    saved = root.common.health.get("policy", "warn")
-    root.common.health.policy = "skip_step"
-    try:
-        jl, jfw, jgd, healths = _jax_trainer(tokens, 3, **kw)
-        emb = jfw[0].weights
-        emb.map_write()
-        emb.mem[0] = numpy.nan
-        emb.unmap()
-        params = jax_params(jfw)
-        pl, pchain, pgd = _port_trainer(tokens, params, 3,
-                                        health_policy="skip_step", **kw)
-        for _ in range(2):
-            _jax_span(jl, jgd)
-            pl.serve_span()
-            _, _, health = pgd.run_span(pl)
-    finally:
-        root.common.health.policy = saved
-    assert float(health[3]) == healths[-1][3] == 1.0
+    slots it had and books only its size; the other two steps train.
+    The JAX side runs in a child process of fixed environment
+    (``tests.test_torch_workflow.run_jax_child``): its first weights
+    come from the JAX package's process-wide generator."""
+    from tests.test_torch_workflow import run_jax_child, unpack_params
+    from veles_tpu_torch.convert import params_to_numpy
+    rec = run_jax_child(_skip_step_child, tmp_path / "jax.npz")
+    pl, pchain, pgd = _port_trainer(_tokens(9, poison=7),
+                                    unpack_params(rec, "init"), 3,
+                                    health_policy="skip_step", **SKIP_KW)
+    for _ in range(2):
+        pl.serve_span()
+        _, _, health = pgd.run_span(pl)
+    assert float(health[3]) == float(rec["health"][3]) == 1.0
     assert pgd.skipped_steps == pgd.nonfinite_steps == 1
     acc = pgd.epoch_acc.numpy()
     assert acc[2, 2] == 12.0 and numpy.isfinite(acc).all()
-    _compare(jgd, jfw, healths, pgd, pchain, health)
+    _close(pgd.loss, rec["loss"], OUT)
+    assert int(pgd.n_err) == int(rec["n_err"])
+    _close(pgd.epoch_acc, rec["epoch_acc"], OUT)
+    _close(health, rec["health"], GRAD)
+    got, want = params_to_numpy(pchain), unpack_params(rec, "final")
+    for i in want:
+        for n in want[i]:
+            _close(got[i][n], want[i][n], OUT)
+    assert pgd.global_step == int(rec["global_step"])

@@ -381,6 +381,9 @@ def test_distributable_aggregation_matches_reference():
 
 
 def test_workflow_feature_off_values():
-    """``package_export`` waits for ROADMAP item 11."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pworkflow.Workflow().package_export("x.tar.gz")
+    """``package_export`` runs since item 11.2: a workflow without a
+    forward chain refuses it with the reference's error, in both
+    packages."""
+    for wf in (pworkflow.Workflow(), jworkflow.Workflow(None)):
+        with pytest.raises(ValueError, match="has no forward chain"):
+            wf.package_export("x.tar.gz")

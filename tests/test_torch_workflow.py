@@ -27,8 +27,11 @@ process-wide generators and read ``root.<sample>_tpu``: every test here
 restores both (:func:`jax_state`)."""
 
 import contextlib
+import json
 import os
 import pickle
+import subprocess
+import sys
 
 import numpy
 import pytest
@@ -38,6 +41,7 @@ pytestmark = pytest.mark.torch_port
 
 W = 2e-5
 GENERATORS = ("default", "loader", "trainer", "kohonen")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _close(got, want, tol=W):
@@ -106,17 +110,28 @@ def _loader_state(l):
             list(l.class_lengths))
 
 
+def _jax_summary(jwf):
+    """What :func:`_compare_runs` reads of a finished JAX workflow."""
+    return {"global_step": int(jwf.gd.global_step),
+            "loader": _loader_state(jwf.loader),
+            "complete": bool(jwf.decision.complete),
+            "params": _jax_params(jwf.forwards)}
+
+
 def _compare_runs(jwf, pwf, jrows, prows):
+    """``jwf``: the finished JAX workflow, or its :func:`_jax_summary`
+    (as a child process of :func:`run_jax_child` returns it)."""
+    want_run = jwf if isinstance(jwf, dict) else _jax_summary(jwf)
     assert len(prows) == len(jrows) == 2
     for got, want in zip(prows, jrows):
         assert sorted(got) == sorted(want)
         for k in want:
             _close(got[k], want[k])
-    assert pwf.gd.global_step == jwf.gd.global_step > 0
-    assert _loader_state(pwf.loader) == _loader_state(jwf.loader)
-    assert bool(pwf.decision.complete) and bool(jwf.decision.complete)
+    assert pwf.gd.global_step == want_run["global_step"] > 0
+    assert _loader_state(pwf.loader) == want_run["loader"]
+    assert bool(pwf.decision.complete) and want_run["complete"]
     from veles_tpu_torch.convert import params_to_numpy
-    got, want = params_to_numpy(pwf.gd.forwards), _jax_params(jwf.forwards)
+    got, want = params_to_numpy(pwf.gd.forwards), want_run["params"]
     for i in want:
         for n in want[i]:
             _close(got[i][n], want[i][n])
@@ -441,23 +456,131 @@ def _build_port(name, keys, spans, tmp):
     return wf
 
 
-def _run_pair(name, tmp_path, spans=True):
+# -- the JAX side in a child process -----------------------------------------
+
+def jax_child_env():
+    """The fixed environment of :func:`run_jax_child`: the CPU platform,
+    the ``XLA_FLAGS`` ``tests/conftest.py`` sets and no persistent
+    compile cache, whatever the calling worker carries."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env.update(JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=REPO)
+    return env
+
+
+def run_jax_child(func, out, *args, timeout=120):
+    """Run ``func(out, *args)`` (a function of a ``tests`` module, its
+    arguments strings) in a fresh interpreter of :func:`jax_child_env`
+    and return the ``.npz`` it writes at ``out`` as a dict.  A worker's
+    JAX state — its generators, its compiled programs, how XLA:CPU
+    partitions its contractions after the files it ran before — cannot
+    reach the child."""
+    module = "tests." + func.__module__.rpartition(".")[2]
+    code = ("import sys\nfrom %s import %s as f\nf(*sys.argv[1:])"
+            % (module, func.__name__))
+    r = subprocess.run([sys.executable, "-c", code, str(out)]
+                       + [str(a) for a in args], env=jax_child_env(),
+                       cwd=REPO, capture_output=True, text=True,
+                       timeout=timeout)
+    assert r.returncode == 0, r.stderr[-2000:]
+    with numpy.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def child_jax_setup():
+    """In the child: the persistent compile cache off, the JAX
+    package's process-wide generator at its fresh seed."""
+    import jax
+    from veles_tpu import prng
+    from veles_tpu.config import root
+    jax.config.update("jax_compilation_cache_dir", None)
+    root.common.dirs.cache = None
+    prng.get().seed(42)
+
+
+def pack_params(prefix, params):
+    """``{i: {name: array}}`` as flat ``.npz`` entries ``prefix/i/name``
+    (and ``prefix/n``, the unit count: a unit may hold none)."""
+    out = {"%s/%d/%s" % (prefix, i, n): a
+           for i, p in params.items() for n, a in p.items()}
+    out[prefix + "/n"] = numpy.array(len(params))
+    return out
+
+
+def unpack_params(rec, prefix):
+    out = {i: {} for i in range(int(rec[prefix + "/n"]))}
+    for key, a in rec.items():
+        head, sep, rest = key.partition("/")
+        if sep and head == prefix and rest != "n":
+            i, name = rest.split("/", 1)
+            out.setdefault(int(i), {})[name] = a
+    return out
+
+
+def _jax_pair_child(out, name, spans, tmp):
+    """The JAX half of :func:`_run_pair`, run by :func:`run_jax_child`:
+    the initial and final weights, each closed epoch's row, and what
+    :func:`_compare_runs` reads."""
+    child_jax_setup()
+    spans = spans == "True"
     ns, keys = SAMPLES[name]
     jkeys = dict(keys, max_epochs=2, snapshot_time_interval=1e9)
     jkeys.pop("layers", None)
-    with jax_state(ns, tmp_path / "jax", **jkeys):
+    with jax_state(ns, tmp, **jkeys):
         jwf = _build_jax(name, keys, spans)
         jwf.initialize(device=_jax_device())
         jrows = _record_epochs(jwf.decision)
         params = _jax_params(jwf.forwards)
-        jwf.run()
+        try:
+            jwf.run()
+        finally:
+            # a per-minibatch loader's live prefetch thread aborts the
+            # interpreter at exit
+            jwf.loader.stop()
+    summary = _jax_summary(jwf)
+    arrays = pack_params("init", params)
+    arrays.update(pack_params("final", summary.pop("params")))
+    for e, row in enumerate(jrows):
+        for k, v in row.items():
+            arrays["row/%d/%s" % (e, k)] = numpy.asarray(v)
+    summary.update(
+        rows=len(jrows), span_serving=bool(jwf.loader.span_serving),
+        units=[u.name for u in jwf.units if u not in jwf.plotters
+               and u not in jwf.forwards and u is not jwf.evaluator],
+        results=jwf.gather_results())
+    arrays["meta"] = numpy.array(json.dumps(
+        summary, default=lambda o: o.item() if hasattr(o, "item")
+        else str(o)))
+    numpy.savez(out, **arrays)
+
+
+def _run_pair(name, tmp_path, spans=True):
+    """The sample ``name`` in both packages from the same weights: the
+    JAX side in a child process (:func:`run_jax_child`), the port's
+    here.  Returns the JAX run's summary (:func:`_jax_summary`, with
+    ``span_serving`` and ``units``), the port's workflow and both
+    workflows' epoch rows."""
+    ns, keys = SAMPLES[name]
+    rec = run_jax_child(_jax_pair_child, tmp_path / "jax.npz", name,
+                        spans, tmp_path / "jax")
+    meta = json.loads(str(rec.pop("meta")))
+    jrows = [{} for _ in range(meta.pop("rows"))]
+    for key, v in rec.items():
+        head, _, rest = key.partition("/")
+        if head == "row":
+            e, k = rest.split("/", 1)
+            jrows[int(e)][k] = v
+    want = dict(meta, loader=tuple(meta["loader"]),
+                params=unpack_params(rec, "final"))
     from veles_tpu_torch.convert import load_workflow_params
     pwf = _build_port(name, keys, spans, tmp_path / "port")
     pwf.initialize(device="cpu")
-    load_workflow_params(pwf, params)
+    load_workflow_params(pwf, unpack_params(rec, "init"))
     prows = _record_epochs(pwf.decision)
     pwf.run()
-    return jwf, pwf, jrows, prows
+    return want, pwf, jrows, prows
 
 
 @pytest.mark.parametrize("name", sorted(SAMPLES))
@@ -465,12 +588,10 @@ def test_sample_workflow_matches_reference(name, tmp_path):
     """Two epochs of the sample through ``Workflow.run()`` in both
     packages from the same weights (spans where the reference spans)."""
     jwf, pwf, jrows, prows = _run_pair(name, tmp_path)
-    assert pwf.loader.span_serving and jwf.loader.span_serving
+    assert pwf.loader.span_serving and jwf["span_serving"]
     _compare_runs(jwf, pwf, jrows, prows)
-    assert [u.name for u in pwf.units] == [u.name for u in jwf.units
-                                           if u not in jwf.plotters
-                                           and u not in jwf.forwards
-                                           and u is not jwf.evaluator]
+    assert [u.name for u in pwf.units if u not in pwf.plotters] \
+        == jwf["units"]
 
 
 @pytest.mark.parametrize("name", ["mnist", "mse", "lm"])
@@ -754,17 +875,18 @@ def test_rollback_restores_best_weights(tmp_path):
 
 def test_gather_results_and_metric_values(tmp_path):
     jwf, pwf, _, _ = _run_pair("mnist", tmp_path)
-    got, want = pwf.gather_results(), jwf.gather_results()
+    got, want = pwf.gather_results(), jwf["results"]
     assert sorted(got) == sorted(want)
     for k in want:
         _close(got[k], want[k])
 
 
 def test_feature_off_values():
-    """Each waits for the item named: plotters (11: none built).
-    Meshes (item 10's in-process half) reach the trainer; augmentation,
-    prefetch, the glyphs stand-in and the BPE text path (item 9) are on
-    since the input-pipeline slice."""
+    """No feature waits any more: meshes (item 10's in-process half)
+    reach the trainer; augmentation, prefetch, the glyphs stand-in and
+    the BPE text path (item 9) are on since the input-pipeline slice;
+    ``plotters=True`` builds the reference's two curves (item 11.2) and
+    ``plotters=False`` none."""
     from veles_tpu_torch.loader.fullbatch import FullBatchLoader
     from veles_tpu_torch.samples.mnist import MnistWorkflow
     assert MnistWorkflow(mesh={"dp": 2}).gd.mesh == {"dp": 2}
@@ -777,4 +899,6 @@ def test_feature_off_values():
     with pytest.raises(FileNotFoundError):
         LMWorkflow(text_path="no-such-corpus.txt")
     wf = MnistWorkflow(plotters=True)
-    assert wf.plotters == []
+    assert [p.name for p in wf.plotters] == ["error_curve", "loss_curve"]
+    assert all(p in wf.units for p in wf.plotters)
+    assert MnistWorkflow(plotters=False).plotters == []

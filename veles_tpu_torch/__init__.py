@@ -42,8 +42,15 @@ streaming loaders (``loader/{image, text, pickles, hdf5_loader, sound,
 interactive, saver}``) whose decode the prefetch pipeline
 (``loader/prefetch.py``) overlaps with the step, in-step augmentation
 (``ops/augment.py``), the stand-in datasets (``datasets``) and a local
-``downloader``.  Its kernels are written by hand for ``sm_90a`` under
-``csrc/``:
+``downloader``.  Its command line (``python -m veles_tpu_torch``) runs
+the reference's modes: one training run, the master and its workers,
+the genetic optimizer (``genetics``), ensembles (``ensemble``,
+``loader/ensemble.py``) and the composer form (``frontend``); a run
+exports its chain as an inference package (``package_export``, read by
+the C++ runner in ``runtime/``), publishes live plots (``plotter``,
+``plotting_units``, ``graphics_server``/``graphics_client``) and its
+status (``web_status``).  Its kernels are written by hand for
+``sm_90a`` under ``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
   int8 dequant fused, a row's blocks split over a thread-block cluster
@@ -84,6 +91,19 @@ SUBMODULES = (
     "veles_tpu_torch.launcher",
     "veles_tpu_torch.safe_pickle",
     "veles_tpu_torch.jax_snapshot",
+    "veles_tpu_torch.package_export",
+    "veles_tpu_torch.ensemble",
+    "veles_tpu_torch.genetics",
+    "veles_tpu_torch.genetics.core",
+    "veles_tpu_torch.genetics.optimizer",
+    "veles_tpu_torch.genetics.fleet",
+    "veles_tpu_torch.plotter",
+    "veles_tpu_torch.plotting_units",
+    "veles_tpu_torch.graphics_server",
+    "veles_tpu_torch.graphics_client",
+    "veles_tpu_torch.web_status",
+    "veles_tpu_torch.frontend",
+    "veles_tpu_torch.interaction",
     "veles_tpu_torch.dtypes",
     "veles_tpu_torch.faults",
     "veles_tpu_torch.logger",
@@ -169,6 +189,7 @@ SUBMODULES = (
     "veles_tpu_torch.loader.sound",
     "veles_tpu_torch.loader.interactive",
     "veles_tpu_torch.loader.saver",
+    "veles_tpu_torch.loader.ensemble",
     "veles_tpu_torch.samples",
     "veles_tpu_torch.samples.lm",
     "veles_tpu_torch.samples.alexnet",

@@ -20,19 +20,32 @@ master/worker exchange, ``-m host:port`` a worker of one, and ``-w N``
 (or ``-w host[/D],...``, with ``-l``) spawns the master's workers, each
 running this command line's workflow, config, ``-c`` snippets and
 shared flags (:meth:`Main._worker_tail`) with ``-d D -m host:port``.
-The flags of the fleet raise and name the ROADMAP item that brings them
-(:func:`veles_tpu_torch.cmdline.refuse_unported`).
+
+The fleet modes run instead of one training run: ``--optimize
+SIZE[:GENERATIONS]`` searches the config's ``Range``/``Choice``
+tuneables with the genetic optimizer (:mod:`veles_tpu_torch.genetics`),
+``--ensemble-train N`` (with ``--train-ratio``) trains N instances and
+``--ensemble-test SUMMARY`` runs their snapshots again
+(:mod:`veles_tpu_torch.ensemble`) — each individual or instance a child
+command line run one after another, given ``-a``, ``-d``,
+``--decision`` and ``-v`` (:meth:`Main._child_argv`); the results file
+gets the outcome or the summary.  ``--frontend`` serves a form that
+composes the command line and runs it (before any config is applied).
+After a training run, ``--export-package FILE`` writes its forward chain
+as an inference package (:mod:`veles_tpu_torch.package_export`); ``-g``
+publishes the live plots and ``--web-status URL`` POSTs the run's status
+(:class:`~veles_tpu_torch.launcher.Launcher`).
 """
 
 import ast
+import json
 import logging
 import sys
 
 import numpy
 
 from veles_tpu_torch import prng
-from veles_tpu_torch.cmdline import (
-    backend_device, build_parser, filter_argv, refuse_unported)
+from veles_tpu_torch.cmdline import backend_device, build_parser, filter_argv
 from veles_tpu_torch.config import (
     apply_config_file, apply_override, fix_config, load_site_configs, root)
 from veles_tpu_torch.import_file import import_file_as_module
@@ -157,6 +170,79 @@ class Main:
         self.launcher.run()
         if self.args.result_file:
             self.launcher.write_results(self.args.result_file)
+        if self.args.export_package:
+            self.workflow.package_export(self.args.export_package)
+            log.info("package -> %s", self.args.export_package)
+
+    # -- the fleet modes --------------------------------------------------------
+
+    def _child_argv(self):
+        """The flags an optimizer individual or an ensemble instance
+        runs with: ``-a``, ``-d``, ``--decision`` and ``-v``."""
+        argv = []
+        if self.args.backend:
+            argv += ["-a", self.args.backend]
+        if self.args.device:
+            argv += ["-d", str(self.args.device)]
+        for kv in self.args.decision:
+            argv += ["--decision", kv]
+        return argv + ["-v"] * self.args.verbose
+
+    def _write_json(self, data):
+        if self.args.result_file:
+            with open(self.args.result_file, "w") as f:
+                json.dump(data, f, indent=2, default=str)
+
+    def _run_optimize(self):
+        from veles_tpu_torch.genetics import (
+            GeneticsOptimizer, SubprocessEvaluator)
+        size, _, gens = self.args.optimize.partition(":")
+        evaluator = SubprocessEvaluator(
+            self.args.workflow, self.args.config,
+            base_overrides=self.args.config_override,
+            extra_argv=self._child_argv())
+        opt = GeneticsOptimizer(
+            root, evaluator, size=int(size),
+            generations=int(gens) if gens else 4)
+        outcome = opt.run()
+        log.info("optimization done: best fitness %s with %s",
+                 outcome["best_fitness"], outcome["best_genes"])
+        self._write_json(outcome)
+        return 0
+
+    def _run_ensemble_train(self):
+        from veles_tpu_torch.ensemble import EnsembleTrainer
+        trainer = EnsembleTrainer(
+            self.args.workflow, self.args.config,
+            size=self.args.ensemble_train,
+            train_ratio=self.args.train_ratio,
+            base_overrides=self.args.config_override,
+            extra_argv=self._child_argv())
+        summary = trainer.run(output_path=self.args.result_file)
+        return 0 if summary["succeeded"] == summary["size"] else 1
+
+    def _run_ensemble_test(self):
+        from veles_tpu_torch.ensemble import EnsembleTester
+        tester = EnsembleTester(self.args.ensemble_test,
+                                extra_argv=self._child_argv())
+        out = tester.run(output_path=self.args.result_file)
+        ok = all("error" not in t and t.get("results") is not None
+                 for t in out["tests"])
+        return 0 if ok else 1
+
+    def _run_frontend(self, parser):
+        """Serve the composer form, wait for one submission and run it
+        in this process."""
+        from veles_tpu_torch.frontend import Frontend
+        frontend = Frontend(parser, port=self.args.frontend_port)
+        try:
+            argv = frontend.wait()
+        finally:
+            frontend.stop()
+        if not argv:
+            return 1
+        log.info("frontend composed: %s", " ".join(argv))
+        return Main(argv).run()
 
     # -- run ------------------------------------------------------------------
 
@@ -187,13 +273,20 @@ class Main:
     def run(self):
         parser = build_parser()
         self.args = parser.parse_args(self.argv)
-        refuse_unported(parser, self.args)
         try:
             backend_device(self.args.backend, self.args.device)
         except ValueError as e:
             parser.error(str(e))
         setup_logging((logging.WARNING, logging.INFO,
                        logging.DEBUG)[min(self.args.verbose + 1, 2)])
+        if self.args.frontend:
+            # the composed run owns the config tree, not this argv
+            return self._run_frontend(parser)
+        if self.args.export_package and (
+                self.args.optimize or self.args.ensemble_train
+                or self.args.ensemble_test):
+            parser.error("--export-package applies to a single training "
+                         "run, not the optimize/ensemble fleet modes")
         load_site_configs()
         from veles_tpu_torch.logger import events
         opened = False
@@ -233,9 +326,15 @@ class Main:
             from veles_tpu_torch.telemetry.flight_recorder import recorder
             recorder.install(directory=root.common.flightrec.get("dir")
                              or root.common.dirs.get("snapshots"))
+        if self.args.ensemble_test:
+            return self._run_ensemble_test()
         if not self.args.workflow:
             parser.print_help()
             return 1
+        if self.args.optimize:
+            return self._run_optimize()
+        if self.args.ensemble_train:
+            return self._run_ensemble_train()
         # un-tuned Range()/Choice() markers take their defaults, so a
         # config written for --optimize runs standalone
         fix_config(root)
@@ -250,7 +349,10 @@ class Main:
             backend=self.args.backend, device_index=self.args.device,
             listen=self.args.listen,
             master_address=self.args.master_address,
-            profile_dir=self.args.profile, workers=workers,
+            graphics=self.args.graphics or None,
+            status_url=self.args.web_status,
+            profile_dir=self.args.profile
+            or root.common.trace.get("profiler_dir"), workers=workers,
             worker_cmd_tail=self._worker_tail())
         module = import_file_as_module(self.args.workflow)
         if not hasattr(module, "run"):

@@ -1,13 +1,13 @@
 """The command line surface (the port of ``veles_tpu/cmdline.py``):
 ``python -m veles_tpu_torch <workflow.py> [config.py] ...``.
 
-:func:`build_parser` takes every flag of the reference: ``-l`` runs the
-master, ``-m`` a worker of a master, and ``-w`` (with ``-l``) spawns
-the master's workers.  The flags whose
-machinery the port does not have yet (ROADMAP item 11) are refused by
-:func:`refuse_unported` with a ``parser.error`` that names the ROADMAP
-item bringing them; none is silently ignored.  :func:`backend_device`
-maps ``-a``/``-d`` onto a torch device.
+:func:`build_parser` takes every flag of the reference, and
+:mod:`veles_tpu_torch.__main__` runs each: ``-l`` runs the master, ``-m``
+a worker of a master, and ``-w`` (with ``-l``) spawns the master's
+workers; ``--optimize``, ``--ensemble-train``/``--ensemble-test`` (with
+``--train-ratio``) and ``--frontend`` run the fleet modes;
+``--export-package``, ``-g`` and ``--web-status`` accompany a training
+run.  :func:`backend_device` maps ``-a``/``-d`` onto a torch device.
 """
 
 import argparse
@@ -90,7 +90,8 @@ def build_parser():
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace (CPU and CUDA "
                         "activity) of the run into DIR as a Chrome "
-                        "trace; also annotates each unit run")
+                        "trace; also annotates each unit run "
+                        "(default: root.common.trace.profiler_dir)")
     p.add_argument("--events-log", default=None, metavar="FILE",
                    help="record the span/event stream to a JSONL FILE "
                         "(convert for Perfetto with python -m "
@@ -145,27 +146,6 @@ def filter_argv(argv, *allowed):
                 i += 1
         i += 1
     return out
-
-
-#: flag (as the parser stores it) -> (spelling, ROADMAP item bringing it)
-UNPORTED = (
-    ("optimize", "--optimize", "item 11 (the genetic optimizer)"),
-    ("ensemble_train", "--ensemble-train", "item 11 (ensembles)"),
-    ("ensemble_test", "--ensemble-test", "item 11 (ensembles)"),
-    ("frontend", "--frontend", "item 11 (the frontend)"),
-    ("graphics", "-g/--graphics", "item 11 (the graphics server)"),
-    ("web_status", "--web-status", "item 11 (the web status dashboard)"),
-    ("export_package", "--export-package",
-     "item 11 (package export)"),
-)
-
-
-def refuse_unported(parser, args):
-    """``parser.error`` (exit 2) for the first flag given whose
-    machinery is not ported yet, naming its ROADMAP item."""
-    for dest, flag, item in UNPORTED:
-        if getattr(args, dest, None):
-            parser.error("%s is not ported yet: ROADMAP %s" % (flag, item))
 
 
 #: -a spellings -> torch device type

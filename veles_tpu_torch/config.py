@@ -13,9 +13,9 @@ Layered overrides: package defaults → ``/etc/default/veles_tpu_torch``
 file → ``-c "root.x = y"`` snippets on the command line.
 
 :class:`Range` and :class:`Choice` mark tuneables in a config written
-for the genetic optimizer; :func:`fix_config` replaces them by their
-defaults, so such a config runs standalone (the optimizer itself is not
-ported: ``--optimize`` is ROADMAP item 11).
+for the genetic optimizer (``--optimize``, :mod:`veles_tpu_torch.
+genetics`), which draws and mutates them; :func:`fix_config` replaces
+them by their defaults, so such a config runs standalone.
 """
 
 import os
@@ -277,10 +277,17 @@ root.common.protect("dirs")
 # -- tuneable markers (the reference's genetics/core.py) --------------------
 
 class Tuneable:
-    """Base marker placed in the config tree."""
+    """Base marker placed in the config tree: the search space of the
+    genetic optimizer (:mod:`veles_tpu_torch.genetics`)."""
 
     def __init__(self, default):
         self.default = default
+
+    def random(self, rng):
+        raise NotImplementedError()
+
+    def mutate(self, value, rng, scale):
+        raise NotImplementedError()
 
     def clip(self, value):
         return value
@@ -301,6 +308,13 @@ class Range(Tuneable):
         value = min(max(value, self.min_value), self.max_value)
         return int(round(value)) if self._integer else float(value)
 
+    def random(self, rng):
+        return self.clip(rng.uniform(self.min_value, self.max_value))
+
+    def mutate(self, value, rng, scale):
+        span = (self.max_value - self.min_value) * scale
+        return self.clip(value + rng.normal(0.0, max(span, 1e-12)))
+
     def __repr__(self):
         return "Range(%r, %r, %r)" % (self.default, self.min_value,
                                       self.max_value)
@@ -312,6 +326,14 @@ class Choice(Tuneable):
     def __init__(self, default, choices):
         super(Choice, self).__init__(default)
         self.choices = list(choices)
+
+    def random(self, rng):
+        return self.choices[int(rng.integers(len(self.choices)))]
+
+    def mutate(self, value, rng, scale):
+        if rng.random() < max(scale, 0.1):
+            return self.random(rng)
+        return value
 
 
 def fix_config(cfg):

@@ -12,9 +12,7 @@ a :class:`~veles_tpu_torch.safe_pickle.RestrictedUnpickler`, admits
   a workflow file whose counterpart is a port sample
   (``veles_tpu_torch.samples.<file>``);
 - the JAX package's own unpickling helpers (``_reconstruct``,
-  ``_rebuild_bool``, ``Device``) and ``logging.getLogger``;
-- the plotting units, which the port does not have yet (ROADMAP item
-  11): they are dropped.
+  ``_rebuild_bool``, ``Device``) and ``logging.getLogger``.
 
 Anything else raises ``pickle.UnpicklingError`` with its name, before
 any object of it is built.  No class's code runs while the file is
@@ -47,11 +45,6 @@ from veles_tpu_torch.safe_pickle import _ALLOWED, RestrictedUnpickler
 
 _PORT_DIR = os.path.dirname(os.path.abspath(__file__))
 
-#: JAX classes a snapshot may hold that the port does not have yet
-#: (the plotting units, ROADMAP item 11): read as records, then dropped
-DROPPED = {"veles_tpu.plotting_units"}
-
-
 def names_jax_package(blob):
     """Whether a pickle ``blob`` names classes of the JAX package."""
     return b"veles_tpu." in blob.replace(b"veles_tpu_torch.", b"")
@@ -59,8 +52,8 @@ def names_jax_package(blob):
 
 class JaxObject:
     """An object of the JAX package as its pickle holds it: the JAX
-    class's name (``jax_name``), the port's counterpart (``port_cls``,
-    None for a dropped class) and the pickled ``state``."""
+    class's name (``jax_name``), the port's counterpart (``port_cls``)
+    and the pickled ``state``."""
 
     jax_name = None
     port_cls = None
@@ -126,11 +119,9 @@ def _in_port(obj):
 
 
 def _port_class(module, name):
-    """The port's counterpart of the JAX class ``module.name``, or None
-    for a dropped one; raises ``UnpicklingError`` when there is none."""
+    """The port's counterpart of the JAX class ``module.name``; raises
+    ``UnpicklingError`` when there is none."""
     full = "%s.%s" % (module, name)
-    if module in DROPPED:
-        return None
     mod = None
     if module.startswith("veles_tpu."):
         try:
@@ -370,5 +361,11 @@ def take_state(wf, rec):
         take_plain(wf.decision, rec.get("decision"))
     if rec.get("snapshotter") is not None and wf.snapshotter is not None:
         take_plain(wf.snapshotter, rec.get("snapshotter"))
+    # the plotting units' accumulated series, matched by unit name
+    jplots = {p.get("_name"): p for p in rec.get("plotters") or ()
+              if isinstance(p, JaxObject)}
+    for plot in getattr(wf, "plotters", ()):
+        if plot.name in jplots:
+            take_plain(plot, jplots[plot.name])
     wf._restored_from_snapshot_ = True
     return wf

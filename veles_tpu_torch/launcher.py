@@ -21,6 +21,15 @@ kernel launches); the master reads it from the
 worker's log and puts the reports, and its coordinator's job counts
 and frame bytes, into its results.
 
+Two services observe a run that is not a worker's: ``graphics`` (the
+command line's ``-g``, else ``root.common.graphics.enabled``) starts a
+:class:`~veles_tpu_torch.graphics_server.GraphicsServer` at
+``initialize`` (on ``root.common.graphics.port``, 0 picking one), through
+which the workflow's plotters publish; ``status_url`` (``--web-status``,
+else ``root.common.web.status_url``) starts a
+:class:`~veles_tpu_torch.web_status.StatusNotifier` POSTing the run's
+status there while it runs.  ``stop`` closes both.
+
 ``profile_dir`` is the counterpart of the reference's
 ``jax.profiler.start_trace``: the run is recorded by ``torch.profiler``
 with CPU (and, on the card, CUDA) activity and written into the
@@ -50,11 +59,22 @@ class Launcher(Logger):
     #: the line a worker prints when it stops, before its JSON report
     REPORT_TAG = "veles-worker-report"
 
+    #: live services and handles: a snapshot of the workflow (which
+    #: reaches its launcher as its parent) holds None in their place
+    VOLATILE = ("graphics_server", "status_notifier", "coordinator",
+                "worker_client", "_worker_procs", "_profiler")
+
     def __init__(self, backend=None, device_index=0, listen=None,
-                 master_address=None, profile_dir=None, workers=None,
-                 worker_cmd_tail=None, **kwargs):
+                 master_address=None, graphics=None, status_url=None,
+                 profile_dir=None, workers=None, worker_cmd_tail=None,
+                 **kwargs):
         super(Launcher, self).__init__()
         self._listen = listen
+        #: None: root.common.graphics.enabled decides
+        self._graphics = graphics
+        self._status_url = status_url
+        self.graphics_server = None
+        self.status_notifier = None
         self._master_address = master_address
         #: worker specs: an int (N local processes), or a list or comma
         #: list of host specs ("localhost" → a subprocess, any other
@@ -83,6 +103,10 @@ class Launcher(Logger):
         self.workflow = None
         self.start_time = None
         self.stopped = False
+
+    def __getstate__(self):
+        return {k: None if k in self.VOLATILE else v
+                for k, v in self.__dict__.items()}
 
     # -- mode -----------------------------------------------------------------
 
@@ -132,12 +156,27 @@ class Launcher(Logger):
             self.device = resolve_device(
                 backend_device(self._backend, self._device_index))
         self.info("mode: %s, device: %s", self.mode, self.device)
+        from veles_tpu_torch.config import root
+        graphics = self._graphics
+        if graphics is None:
+            graphics = root.common.graphics.get("enabled", False)
+        if graphics and not self.is_slave:
+            from veles_tpu_torch.graphics_server import GraphicsServer
+            self.graphics_server = GraphicsServer(
+                port=int(root.common.graphics.get("port", 0) or 0))
         self.workflow.initialize(device=self.device, **kwargs)
 
     def run(self):
         """Run the workflow to completion (standalone) or serve it (the
         master and worker modes), then :meth:`stop`."""
+        from veles_tpu_torch.config import root
         self.start_time = time.time()
+        status_url = self._status_url \
+            or root.common.web.get("status_url")
+        if status_url and not self.is_slave:
+            from veles_tpu_torch.web_status import StatusNotifier
+            self.status_notifier = StatusNotifier(status_url, self)
+            self.status_notifier.start()
         if self._profile_dir:
             self._start_profiler()
         try:
@@ -189,10 +228,8 @@ class Launcher(Logger):
             _build.build_all()
         n_local_devices = torch.cuda.device_count() if on_card else 1
         # a local worker imports the package this master runs
-        pkg_root = os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            p for p in (pkg_root, os.environ.get("PYTHONPATH")) if p))
+        from veles_tpu_torch.cli_exec import child_env
+        env = child_env()
         local_count = 0
         for i, spec in enumerate(specs):
             # "host/D" pins the worker to device D; plain local workers
@@ -302,6 +339,10 @@ class Launcher(Logger):
                 flush=True)
         if self._profiler is not None:
             self._stop_profiler()
+        if self.status_notifier is not None:
+            self.status_notifier.stop()
+        if self.graphics_server is not None:
+            self.graphics_server.close()
         elapsed = time.time() - (self.start_time or time.time())
         self.workflow.stop()
         self.workflow.print_stats()

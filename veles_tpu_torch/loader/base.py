@@ -34,8 +34,9 @@ Two constructors: the unit's, ``Loader(workflow, minibatch_size=...,
 ...)`` with the data discovered by :meth:`Loader.load_data` at
 ``initialize()``, and the span server's, ``Loader(class_lengths,
 minibatch_size=100, seed=None)``, ready at once and never in a workflow.
-The reference's ``root.common.ensemble_train_ratio`` waits for the
-ensembles (item 11).
+A unit-form loader takes ``root.common.ensemble_train_ratio`` (set for
+each member by ``--ensemble-train --train-ratio``) as its
+``train_ratio`` at ``initialize()``.
 """
 
 import time
@@ -205,6 +206,11 @@ class Loader(Unit, ILoader, IDistributable, IResultProvider):
 
     def initialize(self, **kwargs):
         super(Loader, self).initialize(**kwargs)
+        from veles_tpu_torch.config import root
+        tr = root.common.get("ensemble_train_ratio")
+        if tr is not None:
+            # ensemble members train on sub-sampled train spans
+            self.train_ratio = float(tr)
         self.load_data()
         if self.total_samples == 0:
             raise ValueError("%s: load_data() produced no samples" % self)

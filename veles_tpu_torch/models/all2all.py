@@ -41,6 +41,10 @@ class All2All(ForwardBase):
     def out_shape(self, in_shape):
         return self.output_sample_shape
 
+    def export_config(self):
+        return {"output_sample_shape": list(self.output_sample_shape),
+                "activation": self.activation, "include_bias": True}
+
     def apply(self, x):
         y = matmul(x.reshape(x.shape[0], -1), self.params["weights"],
                    self.dtype, out_dtype=self.dtype) + self.cast("bias")

@@ -118,6 +118,14 @@ class MultiHeadAttention(ForwardBase):
                              % (d, self.heads))
         return {n: (d, d) for n in self.PARAMS}
 
+    def export_config(self):
+        cfg = {"heads": self.heads, "causal": self.causal}
+        if self.block_size:  # a v2 key: omitted when unused
+            cfg["block_size"] = int(self.block_size)
+        if self.attn_impl:
+            cfg["attn_impl"] = self.attn_impl
+        return cfg
+
     def apply(self, x):
         return mha_apply(self, x, self.heads, self.causal, self.block_size,
                          self.attn_impl)

@@ -223,6 +223,17 @@ class Conv(ForwardBase):
                      groups=self.n_groups)
         return y.permute(0, 2, 3, 1)
 
+    def export_config(self):
+        cfg = {"n_kernels": self.n_kernels, "kx": self.kx, "ky": self.ky,
+               "sliding": list(self.sliding), "padding": self.padding,
+               "n_groups": self.n_groups, "activation": self.activation,
+               "include_bias": True}
+        if self.space_to_depth:
+            cfg["space_to_depth"] = self.space_to_depth
+            if self.space_to_depth_hw:
+                cfg["space_to_depth_hw"] = list(self.space_to_depth_hw)
+        return cfg
+
     def apply(self, x):
         return get_activation(self.activation)(self.conv(x)
                                                + self.cast("bias"))
@@ -301,6 +312,11 @@ class Deconv(ForwardBase):
         xin = F.pad(xin, (pl, pr, pt, pb))
         y = F.conv2d(xin, self.cast("weights").permute(2, 3, 0, 1))
         return y.permute(0, 2, 3, 1)
+
+    def export_config(self):
+        return {"n_kernels": self.n_kernels, "kx": self.kx, "ky": self.ky,
+                "sliding": list(self.sliding), "padding": self.padding,
+                "activation": self.activation, "include_bias": True}
 
     def apply(self, x):
         y = self.deconv(x).to(torch.float32) + self.params["bias"]

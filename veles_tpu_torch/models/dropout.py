@@ -20,6 +20,9 @@ class DropoutForward(ForwardBase):
         super().__init__(device=device, dtype=dtype, **hyper)
         self.dropout_ratio = float(dropout_ratio)
 
+    def export_config(self):
+        return {"dropout_ratio": self.dropout_ratio}
+
     def apply(self, x):
         return x
 

@@ -49,6 +49,10 @@ class Embedding(ForwardBase):
     def _lookup(self, x):
         return self.cast("weights")[x.long()]
 
+    def export_config(self):
+        return {"vocab": self.vocab, "dim": self.dim,
+                "learned_positions": self.learned_positions}
+
     def apply(self, x):
         y = self._lookup(x)
         if self.learned_positions:

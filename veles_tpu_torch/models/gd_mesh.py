@@ -273,7 +273,8 @@ class MeshPlan:
         def signature(u):
             cfg = {k: v for k, v in vars(u).items()
                    if isinstance(v, (int, float, str, bool, type(None)))
-                   and not k.startswith("_") and k != "training"}
+                   and not k.startswith("_")
+                   and k not in ("training", "name")}
             return (type(u).__name__, repr(sorted(cfg.items())),
                     tuple(sorted((n, tuple(a.shape))
                                  for n, a in u.params.items())))

@@ -21,5 +21,9 @@ class LRNormalizerForward(ForwardBase):
         self.n = int(n)
         self.k = float(k)
 
+    def export_config(self):
+        return {"alpha": self.alpha, "beta": self.beta, "n": self.n,
+                "k": self.k}
+
     def apply(self, x):
         return lrn(x, self.alpha, self.beta, self.n, self.k)

@@ -139,6 +139,12 @@ class MoE(ForwardBase):
         super().load_params(arrays)
         self.hidden = int(self.params["expert_w1"].shape[2])
 
+    def export_config(self):
+        hidden = self.params["expert_w1"].shape[2] \
+            if "expert_w1" in self.params else self.hidden
+        return {"n_experts": self.n_experts, "top_k": self.top_k,
+                "hidden": int(hidden), "activation": self.activation}
+
     def apply(self, x):
         return moe_apply(self.params, x, self.top_k, self.activation,
                          self.dtype, self.mm_weight,

@@ -75,6 +75,13 @@ class ForwardBase(nn.Module):
         """The output sample shape for input sample shape ``in_shape``."""
         return in_shape
 
+    def export_config(self):
+        """The constructor keyword arguments a package records for this
+        unit, key for key those of the JAX package's class of the same
+        name (this base: that package's base unit's, which the recurrent
+        units keep)."""
+        return {"weights_filling": "uniform", "include_bias": True}
+
     def fans(self, shape):
         """(fan_in, fan_out) of a weight of ``shape`` (``[d_in, d_out]``
         matrices; units with other layouts say theirs)."""

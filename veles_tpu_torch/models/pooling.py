@@ -23,6 +23,9 @@ class PoolingBase(ForwardBase):
         self.sliding = pair(sliding) if sliding is not None \
             else (self.kx, self.ky)
 
+    def export_config(self):
+        return {"kx": self.kx, "ky": self.ky, "sliding": list(self.sliding)}
+
     def out_shape(self, in_shape):
         h, w, c = in_shape
         sx, sy = self.sliding

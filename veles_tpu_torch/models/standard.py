@@ -56,13 +56,14 @@ LAYER_TYPES = {
 def make_forwards(layers, device=None, dtype=None, in_shape=None):
     """Instantiate the unit chain from a znicz-style ``layers`` spec
     (``{"type": ..., **kwargs}`` dicts; ``"->"``/``"<-"`` merge extra
-    kwargs as in the JAX package).  Units come without parameters —
+    kwargs as in the JAX package), each named ``<type><index>`` as the
+    JAX package names them.  Units come without parameters —
     see ``convert.params_from_numpy`` / ``convert.init_params``.  Given
     the chain input's sample shape ``in_shape`` (no batch axis), each
     unit records the sample shape of its own input as ``in_shape``."""
     units = []
     shape = None if in_shape is None else tuple(in_shape)
-    for spec in (dict(s) for s in layers):
+    for i, spec in enumerate(dict(s) for s in layers):
         ltype = spec.pop("type")
         kwargs = dict(spec.pop("->", {}))
         kwargs.update(spec.pop("<-", {}))
@@ -73,6 +74,7 @@ def make_forwards(layers, device=None, dtype=None, in_shape=None):
             raise ValueError("layer type %r is not ported (have %s)"
                              % (ltype, sorted(LAYER_TYPES)))
         unit = cls(device=device, dtype=dtype, **kwargs)
+        unit.name = "%s%d" % (ltype, i)
         unit.in_shape = shape
         if shape is not None:
             shape = tuple(unit.out_shape(shape))
@@ -97,6 +99,9 @@ def build_mlp_classifier(device, loader, hidden=(100,), classes=10,
             for w in hidden]
     spec.append({"type": "softmax", "output_sample_shape": (classes,)})
     layers = make_forwards(spec, device="cpu", dtype=dtype)
+    for i, unit in enumerate(layers[:-1]):    # the JAX package's names
+        unit.name = "fc%d" % i
+    layers[-1].name = "head"
     ev = EvaluatorSoftmax()
     gd_kwargs.setdefault("solver", "sgd")
     gd_kwargs.setdefault("learning_rate", 0.05)
@@ -130,9 +135,11 @@ class StandardWorkflow(AcceleratedWorkflow):
       (see :mod:`veles_tpu_torch.units`).
 
     ``mesh`` (a Mesh or an axis dict) shards the trainer's step
-    (:mod:`~veles_tpu_torch.models.gd_mesh`).  Not yet:
-    ``plotters=True`` builds no plotter (``wf.plotters == []``; the
-    plotting units are item 11).
+    (:mod:`~veles_tpu_torch.models.gd_mesh`).  ``plotters=True`` builds
+    the reference's live plots (``wf.plotters``): the validation error
+    per epoch (``error_curve``) and the train loss (``loss_curve``),
+    both after the decision; their payloads are built only when a
+    graphics server is attached (:mod:`veles_tpu_torch.plotter`).
     """
 
     def __init__(self, workflow=None, loader_factory=None, loader=None,
@@ -193,8 +200,22 @@ class StandardWorkflow(AcceleratedWorkflow):
         else:
             self.snapshotter = None
 
-        # the reference's live plots wait for plotting_units.py (item 11)
+        # live plots: payloads publish only when a graphics server is
+        # attached to the launcher
         self.plotters = []
+        if plotters:
+            from veles_tpu_torch.plotting_units import AccumulatingPlotter
+            err_plot = AccumulatingPlotter(
+                self, obj=self.decision, attr="validation_error_pct",
+                label="validation error", ylabel="%",
+                name="error_curve")
+            err_plot.gate_skip = ~self.loader.epoch_ended
+            loss_plot = AccumulatingPlotter(
+                self, obj=self.gd, attr="loss", label="train loss",
+                ylabel="loss", name="loss_curve")
+            for plot in (err_plot, loss_plot):
+                plot.link_from(self.decision)
+                self.plotters.append(plot)
 
         self.repeater.link_from(self.decision)
         self.loader.gate_block = self.decision.complete

@@ -167,6 +167,23 @@ class TransformerBlock(ForwardBase):
                           if self.n_experts
                           else self.params["ffn_w1"].shape[1])
 
+    def export_config(self):
+        p = self.params
+        hidden = p["expert_w1"].shape[2] if "expert_w1" in p \
+            else p["ffn_w1"].shape[1] if "ffn_w1" in p else self.hidden
+        cfg = {"heads": self.heads, "hidden": int(hidden),
+               "causal": self.causal, "n_experts": self.n_experts,
+               "top_k": self.top_k}
+        if self.attn_block_size:  # v2 keys: omitted when unused
+            cfg["attn_block_size"] = int(self.attn_block_size)
+        if self.attn_impl:
+            cfg["attn_impl"] = self.attn_impl
+        if self.int8_decode:
+            cfg["int8_decode"] = True
+        if self.weights_int8:
+            cfg["weights_int8"] = True
+        return cfg
+
     def _ffn_params(self):
         """The parameters of the block's FFN kind (no int8 scales)."""
         return self.BASE_PARAMS + (MOE_PARAMS if self.n_experts
@@ -560,6 +577,9 @@ class TransformerBlock(ForwardBase):
 class MeanPoolSeq(ForwardBase):
     """[batch, seq, d] → [batch, d], the mean over the sequence axis."""
 
+    def export_config(self):
+        return {}
+
     def out_shape(self, in_shape):
         return (in_shape[-1],)
 
@@ -580,6 +600,9 @@ class TokenProjection(ForwardBase):
         if vocab is None:
             raise ValueError("vocab is required")
         self.vocab = int(vocab)
+
+    def export_config(self):
+        return {"vocab": self.vocab}
 
     def param_shapes(self, in_shape, window):
         return {"weights": (in_shape[-1], self.vocab),

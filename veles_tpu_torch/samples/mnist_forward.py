@@ -8,8 +8,11 @@ model").
 reads a snapshot (the port's, or one the JAX package wrote), runs the
 first ``n`` samples of the workflow's own data through its forward
 chain on the device and prints each predicted digit with its
-confidence.  The reference's second source, an exported package
-(``model.tar.gz``), raises: package export is ROADMAP item 11.
+confidence.  The second source is an exported package
+(``model.tar.gz``, the port's or the JAX package's), run on ``n``
+random inputs of its packaged shape::
+
+    python veles_tpu_torch/samples/mnist_forward.py model.tar.gz [n]
 """
 
 import sys
@@ -36,10 +39,14 @@ def forward_from_snapshot(path, n=8, device=None):
     return x.float().cpu().numpy()
 
 
-def forward_from_package(path, n=8):
-    raise NotImplementedError(
-        "reading an exported package (%s) is not ported yet: package "
-        "export is ROADMAP item 11" % path)
+def forward_from_package(path, n=8, device=None):
+    """The package's output for ``n`` random inputs of its packaged
+    sample shape (``default_rng(0)``, as the reference draws them)."""
+    from veles_tpu_torch.package_export import load_package
+    pkg = load_package(path, device=device)
+    rng = numpy.random.default_rng(0)
+    x = rng.random((n,) + pkg.input_shape[1:], numpy.float32)
+    return numpy.asarray(pkg.run(x))
 
 
 def main(argv=None):
@@ -55,7 +62,7 @@ def main(argv=None):
     path = argv[0]
     n = int(argv[1]) if len(argv) > 1 else 8
     if path.endswith((".tar.gz", ".tgz")):
-        probs = forward_from_package(path, n)
+        probs = forward_from_package(path, n, device)
     else:
         probs = forward_from_snapshot(path, n, device)
     for i, row in enumerate(probs):

@@ -233,10 +233,27 @@ class Workflow(Unit):
     # -- introspection ------------------------------------------------------
 
     def package_export(self, path, batch=None):
-        """Exporting an inference package waits for the port of
-        ``package_export.py`` (ROADMAP item 11)."""
-        raise NotImplementedError(
-            "Workflow.package_export is not ported yet (ROADMAP item 11)")
+        """Export the forward chain as an inference package
+        (:mod:`veles_tpu_torch.package_export`; the C++ runner in
+        ``runtime/`` and both packages' ``load_package`` read it).
+        Needs ``self.forwards`` and an initialized ``self.loader`` (the
+        StandardWorkflow shape), whose minibatch gives the input's shape
+        and dtype; ``batch`` replaces its batch size."""
+        from veles_tpu_torch.package_export import export_package
+        forwards = getattr(self, "forwards", None)
+        if not forwards:
+            raise ValueError("%s has no forward chain to export" % self)
+        loader = getattr(self, "loader", None)
+        if loader is None or not bool(loader.minibatch_data):
+            raise ValueError(
+                "%s has no initialized loader — package_export needs its "
+                "minibatch shape/dtype" % self)
+        in_shape = list(loader.minibatch_data.shape)
+        if batch is not None:
+            in_shape[0] = int(batch)
+        return export_package(
+            forwards, path, in_shape, input_dtype=loader.minibatch_data.dtype,
+            name=type(self).__name__, checksum=self.checksum())
 
     def checksum(self):
         """Stable digest of the workflow's defining source — coordinator /
