@@ -93,7 +93,7 @@ result line):
 6b. spec — ``bench.py``'s ``bench_spec`` on the card: the serving model
    at 8 layers trained 60 SGD steps (batch 16, bf16) to continue a
    12-token pattern, then served with int8 KV and ``int8_decode``,
-   spec_k 8, a 64-token repetitive prompt and 512 greedy steps, at 1
+   spec_k 8, a 64-token repetitive prompt and 256 greedy steps, at 1
    and 4 slots with speculative decoding off and on (one warm-up and
    one measured run each): every model pass (decode or verify) must
    launch ``paged_attend`` once per layer, all split, and ``int8_gemm``
@@ -164,8 +164,9 @@ result line):
 6f. tiers — the model drafter and the KV tiers, each part's kernel
    counts zeroed just before it and read just after: (a)
    ``bench_spec``'s held-out arm: a chain trained as the spec phase's
-   on the single-cycle orbit ``default_rng(0).permutation(VOCAB)`` (each
-   FlashAttention kernel once per layer per step), served from a
+   (ORBIT_TRAIN steps) on the single-cycle orbit
+   ``default_rng(0).permutation(VOCAB)`` (each FlashAttention kernel
+   once per layer per step), served from a
    float32 copy (int8 KV, ``int8_decode``), a ``MedusaDraftHead`` of
    SPEC_K heads trained DRAFT_TRAIN steps on it (the FlashAttention
    forward once per layer per teacher step), and ``orbit[:64]`` x
@@ -314,7 +315,8 @@ result line):
    ``root.common.serving`` alone (int8 KV, spec on, spec_k 4, block 16)
    and by one given those knobs, equal streams and launches of kernels
    1 and 2; (b) AlexNet at the config's width through the command
-   line's master (in this process) with ``-w 2`` spawned workers
+   line's master (in the background job's process) with ``-w 2``
+   spawned workers
    sharing the card: every sample counted once by the master, kernels 4
    and 5 launched in each worker (its ``veles-worker-report`` line),
    the job frames' bytes and times; a ``-w 1`` run against the
@@ -377,7 +379,38 @@ result line):
    weights and launches bit-equal to the run without them; (e) a form
    POSTed to ``--frontend`` composing an MNIST run whose results file
    equals the direct command line's.  (c) runs ``--optimize 2:2``
-   (CM_POP, CM_GENS), cut from 4:2 for the run's time.
+   (CM_POP, CM_GENS), cut from 4:2 for the run's time; (b) and (c) run
+   in the background job and are checked here.
+19. services — the last services (``services_check``): (a) a PUSH
+   producer thread streams 64 samples at AlexNet's width into a
+   ``ZeroMQLoader``; AlexNet's bf16 forward on the minibatch it serves
+   equals the forward on the stacked samples (SV_Z_TOL), with 2
+   ``lrn_fwd`` launches and nothing else; (b) ``AlexNetWorkflow`` at the
+   sample's width trains 2 steps, an ``AvatarServer`` exposes its 16
+   parameter arrays and an ``Avatar`` pulls them onto the card bit-equal,
+   a second epoch moves them and a second pull equals the new weights
+   (seconds and MB per pull printed); (c) a loopback WebHDFS serves 640
+   MNIST-width text records to ``HDFSTextLoader`` in front of the MNIST
+   MLP, whose epoch is bit-equal to the same records through a
+   ``FullBatchLoader``; (d) the mini-AlexNet package through
+   ``update_forge`` to a loopback ``ForgeServer`` and a checksum-verified
+   fetch, its run bit-equal to the run before the upload with 2
+   ``lrn_fwd``; (b)'s run published in all five backends (Confluence to
+   a loopback fake; a line says when the HTML report's images were
+   skipped); ``compare_snapshots`` exiting 1 on (b)'s two snapshots and
+   0 on one against itself; (e) ``compile_summary()`` listing the six
+   libraries once each, their calls equal to the kernels' launch
+   counts, and ``/metrics`` of a live dashboard showing them.
+
+Background work: once every kernel has been timed (after phase 11),
+child processes start beside phases 12-15 of this process — phase
+13 (b)'s vocabulary training, phase 16 (c)'s gang, and one job
+(``python3 chip_smoke.py --job ...``) that runs phase 16 (b) (its
+standalone run and checks included), then phase 18 (b)'s ensemble runs
+and (c)'s optimizer run, one after another; phases 16 and 18 wait for
+what they read and print the job's records then.  Each process counts
+its own launches, so the counts each phase of this process zeroes and
+reads stay its own.
 
 Output, last lines: a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from ``nvidia-smi``, and the
@@ -400,8 +433,9 @@ under ``families_launches``, the launches of phase 12's workflow runs
 ``workflow_launches``, phase 13's card runs under ``input_launches``,
 phase 16's (its workers' and gang processes' included) under
 ``distributed_launches``, phase 17's (a) and (b) under
-``fleet_launches``, and phase 18's (this process's and the kernel events
-of the ensemble's members and testers) under ``cli_modes_launches``
+``fleet_launches``, phase 18's (this process's and the kernel events
+of the ensemble's members and testers) under ``cli_modes_launches``,
+and phase 19's under ``services_launches``
 (``flash_attn_fwd``'s ``surface_launches`` are the rescan ``generate``
 runs');
 ``uniform_fill``'s ``ms`` and ``library_ms`` are graph replays too,
@@ -415,11 +449,13 @@ every other kernel's ``ms`` and ``library_ms``, and every ``plain_ms``,
 are eager loops timed by CUDA events.
 """
 
+import contextlib
 import gc
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -569,8 +605,9 @@ MM_GRAPH_CALLS = 20
 #: ``arange(12) * 17 % vocab``): training steps at batch SPEC_BATCH over
 #: 8 minibatches of window-long sequences, then SPEC_STEPS greedy tokens
 #: per request after a SPEC_PROMPT-token prompt, drafts of up to SPEC_K,
-#: at 1 and 4 slots
-SPEC_TRAIN, SPEC_BATCH, SPEC_STEPS, SPEC_K, SPEC_PROMPT = 60, 16, 512, 8, 64
+#: at 1 and 4 slots (SPEC_STEPS: ``bench_spec``'s 512 cut to 256 for the
+#: smoke's time limit)
+SPEC_TRAIN, SPEC_BATCH, SPEC_STEPS, SPEC_K, SPEC_PROMPT = 60, 16, 256, 8, 64
 #: the spec phase's trainer: ``bench_spec``'s SGD with momentum 0.9, but
 #: at lr 0.001, not 0.05 — at this width 0.05 diverges within 8 steps in
 #: the port's trainer (as the JAX trainer does on the same data at d 64
@@ -603,15 +640,21 @@ GEN_LENS = (64, 48, 33, 17, 64, 5, 40, 64)
 #: as many sequential round trips; beam search and the serialized decode
 #: over REST_BEAM_STEPS steps
 REST_CLIENTS, REST_BEAM_STEPS = 8, 32
-#: the drafter and KV-tier phase: the draft head's training steps (300
-#: cut to 150) and the held-out arms' greedy steps (``bench_spec``'s 512
-#: cut to 256, then to 128: the smoke's whole run must stay inside its
-#: time limit with phase 18 added); the
+#: the steps of the REST phase's stream reset mid-stream: long enough
+#: that it is still decoding when the reset lands
+REST_RESET_STEPS = 512
+#: the drafter and KV-tier phase: the orbit chain's training steps (the
+#: spec phase's 60 cut to 20: at 60 it learns nothing of the orbit
+#: either), the draft head's training steps (300 cut to 150, then to 50)
+#: and the held-out arms' greedy steps (``bench_spec``'s 512 cut to 256,
+#: then to 128, then to 64: the smoke's whole run must stay inside its
+#: time limit); the
 #: quality gates' sequence length; the quantized chain's served steps;
 #: the host tier's probes (HOST_PROBES pattern prompts of HOST_PROMPT
 #: tokens, HOST_STEPS steps, demoted by two HOST_LONG-token prompts in a
 #: pool of HOST_POOL blocks); the handoff's prompt, steps and repeats
-DRAFT_TRAIN, DRAFT_STEPS, QUALITY_LEN, W8_STEPS = 150, 128, 256, 64
+ORBIT_TRAIN = 20
+DRAFT_TRAIN, DRAFT_STEPS, QUALITY_LEN, W8_STEPS = 50, 64, 256, 64
 #: how far below its row's largest logit (nats) a token of a spec-on
 #: stream that parted from spec off at a near-tie may lie on the decode
 #: path: int8 KV rows quantized by a verify pass and by a decode step
@@ -2214,9 +2257,9 @@ def profile_window(torch, sch, prompts, steps=8):
 
 # -- phase 6b: speculative decoding -------------------------------------------
 
-def spec_chain(torch, dev, pattern=None):
+def spec_chain(torch, dev, pattern=None, steps=SPEC_TRAIN):
     """``bench_spec``'s chain trained on the card through the port's
-    trainer: bf16, SGD (SPEC_TRAINER), SPEC_TRAIN steps at batch
+    trainer: bf16, SGD (SPEC_TRAINER), ``steps`` steps at batch
     SPEC_BATCH over 8 minibatches of WINDOW-long sequences cut from the
     tiled ``pattern`` (default the 12-token ``arange(12)·17``) at
     offsets drawn by ``default_rng(0)``.  Returns the chain, the pattern
@@ -2237,9 +2280,9 @@ def spec_chain(torch, dev, pattern=None):
                   seq=WINDOW, loader=loader, lr_schedule="constant",
                   device=dev, dtype="bfloat16", **SPEC_TRAINER)
     losses = []
-    while len(losses) < SPEC_TRAIN:
+    while len(losses) < steps:
         loader.serve_span()
-        k = min(len(loader.span_sizes_), SPEC_TRAIN - len(losses))
+        k = min(len(loader.span_sizes_), steps - len(losses))
         losses += _span_steps(torch, lm.trainer, loader, range(k))
     torch.cuda.synchronize()
     return lm.chain, pattern, [float(x) for x in losses]
@@ -3603,7 +3646,7 @@ def rest_check(torch, dev, chain, pattern):
         before = rest_counts(sch)
         s = socket.create_connection(("127.0.0.1", api.port), timeout=60)
         # a long request, so it is still decoding when the reset lands
-        blob = json.dumps({"prompt": prompt, "steps": SPEC_STEPS,
+        blob = json.dumps({"prompt": prompt, "steps": REST_RESET_STEPS,
                            "stream": True}).encode()
         s.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\nContent-Type: "
                   b"application/json\r\nContent-Length: %d\r\n\r\n"
@@ -3697,14 +3740,15 @@ def orbit_chain(torch, dev):
     launches."""
     order = numpy.random.default_rng(0).permutation(VOCAB).astype(numpy.int32)
     zero_tier_counts()
-    chain, _, losses = spec_chain(torch, dev, pattern=order.tolist())
+    chain, _, losses = spec_chain(torch, dev, pattern=order.tolist(),
+                                  steps=ORBIT_TRAIN)
     launches = read_tier_counts()
     for name in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
-        if launches[name] != LAYERS * SPEC_TRAIN:
+        if launches[name] != LAYERS * ORBIT_TRAIN:
             raise SystemExit("tiers (a): %d training steps launched %s %d "
-                             "times (want %d)" % (SPEC_TRAIN, name,
+                             "times (want %d)" % (ORBIT_TRAIN, name,
                                                   launches[name],
-                                                  LAYERS * SPEC_TRAIN))
+                                                  LAYERS * ORBIT_TRAIN))
     if not all(numpy.isfinite(losses)):
         raise SystemExit("tiers (a): non-finite training losses %s" % losses)
     return chain, order, losses, launches
@@ -7402,16 +7446,21 @@ def _sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
-def gang_part(torch, dev):
-    """(c): D_GANG processes of this script; returns their kernel 3
-    launches."""
-    import os
+def start_gang():
+    """(c)'s D_GANG processes of this script, started in the background
+    (from phase 12 on) and read by :func:`gang_part`."""
     address = "127.0.0.1:%d" % _free_port()
     here = os.path.abspath(__file__)
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, here, "--gang-worker", address, str(D_GANG),
-         str(r), json.dumps(_gang_sizes())], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, cwd=os.path.dirname(here)) for r in range(D_GANG)]
+         str(r), json.dumps(_gang_sizes())], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=os.path.dirname(here))
+        for r in range(D_GANG)]
+
+
+def gang_part(torch, dev, procs):
+    """(c): the gang's processes (:func:`start_gang`); returns their
+    kernel 3 launches."""
     outs = []
     try:
         for p in procs:
@@ -7459,18 +7508,21 @@ def gang_part(torch, dev):
 D_GANG_W_TOL = 1e-6
 
 
-def distributed_check(torch, dev):
-    """Phase 16: (a) fault C9, (b) the master and its workers, (c) the
-    gang; returns the kernels' launch counts of its runs."""
+def distributed_check(torch, dev, gang, job):
+    """Phase 16: (a) fault C9, (b) the master and its workers (run by
+    the background job), (c) the gang (started by :func:`start_gang`);
+    returns the kernels' launch counts of its runs."""
     t0 = time.perf_counter()
     launches = c9_part(torch, dev)
     log("dist (a): %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
-    launches.update(master_worker_part(torch, dev))
-    log("dist (b): %.1f s" % (time.perf_counter() - t0))
+    got = job.wait("dist")
+    launches.update(got["launches"])
+    log("dist (b): %.1f s in the background, %.1f s waited"
+        % (got["seconds"], time.perf_counter() - t0))
     t0 = time.perf_counter()
-    launches.update(gang_part(torch, dev))
-    log("dist (c): %.1f s" % (time.perf_counter() - t0))
+    launches.update(gang_part(torch, dev, gang))
+    log("dist (c): %.1f s waited" % (time.perf_counter() - t0))
     return launches
 
 
@@ -7484,10 +7536,12 @@ def distributed_check(torch, dev):
 #: FLEET_RATE_RUNS on/off runs of FLEET_RATE_REQUESTS requests of
 #: FLEET_RATE_STEPS steps and FLEET_TICKS timed alert ticks; (d)'s burst
 #: of FLEET_BURST clients
-FLEET_PROMPT, FLEET_STEPS, FLEET_SLOTS, FLEET_REQUESTS = 128, 64, 4, 4
+#: (FLEET_REQUESTS cut from 4 to 2 and FLEET_RATE_STEPS from 256 to 128
+#: for the smoke's time limit)
+FLEET_PROMPT, FLEET_STEPS, FLEET_SLOTS, FLEET_REQUESTS = 128, 64, 4, 2
 FLEET_COUNTS, FLEET_PROBES = (1, 2), 12
 FLEET_ROUTED, FLEET_KILLS = 8, 3
-FLEET_RATE_RUNS, FLEET_RATE_REQUESTS, FLEET_RATE_STEPS = 3, 4, 256
+FLEET_RATE_RUNS, FLEET_RATE_REQUESTS, FLEET_RATE_STEPS = 3, 4, 128
 #: the on-arm's store and engine tick at 4 Hz, four times the shipped
 #: 1 s cadence, so each sub-second run holds several ticks
 FLEET_RATE_INTERVAL = 0.25
@@ -8580,11 +8634,11 @@ def _trace_kernels(directory):
     return out
 
 
-def cm_ensemble(torch, dev, d):
-    """Phase 18 (b): ``--ensemble-train`` of the AlexNet cut with its
-    members on the card, then ``--ensemble-test``; returns the members'
-    and testers' kernel events."""
-    import os
+def ensemble_job(torch, dev, d):
+    """Phase 18 (b)'s runs, in a background job (:func:`start_job`):
+    ``--ensemble-train`` of the AlexNet cut with its members on the
+    card, each profiled into ``d``/ens-prof, then ``--ensemble-test``
+    with each tester profiled into ``d``/ens-test-prof."""
     prof = os.path.join(d, "ens-prof")
     test_prof = os.path.join(d, "ens-test-prof")
     summary = os.path.join(d, "ensemble.json")
@@ -8594,6 +8648,25 @@ def cm_ensemble(torch, dev, d):
         str(CM_RATIO), "-d", "0", "--result-file", summary])
     run = _CliRun(argv)
     s = _results(summary)
+    # the tester runs each snapshot again, profiled into its own dir
+    s["base_overrides"] = [
+        ov.replace(repr(prof), repr(test_prof)) for ov in
+        s["base_overrides"]]
+    with open(summary, "w") as f:
+        json.dump(s, f)
+    t0 = time.perf_counter()
+    _CliRun(["--ensemble-test", summary, "--result-file",
+             os.path.join(d, "ensemble-test.json")] + _cm_flags(dev))
+    return {"train_wall_s": run.wall,
+            "test_wall_s": time.perf_counter() - t0}
+
+
+def cm_ensemble(torch, dev, job):
+    """Phase 18 (b): the ensemble's runs (:func:`ensemble_job`) checked:
+    the members' seeds, snapshots, results and kernel events, then the
+    testers'; returns the members' and testers' kernel events."""
+    walls, d = job.wait("ensemble"), job.dir("ensemble")
+    s = _results(os.path.join(d, "ensemble.json"))
     inst = s["instances"]
     seeds = [i["seed"] for i in inst]
     snaps = [i["snapshot"] for i in inst]
@@ -8602,7 +8675,7 @@ def cm_ensemble(torch, dev, d):
     # must differ in the pair (their losses, at least)
     errs = [tuple((i["results"] or {}).get(k) for k in (
         "validation_error_pct", "validation_loss")) for i in inst]
-    members = _trace_kernels(prof)
+    members = _trace_kernels(os.path.join(d, "ens-prof"))
     if s["succeeded"] != CM_MEMBERS or seeds != [4242, 4243] \
             or len(set(snaps)) != CM_MEMBERS \
             or not all(os.path.isfile(p) for p in snaps) \
@@ -8614,19 +8687,8 @@ def cm_ensemble(torch, dev, d):
             for m in members):
         raise SystemExit("cli modes (b): the members' kernel events %s"
                          % members)
-    # the tester runs each snapshot again, profiled into its own dir
-    s["base_overrides"] = [
-        ov.replace(repr(prof), repr(test_prof)) for ov in
-        s["base_overrides"]]
-    with open(summary, "w") as f:
-        json.dump(s, f)
-    tested = os.path.join(d, "ensemble-test.json")
-    t0 = time.perf_counter()
-    _CliRun(["--ensemble-test", summary, "--result-file", tested]
-            + _cm_flags(dev))
-    test_wall = time.perf_counter() - t0
-    t = _results(tested)
-    testers = _trace_kernels(test_prof)
+    t = _results(os.path.join(d, "ensemble-test.json"))
+    testers = _trace_kernels(os.path.join(d, "ens-test-prof"))
     if len(t["tests"]) != CM_MEMBERS or not all(
             x.get("results") for x in t["tests"]) \
             or len(testers) != CM_MEMBERS \
@@ -8637,20 +8699,19 @@ def cm_ensemble(torch, dev, d):
         "members": CM_MEMBERS, "train_ratio": CM_RATIO, "seeds": seeds,
         "validation_error_pct_and_loss": errs,
         "member_elapsed_s": [i["results"]["elapsed_sec"] for i in inst],
-        "train_wall_s": run.wall, "s_per_member": run.wall / CM_MEMBERS,
-        "test_wall_s": test_wall, "member_kernel_events": members,
-        "tester_kernel_events": testers,
+        "train_wall_s": walls["train_wall_s"],
+        "s_per_member": walls["train_wall_s"] / CM_MEMBERS,
+        "test_wall_s": walls["test_wall_s"],
+        "member_kernel_events": members, "tester_kernel_events": testers,
         "snapshot_mb": [os.path.getsize(p) / 2 ** 20 for p in snaps]}}))
     return members + testers
 
 
-def cm_optimize(torch, dev, d):
-    """Phase 18 (c): ``--optimize`` on the TINY MNIST, individuals on the
-    card; generation 0 against the port's ``Population`` in process."""
-    import os
-    from veles_tpu_torch.config import Config, Range
-    from veles_tpu_torch.genetics import (
-        Population, SubprocessEvaluator, collect_tuneables)
+def optimize_job(torch, dev, d):
+    """Phase 18 (c)'s run, in a background job (:func:`start_job`):
+    ``--optimize`` on the TINY MNIST, individuals on the card, each
+    evaluation's overrides, seed, fitness and seconds recorded."""
+    from veles_tpu_torch.genetics import SubprocessEvaluator
     calls = []
     orig = SubprocessEvaluator.__call__
 
@@ -8661,17 +8722,26 @@ def cm_optimize(torch, dev, d):
                       "fitness": fit, "s": time.perf_counter() - t0})
         return fit
     SubprocessEvaluator.__call__ = timed
-    outcome = os.path.join(d, "optimize.json")
     try:
         run = _CliRun([
             _sample("mnist.py"), _sample("mnist_config.py"), "-c",
             CM_RANGE, "-c", CM_TINY, "-c", "root.common.dirs.snapshots = "
             "%r" % os.path.join(d, "opt-snaps"), "--optimize",
-            "%d:%d" % (CM_POP, CM_GENS), "--result-file", outcome]
-            + _cm_flags(dev))
+            "%d:%d" % (CM_POP, CM_GENS), "--result-file",
+            os.path.join(d, "optimize.json")] + _cm_flags(dev))
     finally:
         SubprocessEvaluator.__call__ = orig
-    o = _results(outcome)
+    return {"calls": calls, "wall_s": run.wall}
+
+
+def cm_optimize(torch, dev, job):
+    """Phase 18 (c): the optimizer's run (:func:`optimize_job`) checked:
+    generation 0 against the port's ``Population`` drawn here."""
+    from veles_tpu_torch.config import Config, Range
+    from veles_tpu_torch.genetics import Population, collect_tuneables
+    got, d = job.wait("optimize"), job.dir("optimize")
+    calls = got["calls"]
+    o = _results(os.path.join(d, "optimize.json"))
     cfg = Config("t")
     cfg.mnist_tpu.learning_rate = Range(0.02, 0.001, 0.5)
     pop = Population(collect_tuneables(cfg), size=CM_POP, seed=42)
@@ -8691,8 +8761,97 @@ def cm_optimize(torch, dev, d):
         "best_fitness": o["best_fitness"], "best_genes": o["best_genes"],
         "history": o["history"], "generation0_match": True,
         "s_per_evaluation": [c["s"] for c in calls],
-        "wall_s": run.wall}}))
+        "wall_s": got["wall_s"]}}))
     return []
+
+
+#: the runs whose work is their children's — phase 16 (b)'s master and
+#: its workers, phase 18 (b)'s ensemble members and testers and (c)'s
+#: optimizer individuals, each a command line that spends 10-25 s on
+#: the card before its first step — run one after another in the
+#: background from phase 12 on, in one process of this script (``--job
+#: DIR DEVICE SIZES NAME...``, given the constants JOB_SIZES), each in
+#: JOB_DIR/NAME; phases 16 and 18 wait for each at most JOB_TIMEOUT
+#: seconds from the job's start and check what it left
+JOB_SIZES = ("D_A_WORKERS", "D_A_TRAIN", "D_A_VALID", "D_A_BATCH",
+             "D_A1_TRAIN", "D_A_EXTRA", "CM_A_TRAIN", "CM_A_VALID",
+             "CM_A_SIDE", "CM_A_CLASSES", "CM_A_BATCH", "CM_A_WIDTHS",
+             "CM_MEMBERS", "CM_RATIO", "CM_POP", "CM_GENS", "CM_TINY",
+             "CM_RANGE")
+JOB_DIR, JOB_TIMEOUT = "_cli_jobs", 900
+
+
+def dist_job(torch, dev, d):
+    """Phase 16 (b) (:func:`master_worker_part`, its checks included)."""
+    t0 = time.perf_counter()
+    launches = master_worker_part(torch, dev)
+    return {"launches": launches, "seconds": time.perf_counter() - t0}
+
+
+JOBS = {"dist": dist_job, "ensemble": ensemble_job,
+        "optimize": optimize_job}
+
+
+class Job:
+    """The background job: ``JOBS[name]`` for each of ``names`` in turn,
+    in a process of its own (a session of its own, so :meth:`stop` ends
+    its children too), its output in JOB_DIR/job.log."""
+
+    def __init__(self, names, dev):
+        here = os.path.abspath(__file__)
+        self.root = os.path.join(os.path.dirname(here), JOB_DIR)
+        shutil.rmtree(self.root, ignore_errors=True)
+        os.makedirs(self.root)
+        self.log, self.logged = os.path.join(self.root, "job.log"), 0
+        sizes = json.dumps({k: globals()[k] for k in JOB_SIZES})
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, here, "--job", self.root, dev.type, sizes]
+                + list(names), stdout=out, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(here), start_new_session=True)
+        self.t_end = time.time() + JOB_TIMEOUT
+
+    def dir(self, name):
+        return os.path.join(self.root, name)
+
+    def wait(self, name):
+        """``name``'s ``JOB`` line once the job has printed it (fatal if
+        the job ended without it or ran past JOB_TIMEOUT); the JSON
+        records the job printed so far go to this process's output."""
+        while True:
+            done = self.proc.poll() is not None
+            with open(self.log) as f:
+                lines = f.read().split("\n")[:-1]     # whole lines only
+            for line in lines[self.logged:]:
+                if line.startswith("{"):
+                    log(line)
+            self.logged = len(lines)
+            got = [l for l in lines if l.startswith("JOB %s " % name)]
+            if got:
+                return json.loads(got[-1].split(" ", 2)[2])
+            if done or time.time() > self.t_end:
+                self.stop()
+                raise SystemExit("the background job (%s): rc=%s:\n%s" % (
+                    name, self.proc.returncode, "\n".join(lines)[-3000:]))
+            time.sleep(0.5)
+
+    def stop(self):
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+
+def job_main(root, device, sizes, *names):
+    """``--job``: the background job at the parent's ``sizes``; prints a
+    ``JOB NAME {json}`` line after each of ``names``."""
+    import torch
+    globals().update(json.loads(sizes))
+    for name in names:
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        out = JOBS[name](torch, torch.device(device), d)
+        print("JOB %s %s" % (name, json.dumps(out)), flush=True)
+    return 0
 
 
 def _status_get(port, path):
@@ -8872,30 +9031,588 @@ def cm_frontend(torch, dev, d):
     return []
 
 
-def cli_modes_check(torch, dev):
+def cli_modes_check(torch, dev, job):
     """Phase 18: the command line's fleet modes — (a) package export and
-    its consumers, (b) ensembles, (c) the genetic optimizer, (d) plots
-    and status, (e) the frontend; returns the phase's launches by kernel
+    its consumers, (b) ensembles and (c) the genetic optimizer (run by
+    the background job and checked here), (d) plots and
+    status, (e) the frontend; returns the phase's launches by kernel
     (this process's, plus the kernel events of the ensemble's child
     processes)."""
-    import os
     d = os.path.join(os.path.dirname(os.path.abspath(__file__)), CM_DIR)
     os.makedirs(d, exist_ok=True)
     t_phase = time.perf_counter()
     totals, parts = {}, {}
     try:
-        for name, fn in (("package", cm_package), ("ensemble", cm_ensemble),
-                         ("optimize", cm_optimize),
-                         ("services", cm_services),
-                         ("frontend", cm_frontend)):
+        for name, fn, arg in (("package", cm_package, d),
+                              ("ensemble", cm_ensemble, job),
+                              ("optimize", cm_optimize, job),
+                              ("services", cm_services, d),
+                              ("frontend", cm_frontend, d)):
             t0 = time.perf_counter()
-            for counts in fn(torch, dev, d):
+            for counts in fn(torch, dev, arg):
                 for k, v in counts.items():
                     totals[k] = totals.get(k, 0) + v
             parts[name] = time.perf_counter() - t0
     finally:
         shutil.rmtree(d, ignore_errors=True)
     log("cli modes: %.1f s (%s)" % (time.perf_counter() - t_phase, ", ".join(
+        "%s %.1f" % kv for kv in parts.items())))
+    return totals
+
+
+# -- phase 19: the last services (item 11.3) ----------------------------------
+
+#: (a): samples a producer pushes at AlexNet's full width, the batch
+SV_Z_SAMPLES, SV_Z_SIDE, SV_Z_CLASSES = 64, 227, 1000
+#: (a): the loader-fed forward against the stacked one (same kernels,
+#: same inputs, same order: bit-equal)
+SV_Z_TOL = 0.0
+#: (b): AlexNet at full width, a 2-step epoch, then a second one
+SV_A_BATCH, SV_A_TRAIN, SV_A_VALID = 64, 128, 64
+SV_A_SIDE, SV_A_CLASSES = 227, 1000
+#: (c): MNIST-width text records served by a loopback WebHDFS
+SV_H_TRAIN, SV_H_VALID, SV_H_BATCH = 512, 128, 64
+#: (d): the mini-AlexNet package (``tests/test_package_export.py``'s)
+SV_P_SHAPE, SV_P_CLASSES = (2, 67, 67, 3), 7
+SV_DIR = "_services"
+SV_TIMEOUT = 120
+
+
+def _zero_every_count():
+    zero_all_counts()
+    _zero_train_counts()
+
+
+def _read_every_count():
+    """Every kernel's launches since :func:`_zero_every_count`."""
+    got = dict(read_all_counts(), **_read_train_counts())
+    return {k: v for k, v in got.items() if isinstance(v, int)}
+
+
+def _stop_http(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(SV_TIMEOUT)
+
+
+def _serve_http(handler):
+    import http.server
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return srv, t
+
+
+def sv_ingest(torch, dev, d):
+    """Phase 19 (a): a PUSH producer thread streams SV_Z_SAMPLES samples
+    at AlexNet's width into a ZeroMQLoader in front of AlexNet's forward
+    chain (bf16) on the card; returns the loader-fed forward's
+    launches."""
+    import zmq
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.samples.alexnet import alexnet_layers
+    from veles_tpu_torch.zmq_loader import ZeroMQLoader
+    shape = (SV_Z_SIDE, SV_Z_SIDE, 3)
+    chain = init_params(alexnet_layers(SV_Z_CLASSES), 19, device=dev,
+                        dtype="bfloat16", in_shape=shape)
+    loader = ZeroMQLoader(None, sample_shape=shape,
+                          minibatch_size=SV_Z_SAMPLES, max_wait=SV_TIMEOUT)
+    loader.initialize(device=dev)
+    rng = numpy.random.default_rng(19)
+    samples = rng.random((SV_Z_SAMPLES,) + shape, dtype=numpy.float32)
+    sent = {}
+
+    def produce():
+        push = zmq.Context.instance().socket(zmq.PUSH)
+        push.connect(loader.endpoint)
+        t0 = time.perf_counter()
+        for s_ in samples:
+            push.send_pyobj(s_)
+        sent["s"] = time.perf_counter() - t0
+        push.close(linger=SV_TIMEOUT * 1000)
+    producer = threading.Thread(target=produce, daemon=True)
+    try:
+        t0 = time.perf_counter()
+        producer.start()
+        deadline = time.time() + SV_TIMEOUT
+        while loader._queue_.qsize() < SV_Z_SAMPLES \
+                and time.time() < deadline:
+            time.sleep(0.01)
+        producer.join(SV_TIMEOUT)
+        arrive_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        _zero_every_count()
+        t0 = time.perf_counter()
+        loader.run()
+        with torch.no_grad():
+            h = loader.minibatch_data.devmem[:loader.minibatch_size]
+            for u in chain:
+                h = u.apply(h)
+        got = h.float().cpu().numpy()
+        forward_s = time.perf_counter() - t0
+        launches = _read_every_count()
+    finally:
+        loader.stop()
+    if loader.minibatch_size != SV_Z_SAMPLES:
+        raise SystemExit("services (a): the loader served %d of %d samples"
+                         % (loader.minibatch_size, SV_Z_SAMPLES))
+    with torch.no_grad():
+        h = torch.as_tensor(samples).to(dev)
+        for u in chain:
+            h = u.apply(h)
+    want = h.float().cpu().numpy()
+    err = float(numpy.abs(got - want).max())
+    if err > SV_Z_TOL or not numpy.isfinite(got).all() \
+            or got.shape != (SV_Z_SAMPLES, SV_Z_CLASSES):
+        raise SystemExit("services (a): the loader-fed forward %s is off "
+                         "the stacked one by %g (bound %g)"
+                         % (got.shape, err, SV_Z_TOL))
+    if dev.type == "cuda" and (launches["lrn_fwd"] != 2
+                               or launches["lrn_bwd"]
+                               or launches["uniform_fill"]):
+        raise SystemExit("services (a): launched %s, want lrn_fwd 2 only"
+                         % launches)
+    log(json.dumps({"services_ingest": {
+        "samples": SV_Z_SAMPLES, "mb": samples.nbytes / 2 ** 20,
+        "send_s": sent.get("s"), "arrive_s": arrive_s,
+        "serve_and_forward_s": forward_s, "max_abs_err": err,
+        "launches": {k: v for k, v in launches.items() if v}}}))
+    del chain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _avatar_arrays(torch, dev, chain):
+    """Every forward unit's parameters as Arrays adopting the live
+    tensors (marked newer on the device, so a request reads each home
+    once)."""
+    from veles_tpu_torch.memory import Array
+    out = {}
+    for i, u in enumerate(chain):
+        for n, t in u.params.items():
+            a = Array()
+            a.initialize(dev)
+            a.devmem = t.detach()
+            out["%d/%s" % (i, n)] = a
+    return out
+
+
+def _pull(torch, server, avatar):
+    t = threading.Thread(target=server.serve_once,
+                         kwargs={"timeout": SV_TIMEOUT * 1000}, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    avatar.run()
+    t.join(SV_TIMEOUT)
+    mirrors = {n: m.devmem for n, m in avatar.mirrors.items()}
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, mirrors
+
+
+def _same_as_source(torch, what, mirrors, chain):
+    for i, u in enumerate(chain):
+        for n, t in u.params.items():
+            m = mirrors.get("%d/%s" % (i, n))
+            if m is None or m.device != t.device \
+                    or not torch.equal(m, t.detach().float()):
+                raise SystemExit("services (b): %s: mirror %d/%s differs "
+                                 "from the source" % (what, i, n))
+
+
+def sv_avatar(torch, dev, d):
+    """Phase 19 (b): AlexNet's workflow trains 2 steps on the card; an
+    AvatarServer exposes every forward unit's parameters, an Avatar
+    pulls them onto the card (bit-equal), the workflow trains a second
+    epoch and a second pull equals the new weights.  Returns (the
+    workflow, its two snapshots, the training runs' launches)."""
+    import os
+    from veles_tpu_torch.avatar import Avatar, AvatarServer
+    from veles_tpu_torch.samples.alexnet import AlexNetWorkflow
+    wf = AlexNetWorkflow(side=SV_A_SIDE, classes=SV_A_CLASSES,
+                         minibatch_size=SV_A_BATCH,
+                         synthetic_train=SV_A_TRAIN,
+                         synthetic_valid=SV_A_VALID, max_epochs=1,
+                         snapshot_compression=None,
+                         snapshot_time_interval=1e9,
+                         snapshotter_config={"directory": d})
+    for p in wf.plotters:     # payloads for (d)'s reports
+        p.collect = True
+    wf.initialize(device=dev)
+    torch.cuda.synchronize()
+    _zero_every_count()
+    wf.run()
+    torch.cuda.synchronize()
+    launches = [_read_every_count()]
+    if wf.gd.global_step != SV_A_TRAIN // SV_A_BATCH:
+        raise SystemExit("services (b): %d steps, want %d"
+                         % (wf.gd.global_step, SV_A_TRAIN // SV_A_BATCH))
+    snaps = []
+    wf.snapshotter.suffix = "epoch1"
+    wf.snapshotter.export()
+    snaps.append(wf.snapshotter.destination)
+    chain = wf.gd.forwards
+    server = AvatarServer(_avatar_arrays(torch, dev, chain))
+    avatar = Avatar(None, endpoint=server.endpoint, timeout=SV_TIMEOUT,
+                    names=sorted(server.arrays))
+    avatar.initialize(device=dev)
+    pulls = []
+    try:
+        secs, mirrors = _pull(torch, server, avatar)
+        _same_as_source(torch, "first pull", mirrors, chain)
+        mb = sum(m.numel() * 4 for m in mirrors.values()) / 2 ** 20
+        pulls.append(secs)
+        wf.decision.max_epochs = 2
+        wf.decision.complete.set(False)
+        _zero_every_count()
+        wf.run()
+        torch.cuda.synchronize()
+        launches.append(_read_every_count())
+        server.arrays = _avatar_arrays(torch, dev, chain)
+        secs, mirrors2 = _pull(torch, server, avatar)
+        _same_as_source(torch, "second pull", mirrors2, chain)
+        pulls.append(secs)
+        moved = max(float((mirrors2[n] - mirrors[n]).abs().max())
+                    for n in mirrors)
+        if moved == 0.0:
+            raise SystemExit("services (b): the second epoch moved no "
+                             "weight")
+    finally:
+        avatar.close()
+        server.close()
+    wf.snapshotter.suffix = "epoch2"
+    wf.snapshotter.export()
+    snaps.append(wf.snapshotter.destination)
+    for got in launches:
+        if dev.type == "cuda" and not all(
+                got[n] for n in ("lrn_fwd", "lrn_bwd", "uniform_fill")):
+            raise SystemExit("services (b): the training launched %s"
+                             % got)
+    log(json.dumps({"services_avatar": {
+        "arrays": len(mirrors), "mb_per_pull": mb, "pull_s": pulls,
+        "second_epoch_max_move": moved, "steps": wf.gd.global_step,
+        "snapshot_mb": [os.path.getsize(p) / 2 ** 20 for p in snaps],
+        "launches": launches}}))
+    del mirrors, mirrors2
+    return wf, snaps, launches
+
+
+def _hdfs_handler(files):
+    import http.server
+    import urllib.parse
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            url = urllib.parse.urlparse(self.path)
+            q = dict(urllib.parse.parse_qsl(url.query))
+            path = url.path[len("/webhdfs/v1"):]
+            if q.get("op") == "LISTSTATUS":
+                names = sorted({f[len(path):].lstrip("/").split("/")[0]
+                                for f in files if f.startswith(path)})
+                body = json.dumps({"FileStatuses": {"FileStatus": [
+                    {"pathSuffix": n, "type": "FILE"
+                     if path.rstrip("/") + "/" + n in files
+                     else "DIRECTORY"} for n in names]}}).encode()
+            else:
+                body = files[path]
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+    return Handler
+
+
+def _mnist_mlp(loader_factory, loader_config, dtype):
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    return StandardWorkflow(
+        loader_factory=loader_factory,
+        loader_config=dict(loader_config, minibatch_size=SV_H_BATCH),
+        layers=[{"type": "all2all_tanh", "output_sample_shape": (100,)},
+                {"type": "softmax", "output_sample_shape": (10,)}],
+        decision_config={"max_epochs": 1, "fail_iterations": 25},
+        snapshotter_config={"enabled": False}, plotters=False,
+        dtype=dtype, solver="sgd", learning_rate=0.1,
+        gradient_moment=0.9)
+
+
+def sv_hdfs(torch, dev, d):
+    """Phase 19 (c): a loopback WebHDFS serves MNIST-width text records;
+    ``HDFSTextLoader`` feeds the MNIST MLP for one epoch on the card,
+    bit-equal to the same records from numpy through a FullBatchLoader;
+    returns the HDFS run's launches."""
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+    from veles_tpu_torch.loader.hdfs_loader import HDFSTextLoader
+    rng = numpy.random.default_rng(23)
+    n = SV_H_TRAIN + SV_H_VALID
+    data = (rng.integers(0, 256, (n, 784)) / 255.0).astype(numpy.float32)
+    labels = [str(v) for v in rng.integers(0, 10, n)]
+    files, rows = {}, {}
+    for part, lo, hi in (("valid", 0, SV_H_VALID), ("train", SV_H_VALID, n)):
+        for k, (a, b) in enumerate(((lo, (lo + hi) // 2),
+                                    ((lo + hi) // 2, hi))):
+            lines = ["%s %s" % (" ".join("%.9g" % v for v in data[i]),
+                                labels[i]) for i in range(a, b)]
+            files["/mnist/%s/part-%d" % (part, k)] = \
+                ("\n".join(lines) + "\n").encode()
+        rows[part] = (lo, hi)
+    srv, t = _serve_http(_hdfs_handler(files))
+
+    class FromNumpy(FullBatchLoader):
+        def load_data(self):
+            self.class_lengths[:] = [0, SV_H_VALID, SV_H_TRAIN]
+            self.original_data = data.copy()
+            self.original_labels = list(labels)
+            self.labels_mapping = {l: i for i, l in
+                                   enumerate(sorted(set(labels)))}
+
+    out = {}
+    try:
+        for arm, factory, cfg in (
+                ("hdfs", HDFSTextLoader, {
+                    "namenode": "127.0.0.1:%d" % srv.server_address[1],
+                    "train_path": "/mnist/train",
+                    "validation_path": "/mnist/valid"}),
+                ("numpy", FromNumpy, {})):
+            wf = _mnist_mlp(factory, cfg, "bfloat16")
+            t0 = time.perf_counter()
+            wf.initialize(device=dev)
+            load_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            _zero_every_count()
+            wf.run()
+            torch.cuda.synchronize()
+            out[arm] = {"params": _host_params(wf.gd.forwards),
+                        "history": list(wf.decision.history),
+                        "launches": _read_every_count(), "load_s": load_s,
+                        "lengths": list(wf.loader.class_lengths)}
+            wf.stop()
+            del wf
+    finally:
+        _stop_http(srv, t)
+    a, b = out["hdfs"], out["numpy"]
+    diff = max(v for dd in _max_diff(torch, a["params"], b["params"])
+               for v in dd.values())
+    if diff != 0.0 or a["lengths"] != [0, SV_H_VALID, SV_H_TRAIN] \
+            or a["history"] != b["history"]:
+        raise SystemExit("services (c): the HDFS run is off the numpy run "
+                         "by %g; lengths %s; histories %s / %s"
+                         % (diff, a["lengths"], a["history"], b["history"]))
+    log(json.dumps({"services_hdfs": {
+        "records": n, "text_mb": sum(map(len, files.values())) / 2 ** 20,
+        "hdfs_load_s": a["load_s"], "numpy_load_s": b["load_s"],
+        "history": a["history"], "max_abs_weight_diff": diff}}))
+    return a["launches"]
+
+
+def _confluence_handler(captured):
+    import http.server
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            length = int(self.headers.get("Content-Length", 0))
+            captured.append(json.loads(self.rfile.read(length)))
+            body = json.dumps({"id": str(len(captured)), "_links": {
+                "base": "http://wiki.local",
+                "webui": "/pages/%d" % len(captured)}}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+    return Handler
+
+
+def sv_forge_publish(torch, dev, d, wf, snaps):
+    """Phase 19 (d): the mini-AlexNet package through update_forge to a
+    loopback ForgeServer and back (checksum-verified), run on the card;
+    (b)'s run published in all five backends; compare_snapshots on
+    (b)'s snapshots.  Returns the fetched package run's launches."""
+    import contextlib
+    import io
+    import os
+    from veles_tpu_torch import package_export
+    from veles_tpu_torch.convert import init_params
+    from veles_tpu_torch.forge import ForgeServer, fetch
+    from veles_tpu_torch.publishing import BACKENDS, Publisher
+    from veles_tpu_torch.samples.alexnet import alexnet_layers
+    from veles_tpu_torch.scripts import compare_snapshots, update_forge
+    chain = init_params(alexnet_layers(classes=SV_P_CLASSES), 9,
+                        in_shape=SV_P_SHAPE[1:], device=dev)
+    pkg_dir = os.path.join(d, "forge_tree", "axmini")
+    os.makedirs(pkg_dir)
+    path = package_export.export_package(
+        chain, os.path.join(pkg_dir, "axmini.tar.gz"), SV_P_SHAPE,
+        name="axmini")
+    with open(os.path.join(pkg_dir, "forge.json"), "w") as f:
+        json.dump({"name": "axmini", "version": "1.0",
+                   "description": "mini-AlexNet", "package":
+                   "axmini.tar.gz"}, f)
+    x = numpy.random.default_rng(9).random(SV_P_SHAPE).astype(
+        numpy.float32)
+    before = package_export.load_package(path, device=dev).run(x)
+    server = ForgeServer(os.path.join(d, "forge_store")).start()
+    try:
+        rc = update_forge.main(["--server", server.url,
+                                "--root", os.path.join(d, "forge_tree")])
+        if rc != 0:
+            raise SystemExit("services (d): update_forge exited %d" % rc)
+        fetched_dir = os.path.join(d, "fetched")
+        os.makedirs(fetched_dir)
+        fetched, version = fetch(server.url, "axmini", fetched_dir)
+    finally:
+        server.stop()
+    pkg = package_export.load_package(fetched, device=dev)
+    torch.cuda.synchronize()
+    _zero_every_count()
+    after = pkg.run(x)
+    torch.cuda.synchronize()
+    launches = _read_every_count()
+    err = float(numpy.abs(after - before).max())
+    if err != 0.0 or version != "1.0" \
+            or (dev.type == "cuda" and launches["lrn_fwd"] != 2):
+        raise SystemExit("services (d): the fetched package (%s) is off by "
+                         "%g; launches %s" % (version, err, launches))
+    del chain, pkg
+    # publishing (b)'s run in every backend; Confluence to a fake
+    captured = []
+    csrv, ct = _serve_http(_confluence_handler(captured))
+    reports = {}
+    try:
+        for name in sorted(BACKENDS):
+            cfg = {"server": "http://127.0.0.1:%d" % csrv.server_address[1],
+                   "space": "ML", "token": "t"} if name == "confluence" \
+                else None
+            pub = Publisher(wf, backend=name, backend_config=cfg,
+                            output_dir=os.path.join(d, "reports"))
+            t0 = time.perf_counter()
+            pub.run()
+            reports[name] = {"file": os.path.basename(pub.destination),
+                             "bytes": os.path.getsize(pub.destination),
+                             "s": time.perf_counter() - t0}
+            if name == "html":
+                reports[name]["images"] = len(pub.backend.images)
+                if pub.backend.images_skipped:
+                    log("services (d): the HTML report's plot images "
+                        "were skipped: %s" % pub.backend.images_skipped)
+                    reports[name]["images_skipped"] = \
+                        pub.backend.images_skipped
+            if name == "confluence":
+                reports[name]["url"] = pub.backend.url
+    finally:
+        _stop_http(csrv, ct)
+    if len(captured) != 1 or "<h2>Metrics</h2>" not in \
+            captured[0]["body"]["storage"]["value"]:
+        raise SystemExit("services (d): the fake Confluence got %d pages"
+                         % len(captured))
+    verdicts = {}
+    for pair, want in ((snaps, 1), ((snaps[0], snaps[0]), 0)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = compare_snapshots.main(list(pair))
+        line = [l for l in buf.getvalue().splitlines()
+                if l.startswith("VERDICT")]
+        verdicts["differ" if want else "same"] = {
+            "rc": rc, "verdict": line[-1] if line else None,
+            "s": time.perf_counter() - t0}
+        if rc != want:
+            raise SystemExit("services (d): compare_snapshots %s exited %d,"
+                             " want %d: %s" % (pair, rc, want,
+                                               buf.getvalue()[-800:]))
+    log(json.dumps({"services_forge_publish": {
+        "package_mb": os.path.getsize(path) / 2 ** 20, "max_abs_err": err,
+        "launches": {k: v for k, v in launches.items() if v},
+        "reports": reports, "compare_snapshots": verdicts}}))
+    return launches
+
+
+def sv_builds(torch, dev):
+    """Phase 19 (e): ``compile_summary()`` lists every kernel library
+    with this run's ``cold``/``hit`` and calls equal to the kernels'
+    launch counts; ``/metrics`` of a live dashboard shows the family."""
+    import urllib.request
+    from veles_tpu_torch import _build
+    from veles_tpu_torch.ops import kernel_launches
+    from veles_tpu_torch.telemetry import compile_summary, cost_summary
+    from veles_tpu_torch.telemetry.compile_tracker import KERNEL_LIBRARY
+    from veles_tpu_torch.web_status import WebStatusServer
+    summ = compile_summary()
+    sums = {}
+    for kernel, n in kernel_launches().items():
+        lib = "kernels." + KERNEL_LIBRARY[kernel]
+        sums[lib] = sums.get(lib, 0) + n
+    libs = {"kernels." + n for n in _build.SOURCES}
+    bad = [n for n in libs if n not in summ or summ[n]["compiles"] != 1
+           or summ[n]["calls"] != sums.get(n, 0)]
+    if bad:
+        raise SystemExit("services (e): compile_summary %s (launches %s)"
+                         % ({n: summ.get(n) for n in bad}, sums))
+    server = WebStatusServer(port=0, host="127.0.0.1")
+    server.start()
+    try:
+        with urllib.request.urlopen("http://127.0.0.1:%d/metrics"
+                                    % server.port, timeout=30) as r:
+            text = r.read().decode()
+    finally:
+        server.stop()
+    shown = [l for l in text.splitlines()
+             if l.startswith("veles_jit_compiles_total{")
+             and 'fn="kernels.' in l]
+    if len(shown) != len(libs):
+        raise SystemExit("services (e): /metrics shows %s" % shown)
+    costs = cost_summary()
+    log(json.dumps({"services_builds": {
+        n: {"cache": "hit" if summ[n]["compiles_persistent_hit"] else "cold",
+            "first_compile_s": summ[n]["first_compile_s"],
+            "calls": summ[n]["calls"],
+            "library_bytes": (costs.get(n) or {}).get(
+                "generated_code_bytes")} for n in sorted(libs)}}))
+
+
+def services_check(torch, dev):
+    """Phase 19: the last services — (a) ZeroMQ ingest into AlexNet's
+    forward, (b) the Avatar, (c) WebHDFS into the MNIST MLP, (d) forge,
+    publishing and compare_snapshots, (e) the kernel builds; returns the
+    phase's launches by kernel."""
+    import os
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), SV_DIR)
+    os.makedirs(d, exist_ok=True)
+    t_phase = time.perf_counter()
+    totals, parts = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    wf = None
+    try:
+        t0 = time.perf_counter()
+        add(sv_ingest(torch, dev, d))
+        parts["ingest"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wf, snaps, runs = sv_avatar(torch, dev, d)
+        for counts in runs:
+            add(counts)
+        parts["avatar"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add(sv_hdfs(torch, dev, d))
+        parts["hdfs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add(sv_forge_publish(torch, dev, d, wf, snaps))
+        parts["forge_publish"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sv_builds(torch, dev)
+        parts["builds"] = time.perf_counter() - t0
+    finally:
+        if wf is not None:
+            wf.stop()
+        del wf
+        torch.cuda.empty_cache()
+        shutil.rmtree(d, ignore_errors=True)
+    log("services: %.1f s (%s)" % (time.perf_counter() - t_phase, ", ".join(
         "%s %.1f" % kv for kv in parts.items())))
     return totals
 
@@ -8907,6 +9624,11 @@ def main():
         return 1
     from veles_tpu_torch import _build
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def lap(phase):
+        log("timeline: %s done at %.1f s" % (phase,
+                                             time.perf_counter() - t_start))
     card = card_line()
     rate = hbm_rate(card)
     log("card: %s" % card)
@@ -8915,6 +9637,7 @@ def main():
     _build.build_all()
     log("build: %.1f s (%s)" % (time.perf_counter() - t0,
                                 ", ".join(sorted(_build.SOURCES))))
+    lap("build")
     for name, report in sorted(_build.ptxas_reports.items()):
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         spills = sum(int(b) for b in
@@ -8926,56 +9649,93 @@ def main():
             % entry)
 
     measured = check_kernels(torch, dev, rate)
+    lap("kernels")
     measured.update(check_flash(torch, dev, rate))
+    lap("flash")
     rng = numpy.random.default_rng(2)
     measured["matmul"] = time_matmul(torch, dev, rng, rate,
                                      check_matmul(torch, dev, rng))
     mm_launches, mm_err = matmul_path(torch, dev, rng)
     measured["matmul"]["max_abs_err"] = max(
         measured["matmul"]["max_abs_err"], mm_err)
+    lap("matmul")
     reference_check(torch, dev)
     t0 = time.perf_counter()
     reference_check(torch, dev, moe=True)
     log("reference (moe): %.1f s" % (time.perf_counter() - t0))
+    lap("reference")
     train_reference(torch, dev)
     t0 = time.perf_counter()
     moe_train_launches = train_reference(torch, dev, moe=True)
     log("train reference (moe): %.1f s" % (time.perf_counter() - t0))
+    lap("train reference")
     learns(torch, dev)
+    lap("learns")
     served = serve_check(torch, dev)
+    lap("serve")
     dense_numbers = served.pop("numbers")
     launches = dict(served["launches"], matmul=mm_launches)
     spec_launches, trained, pattern = spec_check(torch, dev)
+    lap("spec")
     serve_chain = served.pop("chain")
     life_launches = lifecycle_check(torch, dev, serve_chain, trained,
                                     pattern)
+    lap("lifecycle")
     surface_launches = surface_check(torch, dev, serve_chain, trained,
                                      pattern)
+    lap("surface")
     rest_launches_ = rest_check(torch, dev, trained, pattern)
+    lap("rest")
     tier_launches, wide = tiers_check(torch, dev, rate, trained, pattern)
     measured["paged_attend"]["wide"] = wide
+    lap("tiers")
     fleet_launches = fleet_check(torch, dev, serve_chain, trained, pattern)
+    lap("fleet")
     del served, trained, serve_chain
     moe_launches = moe_serve_check(torch, dev, dense_numbers)
+    lap("moe serve")
     launches.update(train_check(torch, dev)["launches"])
+    lap("train")
     measured.update(check_lrn(torch, dev, rate))
     measured.update(check_uniform(torch, dev, rate))
+    lap("lrn and uniform")
     alexnet_witness(torch, dev)
     launches.update(alexnet_check(torch, dev)["launches"])
+    lap("alexnet")
     s2d_launches = s2d_vgg_check(torch, dev)
+    lap("s2d and vgg")
     family_launches = families_check(torch, dev)
-    vocab_job = start_vocab()
+    lap("families")
+    # the background work of phases 13, 16 and 18 starts here, after
+    # every kernel's timing, beside phases 12-15 in this process
+    gc.collect()
+    torch.cuda.empty_cache()
+    job, gang, vocab_job = None, [], None
     try:
+        job = Job(JOBS, dev)
+        gang = start_gang()
+        vocab_job = start_vocab()
         wf_launches = workflow_check(torch, dev)
         input_launches = input_check(torch, dev, vocab_job)
+        lap("workflow and input")
+        cli_launches = cli_check(torch, dev)
+        lap("cli")
+        parallel_launches = parallel_check(torch, dev)
+        lap("parallel")
+        dist_launches = distributed_check(torch, dev, gang, job)
+        lap("distributed")
+        cli_modes_launches = cli_modes_check(torch, dev, job)
+        lap("cli modes")
     finally:
-        if vocab_job[0].poll() is None:
-            vocab_job[0].kill()
-            vocab_job[0].wait()
-    cli_launches = cli_check(torch, dev)
-    parallel_launches = parallel_check(torch, dev)
-    dist_launches = distributed_check(torch, dev)
-    cli_modes_launches = cli_modes_check(torch, dev)
+        for p in gang + ([vocab_job[0]] if vocab_job else []):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if job is not None:
+            job.stop()
+            shutil.rmtree(job.root, ignore_errors=True)
+    services_launches = services_check(torch, dev)
+    lap("services")
 
     replaces = {
         "paged_attend": ("paged_attend.cu", "pallas_paged.py:112"),
@@ -9014,7 +9774,8 @@ def main():
                          ("parallel_launches", parallel_launches),
                          ("distributed_launches", dist_launches),
                          ("fleet_launches", fleet_launches),
-                         ("cli_modes_launches", cli_modes_launches)):
+                         ("cli_modes_launches", cli_modes_launches),
+                         ("services_launches", services_launches)):
             if k["name"] in got:
                 k[key] = got[k["name"]]
     print(json.dumps({"kernels": kernels}))
@@ -9028,4 +9789,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gang-worker"]:
         sys.exit(gang_worker(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--job"]:
+        sys.exit(job_main(*sys.argv[2:]))
     sys.exit(main())

@@ -10,6 +10,7 @@ weights and minibatches, parameters within 2e-5 in f32, equal epoch
 accounting)."""
 
 import asyncio
+import pickle
 import time
 
 import numpy
@@ -540,3 +541,37 @@ def test_slow_job_frame_is_not_worker_silence(monkeypatch):
 
     master = run_loop(main())
     assert master.dropped == [] and len(master.applied) == 3
+
+
+@pytest.mark.parametrize("kind", ["params", "records"])
+def test_frames_gzip_only_where_it_pays(kind):
+    """A frame of float32 parameters goes on the wire raw and one of
+    repetitive records gzipped (a port addition: the reference gzips
+    every frame over 4 KB); the JAX package's reader decodes both to
+    the object sent."""
+    from veles_tpu.parallel import coordinator as ref
+    from veles_tpu_torch.parallel import coordinator as port
+    rng = numpy.random.default_rng(0)
+    if kind == "params":
+        obj = {"params": {0: {"weights": rng.standard_normal(
+            1 << 19).astype(numpy.float32)}}}
+    else:
+        obj = {"rows": [{"unit": "u%d" % (i % 7), "n": i % 3}
+                        for i in range(100000)]}
+    assert len(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)) \
+        > port._GZIP_PROBE
+    blob, flags = port._encode(obj, True)
+    assert bool(flags & port._FLAG_GZIP) == (kind == "records")
+
+    async def main():
+        reader = asyncio.StreamReader()
+        reader.feed_data(port._HDR.pack(len(blob), flags) + blob)
+        reader.feed_eof()
+        return await ref.recv_frame(reader)
+
+    got = run_loop(main())
+    if kind == "params":
+        assert numpy.array_equal(got["params"][0]["weights"],
+                                 obj["params"][0]["weights"])
+    else:
+        assert got == obj

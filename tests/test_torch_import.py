@@ -728,3 +728,107 @@ def test_genetics_reexports_the_config_markers():
     assert genetics.Range is config.Range
     assert genetics.Choice is config.Choice
     assert genetics.fix_config is config.fix_config
+
+
+# -- the last modules: analysis, compile tracking, services, scripts ----------
+
+#: the modules of item 11.3 (the static analysis, kernel-build tracking,
+#: the avatar, the ZeroMQ and WebHDFS loaders, forge, publishing and the
+#: scripts)
+LAST = ("veles_tpu_torch.analysis", "veles_tpu_torch.analysis.__main__",
+        "veles_tpu_torch.analysis.baseline", "veles_tpu_torch.analysis.core",
+        "veles_tpu_torch.analysis.report",
+        "veles_tpu_torch.analysis.passes",
+        "veles_tpu_torch.analysis.passes.config_keys",
+        "veles_tpu_torch.analysis.passes.donation",
+        "veles_tpu_torch.analysis.passes.fault_points",
+        "veles_tpu_torch.analysis.passes.locks",
+        "veles_tpu_torch.analysis.passes.metrics_hygiene",
+        "veles_tpu_torch.analysis.passes.purity",
+        "veles_tpu_torch.telemetry.compile_tracker",
+        "veles_tpu_torch.avatar", "veles_tpu_torch.zmq_loader",
+        "veles_tpu_torch.loader.hdfs_loader", "veles_tpu_torch.forge",
+        "veles_tpu_torch.forge.__main__", "veles_tpu_torch.forge.client",
+        "veles_tpu_torch.forge.server", "veles_tpu_torch.publishing",
+        "veles_tpu_torch.publishing.backends",
+        "veles_tpu_torch.publishing.publisher", "veles_tpu_torch.scripts",
+        "veles_tpu_torch.scripts.bboxer",
+        "veles_tpu_torch.scripts.compare_snapshots",
+        "veles_tpu_torch.scripts.update_forge")
+
+#: the analysis imports the standard library alone; the transports
+#: import zmq where they run
+LAST_OPTIONAL = {"veles_tpu_torch.avatar": {"zmq"},
+                 "veles_tpu_torch.zmq_loader": {"zmq"}}
+
+
+def test_last_modules_import_with_jax_blocked():
+    """Every module of item 11.3 imports, one after another, in a fresh
+    interpreter with ``jax`` blocked; none loads ``veles_tpu``,
+    matplotlib or tornado (the analysis imports no torch of its own:
+    the next test reads its imports)."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "for m in %r:\n"
+            "    importlib.import_module(m)\n"
+            "    bad = [n for n in sys.modules if n.split('.')[0] in\n"
+            "           ('veles_tpu', 'matplotlib', 'tornado')]\n"
+            "    assert not bad, (m, bad)\n"
+            "print('ok')\n" % (LAST,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("module", LAST)
+def test_last_modules_import_only_the_port(module):
+    """Each is listed in ``SUBMODULES`` and imports only torch, numpy,
+    the standard library and the port (and zmq for the transports)."""
+    import veles_tpu_torch
+    assert module in veles_tpu_torch.SUBMODULES
+    path = os.path.join(ROOT, *module.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) \
+        else path + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    allowed = {"veles_tpu_torch"} | set(sys.stdlib_module_names) \
+        | LAST_OPTIONAL.get(module, set())
+    if not module.startswith("veles_tpu_torch.analysis"):
+        allowed |= {"numpy", "torch"}
+    assert roots <= allowed, roots
+
+
+@pytest.mark.parametrize("module,names", [
+    ("veles_tpu_torch.analysis", (
+        "ALL_CODES", "ALL_PASSES", "DEFAULT_BASELINE", "Finding", "Module",
+        "Pass", "Project", "analyze", "apply_baseline", "collect_modules",
+        "format_entry", "load_baseline", "render_json", "render_text",
+        "run_passes")),
+    ("veles_tpu_torch.telemetry.compile_tracker", (
+        "track_jit", "compile_summary", "cost_summary",
+        "maybe_profiler_trace", "record_build", "COST_KEYS")),
+    ("veles_tpu_torch.avatar", ("Avatar", "AvatarServer", "HAS_ZMQ")),
+    ("veles_tpu_torch.zmq_loader", ("ZeroMQLoader", "HAS_ZMQ")),
+    ("veles_tpu_torch.loader.hdfs_loader", (
+        "HDFSTextLoader", "WebHDFSClient", "default_parse")),
+    ("veles_tpu_torch.forge", (
+        "fetch", "list_packages", "upload", "versions", "ForgeServer",
+        "ForgeStore")),
+    ("veles_tpu_torch.publishing", (
+        "Publisher", "BACKENDS", "MarkdownBackend", "HTMLBackend",
+        "NotebookBackend", "LaTeXBackend", "ConfluenceBackend")),
+    ("veles_tpu_torch.scripts.bboxer", ("BBoxStore", "make_server",
+                                        "main")),
+    ("veles_tpu_torch.scripts.compare_snapshots", (
+        "snapshot_params", "compare", "main")),
+    ("veles_tpu_torch.scripts.update_forge", (
+        "find_manifests", "upload_manifest", "main"))])
+def test_last_surface_is_exported(module, names):
+    """The reference's names of each module of item 11.3."""
+    test_workflow_surface_is_exported(module, names)

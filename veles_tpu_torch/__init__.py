@@ -49,7 +49,13 @@ the genetic optimizer (``genetics``), ensembles (``ensemble``,
 exports its chain as an inference package (``package_export``, read by
 the C++ runner in ``runtime/``), publishes live plots (``plotter``,
 ``plotting_units``, ``graphics_server``/``graphics_client``) and its
-status (``web_status``).  Its kernels are written by hand for
+status (``web_status``).  Its services are the reference's too: an
+array bridge between workflows (``avatar``), streaming ingest over
+ZeroMQ (``zmq_loader``) and from WebHDFS (``loader/hdfs_loader.py``),
+the model hub (``forge``), end-of-run reports (``publishing``) and the
+operators' scripts (``scripts``); ``analysis`` is the reference's
+static analysis, run over the port, and ``telemetry/compile_tracker.py``
+counts the kernel libraries' builds.  Its kernels are written by hand for
 ``sm_90a`` under ``csrc/``:
 
 - ``ops/paged_attend.py`` — block-table paged attention with the
@@ -230,4 +236,31 @@ SUBMODULES = (
     "veles_tpu_torch.serving.router",
     "veles_tpu_torch.serving.controller",
     "veles_tpu_torch.restful_api",
+    "veles_tpu_torch.analysis",
+    "veles_tpu_torch.analysis.__main__",
+    "veles_tpu_torch.analysis.baseline",
+    "veles_tpu_torch.analysis.core",
+    "veles_tpu_torch.analysis.report",
+    "veles_tpu_torch.analysis.passes",
+    "veles_tpu_torch.analysis.passes.config_keys",
+    "veles_tpu_torch.analysis.passes.donation",
+    "veles_tpu_torch.analysis.passes.fault_points",
+    "veles_tpu_torch.analysis.passes.locks",
+    "veles_tpu_torch.analysis.passes.metrics_hygiene",
+    "veles_tpu_torch.analysis.passes.purity",
+    "veles_tpu_torch.telemetry.compile_tracker",
+    "veles_tpu_torch.avatar",
+    "veles_tpu_torch.zmq_loader",
+    "veles_tpu_torch.loader.hdfs_loader",
+    "veles_tpu_torch.forge",
+    "veles_tpu_torch.forge.__main__",
+    "veles_tpu_torch.forge.client",
+    "veles_tpu_torch.forge.server",
+    "veles_tpu_torch.publishing",
+    "veles_tpu_torch.publishing.backends",
+    "veles_tpu_torch.publishing.publisher",
+    "veles_tpu_torch.scripts",
+    "veles_tpu_torch.scripts.bboxer",
+    "veles_tpu_torch.scripts.compare_snapshots",
+    "veles_tpu_torch.scripts.update_forge",
 )

@@ -61,7 +61,7 @@ def apply_common():
     process-wide switches (the reference's units read the tree)."""
     from veles_tpu_torch import telemetry
     from veles_tpu_torch.telemetry import health
-    knobs = root.common.health.__content__()
+    knobs = root.common.get_dict("health", {})
     health.configure(**{k: v for k, v in knobs.items()
                         if k in health.DEFAULTS})
     telemetry.set_enabled(root.common.telemetry.get("enabled", True))

@@ -11,8 +11,12 @@ right after its launch, and the wrapper raises if that is not 0.
 
 Libraries land in ``veles_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by the hash of the sources and the
-flags, so an unchanged source is never rebuilt.  Nothing here runs on
-import: the CPU tests import every module of the package.
+flags, so an unchanged source is never rebuilt.  Each library a
+process loads is counted by
+:func:`veles_tpu_torch.telemetry.compile_tracker.record_build`:
+``cold`` with the wall of its ``nvcc``, or ``hit`` when it was already
+built.  Nothing here runs on import: the CPU tests import every module
+of the package.
 """
 
 import ctypes
@@ -21,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -87,6 +92,7 @@ def build_all():
         todo = {n: _target(n) for n in SOURCES
                 if not os.path.exists(_target(n))}
         procs = {}
+        seconds = {}
         if todo:
             nvcc = nvcc_path()
             for name, out in todo.items():
@@ -97,9 +103,22 @@ def build_all():
                 procs[name] = (subprocess.Popen(
                     cmd, stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True), tmp, out)
+            t0 = time.perf_counter()
+            logs = {}
+
+            def wait(name, proc):
+                # each compiler's own wall: they all run at once
+                logs[name] = proc.communicate()[0]
+                seconds[name] = time.perf_counter() - t0
+            waiters = [threading.Thread(target=wait, args=(n, p[0]))
+                       for n, p in procs.items()]
+            for t in waiters:
+                t.start()
+            for t in waiters:
+                t.join()
         failed = []
         for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
+            log = logs[name]
             ptxas_reports[name] = log
             if proc.returncode:
                 failed.append("%s (nvcc exit %d):\n%s"
@@ -108,9 +127,14 @@ def build_all():
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        from veles_tpu_torch.telemetry.compile_tracker import record_build
         for name in SOURCES:
             if name not in _libs:
+                t0 = time.perf_counter()
                 _libs[name] = ctypes.CDLL(_target(name))
+                record_build(name, seconds.get(
+                    name, time.perf_counter() - t0),
+                    cached=name not in todo, path=_target(name))
         return dict(_libs)
 
 

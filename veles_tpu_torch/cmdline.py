@@ -154,13 +154,18 @@ BACKENDS = {None: "cuda", "auto": "cuda", "cuda": "cuda", "gpu": "cuda",
 
 
 def backend_device(backend=None, index=0):
-    """The torch device ``-a backend -d index`` names: cuda/gpu/auto (and
-    no ``-a``) → ``cuda`` (``cuda:<index>`` for an index above 0),
-    numpy/cpu → ``cpu``.  ``tpu`` and
+    """The torch device ``-a backend -d index`` names: cuda/gpu/auto →
+    ``cuda`` (``cuda:<index>`` for an index above 0), numpy/cpu →
+    ``cpu``; no ``-a`` reads ``root.common.engine.backend`` (``auto``
+    unless ``VELES_TPU_BACKEND`` or ``-c`` sets it), as the
+    reference's ``Device`` does.  ``tpu`` and
     other names raise ``ValueError``; a CUDA device without a card
     raises ``RuntimeError`` when it is resolved (there is no fallback to
     the CPU)."""
-    kind = BACKENDS.get(backend.lower() if backend else backend)
+    if not backend:
+        from veles_tpu_torch.config import root
+        backend = root.common.engine.get("backend", "auto") or "auto"
+    kind = BACKENDS.get(backend.lower())
     if kind is None:
         raise ValueError(
             "-a %s: the port runs on cuda (gpu, auto) or cpu (numpy); "

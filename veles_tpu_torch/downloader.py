@@ -26,13 +26,14 @@ class Downloader(Unit):
     VIEW_GROUP = "SERVICE"
 
     def __init__(self, workflow=None, url=None, directory=None, files=(),
-                 cache_dir=".", **kwargs):
+                 cache_dir=None, **kwargs):
         super(Downloader, self).__init__(workflow, **kwargs)
         self.url = url
         self.directory = directory
         #: files expected inside directory (presence check)
         self.files = list(files)
-        #: where an http(s) download is written before unpacking
+        #: where an http(s) download is written before unpacking (None:
+        #: ``root.common.dirs.cache``, as the reference fetches into it)
         self.cache_dir = cache_dir
         self.demand("url", "directory")
 
@@ -71,9 +72,13 @@ class Downloader(Unit):
             if not os.path.isfile(path):
                 raise FileNotFoundError(path)
             return path, False
-        os.makedirs(self.cache_dir, exist_ok=True)
+        cache = self.cache_dir
+        if cache is None:
+            from veles_tpu_torch.config import root
+            cache = root.common.dirs.get("cache", ".")
+        os.makedirs(cache, exist_ok=True)
         target = os.path.join(
-            self.cache_dir, os.path.basename(parsed.path) or "download")
+            cache, os.path.basename(parsed.path) or "download")
         self.info("downloading %s -> %s", self.url, target)
         with urllib.request.urlopen(self.url) as r, \
                 open(target, "wb") as f:

@@ -2,8 +2,10 @@
 default, float32 for parity tests), the accumulate dtype is float32.
 
 The JAX package reads these from ``root.common.precision``; the port
-takes them as explicit arguments (``dtype=`` on the chain builders)
-and keeps only the defaults here.
+takes the compute dtype as an explicit argument (``dtype=`` on the chain
+builders).  Its sums and master parameters are float32 and its f32
+products exact, so :func:`check_precision` refuses, by key, a tree that
+asks for anything else.
 """
 
 import torch
@@ -37,3 +39,27 @@ def resolve(dtype=None):
     if dtype not in _NAMES.values():
         raise ValueError("unsupported compute dtype %r" % (dtype,))
     return dtype
+
+
+#: ``root.common.precision`` values the port computes: float32 sums and
+#: master parameters; ``level`` 0 (the backend's default, exact float32
+#: on the CPU and on the card with TF32 off) or 2 (``highest``).  Level 1
+#: (the TPU's bf16x3 passes) is not taken.
+PRECISION_TAKEN = {"accum_dtype": ("float32",),
+                   "param_dtype": ("float32",),
+                   "level": (0, 2)}
+
+
+def check_precision():
+    """Raise ``ValueError`` naming the key when ``root.common.precision``
+    asks for a sum, parameter dtype or matmul precision the port does
+    not compute (the reference's ``dtypes.accum_dtype``,
+    ``param_dtype`` and ``matmul_precision`` read them)."""
+    from veles_tpu_torch.config import root
+    prec = root.common.precision
+    for key, taken in PRECISION_TAKEN.items():
+        value = prec.get(key, taken[0])
+        if value not in taken:
+            raise ValueError(
+                "root.common.precision.%s = %r: the port computes %s "
+                "only" % (key, value, " or ".join(map(repr, taken))))

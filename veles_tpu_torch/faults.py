@@ -32,8 +32,8 @@ spec to one caller.  Points and keys match with :mod:`fnmatch`
 wildcards; a keyless :func:`fire` never matches a keyed spec.
 
 Arming happens through :func:`inject`, :func:`load` (a spec string) or
-the ``VELES_FAULTS`` environment variable, read once on the first
-:func:`fire`.  The variable is the reference registry's too, so this
+the ``VELES_FAULTS`` environment variable (else
+``root.common.faults.spec``), read once on the first :func:`fire`.  The variable is the reference registry's too, so this
 one parses every action the reference knows.  Spec-string grammar, clauses separated by ``;``::
 
     point=action[:arg][@after][xtimes][~key]
@@ -150,7 +150,17 @@ def _load_env_locked():
     if _env_loaded:
         return
     _env_loaded = True  # latch FIRST: a bad spec must not re-raise per fire
-    _specs.extend(_parse(os.environ.get("VELES_FAULTS", "")))
+    spec = os.environ.get("VELES_FAULTS", "")
+    if not spec:
+        # the tree's spec when the environment has none, as the
+        # reference's registry reads it (``-c "root.common.faults.spec
+        # = '...'"``)
+        try:
+            from veles_tpu_torch.config import root
+            spec = root.common.faults.get("spec", "") or ""
+        except Exception:
+            spec = ""
+    _specs.extend(_parse(spec))
 
 
 def inject(point, action, arg=None, after=0, times=None, key=None):

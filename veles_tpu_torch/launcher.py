@@ -38,7 +38,6 @@ every unit run is a named range in it.
 """
 
 import json
-import os
 import resource
 import subprocess
 import time
@@ -297,26 +296,19 @@ class Launcher(Logger):
         self._worker_procs = []
 
     def _start_profiler(self):
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if self.device is not None and self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        os.makedirs(self._profile_dir, exist_ok=True)
+        from veles_tpu_torch.telemetry.compile_tracker import (
+            maybe_profiler_trace)
         # per-unit record_function ranges ride the workflow's trace_run
         # (the reference's root.common.trace.run)
         self.workflow.trace_run = True
-        self._profiler = profile(activities=activities)
-        self._profiler.__enter__()
+        capture = maybe_profiler_trace(self._profile_dir, self.device)
+        self._profiler = (capture, capture.__enter__())
         self.info("torch.profiler trace -> %s", self._profile_dir)
 
     def _stop_profiler(self):
-        prof, self._profiler = self._profiler, None
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.__exit__(None, None, None)
-        self.profile_path = os.path.join(
-            self._profile_dir, "trace-%d.json" % os.getpid())
-        prof.export_chrome_trace(self.profile_path)
+        (capture, out), self._profiler = self._profiler, None
+        capture.__exit__(None, None, None)
+        self.profile_path = out["path"]
         self.info("profile -> %s", self.profile_path)
 
     def boot(self, **kwargs):

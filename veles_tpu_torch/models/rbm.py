@@ -68,6 +68,31 @@ class BernoulliRBM:
         self.recon_error = None
         self.samples = []
 
+    @classmethod
+    def from_jax(cls, rec, device=None):
+        """The RBM of a JAX package ``BernoulliRBM`` record
+        (:func:`veles_tpu_torch.jax_snapshot.read_records`): its
+        parameters, step count, CD-k, learning rate and the ``"rbm"``
+        generator's state, so its next step is the one the JAX unit
+        would take."""
+        from veles_tpu_torch import jax_snapshot
+        arrays = {n: jax_snapshot.array_of(rec.get(n))
+                  for n in ("weights", "vbias", "hbias")}
+        missing = [n for n, a in arrays.items() if a is None]
+        if missing:
+            raise ValueError("the snapshot's %s holds no %s"
+                             % (rec.jax_name, missing))
+        rbm = cls(arrays["weights"].shape[0],
+                  hidden=arrays["weights"].shape[1],
+                  cd_k=int(rec.get("cd_k", 1)),
+                  learning_rate=float(rec.get("learning_rate", 0.1)),
+                  device=device)
+        rbm.load_params(arrays)
+        rbm.global_step = int(rec.get("global_step", 0))
+        if rec.get("prng") is not None:
+            jax_snapshot.take_generator(rbm.prng, rec.get("prng"))
+        return rbm
+
     def load_params(self, arrays):
         """Take ``weights`` [visible, hidden], ``vbias`` and ``hbias``
         (numpy arrays, the reference's names and layouts)."""

@@ -155,6 +155,16 @@ class StandardWorkflow(AcceleratedWorkflow):
         from veles_tpu_torch.plumbing import Repeater
         from veles_tpu_torch.snapshotter import Snapshotter
 
+        from veles_tpu_torch.config import root
+        from veles_tpu_torch.dtypes import check_precision
+        check_precision()
+        if mesh is None:
+            # every config-driven sample honours the generic mesh knob,
+            # as the reference's does: -c "root.common.mesh = {'dp': -1}"
+            # shards any standard workflow (the trainer resolves the
+            # axis dict on its device at initialize)
+            mesh = root.common.get_dict("mesh")
+
         super(StandardWorkflow, self).__init__(
             workflow, name=name, trace_run=trace_run, timings=timings)
         self.repeater = Repeater(self)

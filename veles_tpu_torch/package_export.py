@@ -125,7 +125,10 @@ def export_package(forwards, path, input_shape, input_dtype=numpy.float32,
         if any(k in entry["config"] for k in V2_KEYS):
             manifest["format_version"] = 2
 
-    with tarfile.open(path, "w:gz") as tar:
+    # level 1: float32 parameters shrink by about a tenth at any level,
+    # and level 9 takes several times as long; every level reads back
+    # the same
+    with tarfile.open(path, "w:gz", compresslevel=1) as tar:
         def add_bytes(fname, data):
             info = tarfile.TarInfo(fname)
             info.size = len(data)

@@ -9,21 +9,40 @@ defaults.
                        max_epochs=2, dtype="float32")
     wf.initialize(device="cpu"); wf.run()
 
-The data is one of the reference's deterministic synthetic stand-ins:
+The data is CIFAR-10's pickle batches under
+``root.common.dirs.datasets``/cifar10 (``data_batch_1``..``5`` and
+``test_batch``, read through the restricted unpickler) when all six are
+there, as the reference reads them; else one of the reference's
+deterministic synthetic stand-ins:
 ``synthetic_kind="blobs"`` (class-dependent colour blobs) or
 ``"scenes"`` (rendered shape classes, ``datasets/scenes.py``, at
 ``synthetic_size`` pixels a side).  ``augment`` (e.g. ``{"kind":
 "image", "pad": 4}``) goes to the trainer.
 """
 
+import os
+
 import numpy
 
+from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.models.standard import StandardWorkflow
 
 
+def _load_batch(path):
+    """One CIFAR-10 python batch: (N, 32, 32, 3) uint8 NHWC, labels."""
+    from veles_tpu_torch.safe_pickle import RestrictedUnpickler
+    with open(path, "rb") as f:
+        d = RestrictedUnpickler(f, encoding="bytes").load()
+    data = numpy.asarray(d[b"data"]).reshape(-1, 3, 32, 32) \
+        .transpose(0, 2, 3, 1)
+    return data, list(d[b"labels"])
+
+
 class CifarLoader(FullBatchLoader):
-    """The synthetic stand-ins: "blobs", class-dependent colour blobs
+    """The pickle batches under ``root.common.dirs.datasets``/cifar10
+    when all six are present; else the synthetic stand-ins: "blobs",
+    class-dependent colour blobs
     from ``default_rng(1234)``, or "scenes", ``render_scenes(n,
     seed=1234, size=synthetic_size)`` (the reference's quality
     stand-in)."""
@@ -40,6 +59,29 @@ class CifarLoader(FullBatchLoader):
         self.synthetic_size = int(synthetic_size)
 
     def load_data(self):
+        base = os.path.join(root.common.dirs.get("datasets", "data"),
+                            "cifar10")
+        batches = [os.path.join(base, "data_batch_%d" % i)
+                   for i in range(1, 6)]
+        test = os.path.join(base, "test_batch")
+        if all(os.path.isfile(p) for p in batches + [test]):
+            parts = [_load_batch(p) for p in batches]
+            train = numpy.concatenate([p[0] for p in parts])
+            train_l = sum((p[1] for p in parts), [])
+            valid, valid_l = _load_batch(test)
+            self.info("loaded real CIFAR-10 (%d train / %d validation)",
+                      len(train), len(valid))
+        else:
+            self.warning("CIFAR-10 not found under %s — generating a "
+                         "deterministic synthetic stand-in (%s)",
+                         base, self.synthetic_kind)
+            valid, valid_l, train, train_l = self._stand_in()
+        self.class_lengths[:] = [0, len(valid), len(train)]
+        self.original_data = numpy.concatenate(
+            [valid, train]).astype(numpy.float32) / 255.0
+        self.original_labels = list(valid_l) + list(train_l)
+
+    def _stand_in(self):
         n_train, n_valid = self.synthetic_train, self.synthetic_valid
         tot = n_train + n_valid
         if self.synthetic_kind == "scenes":
@@ -55,13 +97,8 @@ class CifarLoader(FullBatchLoader):
                 centers[labels]
                 + rng.normal(scale=0.25, size=(tot, 32, 32, 3)) + 0.5,
                 0, 1) * 255
-        valid, train = data[:n_valid], data[n_valid:]
-        valid_l, train_l = (labels[:n_valid].tolist(),
-                            labels[n_valid:].tolist())
-        self.class_lengths[:] = [0, len(valid), len(train)]
-        self.original_data = numpy.concatenate(
-            [valid, train]).astype(numpy.float32) / 255.0
-        self.original_labels = list(valid_l) + list(train_l)
+        return (data[:n_valid], labels[:n_valid].tolist(),
+                data[n_valid:], labels[n_valid:].tolist())
 
 
 def cifar_layers(conv_type="conv_str", fc_type="all2all_str"):

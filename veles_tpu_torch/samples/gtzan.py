@@ -81,6 +81,28 @@ class GtzanWorkflow(StandardWorkflow):
                                     **(snapshotter_config or {})),
             **kwargs)
 
+    @classmethod
+    def jax_kwargs(cls, rec):
+        """The tracks, features and split of a JAX GTZAN record's loader
+        (its train paths, feature file and track length; the validation
+        share from ``root.gtzan_tpu``, as the JAX loader read it) and
+        the chain's widths."""
+        from veles_tpu_torch.config import root
+        loader, fwd = rec.get("loader"), rec.get("forwards")
+        paths = (loader.get("class_paths") or [[], [], []])[2]
+        kw = {"dataset_dir": paths[0] if paths else
+              root.gtzan_tpu.get("dataset_dir"),
+              "max_seconds": loader.get("max_seconds"),
+              "validation_ratio": float(root.gtzan_tpu.get(
+                  "validation_ratio", 0.2)),
+              "hidden": int(numpy.prod(fwd[0].get("output_sample_shape"))),
+              "classes": int(numpy.prod(
+                  fwd[-1].get("output_sample_shape")))}
+        xml = loader.get("features_xml")
+        if xml and os.path.basename(xml) != os.path.basename(FEATURES_XML):
+            kw["features_xml"] = xml
+        return kw
+
 
 def run(load, main):
     """The command line's entry: the workflow from ``root.gtzan_tpu``."""

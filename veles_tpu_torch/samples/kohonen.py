@@ -75,6 +75,37 @@ class KohonenWorkflow(AcceleratedWorkflow):
         self.end_point.link_from(self.decision)
         self.end_point.gate_block = ~self.decision.complete
 
+    @classmethod
+    def from_jax(cls, rec):
+        """This workflow built from the record of a JAX package snapshot
+        (:mod:`veles_tpu_torch.jax_snapshot`): the map's shape, the
+        dataset's size, the minibatch, learning rate and epoch budget
+        from the records (the clusters from ``root.kohonen_tpu``, where
+        the JAX loader reads them), then the loader's position, the
+        trainer's map, clock and generator and the decision's history
+        and gates."""
+        from veles_tpu_torch import jax_snapshot
+        from veles_tpu_torch.config import root
+        loader, trainer = rec.get("loader"), rec.get("trainer")
+        decision = rec.get("decision")
+        wf = cls(None, shape=tuple(trainer.get("shape")),
+                 samples=int(loader.get("class_lengths")[2]),
+                 clusters=int(root.kohonen_tpu.get("clusters", 4)),
+                 minibatch_size=int(loader.get("max_minibatch_size")),
+                 learning_rate=float(trainer.get("learning_rate")),
+                 max_epochs=int(decision.get("max_epochs")))
+        jax_snapshot.take_plain(wf.loader, loader,
+                                skip=("device", "prefetch"))
+        jax_snapshot.take_plain(wf.trainer, trainer,
+                                skip=("device", "weights", "qerror",
+                                      "loader"))
+        weights = jax_snapshot.array_of(trainer.get("weights"))
+        if weights is not None:
+            wf.trainer.weights = numpy.array(weights, numpy.float32)
+        jax_snapshot.take_plain(wf.decision, decision)
+        wf._restored_from_snapshot_ = True
+        return wf
+
 
 def run(load, main):
     """The command line's entry: the workflow from ``root.kohonen_tpu``."""

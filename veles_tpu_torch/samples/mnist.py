@@ -12,23 +12,43 @@ same keys with the reference's defaults.
                        max_epochs=2, dtype="float32")
     wf.initialize(device="cpu"); wf.run()
 
-The data is one of the reference's deterministic synthetic stand-ins:
+The data is MNIST's IDX files under ``root.common.dirs.datasets``/mnist
+(gzipped or not) when all four are there, as the reference reads them;
+else one of the reference's deterministic synthetic stand-ins:
 ``synthetic_kind="blobs"`` (Gaussian class blobs) or ``"glyphs"``
 (rendered stroke digits, ``datasets/glyphs.py``).  ``augment`` (e.g.
 ``{"kind": "image", "pad": 2, "shape": (28, 28, 1)}``: the minibatches
 are flat) goes to the trainer.
 """
 
+import gzip
+import os
+import struct
+
 import numpy
 
+from veles_tpu_torch.config import root
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.models.standard import StandardWorkflow
 
 
+def _read_idx(path):
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        _, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        if dtype_code != 0x08:
+            raise ValueError("%s: IDX type 0x%02x, not unsigned bytes"
+                             % (path, dtype_code))
+        return numpy.frombuffer(f.read(), numpy.uint8).reshape(dims)
+
+
 class MnistLoader(FullBatchLoader):
-    """The synthetic stand-ins: "blobs", Gaussian class blobs from
-    ``default_rng(1234)``, or "glyphs", ``render_digits(n, seed=1234)``
-    (the reference's quality stand-in)."""
+    """The IDX files under ``root.common.dirs.datasets``/mnist when all
+    four are present; else the synthetic stand-ins: "blobs", Gaussian
+    class blobs from ``default_rng(1234)``, or "glyphs",
+    ``render_digits(n, seed=1234)`` (the reference's quality
+    stand-in)."""
 
     def __init__(self, workflow, synthetic_train=8192, synthetic_valid=1024,
                  synthetic_kind="blobs", **kwargs):
@@ -40,7 +60,41 @@ class MnistLoader(FullBatchLoader):
         self.synthetic_valid = int(synthetic_valid)
         self.synthetic_kind = synthetic_kind
 
+    def _find(self, *names):
+        base = os.path.join(root.common.dirs.get("datasets", "data"),
+                            "mnist")
+        for n in names:
+            for suffix in ("", ".gz"):
+                p = os.path.join(base, n + suffix)
+                if os.path.isfile(p):
+                    return p
+        return None
+
     def load_data(self):
+        ti = self._find("train-images-idx3-ubyte", "train-images.idx3-ubyte")
+        tl = self._find("train-labels-idx1-ubyte", "train-labels.idx1-ubyte")
+        vi = self._find("t10k-images-idx3-ubyte", "t10k-images.idx3-ubyte")
+        vl = self._find("t10k-labels-idx1-ubyte", "t10k-labels.idx1-ubyte")
+        if all((ti, tl, vi, vl)):
+            train = _read_idx(ti).reshape(-1, 784)
+            train_l = _read_idx(tl)
+            valid = _read_idx(vi).reshape(-1, 784)
+            valid_l = _read_idx(vl)
+            self.info("loaded real MNIST (%d train / %d validation)",
+                      len(train), len(valid))
+        else:
+            self.warning("MNIST files not found under %s — generating a "
+                         "deterministic synthetic stand-in (%s)",
+                         root.common.dirs.get("datasets", "data"),
+                         self.synthetic_kind)
+            train, train_l, valid, valid_l = self._stand_in()
+        self.class_lengths[:] = [0, len(valid), len(train)]
+        self.original_data = numpy.concatenate(
+            [valid, train]).astype(numpy.float32) / 255.0
+        self.original_labels = numpy.concatenate(
+            [valid_l, train_l]).tolist()
+
+    def _stand_in(self):
         n_train, n_valid = self.synthetic_train, self.synthetic_valid
         if self.synthetic_kind == "glyphs":
             from veles_tpu_torch.datasets import render_digits
@@ -54,13 +108,8 @@ class MnistLoader(FullBatchLoader):
                 size=(n_train + n_valid, 784))
             data = numpy.clip((data - data.min()) /
                               (data.max() - data.min()) * 255, 0, 255)
-        train, valid = data[:n_train], data[n_train:]
-        train_l, valid_l = tl_all[:n_train], tl_all[n_train:]
-        self.class_lengths[:] = [0, len(valid), len(train)]
-        self.original_data = numpy.concatenate(
-            [valid, train]).astype(numpy.float32) / 255.0
-        self.original_labels = numpy.concatenate(
-            [valid_l, train_l]).tolist()
+        return (data[:n_train], tl_all[:n_train], data[n_train:],
+                tl_all[n_train:])
 
 
 class MnistWorkflow(StandardWorkflow):

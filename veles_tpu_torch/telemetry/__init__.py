@@ -4,7 +4,9 @@
 (:mod:`~veles_tpu_torch.telemetry.spans`, converted for Perfetto by
 :mod:`~veles_tpu_torch.telemetry.trace_export`) over the event sink
 :data:`veles_tpu_torch.logger.events`, the training-health monitor
-(:mod:`~veles_tpu_torch.telemetry.health`) and the crash flight recorder
+(:mod:`~veles_tpu_torch.telemetry.health`), the kernel-build and call
+counts (:mod:`~veles_tpu_torch.telemetry.compile_tracker`), the crash
+flight recorder
 (:mod:`~veles_tpu_torch.telemetry.flight_recorder`), the embedded
 time-series store (:mod:`~veles_tpu_torch.telemetry.tsdb`), the alert
 engine (:mod:`~veles_tpu_torch.telemetry.alerts`), the fleet metrics
@@ -18,6 +20,8 @@ from veles_tpu_torch.telemetry.registry import (  # noqa: F401
     Counter, DEFAULT_BUCKETS, Gauge, Histogram, MS_BUCKETS,
     MetricsRegistry, metrics, nearest_rank, render_families_text)
 
+from veles_tpu_torch.telemetry.compile_tracker import (  # noqa: E402,F401
+    compile_summary, cost_summary, maybe_profiler_trace, track_jit)
 from veles_tpu_torch.telemetry.alerts import (  # noqa: E402,F401
     AlertEngine, AlertRule, default_rules, firing_table)
 from veles_tpu_torch.telemetry.federation import (  # noqa: E402,F401

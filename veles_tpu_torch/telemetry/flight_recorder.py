@@ -24,10 +24,12 @@ ready to dump at the moment of death:
   (``history``).
 
 ``GET /debug/state`` (:mod:`veles_tpu_torch.restful_api`) serves the
-same ingredients from the live process.  It has no ``atexit`` dump (the
-reference's is off by default, ``root.common.flightrec.dump_on_exit``).
+same ingredients from the live process.  :meth:`FlightRecorder.install`
+registers an ``atexit`` hook that dumps (reason ``atexit``) when
+``root.common.flightrec.dump_on_exit`` is set, as the reference's does.
 """
 
+import atexit
 import faulthandler
 import json
 import logging
@@ -104,6 +106,7 @@ class FlightRecorder:
             if excepthook:
                 self._prev_excepthook = sys.excepthook
                 sys.excepthook = self._excepthook
+            atexit.register(self._on_exit)
         return self
 
     def uninstall(self):
@@ -123,6 +126,7 @@ class FlightRecorder:
             if self._prev_excepthook is not None:
                 sys.excepthook = self._prev_excepthook
                 self._prev_excepthook = None
+            atexit.unregister(self._on_exit)
 
     # -- crash paths -------------------------------------------------------
 
@@ -142,6 +146,14 @@ class FlightRecorder:
         except Exception:
             pass
         (self._prev_excepthook or sys.__excepthook__)(exc_type, exc, tb)
+
+    def _on_exit(self):
+        try:
+            from veles_tpu_torch.config import root
+            if root.common.flightrec.get("dump_on_exit"):
+                self.dump("atexit")
+        except Exception:
+            pass
 
     # -- the bundle --------------------------------------------------------
 
