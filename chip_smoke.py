@@ -322,11 +322,20 @@ result line):
    the job frames' bytes and times; a ``-w 1`` run against the
    standalone run of the same weights and minibatches; (c) a gang of
    two processes of this script (``python3 chip_smoke.py --gang-worker
-   ADDR N RANK``, gloo over the shared card), each one position of
-   ``{"dp": 2}``, training ``bench_lm``'s widths cut to 4 layers:
-   losses bit-equal across the processes, within phase 15's agreement
-   of the unsharded run, kernel 3 launched per layer per step in each,
-   and the pickled trainer resuming over the gang.
+   ADDR N RANK``, gloo over the shared card, each on the card or
+   failing), each one position of ``{"dp": 2}``, training
+   ``bench_lm``'s widths cut to 4 layers, the pickled trainer resuming
+   over the gang; then phase 15's ``{"pp": 2, "dp": 2}`` (2 positions a
+   process, the stages in different processes) and ``{"sp": 2}`` (the
+   ring's halves in different processes) over the same LM and its
+   ``{"ep": 2, "dp": 2}`` over the MoE trunk (the expert slices in
+   different processes), 2 steps each: every mesh's losses bit-equal
+   across the processes and within phase 15's agreement of the
+   unsharded run (process 0 trains it), kernel 3 launched in each
+   process exactly for its own layers (``gang_flash_want``), and per
+   process the step's ms, ``multihost.STATS`` per step (exchanges,
+   point-to-point sends and receives, bytes, seconds) and peak memory,
+   beside the card's name and power limit.
 17. fleet — the serving fleet and its observability (``fleet_check``,
    run after phase 6f while the spec phase's trained chain lives):
    (a) a ``Router`` over a ``Fleet`` of ``LocalReplica``s (each a
@@ -6688,7 +6697,8 @@ def cli_check(torch, dev):
 P_TP, P_SPEC_K = 2, 4
 P_LAYERS, P_STEPS = 4, 2
 P_DP, P_DP_TP, P_FSDP = {"dp": 2}, {"dp": 2, "tp": 2}, {"fsdp": 2}
-P_MESHES = (P_DP, P_DP_TP, P_FSDP, {"pp": 2, "dp": 2}, {"sp": 2})
+P_PP_DP, P_SP = {"pp": 2, "dp": 2}, {"sp": 2}
+P_MESHES = (P_DP, P_DP_TP, P_FSDP, P_PP_DP, P_SP)
 P_MOE_MESH = {"ep": 2, "dp": 2}
 P_A_BATCH = 256
 P_LOSS_TOL, P_W_TOL = 1e-5, 1e-5
@@ -7117,8 +7127,12 @@ def parallel_check(torch, dev):
 #: D_GANG processes sharing the card (gloo, staged through the host),
 #: each one position of {"dp": D_GANG}, trains ``bench_lm``'s widths cut
 #: to P_LAYERS layers for P_STEPS steps in f32 compute, then resumes its
-#: pickled trainer over the gang for one more step; process 0 then trains
-#: the unsharded model on the same weights and batches
+#: pickled trainer over the gang for one more step; then phase 15's
+#: pp x dp and sp over the same LM and its ep x dp over the MoE trunk
+#: (D_GANG_MESHES), each with its axis across the processes, P_STEPS
+#: steps each.  Process 0 trains the unsharded LM and MoE trunk on the
+#: same weights and batches first, and holds every mesh's losses to
+#: P_LOSS_TOL relative and its parameters to D_GANG_W_TOL absolute
 D_PROMPTS, D_STEPS = 4, 16
 D_A_WORKERS, D_A_TRAIN, D_A_VALID, D_A_BATCH = 2, 512, 256, 256
 #: the ``-w 1`` agreement run's train samples: one train job after the
@@ -7129,6 +7143,12 @@ D_A_W_TOL, D_A_LOSS_TOL = 1e-5, 1e-4
 #: width; a rehearsal on the CPU narrows the model here)
 D_A_EXTRA = {}
 D_GANG = 2
+#: (c)'s meshes after {"dp": D_GANG}: (name, axes, MoE trunk, positions
+#: per process, the axis laid across the processes — None: the
+#: process-major layout, which puts pp across —, given to the trainer
+#: in its mesh setting's "__mesh_across__")
+D_GANG_MESHES = (("pp", P_PP_DP, False, 2, None), ("sp", P_SP, False, 1, None),
+                 ("ep", P_MOE_MESH, True, 2, "ep"))
 D_DIR = "_dist_runs"
 
 
@@ -7351,61 +7371,139 @@ def master_worker_part(torch, dev):
 def _gang_sizes():
     return {"vocab": T_VOCAB, "dim": T_DIM, "heads": T_HEADS,
             "seq": T_SEQ, "batch": T_BATCH, "layers": P_LAYERS,
-            "steps": P_STEPS}
+            "steps": P_STEPS, "experts": MOE_EXPERTS, "top_k": MOE_TOP_K}
+
+
+def gang_flash_want(name, rank):
+    """Kernel 3's launches per step (of each of its three kernels) in
+    gang process ``rank`` under mesh ``name``: {"dp": 2}: its group's
+    P_LAYERS layers; pp x dp: its stage's P_LAYERS / 2 layers in both
+    groups, 2 microbatches each (both homes and stage 0 are process 0's,
+    stage 1 process 1's); sp: none (the ring replaces the kernel, as in
+    the reference); ep x dp: both groups' P_LAYERS attention layers in
+    process 0, which holds their homes, none in process 1 (its positions
+    hold expert slices)."""
+    return {"dp": P_LAYERS, "pp": P_LAYERS // 2 * 2 * 2, "sp": 0,
+            "ep": 2 * P_LAYERS if rank == 0 else 0}[name]
+
+
+def _gang_mesh(torch, dev, spec, params, batches, name, axes, per, across):
+    """One mesh of (c) over the gang: its crossing, losses (hex), step
+    ms, the gang's traffic per step, peak memory and kernel 3 launches,
+    and its parameters gathered on the host."""
+    from veles_tpu_torch.loader import TRAIN
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.parallel import multihost
+    old = _positions(per)
+    try:
+        # the trainer's mesh setting, as root.common.mesh gives it
+        chain, gd = _mesh_lm(torch, dev, spec, params, {
+            "__mesh_axes__": axes, "__mesh_across__": across} if across
+            else axes)
+        mesh = gd.mesh
+        axis = name if name in axes else "dp"
+        crossing = sorted({mesh.process(p) for p in mesh.along(0, axis)})
+        if crossing != list(range(D_GANG)):
+            raise SystemExit("dist (c) %s: the %s axis lies in processes %s"
+                             % (name, axis, crossing))
+        if not gd.plan_.gang:
+            raise SystemExit("the trainer's mesh spans one process")
+        # both processes start the timed steps together
+        multihost.sync_global_devices(name)
+        base = _peak_from(torch) if dev.type == "cuda" else 0
+        for k in fa.launches:
+            fa.launches[k] = 0
+        before = dict(multihost.STATS)
+        t0 = time.perf_counter()
+        losses = [float(gd.run_minibatch(x, x, x.shape[0], TRAIN)[0])
+                  for x in batches[:P_STEPS]]
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        got = {"mesh": axes, "positions_per_process": per,
+               "losses": [v.hex() for v in losses],
+               "step_ms": 1e3 * wall / P_STEPS,
+               "launches": dict(fa.launches),
+               "stats_per_step": {k: (multihost.STATS[k] - before[k])
+                                  / P_STEPS for k in before},
+               "peak_bytes": (torch.cuda.max_memory_allocated() - base
+                              if dev.type == "cuda" else None)}
+        # every process reads the parameters whole (a gather may cross
+        # the gang); process 0 compares them
+        gathered = [{n: t.detach().cpu() for n, t in u.params.items()}
+                    for u in chain]
+        return got, gathered, gd
+    finally:
+        _positions(old)
+
+
+def _gang_compare(torch, got, gathered, want, ref):
+    got["loss_rel_err"] = _losses_err(
+        [float.fromhex(h) for h in got["losses"]], want)
+    got["param_max_abs_err"] = max(
+        float((g[n] - r[n]).abs().max())
+        for g, r in zip(gathered, ref) for n in r)
 
 
 def gang_worker(address, nproc, rank, sizes):
-    """One process of (c) at ``sizes`` (the parent's widths, as JSON);
-    prints a ``GANG {json}`` line."""
+    """One process of (c) at ``sizes`` (the parent's widths, as JSON), on
+    the card (no card: it fails); prints a ``GANG {json}`` line."""
+    import torch
+    return gang_run(torch.device("cuda"), address, nproc, rank, sizes)
+
+
+def gang_run(dev, address, nproc, rank, sizes):
+    """(c)'s process ``rank`` on ``dev``."""
+    import gc
     import pickle
     import torch
     from veles_tpu_torch.convert import init_params, params_to_numpy
     from veles_tpu_torch.loader import TRAIN
-    from veles_tpu_torch.ops import flash_attention as fa
     from veles_tpu_torch.parallel import multihost
     from veles_tpu_torch.samples.lm import lm_spec
     global T_VOCAB, T_DIM, T_HEADS, T_SEQ, T_BATCH, P_LAYERS, P_STEPS
+    global MOE_EXPERTS, MOE_TOP_K
     z = json.loads(sizes)
     T_VOCAB, T_DIM, T_HEADS, T_SEQ, T_BATCH = (
         z["vocab"], z["dim"], z["heads"], z["seq"], z["batch"])
     P_LAYERS, P_STEPS = z["layers"], z["steps"]
+    MOE_EXPERTS, MOE_TOP_K = z["experts"], z["top_k"]
     nproc, rank = int(nproc), int(rank)
-    dev = torch.device("cuda") if torch.cuda.is_available() \
-        else torch.device("cpu")
     gang = multihost.initialize(address, nproc, rank, device=dev)
-    out = {"rank": rank, "transport": gang.transport}
+    out = {"rank": rank, "transport": gang.transport, "card": card_line()
+           if dev.type == "cuda" else None, "meshes": {}}
     try:
-        spec = lm_spec(T_VOCAB, T_DIM, P_LAYERS, T_HEADS)
-        params = params_to_numpy(init_params(spec, 0, window=T_SEQ,
-                                             device="cpu", dtype="float32"))
+        specs, params = {}, {}
+        for moe in (False, True):
+            block = {"n_experts": MOE_EXPERTS, "top_k": MOE_TOP_K} \
+                if moe else {}
+            specs[moe] = lm_spec(T_VOCAB, T_DIM, P_LAYERS, T_HEADS, **block)
+            params[moe] = params_to_numpy(init_params(
+                specs[moe], 0, window=T_SEQ, device="cpu", dtype="float32"))
         toks = numpy.random.default_rng(0).integers(
             0, T_VOCAB, (T_BATCH * (P_STEPS + 1), T_SEQ))
         batches = [torch.as_tensor(toks[k * T_BATCH:(k + 1) * T_BATCH],
                                    device=dev) for k in range(P_STEPS + 1)]
-        chain, gd = _mesh_lm(torch, dev, spec, params, {"dp": nproc})
-        if not gd.plan_.gang:
-            raise SystemExit("the trainer's mesh spans one process")
-        _sync(torch, dev)
-        for name in fa.launches:
-            fa.launches[name] = 0
-        before = dict(multihost.STATS)
-        t0 = time.perf_counter()
-        losses = []
-        for x in batches[:P_STEPS]:
-            losses.append(float(gd.run_minibatch(x, x, x.shape[0],
-                                                 TRAIN)[0]))
-        _sync(torch, dev)
-        wall = time.perf_counter() - t0
-        out.update(losses=[v.hex() for v in losses],
-                   step_ms=1e3 * wall / P_STEPS,
-                   collectives_ms=1e3 * (multihost.STATS["seconds"]
-                                         - before["seconds"]) / P_STEPS,
-                   exchanged_bytes_per_step=(multihost.STATS["bytes"]
-                                             - before["bytes"]) / P_STEPS,
-                   launches=dict(fa.launches))
+        refs = {}
+        if rank == 0:
+            # the unsharded runs on the same weights and batches
+            for moe in (False, True):
+                ref, rgd = _mesh_lm(torch, dev, specs[moe], params[moe],
+                                    None)
+                want = [float(rgd.run_minibatch(x, x, x.shape[0],
+                                                TRAIN)[0])
+                        for x in batches[:P_STEPS]]
+                refs[moe] = (want, [{n: t.detach().cpu()
+                                     for n, t in u.params.items()}
+                                    for u in ref])
+                del ref, rgd
+            gc.collect()
+            _empty_cache(torch, dev)
+        got, gathered, gd = _gang_mesh(torch, dev, specs[False],
+                                       params[False], batches, "dp",
+                                       {"dp": nproc}, 1, None)
+        if rank == 0:
+            _gang_compare(torch, got, gathered, *refs[False])
         # the pickled trainer resumes over the gang
-        gathered = [{n: t.detach().cpu() for n, t in u.params.items()}
-                    for u in chain]
         gd2 = pickle.loads(pickle.dumps(gd))
         if gd2.mesh != {"__mesh_axes__": {"dp": nproc}}:
             raise SystemExit("the mesh pickled as %r" % (gd2.mesh,))
@@ -7418,27 +7516,30 @@ def gang_worker(address, nproc, rank, sizes):
                for u, g in zip(gd2.forwards, gathered) for n in g):
             raise SystemExit("the resumed parameters differ")
         x = batches[P_STEPS]
-        out["resumed_loss"] = float(gd2.run_minibatch(
+        got["resumed_loss"] = float(gd2.run_minibatch(
             x, x, x.shape[0], TRAIN)[0]).hex()
-        multihost.sync_global_devices("trained")
-        if rank == 0:
-            # the unsharded run on the same weights and batches
-            del gd2
-            ref, rgd = _mesh_lm(torch, dev, spec, params, None)
-            want = [float(rgd.run_minibatch(x, x, x.shape[0], TRAIN)[0])
-                    for x in batches[:P_STEPS]]
-            out.update(unsharded=want,
-                       loss_rel_err=_losses_err(losses, want),
-                       param_max_abs_err=max(
-                           float((g[n] - r.params[n].detach().cpu())
-                                 .abs().max())
-                           for g, r in zip(gathered, ref)
-                           for n in r.params))
+        out["meshes"]["dp"] = got
+        del gd, gd2, gathered
+        for name, axes, moe, per, across in D_GANG_MESHES:
+            gc.collect()
+            _empty_cache(torch, dev)
+            got, gathered, gd = _gang_mesh(torch, dev, specs[moe],
+                                           params[moe], batches, name,
+                                           axes, per, across)
+            if rank == 0:
+                _gang_compare(torch, got, gathered, *refs[moe])
+            out["meshes"][name] = got
+            del gd, gathered
         multihost.sync_global_devices("done")
     finally:
         multihost.shutdown()
     print("GANG " + json.dumps(out), flush=True)
     return 0
+
+
+def _empty_cache(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _sync(torch, dev):
@@ -7479,28 +7580,39 @@ def gang_part(torch, dev, procs):
         got.append(json.loads(lines[0][5:]))
     log(json.dumps({"dist_gang": got}))
     first = got[0]
-    if any(g["losses"] != first["losses"]
-           or g["resumed_loss"] != first["resumed_loss"] for g in got):
-        raise SystemExit("dist (c): the processes' losses differ")
     # the processes share one card: NCCL refuses that, so gloo
     if first["transport"] != "gloo":
         raise SystemExit("dist (c): transport %s" % first["transport"])
-    if not (first["loss_rel_err"] <= P_LOSS_TOL
-            and first["param_max_abs_err"] <= D_GANG_W_TOL):
-        raise SystemExit("dist (c): %.3g relative on the losses, "
-                         "parameters %.3g apart (want %g and %g)"
-                         % (first["loss_rel_err"],
-                            first["param_max_abs_err"], P_LOSS_TOL,
-                            D_GANG_W_TOL))
-    per = P_LAYERS * P_STEPS     # one group per process
-    for g in got:
-        if g["launches"] != dict.fromkeys(g["launches"], per):
-            raise SystemExit("dist (c): process %d launched %s (want %d "
-                             "of each)" % (g["rank"], g["launches"], per))
+    if any(g["meshes"]["dp"]["resumed_loss"]
+           != first["meshes"]["dp"]["resumed_loss"] for g in got):
+        raise SystemExit("dist (c): the processes' resumed losses differ")
     total = {}
-    for g in got:
-        for k, v in g["launches"].items():
-            total[k] = total.get(k, 0) + v
+    for name in ["dp"] + [m[0] for m in D_GANG_MESHES]:
+        mine = first["meshes"][name]
+        if any(g["meshes"][name]["losses"] != mine["losses"] for g in got):
+            raise SystemExit("dist (c) %s: the processes' losses differ"
+                             % name)
+        if not (mine["loss_rel_err"] <= P_LOSS_TOL
+                and mine["param_max_abs_err"] <= D_GANG_W_TOL):
+            raise SystemExit("dist (c) %s: %.3g relative on the losses, "
+                             "parameters %.3g apart (want %g and %g)"
+                             % (name, mine["loss_rel_err"],
+                                mine["param_max_abs_err"], P_LOSS_TOL,
+                                D_GANG_W_TOL))
+        for g in got:
+            per = gang_flash_want(name, g["rank"]) * P_STEPS
+            launches = g["meshes"][name]["launches"]
+            if launches != dict.fromkeys(launches, per):
+                raise SystemExit("dist (c) %s: process %d launched %s (want "
+                                 "%d of each)" % (name, g["rank"], launches,
+                                                  per))
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        log("dist (c) %s: %s" % (name, json.dumps([{
+            "rank": g["rank"], "step_ms": g["meshes"][name]["step_ms"],
+            "stats_per_step": g["meshes"][name]["stats_per_step"],
+            "peak_bytes": g["meshes"][name]["peak_bytes"],
+            "card": g["card"]} for g in got])))
     return total
 
 

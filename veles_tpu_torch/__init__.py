@@ -216,6 +216,7 @@ SUBMODULES = (
     "veles_tpu_torch.parallel.collectives",
     "veles_tpu_torch.parallel.pipeline",
     "veles_tpu_torch.parallel.multihost",
+    "veles_tpu_torch.parallel.p2p",
     "veles_tpu_torch.parallel.coordinator",
     "veles_tpu_torch.serving",
     "veles_tpu_torch.serving.kv_slots",

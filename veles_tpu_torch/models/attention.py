@@ -1,10 +1,12 @@
 """Multi-head attention — the port of ``veles_tpu/models/attention.py``.
 
 Under a mesh with an ``sp`` axis the trainer hands each unit the mesh
-(``sp_mesh_``) and the ring devices of the minibatch slice it runs
-(``sp_ring_``); the attention core is then the ring
-(:func:`_ring_mha`), which overrides every other core, the
-FlashAttention kernels included, as in the reference.
+(``sp_mesh_``) and the ring positions of the minibatch slice it runs
+(``sp_ring_``, a ``parallel.p2p.Route``); the attention core is then
+the ring (:func:`_ring_mha`), which overrides every other core, the
+FlashAttention kernels included, as in the reference.  A ring may span
+a gang's processes: the process without the unit's input runs its
+positions' share (:meth:`MultiHeadAttention.apply_remote`).
 
 :func:`attention_core` selects the core by :func:`select_core`, the
 JAX package's rule (``mha_apply``): an explicit ``attn_impl`` wins; by
@@ -52,33 +54,55 @@ def attention_core(q, k, v, causal, block_size=None, attn_impl=None):
     raise ValueError("unknown attn_impl %r" % (attn_impl,))
 
 
-def _ring_mha(mesh, q, k, v, causal, devices=None):
+def _ring_mha(mesh, q, k, v, causal, ring=None):
     """The sp-sharded attention core: q/k/v [batch, seq, heads, hd]
-    cut along seq into one slice per ring position (``devices``,
+    cut along seq into one slice per ring position (``ring``, a
+    :class:`~veles_tpu_torch.parallel.p2p.Route` from the group's home,
     default the ``sp`` positions at the mesh's origin); K/V rotate
     around the ring (``ops.attention.ring_attention``) and the slices
-    come back together on q's device."""
+    come back together on the home.  Across processes the slices hop
+    between them: a process that does not hold the home passes None and
+    gets None, running its ring positions' share."""
     from veles_tpu_torch.ops.attention import ring_attention
-    if devices is None:
-        devices = [mesh.device(p) for p in mesh.along(0, "sp")]
-    n = len(devices)
+    from veles_tpu_torch.parallel.p2p import Route
+    if ring is None:
+        positions = mesh.along(0, "sp")
+        ring = Route(mesh, positions[0], positions)
+    n = len(ring.ring)
 
     def split(t):
-        return [c.to(dev) for c, dev in zip(torch.chunk(t, n, dim=1),
-                                             devices)]
+        parts = torch.chunk(t, n, dim=1) if t is not None else [None] * n
+        return [ring.move(c, None, i) for i, c in enumerate(parts)]
 
-    out = ring_attention(split(q), split(k), split(v), causal=causal)
-    return torch.cat([o.to(q.device) for o in out], dim=1)
+    out = ring_attention(split(q), split(k), split(v), causal=causal,
+                         procs=ring.procs)
+    out = [ring.move(o, i, None) for i, o in enumerate(out)]
+    return torch.cat(out, dim=1) if ring.here() else None
+
+
+def _ring(unit):
+    mesh = getattr(unit, "sp_mesh_", None)
+    return mesh if mesh is not None and mesh.shape.get("sp", 1) > 1 \
+        else None
 
 
 def sp_core(unit, q, k, v, causal, block_size=None, attn_impl=None):
     """The attention core of ``unit``: the ring when the trainer handed
     it an ``sp`` mesh wider than 1, else :func:`attention_core`."""
-    mesh = getattr(unit, "sp_mesh_", None)
-    if mesh is not None and mesh.shape.get("sp", 1) > 1:
+    mesh = _ring(unit)
+    if mesh is not None:
         return _ring_mha(mesh, q, k, v, causal,
                          getattr(unit, "sp_ring_", None))
     return attention_core(q, k, v, causal, block_size, attn_impl)
+
+
+def sp_remote(unit, causal):
+    """A process that does not hold ``unit``'s input runs its ring
+    positions' share of the unit's attention (nothing off a ring)."""
+    mesh = _ring(unit)
+    if mesh is not None:
+        _ring_mha(mesh, None, None, None, causal,
+                  getattr(unit, "sp_ring_", None))
 
 
 def mha_apply(unit, x, heads, causal, block_size=None, attn_impl=None):
@@ -129,3 +153,8 @@ class MultiHeadAttention(ForwardBase):
     def apply(self, x):
         return mha_apply(self, x, self.heads, self.causal, self.block_size,
                          self.attn_impl)
+
+    def apply_remote(self):
+        """This process's ring positions' share of a group whose input
+        another process holds (``models/gd_mesh``)."""
+        sp_remote(self, self.causal)

@@ -48,11 +48,14 @@ so the masks change when augment is on.
 
 ``mesh`` (a :class:`~veles_tpu_torch.parallel.mesh.Mesh`, an axis dict
 such as ``{"dp": 2, "tp": 2}``, or a snapshot's ``{"__mesh_axes__":
-...}``, made concrete on the trainer's device type) shards the step
+...}``, made concrete on the trainer's device type; under a gang its
+``"__mesh_across__"`` names the axis laid across the processes,
+:func:`~veles_tpu_torch.parallel.multihost.global_mesh`) shards the step
 over ``dp``, ``fsdp``, ``tp``, ``ep``, ``pp`` and ``sp``
 (:mod:`~veles_tpu_torch.models.gd_mesh`); ``pp_microbatches`` (default
 the ``pp`` extent) sets the pipeline's microbatches.  A mesh pickles as
-its axis spec and is rebuilt at resume.
+its axis spec (and the axis laid across a gang's processes, if any) and
+is rebuilt at resume.
 
 The master/worker exchange (the reference's parameter-server face,
 ``IDistributable``): a job carries the master's parameters to a worker
@@ -186,6 +189,8 @@ class GradientDescent(AcceleratedUnit):
             # positions hold devices: persist the axis spec, rebuilt
             # over the resuming process's positions at initialize
             state["mesh"] = {"__mesh_axes__": dict(self.mesh.shape)}
+            if self.mesh.across is not None:
+                state["mesh"]["__mesh_across__"] = self.mesh.across
         if self.plan_ is not None:
             state["opt_state"] = host_state(self.plan_.gathered_slots())
         return state
@@ -410,6 +415,12 @@ class GradientDescent(AcceleratedUnit):
                 # this process's rows: its part of the loss and count
                 lo, hi = self.plan_.rows(x.shape[0])
                 target = target[lo:hi]
+            if y is None:
+                # a process holding no group's home takes no rows
+                return (torch.zeros((), dtype=torch.float32,
+                                    device=self.device),
+                        torch.zeros((), dtype=torch.int32,
+                                    device=self.device))
         else:
             y = self.forward(x, key, train)
         kw = {"offset": lo} if lo else {}

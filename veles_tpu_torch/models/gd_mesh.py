@@ -41,20 +41,35 @@ it comes and releases it.  A group thus holds one unit's parameters
 whole at a time, and no whole gradient per group; the result is bit for
 bit the whole-step gather's.  Elsewhere (dp alone, pp, ep, sp, and a
 mesh across processes) each group gathers every parameter for the step
-as in step 2.
+as in step 2 (across processes each gathered once a step, in parameter
+order in every process, then copied to the groups' positions).
 
 Across a gang's processes (a global mesh of
-:mod:`~veles_tpu_torch.parallel.multihost`, axes ``dp``, ``fsdp`` and
-``tp``) each process holds its own positions' slices and runs the groups
-whose home positions it owns: every process has the whole minibatch,
-takes its groups' rows, and computes its part of the loss with the
-global masks and divisor (the evaluator's ``offset``), so one backward
-per process reaches its groups' leaves.  The gradients reduce-scatter
-across the gang in group order (the others' arrive by
-``multihost.exchange``), and the loss, the error count and the health
-norms are summed in process (or position) order in every process: every
-process reports the same values bit for bit.  ``pp``, ``sp`` and ``ep``
-run inside one process only.
+:mod:`~veles_tpu_torch.parallel.multihost`, any axes) each process holds
+its own positions' slices, and every process walks every group in the
+same order, running the parts on its positions: the groups whose home
+it holds from their rows, and of the other groups its pp stages, its
+positions of an sp ring and its ep slices (the units' ``apply_remote``;
+a process with no part in a group skips it).  A tensor crossing from
+one process's position to another's — an activation to the next stage,
+a q/k/v slice out to the ring and its output back, a K/V shift, the
+tokens and combine weights out to an expert slice and its partial
+output back — is a differentiable hop (:mod:`~veles_tpu_torch.parallel.
+p2p`) that both ends meet at the same point of the walk.  Every process
+has the whole minibatch, takes its groups' rows, and computes its part
+of the loss with the global masks and divisor (the evaluator's
+``offset``); a process holding no group's home takes no rows.  One
+backward per process, from its loss part (if any) and its hops' send
+markers, reaches its leaves: the hops bring the gradients back in
+autograd's walk, where the in-process copies' gradients would arrive,
+so the sums are the in-process step's bit for bit.  Each parameter's
+gradient then reduces over the groups in group order, each group's part
+from the position holding its leaf (home, stage or expert slice): where
+the parts span processes they arrive by ``multihost.exchange``, and
+where they lie in one process it folds them and hops only the sum to
+the others.  The loss, the error count and the health norms are summed
+in process (or position) order in every process: every process reports
+the same values bit for bit.
 
 Dropout masks are drawn once, at the whole minibatch's shape, with the
 key the unsharded step uses (kernel 5 on the card), and each group
@@ -72,7 +87,8 @@ import torch
 
 from veles_tpu_torch.models.all2all import All2AllSoftmax
 from veles_tpu_torch.models.dropout import DropoutForward
-from veles_tpu_torch.parallel import collectives
+from veles_tpu_torch.parallel import collectives, p2p
+from veles_tpu_torch.parallel.p2p import Route
 from veles_tpu_torch.parallel.pipeline import gpipe_apply
 from veles_tpu_torch.parallel.sharding import (
     P, batch_spec, gather, local_owners, owners, param_spec, put,
@@ -82,8 +98,8 @@ from veles_tpu_torch.prng import threefry
 
 def resolve_mesh(mesh, device):
     """A trainer's ``mesh`` made concrete: a Mesh as it is; an axis
-    dict (or a snapshot's ``{"__mesh_axes__": ...}``) built over the
-    default positions of ``device``'s type."""
+    dict (or a snapshot's ``{"__mesh_axes__": ..., "__mesh_across__":
+    ...}``) built over the default positions of ``device``'s type."""
     from veles_tpu_torch.parallel import multihost
     from veles_tpu_torch.parallel.mesh import Mesh, build_mesh
     if mesh is None or isinstance(mesh, Mesh):
@@ -91,8 +107,9 @@ def resolve_mesh(mesh, device):
     axes = mesh.get("__mesh_axes__", mesh)
     if multihost.is_gang():
         # a gang's mesh (and a snapshot's, at resume) spans every
-        # process's positions
-        return multihost.global_mesh(dict(axes))
+        # process's positions, with the axis it names laid across them
+        return multihost.global_mesh(dict(axes),
+                                     across=mesh.get("__mesh_across__"))
     return build_mesh(dict(axes), device=device)
 
 
@@ -185,13 +202,8 @@ class MeshPlan:
         self.version = 0
         #: whether the positions span a gang's processes
         self.gang = mesh.spans_processes
-        if self.gang:
-            across = [a for a in ("pp", "sp", "ep")
-                      if mesh.shape.get(a, 1) > 1]
-            if across:
-                raise ValueError(
-                    "a mesh across processes shards over dp, fsdp and tp; "
-                    "%s run inside one process" % "/".join(across))
+        if any(mesh.shape.get(a, 1) > 1 for a in ("pp", "sp", "ep")):
+            p2p.refuse(mesh.processes)
         fw = trainer.forwards
         self.pp = self._make_pp_plan() if mesh.shape.get("pp", 1) > 1 \
             else None
@@ -214,19 +226,29 @@ class MeshPlan:
         self.groups = [p for p in range(mesh.size)
                        if all(c == 0 for a, c in mesh.coords(p).items()
                               if a not in ("dp", "fsdp"))]
-        #: the groups this process runs (all of them in one process)
+        #: the groups whose home this process holds (all of them in one
+        #: process; none in a process holding only other groups' pp
+        #: stages, sp ring positions or ep slices)
         self.local_groups = [g for g in self.groups if mesh.is_local(g)]
-        if not self.local_groups:
-            raise ValueError("this process runs no data-parallel group "
-                             "of %r" % (mesh,))
+        #: the processes holding groups' homes, in process order: those
+        #: that take rows of the loss
+        self.row_procs = sorted({mesh.process(g) for g in self.groups})
         #: (first, end) of this process's rows of a minibatch, in groups
-        self.group_span = (self.groups.index(self.local_groups[0]),
-                           self.groups.index(self.local_groups[-1]) + 1)
+        self.group_span = (0, 0)
+        if self.local_groups:
+            self.group_span = (
+                self.groups.index(self.local_groups[0]),
+                self.groups.index(self.local_groups[-1]) + 1)
         if self.group_span[1] - self.group_span[0] \
                 != len(self.local_groups):
             raise ValueError("this process's groups are not contiguous "
                              "in %r" % (mesh,))
         self._checked = set()
+        #: the expert parameters whose shards are their ep slices whole
+        self.slice_shards = {k for k in self.names if "ep" in self.specs[k]
+                             and self._slice_is_shard(k)}
+        #: this step's parameters gathered whole (under a gang)
+        self._step_wholes = {}
         #: the per-unit gather: under tp or fsdp (in one process, with
         #: no pp, ep or sp axis) a group gathers a unit's sharded
         #: parameters just before the unit runs and drops them after
@@ -319,6 +341,14 @@ class MeshPlan:
             return self.mesh.along(g, "pp")[stage]
         return g
 
+    def runs(self, g):
+        """Whether this process holds a position group ``g`` runs on: its
+        home, a pp stage, a position of a unit's sp ring or ep slices."""
+        mesh = self.mesh
+        return any(mesh.is_local(q) for i in range(len(self.trainer.forwards))
+                   for p in [self.home(g, i)]
+                   for q in mesh.along(p, "sp") + mesh.along(p, "ep"))
+
     def check_batch(self, x, target):
         """The reference's refusals: the batch over dp × fsdp, a
         sequence input's dim 1 over sp (``batch_spec``)."""
@@ -395,11 +425,53 @@ class MeshPlan:
 
     # -- one step --------------------------------------------------------------
 
+    def _slice_is_shard(self, k):
+        """Whether every position's shard of expert parameter ``k`` is
+        its ``ep`` slice whole (``ep`` the only axis its spec names)."""
+        mesh, shape = self.mesh, self.shapes[k]
+        step = shape[0] // mesh.shape["ep"]
+        rest = tuple(slice(0, d) for d in shape[1:])
+        return all(
+            shard_slices(mesh, self.specs[k], shape, q) == (slice(
+                e * step, (e + 1) * step),) + rest
+            for q, e in ((q, mesh.coords(q)["ep"])
+                         for q in range(mesh.size)))
+
+    def _expert_slice(self, k, e, q):
+        """Expert parameter ``k``'s ``e``-th ``ep`` slice for position
+        ``q``: its own shard where that is the slice whole, else cut
+        from the parameter gathered whole."""
+        if k in self.slice_shards:
+            return self.shards[k][q]
+        return torch.chunk(self._whole(k), self.mesh.shape["ep"], dim=0)[e]
+
+    def _whole(self, k):
+        """Parameter ``k`` whole on the trainer's device, gathered once a
+        step (in :meth:`_gather_wholes`'s order under a gang)."""
+        if k not in self._step_wholes:
+            self._step_wholes[k] = gather(
+                self.mesh, self.shards[k], self.specs[k], self.shapes[k],
+                self.trainer.device)
+        return self._step_wholes[k]
+
+    def _gather_wholes(self):
+        """Under a gang, gather every parameter a group needs whole, in
+        parameter order in every process (a gather may cross the gang:
+        every process joins it, whichever groups it runs)."""
+        self._step_wholes = {}
+        if not self.gang:
+            return
+        for k in self.names:
+            if any(e is not None for e in self.specs[k]) \
+                    and k not in self.slice_shards:
+                self._whole(k)
+
     def _leaves(self, g, grad):
-        """Group ``g``'s fresh leaves (requiring grad when ``grad``):
-        ``{(i, n): leaf}`` for the non-expert parameters (under the
-        per-unit gather a sharded one's is ``[(owner, slice leaf)]``)
-        and ``{i: [(device, {n: leaf})]}`` of expert slices per ``ep``
+        """Group ``g``'s fresh leaves (requiring grad when ``grad``) on
+        this process's positions: ``{(i, n): leaf}`` for the non-expert
+        parameters (under the per-unit gather a sharded one's is
+        ``[(owner, slice leaf)]``) and ``{i: [(device, {n: leaf} or None
+        for another process's position)]}`` of expert slices per ``ep``
         position."""
         mesh = self.mesh
         leaves, ep = {}, {}
@@ -409,13 +481,15 @@ class MeshPlan:
             dev = mesh.device(p)
             spec = self.specs[k]
             if "ep" in spec:
-                whole = gather(mesh, self.shards[k], spec, self.shapes[k],
-                               dev)
                 ring = mesh.along(p, "ep")
-                parts = torch.chunk(whole, len(ring), dim=0)
-                ep.setdefault(i, [(mesh.device(q), {}) for q in ring])
-                for (d, got), part in zip(ep[i], parts):
-                    got[n] = part.to(d, copy=True).requires_grad_(grad)
+                ep.setdefault(i, [(mesh.device(q), {} if mesh.is_local(q)
+                                   else None) for q in ring])
+                for e, (q, (d, got)) in enumerate(zip(ring, ep[i])):
+                    if got is not None:
+                        got[n] = self._expert_slice(k, e, q).to(
+                            d, copy=True).requires_grad_(grad)
+                continue
+            if not mesh.is_local(p):
                 continue
             if all(e is None for e in spec):
                 leaf = self.shards[k][p].detach()
@@ -427,8 +501,7 @@ class MeshPlan:
                              for o in owners(mesh, spec)]
                 continue
             else:
-                leaf = gather(mesh, self.shards[k], spec, self.shapes[k],
-                              dev)
+                leaf = self._whole(k).to(dev, copy=True)
             leaves[k] = leaf.requires_grad_(grad)
         return leaves, ep
 
@@ -442,16 +515,19 @@ class MeshPlan:
             # parameters' versions, which fresh leaves restart: never
             # let one group's, or an earlier step's, copies through
             u._derived = {}
+            home = self.home(g, i)
             u.ep_shards_ = ep.get(i)
+            u.ep_route_ = Route(mesh, home, mesh.along(home, "ep")) \
+                if i in ep else None
             if mesh.shape.get("sp", 1) > 1:
-                home = self.home(g, i)
-                u.sp_ring_ = [mesh.device(q) for q in mesh.along(home, "sp")]
+                u.sp_ring_ = Route(mesh, home, mesh.along(home, "sp"))
 
     def _uninstall(self):
         for i, u in enumerate(self.trainer.forwards):
             u.params = MeshParams(self, i)
             u._derived = {}
             u.ep_shards_ = None
+            u.ep_route_ = None
             u.sp_ring_ = None
 
     # -- the per-unit gather ---------------------------------------------------
@@ -529,6 +605,10 @@ class MeshPlan:
             self._wholes.clear()
 
     def _group_forward(self, g, x, key, train, masks, rows, leaves):
+        """Group ``g``'s chain from its rows ``x`` on its home; where
+        another process holds the home (``x`` None) the units with a
+        share on this process's positions run it (``apply_remote``)
+        and None comes back."""
         t = self.trainer
         mesh = self.mesh
         fw = t.forwards
@@ -542,6 +622,13 @@ class MeshPlan:
                 i = pp["end"]
                 continue
             u = fw[i]
+            if h is None:
+                if isinstance(u, DropoutForward) and train:
+                    key, _ = threefry.split(key)
+                elif hasattr(u, "apply_remote"):
+                    u.apply_remote()
+                i += 1
+                continue
             h = h.to(mesh.device(self.home(g, i)))
             if isinstance(u, DropoutForward) and train:
                 key, sub = threefry.split(key)
@@ -558,19 +645,24 @@ class MeshPlan:
         return h
 
     def _pp_trunk(self, g, h):
+        """The trunk's GPipe schedule over group ``g``'s stage positions
+        (``h`` None where another process holds the home: this process
+        runs its stages, and gets None)."""
         pp, fw = self.pp, self.trainer.forwards
         k, S = pp["k"], pp["stages"]
         trunk = fw[pp["start"]:pp["end"]]
-        devices = [self.mesh.device(q) for q in self.mesh.along(g, "pp")]
-
         def stage_fn(s, x):
             for u in trunk[s * k:(s + 1) * k]:
                 x = u.apply(x)
             return x
 
-        micro = torch.chunk(h, pp["n_micro"], dim=0)
-        out = gpipe_apply(stage_fn, list(range(S)), micro, devices,
-                          out_device=h.device)
+        micro = torch.chunk(h, pp["n_micro"], dim=0) if h is not None \
+            else [None] * pp["n_micro"]
+        out = gpipe_apply(stage_fn, list(range(S)), micro,
+                          Route(self.mesh, g, self.mesh.along(g, "pp")),
+                          out_device=None if h is None else h.device)
+        if out is None:
+            return None
         return out.reshape(h.shape[:1] + out.shape[2:])
 
     def rows(self, batch):
@@ -583,7 +675,11 @@ class MeshPlan:
         """The chain over the minibatch ``x`` split across the groups:
         returns (this process's groups' outputs together on the
         trainer's device — :meth:`rows` of the minibatch, all of it in
-        one process —, their leaves)."""
+        one process; None in a process holding no group's home —, the
+        leaves ``{group index: (leaves, expert slices)}`` of the groups
+        it runs a part of).  Every process walks every group in the same
+        order, running the parts on its positions; the hops between
+        processes (``parallel.p2p``) meet in that walk."""
         mesh, dev = self.mesh, self.trainer.device
         n = len(self.groups)
         b = x.shape[0] // n
@@ -595,20 +691,27 @@ class MeshPlan:
             # run them last to first, so each slice's gradients arrive
             # in group order and fold as they come
             order.reverse()
+        p2p.begin_step()
+        self._gather_wholes()
         try:
             for j, g in order:
-                if not mesh.is_local(g):
+                if not self.runs(g):
                     continue
                 leaves, ep = self._leaves(g, train)
                 all_leaves[j] = (leaves, ep)
                 self._install(g, leaves, ep)
-                xg = x[rows[j][0]:rows[j][1]].to(mesh.device(g))
-                outs[j] = self._group_forward(g, xg, key, train, masks,
-                                              rows, leaves).to(dev)
+                xg = x[rows[j][0]:rows[j][1]].to(mesh.device(g)) \
+                    if mesh.is_local(g) else None
+                out = self._group_forward(g, xg, key, train, masks, rows,
+                                          leaves)
+                if out is not None:
+                    outs[j] = out.to(dev)
         finally:
             self._uninstall()
-        return (torch.cat([outs[j] for j in sorted(outs)], dim=0),
-                [all_leaves[j] for j in sorted(all_leaves)])
+            self._step_wholes = {}
+        y = torch.cat([outs[j] for j in sorted(outs)], dim=0) if outs \
+            else None
+        return y, {j: all_leaves[j] for j in sorted(all_leaves)}
 
     def whole(self, y):
         """Every process's rows of an output (:meth:`forward`) together,
@@ -617,8 +720,10 @@ class MeshPlan:
         if not self.gang:
             return y
         from veles_tpu_torch.parallel import multihost
-        parts = [None] * multihost.gang().num_processes
-        parts[self.mesh.process_index] = y.detach()
+        parts = [None] * len(self.row_procs)
+        if self.mesh.process_index in self.row_procs:
+            parts[self.row_procs.index(self.mesh.process_index)] = \
+                y.detach()
         dev = self.trainer.device
         return torch.cat([t.to(dev) for t in multihost.exchange(parts)])
 
@@ -644,9 +749,12 @@ class MeshPlan:
         groups: ``{key: [per position]}`` (:meth:`reduce_grads`).  Under
         the per-unit gather each sharded slice's groups' gradients are
         summed in group order as soon as the last of them is in, and
-        released."""
+        released.  Under a gang the backward also starts from the step's
+        send markers (``parallel.p2p``): a process's loss part, if it
+        holds rows, and the gradients its hops bring back reach its
+        leaves in one walk."""
         inputs, pieces = [], []
-        for leaves, ep in all_leaves:
+        for leaves, ep in all_leaves.values():
             for k, v in leaves.items():
                 if torch.is_tensor(v):
                     inputs.append(v)
@@ -654,7 +762,12 @@ class MeshPlan:
                     pieces += [(k, o, t) for o, t in v]
             for shards in ep.values():
                 for _, d in shards:
-                    inputs += list(d.values())
+                    if d is not None:
+                        inputs += list(d.values())
+        if self.gang:
+            grads = self._gang_grads(loss, inputs)
+            return self.reduce_grads(all_leaves, {
+                id(leaf): g for leaf, g in zip(inputs, grads)})
         if not pieces:
             grads = torch.autograd.grad(loss, inputs)
             return self.reduce_grads(all_leaves, {
@@ -712,40 +825,96 @@ class MeshPlan:
                 out[k].append(done[key])
         return out
 
+    def _gang_grads(self, loss, inputs):
+        """The gradients of ``inputs`` from this process's loss part (if
+        it holds rows) and the step's send markers, in one backward.
+        Raises, as one process's ``autograd.grad`` does, where the walk
+        reaches no gradient of a leaf (a hop mis-wired)."""
+        from veles_tpu_torch.parallel import multihost
+        roots = [loss] if loss.requires_grad else []
+        markers = p2p.take_markers()
+        outs = roots + markers
+        got = [None] * len(inputs)
+        if outs:
+            # allow_unused for the anchor alone: a step whose tensors
+            # reached this process by no hop leaves it unreached
+            got = torch.autograd.grad(
+                outs, inputs + [p2p.anchor()],
+                grad_outputs=[None] * len(roots)
+                + [torch.zeros_like(m) for m in markers],
+                allow_unused=True)[:len(inputs)]
+            multihost.wait_sends()
+        missing = sum(g is None for g in got)
+        if missing:
+            raise RuntimeError(
+                "the backward reached no gradient of %d of this process's "
+                "%d leaves of %r" % (missing, len(inputs), self.mesh))
+        return list(got)
+
     def reduce_grads(self, all_leaves, grads):
         """Reduce-scatter each parameter's gradient over the groups (the
         leaves' grads in ``grads``, keyed like the leaves): ``{key: [per
         position]}``, position ``p`` holding its slice (by the
         parameter's spec) of the groups' sum, added on its own device in
-        group order (None for another process's positions)."""
+        group order (None for another process's positions).  Each
+        group's part comes from the position that holds its leaf (its
+        home, its pp stage, each ep slice's position), across the gang
+        from that position's process."""
         mesh = self.mesh
         to = [mesh.device(p) for p in range(mesh.size)]
-        procs = [mesh.process(g) for g in self.groups] if self.gang \
-            else None
         to_procs = mesh.processes if self.gang else None
         out = {}
         for k in self.names:
             if self.unit_gather and k in self.sharded:
                 continue            # reduced as its pieces' grads came in
             spec, shape = self.specs[k], self.shapes[k]
-            per_group = []
-            ran = iter(all_leaves)
-            for g in self.groups:
-                if not mesh.is_local(g):
-                    per_group.append(None)
-                    continue
-                leaves, ep = next(ran)
-                if k in leaves:
-                    per_group.append(grads[id(leaves[k])])
-                else:
-                    home = mesh.device(self.home(g, k[0]))
-                    per_group.append(torch.cat(
-                        [grads[id(got[k[1]])].to(home)
-                         for _, got in ep[k[0]]], dim=0))
+            if "ep" in spec:
+                out[k] = self._reduce_experts(k, all_leaves, grads)
+                continue
+            per_group, procs = [], []
+            for j, g in enumerate(self.groups):
+                procs.append(mesh.process(self.home(g, k[0])))
+                leaves = all_leaves.get(j, ({}, {}))[0]
+                per_group.append(grads[id(leaves[k])] if k in leaves
+                                 else None)
             out[k] = collectives.reduce_scatter(
                 per_group, to=to, index=[shard_slices(mesh, spec, shape, p)
                                          for p in range(mesh.size)],
-                procs=procs, to_procs=to_procs)
+                procs=procs if self.gang else None, to_procs=to_procs)
+        return out
+
+    def _reduce_experts(self, k, all_leaves, grads):
+        """An expert parameter's gradient reduce-scattered per ``ep``
+        slice: the groups' gradients of slice ``e`` (each on its slice's
+        position) summed in group order for every position holding a
+        part of slice ``e``."""
+        mesh, (i, n) = self.mesh, k
+        spec, shape = self.specs[k], self.shapes[k]
+        width = shape[0] // mesh.shape["ep"]
+        out = [None] * mesh.size
+        for e in range(mesh.shape["ep"]):
+            per_group, procs = [], []
+            for j, g in enumerate(self.groups):
+                q = mesh.along(self.home(g, i), "ep")[e]
+                procs.append(mesh.process(q))
+                slices = all_leaves.get(j, ({}, {}))[1].get(i)
+                got = slices[e][1] if slices else None
+                per_group.append(grads[id(got[n])] if got is not None
+                                 else None)
+            recv = [p for p in range(mesh.size)
+                    if mesh.coords(p)["ep"] == e]
+            index = []
+            for p in recv:
+                sl = shard_slices(mesh, spec, shape, p)
+                index.append((slice(sl[0].start - e * width,
+                                    sl[0].stop - e * width),) + sl[1:])
+            got = collectives.reduce_scatter(
+                per_group, to=[mesh.device(p) for p in recv], index=index,
+                procs=procs if self.gang else None,
+                to_procs=[mesh.process(p) for p in recv] if self.gang
+                else None)
+            for p, t in zip(recv, got):
+                out[p] = t
         return out
 
     def _owner_sum(self, term):

@@ -21,7 +21,10 @@ Over an ``ep`` mesh axis (``ep_shards``: the trainer hands each MoE
 unit its experts' slices, one per ``ep`` position) every position runs
 its experts' share of the dense dispatch on its own device, and the
 combine is an explicit sum of the positions' partial outputs in
-position order.
+position order.  When the ``ep`` positions span a gang's processes the
+tokens and combine weights hop to each slice's process and its partial
+output hops back (``ep_route_``, ``parallel.p2p``); the sum stays in
+slice order on the group's home.
 """
 
 import torch
@@ -69,16 +72,24 @@ def _experts(xw, c, w1, b1, w2, b2, act, dtype):
 
 
 def moe_apply(params, x, k, activation, dtype, weight=None,
-              ep_shards=None):
+              ep_shards=None, route=None):
     """The MoE forward over the last axis of ``x`` (leading axes are
     batch-like), each token through its ``k`` chosen experts.
     ``params`` holds ``gate`` [d, E] and the expert-major ``expert_*``
     tensors; ``dtype`` is the compute dtype; ``weight(name)`` gives a
     weight rounded to it, in f32 (default: rounded here).
-    ``ep_shards`` — ``[(device, {expert_*: slice})]`` in ``ep`` order —
-    runs each position's experts on its device and sums the partial
-    outputs (``params`` then needs only ``gate``)."""
+    ``ep_shards`` — ``[(device, {expert_*: slice})]`` in ``ep`` order,
+    with ``route``, a ``parallel.p2p.Route`` from the group's home over
+    the ``ep`` positions — runs each position's experts on its device
+    and sums the partial outputs (``params`` then needs only ``gate``):
+    the route moves the tokens and combine weights out and the partial
+    outputs back.  Across processes a slice of another process is None
+    in ``ep_shards`` and its traffic hops, and a process that does not
+    hold ``x`` passes None: it runs its slices on the tokens it receives
+    and returns None."""
     f32 = torch.float32
+    if x is None:
+        return _remote_slices(ep_shards, route, activation, dtype)
     if weight is None:
         def weight(name):
             return params[name].to(dtype).to(f32)
@@ -98,15 +109,37 @@ def moe_apply(params, x, k, activation, dtype, weight=None,
                        dtype)
         return out.to(x.dtype).reshape(x.shape)
     out, lo = None, 0
-    for dev, p in ep_shards:
-        e = p["expert_w1"].shape[0]
-        part = _experts(xw.to(dev), c[:, lo:lo + e].to(dev),
-                        p["expert_w1"].to(dtype).to(f32), p["expert_b1"],
-                        p["expert_w2"].to(dtype).to(f32), p["expert_b2"],
-                        act, dtype).to(x.device)
+    per = n_experts // len(ep_shards)
+    for i, (_, p) in enumerate(ep_shards):
+        xs, cs = route.move(xw, None, i), \
+            route.move(c[:, lo:lo + per], None, i)
+        part = route.move(None if p is None else _slice(
+            xs, cs, p, act, dtype), i, None)
         out = part if out is None else out + part
-        lo += e
+        lo += per
     return out.to(x.dtype).reshape(x.shape)
+
+
+def _slice(xw, c, p, act, dtype):
+    """One ``ep`` position's experts ``p`` over its tokens."""
+    f32 = torch.float32
+    return _experts(xw, c, p["expert_w1"].to(dtype).to(f32), p["expert_b1"],
+                    p["expert_w2"].to(dtype).to(f32), p["expert_b2"], act,
+                    dtype)
+
+
+def _remote_slices(ep_shards, route, activation, dtype):
+    """The slices of this process for a group whose tokens another
+    process holds: each receives its tokens and combine weights, runs
+    and sends its partial output back, in slice order."""
+    if ep_shards is None:
+        return None
+    act = get_activation(activation)
+    for i, (_, p) in enumerate(ep_shards):
+        xs, cs = route.move(None, None, i), route.move(None, None, i)
+        route.move(None if p is None else _slice(xs, cs, p, act, dtype),
+                   i, None)
+    return None
 
 
 class MoE(ForwardBase):
@@ -148,4 +181,10 @@ class MoE(ForwardBase):
     def apply(self, x):
         return moe_apply(self.params, x, self.top_k, self.activation,
                          self.dtype, self.mm_weight,
-                         getattr(self, "ep_shards_", None))
+                         getattr(self, "ep_shards_", None),
+                         getattr(self, "ep_route_", None))
+
+    def apply_remote(self):
+        """This process's expert slices of a group whose tokens another
+        process holds (``models/gd_mesh``)."""
+        self.apply(None)

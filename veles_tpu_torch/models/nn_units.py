@@ -148,7 +148,7 @@ class ForwardBase(nn.Module):
         return self
 
     #: volatile attributes a mesh trainer hands the unit per step
-    MESH_VOLATILE = ("sp_mesh_", "sp_ring_", "ep_shards_")
+    MESH_VOLATILE = ("sp_mesh_", "sp_ring_", "ep_shards_", "ep_route_")
 
     def __getstate__(self):
         state = {k: v for k, v in self.__dict__.items()

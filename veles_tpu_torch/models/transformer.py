@@ -46,7 +46,7 @@ its logits are those of a different model.
 import numpy
 import torch
 
-from veles_tpu_torch.models.attention import sp_core
+from veles_tpu_torch.models.attention import sp_core, sp_remote
 from veles_tpu_torch.models.moe import (
     MOE_BIASES, MOE_PARAMS, moe_apply, moe_fans, moe_shapes)
 from veles_tpu_torch.models.nn_units import ForwardBase
@@ -266,7 +266,8 @@ class TransformerBlock(ForwardBase):
         if self.n_experts:   # before the int8 path, as the reference
             return moe_apply(self.params, x, self.top_k, "strict_relu",
                              self.dtype, self.mm_weight,
-                             getattr(self, "ep_shards_", None))
+                             getattr(self, "ep_shards_", None),
+                             getattr(self, "ep_route_", None))
         mm = self._w8_matmul if w8 else self._proj
         h1 = mm(x, "ffn_w1")
         h1 = torch.relu(h1 + self.params["ffn_b1"]).to(self.dtype)
@@ -298,6 +299,16 @@ class TransformerBlock(ForwardBase):
         o = sp_core(self, q, k, v, self.causal, self.attn_block_size,
                     self.attn_impl)
         return self._attn_tail(x, o.reshape(b, s, d))
+
+    def apply_remote(self):
+        """This process's share of a group whose input another process
+        holds (``models/gd_mesh``): its positions of the ``sp`` ring,
+        then its expert slices."""
+        sp_remote(self, self.causal)
+        if self.n_experts:
+            moe_apply(self.params, None, self.top_k, "strict_relu",
+                      self.dtype, ep_shards=getattr(self, "ep_shards_", None),
+                      route=getattr(self, "ep_route_", None))
 
     # -- serving ---------------------------------------------------------------
 

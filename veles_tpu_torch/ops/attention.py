@@ -94,30 +94,41 @@ def blockwise_attention(q, k, v, block_size=512, causal=False, scale=None):
     return (o / denom).to(q.dtype)
 
 
-def ring_attention(qs, ks, vs, causal=False, scale=None):
+def ring_attention(qs, ks, vs, causal=False, scale=None, procs=None):
     """Attention with the sequence split over a ring of positions:
     ``qs``/``ks``/``vs`` hold each position's contiguous slice
     [..., seq_shard, h, d] on its device, in sequence order.  K/V
     rotate around the ring (position i sends to i + 1) while each Q
     stays put; the online-softmax accumulator makes the result exact.
     ``causal`` masks by GLOBAL sequence position.  Returns each
-    position's output slice, on its device."""
+    position's output slice, on its device.
+
+    With ``procs`` (each position's process) the ring spans a gang's
+    processes: another process's entries are None, the shifts between
+    processes are hops (``collectives.ring_shift``), and each process
+    computes and returns its own positions' slices (None for the
+    others).  The ring shifts n - 1 times: the n-th would bring every
+    slice home unused."""
     from veles_tpu_torch.parallel.collectives import ring_shift
     n = len(qs)
+    mine = [i for i in range(n) if qs[i] is not None]
+    if not mine:
+        return [None] * n
     if scale is None:
-        scale = attend_scale(qs[0].shape[-1])
-    seq_q, seq_k = qs[0].shape[-3], ks[0].shape[-3]
-    accs = []
-    for q, v in zip(qs, vs):
+        scale = attend_scale(qs[mine[0]].shape[-1])
+    seq_q, seq_k = qs[mine[0]].shape[-3], ks[mine[0]].shape[-3]
+    accs = [None] * n
+    for i in mine:
+        q, v = qs[i], vs[i]
         lead, heads = q.shape[:-3], q.shape[-2]
-        accs.append((
+        accs[i] = (
             torch.full(lead + (heads, seq_q), float("-inf"),
                        device=q.device),
             torch.zeros(lead + (heads, seq_q), device=q.device),
-            torch.zeros(q.shape[:-1] + (v.shape[-1],), device=q.device)))
+            torch.zeros(q.shape[:-1] + (v.shape[-1],), device=q.device))
     idx = list(range(n))
-    for _ in range(n):
-        for i in range(n):
+    for step in range(n):
+        for i in mine:
             mask = None
             if causal:
                 dev = qs[i].device
@@ -127,25 +138,33 @@ def ring_attention(qs, ks, vs, causal=False, scale=None):
             contrib = _block_contrib(qs[i], ks[i], vs[i], scale, mask)
             accs[i] = _online_merge(accs[i],
                                     tuple(t.float() for t in contrib))
-        ks, vs = ring_shift(ks), ring_shift(vs)
-        idx = idx[-1:] + idx[:-1]
-    out = []
-    for q, (_, s, o) in zip(qs, accs):
+        if step < n - 1:
+            ks, vs = ring_shift(ks, procs), ring_shift(vs, procs)
+            idx = idx[-1:] + idx[:-1]
+    out = [None] * n
+    for i in mine:
+        _, s, o = accs[i]
         denom = torch.clamp(s, min=1e-30).transpose(-2, -1)[..., None]
-        out.append((o / denom).to(q.dtype))
+        out[i] = (o / denom).to(qs[i].dtype)
     return out
 
 
 def ring_attention_sharded(mesh, q, k, v, axis="sp", causal=False):
     """Split q/k/v [seq, heads, dim] over ``mesh``'s ``axis`` positions
     (the others at index 0), run :func:`ring_attention` and put the
-    outputs back together on q's device."""
-    positions = mesh.along(0, axis)
-    devs = [mesh.device(p) for p in positions]
-    n = len(devs)
+    outputs back together on q's device.  On a mesh across processes
+    the process of the ring's first position passes q/k/v and gets the
+    output; the ring's other processes pass None and get None."""
+    from veles_tpu_torch.parallel.p2p import Route
+    ring = mesh.along(0, axis)
+    route = Route(mesh, ring[0], ring)
+    n = len(ring)
 
     def split(t):
-        return [c.to(d) for c, d in zip(torch.chunk(t, n, dim=-3), devs)]
+        parts = torch.chunk(t, n, dim=-3) if t is not None else [None] * n
+        return [route.move(c, None, i) for i, c in enumerate(parts)]
 
-    out = ring_attention(split(q), split(k), split(v), causal=causal)
-    return torch.cat([o.to(q.device) for o in out], dim=-3)
+    out = ring_attention(split(q), split(k), split(v), causal=causal,
+                         procs=route.procs)
+    out = [route.move(o, i, None) for i, o in enumerate(out)]
+    return torch.cat(out, dim=-3) if route.here() else None

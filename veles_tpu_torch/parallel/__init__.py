@@ -24,7 +24,10 @@ Modules:
 - :mod:`veles_tpu_torch.parallel.multihost` — a gang of processes over
   ``torch.distributed``, whose global mesh spans every process's
   positions (each process runs its own; the collectives exchange the
-  others' tensors);
+  others' tensors), and point-to-point transfers between two processes;
+- :mod:`veles_tpu_torch.parallel.p2p` — the differentiable hop of a
+  tensor from one process's position to another's (pipeline stages, sp
+  rings and ep slices across processes);
 - :mod:`veles_tpu_torch.parallel.coordinator` — the elastic
   master/worker job queue of the launcher's master and worker modes.
 """

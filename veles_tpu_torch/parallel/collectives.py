@@ -21,9 +21,18 @@ collective in the same order, the others' tensors arrive through
 :func:`~veles_tpu_torch.parallel.multihost.exchange`, and the fold runs
 in the same global position order in every process, so every process
 holds the identical value.  A receiver of another process gets None.
+When a reduce-scatter's entries all belong to one process, that process
+folds them and hops each other process only its receivers' slices of
+the sum (:func:`~veles_tpu_torch.parallel.p2p.hop`, in receiver order):
+no process sends what it did not sum; where the gang may not hop
+(:func:`~veles_tpu_torch.parallel.multihost.hop_refusal`) it
+exchanges.  :func:`ppermute` and :func:`ring_shift` take ``procs``
+too: a pair whose two ends belong to different processes is a
+differentiable hop.
 
 All of them are plain PyTorch ops, so gradients flow through them
-(in one process: an exchanged tensor is a copy).
+(in one process; across processes the hops' autograd nodes carry them,
+and an exchanged tensor is a copy).
 """
 
 import torch
@@ -34,10 +43,18 @@ def _local_process():
     return multihost.gang().process_id
 
 
-def _fill(xs, procs):
+def _may_hop():
+    """Whether this gang may hop between processes (not under nccl,
+    :func:`~veles_tpu_torch.parallel.multihost.hop_refusal`)."""
+    from veles_tpu_torch.parallel import multihost
+    return multihost.hop_refusal() is None
+
+
+def _fill(xs, procs, to_procs=None):
     """``xs`` with every process's entries: as they are when ``procs``
-    is None or names one process, else exchanged across the gang."""
-    if procs is None or len(set(procs)) < 2:
+    is None or the entries and the receivers (``to_procs``) belong to
+    one process, else exchanged across the gang."""
+    if procs is None or len(set(procs) | set(to_procs or ())) < 2:
         return xs
     from veles_tpu_torch.parallel import multihost
     return multihost.exchange(list(xs))
@@ -102,9 +119,9 @@ def all_gather(xs, dim=0, index=None, shape=None, to=None, procs=None,
     to_procs = procs if to_procs is None else to_procs
     mine = _mine(to_procs, len(to))
     if not any(mine):
-        _fill(xs, procs)
+        _fill(xs, procs, to_procs)
         return [None] * len(to)
-    xs = _fill(xs, procs)
+    xs = _fill(xs, procs, to_procs)
     first = to[mine.index(True)]
     if index is None:
         whole = torch.cat([x.to(first) for x in xs], dim=dim)
@@ -124,11 +141,15 @@ def reduce_scatter(xs, dim=0, index=None, to=None, procs=None,
     own device and ``index[i]`` the ``i``-th of ``len(xs)`` equal slices
     along ``dim``.  Receivers of one slice on one device share one
     result."""
-    xs = _fill(xs, procs)
+    to_procs = procs if to_procs is None else to_procs
+    if procs is not None and len(set(procs)) == 1 \
+            and set(to_procs) != set(procs) and _may_hop():
+        return _fold_and_hop(xs, dim, index, to, procs[0], to_procs)
+    xs = _fill(xs, procs, to_procs)
     if index is None:
         index = _even(xs, dim)
     to = [x.device for x in xs] if to is None else list(to)
-    mine = _mine(procs if to_procs is None else to_procs, len(to))
+    mine = _mine(to_procs, len(to))
     out, done = [], {}
     for idx, dev, m in zip(index, to, mine):
         if not m:
@@ -141,18 +162,60 @@ def reduce_scatter(xs, dim=0, index=None, to=None, procs=None,
     return out
 
 
-def ppermute(xs, perm):
+def _fold_and_hop(xs, dim, index, to, src, to_procs):
+    """:func:`reduce_scatter` whose entries all belong to process
+    ``src``: it folds each receiver's slice in entry order and hops it
+    to the receiver's process (one hop per slice and process, in
+    receiver order); the receivers of one slice on one device share one
+    result."""
+    from veles_tpu_torch.parallel.p2p import hop
+    me = _local_process()
+    if index is None:
+        index = _even(xs, dim)
+    out, done = [], {}
+    for idx, dev, q in zip(index, to, to_procs):
+        if me not in (src, q):
+            out.append(None)
+            continue
+        key = (repr(idx), q)
+        if key not in done:
+            total = _fold([x[idx] for x in xs], torch.add, dev) \
+                if me == src else None
+            done[key] = {None: hop(total, src, q, dev) if q != src
+                         else total}
+        got = done[key]
+        if me != q:
+            out.append(None)
+            continue
+        if str(dev) not in got:
+            got[str(dev)] = got[None].to(dev)
+        out.append(got[str(dev)])
+    return out
+
+
+def ppermute(xs, perm, procs=None):
     """Point-to-point: ``perm`` is a list of ``(src, dst)`` pairs;
     position ``dst`` receives ``xs[src]`` (zeros where nothing is
-    sent)."""
+    sent).  ``procs`` names each entry's process (default: every entry
+    this process's); another process's entries are None, and a pair
+    across two processes is a hop
+    (:func:`~veles_tpu_torch.parallel.p2p.hop`), taken in ``perm``'s
+    order by both ends."""
+    from veles_tpu_torch.parallel.p2p import hop, refuse
+    me = _local_process()
+    procs = [me] * len(xs) if procs is None else procs
+    refuse(procs)
     out = [None] * len(xs)
     for src, dst in perm:
-        out[dst] = xs[src].to(xs[dst].device)
-    return [o if o is not None else torch.zeros_like(x)
+        dev = None if xs[dst] is None else xs[dst].device
+        got = hop(xs[src], procs[src], procs[dst], dev, me)
+        if got is not None:
+            out[dst] = got
+    return [o if o is not None or x is None else torch.zeros_like(x)
             for o, x in zip(out, xs)]
 
 
-def ring_shift(xs):
+def ring_shift(xs, procs=None):
     """:func:`ppermute` by ``i → i + 1`` around the ring."""
     n = len(xs)
-    return ppermute(xs, [(i, (i + 1) % n) for i in range(n)])
+    return ppermute(xs, [(i, (i + 1) % n) for i in range(n)], procs)

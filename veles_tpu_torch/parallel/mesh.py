@@ -88,9 +88,12 @@ class Mesh:
     ``processes[p]`` (a gang's global mesh,
     :func:`~veles_tpu_torch.parallel.multihost.global_mesh`); by default
     every position is this process's.  This process runs the positions
-    that are its own (:meth:`is_local`)."""
+    that are its own (:meth:`is_local`); ``across`` names the axis a
+    gang's global mesh laid across the processes (None: process-major).
+    """
 
-    def __init__(self, sizes, devices, processes=None, process_index=0):
+    def __init__(self, sizes, devices, processes=None, process_index=0,
+                 across=None):
         self.shape = dict(sizes)
         self.axis_names = tuple(self.shape)
         self._devices = [torch.device(d) for d in devices]
@@ -104,6 +107,8 @@ class Mesh:
             if processes is None else [int(q) for q in processes]
         #: this process's index in the gang
         self.process_index = int(process_index)
+        #: the axis laid across the processes (None: process-major)
+        self.across = across
 
     @property
     def spans_processes(self):

@@ -2,7 +2,9 @@
 the port of ``veles_tpu/parallel/pipeline.py``.
 
 A stage lives on one ``pp`` position; activations hop stage to stage
-by a copy onto the next stage's device.  The schedule is the
+by a copy onto the next stage's device, or, when the next stage belongs
+to another process of a gang, by a differentiable hop
+(``parallel.p2p``).  The schedule is the
 reference's bubble loop: with S stages and M microbatches, at step
 t = 0 .. S + M - 2 stage s runs microbatch t - s, so on several cards
 the stages overlap.  Every hop is a differentiable copy, so the
@@ -48,15 +50,23 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def gpipe_apply(stage_fn, stage_params, microbatches, devices,
+def gpipe_apply(stage_fn, stage_params, microbatches, route,
                 out_device=None):
     """Run the bubble schedule: ``stage_fn(stage_params[s], h) -> h``
-    on ``devices[s]`` (every stage maps activations of one shape and
-    dtype, the GPipe constraint); ``microbatches`` is a sequence of M
-    tensors entering stage 0.  Returns the last stage's outputs
-    stacked as [M, ...] on ``out_device`` (default the last stage's
-    device)."""
-    n = len(devices)
+    on the device of ``route``'s stage position ``s`` (``route`` a
+    ``parallel.p2p.Route`` whose ring is the stages' positions, from the
+    group's home; every stage maps activations of one shape and dtype,
+    the GPipe constraint); ``microbatches`` is a sequence of M tensors
+    entering stage 0 from the home.  Returns the last stage's outputs,
+    brought back to the home in microbatch order after the loop and
+    stacked as [M, ...] on ``out_device`` (default the home's device).
+
+    The stages may belong to several processes of a gang: each process
+    runs the stages it holds, and every activation moves to the next
+    stage by ``route.move`` (a hop across processes, taken by both ends
+    at the same (t, s) of the schedule).  A process that does not hold
+    the home passes None microbatches and gets None."""
+    n = len(route.ring)
     m = len(microbatches)
     outputs = [None] * m
     recv = {}
@@ -66,14 +76,20 @@ def gpipe_apply(stage_fn, stage_params, microbatches, devices,
             mb = t - s
             if not 0 <= mb < m:
                 continue
-            h = microbatches[mb].to(devices[0]) if s == 0 else recv[s]
-            h = stage_fn(stage_params[s], h)
+            h = None
+            if route.here(s):
+                h = recv[s] if s > 0 \
+                    else route.move(microbatches[mb], None, 0)
+                h = stage_fn(stage_params[s], h)
             if s == n - 1:
                 outputs[mb] = h
             else:
-                sent[s + 1] = h.to(devices[s + 1])
+                sent[s + 1] = route.move(h, s, s + 1)
         recv = sent
-    dev = out_device if out_device is not None else devices[-1]
+    outputs = [route.move(o, n - 1, None) for o in outputs]
+    if not route.here():
+        return None
+    dev = out_device if out_device is not None else route.device()
     return torch.stack([o.to(dev) for o in outputs])
 
 
@@ -99,7 +115,13 @@ def gpipe_train(mesh, stage_fn, stage_params, x, n_micro, axis="pp",
     microbatch's samples split over those axes' slices, and every slice
     runs its own schedule on its stage positions.  ``stage_params`` is
     the list of per-stage parameters (moved to each stage's device).
-    Returns [batch, ...] on ``x``'s device."""
+    Returns [batch, ...] on ``x``'s device.
+
+    On a mesh across a gang's processes every process passes the same
+    ``x`` and ``stage_params`` and runs its stages; the slices' outputs
+    come together in the process of the mesh's first position, and the
+    others get None."""
+    from veles_tpu_torch.parallel.p2p import Route, move
     if x.shape[0] % n_micro:
         raise ValueError("batch %d not divisible into %d microbatches"
                          % (x.shape[0], n_micro))
@@ -112,12 +134,17 @@ def gpipe_train(mesh, stage_fn, stage_params, x, n_micro, axis="pp",
     per = mb // len(groups)
     outs = []
     for g, positions in enumerate(groups):
-        devices = [mesh.device(p) for p in positions]
-        params = [_to(sp, d) for sp, d in zip(stage_params, devices)]
-        chunks = [micro[i, g * per:(g + 1) * per] for i in range(n_micro)]
-        outs.append(gpipe_apply(stage_fn, params, chunks, devices,
-                                out_device=x.device))
-    out = torch.cat(outs, dim=1)
+        route = Route(mesh, positions[0], positions)
+        params = [_to(sp, mesh.device(p)) if mesh.is_local(p) else None
+                  for sp, p in zip(stage_params, positions)]
+        chunks = [micro[i, g * per:(g + 1) * per] if route.here() else None
+                  for i in range(n_micro)]
+        out = gpipe_apply(stage_fn, params, chunks, route,
+                          out_device=x.device)
+        outs.append(move(out, mesh, positions[0], 0))
+    if not mesh.is_local(0):
+        return None
+    out = torch.cat(outs, dim=1).to(x.device)
     return out.reshape((x.shape[0],) + tuple(out.shape[2:]))
 
 

@@ -186,7 +186,9 @@ def gather(mesh, shards, spec, shape, device):
         return collectives.all_gather(
             [shards[p] for p in readable], index=index, shape=shape,
             to=[device])[0]
+    # every process reads the whole: each is a receiver
+    gang = sorted(set(mesh.processes))
     return collectives.all_gather(
-        [shards[p] for p in own], index=index, shape=shape, to=[device],
-        procs=[mesh.process(p) for p in own],
-        to_procs=[mesh.process_index])[0]
+        [shards[p] for p in own], index=index, shape=shape,
+        to=[device] * len(gang), procs=[mesh.process(p) for p in own],
+        to_procs=gang)[gang.index(mesh.process_index)]
